@@ -1,0 +1,176 @@
+"""Spectral (FFT-domain) convolution with overlap-save tiling
+(counterpart of ``repro.core.spectral``).
+
+Spatial convolution is replaced by: take overlapping K x K input
+windows with stride t = K - k + 1, FFT them, Hadamard-multiply with the
+K x K spectral kernels summed over input channels, inverse-FFT, and
+keep each window's t x t wraparound-free outputs.  Those outputs are
+complete full-conv results, so assembly is a pure relayout and a bias +
+ReLU epilogue can follow directly.
+
+Conventions: activations are NCHW ``x[b, c, h, w]``, kernels
+``w[n, m, k, k]``; CNN convolution is cross-correlation, so the spatial
+kernel is flipped before its FFT.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import repro_torch
+
+
+class SpectralGeometry(NamedTuple):
+    """Static geometry of a tiled spectral convolution."""
+
+    fft_size: int        # K
+    tile: int            # t = K - k + 1
+    ksize: int           # spatial kernel size k
+    pad: int             # spatial 'same' padding
+    h_in: int            # input spatial height (pre-padding)
+    w_in: int
+    n_tiles_h: int       # tiles along H
+    n_tiles_w: int
+    h_pad: int           # n_tiles_h * tile
+    w_pad: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n_tiles_h * self.n_tiles_w
+
+
+def make_geometry(h_in: int, w_in: int, ksize: int, fft_size: int,
+                  pad: int | None = None) -> SpectralGeometry:
+    tile = fft_size - ksize + 1
+    if tile <= 0:
+        raise ValueError(f"fft_size {fft_size} too small for kernel {ksize}")
+    if ksize - 1 > tile:
+        raise ValueError("overlap-save tiling requires k - 1 <= tile size")
+    if pad is None:
+        pad = (ksize - 1) // 2
+    # pad the tiled canvas by at least `pad` on the bottom/right so the
+    # 'same' crop never reads past it
+    n_th = -(-(h_in + pad) // tile)
+    n_tw = -(-(w_in + pad) // tile)
+    return SpectralGeometry(fft_size, tile, ksize, pad, h_in, w_in,
+                            n_th, n_tw, n_th * tile, n_tw * tile)
+
+
+def spectral_kernel(w: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Spatial kernel [N, M, k, k] -> complex64 spectral kernel
+    [N, M, K, K]: flipped (correlation), zero-padded to K x K, FFT'd."""
+    k = w.shape[-1]
+    w = torch.flip(w.to(torch.float32), dims=(-2, -1))
+    w = F.pad(w, (0, fft_size - k, 0, fft_size - k))
+    return torch.fft.fft2(w)
+
+
+def extract_tiles_overlapping(x: torch.Tensor, geo: SpectralGeometry
+                              ) -> torch.Tensor:
+    """[B, M, H, W] -> [B, M, T, K, K] overlap-save input windows: K x K
+    windows with stride t starting at offset -(k-1)."""
+    b, m = x.shape[:2]
+    ov = geo.ksize - 1
+    x = F.pad(x, (ov, geo.w_pad - geo.w_in, ov, geo.h_pad - geo.h_in))
+    k, t = geo.fft_size, geo.tile
+    win = x.unfold(2, k, t).unfold(3, k, t)       # [B, M, n_th, n_tw, K, K]
+    return win.reshape(b, m, geo.n_tiles, k, k)
+
+
+def assemble_tile_canvas(y_tiles: torch.Tensor, geo: SpectralGeometry
+                         ) -> torch.Tensor:
+    """[B, N, T, t, t] valid tiles -> uncropped [B, N, h_pad, w_pad]
+    full-conv canvas (pure relayout)."""
+    b, n, t_cnt, tl, _ = y_tiles.shape
+    if t_cnt != geo.n_tiles or tl != geo.tile:
+        raise ValueError(f"tiles {tuple(y_tiles.shape)} do not match "
+                         f"geometry {geo}")
+    yt = y_tiles.reshape(b, n, geo.n_tiles_h, geo.n_tiles_w, tl, tl)
+    return (yt.permute(0, 1, 2, 4, 3, 5)
+            .reshape(b, n, geo.h_pad, geo.w_pad))
+
+
+def crop_canvas_same(canvas: torch.Tensor, geo: SpectralGeometry
+                     ) -> torch.Tensor:
+    """'same' crop of a full-conv canvas -> [B, N, H_out, W_out]."""
+    start = geo.ksize - 1 - geo.pad
+    h_out = geo.h_in + 2 * geo.pad - geo.ksize + 1
+    w_out = geo.w_in + 2 * geo.pad - geo.ksize + 1
+    return canvas[:, :, start:start + h_out, start:start + w_out]
+
+
+def assemble_valid_tiles(y_tiles: torch.Tensor, geo: SpectralGeometry
+                         ) -> torch.Tensor:
+    """[B, N, T, t, t] valid tiles -> [B, N, H_out, W_out]."""
+    return crop_canvas_same(assemble_tile_canvas(y_tiles, geo), geo)
+
+
+def hadamard_accumulate(x_f: torch.Tensor, w_f: torch.Tensor
+                        ) -> torch.Tensor:
+    """Y~[b,n,t,u,v] = sum_m X~[b,m,t,u,v] * W~[n,m,u,v]."""
+    return torch.einsum("bmtuv,nmuv->bntuv", x_f, w_f)
+
+
+def spectral_conv2d_pretransformed(x: torch.Tensor, w_f,
+                                   geo: SpectralGeometry) -> torch.Tensor:
+    """The einsum oracle: spectral conv with an already-transformed
+    (possibly pruned) kernel.
+
+    ``w_f`` is a dense complex [N, M, K, K] tensor or a
+    ``sparse.SparseSpectralKernels`` (duck-typed on ``.values``); for
+    pruned kernels the Hadamard product is restricted to the frequency
+    bins that are non-zero in some kernel.  Defines the pruned-conv
+    semantics the fused kernel is held to.
+    """
+    if x.is_cuda:
+        repro_torch.strict_fp32()
+    windows = extract_tiles_overlapping(x, geo)         # [B,M,T,K,K]
+    x_f = torch.fft.fft2(windows.to(torch.float32))
+    y_f = _hadamard_maybe_sparse(x_f, w_f, geo)         # [B,N,T,K,K]
+    y_sp = torch.fft.ifft2(y_f).real
+    ov = geo.ksize - 1
+    y_valid = y_sp[..., ov:, ov:]                       # [B,N,T,t,t]
+    return assemble_valid_tiles(y_valid.to(x.dtype), geo)
+
+
+def _hadamard_maybe_sparse(x_f: torch.Tensor, w_f,
+                           geo: SpectralGeometry) -> torch.Tensor:
+    if not hasattr(w_f, "values"):                      # dense kernel
+        return hadamard_accumulate(x_f, w_f)
+    values = w_f.values
+    kk = geo.fft_size
+    f = kk * kk
+    active = w_f.active_bins
+    if active is None:
+        active = np.flatnonzero(
+            w_f.mask.any(dim=1).any(dim=0).reshape(f).cpu().numpy())
+    if len(active) >= f:                                # nothing prunable
+        return hadamard_accumulate(x_f, values)
+    b, m, t = x_f.shape[:3]
+    n = values.shape[0]
+    idx = torch.as_tensor(np.asarray(active), dtype=torch.long,
+                          device=x_f.device)
+    xa = x_f.reshape(b, m, t, f)[..., idx]
+    wa = values.reshape(n, m, f)[..., idx]
+    ya = torch.einsum("bmtf,nmf->bntf", xa, wa)
+    y = torch.zeros((b, n, t, f), dtype=ya.dtype, device=ya.device)
+    y[..., idx] = ya
+    return y.reshape(b, n, t, kk, kk)
+
+
+def spatial_conv2d(x: torch.Tensor, w: torch.Tensor, *,
+                   pad: int | None = None, stride: int = 1
+                   ) -> torch.Tensor:
+    """Spatial-domain oracle: 'same' cross-correlation (cuDNN with TF32
+    off on the card)."""
+    if x.is_cuda:
+        repro_torch.strict_fp32()
+    k = w.shape[-1]
+    if pad is None:
+        pad = (k - 1) // 2
+    return F.conv2d(x.to(torch.float32), w.to(torch.float32),
+                    stride=stride, padding=pad).to(x.dtype)

@@ -1,0 +1,98 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``kernels/csrc/<name>.cu`` exposes a plain C interface and is
+compiled by ``nvcc`` into its own shared library under
+``<repo>/build/repro_torch_kernels/`` at first use, then loaded with
+``ctypes`` (no PyTorch headers are compiled, so a build takes seconds).
+The library file name carries a hash of the source and the build flags,
+so an edited source is rebuilt and a finished build is reused.  The
+``-Xptxas -v`` report (registers, shared memory, spills) is printed once
+per build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+# per kernel source: {"seconds": build wall time (0.0 when reused),
+# "ptxas": the -Xptxas -v lines}
+BUILD_LOG: dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str, defines: dict[str, int]) -> tuple[Path, list[str]]:
+    src = CSRC / f"{name}.cu"
+    flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in
+                                sorted(defines.items())]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so", flags
+
+
+def _start(name: str, defines: dict[str, int]):
+    """Start one nvcc process for a source; None when already built."""
+    lib, flags = _target(name, defines)
+    if lib.exists():
+        return None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib
+
+
+def build(sources: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
+    """Build (one nvcc per source, all started together) and load the
+    given kernels; ``sources`` maps a source name to its ``-D`` defines.
+    Raises with the compiler output when a build fails."""
+    with _lock:
+        t0 = time.perf_counter()
+        started = {n: _start(n, d) for n, d in sources.items()
+                   if n not in _loaded}
+        for name, job in started.items():
+            ptxas: list[str] = []
+            if job is not None:
+                proc, tmp, lib = job
+                out, _ = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for {name}.cu "
+                        f"(exit {proc.returncode}):\n{out}")
+                os.replace(tmp, lib)
+                ptxas = [ln for ln in out.splitlines() if "ptxas" in ln]
+                print(f"[repro_torch] built {lib.name} in "
+                      f"{time.perf_counter() - t0:.1f} s")
+                for ln in ptxas:
+                    print(f"[repro_torch]   {ln.strip()}")
+            lib, _ = _target(name, sources[name])
+            BUILD_LOG[name] = {
+                "seconds": (time.perf_counter() - t0) if job else 0.0,
+                "ptxas": ptxas}
+            _loaded[name] = ctypes.CDLL(str(lib))
+        return {n: _loaded[n] for n in sources}

@@ -1,0 +1,380 @@
+// Fused spectral convolution, output-stationary flow, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `fused_spectral_pipeline` with body `_kernel_os`
+// in src/repro/kernels/fused_spectral_conv.py.  One launch computes a whole
+// spectral conv layer on overlap-save windows:
+//
+//   y[s2, n, p] = act( Re( sum_f Dv[s2, f] * sum_m W[f, n, m] * (Df[f, :] . xt[:, m, p]) ) + b[n] )
+//
+//   xt  [S = K^2, M, P = B*T]  overlap-save windows, s-leading; rows of P
+//                              floats at a pitch of x_pitch floats
+//   wr/wi [Fa, N, M]           spectral kernel planes on the Fa active bins
+//   dfr/dfi [Fa, S]            forward 2-D DFT rows (active bins)
+//   dvr/dvi [S2 = t^2, Fa]     inverse 2-D DFT, valid rows x active columns
+//   bias [N] -> y [S2, N, P]   all fp32
+//
+// Bound on an H100 SXM at the full VGG16 shapes (K = 8, t = 6, Fa = 64,
+// batch 1): the layer stack does 29.3 GFLOP (tile-FFT 4.5, Karatsuba
+// Hadamard 21.1, valid-row IFFT 3.7) and must move 0.97 GB (kernel planes
+// 0.84 GB), so it is fp32-compute bound overall (0.44 ms at 67 TFLOP/s
+// vs 0.29 ms at 3.35 TB/s).  conv5_x at batch 1 is byte bound: each layer
+// streams 134 MB of planes for 9 tiles of work.
+//
+// Design (fp32 FMA on CUDA cores, no TF32):
+//  * As on the TPU, the spectra X~ and Y~ never reach device memory and
+//    every output element is written once, after bias and ReLU.
+//  * Unlike the TPU grid, which carries the [Fa, bn, bp] complex psum in
+//    VMEM across an "arbitrary" m axis, a CTA owns an (n-block, p-block)
+//    and loops over the input channels itself.  The full psum (512 B per
+//    output at Fa = 64) does not fit a CTA at useful block sizes, so the
+//    bins are split across the CTAs of a thread-block cluster: CTA z of a
+//    cluster of ceil(Fa/FSC_FC) takes bins [z*FSC_FC, (z+1)*FSC_FC), keeps
+//    its chunk's Y~ in registers over the whole m loop, and folds
+//    Re(Dv[:, chunk] . Y~_chunk) into a [S2, BN, BP] spatial partial in its
+//    shared memory (the IFFT is linear in the bins).  The cluster then sums
+//    the partials through distributed shared memory in a fixed rank order
+//    (deterministic, no atomics), each CTA finishing S2/cluster of the
+//    output rows with bias + ReLU.  This multiplies the CTAs per layer by
+//    Fa/FSC_FC, which is what fills the card on conv4_x/conv5_x at batch 1
+//    (8-16 (n, p) blocks of 64 channels for 132 SMs).
+//  * Each CTA holds only its chunk's DFT rows and columns; the tile-FFT
+//    computes only its own bins, so splitting the bins adds no FFT work.
+//  * Windows and kernel planes stream through a two-stage cp.async ring,
+//    so the next channel step's loads overlap this step's arithmetic.
+//    Issuing the copies is the costliest part of a step when done per
+//    element, so rows that are 16-byte aligned (window rows when the
+//    pitch is a multiple of 4, which the Python layout arranges; plane
+//    rows when M is) move as 16-byte copies, the rest as 4-byte ones.
+//  * The complex product uses 4 real FMAs (not Karatsuba): on CUDA cores
+//    the Hadamard loop is bound by shared-memory loads, and the direct
+//    form needs fewer of them.  Spectra are stored as (re, im) pairs and
+//    plane rows are read 16 bytes at a time.
+//  * Ragged N / M / P edges are zero-filled by the copies (cp.async with a
+//    short or zero source size), never padded in the operands.  So is a
+//    ragged last bin chunk (Fa not a multiple of FSC_FC, which the TPU
+//    kernel accepts too; the plan pads its active bins to whole chunks):
+//    its missing DFT rows, DFT columns and kernel planes read as zeros.
+//
+// Block sizes come from the build (-DFSC_*), set by the Python wrapper.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <cstddef>
+
+#if !defined(FSC_BN) || !defined(FSC_BP) || !defined(FSC_BM) || \
+    !defined(FSC_FC) || !defined(FSC_THREADS)
+#error "build through repro_torch.kernels._build (defines FSC_* block sizes)"
+#endif
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int BN = FSC_BN;        // output channels per CTA
+constexpr int BP = FSC_BP;        // tiles per CTA
+constexpr int BM = FSC_BM;        // input channels per pipeline step
+constexpr int FC = FSC_FC;        // frequency bins per CTA (cluster rank)
+constexpr int NT = FSC_THREADS;   // threads per CTA
+constexpr int MAX_CLUSTER = 8;    // portable cluster size
+constexpr int MP = BM * BP;       // (m, p) pairs per step
+constexpr int TN = BN * BP / NT;  // outputs per thread, spaced NSTRIDE in n
+constexpr int NSTRIDE = NT / BP;
+constexpr int FPT = FC * MP / NT; // tile-FFT bins per thread
+constexpr int W_PLANE = FC * BN * BM;      // floats of one re or im plane
+static_assert(NT % BP == 0 && (BN * BP) % NT == 0, "Hadamard thread map");
+static_assert(BP % 4 == 0 && BM % 4 == 0, "16-byte copies and plane loads");
+static_assert(NT % MP == 0 && (FC * MP) % NT == 0 && FPT % 2 == 0,
+              "tile-FFT map (bin pairs as float4 DFT loads)");
+
+// Shared-memory carve-up, in floats.
+struct Layout {
+  int df, dv, xf, stage, x_stage, total;
+  __host__ __device__ Layout(int S, int S2) {
+    df = 0;                                  // [S][FC] (re, im)
+    dv = df + 2 * S * FC;                    // [S2][FC] (re, im)
+    xf = dv + 2 * S2 * FC;                   // [FC][MP] (re, im)
+    stage = xf + 2 * FC * MP;                // 2 x { x [S][MP], wr, wi [FC][BN][BM] }
+    x_stage = S * MP + 2 * W_PLANE;
+    const int ring = 2 * x_stage;
+    const int acc = S2 * BN * BP;            // spatial partial, aliases the ring
+    total = stage + (ring > acc ? ring : acc);
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+// 16-byte copy of `bytes` (0, 4, 8, 12 or 16) source bytes, rest zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ int clamp_bytes(int remaining) {
+  return 4 * (remaining < 0 ? 0 : remaining > 4 ? 4 : remaining);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
+                const float* __restrict__ wi, const float* __restrict__ dfr,
+                const float* __restrict__ dfi, const float* __restrict__ dvr,
+                const float* __restrict__ dvi, const float* __restrict__ bias,
+                float* __restrict__ y, int S, int M, int P, int x_pitch,
+                int Fa, int N, int S2, int relu) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(S, S2);
+  float* s_df = smem + L.df;
+  float* s_dv = smem + L.dv;
+  float* s_xf = smem + L.xf;
+  float* s_y = smem + L.stage;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * BP;
+  const int n0 = blockIdx.y * BN;
+  const int f0 = blockIdx.z * FC;           // this CTA's bin chunk
+  const int tp = tid % BP, tn = tid / BP;   // Hadamard / fold / store map
+  const int mp = tid % MP, fq = tid / MP;   // tile-FFT map
+
+  const int fc = Fa - f0 < FC ? Fa - f0 : FC;   // bins of this chunk
+  for (int i = tid; i < S * FC; i += NT) {
+    const int s = i / FC, f = i - s * FC;
+    const bool ok = f < fc;
+    s_df[2 * i] = ok ? dfr[(size_t)(f0 + f) * S + s] : 0.f;
+    s_df[2 * i + 1] = ok ? dfi[(size_t)(f0 + f) * S + s] : 0.f;
+  }
+  for (int i = tid; i < S2 * FC; i += NT) {
+    const int s = i / FC, f = i - s * FC;
+    const bool ok = f < fc;
+    s_dv[2 * i] = ok ? dvr[(size_t)s * Fa + f0 + f] : 0.f;
+    s_dv[2 * i + 1] = ok ? dvi[(size_t)s * Fa + f0 + f] : 0.f;
+  }
+
+  // 16-byte copies where every row start is 16-byte aligned
+  const bool x_vec = x_pitch % 4 == 0 && (size_t)xt % 16 == 0;
+  const bool w_vec = M % 4 == 0 && (size_t)wr % 16 == 0 &&
+                     (size_t)wi % 16 == 0;
+
+  // one pipeline step: windows [S][BM][BP] and this chunk's planes
+  // [FC][BN][BM] (re, im), zero-filled outside [M) x [P) x [N) x [Fa)
+  auto load_step = [&](int buf, int m0) {
+    float* sx = smem + L.stage + buf * L.x_stage;
+    float* swr = sx + S * MP;
+    float* swi = swr + W_PLANE;
+    if (x_vec) {
+      for (int i = tid; i < S * MP / 4; i += NT) {
+        const int s = i / (MP / 4), r = i - s * (MP / 4);
+        const int m = r / (BP / 4), p = 4 * (r - m * (BP / 4));
+        const int bytes = m0 + m < M ? clamp_bytes(P - p0 - p) : 0;
+        cp_async16(sx + s * MP + m * BP + p,
+                   bytes ? xt + ((size_t)s * M + m0 + m) * x_pitch + p0 + p
+                         : xt, bytes);
+      }
+    } else {
+      for (int i = tid; i < S * MP; i += NT) {
+        const int s = i / MP, r = i - s * MP, m = r / BP, p = r - m * BP;
+        const bool ok = m0 + m < M && p0 + p < P;
+        cp_async4(sx + i,
+                  ok ? xt + ((size_t)s * M + m0 + m) * x_pitch + p0 + p : xt,
+                  ok);
+      }
+    }
+    if (w_vec) {
+      for (int i = tid; i < W_PLANE / 4; i += NT) {
+        const int f = i / (BN * BM / 4), r = i - f * (BN * BM / 4);
+        const int n = r / (BM / 4), m = 4 * (r - n * (BM / 4));
+        const int bytes =
+            n0 + n < N && f < fc ? clamp_bytes(M - m0 - m) : 0;
+        const size_t g = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
+        cp_async16(swr + 4 * i, bytes ? wr + g : wr, bytes);
+        cp_async16(swi + 4 * i, bytes ? wi + g : wi, bytes);
+      }
+    } else {
+      for (int i = tid; i < W_PLANE; i += NT) {
+        const int f = i / (BN * BM), r = i - f * (BN * BM);
+        const int n = r / BM, m = r - n * BM;
+        const bool ok = n0 + n < N && m0 + m < M && f < fc;
+        const size_t g = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
+        cp_async4(swr + i, ok ? wr + g : wr, ok);
+        cp_async4(swi + i, ok ? wi + g : wi, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float ar[FC][TN], ai[FC][TN];
+#pragma unroll
+  for (int f = 0; f < FC; ++f)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) ar[f][j] = ai[f][j] = 0.f;
+
+  const int n_steps = (M + BM - 1) / BM;
+  load_step(0, 0);
+  for (int step = 0; step < n_steps; ++step) {
+    if (step + 1 < n_steps)
+      load_step((step + 1) & 1, (step + 1) * BM);
+    else
+      cp_async_commit();                    // empty group keeps the count
+    cp_async_wait_prev();
+    __syncthreads();                        // step's stage (and DFT) ready
+    const float* sx = smem + L.stage + (step & 1) * L.x_stage;
+    const float* swr = sx + S * MP;
+    const float* swi = swr + W_PLANE;
+
+    // Stage 1: tile-FFT of this chunk's bins, X~[f, m, p] = Df[f, :] . x[:, m, p]
+    {
+      float xr[FPT], xi[FPT];
+#pragma unroll
+      for (int j = 0; j < FPT; ++j) xr[j] = xi[j] = 0.f;
+      const float4* d4 =
+          reinterpret_cast<const float4*>(s_df) + fq * (FPT / 2);
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        const float xv = sx[s * MP + mp];
+#pragma unroll
+        for (int q = 0; q < FPT / 2; ++q) {
+          const float4 d = d4[s * (FC / 2) + q];   // bins 2q, 2q+1: re, im
+          xr[2 * q] = fmaf(d.x, xv, xr[2 * q]);
+          xi[2 * q] = fmaf(d.y, xv, xi[2 * q]);
+          xr[2 * q + 1] = fmaf(d.z, xv, xr[2 * q + 1]);
+          xi[2 * q + 1] = fmaf(d.w, xv, xi[2 * q + 1]);
+        }
+      }
+      float2* xf2 = reinterpret_cast<float2*>(s_xf);
+#pragma unroll
+      for (int j = 0; j < FPT; ++j)
+        xf2[(fq * FPT + j) * MP + mp] = make_float2(xr[j], xi[j]);
+    }
+    __syncthreads();
+
+    // Stage 2: complex Hadamard summed over this step's channels
+    const float2* xf2 = reinterpret_cast<const float2*>(s_xf);
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      float w_r[TN][BM], w_i[TN][BM];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int row = (f * BN + tn + j * NSTRIDE) * BM;
+#pragma unroll
+        for (int m = 0; m < BM; m += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(swr + row + m);
+          const float4 b = *reinterpret_cast<const float4*>(swi + row + m);
+          w_r[j][m] = a.x; w_r[j][m + 1] = a.y;
+          w_r[j][m + 2] = a.z; w_r[j][m + 3] = a.w;
+          w_i[j][m] = b.x; w_i[j][m + 1] = b.y;
+          w_i[j][m + 2] = b.z; w_i[j][m + 3] = b.w;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        const float2 xv = xf2[f * MP + m * BP + tp];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          ar[f][j] = fmaf(w_r[j][m], xv.x, fmaf(-w_i[j][m], xv.y, ar[f][j]));
+          ai[f][j] = fmaf(w_r[j][m], xv.y, fmaf(w_i[j][m], xv.x, ai[f][j]));
+        }
+      }
+    }
+    __syncthreads();                        // stage and X~ free for reuse
+  }
+
+  // Stage 3: this chunk's valid-row IFFT -> spatial partial (aliases the
+  // ring, whose last readers passed the barrier above)
+  const float4* dv4 = reinterpret_cast<const float4*>(s_dv);
+  for (int s = 0; s < S2; ++s) {
+    float v[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) v[j] = 0.f;
+#pragma unroll
+    for (int f = 0; f < FC; f += 2) {
+      const float4 d = dv4[(s * FC + f) / 2];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        v[j] = fmaf(d.x, ar[f][j], fmaf(-d.y, ai[f][j], v[j]));
+        v[j] = fmaf(d.z, ar[f + 1][j], fmaf(-d.w, ai[f + 1][j], v[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      s_y[(s * BN + tn + j * NSTRIDE) * BP + tp] = v[j];
+  }
+  cluster.sync();                           // every chunk's partial is ready
+
+  // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
+  // write per output element; rank r finishes rows r, r + C, ...
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  const float* part[MAX_CLUSTER];
+  for (int q = 0; q < n_ranks; ++q) part[q] = cluster.map_shared_rank(s_y, q);
+  const int gp = p0 + tp;
+  for (int s = rank; s < S2; s += n_ranks) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = tn + j * NSTRIDE, gn = n0 + n;
+      const int at = (s * BN + n) * BP + tp;
+      float v = 0.f;
+      for (int q = 0; q < n_ranks; ++q) v += part[q][at];
+      if (gn < N && gp < P) {
+        v += bias[gn];
+        if (relu) v = fmaxf(v, 0.f);
+        y[((size_t)s * N + gn) * P + gp] = v;
+      }
+    }
+  }
+  cluster.sync();                           // keep partials alive for readers
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; returns the cudaError_t of the configuration and
+// the launch (0 on success).  Fa is at most 8 * FSC_FC (one cluster of
+// ceil(Fa / FSC_FC) CTAs); xt's rows of P floats lie x_pitch floats apart;
+// the caller checks shapes, devices and layouts.  A shape whose shared
+// memory exceeds the per-block limit fails cudaFuncSetAttribute.
+int fused_spectral_pipeline_f32(const float* xt, const float* wr,
+                                const float* wi, const float* dfr,
+                                const float* dfi, const float* dvr,
+                                const float* dvi, const float* bias,
+                                float* y, int S, int M, int P, int x_pitch,
+                                int Fa, int N, int S2, int relu,
+                                void* stream) {
+  if (Fa < 1 || Fa > MAX_CLUSTER * FC || S < 1 || M < 1 || P < 1 ||
+      x_pitch < P || N < 1 || S2 < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Layout(S, S2).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_os_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  const int chunks = (Fa + FC - 1) / FC;
+  cfg.gridDim = dim3((P + BP - 1) / BP, (N + BN - 1) / BN, chunks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = chunks;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_os_kernel, xt, wr, wi, dfr, dfi, dvr,
+                           dvi, bias, y, S, M, P, x_pitch, Fa, N, S2, relu);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,95 @@
+"""Card-only checks of the repro_torch CUDA kernel (marker ``gpu``).
+
+The kernel has no CPU mode, so these skip where there is no CUDA
+device.  This file imports neither JAX nor the reference package, so it
+also runs on a GPU machine without JAX:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+The kernel is held to its plain PyTorch version at max|Δ| <= 1e-4 *
+max|plain| (fp32 FMA vs cuBLAS fp32 with TF32 off; sums run in another
+order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.vgg16_spectral import SMOKE
+from repro_torch.core import plan as pl
+from repro_torch.kernels import fused_spectral_conv as fsc
+from repro_torch.models import cnn
+
+TOL = 1e-4
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pitched", [False, True])
+@pytest.mark.parametrize("s,m,p,fa,n,s2", [
+    (64, 5, 37, 64, 6, 36),        # dense, ragged everything
+    (64, 7, 20, 24, 9, 36),        # bin mode: cluster of 3
+    (64, 9, 33, 8, 40, 36),        # one bin chunk: cluster of 1
+    (64, 6, 21, 60, 7, 36),        # ragged last bin chunk: cluster of 8
+    (64, 5, 19, 12, 9, 36),        # ragged last bin chunk: cluster of 2
+    (64, 4, 10, 5, 3, 36),         # one ragged bin chunk: cluster of 1
+    (64, 3, 72, 64, 8, 16),        # k = 5 (t = 4)
+    (64, 64, 361, 64, 128, 36),    # VGG16 conv2_1 at batch 1
+])
+def test_kernel_matches_plain_on_card(s, m, p, fa, n, s2, pitched):
+    """Contiguous windows take 16-byte copies only when P % 4 == 0 and
+    kernel planes when M % 4 == 0; pitched windows (rows 16-byte
+    aligned, as the layer path lays them out) always do."""
+    need_card()
+    rng = np.random.default_rng(0)
+    shapes = [(s, m, p), (fa, n, m), (fa, n, m), (fa, s), (fa, s),
+              (s2, fa), (s2, fa), (1, n)]
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           .cuda() for sh in shapes]
+    if pitched:
+        buf = torch.full((s, m, -(-p // 4) * 4), float("nan"), device="cuda")
+        buf[:, :, :p] = ops[0]
+        ops[0] = buf[:, :, :p]
+    before = fsc.LAUNCHES["fused_spectral_pipeline"]
+    for relu in (False, True):
+        y = fsc.fused_spectral_pipeline(*ops, relu=relu)
+        torch.cuda.synchronize()
+        ref = fsc.fused_spectral_pipeline_reference(*ops, relu=relu)
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, err
+        # deterministic: no atomics, fixed reduction order
+        assert torch.equal(y, fsc.fused_spectral_pipeline(*ops, relu=relu))
+    assert fsc.LAUNCHES["fused_spectral_pipeline"] == before + 4
+
+
+@pytest.mark.gpu
+def test_shared_memory_over_the_limit_raises():
+    """K = 16 windows (S = 256) need more shared memory per CTA than a
+    Hopper SM has: the launch reports it, the wrapper raises, and the
+    launch is not counted."""
+    need_card()
+    shapes = [(256, 4, 9), (8, 5, 4), (8, 5, 4), (8, 256), (8, 256),
+              (36, 8), (36, 8), (1, 5)]
+    ops = [torch.zeros(sh, device="cuda") for sh in shapes]
+    before = fsc.LAUNCHES["fused_spectral_pipeline"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fsc.fused_spectral_pipeline(*ops, relu=True)
+    assert fsc.LAUNCHES["fused_spectral_pipeline"] == before
+
+
+@pytest.mark.gpu
+def test_smoke_forward_on_card_goes_through_kernel():
+    need_card()
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, SMOKE, batch=2)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = fsc.LAUNCHES["fused_spectral_pipeline"]
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    assert fsc.LAUNCHES["fused_spectral_pipeline"] == before + 13
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err
