@@ -105,5 +105,5 @@ FLOWS = ("output_stationary", "weight_stationary", "input_stationary")
 INPUT_MODES = ("windowed", "halo")
 
 # Hadamard-stage datapaths: full-K^2 kernel planes, planes compacted to
-# the active bins, or the Alg-2 INDEX/VALUE tables (not yet ported).
+# the active bins, or the Alg-2 INDEX/VALUE tables.
 HADAMARD_MODES = ("dense", "bin", "scheduled")

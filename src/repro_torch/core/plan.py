@@ -8,22 +8,36 @@ CPU, and moves the finished operands to the device.  The forward pass
 (``models.cnn.forward_spectral``) only walks the plan's DAG and launches
 kernels.
 
-This package builds the narrowest plan the reference accepts:
-``input_mode='windowed'``, ``hadamard='dense'|'bin'``, no Alg-2
-schedule, and the output-stationary flow with the CUDA kernel's fixed
-block sizes (no autotune).  Other modes raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+For layers whose Hadamard mode is 'scheduled', the plan also holds the
+full Alg-2 INDEX/VALUE tables (one exact-cover schedule per
+kernel-group x channel, ``scheduler.compile_layer_tables``, spread over a
+process pool at full width) and their exact Eq-14 statistics; with
+``schedule=True`` the plane layers carry sampled statistics, as in the
+reference.
+
+This package builds the plans the ported kernels run:
+``input_mode='windowed'``, ``hadamard='dense'|'bin'|'scheduled'``, and
+the output-stationary flow with the CUDA kernels' fixed block sizes (no
+autotune).  Other modes raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import multiprocessing
+import os
+import time
+from concurrent.futures import ProcessPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 import repro_torch
 from repro_torch.core import dataflow as df
+from repro_torch.core import scheduler as sch
 from repro_torch.core import sparse as sp
 from repro_torch.core import spectral as spec
 from repro_torch.core.autotune import FusedTuning
@@ -39,6 +53,22 @@ class EpilogueSpec:
     bias: bool = True
     relu: bool = True
     pool: bool = False       # 2x2 max-pool follows this layer (spatial)
+
+
+class PlanTables(NamedTuple):
+    """Device-resident Alg-2 INDEX/VALUE tables for one scheduled layer
+    (stacked layout of ``scheduler.LayerTables``; consumed verbatim by
+    ``kernels.fused_spectral_conv.fused_spectral_pipeline_scheduled``).
+    """
+
+    idx: torch.Tensor                 # [GN, Mp, T, r]  int32
+    sel: torch.Tensor                 # [GN, Mp, T, N'] int32
+    vr: torch.Tensor                  # [GN, Mp, T, N'] f32
+    vi: torch.Tensor
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +214,11 @@ class LayerPlan:
       wr / wi     [Fa, N, M] f32 kernel planes.
       dfr / dfi   [Fa, S] forward DFT rows; dvr / dvi [S2, Fa] inverse
           DFT on the valid rows.
-      hadamard    'dense' | 'bin'; input_mode 'windowed'.
+      hadamard    'dense' | 'bin' | 'scheduled'; input_mode 'windowed'.
+      tables      ``PlanTables`` for scheduled layers, else None.
+      schedule_cycles / pe_utilization   Alg-2 stats: exact totals when
+          the full tables were compiled (scheduled mode), otherwise
+          sampled (None when scheduling was skipped).
     """
 
     layer: df.ConvLayer
@@ -203,6 +237,9 @@ class LayerPlan:
     dvi: torch.Tensor
     hadamard: str = "bin"
     input_mode: str = "windowed"
+    schedule_cycles: int | None = None
+    pe_utilization: float | None = None
+    tables: PlanTables | None = None
 
     @property
     def n_active_bins(self) -> int:
@@ -213,19 +250,91 @@ class LayerPlan:
 @dataclasses.dataclass(frozen=True, eq=False)
 class NetworkPlan:
     """The compile-once artifact ``models.cnn.forward_spectral`` runs:
-    per-layer plans plus the topo-ordered DAG to walk."""
+    per-layer plans plus the topo-ordered DAG to walk.
+    ``schedule_seconds`` is the host time spent compiling Alg-2 tables."""
 
     name: str
     fft_size: int
     batch: int
     layers: tuple[LayerPlan, ...]
     graph: tuple[PlanNode, ...]
+    schedule_seconds: float = 0.0
+
+
+# Compile a plan's tables in a process pool of at most SCHEDULE_WORKERS
+# processes (and no more than the CPUs) from this many (group, channel)
+# schedules on (full VGG16 has 25,539); below it, serially.
+SCHEDULE_POOL_MIN_PAIRS = 1024
+SCHEDULE_WORKERS = 8
+
+
+def _sampled_schedule_stats(sk: sp.SparseSpectralKernels, k2: int, *,
+                            r: int, n_par: int, channel_sample: int,
+                            ) -> tuple[int, float, np.ndarray]:
+    """Run Alg 2 on a bounded sample of (group, channel) pairs; return
+    (total cycles, Eq-14 utilization, bins the sampled schedules touch).
+    By the exact-cover property the sampled bins are a subset of
+    ``sk.active_bins``."""
+    idx = sk.indices.cpu().numpy()
+    n_out, c_in, _ = idx.shape
+    chans = np.linspace(0, c_in - 1, min(channel_sample, c_in)).astype(int)
+    group = slice(0, min(n_par, n_out))
+    total_ops = 0
+    total_cycles = 0
+    n_pe = group.stop
+    bins: set[int] = set()
+    for m in np.unique(chans):
+        s = sch.schedule_exact_cover(idx[group, m, :], k2, r)
+        total_ops += s.total_ops
+        total_cycles += s.n_cycles
+        for _, fs in s.cycles:
+            bins.update(fs.tolist())
+    mu = total_ops / max(1, total_cycles * n_pe)
+    return total_cycles, mu, np.asarray(sorted(bins), np.int64)
+
+
+def _resolve_hadamard_modes(hadamard: str, alpha: float, schedule: bool,
+                            active: np.ndarray | None) -> list[str]:
+    """Hadamard-mode candidates for one layer, honoring availability.
+
+    'bin' needs a compacted active set (otherwise it IS dense);
+    'scheduled' needs a non-degenerate schedule (alpha > 1 and
+    scheduling enabled) — when it degenerates, the request falls back
+    to the plane datapath.  'auto' needs the autotuner, not ported yet.
+    """
+    plane = "bin" if active is not None else "dense"
+    if hadamard == "auto":
+        raise NotImplementedError(
+            "hadamard='auto' needs the autotuner retargeted to Hopper, "
+            "not ported yet (ROADMAP A5); force 'dense', 'bin' or "
+            "'scheduled'")
+    if hadamard == "scheduled":
+        return ["scheduled"] if schedule and alpha > 1.0 else [plane]
+    if hadamard == "bin":
+        return [plane]
+    if hadamard == "dense":
+        return ["dense"]
+    raise ValueError(
+        f"hadamard must be 'auto' or one of {df.HADAMARD_MODES}, "
+        f"got {hadamard!r}")
+
+
+def _schedule_pool(workers: int):
+    """A spawn-context process pool for table compilation (spawn: the
+    parent may hold a CUDA context), or a null context when serial."""
+    if workers <= 1:
+        return contextlib.nullcontext(None)
+    return ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
 
 
 def build_network_plan(params: dict, cfg, *, batch: int = 1,
                        hadamard: str = "bin",
                        input_mode: str = "windowed",
-                       schedule: bool = False,
+                       schedule: bool = True,
+                       schedule_r: int = 10,
+                       schedule_n_par: int = 64,
+                       schedule_channel_sample: int = 2,
                        device=None) -> NetworkPlan:
     """Compile the whole conv stack once.
 
@@ -237,12 +346,18 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         ``fft_size``, ``alpha``, ``pool_after``, ``graph``, ``name``).
       batch: images per forward call the plan is built for (recorded).
       hadamard: 'bin' (compact the kernel planes to the active bins;
-        the same as 'dense' when no bin is empty) or 'dense'.
-        'scheduled'/'auto' are not ported yet (ROADMAP B4, A6).
+        the same as 'dense' when no bin is empty), 'dense', or
+        'scheduled' (Alg-2 INDEX/VALUE tables; falls back to the plane
+        datapath where alpha <= 1 or ``schedule`` is off).  'auto' is
+        not ported yet (ROADMAP A5).
       input_mode: 'windowed'; 'halo'/'auto' are not ported yet
         (ROADMAP B3).
-      schedule: must be False; Alg-2 scheduling is not ported yet
-        (ROADMAP A6).
+      schedule: run Alg 2 at all (False skips the schedule stats AND
+        disables the scheduled datapath).
+      schedule_r: r, the BRAM-replica analogue (paper S6.3: 10).
+      schedule_n_par / schedule_channel_sample: PE-group size and
+        channel count of the SAMPLED stats of plane-mode layers
+        (scheduled layers group by the scheduled kernel's block_n).
       device: where the plan's operands live; None means the CUDA
         device (raises when there is none).
     """
@@ -252,22 +367,15 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     if input_mode not in df.INPUT_MODES + ("auto",):
         raise ValueError(f"input_mode must be 'auto' or one of "
                          f"{df.INPUT_MODES}, got {input_mode!r}")
-    if hadamard not in ("dense", "bin"):
-        raise NotImplementedError(
-            f"hadamard={hadamard!r} is not ported yet (ROADMAP B4 / A6: "
-            f"scheduled Hadamard and core/scheduler.py)")
     if input_mode != "windowed":
         raise NotImplementedError(
             f"input_mode={input_mode!r} is not ported yet (ROADMAP B3: "
-            f"in-kernel halo gather)")
-    if schedule:
-        raise NotImplementedError(
-            "schedule=True is not ported yet (ROADMAP A6: "
-            "core/scheduler.py)")
+            f"in-kernel halo gather; B5 for its scheduled variant)")
     device = repro_torch.resolve_device(device)
     layers = list(cfg.layers)
     alphas = sp.per_layer_alphas(cfg.alpha, len(layers))
     pool_after = getattr(cfg, "pool_after", frozenset())
+    k2 = cfg.fft_size * cfg.fft_size
 
     graph_specs = getattr(cfg, "graph", None)
     explicit_graph = graph_specs is not None
@@ -286,38 +394,79 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
             f"in exactly one node)")
     node_output_shapes(layers, order)   # DAG shape checks (raises)
 
+    # (group, channel) schedules the tables need, to size the pool
+    n_pairs = sum(-(-l.c_out // fsc.SCHED_BLOCK_N) * l.c_in
+                  for l, a in zip(layers, alphas)
+                  if hadamard == "scheduled" and schedule and a > 1.0)
+    workers = (min(SCHEDULE_WORKERS, os.cpu_count() or 1)
+               if n_pairs >= SCHEDULE_POOL_MIN_PAIRS else 1)
+    schedule_seconds = 0.0
     plans: list[LayerPlan] = []
-    for layer, conv, alpha in zip(layers, params["convs"], alphas):
-        geo = spec.make_geometry(layer.h_in, layer.w_in, layer.ksize,
-                                 cfg.fft_size, layer.pad)
-        w = conv["w"].detach().to("cpu", torch.float32)
-        sk = sp.prune_magnitude(spec.spectral_kernel(w, cfg.fft_size),
-                                alpha)
-        active = sp.compacted_active_bins(sk, pad_to=fsc.BIN_CHUNK)
-        wr, wi = sp.compact_planes(sk, active)
-        key = tuple(int(a) for a in active) if active is not None else None
-        dfr, dfi, dvr, dvi = (torch.from_numpy(a).to(device) for a in
-                              fsc.overlap_save_operators(cfg.fft_size,
-                                                     layer.ksize, key))
-        mode = ("dense" if hadamard == "dense" or active is None
-                else "bin")
-        tuning = FusedTuning(
-            layer=layer.name, flow="output_stationary",
-            block_n=min(fsc.BLOCK_N, layer.c_out),
-            block_m=min(fsc.BLOCK_M, layer.c_in),
-            block_p=min(fsc.BLOCK_P, layer.tiles(cfg.fft_size) * batch),
-            hadamard=mode, input_mode="windowed")
-        node = conv_specs[layer.name]
-        epi = EpilogueSpec(bias=True, relu=node.relu,
-                           pool=(not explicit_graph
-                                 and layer.name in pool_after))
-        bias = conv["b"].detach().to(device, torch.float32).reshape(1, -1)
-        plans.append(LayerPlan(
-            layer=layer, geo=geo, kernels=sk.to(device), alpha=alpha,
-            tuning=tuning, epilogue=epi, bias=bias.contiguous(),
-            active=active, wr=wr.to(device), wi=wi.to(device),
-            dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi, hadamard=mode,
-            input_mode="windowed"))
+    with _schedule_pool(workers) as pool:
+        for layer, conv, alpha in zip(layers, params["convs"], alphas):
+            geo = spec.make_geometry(layer.h_in, layer.w_in, layer.ksize,
+                                     cfg.fft_size, layer.pad)
+            w = conv["w"].detach().to("cpu", torch.float32)
+            sk = sp.prune_magnitude(spec.spectral_kernel(w, cfg.fft_size),
+                                    alpha)
+            cycles = mu = None
+            if schedule and alpha > 1.0:
+                cycles, mu, sampled_bins = _sampled_schedule_stats(
+                    sk, k2, r=schedule_r, n_par=schedule_n_par,
+                    channel_sample=schedule_channel_sample)
+                if not np.isin(sampled_bins, sk.active_bins).all():
+                    raise sch.PlanValidationError(
+                        f"Alg-2 schedule for {layer.name} touched a "
+                        f"frequency bin outside the pruned kernel support",
+                        layer=layer.name, site="schedule-stats")
+            active = sp.compacted_active_bins(sk, pad_to=fsc.BIN_CHUNK)
+            wr, wi = sp.compact_planes(sk, active)
+            key = (tuple(int(a) for a in active) if active is not None
+                   else None)
+            dfr, dfi, dvr, dvi = (
+                torch.from_numpy(a).to(device) for a in
+                fsc.overlap_save_operators(cfg.fft_size, layer.ksize, key))
+            (mode,) = _resolve_hadamard_modes(hadamard, alpha, schedule,
+                                              active)
+            blocks = ((fsc.SCHED_BLOCK_N, fsc.SCHED_BLOCK_M,
+                       fsc.SCHED_BLOCK_P) if mode == "scheduled" else
+                      (fsc.BLOCK_N, fsc.BLOCK_M, fsc.BLOCK_P))
+            tuning = FusedTuning(
+                layer=layer.name, flow="output_stationary",
+                block_n=min(blocks[0], layer.c_out),
+                block_m=min(blocks[1], layer.c_in),
+                block_p=min(blocks[2], layer.tiles(cfg.fft_size) * batch),
+                hadamard=mode, input_mode="windowed")
+            tables = None
+            if mode == "scheduled":
+                # The paper's offline schedule compilation: one
+                # exact-cover schedule per (kernel-group, channel),
+                # remapped to the compacted bins of the operators above;
+                # group size and channel padding are the scheduled
+                # kernel's block_n and block_m.
+                t0 = time.perf_counter()
+                lt = sch.compile_layer_tables(
+                    sk.indices.numpy(),
+                    sk.values.reshape(layer.c_out, layer.c_in, k2).numpy(),
+                    k2, schedule_r, tuning.block_n, active=active,
+                    m_pad_to=tuning.block_m, pool=pool)
+                schedule_seconds += time.perf_counter() - t0
+                tables = PlanTables(*(torch.from_numpy(a).to(device)
+                                      for a in (lt.idx, lt.sel, lt.vr,
+                                                lt.vi)))
+                cycles, mu = lt.total_cycles, lt.pe_utilization  # exact
+            node = conv_specs[layer.name]
+            epi = EpilogueSpec(bias=True, relu=node.relu,
+                               pool=(not explicit_graph
+                                     and layer.name in pool_after))
+            bias = conv["b"].detach().to(device, torch.float32).reshape(1, -1)
+            plans.append(LayerPlan(
+                layer=layer, geo=geo, kernels=sk.to(device), alpha=alpha,
+                tuning=tuning, epilogue=epi, bias=bias.contiguous(),
+                active=active, wr=wr.to(device), wi=wi.to(device),
+                dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi, hadamard=mode,
+                input_mode="windowed", schedule_cycles=cycles,
+                pe_utilization=mu, tables=tables))
     layer_index = {name: i for i, name in enumerate(names)}
     pnodes = tuple(
         PlanNode(id=s.id, kind="conv", inputs=tuple(s.inputs),
@@ -328,4 +477,5 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         for s in order)
     return NetworkPlan(name=getattr(cfg, "name", "spectral-cnn"),
                        fft_size=cfg.fft_size, batch=batch,
-                       layers=tuple(plans), graph=pnodes)
+                       layers=tuple(plans), graph=pnodes,
+                       schedule_seconds=schedule_seconds)

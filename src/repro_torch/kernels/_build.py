@@ -4,8 +4,9 @@ Each ``kernels/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` into its own shared library under
 ``<repo>/build/repro_torch_kernels/`` at first use, then loaded with
 ``ctypes`` (no PyTorch headers are compiled, so a build takes seconds).
-The library file name carries a hash of the source and the build flags,
-so an edited source is rebuilt and a finished build is reused.  The
+The library file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the build flags, so an edited source is rebuilt and
+a finished build is reused.  The
 ``-Xptxas -v`` report (registers, shared memory, spills) is printed once
 per build.
 """
@@ -48,7 +49,8 @@ def _target(name: str, defines: dict[str, int]) -> tuple[Path, list[str]]:
     src = CSRC / f"{name}.cu"
     flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in
                                 sorted(defines.items())]
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so", flags
 
@@ -75,24 +77,36 @@ def build(sources: dict[str, dict[str, int]]) -> dict[str, ctypes.CDLL]:
         t0 = time.perf_counter()
         started = {n: _start(n, d) for n, d in sources.items()
                    if n not in _loaded}
-        for name, job in started.items():
-            ptxas: list[str] = []
-            if job is not None:
-                proc, tmp, lib = job
-                out, _ = proc.communicate()
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {name}.cu "
-                        f"(exit {proc.returncode}):\n{out}")
-                os.replace(tmp, lib)
-                ptxas = [ln for ln in out.splitlines() if "ptxas" in ln]
-                print(f"[repro_torch] built {lib.name} in "
-                      f"{time.perf_counter() - t0:.1f} s")
-                for ln in ptxas:
-                    print(f"[repro_torch]   {ln.strip()}")
-            lib, _ = _target(name, sources[name])
-            BUILD_LOG[name] = {
-                "seconds": (time.perf_counter() - t0) if job else 0.0,
-                "ptxas": ptxas}
-            _loaded[name] = ctypes.CDLL(str(lib))
+        try:
+            _finish(started, sources, t0)
+        finally:        # a failed build leaves no compiler running
+            for job in started.values():
+                if job is not None and job[0].poll() is None:
+                    job[0].kill()
+                    job[0].wait()
         return {n: _loaded[n] for n in sources}
+
+
+def _finish(started: dict, sources: dict[str, dict[str, int]],
+            t0: float) -> None:
+    """Wait for the started builds in order and load every library."""
+    for name, job in started.items():
+        ptxas: list[str] = []
+        if job is not None:
+            proc, tmp, lib = job
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {name}.cu "
+                    f"(exit {proc.returncode}):\n{out}")
+            os.replace(tmp, lib)
+            ptxas = [ln for ln in out.splitlines() if "ptxas" in ln]
+            print(f"[repro_torch] built {lib.name} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for ln in ptxas:
+                print(f"[repro_torch]   {ln.strip()}")
+        lib, _ = _target(name, sources[name])
+        BUILD_LOG[name] = {
+            "seconds": (time.perf_counter() - t0) if job else 0.0,
+            "ptxas": ptxas}
+        _loaded[name] = ctypes.CDLL(str(lib))

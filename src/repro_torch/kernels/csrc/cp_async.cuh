@@ -1,0 +1,37 @@
+// cp.async helpers shared by the port's CUDA kernels (sm_80+).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+// 4-byte copy; a zero source size (ok == false) writes 0
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+// 16-byte copy of `bytes` (0, 4, 8, 12 or 16) source bytes, rest zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ int clamp_bytes(int remaining) {
+  return 4 * (remaining < 0 ? 0 : remaining > 4 ? 4 : remaining);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+// wait until every issued copy has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+}  // namespace repro_torch

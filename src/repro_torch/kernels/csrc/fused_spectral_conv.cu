@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
+#include "cp_async.cuh"
+
 #if !defined(FSC_BN) || !defined(FSC_BP) || !defined(FSC_BM) || \
     !defined(FSC_FC) || !defined(FSC_THREADS)
 #error "build through repro_torch.kernels._build (defines FSC_* block sizes)"
@@ -101,28 +103,7 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-// 16-byte copy of `bytes` (0, 4, 8, 12 or 16) source bytes, rest zeroed
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ int clamp_bytes(int remaining) {
-  return 4 * (remaining < 0 ? 0 : remaining > 4 ? 4 : remaining);
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+using namespace repro_torch;
 
 __global__ void __launch_bounds__(NT, 1)
 fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,

@@ -1,0 +1,382 @@
+// Fused spectral convolution with the SCHEDULED sparse Hadamard (Alg 2),
+// output-stationary flow, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `fused_spectral_pipeline_scheduled` with body
+// `_kernel_os_sched` (stages `_tile_fft`, `_scheduled_hadamard`,
+// `_ifft_real_nf`, epilogue) in src/repro/kernels/fused_spectral_conv.py.
+// One launch computes a whole spectral conv layer on overlap-save windows,
+// reading the kernel as the Alg-2 INDEX/VALUE tables instead of planes:
+//
+//   X~[f, m, p]   = Df[f, :] . xt[:, m, p]                (tile-FFT)
+//   per (group g, channel m, cycle t, PE lane n):
+//     bin f       = idx[g, m, t, sel[g, m, t, n]]
+//     Y~[g*N' + n, f, p] += (vr + i vi)[g, m, t, n] * X~[f, m, p]
+//   y[s2, o, p]   = act( Re( Dv[s2, :] . Y~[o, :, p] ) + b[o] )
+//
+//   xt  [S = K^2, M, P = B*T]   windows, rows of P floats at x_pitch
+//   idx [GN, Mp, T, R] int32    replica read addresses (bins in [0, Fa))
+//   sel [GN, Mp, T, NP] int32   replica column feeding PE lane n
+//   vr/vi [GN, Mp, T, NP] f32   lane weight; zero = idle lane / padding
+//   dfr/dfi [Fa, S], dvr/dvi [S2, Fa], bias [N] -> y [S2, N, P]
+//
+// Bound on an H100 SXM: operations = tile-FFT 4*Fa*S*M*P + complex MAC
+// 8*(non-zero table entries)*P + valid-row IFFT 4*S2*Fa*N*P + epilogue
+// 2*S2*N*P at 67 TFLOP/s fp32; bytes = windows + the four tables +
+// operators + bias + output at 3.35 TB/s.  At alpha 4 the MACs are a third
+// of the plane kernel's Karatsuba work and the tables half its plane
+// bytes; full VGG16 at batch 1 is operations-bound overall, conv4_x and
+// conv5_x bytes-bound (chip_smoke.py prints every layer's bound).  On CUDA
+// cores a table entry costs a gather, a complex MAC and a scatter per
+// tile, ~8 instructions where the plane kernel's register-blocked MAC
+// costs ~1, so instruction issue, not the bound, limits this kernel.
+//
+// Design (fp32 FMA on CUDA cores, no TF32):
+//  * As on the TPU, X~ and Y~ never reach device memory and each output is
+//    written once, after bias and ReLU.  Indexed shared-memory loads take
+//    the place of the TPU's one-hot gather/route/scatter matmuls.
+//  * CTA = (block of BP = 4 tiles, kernel group of N' <= 64 lanes, chunk of
+//    input channels).  Its complex psum covers every lane and every bin:
+//    [64 bins][64 lanes] x 4 tiles (128 KB of shared memory).  So every
+//    table entry of the group is a hit: each entry is decoded once per
+//    CTA (out_index = idx[t][sel[t][n]]) and applied to all 4 tiles with
+//    16-byte loads and stores, and the tile-FFT of a channel is computed
+//    once per CTA, for all bins.
+//  * A thread owns PE lane n and every 4th cycle of it.  The exact cover
+//    serves each (lane, bin) once per channel, so no two threads and no
+//    two cycles of a channel touch the same psum cell: the plain
+//    read-modify-write has no race, and the result does not depend on
+//    thread timing.
+//  * One pipeline step is one input channel: its window rows and its four
+//    table blocks (~16 KB at T = 20) arrive by cp.async into a two-stage
+//    ring while the previous channel computes; two barriers per channel.
+//  * Small layers at batch 1 (conv4_x, conv5_x: 7 or 3 tile blocks of 8
+//    groups) have too few (tile, group) blocks to fill 132 SMs, so the
+//    input channels are split over the CTAs of a thread-block cluster
+//    (C <= 8, picked from the SM count).  After its channels each CTA
+//    folds its psum through the valid-row IFFT into a [S2][64][4] spatial
+//    partial (aliasing the psum), and the cluster sums the partials over
+//    distributed shared memory in rank order (no atomics), each CTA
+//    finishing S2/C output rows with bias + ReLU.  The output is bitwise
+//    repeatable.
+//  * Ragged edges are masked, never padded in the operands: the last
+//    group (N not a multiple of NP), lanes NP..63, padded cycles (zero
+//    weights), bins Fa..63 (zero DFT rows and columns) and the last tile
+//    block (zero-filled window copies, no store).
+//
+// Block sizes come from the build (-DSCH_*), set by the Python wrapper.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <cstddef>
+
+#include "cp_async.cuh"
+
+#if !defined(SCH_BN) || !defined(SCH_THREADS)
+#error "build through repro_torch.kernels._build (defines SCH_* block sizes)"
+#endif
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace repro_torch;
+
+constexpr int BN = SCH_BN;        // PE lanes (output channels) per CTA
+constexpr int NT = SCH_THREADS;   // threads per CTA
+constexpr int BP = 4;             // tiles per CTA: one float4 per cell
+constexpr int FMAX = 64;          // bins per CTA (all active bins)
+constexpr int MAX_CLUSTER = 8;    // portable cluster size
+constexpr int TQ = NT / BN;       // threads per lane (cycle phases)
+constexpr int DFP = FMAX + 8;     // DFT row pitch in float2: the 4 s-phases
+                                  // of a warp read two bank halves
+static_assert(NT % BN == 0 && BN % 32 == 0, "lane-major thread map");
+static_assert(NT == FMAX * BP, "tile-FFT map: 64 bins x 4 s-phases");
+static_assert(TQ == BP, "epilogue map: cycle phase tq is tile tq");
+
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory carve-up, in floats (every array 16-byte aligned).  The
+// epilogue's inverse DFT and spatial partial alias the loop-phase arrays.
+struct Layout {
+  int df, psum, xf, stage, stage_size, x_sz, idx_sz, tab_sz, part, dv,
+      total;
+  __host__ __device__ Layout(int S, int S2, int T, int R, int NP) {
+    df = 0;                                   // [S][DFP] (re, im)
+    psum = df + 2 * S * DFP;                  // re, im [FMAX][BN] float4
+    xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4
+    stage = xf + 2 * FMAX * BP;               // 2 x stage
+    x_sz = S * BP;                            // windows [S][BP]
+    idx_sz = align4(T * R);                   // idx [T][R]
+    tab_sz = align4(T * NP);                  // sel, vr, vi [T][NP]
+    stage_size = x_sz + idx_sz + 3 * tab_sz;
+    part = psum;                              // [S2][BN][BP], epilogue
+    dv = part + S2 * BN * BP;                 // [S2][FMAX] (re, im)
+    const int loop_end = stage + 2 * stage_size;
+    const int epi_end = dv + 2 * S2 * FMAX;
+    total = loop_end > epi_end ? loop_end : epi_end;
+  }
+};
+
+// copy `count` contiguous 4-byte words, 16 bytes at a time when aligned
+__device__ __forceinline__ void stage_words(float* dst, const float* src,
+                                            int count, int tid) {
+  int done = 0;
+  if (((size_t)src & 15) == 0) {
+    done = count & ~3;
+    for (int i = 4 * tid; i < done; i += 4 * NT)
+      cp_async16(dst + i, src + i, 16);
+  }
+  for (int i = done + tid; i < count; i += NT) cp_async4(dst + i, src + i, true);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+fused_os_sched_kernel(const float* __restrict__ xt,
+                      const int* __restrict__ idx,
+                      const int* __restrict__ sel,
+                      const float* __restrict__ vr,
+                      const float* __restrict__ vi,
+                      const float* __restrict__ dfr,
+                      const float* __restrict__ dfi,
+                      const float* __restrict__ dvr,
+                      const float* __restrict__ dvi,
+                      const float* __restrict__ bias, float* __restrict__ y,
+                      int S, int M, int P, int x_pitch, int Mp, int T, int R,
+                      int NP, int Fa, int N, int S2, int relu) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(S, S2, T, R, NP);
+  float2* s_df = reinterpret_cast<float2*>(smem + L.df);
+  float4* s_pr = reinterpret_cast<float4*>(smem + L.psum);
+  float4* s_pi = s_pr + FMAX * BN;
+  float4* s_xr = reinterpret_cast<float4*>(smem + L.xf);
+  float4* s_xi = s_xr + FMAX;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * BP;
+  const int g = blockIdx.y;                  // kernel group: lanes g*NP + n
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int m_lo = rank * M / n_ranks;       // this CTA's input channels
+  const int m_hi = (rank + 1) * M / n_ranks;
+
+  // forward DFT rows, bins Fa..63 zero
+  for (int i = tid; i < S * FMAX; i += NT) {
+    const int s = i / FMAX, f = i - s * FMAX;
+    s_df[s * DFP + f] = f < Fa ? make_float2(dfr[(size_t)f * S + s],
+                                             dfi[(size_t)f * S + s])
+                               : make_float2(0.f, 0.f);
+  }
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < 2 * FMAX * BN; i += NT) s_pr[i] = zero4;
+
+  const bool x_vec = x_pitch % 4 == 0 && (size_t)xt % 16 == 0;
+  const size_t tab_row = (size_t)T * NP;     // one (g, m) table block
+  // one pipeline step: channel m's window rows [S][BP] and table blocks
+  auto load_step = [&](int buf, int m) {
+    float* sx = smem + L.stage + buf * L.stage_size;
+    for (int s = tid; s < S; s += NT) {
+      const float* row = xt + ((size_t)s * M + m) * x_pitch + p0;
+      if (x_vec) {
+        const int bytes = clamp_bytes(P - p0);
+        cp_async16(sx + s * BP, bytes ? row : xt, bytes);
+      } else {
+        for (int p = 0; p < BP; ++p)
+          cp_async4(sx + s * BP + p, p0 + p < P ? row + p : xt, p0 + p < P);
+      }
+    }
+    const size_t blk = (size_t)g * Mp + m;
+    float* st = sx + L.x_sz;
+    stage_words(st, reinterpret_cast<const float*>(idx) + blk * T * R, T * R,
+                tid);
+    st += L.idx_sz;
+    stage_words(st, reinterpret_cast<const float*>(sel) + blk * tab_row,
+                T * NP, tid);
+    stage_words(st + L.tab_sz, vr + blk * tab_row, T * NP, tid);
+    stage_words(st + 2 * L.tab_sz, vi + blk * tab_row, T * NP, tid);
+    cp_async_commit();
+  };
+
+  // tile-FFT map: bin ff, s-phase fh (lanes of 4 reduce by shuffles)
+  const int ff = tid / 4, fh = tid & 3;
+  // walk map: lane n, cycles t = tq, tq + TQ, ...
+  const int n = tid % BN, tq = tid / BN;
+
+  if (m_lo < m_hi) load_step(0, m_lo);
+  for (int m = m_lo; m < m_hi; ++m) {
+    const int buf = (m - m_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();       // channel m staged; channel m - 1 fully applied
+    if (m + 1 < m_hi) load_step(buf ^ 1, m + 1);
+    const float* sx = smem + L.stage + buf * L.stage_size;
+    const int* s_idx = reinterpret_cast<const int*>(sx + L.x_sz);
+    const int* s_sel = s_idx + L.idx_sz;
+    const float* s_vr = reinterpret_cast<const float*>(s_sel) + L.tab_sz;
+    const float* s_vi = s_vr + L.tab_sz;
+
+    // Stage 1: tile-FFT of every bin for the 4 tiles of channel m
+    {
+      const float4* x4 = reinterpret_cast<const float4*>(sx);
+      float4 ar = zero4, ai = zero4;
+      for (int s = fh; s < S; s += 4) {
+        const float4 xv = x4[s];
+        const float2 d = s_df[s * DFP + ff];
+        ar.x = fmaf(d.x, xv.x, ar.x); ai.x = fmaf(d.y, xv.x, ai.x);
+        ar.y = fmaf(d.x, xv.y, ar.y); ai.y = fmaf(d.y, xv.y, ai.y);
+        ar.z = fmaf(d.x, xv.z, ar.z); ai.z = fmaf(d.y, xv.z, ai.z);
+        ar.w = fmaf(d.x, xv.w, ar.w); ai.w = fmaf(d.y, xv.w, ai.w);
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        ar.x += __shfl_xor_sync(0xffffffffu, ar.x, o);
+        ar.y += __shfl_xor_sync(0xffffffffu, ar.y, o);
+        ar.z += __shfl_xor_sync(0xffffffffu, ar.z, o);
+        ar.w += __shfl_xor_sync(0xffffffffu, ar.w, o);
+        ai.x += __shfl_xor_sync(0xffffffffu, ai.x, o);
+        ai.y += __shfl_xor_sync(0xffffffffu, ai.y, o);
+        ai.z += __shfl_xor_sync(0xffffffffu, ai.z, o);
+        ai.w += __shfl_xor_sync(0xffffffffu, ai.w, o);
+      }
+      if (fh == 0) s_xr[ff] = ar;
+      if (fh == 1) s_xi[ff] = ai;
+    }
+    __syncthreads();                         // X~ of channel m is ready
+
+    // Stage 2: execute lane n's cycles t = tq, tq + TQ, ... on all 4 tiles
+    if (n < NP) {
+      for (int t = tq; t < T; t += TQ) {
+        const int i = t * NP + n;
+        const float wr = s_vr[i], wi = s_vi[i];
+        const int r = s_sel[i];
+        if ((wr != 0.f || wi != 0.f) && (unsigned)r < (unsigned)R) {
+          const int f = s_idx[t * R + r];
+          if ((unsigned)f < (unsigned)Fa) {
+            const float4 xr = s_xr[f], xi = s_xi[f];
+            const int c = f * BN + n;
+            float4 pr = s_pr[c], pi = s_pi[c];
+            pr.x = fmaf(wr, xr.x, fmaf(-wi, xi.x, pr.x));
+            pr.y = fmaf(wr, xr.y, fmaf(-wi, xi.y, pr.y));
+            pr.z = fmaf(wr, xr.z, fmaf(-wi, xi.z, pr.z));
+            pr.w = fmaf(wr, xr.w, fmaf(-wi, xi.w, pr.w));
+            pi.x = fmaf(wr, xi.x, fmaf(wi, xr.x, pi.x));
+            pi.y = fmaf(wr, xi.y, fmaf(wi, xr.y, pi.y));
+            pi.z = fmaf(wr, xi.z, fmaf(wi, xr.z, pi.z));
+            pi.w = fmaf(wr, xi.w, fmaf(wi, xr.w, pi.w));
+            s_pr[c] = pr;
+            s_pi[c] = pi;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();                           // every channel applied
+
+  // Stage 3: valid-row IFFT of this CTA's psum -> spatial partial.  The
+  // thread's cell (n, tile tq) comes into registers over all bins, then
+  // the partial and the inverse DFT overwrite the psum.
+  float pr[FMAX], pi[FMAX];
+  {
+    const float* psr = reinterpret_cast<const float*>(s_pr);
+    const float* psi = reinterpret_cast<const float*>(s_pi);
+#pragma unroll
+    for (int f = 0; f < FMAX; ++f) {
+      pr[f] = psr[(f * BN + n) * BP + tq];
+      pi[f] = psi[(f * BN + n) * BP + tq];
+    }
+  }
+  __syncthreads();
+  float* s_part = smem + L.part;
+  float4* s_dv = reinterpret_cast<float4*>(smem + L.dv);   // bin pairs
+  for (int i = tid; i < S2 * FMAX / 2; i += NT) {
+    const int s = i / (FMAX / 2), f = 2 * (i - s * (FMAX / 2));
+    const size_t at = (size_t)s * Fa + f;
+    s_dv[i] = make_float4(f < Fa ? dvr[at] : 0.f, f < Fa ? dvi[at] : 0.f,
+                          f + 1 < Fa ? dvr[at + 1] : 0.f,
+                          f + 1 < Fa ? dvi[at + 1] : 0.f);
+  }
+  __syncthreads();
+  for (int s = 0; s < S2; ++s) {
+    float v = 0.f;
+#pragma unroll
+    for (int f = 0; f < FMAX; f += 2) {
+      const float4 d = s_dv[s * (FMAX / 2) + f / 2];
+      v = fmaf(d.x, pr[f], fmaf(-d.y, pi[f], v));
+      v = fmaf(d.z, pr[f + 1], fmaf(-d.w, pi[f + 1], v));
+    }
+    s_part[(s * BN + n) * BP + tq] = v;
+  }
+  cluster.sync();                            // every rank's partial is ready
+
+  // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
+  // write per output element; rank r finishes rows r, r + C, ...
+  const float* part[MAX_CLUSTER];
+  for (int q = 0; q < n_ranks; ++q)
+    part[q] = cluster.map_shared_rank(s_part, q);
+  const int gn = g * NP + n, gp = p0 + tq;
+  for (int s = rank; s < S2; s += n_ranks) {
+    const int at = (s * BN + n) * BP + tq;
+    float v = 0.f;
+    for (int q = 0; q < n_ranks; ++q) v += part[q][at];
+    if (n < NP && gn < N && gp < P) {
+      v += bias[gn];
+      if (relu) v = fmaxf(v, 0.f);
+      y[((size_t)s * N + gn) * P + gp] = v;
+    }
+  }
+  cluster.sync();                            // keep partials alive for readers
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; returns the cudaError_t of the configuration and
+// the launch (0 on success).  Tables are [GN, Mp, T, R] (idx) and
+// [GN, Mp, T, NP] (sel, vr, vi) with NP <= SCH_BN lanes per group and
+// Mp >= M; Fa is at most 64; xt's rows of P floats lie x_pitch floats
+// apart.  The input channels are split over a cluster of C CTAs, C the
+// smallest count that gives about two CTAs per SM (at most 8, at most
+// M).  The caller checks shapes, devices and layouts.  Sizes whose shared
+// memory exceeds the per-block limit fail cudaFuncSetAttribute.
+int fused_spectral_pipeline_scheduled_f32(
+    const float* xt, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, int S, int M, int P,
+    int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, void* stream) {
+  if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || P < 1 ||
+      x_pitch < P || GN < 1 || T < 1 || R < 1 || NP < 1 || NP > BN ||
+      N < 1 || N > GN * NP || S2 < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Layout(S, S2, T, R, NP).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_os_sched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = ((P + BP - 1) / BP) * GN;
+  int C = (2 * sms + blocks - 1) / blocks;
+  C = C < 1 ? 1 : C > MAX_CLUSTER ? MAX_CLUSTER : C;
+  C = C > M ? M : C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((P + BP - 1) / BP, GN, C);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = C;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_os_sched_kernel, xt, idx, sel, vr, vi,
+                           dfr, dfi, dvr, dvi, bias, y, S, M, P, x_pitch, Mp,
+                           T, R, NP, Fa, N, S2, relu);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

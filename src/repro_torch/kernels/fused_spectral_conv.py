@@ -1,16 +1,23 @@
 """Fused spectral conv: ONE kernel launch per conv layer (counterpart of
 ``repro.kernels.fused_spectral_conv``).
 
-``fused_spectral_pipeline`` runs tile-FFT -> complex Hadamard summed
-over input channels -> valid-row IFFT -> bias + ReLU in one launch of
-the hand-written CUDA kernel ``csrc/fused_spectral_conv.cu``
-(output-stationary flow); the spectra never reach device memory.
-``fused_spectral_pipeline_reference`` is the same function in plain
-PyTorch (FFT GEMM -> Karatsuba ``bmm`` -> IFFT GEMM -> bias/ReLU): the
-wrapper runs it for CPU tensors, and the tests and the on-card smoke
-run hold the kernel to it.
+Two hand-written CUDA kernels, output-stationary flow, spectra never in
+device memory:
 
-Around the kernel, ``execute_layer_plan`` does the windowed input
+- ``fused_spectral_pipeline`` (``csrc/fused_spectral_conv.cu``):
+  tile-FFT -> complex Hadamard against kernel planes summed over input
+  channels -> valid-row IFFT -> bias + ReLU;
+- ``fused_spectral_pipeline_scheduled``
+  (``csrc/fused_spectral_conv_scheduled.cu``): the same pipeline whose
+  Hadamard executes the Alg-2 INDEX/VALUE tables of
+  ``core.scheduler.compile_layer_tables`` (gather, route, complex MAC,
+  scatter per cycle).
+
+Each has its plain PyTorch version beside it
+(``*_reference``): the wrapper runs it for CPU tensors, and the tests
+and the on-card smoke run hold the kernel to it.
+
+Around the kernels, ``execute_layer_plan`` does the windowed input
 path's host-side layout work: overlap-save window extraction into the
 s-leading ``[S, M, B*T]`` layout, and valid-tile assembly of the
 ``[t^2, N, B*T]`` output.
@@ -38,8 +45,17 @@ from repro_torch.kernels import _build
 BLOCK_N, BLOCK_P, BLOCK_M, BIN_CHUNK, THREADS = 64, 16, 8, 8, 512
 MAX_CLUSTER = 8       # portable thread-block cluster size
 
+# Scheduled kernel: PE lanes per kernel group (the tables' N'; the plan
+# compiles them for this group size) and threads per CTA, compiled in as
+# -DSCH_*; tiles per CTA and the most active bins, fixed in the source.
+# It steps one input channel at a time, so the tables need no channel
+# padding (block_m 1).
+SCHED_BLOCK_N, SCHED_THREADS = 64, 256
+SCHED_BLOCK_P, SCHED_BLOCK_M, SCHED_MAX_BINS = 4, 1, 64
+
 # Kernel launches per wrapper, counted where the kernel is launched.
-LAUNCHES = {"fused_spectral_pipeline": 0}
+LAUNCHES = {"fused_spectral_pipeline": 0,
+            "fused_spectral_pipeline_scheduled": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -109,26 +125,44 @@ def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
     return torch.relu(y) if relu else y
 
 
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Build (at first use; one nvcc per source, started together) and
+    load both kernel libraries, keyed by source name."""
+    libs = _build.build({
+        "fused_spectral_conv": {
+            "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
+            "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS},
+        "fused_spectral_conv_scheduled": {
+            "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}})
+    # pointers, then ints, then the stream
+    for lib, fn, n_ptr, n_int in (
+            (libs["fused_spectral_conv"], "fused_spectral_pipeline_f32",
+             9, 8),
+            (libs["fused_spectral_conv_scheduled"],
+             "fused_spectral_pipeline_scheduled_f32", 11, 13)):
+        f = getattr(lib, fn)
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return libs
+
+
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    lib = _build.build({"fused_spectral_conv": {
-        "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
-        "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS}})["fused_spectral_conv"]
-    fn = lib.fused_spectral_pipeline_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    """The plane kernel's library (built at first use)."""
+    return build_all()["fused_spectral_conv"]
 
 
-def _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias) -> None:
-    ops = dict(xt=xt, wr=wr, wi=wi, dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi,
-               bias=bias)
+def _check_layouts(ops: dict[str, torch.Tensor],
+                   int_names: tuple[str, ...] = ()) -> None:
+    """Every operand on xt's device, float32 (int32 for ``int_names``)
+    and contiguous; xt rows of P contiguous floats at one pitch."""
+    xt = ops["xt"]
     for name, t in ops.items():
         if t.device != xt.device:
             raise ValueError(f"{name} is on {t.device}, xt on {xt.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = torch.int32 if name in int_names else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if name != "xt" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     s, m, p = xt.shape
@@ -137,6 +171,13 @@ def _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias) -> None:
         raise ValueError(f"xt must be rows of P contiguous floats at one "
                          f"pitch, got strides {xt.stride()} for shape "
                          f"{tuple(xt.shape)}")
+
+
+def _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias) -> None:
+    ops = dict(xt=xt, wr=wr, wi=wi, dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi,
+               bias=bias)
+    _check_layouts(ops)
+    s, m, p = xt.shape
     fa, n, m_w = wr.shape
     s2 = dvr.shape[0]
     want = dict(wr=(fa, n, m), wi=(fa, n, m), dfr=(fa, s), dfi=(fa, s),
@@ -198,6 +239,143 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
 
 
 # ---------------------------------------------------------------------------
+# The scheduled kernel (Alg-2 tables) and its plain version
+# ---------------------------------------------------------------------------
+
+def fused_spectral_pipeline_scheduled_reference(
+        xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *, n_out: int,
+        relu: bool) -> torch.Tensor:
+    """Plain PyTorch version of the scheduled kernel (same contract as
+    ``fused_spectral_pipeline_scheduled``).  It executes the tables: per
+    cycle t, vectorised over (group, channel, lane, tile), gather
+    ``X~[idx[t][sel[t][n]]]``, complex-MAC with ``vr + i vi`` and
+    ``index_add_`` into the ``[GN*N', Fa, P]`` psum (summing channels);
+    then the valid-row IFFT, bias and ReLU."""
+    if xt.is_cuda:
+        repro_torch.strict_fp32()
+    s, m, p = xt.shape
+    gn, _, n_cycles, _ = idx.shape
+    n_pe = sel.shape[3]
+    fa = dfr.shape[0]
+    s2 = dvr.shape[0]
+    x2 = xt.reshape(s, m * p)
+    xfr = (dfr @ x2).reshape(fa * m, p)                 # row f*M + m
+    xfi = (dfi @ x2).reshape(fa * m, p)
+    # the bin each lane accumulates into: out_index == idx[t, sel[t, n]]
+    bins = torch.gather(idx[:, :m].long(), 3, sel[:, :m].long())
+    chan = torch.arange(m, device=xt.device).view(1, m, 1)
+    lanes = torch.arange(gn * n_pe, device=xt.device).view(gn, 1, n_pe)
+    acc_r = xt.new_zeros((gn * n_pe * fa, p))
+    acc_i = xt.new_zeros((gn * n_pe * fa, p))
+    for t in range(n_cycles):
+        b = bins[:, :, t]                               # [GN, M, N']
+        src = (b * m + chan).reshape(-1)
+        dst = (lanes * fa + b).reshape(-1)
+        x_r, x_i = xfr[src], xfi[src]
+        w_r = vr[:, :m, t].reshape(-1, 1)
+        w_i = vi[:, :m, t].reshape(-1, 1)
+        acc_r.index_add_(0, dst, w_r * x_r - w_i * x_i)
+        acc_i.index_add_(0, dst, w_r * x_i + w_i * x_r)
+    re = acc_r.reshape(gn * n_pe, fa, p).permute(1, 0, 2).reshape(fa, -1)
+    im = acc_i.reshape(gn * n_pe, fa, p).permute(1, 0, 2).reshape(fa, -1)
+    y = (dvr @ re - dvi @ im).reshape(s2, gn * n_pe, p)[:, :n_out]
+    y = y + bias[0][None, :, None]
+    return torch.relu(y) if relu else y
+
+
+def library_scheduled() -> ctypes.CDLL:
+    """The scheduled kernel's library (built at first use)."""
+    return build_all()["fused_spectral_conv_scheduled"]
+
+
+def _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                              bias, n_out: int) -> None:
+    ops = dict(xt=xt, idx=idx, sel=sel, vr=vr, vi=vi, dfr=dfr, dfi=dfi,
+               dvr=dvr, dvi=dvi, bias=bias)
+    _check_layouts(ops, int_names=("idx", "sel"))
+    s, m, p = xt.shape
+    if idx.dim() != 4:
+        raise ValueError(f"idx must be [GN, Mp, T, r], got "
+                         f"{tuple(idx.shape)}")
+    gn, mp, n_cycles, _ = idx.shape
+    n_pe = sel.shape[-1]
+    fa = dfr.shape[0]
+    s2 = dvr.shape[0]
+    want = dict(sel=(gn, mp, n_cycles, n_pe), vr=(gn, mp, n_cycles, n_pe),
+                vi=(gn, mp, n_cycles, n_pe), dfr=(fa, s), dfi=(fa, s),
+                dvr=(s2, fa), dvi=(s2, fa), bias=(1, n_out))
+    for name, shape in want.items():
+        if tuple(ops[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(ops[name].shape)}, "
+                             f"expected {shape}")
+    if mp < m:
+        raise ValueError(f"tables cover {mp} channels, windows {m}")
+    if n_pe > SCHED_BLOCK_N:
+        raise ValueError(f"{n_pe} PE lanes per group; the kernel takes at "
+                         f"most {SCHED_BLOCK_N}")
+    if not (gn - 1) * n_pe < n_out <= gn * n_pe:
+        raise ValueError(f"n_out {n_out} does not fill {gn} groups of "
+                         f"{n_pe} lanes")
+    if fa > SCHED_MAX_BINS:
+        raise ValueError(f"active bins {fa} must be at most "
+                         f"{SCHED_MAX_BINS}")
+    if min(s, m, p, fa, s2, idx.shape[3], n_cycles) < 1:
+        raise ValueError(f"empty operand: xt {tuple(xt.shape)}, "
+                         f"idx {tuple(idx.shape)}, dvr {tuple(dvr.shape)}")
+
+
+def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
+                                      dvi, bias, *, n_out: int,
+                                      relu: bool) -> torch.Tensor:
+    """FFT -> SCHEDULED sparse Hadamard -> IFFT (+ bias/ReLU) in one
+    kernel launch.
+
+    xt:  [S, M, P] f32          overlap-save windows (as for
+                                ``fused_spectral_pipeline``)
+    idx: [GN, Mp, T, r] int32   replica read addresses, in the active-bin
+                                coordinates of the operators (Mp >= M)
+    sel: [GN, Mp, T, N'] int32  replica column feeding PE lane n
+    vr/vi: [GN, Mp, T, N'] f32  lane weights (zero = idle lane)
+    dfr/dfi: [Fa, S], dvr/dvi: [S2, Fa], bias: [1, n_out]
+    returns [S2, n_out, P] f32 finished outputs; output channel
+    g*N' + n is lane n of group g.
+
+    The tables must be an exact cover (``scheduler.compile_layer_tables``
+    builds them so): each (lane, bin) at most once per (group, channel).
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (or raise).
+    """
+    if xt.device.type == "cpu":
+        return fused_spectral_pipeline_scheduled_reference(
+            xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, n_out=n_out,
+            relu=relu)
+    if xt.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xt.device}")
+    _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                              bias, n_out)
+    s, m, p = xt.shape
+    gn, mp, n_cycles, r = idx.shape
+    n_pe = sel.shape[3]
+    fa = dfr.shape[0]
+    s2 = dvr.shape[0]
+    lib = library_scheduled()
+    with torch.cuda.device(xt.device):
+        y = torch.empty((s2, n_out, p), dtype=torch.float32,
+                        device=xt.device)
+        err = lib.fused_spectral_pipeline_scheduled_f32(
+            xt.data_ptr(), idx.data_ptr(), sel.data_ptr(), vr.data_ptr(),
+            vi.data_ptr(), dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
+            dvi.data_ptr(), bias.data_ptr(), y.data_ptr(), s, m, p,
+            xt.stride(1), gn, mp, n_cycles, r, n_pe, fa, n_out, s2,
+            int(relu), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_spectral_pipeline_scheduled launch "
+                           f"failed: cudaError {err}")
+    LAUNCHES["fused_spectral_pipeline_scheduled"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
 # Layer execution around the kernel (windowed input path)
 # ---------------------------------------------------------------------------
 
@@ -239,18 +417,37 @@ def _fused_conv(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     return _assemble_output(y, geo, b, n, t_cnt, x.dtype)
 
 
+def _fused_conv_scheduled(x: torch.Tensor, tables, dfr, dfi, dvr, dvi,
+                          bias, *, geo: SpectralGeometry, n_out: int,
+                          relu: bool) -> torch.Tensor:
+    """Window layout -> scheduled fused kernel -> valid-tile assembly."""
+    b = x.shape[0]
+    xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
+    y = fused_spectral_pipeline_scheduled(
+        xt, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
+        dvi, bias, n_out=n_out, relu=relu)              # [t^2, N, B*T]
+    return _assemble_output(y, geo, b, n_out, t_cnt, x.dtype)
+
+
 def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
     """Run one conv layer from a precompiled ``core.plan.LayerPlan``:
     x [B, M, H, W] -> [B, N, H_out, W_out] (bias and ReLU applied as the
-    plan's epilogue says; stride and pooling stay with the caller)."""
-    if lp.input_mode != "windowed" or lp.hadamard not in ("dense", "bin"):
+    plan's epilogue says; stride and pooling stay with the caller).
+    Dispatches on the plan's Hadamard mode: 'dense'/'bin' run the plane
+    kernel, 'scheduled' the table kernel on the precompiled tables;
+    nothing is scheduled or compacted here."""
+    if lp.input_mode != "windowed":
         raise NotImplementedError(
-            f"layer {lp.layer.name}: input_mode={lp.input_mode!r}, "
-            f"hadamard={lp.hadamard!r} are not ported yet (ROADMAP B3/B4)")
+            f"layer {lp.layer.name}: input_mode={lp.input_mode!r} is not "
+            f"ported yet (ROADMAP B3/B5)")
     if lp.tuning.flow != "output_stationary":
         raise NotImplementedError(
             f"layer {lp.layer.name}: flow {lp.tuning.flow!r} is not "
             f"ported yet (ROADMAP B2)")
     bias = lp.bias if lp.epilogue.bias else torch.zeros_like(lp.bias)
+    if lp.hadamard == "scheduled":
+        return _fused_conv_scheduled(
+            x, lp.tables, lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias, geo=lp.geo,
+            n_out=lp.layer.c_out, relu=lp.epilogue.relu)
     return _fused_conv(x, lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
                        bias, geo=lp.geo, relu=lp.epilogue.relu)

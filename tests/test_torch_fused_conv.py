@@ -175,10 +175,10 @@ def test_execute_layer_plan_smoke_layers(plans, index):
     assert_rel(port, ref)
 
 
-@pytest.mark.parametrize("kwargs", [dict(hadamard="scheduled"),
-                                    dict(hadamard="auto"),
+@pytest.mark.parametrize("kwargs", [dict(hadamard="auto"),
                                     dict(input_mode="halo"),
-                                    dict(schedule=True)])
+                                    dict(hadamard="scheduled",
+                                         input_mode="halo")])
 def test_unported_plan_modes_raise(kwargs):
     params = {"convs": [{"w": torch.zeros(8, 3, 3, 3),
                          "b": torch.zeros(8)}] * len(SMOKE.layers)}

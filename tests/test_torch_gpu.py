@@ -1,12 +1,12 @@
-"""Card-only checks of the repro_torch CUDA kernel (marker ``gpu``).
+"""Card-only checks of the repro_torch CUDA kernels (marker ``gpu``).
 
-The kernel has no CPU mode, so these skip where there is no CUDA
+The kernels have no CPU mode, so these skip where there is no CUDA
 device.  This file imports neither JAX nor the reference package, so it
 also runs on a GPU machine without JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The kernel is held to its plain PyTorch version at max|Δ| <= 1e-4 *
+Each kernel is held to its plain PyTorch version at max|Δ| <= 1e-4 *
 max|plain| (fp32 FMA vs cuBLAS fp32 with TF32 off; sums run in another
 order).
 """
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.vgg16_spectral import SMOKE
 from repro_torch.core import plan as pl
+from repro_torch.core import scheduler as sch
 from repro_torch.kernels import fused_spectral_conv as fsc
 from repro_torch.models import cnn
 
@@ -90,6 +91,100 @@ def test_smoke_forward_on_card_goes_through_kernel():
     before = fsc.LAUNCHES["fused_spectral_pipeline"]
     out = cnn.forward_spectral(params, plan, x, backend="fused")
     assert fsc.LAUNCHES["fused_spectral_pipeline"] == before + 13
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err
+
+
+def scheduled_operands(s, m, p, n, fa, s2, *, n_par=64, r=10, alpha=4.0,
+                       pad_cycles=0, seed=0):
+    """Windows, tables of random kernels supported on ``fa`` active bins
+    (compiled by the port's scheduler, ``pad_cycles`` zero cycles
+    appended), operators and bias, as CUDA tensors in argument order."""
+    rng = np.random.default_rng(seed)
+    active = np.sort(rng.choice(s, fa, replace=False))
+    nnz = max(1, int(round(fa / alpha)))
+    ind = np.sort(np.stack([[rng.choice(active, nnz, replace=False)
+                             for _ in range(m)] for _ in range(n)]),
+                  axis=-1).astype(np.int32)
+    vals = np.zeros((n, m, s), np.complex64)
+    np.put_along_axis(vals, ind.astype(np.int64),
+                      (rng.standard_normal((n, m, nnz)) + 1j
+                       * rng.standard_normal((n, m, nnz))).astype(
+                          np.complex64), axis=-1)
+    lt = sch.compile_layer_tables(ind, vals, s, r, min(n_par, n),
+                                  active=active if fa < s else None)
+    pad = lambda a: np.pad(a, ((0, 0), (0, 0), (0, pad_cycles), (0, 0)))
+    f32 = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    ops = [f32(s, m, p), pad(lt.idx), pad(lt.sel), pad(lt.vr), pad(lt.vi),
+           f32(fa, s), f32(fa, s), f32(s2, fa), f32(s2, fa), f32(1, n)]
+    return [torch.from_numpy(a).cuda() for a in ops]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pitched", [False, True])
+@pytest.mark.parametrize("s,m,p,n,fa,s2,pad_cycles", [
+    (64, 5, 37, 70, 64, 36, 0),     # ragged group (64 + 6 lanes), ragged P
+    (64, 7, 20, 24, 64, 36, 3),     # one group of 24 lanes, padded cycles
+    (64, 6, 21, 16, 60, 36, 0),     # Fa = 60
+    (64, 5, 19, 9, 12, 36, 1),      # Fa = 12
+    (64, 4, 10, 3, 5, 36, 0),       # Fa = 5
+    (64, 3, 72, 8, 64, 16, 0),      # k = 5 (t = 4)
+    (64, 64, 100, 128, 64, 36, 0),  # VGG16 conv3-like: 2 groups, P = 100
+    (64, 8, 1444, 64, 64, 36, 0),   # conv1-like P: cluster of 1
+])
+def test_scheduled_kernel_matches_plain_on_card(s, m, p, n, fa, s2,
+                                                pad_cycles, pitched):
+    """Against the plain version; bitwise repeatable (no atomics, fixed
+    reduction order); every launch counted.  The input channels split
+    over clusters of 1 to 8 CTAs across these shapes."""
+    need_card()
+    ops = scheduled_operands(s, m, p, n, fa, s2, pad_cycles=pad_cycles,
+                             seed=m + p)
+    if pitched:
+        buf = torch.full((s, m, -(-p // 4) * 4), float("nan"), device="cuda")
+        buf[:, :, :p] = ops[0]
+        ops[0] = buf[:, :, :p]
+    before = fsc.LAUNCHES["fused_spectral_pipeline_scheduled"]
+    for relu in (False, True):
+        y = fsc.fused_spectral_pipeline_scheduled(*ops, n_out=n, relu=relu)
+        torch.cuda.synchronize()
+        ref = fsc.fused_spectral_pipeline_scheduled_reference(
+            *ops, n_out=n, relu=relu)
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, err
+        again = fsc.fused_spectral_pipeline_scheduled(*ops, n_out=n,
+                                                      relu=relu)
+        assert torch.equal(y, again)
+    assert fsc.LAUNCHES["fused_spectral_pipeline_scheduled"] == before + 4
+
+
+@pytest.mark.gpu
+def test_scheduled_shared_memory_over_the_limit_raises():
+    """Tables of 400 cycles need more shared memory per CTA than a Hopper
+    SM has: the launch reports it and is not counted."""
+    need_card()
+    ops = scheduled_operands(64, 2, 9, 8, 64, 36, pad_cycles=400)
+    before = fsc.LAUNCHES["fused_spectral_pipeline_scheduled"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fsc.fused_spectral_pipeline_scheduled(*ops, n_out=8, relu=True)
+    assert fsc.LAUNCHES["fused_spectral_pipeline_scheduled"] == before
+
+
+@pytest.mark.gpu
+def test_smoke_scheduled_forward_on_card_goes_through_kernel():
+    need_card()
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, SMOKE, batch=2,
+                                 hadamard="scheduled")
+    assert all(lp.hadamard == "scheduled" for lp in plan.layers)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = dict(fsc.LAUNCHES)
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    assert fsc.LAUNCHES["fused_spectral_pipeline_scheduled"] == \
+        before["fused_spectral_pipeline_scheduled"] + 13
+    assert fsc.LAUNCHES["fused_spectral_pipeline"] == \
+        before["fused_spectral_pipeline"]
     ref = cnn.forward_spectral(params, plan, x, backend="einsum")
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= TOL, err
