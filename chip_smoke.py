@@ -35,6 +35,17 @@ each of which fails the run on error:
   (d2) the same five forwards on the scheduled plan: 13 scheduled-kernel
       launches per forward and none of the plane kernel, logits vs
       einsum, p50 latency and peak memory;
+  (c3) the halo plane kernel (B3, raw NCHW activation in, no host window
+      tensor) vs its plain version at every layer shape and batch as in
+      (c), on the plane plan moved to ``input_mode="halo"``; per layer
+      also the windowed kernel's time on the same input, max|halo -
+      windowed| after assembly, and the share of idle tile slots;
+  (d3) the main path on that halo plan: 13 launches of the halo kernel
+      per forward and none of the others, logits vs einsum, p50 latency
+      and p50 minus the kernel sum beside (d)'s, peak memory;
+  (c4), (d4) the same for the halo scheduled kernel (B5) on the
+      scheduled plan moved to ``input_mode="halo"`` (the tables do not
+      depend on the input path, so nothing is recompiled);
   (e) one status line per kernel, then one JSON line with every
       kernel's numbers, then the device JSON as the last line.
 
@@ -118,26 +129,46 @@ def sched_layer_bound(s, m, p, fa, n, s2, entries, table_bytes
     return flops, nbytes
 
 
+def halo_layer_bound(lp, b, ops_bytes, flops) -> tuple[float, float]:
+    """(flops, bytes) of one halo-kernel layer: the windowed kernel's
+    operations on the real tiles (``flops``), and bytes = the raw
+    activation read once + the kernel's other operands (``ops_bytes``:
+    planes or tables, operators, bias) + the [B, N, H_out, W_out]
+    output written once."""
+    layer = lp.layer
+    x_bytes = 4 * b * layer.c_in * layer.h_in * layer.w_in
+    out_bytes = 4 * b * layer.c_out * layer.out_hw[0] * layer.out_hw[1]
+    return flops, x_bytes + ops_bytes + out_bytes
+
+
+def idle_share(lp, slots: int) -> float:
+    """Share of a halo kernel's tile slots that hold no tile: slots per
+    CTA times halo blocks, against the layer's tiles."""
+    from repro_torch.core import spectral as spec
+    hg = spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
+    return 1.0 - lp.geo.n_tiles / (hg.n_blocks * slots)
+
+
 def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
-                 extra=None):
+                 extra=None, twin=None):
     """Hold ``kernel`` to ``plain`` at every layer of ``plan``, at every
-    batch size of BATCHES (the plan's operands, windows of a random
-    activation in the main path's layout); time both at batch 1.
-    ``make_ops(lp, xt)`` gives the arguments that ``kernel(lp, ops)``
-    and ``plain(lp, ops)`` take, ``bound(lp, p)`` the call's (flops,
-    bytes), ``extra(lp, x_img, flush)`` one more timed context number.
-    Returns the rows and their totals."""
+    batch size of BATCHES (the plan's operands, a random activation);
+    time both at batch 1.  ``make_ops(lp, x_img)`` gives the arguments
+    that ``kernel(lp, ops)`` and ``plain(lp, ops)`` take (windows in the
+    main path's layout, or the raw activation), ``bound(lp, b)`` the
+    batch-b call's (flops, bytes), ``extra(lp, x_img, flush)`` more
+    batch-1 columns {name: value}, ``twin(lp, x_img)`` the windowed
+    twin kernel's assembled [B, N, H, W] output on the same input, held
+    as max|y - twin|.  Returns the rows and their totals."""
     import torch
-    from repro_torch.kernels import fused_spectral_conv as fsc
     rows = []
     for lp in plan.layers:
         layer = lp.layer
-        checked = {}
+        checked, twin_diff = {}, 0.0
         for b in sorted(set(BATCHES), reverse=True):   # batch 1 last
             x_img = torch.randn((b, layer.c_in, layer.h_in, layer.w_in),
                                 generator=xgen, device=flush.device)
-            xt, t_cnt = fsc._windows_layout(x_img, lp.geo)
-            ops = make_ops(lp, xt)
+            ops = make_ops(lp, x_img)
             y = kernel(lp, ops)
             torch.cuda.synchronize()
             ref = plain(lp, ops)
@@ -145,40 +176,55 @@ def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
             if not torch.isfinite(y).all() or err > KERNEL_TOL:
                 fail(f"{label} {layer.name} batch {b}: kernel vs plain rel "
                      f"err {err:.3e} > {KERNEL_TOL:g}")
-            checked[b] = (b * t_cnt, err, abs_err)
+            if twin is not None:
+                twin_diff = max(twin_diff,
+                                float((y - twin(lp, x_img)).abs().max()))
+            checked[b] = (b * lp.geo.n_tiles, err, abs_err)
         p, err, abs1 = checked[1]
         k_ms = timed_ms(lambda: kernel(lp, ops), flush.zero_)
         p_ms = timed_ms(lambda: plain(lp, ops), flush.zero_)
-        flops, nbytes = bound(lp, p)
+        flops, nbytes = bound(lp, 1)
         b_ms, by = bound_of(flops, nbytes)
         row = dict(layer=layer.name, m=layer.c_in, n=layer.c_out, p=p,
                    fa=lp.n_active_bins, err=err, abs_err=max(
                        c[2] for c in checked.values()), ms=k_ms,
                    plain_ms=p_ms, bound_ms=b_ms, by=by, flops=flops,
                    bytes=nbytes, batch4=checked[max(checked)])
+        if twin is not None:
+            row["twin_abs"] = twin_diff
         if extra is not None:
-            row["extra_ms"] = extra(lp, x_img, flush.zero_)
+            row.update(extra(lp, x_img, flush.zero_))
         rows.append(row)
         p4, err4, abs4 = row["batch4"]
-        extra_s = f"{row['extra_ms']:10.4f}" if extra else " " * 10
+        cols = "".join(f" {k}={v:.4g}" for k, v in row.items()
+                       if k == "twin_abs" or k.startswith("x_"))
         print(f"    {layer.name:8s} {row['m']:4d} {row['n']:4d} {p:5d} "
               f"{row['fa']:3d} {err:9.2e} {abs1:8.2e} {k_ms:10.4f} "
-              f"{p_ms:10.4f} {b_ms:10.4f}  {by:10s} {extra_s}   "
-              f"({p4}, {err4:.2e}, {abs4:.2e})")
+              f"{p_ms:10.4f} {b_ms:10.4f}  {by:10s}   ({p4}, {err4:.2e}, "
+              f"{abs4:.2e}){cols}")
     tot = {k: sum(r[k] for r in rows)
            for k in ("ms", "plain_ms", "bound_ms", "flops", "bytes")}
     tot["by"] = bound_of(tot["flops"], tot["bytes"])[1]
     tot["abs_err"] = max(r["abs_err"] for r in rows)
+    for k in rows[0]:
+        if k.startswith("x_") and k.endswith("_ms"):
+            tot[k] = sum(r[k] for r in rows)
+    if twin is not None:
+        tot["twin_abs"] = max(r["twin_abs"] for r in rows)
     print(f"    total (one batch-1 forward): kernel {tot['ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-          f"({tot['flops'] / 1e9:.2f} GFLOP, {tot['bytes'] / 1e9:.3f} GB)")
+          f"({tot['flops'] / 1e9:.2f} GFLOP, {tot['bytes'] / 1e9:.3f} GB)"
+          + "".join(f", {k} {v:.4f}" for k, v in tot.items()
+                    if k.startswith("x_") or k == "twin_abs"))
     return rows, tot
 
 
-def serve(params, plan, cfg, images, label, kernel_name, other_name):
+def serve(params, plan, cfg, images, label, kernel_name, kernel_sum_ms):
     """Drive the main path once: every image batch through
     ``forward_spectral(backend="fused")`` with the launch counts set to 0
-    just before and read just after; hold the logits to einsum."""
+    just before and read just after (13 launches of ``kernel_name`` per
+    forward, none of any other kernel); hold the logits to einsum.
+    Returns the launches and the batch-1 p50 minus ``kernel_sum_ms``."""
     import torch
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
@@ -196,9 +242,9 @@ def serve(params, plan, cfg, images, label, kernel_name, other_name):
         logits.append(out)
     launches = dict(fsc.LAUNCHES)
     want = len(plan.layers) * len(images)
-    if launches[kernel_name] != want or launches[other_name] != 0:
+    if launches != {k: want if k == kernel_name else 0 for k in launches}:
         fail(f"{label} launched {launches}, expected {want} launches of "
-             f"{kernel_name} and none of {other_name}")
+             f"{kernel_name} and none of the other kernels")
     peak = torch.cuda.max_memory_allocated()
     for x, out in zip(images, logits):
         b = x.shape[0]
@@ -217,9 +263,12 @@ def serve(params, plan, cfg, images, label, kernel_name, other_name):
     for b, ts in sorted(latency.items()):
         print(f"    p50 latency batch {b}: {statistics.median(ts):.2f} ms "
               f"over {len(ts)} forwards {[round(t, 2) for t in ts]}")
+    host_ms = statistics.median(latency[1]) - kernel_sum_ms
+    print(f"    batch-1 p50 minus the kernel sum {kernel_sum_ms:.4f} ms: "
+          f"{host_ms:.2f} ms")
     print(f"    launches {launches}; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB")
-    return launches[kernel_name]
+    return launches[kernel_name], host_ms
 
 
 def main() -> int:
@@ -233,7 +282,8 @@ def main() -> int:
 
     import repro_torch
     from repro_torch.configs.vgg16_spectral import CONFIG
-    from repro_torch.core.plan import build_network_plan
+    from repro_torch.core import spectral as spec
+    from repro_torch.core.plan import build_network_plan, with_input_mode
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
@@ -275,37 +325,95 @@ def main() -> int:
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     xgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     header = ("layer      M    N     P  Fa   rel_err  max_abs   kernel_ms"
-              "   plain_ms   bound_ms  bound_by   {:>9s}   (batch-4 P, "
-              "rel_err, max_abs)")
+              "   plain_ms   bound_ms  bound_by     (batch-4 P, rel_err, "
+              "max_abs) [more]")
+
+    def windows(lp, x_img):
+        return fsc._windows_layout(x_img, lp.geo)[0]
+
+    def halo_blocks(lp):
+        return spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
+
+    def plane_bound(lp, b):
+        return layer_bound(lp.dfr.shape[1], lp.layer.c_in,
+                           b * lp.geo.n_tiles, lp.n_active_bins,
+                           lp.layer.c_out, lp.dvr.shape[0])
+
+    def plane_ops_bytes(lp):
+        return 4 * (lp.wr.numel() + lp.wi.numel() + lp.dfr.numel()
+                    + lp.dfi.numel() + lp.dvr.numel() + lp.dvi.numel()
+                    + lp.bias.numel())
+
+    def assembled(kernel_fn, lp, x_img, ops):
+        """A windowed kernel's output on x_img, assembled to NCHW."""
+        xt, t_cnt = fsc._windows_layout(x_img, lp.geo)
+        return fsc._assemble_output(kernel_fn(xt, *ops), lp.geo,
+                                    x_img.shape[0], lp.layer.c_out, t_cnt,
+                                    x_img.dtype)
 
     # (c) plane kernel vs plain at every layer shape ----------------------
     def conv2d_ms(lp, x_img, flush_fn):
         w_sp = torch.randn((lp.layer.c_out, lp.layer.c_in, 3, 3),
                            generator=xgen, device=dev)
-        return timed_ms(lambda: F.conv2d(x_img, w_sp, padding=1), flush_fn)
+        return {"x_conv2d_ms": timed_ms(
+            lambda: F.conv2d(x_img, w_sp, padding=1), flush_fn)}
 
-    print("(c) " + header.format("conv2d_ms"))
+    print("(c) " + header)
     rows, tot = check_layers(
         plan, "(c)",
         lambda lp, ops: fsc.fused_spectral_pipeline(*ops, relu=True),
         lambda lp, ops: fsc.fused_spectral_pipeline_reference(*ops,
                                                                relu=True),
-        lambda lp, xt: (xt, lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
-                        lp.bias),
-        lambda lp, p: layer_bound(lp.dfr.shape[1], lp.layer.c_in, p,
-                                  lp.n_active_bins, lp.layer.c_out,
-                                  lp.dvr.shape[0]),
-        xgen, flush, extra=conv2d_ms)
-    print(f"    dense conv2d total {sum(r['extra_ms'] for r in rows):.4f} ms")
+        lambda lp, x_img: (windows(lp, x_img), lp.wr, lp.wi, lp.dfr, lp.dfi,
+                           lp.dvr, lp.dvi, lp.bias),
+        plane_bound, xgen, flush, extra=conv2d_ms)
+    print(f"    dense conv2d total {tot['x_conv2d_ms']:.4f} ms")
 
     # (d) the main path, plane plan ---------------------------------------
     images = [torch.randn((b, 3, CONFIG.image_size, CONFIG.image_size),
                           generator=xgen, device=dev)
               for b in BATCHES]
-    plane_launches = serve(params, plan, CONFIG, images, "(d)",
-                           "fused_spectral_pipeline",
-                           "fused_spectral_pipeline_scheduled")
-    del plan
+    plane_launches, plane_host = serve(params, plan, CONFIG, images, "(d)",
+                                       "fused_spectral_pipeline", tot["ms"])
+
+    # (c3) halo plane kernel vs plain at every layer shape ----------------
+    hplan = with_input_mode(plan, "halo")
+    print("(c3) halo plane plan: blocks "
+          f"{[(h.bth, h.btw) for h in map(halo_blocks, hplan.layers)]}")
+    print("     " + header)
+
+    def plane_windowed(lp, x_img):
+        return assembled(
+            lambda xt, *o: fsc.fused_spectral_pipeline(xt, *o, relu=True),
+            lp, x_img, (lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
+                        lp.bias))
+
+    def plane_halo_extra(lp, x_img, flush_fn):
+        xt = windows(lp, x_img)
+        ops = (lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
+        return {"x_windowed_ms": timed_ms(
+            lambda: fsc.fused_spectral_pipeline(xt, *ops, relu=True),
+            flush_fn), "x_idle": idle_share(lp, fsc.BLOCK_P)}
+
+    hrows, htot = check_layers(
+        hplan, "(c3)",
+        lambda lp, ops: fsc.fused_spectral_pipeline_halo(
+            *ops, geo=lp.geo, hg=halo_blocks(lp), relu=True),
+        lambda lp, ops: fsc.fused_spectral_pipeline_halo_reference(
+            *ops, geo=lp.geo, hg=halo_blocks(lp), relu=True),
+        lambda lp, x_img: (x_img, lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr,
+                           lp.dvi, lp.bias),
+        lambda lp, b: halo_layer_bound(lp, b, plane_ops_bytes(lp),
+                                       plane_bound(lp, b)[0]),
+        xgen, flush, extra=plane_halo_extra, twin=plane_windowed)
+
+    # (d3) the main path, halo plane plan ---------------------------------
+    halo_launches, halo_host = serve(params, hplan, CONFIG, images, "(d3)",
+                                     "fused_spectral_pipeline_halo",
+                                     htot["ms"])
+    print(f"    p50 minus kernel sum, batch 1: (d3) halo {halo_host:.2f} ms,"
+          f" (d) windowed {plane_host:.2f} ms")
+    del plan, hplan
 
     # (c2) scheduled plan and kernel vs plain at every layer shape --------
     t0 = time.perf_counter()
@@ -328,57 +436,104 @@ def main() -> int:
           f"{sum(lp.tables.nbytes for lp in splan.layers) / 1e9:.3f} GB, "
           f"planes {sum(2 * lp.wr.nbytes for lp in splan.layers) / 1e9:.3f}"
           f" GB")
-    print("     " + header.format(""))
+    def sched_bound(lp, b):
+        return sched_layer_bound(
+            lp.dfr.shape[1], lp.layer.c_in, b * lp.geo.n_tiles,
+            lp.n_active_bins, lp.layer.c_out, lp.dvr.shape[0],
+            entries[lp.layer.name], lp.tables.nbytes)
+
+    print("     " + header)
     srows, stot = check_layers(
         splan, "(c2)",
         lambda lp, ops: fsc.fused_spectral_pipeline_scheduled(
             *ops, n_out=lp.layer.c_out, relu=True),
         lambda lp, ops: fsc.fused_spectral_pipeline_scheduled_reference(
             *ops, n_out=lp.layer.c_out, relu=True),
-        lambda lp, xt: (xt, *lp.tables, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
-                        lp.bias),
-        lambda lp, p: sched_layer_bound(
-            lp.dfr.shape[1], lp.layer.c_in, p, lp.n_active_bins,
-            lp.layer.c_out, lp.dvr.shape[0], entries[lp.layer.name],
-            lp.tables.nbytes),
-        xgen, flush)
-    del flush
+        lambda lp, x_img: (windows(lp, x_img), *lp.tables, lp.dfr, lp.dfi,
+                           lp.dvr, lp.dvi, lp.bias),
+        sched_bound, xgen, flush)
 
     # (d2) the main path, scheduled plan ----------------------------------
-    sched_launches = serve(params, splan, CONFIG, images, "(d2)",
-                           "fused_spectral_pipeline_scheduled",
-                           "fused_spectral_pipeline")
+    sched_launches, sched_host = serve(
+        params, splan, CONFIG, images, "(d2)",
+        "fused_spectral_pipeline_scheduled", stot["ms"])
+
+    # (c4) halo scheduled kernel vs plain at every layer shape ------------
+    shplan = with_input_mode(splan, "halo")
+    print("(c4) halo scheduled plan (the (c2) plan's tables): blocks "
+          f"{[(h.bth, h.btw) for h in map(halo_blocks, shplan.layers)]}")
+    print("     " + header)
+
+    def sched_windowed(lp, x_img):
+        return assembled(
+            lambda xt, *o: fsc.fused_spectral_pipeline_scheduled(
+                xt, *o, n_out=lp.layer.c_out, relu=True),
+            lp, x_img, (*lp.tables, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
+                        lp.bias))
+
+    def sched_halo_extra(lp, x_img, flush_fn):
+        xt = windows(lp, x_img)
+        ops = (*lp.tables, lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
+        return {"x_windowed_ms": timed_ms(
+            lambda: fsc.fused_spectral_pipeline_scheduled(
+                xt, *ops, n_out=lp.layer.c_out, relu=True), flush_fn),
+            "x_idle": idle_share(lp, fsc.SCHED_BLOCK_P)}
+
+    def sched_ops_bytes(lp):
+        return lp.tables.nbytes + 4 * (
+            lp.dfr.numel() + lp.dfi.numel() + lp.dvr.numel()
+            + lp.dvi.numel() + lp.bias.numel())
+
+    shrows, shtot = check_layers(
+        shplan, "(c4)",
+        lambda lp, ops: fsc.fused_spectral_pipeline_scheduled_halo(
+            *ops, geo=lp.geo, hg=halo_blocks(lp), n_out=lp.layer.c_out,
+            relu=True),
+        lambda lp, ops: fsc.fused_spectral_pipeline_scheduled_halo_reference(
+            *ops, geo=lp.geo, hg=halo_blocks(lp), n_out=lp.layer.c_out,
+            relu=True),
+        lambda lp, x_img: (x_img, *lp.tables, lp.dfr, lp.dfi, lp.dvr,
+                           lp.dvi, lp.bias),
+        lambda lp, b: halo_layer_bound(lp, b, sched_ops_bytes(lp),
+                                       sched_bound(lp, b)[0]),
+        xgen, flush, extra=sched_halo_extra, twin=sched_windowed)
+    del flush
+
+    # (d4) the main path, halo scheduled plan -----------------------------
+    shalo_launches, shalo_host = serve(
+        params, shplan, CONFIG, images, "(d4)",
+        "fused_spectral_pipeline_scheduled_halo", shtot["ms"])
+    print(f"    p50 minus kernel sum, batch 1: (d4) halo {shalo_host:.2f} "
+          f"ms, (d2) windowed {sched_host:.2f} ms")
 
     # (e) kernels ---------------------------------------------------------
-    print(f"(e) fused_spectral_pipeline: ok, launches={plane_launches}")
-    print(f"(e) fused_spectral_pipeline_scheduled: ok, "
-          f"launches={sched_launches}")
-    kernels = [{
-        "name": "fused_spectral_pipeline",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_spectral_conv.cu",
-        "replaces": "src/repro/kernels/fused_spectral_conv.py:775",
-        "launches": plane_launches,
-        "max_abs_err": tot["abs_err"],
-        "ms": tot["ms"],
-        "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": tot["by"],
-        "library_ms": None,
-    }, {
-        "name": "fused_spectral_pipeline_scheduled",
-        "route": "cuda",
-        "source": ("src/repro_torch/kernels/csrc/"
-                   "fused_spectral_conv_scheduled.cu"),
-        "replaces": "src/repro/kernels/fused_spectral_conv.py:1114",
-        "launches": sched_launches,
-        "max_abs_err": stot["abs_err"],
-        "ms": stot["ms"],
-        "plain_ms": stot["plain_ms"],
-        "bound_ms": stot["bound_ms"],
-        "bound_by": stot["by"],
-        "library_ms": None,
-    }]
+    csrc = "src/repro_torch/kernels/csrc/"
+    ref_file = "src/repro/kernels/fused_spectral_conv.py"
+    kernels = []
+    for kname, src, line, launches, t in (
+            ("fused_spectral_pipeline", "fused_spectral_conv.cu", 775,
+             plane_launches, tot),
+            ("fused_spectral_pipeline_scheduled",
+             "fused_spectral_conv_scheduled.cu", 1114, sched_launches, stot),
+            ("fused_spectral_pipeline_halo", "fused_spectral_conv.cu", 943,
+             halo_launches, htot),
+            ("fused_spectral_pipeline_scheduled_halo",
+             "fused_spectral_conv_scheduled.cu", 1032, shalo_launches,
+             shtot)):
+        print(f"(e) {kname}: ok, launches={launches}")
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": csrc + src,
+            "replaces": f"{ref_file}:{line}",
+            "launches": launches,
+            "max_abs_err": t["abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

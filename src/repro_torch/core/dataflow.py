@@ -101,7 +101,7 @@ class NodeSpec:
 FLOWS = ("output_stationary", "weight_stationary", "input_stationary")
 
 # Input paths of the fused kernel: host-materialized overlap-save
-# windows, or the in-kernel halo gather (not yet ported).
+# windows, or the in-kernel halo gather from the raw activation.
 INPUT_MODES = ("windowed", "halo")
 
 # Hadamard-stage datapaths: full-K^2 kernel planes, planes compacted to

@@ -16,10 +16,10 @@ process pool at full width) and their exact Eq-14 statistics; with
 reference.
 
 This package builds the plans the ported kernels run:
-``input_mode='windowed'``, ``hadamard='dense'|'bin'|'scheduled'``, and
-the output-stationary flow with the CUDA kernels' fixed block sizes (no
-autotune).  Other modes raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+``input_mode='windowed'|'halo'``, ``hadamard='dense'|'bin'|'scheduled'``,
+and the output-stationary flow with the CUDA kernels' fixed block sizes
+(no autotune).  Other modes raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -214,7 +214,8 @@ class LayerPlan:
       wr / wi     [Fa, N, M] f32 kernel planes.
       dfr / dfi   [Fa, S] forward DFT rows; dvr / dvi [S2, Fa] inverse
           DFT on the valid rows.
-      hadamard    'dense' | 'bin' | 'scheduled'; input_mode 'windowed'.
+      hadamard    'dense' | 'bin' | 'scheduled'; input_mode 'windowed'
+          (host windows) | 'halo' (the kernel reads the raw activation).
       tables      ``PlanTables`` for scheduled layers, else None.
       schedule_cycles / pe_utilization   Alg-2 stats: exact totals when
           the full tables were compiled (scheduled mode), otherwise
@@ -319,6 +320,40 @@ def _resolve_hadamard_modes(hadamard: str, alpha: float, schedule: bool,
         f"got {hadamard!r}")
 
 
+def _kernel_tuning(layer: df.ConvLayer, fft_size: int, hadamard: str,
+                   input_mode: str, batch: int) -> FusedTuning:
+    """The CUDA kernel's fixed blocks for one layer.  A windowed CTA
+    takes ``block_p`` tiles of the batch's [S, M, B*T] windows; a halo
+    CTA takes one halo block of a single image, so its ``block_p`` is
+    per image."""
+    n_blk, m_blk, p_blk = ((fsc.SCHED_BLOCK_N, fsc.SCHED_BLOCK_M,
+                            fsc.SCHED_BLOCK_P) if hadamard == "scheduled"
+                           else (fsc.BLOCK_N, fsc.BLOCK_M, fsc.BLOCK_P))
+    tiles = layer.tiles(fft_size) * (1 if input_mode == "halo" else batch)
+    return FusedTuning(
+        layer=layer.name, flow="output_stationary",
+        block_n=min(n_blk, layer.c_out), block_m=min(m_blk, layer.c_in),
+        block_p=min(p_blk, tiles), hadamard=hadamard,
+        input_mode=input_mode)
+
+
+def with_input_mode(plan: NetworkPlan, input_mode: str) -> NetworkPlan:
+    """The same plan on another input path: operands and Alg-2 tables do
+    not depend on it, so nothing is rebuilt; each ``LayerPlan`` gets the
+    mode and the kernel blocks that go with it (equal to what
+    ``build_network_plan(..., input_mode=input_mode)`` builds)."""
+    if input_mode not in df.INPUT_MODES:
+        raise ValueError(f"input_mode must be one of {df.INPUT_MODES}, "
+                         f"got {input_mode!r}")
+    layers = tuple(
+        dataclasses.replace(lp, input_mode=input_mode,
+                            tuning=_kernel_tuning(lp.layer, plan.fft_size,
+                                                  lp.hadamard, input_mode,
+                                                  plan.batch))
+        for lp in plan.layers)
+    return dataclasses.replace(plan, layers=layers)
+
+
 def _schedule_pool(workers: int):
     """A spawn-context process pool for table compilation (spawn: the
     parent may hold a CUDA context), or a null context when serial."""
@@ -350,8 +385,10 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         'scheduled' (Alg-2 INDEX/VALUE tables; falls back to the plane
         datapath where alpha <= 1 or ``schedule`` is off).  'auto' is
         not ported yet (ROADMAP A5).
-      input_mode: 'windowed'; 'halo'/'auto' are not ported yet
-        (ROADMAP B3).
+      input_mode: 'windowed' (host-built overlap-save windows) or
+        'halo' (the kernels gather the windows from the raw activation;
+        a halo block's tiles come from one image, so ``block_p`` is per
+        image).  'auto' needs the Hopper cost model (ROADMAP A5).
       schedule: run Alg 2 at all (False skips the schedule stats AND
         disables the scheduled datapath).
       schedule_r: r, the BRAM-replica analogue (paper S6.3: 10).
@@ -367,10 +404,11 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     if input_mode not in df.INPUT_MODES + ("auto",):
         raise ValueError(f"input_mode must be 'auto' or one of "
                          f"{df.INPUT_MODES}, got {input_mode!r}")
-    if input_mode != "windowed":
+    if input_mode == "auto":
         raise NotImplementedError(
-            f"input_mode={input_mode!r} is not ported yet (ROADMAP B3: "
-            f"in-kernel halo gather; B5 for its scheduled variant)")
+            "input_mode='auto' ranks the input paths with a cost model; "
+            "the reference's is the TPU's, and its Hopper counterpart is "
+            "not ported yet (ROADMAP A5); force 'windowed' or 'halo'")
     device = repro_torch.resolve_device(device)
     layers = list(cfg.layers)
     alphas = sp.per_layer_alphas(cfg.alpha, len(layers))
@@ -428,15 +466,8 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                 fsc.overlap_save_operators(cfg.fft_size, layer.ksize, key))
             (mode,) = _resolve_hadamard_modes(hadamard, alpha, schedule,
                                               active)
-            blocks = ((fsc.SCHED_BLOCK_N, fsc.SCHED_BLOCK_M,
-                       fsc.SCHED_BLOCK_P) if mode == "scheduled" else
-                      (fsc.BLOCK_N, fsc.BLOCK_M, fsc.BLOCK_P))
-            tuning = FusedTuning(
-                layer=layer.name, flow="output_stationary",
-                block_n=min(blocks[0], layer.c_out),
-                block_m=min(blocks[1], layer.c_in),
-                block_p=min(blocks[2], layer.tiles(cfg.fft_size) * batch),
-                hadamard=mode, input_mode="windowed")
+            tuning = _kernel_tuning(layer, cfg.fft_size, mode,
+                                    input_mode, batch)
             tables = None
             if mode == "scheduled":
                 # The paper's offline schedule compilation: one
@@ -465,7 +496,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                 tuning=tuning, epilogue=epi, bias=bias.contiguous(),
                 active=active, wr=wr.to(device), wi=wi.to(device),
                 dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi, hadamard=mode,
-                input_mode="windowed", schedule_cycles=cycles,
+                input_mode=input_mode, schedule_cycles=cycles,
                 pe_utilization=mu, tables=tables))
     layer_index = {name: i for i, name in enumerate(names)}
     pnodes = tuple(

@@ -81,6 +81,153 @@ def extract_tiles_overlapping(x: torch.Tensor, geo: SpectralGeometry
     return win.reshape(b, m, geo.n_tiles, k, k)
 
 
+class HaloGeometry(NamedTuple):
+    """Static geometry of the in-kernel halo gather.
+
+    The fused kernel's halo input mode reads the RAW NCHW activation
+    directly: each block covers ``bth x btw`` tiles *plus* the
+    k-1-pixel halo the overlap-save windows share — ``rh = bth*t + (K -
+    t)`` rows by ``rw = btw*t + (K - t)`` cols, clamped to the image
+    (small images fit in one block) — and gathers its stride-t, size-K
+    windows on chip (``halo_gather_matrices`` describes the gather).
+    No ``[B, M, T, K, K]`` windowed tensor is ever materialized in
+    device memory.
+    """
+
+    bth: int             # tiles per block along H
+    btw: int             # tiles per block along W
+    nbh: int             # blocks along H  (ceil(n_tiles_h / bth))
+    nbw: int             # blocks along W
+    rh: int              # raw rows per block: min(bth*t + k - 1, h_in)
+    rw: int              # raw cols per block
+
+    @property
+    def block_tiles(self) -> int:
+        """Tiles per block — the halo path's effective block_p."""
+        return self.bth * self.btw
+
+    @property
+    def n_blocks(self) -> int:
+        return self.nbh * self.nbw
+
+
+def halo_block_geometry(geo: SpectralGeometry, block_p: int) -> HaloGeometry:
+    """Split a tile-count budget ``block_p`` into a 2-D halo block.
+
+    Favors full tile rows (btw first) so the per-axis halo fraction
+    (K - t)/(b*t) is paid on as few axes as possible; the resulting
+    ``block_tiles = bth*btw <= block_p`` is what the kernel's tile slots
+    are sized by.  Deterministic: the kernel and the plan derive the
+    same blocks from (geo, block_p).
+    """
+    block_p = max(1, block_p)
+    btw = max(1, min(geo.n_tiles_w, block_p))
+    bth = max(1, min(geo.n_tiles_h, block_p // btw))
+    ov = geo.ksize - 1
+    return HaloGeometry(
+        bth=bth, btw=btw,
+        nbh=-(-geo.n_tiles_h // bth), nbw=-(-geo.n_tiles_w // btw),
+        rh=min(bth * geo.tile + ov, geo.h_in),
+        rw=min(btw * geo.tile + ov, geo.w_in))
+
+
+def halo_block_starts(geo: SpectralGeometry, hg: HaloGeometry
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Clamped raw-image start offsets of every halo block, per axis.
+
+    Block ib's windows span raw rows ``[ib*bth*t - (k-1), ...+rh)``;
+    the start is clamped to ``[0, h_in - rh]`` so the block never reads
+    out of bounds — the gather matrices re-align the windows against
+    the clamped block and encode the 'same'-padding (and bottom/right
+    tile padding) as all-zero one-hot rows.  (The CUDA kernels read at
+    the unclamped starts with zero fill instead; the windows are the
+    same.)
+    """
+    ov = geo.ksize - 1
+    sh = np.arange(hg.nbh) * hg.bth * geo.tile - ov
+    sw = np.arange(hg.nbw) * hg.btw * geo.tile - ov
+    return (np.clip(sh, 0, geo.h_in - hg.rh),
+            np.clip(sw, 0, geo.w_in - hg.rw))
+
+
+def halo_gather_matrices(geo: SpectralGeometry, hg: HaloGeometry
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """One-hot window selectors for the halo gather.
+
+    gr [nbh, bth*K, rh] / gc [nbw, btw*K, rw] f32: row ``ii*K + kh`` of
+    block ib selects raw image row ``(ib*bth + ii)*t - (k-1) + kh``
+    relative to the block's clamped start.  Rows whose raw coordinate
+    falls outside the image ('same' zero-padding, bottom/right tile
+    padding past n_tiles) or whose tile index exceeds the tile grid are
+    left all-zero, so the gathered window values are exact zeros — the
+    one-hot matmul IS the zero-padding.  Being 0/1 operands, the gather
+    is numerically exact: halo windows equal
+    ``extract_tiles_overlapping`` bit for bit.
+    """
+    k = geo.fft_size
+    ov = geo.ksize - 1
+    sh, sw = halo_block_starts(geo, hg)
+
+    def axis(nb, bt, n_tiles, start, size, extent):
+        g = np.zeros((nb, bt * k, size), np.float32)
+        for ib in range(nb):
+            for ii in range(bt):
+                tile_idx = ib * bt + ii
+                if tile_idx >= n_tiles:
+                    continue                      # block padding tile
+                for kh in range(k):
+                    raw = tile_idx * geo.tile - ov + kh
+                    if 0 <= raw < extent:
+                        g[ib, ii * k + kh, raw - start[ib]] = 1.0
+        return g
+
+    return (axis(hg.nbh, hg.bth, geo.n_tiles_h, sh, hg.rh, geo.h_in),
+            axis(hg.nbw, hg.btw, geo.n_tiles_w, sw, hg.rw, geo.w_in))
+
+
+def halo_windows_blocked(x: torch.Tensor, geo: SpectralGeometry,
+                         hg: HaloGeometry) -> torch.Tensor:
+    """The halo gather as the kernels do it, in plain PyTorch: clamped
+    raw blocks, one-hot row/column selection (exact in f32).
+
+    x [B, M, H, W] -> windows [B, nbh, nbw, M, bth, btw, K, K], blocks
+    in (image, block-row, block-col) order, tiles bth-major inside a
+    block; slots past the tile grid hold zeros.
+    """
+    if x.is_cuda:
+        repro_torch.strict_fp32()    # a TF32 product would round x
+    b, m = x.shape[:2]
+    k = geo.fft_size
+    gr, gc = (torch.from_numpy(a).to(x.device)
+              for a in halo_gather_matrices(geo, hg))
+    sh, sw = halo_block_starts(geo, hg)
+    rows = torch.as_tensor(sh[:, None] + np.arange(hg.rh)[None, :],
+                           device=x.device)             # [nbh, rh]
+    cols = torch.as_tensor(sw[:, None] + np.arange(hg.rw)[None, :],
+                           device=x.device)             # [nbw, rw]
+    blk = x.to(torch.float32)[:, :, rows][:, :, :, :, cols]
+    # blk [B, M, nbh, rh, nbw, rw]; select rows, then columns
+    win = torch.einsum("irh,bmihjw->bijmrw", gr, blk)
+    win = torch.einsum("bijmrw,jcw->bijmrc", win, gc)
+    win = win.reshape(b, hg.nbh, hg.nbw, m, hg.bth, k, hg.btw, k)
+    return win.permute(0, 1, 2, 3, 4, 6, 5, 7)
+
+
+def halo_window_reference(x: torch.Tensor, geo: SpectralGeometry,
+                          hg: HaloGeometry) -> torch.Tensor:
+    """Host-side emulation of the kernels' halo gather (tests/docs):
+    ``halo_windows_blocked`` reordered back to row-major tiles with the
+    block padding cropped.  Equals ``extract_tiles_overlapping(x, geo)``
+    for every (H, W, k, t, block_p) the plan can emit."""
+    b, m = x.shape[:2]
+    k = geo.fft_size
+    win = halo_windows_blocked(x, geo, hg)   # [B,nbh,nbw,M,bth,btw,K,K]
+    win = win.permute(0, 3, 1, 4, 2, 5, 6, 7).reshape(
+        b, m, hg.nbh * hg.bth, hg.nbw * hg.btw, k, k)
+    win = win[:, :, :geo.n_tiles_h, :geo.n_tiles_w]
+    return win.reshape(b, m, geo.n_tiles, k, k).to(x.dtype)
+
+
 def assemble_tile_canvas(y_tiles: torch.Tensor, geo: SpectralGeometry
                          ) -> torch.Tensor:
     """[B, N, T, t, t] valid tiles -> uncropped [B, N, h_pad, w_pad]

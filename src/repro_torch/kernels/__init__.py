@@ -2,8 +2,11 @@
 versions beside them.
 
 - fused_spectral_conv: ONE launch per conv layer — tile-FFT -> complex
-  Hadamard over input channels -> valid-row IFFT -> bias + ReLU, spectra
-  kept on chip (source: csrc/fused_spectral_conv.cu).
+  Hadamard over input channels (kernel planes, or the Alg-2 tables) ->
+  valid-row IFFT -> bias + ReLU, spectra kept on chip; each on host-built
+  windows or, on the halo path, on the raw activation (sources:
+  csrc/fused_spectral_conv.cu, csrc/fused_spectral_conv_scheduled.cu,
+  csrc/halo.cuh).
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and loads the
 libraries with ctypes.

@@ -100,7 +100,8 @@ def _finish(started: dict, sources: dict[str, dict[str, int]],
                     f"nvcc failed for {name}.cu "
                     f"(exit {proc.returncode}):\n{out}")
             os.replace(tmp, lib)
-            ptxas = [ln for ln in out.splitlines() if "ptxas" in ln]
+            ptxas = [ln for ln in out.splitlines()
+                     if "ptxas" in ln or "spill" in ln]
             print(f"[repro_torch] built {lib.name} in "
                   f"{time.perf_counter() - t0:.1f} s")
             for ln in ptxas:

@@ -55,6 +55,18 @@
 //    kernel accepts too; the plan pads its active bins to whole chunks):
 //    its missing DFT rows, DFT columns and kernel planes read as zeros.
 //
+// The halo sibling (`fused_spectral_pipeline_halo_f32`, replacing the TPU
+// kernel `fused_spectral_pipeline_halo`) is the same kernel on another input
+// path: a CTA's 16 tile slots hold one halo block (bth x btw tiles of one
+// image), each channel step stages the block's raw rows (halo.cuh) and
+// expands them into the same [S][BM][BP] window stage, and the flush stores
+// finished tiles straight into y[B, N, H_out, W_out].  The FFT, Hadamard,
+// IFFT, cluster split and rank-order reduction are the windowed kernel's
+// code (the kernel is templated on the input path), so on the same plan
+// both paths give the same values.  Its bound is B1's operations on the
+// real tiles and the raw activation read once; idle slots (blocks past the
+// tile grid, 3x3-tile blocks in 16 slots) cost time, not bytes.
+//
 // Block sizes come from the build (-DFSC_*), set by the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -62,6 +74,7 @@
 #include <cstddef>
 
 #include "cp_async.cuh"
+#include "halo.cuh"
 
 #if !defined(FSC_BN) || !defined(FSC_BP) || !defined(FSC_BM) || \
     !defined(FSC_FC) || !defined(FSC_THREADS)
@@ -88,32 +101,89 @@ static_assert(BP % 4 == 0 && BM % 4 == 0, "16-byte copies and plane loads");
 static_assert(NT % MP == 0 && (FC * MP) % NT == 0 && FPT % 2 == 0,
               "tile-FFT map (bin pairs as float4 DFT loads)");
 
-// Shared-memory carve-up, in floats.
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
+// Shared-memory carve-up, in floats.  A ring stage holds the step's input
+// (windows, or a halo block's raw rows) and its kernel planes; the halo
+// path also expands the raw rows into one window stage.
 struct Layout {
-  int df, dv, xf, stage, x_stage, total;
-  __host__ __device__ Layout(int S, int S2) {
+  int df, dv, xf, stage, x_sz, x_stage, win, total;
+  __host__ __device__ Layout(int S, int S2, int x_floats, int win_floats) {
     df = 0;                                  // [S][FC] (re, im)
     dv = df + 2 * S * FC;                    // [S2][FC] (re, im)
     xf = dv + 2 * S2 * FC;                   // [FC][MP] (re, im)
-    stage = xf + 2 * FC * MP;                // 2 x { x [S][MP], wr, wi [FC][BN][BM] }
-    x_stage = S * MP + 2 * W_PLANE;
-    const int ring = 2 * x_stage;
-    const int acc = S2 * BN * BP;            // spatial partial, aliases the ring
-    total = stage + (ring > acc ? ring : acc);
+    stage = xf + 2 * FC * MP;                // 2 x { x, wr, wi [FC][BN][BM] }
+    x_sz = align4(x_floats);
+    x_stage = x_sz + 2 * W_PLANE;
+    win = stage + 2 * x_stage;               // [S][MP] expanded windows
+    const int loop = 2 * x_stage + win_floats;
+    const int acc = S2 * BN * BP;            // spatial partial, aliases both
+    total = stage + (loop > acc ? loop : acc);
   }
 };
 
 using namespace repro_torch;
 
+// Windowed input: the host's windows xt [S][M][P] (rows of P floats at
+// x_pitch), output tiles y [S2][N][P].
+struct WindowedPath {
+  const float* xt;
+  int P, x_pitch;
+  struct Blk {
+    int p0;
+    bool vec;   // 16-byte copies: every row start 16-byte aligned
+  };
+  int blocks() const { return (P + BP - 1) / BP; }
+  __host__ __device__ int x_floats(int S) const { return S * MP; }
+  int win_floats(int) const { return 0; }
+  __device__ Blk block(int bx, int) const {
+    return {bx * BP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
+  }
+  __device__ void prepare(float*, int, int) const {}
+  // windows [S][BM][BP] of channels m0.., zero-filled outside [M) x [P)
+  __device__ void load(const Blk& k, float* sx, int S, int M, int m0,
+                       int tid) const {
+    if (k.vec) {
+      for (int i = tid; i < S * MP / 4; i += NT) {
+        const int s = i / (MP / 4), r = i - s * (MP / 4);
+        const int m = r / (BP / 4), p = 4 * (r - m * (BP / 4));
+        const int bytes = m0 + m < M ? clamp_bytes(P - k.p0 - p) : 0;
+        cp_async16(sx + s * MP + m * BP + p,
+                   bytes ? xt + ((size_t)s * M + m0 + m) * x_pitch + k.p0 + p
+                         : xt, bytes);
+      }
+    } else {
+      for (int i = tid; i < S * MP; i += NT) {
+        const int s = i / MP, r = i - s * MP, m = r / BP, p = r - m * BP;
+        const bool ok = m0 + m < M && k.p0 + p < P;
+        cp_async4(sx + i,
+                  ok ? xt + ((size_t)s * M + m0 + m) * x_pitch + k.p0 + p
+                     : xt, ok);
+      }
+    }
+  }
+  __device__ const float* windows(const Blk&, const float* sx, float*,
+                                  int) const {
+    return sx;
+  }
+  __device__ long long out_at(const Blk& k, int s2, int n, int N,
+                              int p) const {
+    return k.p0 + p < P ? ((long long)s2 * N + n) * P + k.p0 + p : -1;
+  }
+};
+
+using HaloIn = HaloPath<NT, BM, BP>;   // halo.cuh
+
+template <class Path>
 __global__ void __launch_bounds__(NT, 1)
-fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
+fused_os_kernel(const Path io, const float* __restrict__ wr,
                 const float* __restrict__ wi, const float* __restrict__ dfr,
                 const float* __restrict__ dfi, const float* __restrict__ dvr,
                 const float* __restrict__ dvi, const float* __restrict__ bias,
-                float* __restrict__ y, int S, int M, int P, int x_pitch,
-                int Fa, int N, int S2, int relu) {
+                float* __restrict__ y, int S, int M, int Fa, int N, int S2,
+                int relu) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(S, S2);
+  const Layout L(S, S2, io.x_floats(S), 0);
   float* s_df = smem + L.df;
   float* s_dv = smem + L.dv;
   float* s_xf = smem + L.xf;
@@ -121,7 +191,7 @@ fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * BP;
+  const typename Path::Blk blk = io.block(blockIdx.x, tid);
   const int n0 = blockIdx.y * BN;
   const int f0 = blockIdx.z * FC;           // this CTA's bin chunk
   const int tp = tid % BP, tn = tid / BP;   // Hadamard / fold / store map
@@ -141,35 +211,20 @@ fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
     s_dv[2 * i + 1] = ok ? dvi[(size_t)s * Fa + f0 + f] : 0.f;
   }
 
-  // 16-byte copies where every row start is 16-byte aligned
-  const bool x_vec = x_pitch % 4 == 0 && (size_t)xt % 16 == 0;
+  io.prepare(smem + L.win, S, tid);
+
+  // 16-byte plane copies where every row start is 16-byte aligned
   const bool w_vec = M % 4 == 0 && (size_t)wr % 16 == 0 &&
                      (size_t)wi % 16 == 0;
 
-  // one pipeline step: windows [S][BM][BP] and this chunk's planes
-  // [FC][BN][BM] (re, im), zero-filled outside [M) x [P) x [N) x [Fa)
+  // one pipeline step: the input of channels m0.. (windows [S][BM][BP] or
+  // raw rows) and this chunk's planes [FC][BN][BM] (re, im), zero-filled
+  // outside [M) x [N) x [Fa)
   auto load_step = [&](int buf, int m0) {
     float* sx = smem + L.stage + buf * L.x_stage;
-    float* swr = sx + S * MP;
+    float* swr = sx + L.x_sz;
     float* swi = swr + W_PLANE;
-    if (x_vec) {
-      for (int i = tid; i < S * MP / 4; i += NT) {
-        const int s = i / (MP / 4), r = i - s * (MP / 4);
-        const int m = r / (BP / 4), p = 4 * (r - m * (BP / 4));
-        const int bytes = m0 + m < M ? clamp_bytes(P - p0 - p) : 0;
-        cp_async16(sx + s * MP + m * BP + p,
-                   bytes ? xt + ((size_t)s * M + m0 + m) * x_pitch + p0 + p
-                         : xt, bytes);
-      }
-    } else {
-      for (int i = tid; i < S * MP; i += NT) {
-        const int s = i / MP, r = i - s * MP, m = r / BP, p = r - m * BP;
-        const bool ok = m0 + m < M && p0 + p < P;
-        cp_async4(sx + i,
-                  ok ? xt + ((size_t)s * M + m0 + m) * x_pitch + p0 + p : xt,
-                  ok);
-      }
-    }
+    io.load(blk, sx, S, M, m0, tid);
     if (w_vec) {
       for (int i = tid; i < W_PLANE / 4; i += NT) {
         const int f = i / (BN * BM / 4), r = i - f * (BN * BM / 4);
@@ -208,8 +263,9 @@ fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
       cp_async_commit();                    // empty group keeps the count
     cp_async_wait_prev();
     __syncthreads();                        // step's stage (and DFT) ready
-    const float* sx = smem + L.stage + (step & 1) * L.x_stage;
-    const float* swr = sx + S * MP;
+    const float* stage = smem + L.stage + (step & 1) * L.x_stage;
+    const float* sx = io.windows(blk, stage, smem + L.win, tid);
+    const float* swr = stage + L.x_sz;
     const float* swi = swr + W_PLANE;
 
     // Stage 1: tile-FFT of this chunk's bins, X~[f, m, p] = Df[f, :] . x[:, m, p]
@@ -297,7 +353,6 @@ fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
   const int n_ranks = (int)cluster.num_blocks();
   const float* part[MAX_CLUSTER];
   for (int q = 0; q < n_ranks; ++q) part[q] = cluster.map_shared_rank(s_y, q);
-  const int gp = p0 + tp;
   for (int s = rank; s < S2; s += n_ranks) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -305,43 +360,34 @@ fused_os_kernel(const float* __restrict__ xt, const float* __restrict__ wr,
       const int at = (s * BN + n) * BP + tp;
       float v = 0.f;
       for (int q = 0; q < n_ranks; ++q) v += part[q][at];
-      if (gn < N && gp < P) {
+      const long long o = gn < N ? io.out_at(blk, s, gn, N, tp) : -1;
+      if (o >= 0) {
         v += bias[gn];
         if (relu) v = fmaxf(v, 0.f);
-        y[((size_t)s * N + gn) * P + gp] = v;
+        y[o] = v;
       }
     }
   }
   cluster.sync();                           // keep partials alive for readers
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch on `stream`; returns the cudaError_t of the configuration and
-// the launch (0 on success).  Fa is at most 8 * FSC_FC (one cluster of
-// ceil(Fa / FSC_FC) CTAs); xt's rows of P floats lie x_pitch floats apart;
-// the caller checks shapes, devices and layouts.  A shape whose shared
+// Configure and launch one layer on `stream`; returns the cudaError_t of
+// the configuration and the launch (0 on success).  A shape whose shared
 // memory exceeds the per-block limit fails cudaFuncSetAttribute.
-int fused_spectral_pipeline_f32(const float* xt, const float* wr,
-                                const float* wi, const float* dfr,
-                                const float* dfi, const float* dvr,
-                                const float* dvi, const float* bias,
-                                float* y, int S, int M, int P, int x_pitch,
-                                int Fa, int N, int S2, int relu,
-                                void* stream) {
-  if (Fa < 1 || Fa > MAX_CLUSTER * FC || S < 1 || M < 1 || P < 1 ||
-      x_pitch < P || N < 1 || S2 < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)Layout(S, S2).total * sizeof(float);
+template <class Path>
+int launch(const Path& io, const float* wr, const float* wi,
+           const float* dfr, const float* dfi, const float* dvr,
+           const float* dvi, const float* bias, float* y, int S, int M,
+           int Fa, int N, int S2, int relu, void* stream) {
+  const Layout L(S, S2, io.x_floats(S), io.win_floats(S));
+  const size_t smem = (size_t)L.total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_os_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_os_kernel<Path>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   const int chunks = (Fa + FC - 1) / FC;
-  cfg.gridDim = dim3((P + BP - 1) / BP, (N + BN - 1) / BN, chunks);
+  cfg.gridDim = dim3(io.blocks(), (N + BN - 1) / BN, chunks);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -352,10 +398,50 @@ int fused_spectral_pipeline_f32(const float* xt, const float* wr,
   attr[0].val.clusterDim.z = chunks;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_os_kernel, xt, wr, wi, dfr, dfi, dvr,
-                           dvi, bias, y, S, M, P, x_pitch, Fa, N, S2, relu);
+  err = cudaLaunchKernelEx(&cfg, fused_os_kernel<Path>, io, wr, wi, dfr, dfi,
+                           dvr, dvi, bias, y, S, M, Fa, N, S2, relu);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Windowed layer.  Fa is at most 8 * FSC_FC (one cluster of
+// ceil(Fa / FSC_FC) CTAs); xt's rows of P floats lie x_pitch floats apart;
+// the caller checks shapes, devices and layouts.
+int fused_spectral_pipeline_f32(const float* xt, const float* wr,
+                                const float* wi, const float* dfr,
+                                const float* dfi, const float* dvr,
+                                const float* dvi, const float* bias,
+                                float* y, int S, int M, int P, int x_pitch,
+                                int Fa, int N, int S2, int relu,
+                                void* stream) {
+  if (Fa < 1 || Fa > MAX_CLUSTER * FC || S < 1 || M < 1 || P < 1 ||
+      x_pitch < P || N < 1 || S2 < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch(WindowedPath{xt, P, x_pitch}, wr, wi, dfr, dfi, dvr, dvi,
+                bias, y, S, M, Fa, N, S2, relu, stream);
+}
+
+// Halo layer: x [B, M, H, W] contiguous, y [B, N, H_out, W_out]; the tile
+// grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
+// FSC_BP tiles (spectral.halo_block_geometry), one CTA per (image, block).
+int fused_spectral_pipeline_halo_f32(
+    const float* x, const float* wr, const float* wi, const float* dfr,
+    const float* dfi, const float* dvr, const float* dvi, const float* bias,
+    float* y, int B, int M, int H, int W, int K, int ksize, int pad,
+    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa, int N,
+    int S2, int relu, void* stream) {
+  HaloIn io{x, {}};
+  if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
+                     nbh, nbw) ||
+      bth * btw > BP || S2 != io.g.t * io.g.t || Fa < 1 ||
+      Fa > MAX_CLUSTER * FC || N < 1)
+    return (int)cudaErrorInvalidValue;
+  return launch(io, wr, wi, dfr, dfi, dvr, dvi, bias, y, K * K, M, Fa, N,
+                S2, relu, stream);
 }
 
 }  // extern "C"

@@ -63,6 +63,17 @@
 //    weights), bins Fa..63 (zero DFT rows and columns) and the last tile
 //    block (zero-filled window copies, no store).
 //
+// The halo sibling (`fused_spectral_pipeline_scheduled_halo_f32`, replacing
+// the TPU kernel `fused_spectral_pipeline_scheduled_halo`) is the same kernel
+// on another input path: a CTA's 4 tile slots hold one halo block (bth x btw
+// tiles of one image), each channel step stages the block's raw rows
+// (halo.cuh) and expands them into the same [S][4] window stage, and the
+// rank that finishes an output row stores it straight into y[B, N, H_out,
+// W_out].  The table walk, IFFT and cluster reduction are this kernel's
+// code (templated on the input path); only the cluster size can differ
+// from the windowed launch of the same layer, since it follows the number
+// of (tile block, group) pairs, and with it the order of the channel sum.
+//
 // Block sizes come from the build (-DSCH_*), set by the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -70,6 +81,7 @@
 #include <cstddef>
 
 #include "cp_async.cuh"
+#include "halo.cuh"
 
 #if !defined(SCH_BN) || !defined(SCH_THREADS)
 #error "build through repro_torch.kernels._build (defines SCH_* block sizes)"
@@ -95,27 +107,75 @@ static_assert(TQ == BP, "epilogue map: cycle phase tq is tile tq");
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory carve-up, in floats (every array 16-byte aligned).  The
-// epilogue's inverse DFT and spatial partial alias the loop-phase arrays.
+// Shared-memory carve-up, in floats (every array 16-byte aligned).  A ring
+// stage holds one channel's input (windows, or a halo block's raw rows) and
+// its table rows; the halo path also expands the raw rows into one window
+// stage.  The epilogue's inverse DFT and spatial partial alias the
+// loop-phase arrays.
 struct Layout {
-  int df, psum, xf, stage, stage_size, x_sz, idx_sz, tab_sz, part, dv,
+  int df, psum, xf, stage, stage_size, x_sz, idx_sz, tab_sz, win, part, dv,
       total;
-  __host__ __device__ Layout(int S, int S2, int T, int R, int NP) {
+  __host__ __device__ Layout(int S, int S2, int T, int R, int NP,
+                             int x_floats, int win_floats) {
     df = 0;                                   // [S][DFP] (re, im)
     psum = df + 2 * S * DFP;                  // re, im [FMAX][BN] float4
     xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4
     stage = xf + 2 * FMAX * BP;               // 2 x stage
-    x_sz = S * BP;                            // windows [S][BP]
+    x_sz = align4(x_floats);                  // windows [S][BP] or raw rows
     idx_sz = align4(T * R);                   // idx [T][R]
     tab_sz = align4(T * NP);                  // sel, vr, vi [T][NP]
     stage_size = x_sz + idx_sz + 3 * tab_sz;
+    win = stage + 2 * stage_size;             // [S][BP] expanded windows
     part = psum;                              // [S2][BN][BP], epilogue
     dv = part + S2 * BN * BP;                 // [S2][FMAX] (re, im)
-    const int loop_end = stage + 2 * stage_size;
+    const int loop_end = win + win_floats;
     const int epi_end = dv + 2 * S2 * FMAX;
     total = loop_end > epi_end ? loop_end : epi_end;
   }
 };
+
+// Windowed input: the host's windows xt [S][M][P] (rows of P floats at
+// x_pitch), output tiles y [S2][N][P].
+struct WindowedPath {
+  const float* xt;
+  int P, x_pitch;
+  struct Blk {
+    int p0;
+    bool vec;   // 16-byte copies: every row start 16-byte aligned
+  };
+  int blocks() const { return (P + BP - 1) / BP; }
+  __host__ __device__ int x_floats(int S) const { return S * BP; }
+  int win_floats(int) const { return 0; }
+  __device__ Blk block(int bx, int) const {
+    return {bx * BP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
+  }
+  __device__ void prepare(float*, int, int) const {}
+  // channel m's window rows [S][BP], zero-filled past P
+  __device__ void load(const Blk& k, float* sx, int S, int M, int m,
+                       int tid) const {
+    for (int s = tid; s < S; s += NT) {
+      const float* row = xt + ((size_t)s * M + m) * x_pitch + k.p0;
+      if (k.vec) {
+        const int bytes = clamp_bytes(P - k.p0);
+        cp_async16(sx + s * BP, bytes ? row : xt, bytes);
+      } else {
+        for (int p = 0; p < BP; ++p)
+          cp_async4(sx + s * BP + p, k.p0 + p < P ? row + p : xt,
+                    k.p0 + p < P);
+      }
+    }
+  }
+  __device__ const float* windows(const Blk&, const float* sx, float*,
+                                  int) const {
+    return sx;
+  }
+  __device__ long long out_at(const Blk& k, int s2, int n, int N,
+                              int p) const {
+    return k.p0 + p < P ? ((long long)s2 * N + n) * P + k.p0 + p : -1;
+  }
+};
+
+using HaloIn = HaloPath<NT, 1, BP>;   // halo.cuh
 
 // copy `count` contiguous 4-byte words, 16 bytes at a time when aligned
 __device__ __forceinline__ void stage_words(float* dst, const float* src,
@@ -129,9 +189,9 @@ __device__ __forceinline__ void stage_words(float* dst, const float* src,
   for (int i = done + tid; i < count; i += NT) cp_async4(dst + i, src + i, true);
 }
 
+template <class Path>
 __global__ void __launch_bounds__(NT, 1)
-fused_os_sched_kernel(const float* __restrict__ xt,
-                      const int* __restrict__ idx,
+fused_os_sched_kernel(const Path io, const int* __restrict__ idx,
                       const int* __restrict__ sel,
                       const float* __restrict__ vr,
                       const float* __restrict__ vi,
@@ -140,10 +200,10 @@ fused_os_sched_kernel(const float* __restrict__ xt,
                       const float* __restrict__ dvr,
                       const float* __restrict__ dvi,
                       const float* __restrict__ bias, float* __restrict__ y,
-                      int S, int M, int P, int x_pitch, int Mp, int T, int R,
-                      int NP, int Fa, int N, int S2, int relu) {
+                      int S, int M, int Mp, int T, int R, int NP, int Fa,
+                      int N, int S2, int relu) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(S, S2, T, R, NP);
+  const Layout L(S, S2, T, R, NP, io.x_floats(S), 0);
   float2* s_df = reinterpret_cast<float2*>(smem + L.df);
   float4* s_pr = reinterpret_cast<float4*>(smem + L.psum);
   float4* s_pi = s_pr + FMAX * BN;
@@ -152,12 +212,14 @@ fused_os_sched_kernel(const float* __restrict__ xt,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * BP;
+  const typename Path::Blk blk = io.block(blockIdx.x, tid);
   const int g = blockIdx.y;                  // kernel group: lanes g*NP + n
   const int rank = (int)cluster.block_rank();
   const int n_ranks = (int)cluster.num_blocks();
   const int m_lo = rank * M / n_ranks;       // this CTA's input channels
   const int m_hi = (rank + 1) * M / n_ranks;
+
+  io.prepare(smem + L.win, S, tid);
 
   // forward DFT rows, bins Fa..63 zero
   for (int i = tid; i < S * FMAX; i += NT) {
@@ -169,30 +231,21 @@ fused_os_sched_kernel(const float* __restrict__ xt,
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int i = tid; i < 2 * FMAX * BN; i += NT) s_pr[i] = zero4;
 
-  const bool x_vec = x_pitch % 4 == 0 && (size_t)xt % 16 == 0;
   const size_t tab_row = (size_t)T * NP;     // one (g, m) table block
-  // one pipeline step: channel m's window rows [S][BP] and table blocks
+  // one pipeline step: channel m's input (window rows [S][BP] or raw rows)
+  // and table blocks
   auto load_step = [&](int buf, int m) {
     float* sx = smem + L.stage + buf * L.stage_size;
-    for (int s = tid; s < S; s += NT) {
-      const float* row = xt + ((size_t)s * M + m) * x_pitch + p0;
-      if (x_vec) {
-        const int bytes = clamp_bytes(P - p0);
-        cp_async16(sx + s * BP, bytes ? row : xt, bytes);
-      } else {
-        for (int p = 0; p < BP; ++p)
-          cp_async4(sx + s * BP + p, p0 + p < P ? row + p : xt, p0 + p < P);
-      }
-    }
-    const size_t blk = (size_t)g * Mp + m;
+    io.load(blk, sx, S, M, m, tid);
+    const size_t gm = (size_t)g * Mp + m;
     float* st = sx + L.x_sz;
-    stage_words(st, reinterpret_cast<const float*>(idx) + blk * T * R, T * R,
+    stage_words(st, reinterpret_cast<const float*>(idx) + gm * T * R, T * R,
                 tid);
     st += L.idx_sz;
-    stage_words(st, reinterpret_cast<const float*>(sel) + blk * tab_row,
+    stage_words(st, reinterpret_cast<const float*>(sel) + gm * tab_row,
                 T * NP, tid);
-    stage_words(st + L.tab_sz, vr + blk * tab_row, T * NP, tid);
-    stage_words(st + 2 * L.tab_sz, vi + blk * tab_row, T * NP, tid);
+    stage_words(st + L.tab_sz, vr + gm * tab_row, T * NP, tid);
+    stage_words(st + 2 * L.tab_sz, vi + gm * tab_row, T * NP, tid);
     cp_async_commit();
   };
 
@@ -208,6 +261,7 @@ fused_os_sched_kernel(const float* __restrict__ xt,
     __syncthreads();       // channel m staged; channel m - 1 fully applied
     if (m + 1 < m_hi) load_step(buf ^ 1, m + 1);
     const float* sx = smem + L.stage + buf * L.stage_size;
+    const float* xw = io.windows(blk, sx, smem + L.win, tid);
     const int* s_idx = reinterpret_cast<const int*>(sx + L.x_sz);
     const int* s_sel = s_idx + L.idx_sz;
     const float* s_vr = reinterpret_cast<const float*>(s_sel) + L.tab_sz;
@@ -215,7 +269,7 @@ fused_os_sched_kernel(const float* __restrict__ xt,
 
     // Stage 1: tile-FFT of every bin for the 4 tiles of channel m
     {
-      const float4* x4 = reinterpret_cast<const float4*>(sx);
+      const float4* x4 = reinterpret_cast<const float4*>(xw);
       float4 ar = zero4, ai = zero4;
       for (int s = fh; s < S; s += 4) {
         const float4 xv = x4[s];
@@ -311,57 +365,52 @@ fused_os_sched_kernel(const float* __restrict__ xt,
   const float* part[MAX_CLUSTER];
   for (int q = 0; q < n_ranks; ++q)
     part[q] = cluster.map_shared_rank(s_part, q);
-  const int gn = g * NP + n, gp = p0 + tq;
+  const int gn = g * NP + n;
   for (int s = rank; s < S2; s += n_ranks) {
     const int at = (s * BN + n) * BP + tq;
     float v = 0.f;
     for (int q = 0; q < n_ranks; ++q) v += part[q][at];
-    if (n < NP && gn < N && gp < P) {
+    const long long o =
+        n < NP && gn < N ? io.out_at(blk, s, gn, N, tq) : -1;
+    if (o >= 0) {
       v += bias[gn];
       if (relu) v = fmaxf(v, 0.f);
-      y[((size_t)s * N + gn) * P + gp] = v;
+      y[o] = v;
     }
   }
   cluster.sync();                            // keep partials alive for readers
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launch on `stream`; returns the cudaError_t of the configuration and
-// the launch (0 on success).  Tables are [GN, Mp, T, R] (idx) and
-// [GN, Mp, T, NP] (sel, vr, vi) with NP <= SCH_BN lanes per group and
-// Mp >= M; Fa is at most 64; xt's rows of P floats lie x_pitch floats
-// apart.  The input channels are split over a cluster of C CTAs, C the
-// smallest count that gives about two CTAs per SM (at most 8, at most
-// M).  The caller checks shapes, devices and layouts.  Sizes whose shared
-// memory exceeds the per-block limit fail cudaFuncSetAttribute.
-int fused_spectral_pipeline_scheduled_f32(
-    const float* xt, const int* idx, const int* sel, const float* vr,
-    const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, int S, int M, int P,
-    int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, void* stream) {
-  if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || P < 1 ||
-      x_pitch < P || GN < 1 || T < 1 || R < 1 || NP < 1 || NP > BN ||
-      N < 1 || N > GN * NP || S2 < 1)
+// Configure and launch one layer on `stream`; returns the cudaError_t of
+// the configuration and the launch (0 on success).  The input channels are
+// split over a cluster of C CTAs, C the smallest count that gives about two
+// CTAs per SM (at most 8, at most M).  Sizes whose shared memory exceeds
+// the per-block limit fail cudaFuncSetAttribute.
+template <class Path>
+int launch(const Path& io, const int* idx, const int* sel, const float* vr,
+           const float* vi, const float* dfr, const float* dfi,
+           const float* dvr, const float* dvi, const float* bias, float* y,
+           int S, int M, int GN, int Mp, int T, int R, int NP, int Fa, int N,
+           int S2, int relu, void* stream) {
+  if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || GN < 1 || T < 1 ||
+      R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP || S2 < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)Layout(S, S2, T, R, NP).total * sizeof(float);
+  const Layout L(S, S2, T, R, NP, io.x_floats(S), io.win_floats(S));
+  const size_t smem = (size_t)L.total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_os_sched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_os_sched_kernel<Path>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = ((P + BP - 1) / BP) * GN;
+  const int blocks = io.blocks() * GN;
   int C = (2 * sms + blocks - 1) / blocks;
   C = C < 1 ? 1 : C > MAX_CLUSTER ? MAX_CLUSTER : C;
   C = C > M ? M : C;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((P + BP - 1) / BP, GN, C);
+  cfg.gridDim = dim3(io.blocks(), GN, C);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -372,11 +421,51 @@ int fused_spectral_pipeline_scheduled_f32(
   attr[0].val.clusterDim.z = C;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_os_sched_kernel, xt, idx, sel, vr, vi,
-                           dfr, dfi, dvr, dvi, bias, y, S, M, P, x_pitch, Mp,
-                           T, R, NP, Fa, N, S2, relu);
+  err = cudaLaunchKernelEx(&cfg, fused_os_sched_kernel<Path>, io, idx, sel,
+                           vr, vi, dfr, dfi, dvr, dvi, bias, y, S, M, Mp, T,
+                           R, NP, Fa, N, S2, relu);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Windowed layer.  Tables are [GN, Mp, T, R] (idx) and [GN, Mp, T, NP]
+// (sel, vr, vi) with NP <= SCH_BN lanes per group and Mp >= M; Fa is at
+// most 64; xt's rows of P floats lie x_pitch floats apart.  The caller
+// checks shapes, devices and layouts.
+int fused_spectral_pipeline_scheduled_f32(
+    const float* xt, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, int S, int M, int P,
+    int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, void* stream) {
+  if (P < 1 || x_pitch < P) return (int)cudaErrorInvalidValue;
+  return launch(WindowedPath{xt, P, x_pitch}, idx, sel, vr, vi, dfr, dfi,
+                dvr, dvi, bias, y, S, M, GN, Mp, T, R, NP, Fa, N, S2, relu,
+                stream);
+}
+
+// Halo layer: x [B, M, H, W] contiguous, y [B, N, H_out, W_out]; the tile
+// grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <= 4
+// tiles (spectral.halo_block_geometry); tables as for the windowed layer.
+int fused_spectral_pipeline_scheduled_halo_f32(
+    const float* x, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, int B, int M, int H,
+    int W, int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
+    int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N, int S2,
+    int relu, void* stream) {
+  HaloIn io{x, {}};
+  if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
+                     nbh, nbw) ||
+      bth * btw > BP || S2 != io.g.t * io.g.t)
+    return (int)cudaErrorInvalidValue;
+  const int GN = (N + NP - 1) / NP;
+  return launch(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, K * K, M,
+                GN, Mp, T, R, NP, Fa, N, S2, relu, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,233 @@
+// The halo input path shared by the port's fused kernels: the plane
+// kernel's `fused_spectral_pipeline_halo_f32` (fused_spectral_conv.cu)
+// and the scheduled kernel's `fused_spectral_pipeline_scheduled_halo_f32`
+// (fused_spectral_conv_scheduled.cu).  They replace the TPU kernels
+// `fused_spectral_pipeline_halo` and `fused_spectral_pipeline_scheduled_halo`
+// (src/repro/kernels/fused_spectral_conv.py; helpers `_halo_windows`,
+// `_halo_specs`, `_CanvasSink`, `_crop_canvas`).
+//
+// A CTA's tile block is one halo block: image b, block row ib, block col jb
+// of `bth x btw` tiles (spectral.halo_block_geometry), so a block never
+// spans two images.  Two pieces:
+//
+//  * Raw-block input stage.  Per channel step the CTA copies the raw rows
+//    ib*bth*t - (k-1) ... + bth*t + k - 1 and the matching columns of the
+//    NCHW activation into shared memory with 4-byte cp.async copies (a
+//    block's first column is jb*btw*t - 2, so rows are not 16-byte aligned
+//    and TMA's 16-byte strides rule it out at 14-float rows).  Coordinates
+//    outside the image get a zero source size: that zero fill IS the 'same'
+//    padding and the tile-grid padding.  The TPU clamps its block starts to
+//    stay in bounds and re-aligns with one-hot selectors; reading at the
+//    unclamped start with zero fill gives the same windows.  An expand pass
+//    in shared memory then writes the kernels' existing [S][bm][BP] window
+//    stage, so the FFT, Hadamard and IFFT bodies (and their arithmetic
+//    order per tile) are those of the windowed kernels.
+//  * Canvas output store.  Output element (s2 = (u, v), n, tile slot (ii,
+//    jj)) goes to y[b, n, (ib*bth + ii)*t + u - c, (jb*btw + jj)*t + v - c]
+//    with c = k - 1 - pad, for real tiles and inside [0, H_out) x [0, W_out)
+//    only.  That folds the reference's canvas relayout and 'same' crop into
+//    the flush: y is contiguous NCHW, the next layer's raw input after a
+//    pool.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstddef>
+
+#include "cp_async.cuh"
+
+namespace repro_torch {
+
+// Geometry of one halo layer (all ints, filled on the host).
+struct HaloGeo {
+  int B, M, H, W;           // raw input x [B, M, H, W], contiguous f32
+  int K, t, ov;             // FFT size, tile K - k + 1, halo k - 1
+  int n_th, n_tw;           // tile grid
+  int bth, btw, nbh, nbw;   // tiles per block, blocks per axis
+  int H_out, W_out, crop;   // output [B, N, H_out, W_out]; crop k - 1 - pad
+  int rows, cols, chan;     // raw stage of a channel: rows x cols at an odd
+                            // channel pitch (spreads channels over banks)
+};
+
+// Fill `g`; false for a geometry the kernels cannot take (the tile grid
+// must cover the output and the blocks the grid, with no empty block).
+inline bool make_halo_geo(HaloGeo& g, int B, int M, int H, int W, int K,
+                          int ksize, int pad, int n_th, int n_tw, int bth,
+                          int btw, int nbh, int nbw) {
+  g.B = B; g.M = M; g.H = H; g.W = W; g.K = K;
+  g.t = K - ksize + 1; g.ov = ksize - 1;
+  g.n_th = n_th; g.n_tw = n_tw;
+  g.bth = bth; g.btw = btw; g.nbh = nbh; g.nbw = nbw;
+  g.H_out = H + 2 * pad - ksize + 1;
+  g.W_out = W + 2 * pad - ksize + 1;
+  g.crop = ksize - 1 - pad;
+  g.rows = bth * g.t + g.ov;
+  g.cols = btw * g.t + g.ov;
+  g.chan = (g.rows * g.cols) | 1;
+  return B >= 1 && M >= 1 && H >= 1 && W >= 1 && ksize >= 1 && g.t >= 1 &&
+         pad >= 0 && g.crop >= 0 && g.H_out >= 1 && g.W_out >= 1 &&
+         bth >= 1 && btw >= 1 && n_th * g.t >= g.H_out + g.crop &&
+         n_tw * g.t >= g.W_out + g.crop && (nbh - 1) * bth < n_th &&
+         nbh * bth >= n_th && (nbw - 1) * btw < n_tw && nbw * btw >= n_tw;
+}
+
+// One CTA's halo block: image b, block row ib / col jb, and the raw
+// coordinates of its stage's first row and column (unclamped).
+struct HaloBlock {
+  int b, ib, jb, r0, c0;
+
+  __device__ __forceinline__ static HaloBlock of(const HaloGeo& g, int blk) {
+    HaloBlock hb;
+    const int nb = g.nbh * g.nbw;
+    hb.b = blk / nb;
+    const int q = blk - hb.b * nb;
+    hb.ib = q / g.nbw;
+    hb.jb = q - hb.ib * g.nbw;
+    hb.r0 = hb.ib * g.bth * g.t - g.ov;
+    hb.c0 = hb.jb * g.btw * g.t - g.ov;
+    return hb;
+  }
+  // tile slot p (bth-major) holds a tile of the grid
+  __device__ __forceinline__ bool real(const HaloGeo& g, int p) const {
+    if (p >= g.bth * g.btw) return false;
+    const int ii = p / g.btw, jj = p - ii * g.btw;
+    return ib * g.bth + ii < g.n_th && jb * g.btw + jj < g.n_tw;
+  }
+};
+
+// Stage channels [m0, m0 + BM) of the block's raw rows into
+// dst[m * g.chan + r * g.cols + c]; zero outside the image and past M.
+// The NT / 32 warps split evenly over the BM channels (compile-time), a
+// warp's lanes run along a row (contiguous global reads) and its rows
+// advance by a running pointer: no division per row or element.
+template <int NT, int BM>
+__device__ __forceinline__ void halo_load_raw(float* dst,
+                                              const float* __restrict__ x,
+                                              const HaloGeo& g,
+                                              const HaloBlock& hb, int m0,
+                                              int tid) {
+  constexpr int WPC = NT / 32 / BM;            // warps per channel
+  static_assert(NT % 32 == 0 && (NT / 32) % BM == 0,
+                "whole warps, split evenly over the channels");
+  const int lane = tid % 32, warp = tid / 32;
+  const int m = warp / WPC, r_first = warp % WPC;
+  const bool m_ok = m0 + m < g.M;
+  const float* plane = x + ((size_t)hb.b * g.M + (m_ok ? m0 + m : 0)) *
+                               g.H * g.W;
+  float* d = dst + m * g.chan;
+  for (int r = r_first; r < g.rows; r += WPC) {
+    const int gr = hb.r0 + r;
+    const bool row_ok = m_ok && (unsigned)gr < (unsigned)g.H;
+    const float* src = row_ok ? plane + (size_t)gr * g.W + hb.c0 : x;
+    float* dr = d + r * g.cols;
+    for (int c = lane; c < g.cols; c += 32) {
+      const bool ok = row_ok && (unsigned)(hb.c0 + c) < (unsigned)g.W;
+      cp_async4(dr + c, ok ? src + c : x, ok);
+    }
+  }
+}
+
+// A thread's fixed place in the expand pass: with NT a multiple of the
+// BM * BP (channel, tile slot) pairs of a window row, thread tid always
+// writes pair tid % (BM * BP), so its raw offset and whether its slot
+// holds a tile are computed once per CTA.
+struct HaloLane {
+  int base;     // raw offset of window (0, 0) of the thread's (m, slot)
+  bool real;    // the slot holds a tile of the grid
+};
+
+template <int NT, int BM, int BP>
+__device__ __forceinline__ HaloLane halo_lane(const HaloGeo& g,
+                                              const HaloBlock& hb, int tid) {
+  static_assert(NT % (BM * BP) == 0, "one (channel, slot) pair per thread");
+  const int q = tid % (BM * BP), m = q / BP, p = q - m * BP;
+  const int ii = p / g.btw, jj = p - ii * g.btw;
+  return {m * g.chan + ii * g.t * g.cols + jj * g.t, hb.real(g, p)};
+}
+
+// soff[s] = raw offset of window element s = u*K + v: u*cols + v (once
+// per CTA, S entries)
+template <int NT>
+__device__ __forceinline__ void halo_window_offsets(int* soff,
+                                                    const HaloGeo& g,
+                                                    int tid) {
+  for (int s = tid; s < g.K * g.K; s += NT)
+    soff[s] = (s / g.K) * g.cols + s % g.K;
+}
+
+// Expand the staged raw rows into windows win[s][m][p] (s = u*K + v, tile
+// slot p = ii*btw + jj): window (u, v) of tile (ii, jj) is raw row
+// ii*t + u, column jj*t + v.  Slots that hold no tile of the grid read 0.
+template <int NT, int BM, int BP>
+__device__ __forceinline__ void halo_expand(float* win, const float* raw,
+                                            const int* soff,
+                                            const HaloGeo& g, HaloLane ln,
+                                            int tid) {
+  constexpr int MP = BM * BP;
+  for (int i = tid, s = tid / MP; i < g.K * g.K * MP; i += NT, s += NT / MP)
+    win[i] = ln.real ? raw[ln.base + soff[s]] : 0.f;
+}
+
+// Offset of output element (s2, n, tile slot p) of the block in
+// y[B, N, H_out, W_out], or -1 where nothing is stored (the slot holds no
+// tile, or the position lies in the 'same'-crop margin).
+__device__ __forceinline__ long long halo_out_offset(const HaloGeo& g,
+                                                     const HaloBlock& hb,
+                                                     int N, int s2, int n,
+                                                     int p) {
+  if (!hb.real(g, p)) return -1;
+  const int ii = p / g.btw, jj = p - ii * g.btw;
+  const int u = s2 / g.t, v = s2 - u * g.t;
+  const int row = (hb.ib * g.bth + ii) * g.t + u - g.crop;
+  const int col = (hb.jb * g.btw + jj) * g.t + v - g.crop;
+  if ((unsigned)row >= (unsigned)g.H_out ||
+      (unsigned)col >= (unsigned)g.W_out)
+    return -1;
+  return (((long long)hb.b * N + n) * g.H_out + row) * g.W_out + col;
+}
+
+// The halo input path of a kernel whose CTA takes BM channels per step
+// into BP tile slots with NT threads: the raw activation x [B, M, H, W]
+// in, one halo block per CTA, output y [B, N, H_out, W_out].  The ring
+// stage holds the block's raw rows; the window stage [S][BM][BP] is
+// followed by the S window offsets (ints).
+template <int NT, int BM, int BP>
+struct HaloPath {
+  const float* x;
+  HaloGeo g;
+  struct Blk {
+    HaloBlock hb;
+    HaloLane ln;
+  };
+  int blocks() const { return g.B * g.nbh * g.nbw; }
+  __host__ __device__ int x_floats(int) const { return BM * g.chan; }
+  int win_floats(int S) const { return S * BM * BP + S; }
+  __device__ Blk block(int bx, int tid) const {
+    const HaloBlock hb = HaloBlock::of(g, bx);
+    return {hb, halo_lane<NT, BM, BP>(g, hb, tid)};
+  }
+  __device__ void prepare(float* win, int S, int tid) const {
+    halo_window_offsets<NT>(reinterpret_cast<int*>(win + S * BM * BP), g,
+                            tid);
+  }
+  __device__ void load(const Blk& k, float* sx, int, int, int m0,
+                       int tid) const {
+    halo_load_raw<NT, BM>(sx, x, g, k.hb, m0, tid);
+  }
+  // expand the staged raw rows into the window stage (barrier: the stage
+  // is read by every thread next)
+  __device__ const float* windows(const Blk& k, const float* sx, float* win,
+                                  int tid) const {
+    const int S = g.K * g.K;
+    halo_expand<NT, BM, BP>(win, sx,
+                            reinterpret_cast<const int*>(win + S * BM * BP),
+                            g, k.ln, tid);
+    __syncthreads();
+    return win;
+  }
+  __device__ long long out_at(const Blk& k, int s2, int n, int N,
+                              int p) const {
+    return halo_out_offset(g, k.hb, N, s2, n, p);
+  }
+};
+
+}  // namespace repro_torch

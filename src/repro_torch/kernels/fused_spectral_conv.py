@@ -13,14 +13,21 @@ device memory:
   ``core.scheduler.compile_layer_tables`` (gather, route, complex MAC,
   scatter per cycle).
 
+Each has a halo-input sibling in the same source
+(``fused_spectral_pipeline_halo``, ``fused_spectral_pipeline_scheduled_halo``):
+it reads the raw NCHW activation in overlapping halo blocks, gathers the
+windows on chip (``csrc/halo.cuh``) and writes the finished tiles
+straight into the ``[B, N, H_out, W_out]`` output, so no window tensor
+and no output relayout exist on the host.
+
 Each has its plain PyTorch version beside it
 (``*_reference``): the wrapper runs it for CPU tensors, and the tests
 and the on-card smoke run hold the kernel to it.
 
-Around the kernels, ``execute_layer_plan`` does the windowed input
-path's host-side layout work: overlap-save window extraction into the
-s-leading ``[S, M, B*T]`` layout, and valid-tile assembly of the
-``[t^2, N, B*T]`` output.
+Around the windowed kernels, ``execute_layer_plan`` does the windowed
+input path's host-side layout work: overlap-save window extraction into
+the s-leading ``[S, M, B*T]`` layout, and valid-tile assembly of the
+``[t^2, N, B*T]`` output.  The halo kernels need neither.
 """
 
 from __future__ import annotations
@@ -32,9 +39,11 @@ import numpy as np
 import torch
 
 import repro_torch
-from repro_torch.core.spectral import (SpectralGeometry,
+from repro_torch.core.spectral import (HaloGeometry, SpectralGeometry,
                                        assemble_valid_tiles,
-                                       extract_tiles_overlapping)
+                                       extract_tiles_overlapping,
+                                       halo_block_geometry,
+                                       halo_windows_blocked)
 from repro_torch.kernels import _build
 
 # CUDA kernel block sizes (compiled in as -DFSC_*): output channels and
@@ -55,7 +64,9 @@ SCHED_BLOCK_P, SCHED_BLOCK_M, SCHED_MAX_BINS = 4, 1, 64
 
 # Kernel launches per wrapper, counted where the kernel is launched.
 LAUNCHES = {"fused_spectral_pipeline": 0,
-            "fused_spectral_pipeline_scheduled": 0}
+            "fused_spectral_pipeline_scheduled": 0,
+            "fused_spectral_pipeline_halo": 0,
+            "fused_spectral_pipeline_scheduled_halo": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -135,11 +146,13 @@ def build_all() -> dict[str, ctypes.CDLL]:
         "fused_spectral_conv_scheduled": {
             "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}})
     # pointers, then ints, then the stream
+    plane, sched = libs["fused_spectral_conv"], \
+        libs["fused_spectral_conv_scheduled"]
     for lib, fn, n_ptr, n_int in (
-            (libs["fused_spectral_conv"], "fused_spectral_pipeline_f32",
-             9, 8),
-            (libs["fused_spectral_conv_scheduled"],
-             "fused_spectral_pipeline_scheduled_f32", 11, 13)):
+            (plane, "fused_spectral_pipeline_f32", 9, 8),
+            (plane, "fused_spectral_pipeline_halo_f32", 9, 17),
+            (sched, "fused_spectral_pipeline_scheduled_f32", 11, 13),
+            (sched, "fused_spectral_pipeline_scheduled_halo_f32", 11, 21)):
         f = getattr(lib, fn)
         f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                       + [ctypes.c_void_p])
@@ -154,17 +167,22 @@ def library() -> ctypes.CDLL:
 
 def _check_layouts(ops: dict[str, torch.Tensor],
                    int_names: tuple[str, ...] = ()) -> None:
-    """Every operand on xt's device, float32 (int32 for ``int_names``)
-    and contiguous; xt rows of P contiguous floats at one pitch."""
-    xt = ops["xt"]
+    """Every operand on the first operand's device, float32 (int32 for
+    ``int_names``) and contiguous; windows ``xt`` may instead be rows of
+    P contiguous floats at one pitch."""
+    lead, first = next(iter(ops.items()))
     for name, t in ops.items():
-        if t.device != xt.device:
-            raise ValueError(f"{name} is on {t.device}, xt on {xt.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, {lead} on "
+                             f"{first.device}")
         want = torch.int32 if name in int_names else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if name != "xt" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if "xt" not in ops:
+        return
+    xt = ops["xt"]
     s, m, p = xt.shape
     pitch = xt.stride(1)
     if xt.stride(2) != 1 or pitch < p or xt.stride(0) != m * pitch:
@@ -174,10 +192,17 @@ def _check_layouts(ops: dict[str, torch.Tensor],
 
 
 def _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias) -> None:
-    ops = dict(xt=xt, wr=wr, wi=wi, dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi,
-               bias=bias)
+    _check_plane_operands(dict(xt=xt, wr=wr, wi=wi, dfr=dfr, dfi=dfi,
+                               dvr=dvr, dvi=dvi, bias=bias), *xt.shape)
+
+
+def _check_plane_operands(ops: dict[str, torch.Tensor], s: int, m: int,
+                          p: int) -> None:
+    """Layouts and shapes of the plane kernels' operands (``ops`` leads
+    with the windows ``xt`` or the raw input ``x``; S = K^2 window
+    rows, M channels, P tiles)."""
     _check_layouts(ops)
-    s, m, p = xt.shape
+    wr, dvr = ops["wr"], ops["dvr"]
     fa, n, m_w = wr.shape
     s2 = dvr.shape[0]
     want = dict(wr=(fa, n, m), wi=(fa, n, m), dfr=(fa, s), dfi=(fa, s),
@@ -190,7 +215,7 @@ def _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias) -> None:
         raise ValueError(f"active bins {fa} must be at most "
                          f"{MAX_CLUSTER * BIN_CHUNK}")
     if min(s, m, p, fa, n, s2) < 1:
-        raise ValueError(f"empty operand: xt {tuple(xt.shape)}, "
+        raise ValueError(f"empty operand: S, M, P = {s}, {m}, {p}, "
                          f"wr {tuple(wr.shape)}, dvr {tuple(dvr.shape)}")
 
 
@@ -290,10 +315,17 @@ def library_scheduled() -> ctypes.CDLL:
 
 def _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
                               bias, n_out: int) -> None:
-    ops = dict(xt=xt, idx=idx, sel=sel, vr=vr, vi=vi, dfr=dfr, dfi=dfi,
-               dvr=dvr, dvi=dvi, bias=bias)
+    _check_table_operands(dict(xt=xt, idx=idx, sel=sel, vr=vr, vi=vi,
+                               dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi,
+                               bias=bias), *xt.shape, n_out)
+
+
+def _check_table_operands(ops: dict[str, torch.Tensor], s: int, m: int,
+                          p: int, n_out: int) -> None:
+    """Layouts and shapes of the scheduled kernels' operands (``ops``
+    leads with the windows ``xt`` or the raw input ``x``)."""
     _check_layouts(ops, int_names=("idx", "sel"))
-    s, m, p = xt.shape
+    idx, sel, dfr, dvr = ops["idx"], ops["sel"], ops["dfr"], ops["dvr"]
     if idx.dim() != 4:
         raise ValueError(f"idx must be [GN, Mp, T, r], got "
                          f"{tuple(idx.shape)}")
@@ -320,7 +352,7 @@ def _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
         raise ValueError(f"active bins {fa} must be at most "
                          f"{SCHED_MAX_BINS}")
     if min(s, m, p, fa, s2, idx.shape[3], n_cycles) < 1:
-        raise ValueError(f"empty operand: xt {tuple(xt.shape)}, "
+        raise ValueError(f"empty operand: S, M, P = {s}, {m}, {p}, "
                          f"idx {tuple(idx.shape)}, dvr {tuple(dvr.shape)}")
 
 
@@ -376,7 +408,198 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
 
 
 # ---------------------------------------------------------------------------
-# Layer execution around the kernel (windowed input path)
+# The halo-input kernels and their plain versions
+# ---------------------------------------------------------------------------
+
+def _halo_windows(x: torch.Tensor, geo: SpectralGeometry,
+                  hg: HaloGeometry) -> torch.Tensor:
+    """Raw [B, M, H, W] -> the halo path's windows [S, M, B*nb*bt],
+    s-leading: column ((b*nbh + ib)*nbw + jb)*bt + ii*btw + jj is tile
+    (ii, jj) of block (ib, jb) of image b (one-hot gather, exact)."""
+    b, m = x.shape[:2]
+    s = geo.fft_size * geo.fft_size
+    win = halo_windows_blocked(x, geo, hg)   # [B,nbh,nbw,M,bth,btw,K,K]
+    return win.permute(6, 7, 3, 0, 1, 2, 4, 5).reshape(s, m, -1)
+
+
+def _stage_canvas(y: torch.Tensor, geo: SpectralGeometry, hg: HaloGeometry,
+                  b: int) -> torch.Tensor:
+    """[t^2, N, B*nb*bt] block-major outputs -> canvas [B, N, nbh*bth*t,
+    nbw*btw*t]: tile (ii, jj) of block (ib, jb) at rows (ib*bth + ii)*t
+    + u, cols (jb*btw + jj)*t + v (the reference's ``_CanvasSink.stage``
+    over every block)."""
+    t = geo.tile
+    n = y.shape[1]
+    y = y.reshape(t, t, n, b, hg.nbh, hg.nbw, hg.bth, hg.btw)
+    y = y.permute(3, 2, 4, 6, 0, 5, 7, 1)    # b, n, ib, ii, u, jb, jj, v
+    return y.reshape(b, n, hg.nbh * hg.bth * t, hg.nbw * hg.btw * t)
+
+
+def _crop_canvas(y: torch.Tensor, geo: SpectralGeometry, n: int
+                 ) -> torch.Tensor:
+    """[B, Np, nbh*bth*t, nbw*btw*t] halo canvas -> [B, N, H_out, W_out]:
+    the channel crop and the 'same'-crop slice."""
+    start = geo.ksize - 1 - geo.pad
+    h_out = geo.h_in + 2 * geo.pad - geo.ksize + 1
+    w_out = geo.w_in + 2 * geo.pad - geo.ksize + 1
+    return y[:, :n, start:start + h_out, start:start + w_out]
+
+
+def fused_spectral_pipeline_halo_reference(x, wr, wi, dfr, dfi, dvr, dvi,
+                                           bias, *, geo: SpectralGeometry,
+                                           hg: HaloGeometry, relu: bool
+                                           ) -> torch.Tensor:
+    """Plain PyTorch version of the halo plane kernel (same contract as
+    ``fused_spectral_pipeline_halo``): the one-hot halo gather, block by
+    block, then the plain plane pipeline, the canvas relayout and the
+    crop.  Returns a contiguous [B, N, H_out, W_out]."""
+    y = fused_spectral_pipeline_reference(
+        _halo_windows(x, geo, hg), wr, wi, dfr, dfi, dvr, dvi, bias,
+        relu=relu)
+    canvas = _stage_canvas(y, geo, hg, x.shape[0])
+    return _crop_canvas(canvas, geo, wr.shape[1]).contiguous()
+
+
+def fused_spectral_pipeline_scheduled_halo_reference(
+        x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *,
+        geo: SpectralGeometry, hg: HaloGeometry, n_out: int,
+        relu: bool) -> torch.Tensor:
+    """Plain PyTorch version of the halo scheduled kernel (same contract
+    as ``fused_spectral_pipeline_scheduled_halo``): the one-hot halo
+    gather, the plain table pipeline, the canvas relayout and the crop.
+    """
+    y = fused_spectral_pipeline_scheduled_reference(
+        _halo_windows(x, geo, hg), idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+        bias, n_out=n_out, relu=relu)
+    canvas = _stage_canvas(y, geo, hg, x.shape[0])
+    return _crop_canvas(canvas, geo, n_out).contiguous()
+
+
+def _check_halo_input(x: torch.Tensor, geo: SpectralGeometry,
+                      hg: HaloGeometry, block_p: int) -> None:
+    """The halo kernels read x as a contiguous NCHW f32 image of the
+    geometry's extent; they do not copy another layout silently."""
+    if x.dim() != 4 or tuple(x.shape[2:]) != (geo.h_in, geo.w_in):
+        raise ValueError(f"x must be [B, M, {geo.h_in}, {geo.w_in}], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous NCHW float32, got "
+                         f"{x.dtype} with strides {x.stride()}")
+    if hg != halo_block_geometry(geo, hg.block_tiles):
+        raise ValueError(f"{hg} is not a halo block of {geo}")
+    if hg.block_tiles > block_p:
+        raise ValueError(f"halo blocks of {hg.block_tiles} tiles exceed "
+                         f"the kernel's {block_p} tile slots")
+
+
+def _halo_ints(x: torch.Tensor, geo: SpectralGeometry,
+               hg: HaloGeometry) -> tuple[int, ...]:
+    """The halo kernels' geometry arguments, in their order."""
+    b, m, h, w = x.shape
+    return (b, m, h, w, geo.fft_size, geo.ksize, geo.pad, geo.n_tiles_h,
+            geo.n_tiles_w, hg.bth, hg.btw, hg.nbh, hg.nbw)
+
+
+def _halo_out(x, geo: SpectralGeometry, n: int) -> torch.Tensor:
+    h_out = geo.h_in + 2 * geo.pad - geo.ksize + 1
+    w_out = geo.w_in + 2 * geo.pad - geo.ksize + 1
+    return torch.empty((x.shape[0], n, h_out, w_out), dtype=torch.float32,
+                       device=x.device)
+
+
+def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
+                                 geo: SpectralGeometry, hg: HaloGeometry,
+                                 relu: bool) -> torch.Tensor:
+    """Halo gather -> FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel
+    launch, reading the RAW activation.
+
+    x: [B, M, H, W] f32      raw NCHW activation, contiguous (no
+                             windowing, no padding: the kernel's
+                             zero-filled block copies do both)
+    wr/wi/dfr/dfi/dvr/dvi/bias: as ``fused_spectral_pipeline``.
+    geo/hg: tile and halo-block geometry (``halo_block_geometry``; at
+        most ``BLOCK_P`` tiles per block); one CTA per (image, block).
+    returns [B, N, H_out, W_out] f32, contiguous: each finished tile is
+    stored at its place in the cropped output (no host relayout).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (or raise).
+    """
+    _check_halo_input(x, geo, hg, BLOCK_P)
+    if x.device.type == "cpu":
+        return fused_spectral_pipeline_halo_reference(
+            x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_plane_operands(dict(x=x, wr=wr, wi=wi, dfr=dfr, dfi=dfi,
+                               dvr=dvr, dvi=dvi, bias=bias),
+                          geo.fft_size ** 2, x.shape[1], hg.block_tiles)
+    fa, n, _ = wr.shape
+    s2 = dvr.shape[0]
+    lib = library()
+    with torch.cuda.device(x.device):
+        y = _halo_out(x, geo, n)
+        err = lib.fused_spectral_pipeline_halo_f32(
+            x.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
+            dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), *_halo_ints(x, geo, hg), fa, n,
+            s2, int(relu), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_spectral_pipeline_halo launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["fused_spectral_pipeline_halo"] += 1
+    return y
+
+
+def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
+                                           dvr, dvi, bias, *,
+                                           geo: SpectralGeometry,
+                                           hg: HaloGeometry, n_out: int,
+                                           relu: bool) -> torch.Tensor:
+    """Halo gather -> FFT -> SCHEDULED sparse Hadamard -> IFFT (+
+    bias/ReLU) in one kernel launch, reading the RAW activation.
+
+    x: [B, M, H, W] f32 raw NCHW activation, contiguous; tables,
+    operators and bias as ``fused_spectral_pipeline_scheduled``;
+    geo/hg as ``fused_spectral_pipeline_halo`` (at most
+    ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out,
+    W_out] f32, contiguous.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel (or raise).
+    """
+    _check_halo_input(x, geo, hg, SCHED_BLOCK_P)
+    if x.device.type == "cpu":
+        return fused_spectral_pipeline_scheduled_halo_reference(
+            x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg,
+            n_out=n_out, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_table_operands(dict(x=x, idx=idx, sel=sel, vr=vr, vi=vi,
+                               dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi,
+                               bias=bias),
+                          geo.fft_size ** 2, x.shape[1], hg.block_tiles,
+                          n_out)
+    gn, mp, n_cycles, r = idx.shape
+    n_pe = sel.shape[3]
+    fa = dfr.shape[0]
+    s2 = dvr.shape[0]
+    lib = library_scheduled()
+    with torch.cuda.device(x.device):
+        y = _halo_out(x, geo, n_out)
+        err = lib.fused_spectral_pipeline_scheduled_halo_f32(
+            x.data_ptr(), idx.data_ptr(), sel.data_ptr(), vr.data_ptr(),
+            vi.data_ptr(), dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
+            dvi.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            *_halo_ints(x, geo, hg), mp, n_cycles, r, n_pe, fa, n_out, s2,
+            int(relu), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_spectral_pipeline_scheduled_halo launch "
+                           f"failed: cudaError {err}")
+    LAUNCHES["fused_spectral_pipeline_scheduled_halo"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Layer execution around the kernel 
 # ---------------------------------------------------------------------------
 
 def _windows_layout(x: torch.Tensor, geo: SpectralGeometry
@@ -429,25 +652,56 @@ def _fused_conv_scheduled(x: torch.Tensor, tables, dfr, dfi, dvr, dvi,
     return _assemble_output(y, geo, b, n_out, t_cnt, x.dtype)
 
 
+def _fused_conv_halo(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias,
+                     *, geo: SpectralGeometry, block_p: int,
+                     relu: bool) -> torch.Tensor:
+    """Halo plane kernel on the raw activation: no host window tensor,
+    no host output relayout.  ``block_p`` (tiles per image block) is
+    split into the 2-D halo block by ``halo_block_geometry``."""
+    return fused_spectral_pipeline_halo(
+        x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo,
+        hg=halo_block_geometry(geo, block_p), relu=relu)
+
+
+def _fused_conv_scheduled_halo(x: torch.Tensor, tables, dfr, dfi, dvr,
+                               dvi, bias, *, geo: SpectralGeometry,
+                               block_p: int, n_out: int,
+                               relu: bool) -> torch.Tensor:
+    """Halo scheduled kernel on the raw activation (tables as
+    ``_fused_conv_scheduled``)."""
+    return fused_spectral_pipeline_scheduled_halo(
+        x, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
+        dvi, bias, geo=geo, hg=halo_block_geometry(geo, block_p),
+        n_out=n_out, relu=relu)
+
+
 def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
     """Run one conv layer from a precompiled ``core.plan.LayerPlan``:
     x [B, M, H, W] -> [B, N, H_out, W_out] (bias and ReLU applied as the
     plan's epilogue says; stride and pooling stay with the caller).
-    Dispatches on the plan's Hadamard mode: 'dense'/'bin' run the plane
-    kernel, 'scheduled' the table kernel on the precompiled tables;
-    nothing is scheduled or compacted here."""
-    if lp.input_mode != "windowed":
-        raise NotImplementedError(
-            f"layer {lp.layer.name}: input_mode={lp.input_mode!r} is not "
-            f"ported yet (ROADMAP B3/B5)")
+    Dispatches on the plan's Hadamard mode ('dense'/'bin' run the plane
+    kernel, 'scheduled' the table kernel on the precompiled tables) and
+    on its input mode ('windowed' lays out windows and assembles tiles
+    on the host, 'halo' hands the raw activation, which must be
+    contiguous NCHW f32, to the halo kernel); nothing is scheduled or
+    compacted here."""
     if lp.tuning.flow != "output_stationary":
         raise NotImplementedError(
             f"layer {lp.layer.name}: flow {lp.tuning.flow!r} is not "
             f"ported yet (ROADMAP B2)")
+    halo = lp.input_mode == "halo"
     bias = lp.bias if lp.epilogue.bias else torch.zeros_like(lp.bias)
+    ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias)
+    relu = lp.epilogue.relu
     if lp.hadamard == "scheduled":
-        return _fused_conv_scheduled(
-            x, lp.tables, lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias, geo=lp.geo,
-            n_out=lp.layer.c_out, relu=lp.epilogue.relu)
-    return _fused_conv(x, lp.wr, lp.wi, lp.dfr, lp.dfi, lp.dvr, lp.dvi,
-                       bias, geo=lp.geo, relu=lp.epilogue.relu)
+        n_out = lp.layer.c_out
+        if halo:
+            return _fused_conv_scheduled_halo(
+                x, lp.tables, *ops, geo=lp.geo, block_p=lp.tuning.block_p,
+                n_out=n_out, relu=relu)
+        return _fused_conv_scheduled(x, lp.tables, *ops, geo=lp.geo,
+                                     n_out=n_out, relu=relu)
+    if halo:
+        return _fused_conv_halo(x, lp.wr, lp.wi, *ops, geo=lp.geo,
+                                block_p=lp.tuning.block_p, relu=relu)
+    return _fused_conv(x, lp.wr, lp.wi, *ops, geo=lp.geo, relu=relu)

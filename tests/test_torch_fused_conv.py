@@ -176,9 +176,9 @@ def test_execute_layer_plan_smoke_layers(plans, index):
 
 
 @pytest.mark.parametrize("kwargs", [dict(hadamard="auto"),
-                                    dict(input_mode="halo"),
+                                    dict(input_mode="auto"),
                                     dict(hadamard="scheduled",
-                                         input_mode="halo")])
+                                         input_mode="auto")])
 def test_unported_plan_modes_raise(kwargs):
     params = {"convs": [{"w": torch.zeros(8, 3, 3, 3),
                          "b": torch.zeros(8)}] * len(SMOKE.layers)}

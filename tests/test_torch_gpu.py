@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.vgg16_spectral import SMOKE
 from repro_torch.core import plan as pl
 from repro_torch.core import scheduler as sch
+from repro_torch.core import spectral as spec
 from repro_torch.kernels import fused_spectral_conv as fsc
 from repro_torch.models import cnn
 
@@ -188,3 +189,157 @@ def test_smoke_scheduled_forward_on_card_goes_through_kernel():
     ref = cnn.forward_spectral(params, plan, x, backend="einsum")
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= TOL, err
+
+
+# ---------------------------------------------------------------------------
+# Halo input path: B3 (plane) and B5 (scheduled) on the raw activation
+# ---------------------------------------------------------------------------
+
+def halo_case(h, w, k, b, m, block_p, seed=0):
+    """Geometry, halo blocks and a raw [b, m, h, w] activation on the
+    card (K = 8)."""
+    geo = spec.make_geometry(h, w, k, 8)
+    hg = spec.halo_block_geometry(geo, block_p)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, m, h, w)).astype(
+        np.float32)).cuda()
+    return geo, hg, x
+
+
+def windowed_output(kernel, x, ops, geo, n, **kw):
+    """The windowed kernel on the same input, assembled to [B, N, H, W]."""
+    xt, t_cnt = fsc._windows_layout(x, geo)
+    y = kernel(xt, *ops, **kw)
+    return fsc._assemble_output(y, geo, x.shape[0], n, t_cnt, x.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,k,b,m,n,fa,block_p", [
+    (13, 12, 3, 2, 5, 6, 64, 16),    # clamped edges, 9 of 16 slots
+    (13, 12, 3, 2, 7, 9, 24, 5),     # 1 x 3 blocks, ragged M and N
+    (14, 14, 3, 1, 9, 40, 8, 16),    # VGG16 conv5-like 3 x 3 block
+    (20, 17, 3, 2, 6, 7, 60, 16),    # Fa = 60: ragged bin chunk
+    (11, 9, 3, 3, 5, 9, 12, 4),      # Fa = 12
+    (8, 8, 3, 1, 4, 3, 5, 16),       # Fa = 5
+    (19, 13, 5, 2, 3, 8, 64, 7),     # k = 5 (t = 4)
+    (56, 56, 3, 1, 64, 128, 64, 16), # VGG16 conv3-like 1 x 10 blocks
+])
+def test_halo_kernel_matches_plain_on_card(h, w, k, b, m, n, fa, block_p):
+    """B3 against its plain version; equal to the windowed kernel (B1)
+    bit for bit, since both run the same arithmetic per tile; bitwise
+    repeatable; every launch counted."""
+    need_card()
+    geo, hg, x = halo_case(h, w, k, b, m, block_p, seed=m + n)
+    s2 = geo.tile ** 2
+    rng = np.random.default_rng(h + w)
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           .cuda() for sh in [(fa, n, m), (fa, n, m), (fa, 64), (fa, 64),
+                              (s2, fa), (s2, fa), (1, n)]]
+    before = dict(fsc.LAUNCHES)
+    for relu in (False, True):
+        y = fsc.fused_spectral_pipeline_halo(x, *ops, geo=geo, hg=hg,
+                                             relu=relu)
+        torch.cuda.synchronize()
+        ref = fsc.fused_spectral_pipeline_halo_reference(
+            x, *ops, geo=geo, hg=hg, relu=relu)
+        assert y.shape == ref.shape == (b, n, h, w) and y.is_contiguous()
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, err
+        assert torch.equal(y, fsc.fused_spectral_pipeline_halo(
+            x, *ops, geo=geo, hg=hg, relu=relu))
+        assert torch.equal(y, windowed_output(
+            fsc.fused_spectral_pipeline, x, ops, geo, n, relu=relu))
+    assert fsc.LAUNCHES["fused_spectral_pipeline_halo"] == \
+        before["fused_spectral_pipeline_halo"] + 4
+    assert fsc.LAUNCHES["fused_spectral_pipeline"] == \
+        before["fused_spectral_pipeline"] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,b,m,n,fa,pad_cycles", [
+    (13, 12, 2, 1, 9, 64, 0),       # cluster of 1, 1 x 3 blocks
+    (13, 12, 2, 3, 70, 64, 2),      # cluster of 3, ragged group, padding
+    (14, 14, 1, 8, 16, 60, 0),      # cluster of 8, Fa = 60, conv5-like
+    (11, 9, 3, 5, 24, 12, 1),       # cluster of 5, Fa = 12
+    (8, 8, 1, 2, 3, 5, 0),          # cluster of 2, Fa = 5
+    (28, 28, 1, 64, 128, 64, 0),    # VGG16 conv4-like 1 x 4 blocks
+])
+def test_scheduled_halo_kernel_matches_plain_on_card(h, w, b, m, n, fa,
+                                                     pad_cycles):
+    """B5 against its plain version; against the windowed scheduled
+    kernel (B4) on the same input to 1e-6 relative (bitwise where both
+    launches pick the same cluster size, which the cluster's channel
+    split decides); bitwise repeatable; every launch counted.  The input
+    channels split over clusters of 1 to 8 CTAs across these shapes."""
+    need_card()
+    geo, hg, x = halo_case(h, w, 3, b, m, fsc.SCHED_BLOCK_P, seed=n)
+    ops = scheduled_operands(64, m, 1, n, fa, geo.tile ** 2,
+                             pad_cycles=pad_cycles, seed=m + n)[1:]
+    before = dict(fsc.LAUNCHES)
+    for relu in (False, True):
+        y = fsc.fused_spectral_pipeline_scheduled_halo(
+            x, *ops, geo=geo, hg=hg, n_out=n, relu=relu)
+        torch.cuda.synchronize()
+        ref = fsc.fused_spectral_pipeline_scheduled_halo_reference(
+            x, *ops, geo=geo, hg=hg, n_out=n, relu=relu)
+        assert y.shape == ref.shape == (b, n, h, w) and y.is_contiguous()
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, err
+        assert torch.equal(y, fsc.fused_spectral_pipeline_scheduled_halo(
+            x, *ops, geo=geo, hg=hg, n_out=n, relu=relu))
+        yw = windowed_output(fsc.fused_spectral_pipeline_scheduled, x, ops,
+                             geo, n, n_out=n, relu=relu)
+        assert float((y - yw).abs().max() / yw.abs().max()) <= 1e-6
+    assert fsc.LAUNCHES["fused_spectral_pipeline_scheduled_halo"] == \
+        before["fused_spectral_pipeline_scheduled_halo"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_halo_non_contiguous_input_raises(scheduled):
+    """The halo kernels read x as contiguous NCHW f32: another layout
+    raises (no silent copy) and is not launched."""
+    need_card()
+    geo, hg, x = halo_case(13, 12, 3, 2, 4, 4)
+    x = x.transpose(2, 3).contiguous().transpose(2, 3)   # NCHW view, not
+    assert not x.is_contiguous()                          # contiguous
+    before = dict(fsc.LAUNCHES)
+    if scheduled:
+        ops = scheduled_operands(64, 4, 1, 6, 64, 36, seed=1)[1:]
+        with pytest.raises(ValueError, match="contiguous"):
+            fsc.fused_spectral_pipeline_scheduled_halo(
+                x, *ops, geo=geo, hg=hg, n_out=6, relu=True)
+    else:
+        ops = [torch.zeros(sh, device="cuda") for sh in
+               [(64, 6, 4), (64, 6, 4), (64, 64), (64, 64), (36, 64),
+                (36, 64), (1, 6)]]
+        with pytest.raises(ValueError, match="contiguous"):
+            fsc.fused_spectral_pipeline_halo(x, *ops, geo=geo, hg=hg,
+                                             relu=True)
+    assert fsc.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hadamard,kernel", [
+    ("bin", "fused_spectral_pipeline_halo"),
+    ("scheduled", "fused_spectral_pipeline_scheduled_halo")])
+def test_smoke_halo_forward_on_card_goes_through_kernel(hadamard, kernel):
+    """A halo plan launches only its halo kernel, 13 times per forward,
+    and agrees with the einsum oracle and with the windowed plan."""
+    need_card()
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, SMOKE, batch=2, hadamard=hadamard,
+                                 input_mode="halo")
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = dict(fsc.LAUNCHES)
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    after = dict(fsc.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 13 if k == kernel else 0 for k in after}
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err
+    windowed = cnn.forward_spectral(
+        params, pl.with_input_mode(plan, "windowed"), x, backend="fused")
+    err = float((out - windowed).abs().max() / windowed.abs().max())
+    assert err <= 1e-6, err
