@@ -46,8 +46,9 @@ each of which fails the run on error:
   (c4), (d4) the same for the halo scheduled kernel (B5) on the
       scheduled plan moved to ``input_mode="halo"`` (the tables do not
       depend on the input path, so nothing is recompiled);
-  (e) one status line per kernel, then one JSON line with every
-      kernel's numbers, then the device JSON as the last line.
+  (e) a check that no process this run started is still running, one
+      status line per kernel, then one JSON line with every kernel's
+      numbers, then the device JSON as the last line.
 
 Bounds use the H100 SXM data-sheet peaks: 67 TFLOP/s fp32 on CUDA
 cores, 3.35 TB/s HBM3.
@@ -56,6 +57,7 @@ cores, 3.35 TB/s HBM3.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -74,6 +76,22 @@ BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def child_processes() -> list[str]:
+    """Command lines of this process's live children (Linux /proc)."""
+    me = str(os.getpid())
+    found = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            if (d / "stat").read_text().rsplit(")", 1)[1].split()[1] == me:
+                found.append((d / "cmdline").read_bytes()
+                             .replace(b"\0", b" ").decode().strip())
+        except OSError:         # the process ended while we looked
+            continue
+    return found
 
 
 def rel_err(a, b) -> float:
@@ -505,6 +523,12 @@ def main() -> int:
         "fused_spectral_pipeline_scheduled_halo", shtot["ms"])
     print(f"    p50 minus kernel sum, batch 1: (d4) halo {shalo_host:.2f} "
           f"ms, (d2) windowed {sched_host:.2f} ms")
+
+    # every process this run started (nvcc, nvidia-smi, the table pool and
+    # its resource tracker) has ended
+    left = child_processes()
+    if left:
+        fail(f"processes still running at the end: {left}")
 
     # (e) kernels ---------------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"

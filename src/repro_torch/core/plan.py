@@ -26,10 +26,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import multiprocessing
 import os
 import time
 from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import resource_tracker
 from typing import NamedTuple
 
 import numpy as np
@@ -354,13 +356,30 @@ def with_input_mode(plan: NetworkPlan, input_mode: str) -> NetworkPlan:
     return dataclasses.replace(plan, layers=layers)
 
 
+@contextlib.contextmanager
 def _schedule_pool(workers: int):
     """A spawn-context process pool for table compilation (spawn: the
-    parent may hold a CUDA context), or a null context when serial."""
+    parent may hold a CUDA context), or None when serial.
+
+    On exit the workers are joined and, when this pool started it, the
+    multiprocessing resource tracker (a helper process that spawn starts
+    and that otherwise lives until the interpreter exits) is stopped and
+    reaped, so a plan build leaves no process behind."""
     if workers <= 1:
-        return contextlib.nullcontext(None)
-    return ProcessPoolExecutor(
+        yield None
+        return
+    tracker = resource_tracker._resource_tracker
+    started_tracker = tracker._fd is None
+    pool = ProcessPoolExecutor(
         max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=True)
+        del pool
+        gc.collect()    # the pool's semaphores unregister from the tracker
+        if started_tracker:
+            tracker._stop()
 
 
 def build_network_plan(params: dict, cfg, *, batch: int = 1,

@@ -6,7 +6,9 @@ utilizations must be bit-identical (``np.array_equal``, ``==`` on
 floats): both packages must hand the kernels the same tables.
 """
 
+import os
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -144,6 +146,35 @@ def test_compile_layer_tables_in_process_pool():
     with pl._schedule_pool(2) as pool:
         port = sch.compile_layer_tables(ind, vals, 64, 10, 8, pool=pool)
     assert_same_layer_tables(port, ref)
+
+
+def child_processes() -> list[str]:
+    """Command lines of this process's live children (Linux /proc)."""
+    me = str(os.getpid())
+    found = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            if (d / "stat").read_text().rsplit(")", 1)[1].split()[1] == me:
+                found.append((d / "cmdline").read_bytes()
+                             .replace(b"\0", b" ").decode().strip())
+        except OSError:         # the process ended while we looked
+            continue
+    return found
+
+
+@pytest.mark.skipif(not Path("/proc/self/stat").exists(),
+                    reason="needs Linux /proc to list child processes")
+def test_schedule_pool_leaves_no_process():
+    """The pool joins its workers and stops the resource tracker that
+    spawn started, so a plan build leaves no helper process running."""
+    before = child_processes()
+    ind, vals = layer_operands(12, 2 * sch.POOL_BLOCK + 1, 64, 4.0, seed=3)
+    with pl._schedule_pool(2) as pool:
+        sch.compile_layer_tables(ind, vals, 64, 10, 8, pool=pool)
+        assert len(child_processes()) > len(before)    # workers ran
+    assert child_processes() == before
 
 
 @pytest.mark.parametrize("method", list(jsch.SCHEDULERS))
