@@ -46,9 +46,41 @@ each of which fails the run on error:
   (c4), (d4) the same for the halo scheduled kernel (B5) on the
       scheduled plan moved to ``input_mode="halo"`` (the tables do not
       depend on the input path, so nothing is recompiled);
+  (c5) the weight- and input-stationary flows (B2) of the two windowed
+      kernels, on the plane and scheduled plans moved to each flow with
+      ``plan.with_flow`` (m-range widths from the Hopper cost model): each
+      vs its plain version (the flow's own m-range sum order) at every
+      layer shape and batch, a repeat launch bitwise equal; at batch 1
+      kernel / plain / bound times (the bound is the function's own,
+      the output-stationary twin's; beside it the bound with the flow's
+      further IFFTs and split-K workspace), the output-stationary
+      kernel's time on the same input and max|flow - os|;
+  (c6) the same for the four halo flow kernels, plus max|halo -
+      windowed| of the same flow;
+  (c7) the Hopper cost model against the batch-1 kernel times of
+      (c)-(c6): per layer the predicted and measured fastest of the
+      twelve entry points and their rank correlation;
+  (d5) the autotuned plan: ``build_network_plan(hadamard="auto",
+      input_mode="auto", measure=True)``: plan-build and table-compile
+      seconds, the fitted latency constants, per layer the chosen (flow,
+      mode, input path, block_m) and every measured candidate's predicted
+      and measured time, and whether both ranked them alike; then the
+      five forwards, launches per entry point equal to the plan's
+      choices (13 per forward), logits vs einsum, p50 beside (d)-(d4);
+  (d6) one batch-1 forward through each of the four plans of (d)-(d4)
+      moved to weight- and to input-stationary (``with_flow``): 13
+      launches of the flow's entry point, logits vs einsum;
   (e) a check that no process this run started is still running, one
-      status line per kernel, then one JSON line with every kernel's
-      numbers, then the device JSON as the last line.
+      status line per kernel entry point (twelve: four kernels x three
+      flows), then one JSON line with every entry point's numbers, then
+      the device JSON as the last line.
+
+The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c5),
+(c6) and (d6); the plane plans are freed; (c2), (d2), (c4), (d4), the
+scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5),
+(e).  So each serve's peak device memory holds the weights and the plans
+of its own kind only (the resident bytes at its start are printed beside
+it).
 
 Bounds use the H100 SXM data-sheet peaks: 67 TFLOP/s fp32 on CUDA
 cores, 3.35 TB/s HBM3.
@@ -98,22 +130,12 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def timed_ms(fn, flush) -> float:
-    """Median device time of ``fn`` over REPS launches, L2 flushed
-    before each (CUDA events around every launch)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(REPS):
-        flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def timed_ms(fn, flush, reps: int = REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, ``flush()``
+    (an L2 flush) before each, CUDA events around every launch (the
+    autotuner's own measurement)."""
+    from repro_torch.core.autotune import device_ms
+    return device_ms(fn, flush, reps)
 
 
 def bound_of(flops: float, nbytes: float) -> tuple[float, str]:
@@ -168,7 +190,7 @@ def idle_share(lp, slots: int) -> float:
 
 
 def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
-                 extra=None, twin=None):
+                 extra=None, twin=None, repeat=False, plain_reps=REPS):
     """Hold ``kernel`` to ``plain`` at every layer of ``plan``, at every
     batch size of BATCHES (the plan's operands, a random activation);
     time both at batch 1.  ``make_ops(lp, x_img)`` gives the arguments
@@ -177,7 +199,8 @@ def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
     batch-b call's (flops, bytes), ``extra(lp, x_img, flush)`` more
     batch-1 columns {name: value}, ``twin(lp, x_img)`` the windowed
     twin kernel's assembled [B, N, H, W] output on the same input, held
-    as max|y - twin|.  Returns the rows and their totals."""
+    as max|y - twin|; ``repeat`` holds a second launch bitwise equal to
+    the first.  Returns the rows and their totals."""
     import torch
     rows = []
     for lp in plan.layers:
@@ -194,13 +217,16 @@ def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
             if not torch.isfinite(y).all() or err > KERNEL_TOL:
                 fail(f"{label} {layer.name} batch {b}: kernel vs plain rel "
                      f"err {err:.3e} > {KERNEL_TOL:g}")
+            if repeat and not torch.equal(y, kernel(lp, ops)):
+                fail(f"{label} {layer.name} batch {b}: a repeat launch "
+                     f"differs")
             if twin is not None:
                 twin_diff = max(twin_diff,
                                 float((y - twin(lp, x_img)).abs().max()))
             checked[b] = (b * lp.geo.n_tiles, err, abs_err)
         p, err, abs1 = checked[1]
         k_ms = timed_ms(lambda: kernel(lp, ops), flush.zero_)
-        p_ms = timed_ms(lambda: plain(lp, ops), flush.zero_)
+        p_ms = timed_ms(lambda: plain(lp, ops), flush.zero_, plain_reps)
         flops, nbytes = bound(lp, 1)
         b_ms, by = bound_of(flops, nbytes)
         row = dict(layer=layer.name, m=layer.c_in, n=layer.c_out, p=p,
@@ -227,26 +253,194 @@ def check_layers(plan, label, kernel, plain, make_ops, bound, xgen, flush,
     for k in rows[0]:
         if k.startswith("x_") and k.endswith("_ms"):
             tot[k] = sum(r[k] for r in rows)
+        elif k.startswith("x_") and k.endswith("_abs"):
+            tot[k] = max(r[k] for r in rows)
     if twin is not None:
         tot["twin_abs"] = max(r["twin_abs"] for r in rows)
     print(f"    total (one batch-1 forward): kernel {tot['ms']:.4f} ms, "
           f"plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
           f"({tot['flops'] / 1e9:.2f} GFLOP, {tot['bytes'] / 1e9:.3f} GB)"
-          + "".join(f", {k} {v:.4f}" for k, v in tot.items()
+          + "".join(f", {k} {v:.4g}" for k, v in tot.items()
                     if k.startswith("x_") or k == "twin_abs"))
     return rows, tot
 
 
-def serve(params, plan, cfg, images, label, kernel_name, kernel_sum_ms):
+def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
+               ops_bytes):
+    """(c5)/(c6): one weight-/input-stationary entry point on ``fplan``
+    (a plan moved to the flow) against its plain version at every layer
+    and batch, a repeat launch bitwise equal; at batch 1 the
+    output-stationary kernel's time on the same input and max|flow -
+    os|, and on the halo path max|halo - windowed| of the same flow.
+    Bound: the function's own, the output-stationary twin's (the flows
+    compute the same function); ``x_flow_bound_ms`` adds what the flow's
+    design costs on top: the IFFT and epilogue of every further m range
+    and the split-K workspace written and read once.  Returns (entry
+    point, rows, totals)."""
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    sched, halo = kind == "scheduled", imode == "halo"
+    wrapper, reference = {
+        (False, False): (fsc.fused_spectral_pipeline,
+                         fsc.fused_spectral_pipeline_reference),
+        (True, False): (fsc.fused_spectral_pipeline_scheduled,
+                        fsc.fused_spectral_pipeline_scheduled_reference),
+        (False, True): (fsc.fused_spectral_pipeline_halo,
+                        fsc.fused_spectral_pipeline_halo_reference),
+        (True, True): (fsc.fused_spectral_pipeline_scheduled_halo,
+                       fsc.fused_spectral_pipeline_scheduled_halo_reference),
+    }[(sched, halo)]
+    entry = fsc.entry_point(fplan.layers[0].kernel_name, flow)
+
+    def kw(lp, flow_kw=True, halo_=halo):
+        k = dict(relu=True)
+        if flow_kw:
+            k.update(flow=flow, block_m=lp.tuning.block_m)
+        if sched:
+            k["n_out"] = lp.layer.c_out
+        if halo_:
+            k.update(geo=lp.geo,
+                     hg=spec.halo_block_geometry(lp.geo, lp.tuning.block_p))
+        return k
+
+    def weights(lp):
+        return tuple(lp.tables) if sched else (lp.wr, lp.wi)
+
+    def make_ops(lp, x_img):
+        x = x_img if halo else fsc._windows_layout(x_img, lp.geo)[0]
+        return (x, *weights(lp), lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
+
+    def bound(lp, b):
+        flops, nbytes = layer_bound(lp, b)
+        if halo:
+            flops, nbytes = halo_layer_bound(lp, b, ops_bytes(lp), flops)
+        return flops, nbytes
+
+    def flow_bound_ms(lp, b):
+        """The bound plus the flow design's own work: G - 1 further
+        valid-row IFFTs and epilogues, and the [G, S2, N, slots]
+        workspace written and read once."""
+        flops, nbytes = bound(lp, b)
+        g = -(-lp.layer.c_in // lp.tuning.block_m)
+        n, s2, p = lp.layer.c_out, lp.dvr.shape[0], b * lp.geo.n_tiles
+        flops += (g - 1) * (4 * s2 * lp.n_active_bins * n * p + s2 * n * p)
+        if g > 1:
+            bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
+            pb = (b * spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
+                  .n_blocks if halo else -(-p // bp))
+            nbytes += 2 * 4 * g * s2 * n * pb * bp
+        return bound_of(flops, nbytes)[0]
+
+    def extra(lp, x_img, flush_fn):
+        ops = make_ops(lp, x_img)
+        y, yo = wrapper(*ops, **kw(lp)), wrapper(*ops, **kw(lp, False))
+        return {"x_os_ms": timed_ms(lambda: wrapper(*ops, **kw(lp, False)),
+                                    flush_fn),
+                "x_os_abs": float((y - yo).abs().max()),
+                "x_flow_bound_ms": flow_bound_ms(lp, 1)}
+
+    def twin(lp, x_img):
+        """The windowed kernel of the same flow and m ranges, assembled."""
+        xt, t_cnt = fsc._windows_layout(x_img, lp.geo)
+        w = (fsc.fused_spectral_pipeline_scheduled if sched
+             else fsc.fused_spectral_pipeline)
+        y = w(xt, *weights(lp), lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias,
+              **kw(lp, halo_=False))
+        return fsc._assemble_output(y, lp.geo, x_img.shape[0],
+                                    lp.layer.c_out, t_cnt, x_img.dtype)
+
+    print(f"{label} {entry}: block_m "
+          f"{[lp.tuning.block_m for lp in fplan.layers]}")
+    print("     layer      M    N     P  Fa   rel_err  max_abs   kernel_ms"
+          "   plain_ms   bound_ms  bound_by     (batch-4 P, rel_err, "
+          "max_abs) [os twin, bound with the flow's own work; halo: "
+          "max|halo - windowed|]")
+    rows, tot = check_layers(
+        fplan, f"{label} {entry}",
+        lambda lp, ops: wrapper(*ops, **kw(lp)),
+        lambda lp, ops: reference(*ops, **kw(lp)), make_ops, bound, xgen,
+        flush, extra=extra, twin=twin if halo else None, repeat=True,
+        plain_reps=3)
+    return entry, rows, tot
+
+
+def ranks(values) -> list[float]:
+    order = sorted(range(len(values)), key=values.__getitem__)
+    r = [0.0] * len(values)
+    for i, j in enumerate(order):
+        r[j] = float(i)
+    return r
+
+
+def spearman(a, b) -> float:
+    """Rank correlation of two equally long sequences (no ties)."""
+    ra, rb = ranks(a), ranks(b)
+    ma, mb = statistics.mean(ra), statistics.mean(rb)
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    return cov / (sum((x - ma) ** 2 for x in ra)
+                  * sum((y - mb) ** 2 for y in rb)) ** 0.5
+
+
+def model_ms(plan) -> list[float]:
+    """The Hopper cost model's kernel time, ms, of each layer of ``plan``
+    at batch 1 (max of bytes, operations and the latency term, plus the
+    split-K finish pass), on the plan's own flow, mode, input path and m
+    ranges."""
+    from repro_torch.core import autotune as at
+    out = []
+    for lp in plan.layers:
+        c = at.hopper_fused_flow_cost(
+            lp.layer, plan.fft_size, lp.alpha, lp.tuning.flow, lp.hadamard,
+            lp.input_mode, batch=1, active_bins=lp.n_active_bins,
+            t_cycles=(lp.tables.idx.shape[2] if lp.tables is not None
+                      else None), block_m=lp.tuning.block_m)
+        out.append(1e3 * (max(c["hbm_s"], c["compute_s"], c["latency_s"])
+                          + c["finish_s"]))
+    return out
+
+
+def model_check(measured) -> None:
+    """(c7): the Hopper cost model's kernel time of every entry point at
+    every layer (``measured``: entry point -> (``model_ms`` of the plan it
+    was measured with, its batch-1 rows)) against its measured batch-1
+    time: per layer the predicted and measured fastest and the rank
+    correlation over the twelve, then how often the fastest agree."""
+    print("(c7) cost model vs the batch-1 kernel times of (c)-(c6): "
+          "layer, predicted fastest, measured fastest, rank correlation "
+          "over the twelve entry points")
+    agree, rhos, ratios = 0, [], []
+    names = list(measured)
+    n_layers = len(measured[names[0]][0])
+    for i in range(n_layers):
+        pred = [measured[e][0][i] for e in names]
+        meas = [measured[e][1][i]["ms"] for e in names]
+        bp, bm = names[pred.index(min(pred))], names[meas.index(min(meas))]
+        agree += bp == bm
+        rhos.append(spearman(pred, meas))
+        ratios.extend(p / m for p, m in zip(pred, meas))
+        print(f"     {measured[names[0]][1][i]['layer']:8s} {bp:42s} "
+              f"{bm:42s} {rhos[-1]:.2f}")
+    print(f"     fastest agree on {agree} of {n_layers} layers; rank "
+          f"correlation median {statistics.median(rhos):.2f}, min "
+          f"{min(rhos):.2f}; predicted / measured median "
+          f"{statistics.median(ratios):.2f}, range {min(ratios):.2f}-"
+          f"{max(ratios):.2f}")
+
+
+def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms):
     """Drive the main path once: every image batch through
     ``forward_spectral(backend="fused")`` with the launch counts set to 0
-    just before and read just after (13 launches of ``kernel_name`` per
-    forward, none of any other kernel); hold the logits to einsum.
-    Returns the launches and the batch-1 p50 minus ``kernel_sum_ms``."""
+    just before and read just after (``per_forward``: launches of each
+    entry point per forward, none of any other); hold the logits to
+    einsum.  Returns the launches, the batch-1 p50 and the batch-1 p50
+    minus ``kernel_sum_ms``.  Peak device memory is taken over the
+    forwards and includes what is resident at their start (the weights
+    and the plans still alive, printed beside it)."""
     import torch
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     for k in fsc.LAUNCHES:
         fsc.LAUNCHES[k] = 0
     latency: dict[int, list[float]] = {}
@@ -259,10 +453,9 @@ def serve(params, plan, cfg, images, label, kernel_name, kernel_sum_ms):
             1e3 * (time.perf_counter() - t0))
         logits.append(out)
     launches = dict(fsc.LAUNCHES)
-    want = len(plan.layers) * len(images)
-    if launches != {k: want if k == kernel_name else 0 for k in launches}:
-        fail(f"{label} launched {launches}, expected {want} launches of "
-             f"{kernel_name} and none of the other kernels")
+    want = {k: per_forward.get(k, 0) * len(images) for k in launches}
+    if launches != want or sum(per_forward.values()) != len(plan.layers):
+        fail(f"{label} launched {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     for x, out in zip(images, logits):
         b = x.shape[0]
@@ -281,12 +474,14 @@ def serve(params, plan, cfg, images, label, kernel_name, kernel_sum_ms):
     for b, ts in sorted(latency.items()):
         print(f"    p50 latency batch {b}: {statistics.median(ts):.2f} ms "
               f"over {len(ts)} forwards {[round(t, 2) for t in ts]}")
-    host_ms = statistics.median(latency[1]) - kernel_sum_ms
+    p50 = statistics.median(latency[1])
+    host_ms = p50 - kernel_sum_ms
     print(f"    batch-1 p50 minus the kernel sum {kernel_sum_ms:.4f} ms: "
           f"{host_ms:.2f} ms")
-    print(f"    launches {launches}; peak device memory "
-          f"{peak / 2 ** 30:.3f} GiB")
-    return launches[kernel_name], host_ms
+    print(f"    launches {({k: v for k, v in launches.items() if v})}; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB, of which "
+          f"{resident / 2 ** 30:.3f} GiB resident at the start")
+    return launches, p50, host_ms
 
 
 def main() -> int:
@@ -300,8 +495,10 @@ def main() -> int:
 
     import repro_torch
     from repro_torch.configs.vgg16_spectral import CONFIG
+    from repro_torch.core import autotune as at
     from repro_torch.core import spectral as spec
-    from repro_torch.core.plan import build_network_plan, with_input_mode
+    from repro_torch.core.plan import (build_network_plan, with_flow,
+                                       with_input_mode)
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
@@ -391,8 +588,48 @@ def main() -> int:
     images = [torch.randn((b, 3, CONFIG.image_size, CONFIG.image_size),
                           generator=xgen, device=dev)
               for b in BATCHES]
-    plane_launches, plane_host = serve(params, plan, CONFIG, images, "(d)",
-                                       "fused_spectral_pipeline", tot["ms"])
+    main_launches = {k: 0 for k in fsc.LAUNCHES}   # summed over (d)-(d6)
+    p50s = {}
+
+    def drive(plan_, images_, label, per_forward, kernel_sum_ms):
+        launches, p50s[label], host = serve(params, plan_, CONFIG, images_,
+                                            label, per_forward,
+                                            kernel_sum_ms)
+        for k, v in launches.items():
+            main_launches[k] += v
+        return host
+
+    n_layers = len(plan.layers)
+    per13 = lambda name: {name: n_layers}
+    plane_host = drive(plan, images, "(d)", per13("fused_spectral_pipeline"),
+                       tot["ms"])
+
+    # per entry point: the batch-1 totals, and for (c7) the cost model's
+    # per-layer times beside the measured rows
+    totals = {fsc.entry_point("fused_spectral_pipeline", fsc.OS): tot}
+    measured = {"fused_spectral_pipeline": (model_ms(plan), rows)}
+
+    def flows_of(kind, bases, layer_bound, ops_bytes):
+        """(c5), (c6) and (d6) of one Hadamard kind: the windowed and halo
+        plans ``bases`` moved to weight- and to input-stationary, each
+        entry point held to its plain version (``layer_bound``,
+        ``ops_bytes``: the kind's windowed bound and kernel-operand
+        bytes), then one batch-1 forward
+        through each moved plan: 13 launches of the flow's entry point,
+        logits vs einsum."""
+        fplans = {}
+        for imode, label in (("windowed", "(c5)"), ("halo", "(c6)")):
+            for flow in (fsc.WS, fsc.IS):
+                fplan = with_flow(bases[imode], flow)
+                entry, frows, ftot = check_flow(
+                    label, kind, imode, flow, fplan, xgen, flush,
+                    layer_bound, ops_bytes)
+                totals[entry] = ftot
+                measured[entry] = (model_ms(fplan), frows)
+                fplans[(imode, flow, entry)] = fplan
+        for (imode, flow, entry), fplan in fplans.items():
+            drive(fplan, images[:1], f"(d6) {kind} {imode} {flow}",
+                  {entry: n_layers}, totals[entry]["ms"])
 
     # (c3) halo plane kernel vs plain at every layer shape ----------------
     hplan = with_input_mode(plan, "halo")
@@ -424,13 +661,20 @@ def main() -> int:
         lambda lp, b: halo_layer_bound(lp, b, plane_ops_bytes(lp),
                                        plane_bound(lp, b)[0]),
         xgen, flush, extra=plane_halo_extra, twin=plane_windowed)
+    totals[fsc.entry_point("fused_spectral_pipeline_halo", fsc.OS)] = htot
+    measured["fused_spectral_pipeline_halo"] = (model_ms(hplan), hrows)
 
     # (d3) the main path, halo plane plan ---------------------------------
-    halo_launches, halo_host = serve(params, hplan, CONFIG, images, "(d3)",
-                                     "fused_spectral_pipeline_halo",
-                                     htot["ms"])
+    halo_host = drive(hplan, images, "(d3)",
+                      per13("fused_spectral_pipeline_halo"), htot["ms"])
     print(f"    p50 minus kernel sum, batch 1: (d3) halo {halo_host:.2f} ms,"
           f" (d) windowed {plane_host:.2f} ms")
+
+    # (c5), (c6), (d6) the plane kernel's weight- and input-stationary
+    # flows; then the plane plans are freed, so that the scheduled plans'
+    # peaks hold no plane operands
+    flows_of("plane", {"windowed": plan, "halo": hplan}, plane_bound,
+             plane_ops_bytes)
     del plan, hplan
 
     # (c2) scheduled plan and kernel vs plain at every layer shape --------
@@ -470,11 +714,13 @@ def main() -> int:
         lambda lp, x_img: (windows(lp, x_img), *lp.tables, lp.dfr, lp.dfi,
                            lp.dvr, lp.dvi, lp.bias),
         sched_bound, xgen, flush)
+    totals[fsc.entry_point("fused_spectral_pipeline_scheduled",
+                           fsc.OS)] = stot
+    measured["fused_spectral_pipeline_scheduled"] = (model_ms(splan), srows)
 
     # (d2) the main path, scheduled plan ----------------------------------
-    sched_launches, sched_host = serve(
-        params, splan, CONFIG, images, "(d2)",
-        "fused_spectral_pipeline_scheduled", stot["ms"])
+    sched_host = drive(splan, images, "(d2)",
+                       per13("fused_spectral_pipeline_scheduled"), stot["ms"])
 
     # (c4) halo scheduled kernel vs plain at every layer shape ------------
     shplan = with_input_mode(splan, "halo")
@@ -515,14 +761,58 @@ def main() -> int:
         lambda lp, b: halo_layer_bound(lp, b, sched_ops_bytes(lp),
                                        sched_bound(lp, b)[0]),
         xgen, flush, extra=sched_halo_extra, twin=sched_windowed)
-    del flush
-
+    totals[fsc.entry_point("fused_spectral_pipeline_scheduled_halo",
+                           fsc.OS)] = shtot
+    measured["fused_spectral_pipeline_scheduled_halo"] = (model_ms(shplan),
+                                                          shrows)
     # (d4) the main path, halo scheduled plan -----------------------------
-    shalo_launches, shalo_host = serve(
-        params, shplan, CONFIG, images, "(d4)",
-        "fused_spectral_pipeline_scheduled_halo", shtot["ms"])
+    shalo_host = drive(shplan, images, "(d4)",
+                       per13("fused_spectral_pipeline_scheduled_halo"),
+                       shtot["ms"])
     print(f"    p50 minus kernel sum, batch 1: (d4) halo {shalo_host:.2f} "
           f"ms, (d2) windowed {sched_host:.2f} ms")
+
+    # (c5), (c6), (d6) the scheduled kernel's flows; then every plan so
+    # far is freed, so that (d5)'s peak holds the autotuned plan alone
+    flows_of("scheduled", {"windowed": splan, "halo": shplan}, sched_bound,
+             sched_ops_bytes)
+    del splan, shplan, flush
+    model_check(measured)
+
+    # (d5) the autotuned plan ----------------------------------------------
+    t0 = time.perf_counter()
+    aplan = build_network_plan(params, CONFIG, batch=1, hadamard="auto",
+                               input_mode="auto", measure=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"(d5) autotuned plan (hadamard, input_mode, flow 'auto', "
+          f"measure=True): built in {time.perf_counter() - t0:.1f} s, of "
+          f"which Alg-2 table compile {aplan.schedule_seconds:.1f} s")
+    print("     latency fit (WAVE_S, STEP_S) us: " + ", ".join(
+        f"{k[0]}/{k[1]} ({a * 1e6:.2f}, {b * 1e6:.2f})"
+        for k, (a, b) in at.LATENCY_FIT.items()))
+    per_forward: dict[str, int] = {}
+    alike_layers = 0
+    for lp in aplan.layers:
+        tn = lp.tuning
+        entry = fsc.entry_point(lp.kernel_name, tn.flow)
+        per_forward[entry] = per_forward.get(entry, 0) + 1
+        by_pred = [c for c, _ in tn.measured]
+        by_meas = [c for c, _ in sorted(tn.measured, key=lambda ct: ct[1])]
+        alike = by_pred == by_meas
+        alike_layers += alike
+        print(f"     {lp.layer.name:8s} chose {tn.flow} {lp.hadamard} "
+              f"{lp.input_mode} block_m {tn.block_m}: measured "
+              f"{tn.measured_s * 1e3:.4f} ms; ranked alike {alike}")
+        for c, t in tn.measured:
+            print(f"         {c.flow:18s} {c.hadamard:9s} {c.input_mode:8s} "
+                  f"block_m {c.block_m:2d}: predicted "
+                  f"{c.predicted_s * 1e3:.4f} ms, measured {t * 1e3:.4f} ms")
+    print(f"     prediction and measurement ranked the candidates alike on "
+          f"{alike_layers} of {len(aplan.layers)} layers")
+    auto_sum = 1e3 * sum(lp.tuning.measured_s for lp in aplan.layers)
+    drive(aplan, images, "(d5)", per_forward, auto_sum)
+    print("    p50 batch 1: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in p50s.items()))
 
     # every process this run started (nvcc, nvidia-smi, the table pool and
     # its resource tracker) has ended
@@ -533,31 +823,40 @@ def main() -> int:
     # (e) kernels ---------------------------------------------------------
     csrc = "src/repro_torch/kernels/csrc/"
     ref_file = "src/repro/kernels/fused_spectral_conv.py"
+    # the TPU body (flows) or wrapper (output-stationary) each replaces
+    replaces = {
+        ("fused_spectral_pipeline", fsc.OS): 775,
+        ("fused_spectral_pipeline_halo", fsc.OS): 943,
+        ("fused_spectral_pipeline_scheduled", fsc.OS): 1114,
+        ("fused_spectral_pipeline_scheduled_halo", fsc.OS): 1032}
+    for kname in fsc.KERNELS:
+        sched = "scheduled" in kname
+        replaces[(kname, fsc.WS)] = 642 if sched else 571
+        replaces[(kname, fsc.IS)] = 659 if sched else 591
     kernels = []
-    for kname, src, line, launches, t in (
-            ("fused_spectral_pipeline", "fused_spectral_conv.cu", 775,
-             plane_launches, tot),
-            ("fused_spectral_pipeline_scheduled",
-             "fused_spectral_conv_scheduled.cu", 1114, sched_launches, stot),
-            ("fused_spectral_pipeline_halo", "fused_spectral_conv.cu", 943,
-             halo_launches, htot),
-            ("fused_spectral_pipeline_scheduled_halo",
-             "fused_spectral_conv_scheduled.cu", 1032, shalo_launches,
-             shtot)):
-        print(f"(e) {kname}: ok, launches={launches}")
-        kernels.append({
-            "name": kname,
-            "route": "cuda",
-            "source": csrc + src,
-            "replaces": f"{ref_file}:{line}",
-            "launches": launches,
-            "max_abs_err": t["abs_err"],
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["by"],
-            "library_ms": None,
-        })
+    for kname in fsc.KERNELS:
+        for flow in fsc.FLOWS:
+            entry = fsc.entry_point(kname, flow)
+            t = totals[entry]
+            launches = main_launches[entry]
+            if launches < 1:
+                fail(f"{entry} was not launched by the main path")
+            print(f"(e) {entry}: ok, launches={launches}")
+            kernels.append({
+                "name": entry,
+                "route": "cuda",
+                "source": csrc + ("fused_spectral_conv_scheduled.cu"
+                                  if "scheduled" in kname
+                                  else "fused_spectral_conv.cu"),
+                "replaces": f"{ref_file}:{replaces[(kname, flow)]}",
+                "launches": launches,
+                "max_abs_err": t["abs_err"],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["by"],
+                "library_ms": None,
+            })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -1,22 +1,284 @@
-"""Per-layer fused-kernel configuration record (counterpart of
-``repro.core.autotune.FusedTuning``).
+"""Alg 1 on the H100: per-layer choice of reuse flow, Hadamard mode, input
+path and m-range width for the fused kernels, and the Hopper cost model
+it minimizes (counterpart of ``repro.core.autotune`` and of the
+reference's ``tpu_fused_flow_cost``).
 
-No search runs here yet: the CUDA kernel implements the
-output-stationary flow with fixed block sizes, and the plan records
-them.  Retargeting the autotuner to Hopper is ROADMAP item A5.
+The paper's Alg 1 searches the streaming parameters of each layer under
+an on-chip memory cap, minimizing modelled latency.  Here the knobs are
+those the CUDA kernels are built for (``kernels.fused_spectral_conv``):
+
+  flow      output-, weight- or input-stationary: which operand a CTA
+            keeps in shared memory while it walks the others;
+  hadamard  kernel planes ('dense' / 'bin') or the Alg-2 tables
+            ('scheduled');
+  input     host-built windows or the in-kernel halo gather;
+  block_m   for the weight-/input-stationary flows, the m-range width a
+            CTA keeps resident (G = ceil(M / block_m) ranges, the
+            reference's block_m); the CTAs' n and tile blocks are fixed
+            by the build.
+
+The cap is the 232,448 bytes of shared memory a CTA may take, and the
+model is ``hopper_fused_flow_cost``.  As in Alg 1, the grid is
+enumerated, configurations over the cap are dropped and the predicted
+argmin is kept; with a measurement callable (``_make_measure_fn``: the
+layer's own operands on the card) the best few predictions are timed and
+the fastest wins.  The model does not price the copy that makes a
+windowed producer's cropped output contiguous for a halo layer, and the
+measurement times each layer on a fresh contiguous activation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
+import statistics
+from typing import Callable, Iterable, Sequence
+
+import torch
+
+from repro_torch.core import dataflow as df
+from repro_torch.core.spectral import halo_block_geometry, make_geometry
+from repro_torch.kernels import fused_spectral_conv as fsc
+
+# H100 SXM figures (NVIDIA data sheet; none of the reference's TPU_*).
+H100_HBM_BYTES_PER_S = 3.35e12     # HBM3
+H100_FP32_FLOPS = 67e12            # fp32 FMA on CUDA cores, no tensor cores
+H100_SMS = 132
+H100_SMEM_PER_CTA = fsc.SMEM_PER_CTA   # 232,448 B of dynamic shared memory
+H100_L2_BYTES = 50e6
+
+# Alg-2 knobs for pricing tables before they exist (paper S6.3: r = 10;
+# mu, the Eq-14 PE utilization, measures 0.850-0.857 on full VGG16 at
+# alpha 4, so the schedule length is T ~= nnz / mu cycles).
+SCHEDULE_R = 10
+SCHEDULE_MU = 0.85
+
+# Candidates the measured pass times, best predictions first, and the
+# seed of the activation it times them on.
+MEASURE_TOP_K = 3
+MEASURE_SEED = 0
+
+# (WAVE_S, STEP_S) per (Hadamard kind, input path): seconds per output
+# rectangle a CTA finishes (fold, cluster reduction, store) and per
+# channel step, in time = waves * (rects * WAVE_S + steps * STEP_S),
+# waves = ceil(CTAs / 132) (one CTA per SM: every configuration takes
+# over half an SM's shared memory).  Least-squares fit (one rectangle a
+# CTA) to the batch-1 times of the four output-stationary kernels at the
+# 13 full-width VGG16 layers, chip_smoke.py on an NVIDIA H100 80GB HBM3
+# at 700 W, before the other flows existed (PERF.md); the times and the
+# fit are in tests/test_torch_autotune.py.  A B1 step is latency-bound,
+# so this term, not bytes or flops, is what the measured times follow.
+LATENCY_FIT = {
+    ("plane", "windowed"): (1.099054504396958e-05, 7.737558692451554e-06),
+    ("plane", "halo"): (9.523439047744236e-06, 9.310391638598346e-06),
+    ("scheduled", "windowed"): (6.70327655857626e-05,
+                                1.8618080576482148e-06),
+    ("scheduled", "halo"): (7.401647839242545e-05, 2.3531091069464697e-06),
+}
+
+
+def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
+                hadamard: str, input_mode: str, batch: int, block_m: int,
+                active_bins: int) -> dict[str, int]:
+    """The CUDA launch a layer gets: CTAs, channel steps per CTA, output
+    rectangles per CTA (``rects``), tile blocks, m ranges G and the
+    workspace's tile slots, from the kernels' block sizes and each
+    flow's loop structure (the grid rules of
+    ``csrc/fused_spectral_conv*.cu``)."""
+    geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
+                        layer.pad)
+    sched = hadamard == "scheduled"
+    bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
+    if input_mode == "halo":
+        pb = batch * halo_block_geometry(geo, min(bp, geo.n_tiles)).n_blocks
+    else:
+        pb = -(-batch * geo.n_tiles // bp)
+    m = layer.c_in
+    g = 1 if flow == fsc.OS else -(-m // block_m)
+    width = m if g == 1 else block_m
+    if sched:
+        nb = -(-layer.c_out // fsc.SCHED_BLOCK_N)      # kernel groups
+        if flow == fsc.OS:
+            c = min(fsc.MAX_CLUSTER, max(1, -(-2 * H100_SMS // (pb * nb))),
+                    m)
+            ctas, steps, rects = pb * nb * c, -(-m // c), 1
+        elif flow == fsc.WS:
+            ctas, steps, rects = g * nb, pb * width, pb
+        else:
+            ctas, steps, rects = pb * g, width * (1 + nb), nb
+    else:
+        nb = -(-layer.c_out // fsc.BLOCK_N)
+        chunks = -(-active_bins // fsc.BIN_CHUNK)
+        ksteps = -(-width // fsc.BLOCK_M)
+        if flow == fsc.OS:
+            ctas, steps, rects = pb * nb * chunks, ksteps, 1
+        elif flow == fsc.WS:
+            ctas, steps, rects = g * nb * chunks, pb * ksteps, pb
+        else:
+            ctas, steps, rects = pb * g * chunks, ksteps * (1 + nb), nb
+    return {"ctas": ctas, "steps": steps, "rects": rects, "p_blocks": pb,
+            "n_blocks": nb, "ranges": g, "slots": pb * bp}
+
+
+def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
+                           alpha: float, flow: str, hadamard: str,
+                           input_mode: str, *, batch: int = 1,
+                           active_bins: int | None = None,
+                           r: int = SCHEDULE_R,
+                           t_cycles: int | None = None,
+                           block_m: int | None = None) -> dict[str, float]:
+    """Bytes, operations, shared memory and predicted seconds of ONE
+    fused-kernel launch on the H100 (the counterpart of the reference's
+    ``tpu_fused_flow_cost``).
+
+    Args:
+      layer, fft_size, alpha: the conv layer, tile size K and kernel
+        compression (nnz = K^2 / alpha kept bins per kernel).
+      flow: one of ``df.FLOWS``; hadamard: 'dense' | 'bin' |
+        'scheduled'; input_mode: 'windowed' | 'halo'.
+      batch: images per call; active_bins: Fa (None = K^2).
+      r, t_cycles: Alg-2 replicas and table length (T = ``t_cycles``
+        when the tables exist, else ceil(nnz / SCHEDULE_MU)); the tables
+        have ``fsc.SCHED_BLOCK_N`` lanes per kernel group.
+      block_m: the m-range width of the weight-/input-stationary flows
+        (channels a CTA keeps resident); unused by output-stationary.
+
+    Bytes (``hbm_bytes``) follow each kernel's loops: output-stationary
+    re-reads the input once per n block (plane kernel) or kernel group
+    (scheduled) and the kernel operand once per tile block;
+    weight-stationary reads the kernel operand once and re-reads the
+    input per n block or group; input-stationary reads the input once
+    and re-reads the kernel operand per tile block.  A re-read operand
+    that fits the 50 MB L2 is counted once.  With more than one m range
+    the split-K workspace (G x S2 x N x slots floats) is written and read
+    once.  Operators, bias and the output are counted once.
+
+    Time: ``predicted_s = serial_s + max(hbm_s, compute_s, latency_s)``
+    with ``latency_s = waves * (rects * WAVE_S + steps * STEP_S)``
+    (``LATENCY_FIT``): waves = ceil(ctas / 132), ``rects`` = output
+    rectangles a CTA finishes (1 for output-stationary, every tile block
+    for weight-stationary, every n block or group for
+    input-stationary), ``steps`` = channel steps a CTA runs.
+    ``serial_s`` is work in separate launches before or after the kernel
+    that cannot overlap it: ``relayout_s``, the windowed path's host
+    relayout (window tensor written and read back from the raw
+    activation, output tiles assembled), and ``finish_s``, the split-K
+    finish pass (workspace read, output written), both at the HBM rate.
+    """
+    if flow not in df.FLOWS:
+        raise ValueError(f"flow must be one of {df.FLOWS}, got {flow!r}")
+    if hadamard not in df.HADAMARD_MODES:
+        raise ValueError(f"hadamard must be one of {df.HADAMARD_MODES}, "
+                         f"got {hadamard!r}")
+    if input_mode not in df.INPUT_MODES:
+        raise ValueError(f"input_mode must be one of {df.INPUT_MODES}, got "
+                         f"{input_mode!r}")
+    sched = hadamard == "scheduled"
+    halo = input_mode == "halo"
+    k2 = fft_size * fft_size
+    fa = k2 if active_bins is None else max(1, min(int(active_bins), k2))
+    if block_m is None:
+        block_m = fsc.SCHED_BLOCK_M if sched else fsc.BLOCK_M
+    geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
+                        layer.pad)
+    s, s2 = k2, geo.tile * geo.tile
+    m, n = layer.c_in, layer.c_out
+    p = batch * geo.n_tiles
+    grid = kernel_grid(layer, fft_size, flow, hadamard, input_mode, batch,
+                       block_m, fa)
+    pb, nb, g = grid["p_blocks"], grid["n_blocks"], grid["ranges"]
+    nnz = max(1, int(round(k2 / alpha)))
+    t_cyc = t_cycles if t_cycles is not None else math.ceil(
+        nnz / SCHEDULE_MU)
+    n_pe = fsc.SCHED_BLOCK_N
+
+    h_out, w_out = (layer.h_in + 2 * layer.pad - layer.ksize + 1,
+                    layer.w_in + 2 * layer.pad - layer.ksize + 1)
+    raw_bytes = 4 * batch * m * layer.h_in * layer.w_in
+    out_bytes = 4 * batch * n * h_out * w_out
+    x_bytes = raw_bytes if halo else 4 * s * m * p
+    y_bytes = out_bytes if halo else 4 * s2 * n * p
+    if sched:
+        w_bytes = 4 * nb * m * t_cyc * (r + 3 * n_pe)
+    else:
+        w_bytes = 4 * 2 * fa * n * m
+    ops_bytes = 4 * (2 * fa * s + 2 * s2 * fa + n)
+
+    def reread(nbytes: float, times: int) -> float:
+        return nbytes if nbytes <= H100_L2_BYTES else nbytes * times
+
+    if flow == fsc.OS:
+        x_hbm, w_hbm = reread(x_bytes, nb), reread(w_bytes, pb)
+    elif flow == fsc.WS:
+        x_hbm, w_hbm = reread(x_bytes, nb), w_bytes
+    else:
+        x_hbm, w_hbm = x_bytes, reread(w_bytes, pb)
+    ws_bytes = 4 * g * s2 * n * grid["slots"] if g > 1 else 0
+    hbm = x_hbm + w_hbm + ops_bytes + y_bytes + 2 * ws_bytes
+
+    # operations: the kernels' own arithmetic (4 real FMAs per complex
+    # MAC, the tile-FFT of every computed bin, the IFFT per m range)
+    fft_bins = 64 if sched else fa
+    refft = 1 if flow == fsc.IS else nb
+    fft_flops = 4 * fft_bins * s * m * p * refft
+    if sched:
+        had_flops = 8 * n * m * nnz * p
+    else:
+        had_flops = 8 * fa * n * m * p
+    ifft_flops = 4 * s2 * fft_bins * n * p * g
+    flops = fft_flops + had_flops + ifft_flops + 2 * s2 * n * p * g
+
+    smem = (fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe,
+                                 halo_block_geometry(geo, min(
+                                     fsc.SCHED_BLOCK_P, geo.n_tiles))
+                                 if halo else None) if sched
+            else fsc.plane_smem_bytes(flow, geo, block_m,
+                                      halo_block_geometry(geo, min(
+                                          fsc.BLOCK_P, geo.n_tiles))
+                                      if halo else None))
+    waves = -(-grid["ctas"] // H100_SMS)
+    wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
+                                  input_mode)]
+    latency_s = waves * (grid["rects"] * wave_s + grid["steps"] * step_s)
+    relayout = 0 if halo else (raw_bytes + 2 * 4 * s * m * p
+                               + 4 * s2 * n * p + out_bytes)
+    finish = ws_bytes + y_bytes if g > 1 else 0
+    hbm_s = (hbm - ws_bytes) / H100_HBM_BYTES_PER_S   # main kernel's share
+    compute_s = flops / H100_FP32_FLOPS
+    relayout_s = relayout / H100_HBM_BYTES_PER_S
+    finish_s = finish / H100_HBM_BYTES_PER_S
+    serial_s = relayout_s + finish_s
+    return {
+        "hbm_bytes": float(hbm),
+        "kernel_hbm_bytes": float(w_hbm),
+        "flops": float(flops),
+        "smem_bytes": float(smem),
+        "ctas": grid["ctas"],
+        "waves": waves,
+        "steps": grid["steps"],
+        "hbm_s": hbm_s,
+        "compute_s": compute_s,
+        "latency_s": latency_s,
+        "relayout_s": relayout_s,
+        "finish_s": finish_s,
+        "serial_s": serial_s,
+        "predicted_s": serial_s + max(hbm_s, compute_s, latency_s),
+    }
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedTuning:
     """Fused-kernel configuration of one conv layer.
 
-    ``block_n`` / ``block_m`` / ``block_p`` are the kernel's per-CTA
-    output-channel, input-channel-step and tile block sizes.
+    ``block_n`` / ``block_p`` are the kernel's per-CTA output-channel and
+    tile blocks (per image on the halo path); ``block_m`` is the
+    channels per pipeline step (output-stationary) or the m-range width
+    (weight-/input-stationary).  ``hbm_bytes``, ``smem_bytes``,
+    ``predicted_s`` and ``grid_steps`` (CTAs x channel steps) come from
+    the Hopper cost model; ``measured_s`` is the card's time when the
+    tuning was measured, and ``measured`` every measured candidate with
+    its seconds, in predicted order.
     """
 
     layer: str
@@ -24,5 +286,197 @@ class FusedTuning:
     block_n: int
     block_m: int
     block_p: int
+    hbm_bytes: float | None = None
+    smem_bytes: float | None = None
+    predicted_s: float | None = None
+    measured_s: float | None = None
     hadamard: str | None = None
     input_mode: str | None = None
+    grid_steps: float | None = None
+    measured: tuple = ()
+
+
+def predict_seconds(c: dict) -> float:
+    """Modelled latency of one cost-model row (``predicted_s``: serial
+    passes + max(bytes, operations, CTA waves x steps))."""
+    return c["predicted_s"]
+
+
+def _block_ms(layer: df.ConvLayer, flow: str, hadamard: str) -> list[int]:
+    """The m-range widths a flow's kernel takes for this layer: the
+    fixed channel step for output-stationary, else the built widths,
+    one per distinct number of ranges (the narrowest)."""
+    kind = "scheduled" if hadamard == "scheduled" else "plane"
+    if flow == fsc.OS:
+        return [fsc.SCHED_BLOCK_M if kind == "scheduled"
+                else min(fsc.BLOCK_M, layer.c_in)]
+    seen, out = set(), []
+    for w in fsc.FLOW_BLOCK_M[(kind, flow)]:
+        g = -(-layer.c_in // w)
+        if g not in seen:
+            seen.add(g)
+            out.append(w)
+    return out
+
+
+def _layer_candidates(layer: df.ConvLayer, fft_size: int, batch: int,
+                      flows: Sequence[str], hadamard_modes: Sequence[str],
+                      input_modes: Sequence[str]
+                      ) -> Iterable[FusedTuning]:
+    """Every configuration the kernels can launch for this layer (before
+    the shared-memory cap): flows x Hadamard modes x input paths x
+    m-range widths, with the kernels' n and tile blocks."""
+    tiles = layer.tiles(fft_size)
+    for flow, mode, imode in itertools.product(flows, hadamard_modes,
+                                               input_modes):
+        sched = mode == "scheduled"
+        bn = fsc.SCHED_BLOCK_N if sched else fsc.BLOCK_N
+        bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
+        p = tiles * (1 if imode == "halo" else batch)
+        for bm in _block_ms(layer, flow, mode):
+            yield FusedTuning(layer=layer.name, flow=flow,
+                              block_n=min(bn, layer.c_out), block_m=bm,
+                              block_p=min(bp, p), hadamard=mode,
+                              input_mode=imode)
+
+
+def price(tn: FusedTuning, layer: df.ConvLayer, fft_size: int,
+          alpha: float, *, batch: int = 1, active_bins: int | None = None,
+          schedule_r: int = SCHEDULE_R,
+          t_cycles: int | None = None) -> FusedTuning:
+    """``tn`` with the cost model's bytes, shared memory, predicted
+    seconds and CTA steps for this layer (``t_cycles``: the tables'
+    length, when they exist)."""
+    c = hopper_fused_flow_cost(
+        layer, fft_size, alpha, tn.flow, tn.hadamard, tn.input_mode,
+        batch=batch, active_bins=active_bins, r=schedule_r,
+        t_cycles=t_cycles, block_m=tn.block_m)
+    return dataclasses.replace(
+        tn, hbm_bytes=c["hbm_bytes"], smem_bytes=c["smem_bytes"],
+        predicted_s=predict_seconds(c),
+        grid_steps=float(c["ctas"] * c["steps"]))
+
+
+def autotune_layer(layer: df.ConvLayer, fft_size: int, alpha: float, *,
+                   batch: int = 1,
+                   flows: Sequence[str] = df.FLOWS,
+                   active_bins: int | None = None,
+                   hadamard_modes: Sequence[str] = ("bin",),
+                   input_modes: Sequence[str] = ("windowed",),
+                   schedule_r: int = SCHEDULE_R,
+                   t_cycles: int | None = None,
+                   measure_fn: Callable[[FusedTuning], float] | None = None
+                   ) -> FusedTuning:
+    """Pick (flow, hadamard, input mode, block_m) for one layer.
+
+    Analytic pass: ``price`` every candidate (``active_bins`` = the
+    plan's compacted Fa, ``t_cycles`` = the tables' length when they
+    exist), drop those over ``H100_SMEM_PER_CTA`` and sort by (predicted
+    seconds, CTA steps, bytes).  When none fits (tables longer than the
+    estimate allows), the smallest footprint comes back, its
+    ``smem_bytes`` over the budget for the caller to see; a launch of it
+    raises.  Measured pass (with ``measure_fn``, seconds of one
+    candidate on the card): time the ``MEASURE_TOP_K`` best predictions
+    and keep the fastest, recording every measured candidate in
+    ``FusedTuning.measured``.
+    """
+    priced = [price(cand, layer, fft_size, alpha, batch=batch,
+                    active_bins=active_bins, schedule_r=schedule_r,
+                    t_cycles=t_cycles)
+              for cand in _layer_candidates(layer, fft_size, batch, flows,
+                                            hadamard_modes, input_modes)]
+    scored = [t for t in priced if t.smem_bytes <= H100_SMEM_PER_CTA]
+    if not scored:
+        return min(priced, key=lambda t: t.smem_bytes)
+    scored.sort(key=lambda t: (t.predicted_s, t.grid_steps, t.hbm_bytes))
+    if measure_fn is None:
+        return scored[0]
+    timed = tuple((cand, measure_fn(cand))
+                  for cand in scored[:MEASURE_TOP_K])
+    best, best_s = min(timed, key=lambda ct: ct[1])
+    return dataclasses.replace(best, measured_s=best_s, measured=timed)
+
+
+def autotune_network(layers: Sequence[df.ConvLayer] = df.VGG16_LAYERS,
+                     fft_size: int = 8,
+                     alpha: "float | Sequence[float]" = 4.0, *,
+                     batch: int = 1,
+                     active_bins: dict[str, int] | None = None,
+                     hadamard_modes: Sequence[str] = ("bin",),
+                     input_modes: Sequence[str] = ("windowed",),
+                     measure_fns: dict[str, Callable] | None = None
+                     ) -> dict[str, FusedTuning]:
+    """Alg 1 over a conv stack -> {layer name: FusedTuning}; ``alpha``
+    is a scalar or one per layer, ``active_bins`` and ``measure_fns``
+    (``_make_measure_fn`` of each layer's plan) are keyed by layer
+    name."""
+    from repro_torch.core.sparse import per_layer_alphas
+
+    layers = list(layers)
+    alphas = per_layer_alphas(alpha, len(layers))
+    return {layer.name: autotune_layer(
+        layer, fft_size, a, batch=batch,
+        active_bins=(active_bins or {}).get(layer.name),
+        hadamard_modes=hadamard_modes, input_modes=input_modes,
+        measure_fn=(measure_fns or {}).get(layer.name))
+        for layer, a in zip(layers, alphas)}
+
+
+def device_ms(fn: Callable[[], object], flush: Callable[[], object],
+              reps: int = 5) -> float:
+    """Median device time of ``fn`` in ms: one warm-up call, then
+    ``reps`` calls, each after ``flush()`` (an L2 flush), between CUDA
+    events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _make_measure_fn(lp, batch: int, tables: Callable[[], object]
+                     ) -> Callable[[FusedTuning], float]:
+    """Seconds of one candidate on the card: ``execute_layer_plan`` (the
+    layer as the forward pass runs it, host relayout included) on the
+    layer's own operands (``lp``, a ``core.plan.LayerPlan`` on a CUDA
+    device) and a random activation of the plan's batch (seed
+    ``MEASURE_SEED``), timed by ``device_ms`` with a 128 MiB buffer (over
+    the 50 MB L2) zeroed before each launch; both live as long as the
+    callable.  ``tables()`` gives the layer's Alg-2 tables (the
+    caller compiles them at most once) for scheduled candidates.
+    Raises when ``lp`` is not on a CUDA device: a measurement never
+    falls back to the CPU."""
+    dev = lp.wr.device
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(
+            "measure=True times candidates on the card: the plan must be "
+            f"on a CUDA device, got {dev}")
+    flush = torch.empty(32 * 2 ** 20, device=dev)
+    layer = lp.layer
+    gen = torch.Generator(device=dev).manual_seed(MEASURE_SEED)
+    x = torch.randn((batch, layer.c_in, layer.h_in, layer.w_in),
+                    generator=gen, device=dev)
+
+    def measure(tn: FusedTuning) -> float:
+        tabs = tables() if tn.hadamard == "scheduled" else None
+        if tabs is not None and tn.flow != fsc.OS:
+            need = fsc.sched_smem_bytes(
+                tn.flow, lp.geo, tn.block_m, tabs.idx.shape[2],
+                tabs.idx.shape[3], tabs.sel.shape[3],
+                halo_block_geometry(lp.geo, tn.block_p)
+                if tn.input_mode == "halo" else None)
+            if need > fsc.SMEM_PER_CTA:     # the real T outgrew the cap
+                return float("inf")
+        cand = dataclasses.replace(lp, tuning=tn, hadamard=tn.hadamard,
+                                   input_mode=tn.input_mode, tables=tabs)
+        return 1e-3 * device_ms(lambda: fsc.execute_layer_plan(x, cand),
+                                flush.zero_)
+
+    return measure

@@ -1,8 +1,9 @@
 """Layer and graph descriptions shared by the plan, the kernels and the
 models (counterpart of ``repro.core.dataflow``).
 
-Only the static descriptions are here; the reference's FPGA and TPU
-cost models are not part of this package.
+Only the static descriptions are here.  The Hopper counterpart of the
+reference's TPU cost model is in ``core.autotune``; its FPGA model is
+not part of this package yet.
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ class NodeSpec:
                              f"required, got {self.inputs!r}")
 
 
-# The paper's three reuse choices; this package implements the
-# output-stationary flow only (the others are still to be ported).
+# The paper's three reuse choices: which operand a CTA keeps on chip while
+# it walks the others (kernels.fused_spectral_conv).
 FLOWS = ("output_stationary", "weight_stationary", "input_stationary")
 
 # Input paths of the fused kernel: host-materialized overlap-save

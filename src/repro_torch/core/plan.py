@@ -15,11 +15,13 @@ process pool at full width) and their exact Eq-14 statistics; with
 ``schedule=True`` the plane layers carry sampled statistics, as in the
 reference.
 
-This package builds the plans the ported kernels run:
-``input_mode='windowed'|'halo'``, ``hadamard='dense'|'bin'|'scheduled'``,
-and the output-stationary flow with the CUDA kernels' fixed block sizes
-(no autotune).  Other modes raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Each layer's kernel configuration comes from Alg 1 on the H100
+(``autotune.autotune_layer``): ``hadamard`` and ``input_mode`` are forced
+('dense' | 'bin' | 'scheduled', 'windowed' | 'halo') or 'auto', which
+ranks the available modes, and then the reuse flows and their m-range
+widths, per layer; ``measure=True`` re-ranks the best predictions by
+their time on the card.  Residual graphs raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 import repro_torch
+from repro_torch.core import autotune as at
 from repro_torch.core import dataflow as df
 from repro_torch.core import scheduler as sch
 from repro_torch.core import sparse as sp
@@ -249,6 +252,15 @@ class LayerPlan:
         k2 = self.geo.fft_size ** 2
         return k2 if self.active is None else len(self.active)
 
+    @property
+    def kernel_name(self) -> str:
+        """The kernel wrapper this layer runs (its entry point under the
+        tuning's flow is ``fsc.entry_point(kernel_name, flow)``)."""
+        name = ("fused_spectral_pipeline_scheduled"
+                if self.hadamard == "scheduled"
+                else "fused_spectral_pipeline")
+        return name + ("_halo" if self.input_mode == "halo" else "")
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class NetworkPlan:
@@ -303,16 +315,15 @@ def _resolve_hadamard_modes(hadamard: str, alpha: float, schedule: bool,
     'bin' needs a compacted active set (otherwise it IS dense);
     'scheduled' needs a non-degenerate schedule (alpha > 1 and
     scheduling enabled) — when it degenerates, the request falls back
-    to the plane datapath.  'auto' needs the autotuner, not ported yet.
+    to the plane datapath; 'auto' ranks the plane datapath and, where
+    available, the scheduled one.
     """
     plane = "bin" if active is not None else "dense"
+    sched_ok = schedule and alpha > 1.0
     if hadamard == "auto":
-        raise NotImplementedError(
-            "hadamard='auto' needs the autotuner retargeted to Hopper, "
-            "not ported yet (ROADMAP A5); force 'dense', 'bin' or "
-            "'scheduled'")
+        return [plane] + (["scheduled"] if sched_ok else [])
     if hadamard == "scheduled":
-        return ["scheduled"] if schedule and alpha > 1.0 else [plane]
+        return ["scheduled"] if sched_ok else [plane]
     if hadamard == "bin":
         return [plane]
     if hadamard == "dense":
@@ -322,38 +333,71 @@ def _resolve_hadamard_modes(hadamard: str, alpha: float, schedule: bool,
         f"got {hadamard!r}")
 
 
-def _kernel_tuning(layer: df.ConvLayer, fft_size: int, hadamard: str,
-                   input_mode: str, batch: int) -> FusedTuning:
-    """The CUDA kernel's fixed blocks for one layer.  A windowed CTA
-    takes ``block_p`` tiles of the batch's [S, M, B*T] windows; a halo
-    CTA takes one halo block of a single image, so its ``block_p`` is
-    per image."""
-    n_blk, m_blk, p_blk = ((fsc.SCHED_BLOCK_N, fsc.SCHED_BLOCK_M,
-                            fsc.SCHED_BLOCK_P) if hadamard == "scheduled"
-                           else (fsc.BLOCK_N, fsc.BLOCK_M, fsc.BLOCK_P))
-    tiles = layer.tiles(fft_size) * (1 if input_mode == "halo" else batch)
-    return FusedTuning(
-        layer=layer.name, flow="output_stationary",
-        block_n=min(n_blk, layer.c_out), block_m=min(m_blk, layer.c_in),
-        block_p=min(p_blk, tiles), hadamard=hadamard,
-        input_mode=input_mode)
+def _resolve_input_modes(input_mode: str) -> list[str]:
+    """Input-path candidates for the autotuner ('auto' ranks both; the
+    windowed path is always a valid forced choice)."""
+    if input_mode == "auto":
+        return list(df.INPUT_MODES)
+    if input_mode in df.INPUT_MODES:
+        return [input_mode]
+    raise ValueError(
+        f"input_mode must be 'auto' or one of {df.INPUT_MODES}, "
+        f"got {input_mode!r}")
+
+
+def _resolve_flows(hadamard: str, input_mode: str) -> list[str]:
+    """Flow candidates: all three when a mode is 'auto' (the reference's
+    default plan ranks everything), output-stationary for forced modes
+    (the port's default; ``with_flow`` moves a built plan to another
+    flow)."""
+    return (list(df.FLOWS) if "auto" in (hadamard, input_mode)
+            else [fsc.OS])
+
+
+def _kernel_tuning(lp: LayerPlan, fft_size: int, batch: int, flow: str,
+                   input_mode: str) -> FusedTuning:
+    """The predicted-best configuration of a built layer under a forced
+    flow and input path (its Hadamard mode and tables as they are): the
+    m-range width for ws/is, the kernels' fixed n and tile blocks (a
+    halo CTA takes one halo block of a single image, so its ``block_p``
+    is per image)."""
+    t_cycles = lp.tables.idx.shape[2] if lp.tables is not None else None
+    return at.autotune_layer(
+        lp.layer, fft_size, lp.alpha, batch=batch, flows=(flow,),
+        active_bins=lp.n_active_bins, hadamard_modes=(lp.hadamard,),
+        input_modes=(input_mode,), t_cycles=t_cycles)
+
+
+def _retuned(plan: NetworkPlan, flow: str | None,
+             input_mode: str | None) -> NetworkPlan:
+    layers = []
+    for lp in plan.layers:
+        imode = input_mode or lp.input_mode
+        tn = _kernel_tuning(lp, plan.fft_size, plan.batch,
+                            flow or lp.tuning.flow, imode)
+        layers.append(dataclasses.replace(lp, input_mode=imode, tuning=tn))
+    return dataclasses.replace(plan, layers=tuple(layers))
 
 
 def with_input_mode(plan: NetworkPlan, input_mode: str) -> NetworkPlan:
     """The same plan on another input path: operands and Alg-2 tables do
-    not depend on it, so nothing is rebuilt; each ``LayerPlan`` gets the
-    mode and the kernel blocks that go with it (equal to what
-    ``build_network_plan(..., input_mode=input_mode)`` builds)."""
+    not depend on it, so nothing is rebuilt; each ``LayerPlan`` keeps its
+    flow and gets the mode and the kernel blocks that go with it (equal
+    to what ``build_network_plan(..., input_mode=input_mode)`` builds)."""
     if input_mode not in df.INPUT_MODES:
         raise ValueError(f"input_mode must be one of {df.INPUT_MODES}, "
                          f"got {input_mode!r}")
-    layers = tuple(
-        dataclasses.replace(lp, input_mode=input_mode,
-                            tuning=_kernel_tuning(lp.layer, plan.fft_size,
-                                                  lp.hadamard, input_mode,
-                                                  plan.batch))
-        for lp in plan.layers)
-    return dataclasses.replace(plan, layers=layers)
+    return _retuned(plan, None, input_mode)
+
+
+def with_flow(plan: NetworkPlan, flow: str) -> NetworkPlan:
+    """The same plan under another reuse flow: operands and tables do not
+    depend on it, so nothing is rebuilt; each ``LayerPlan`` keeps its
+    Hadamard mode and input path and gets the flow with the m-range width
+    the cost model prefers for it."""
+    if flow not in df.FLOWS:
+        raise ValueError(f"flow must be one of {df.FLOWS}, got {flow!r}")
+    return _retuned(plan, flow, None)
 
 
 @contextlib.contextmanager
@@ -385,6 +429,7 @@ def _schedule_pool(workers: int):
 def build_network_plan(params: dict, cfg, *, batch: int = 1,
                        hadamard: str = "bin",
                        input_mode: str = "windowed",
+                       measure: bool = False,
                        schedule: bool = True,
                        schedule_r: int = 10,
                        schedule_n_par: int = 64,
@@ -400,14 +445,22 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         ``fft_size``, ``alpha``, ``pool_after``, ``graph``, ``name``).
       batch: images per forward call the plan is built for (recorded).
       hadamard: 'bin' (compact the kernel planes to the active bins;
-        the same as 'dense' when no bin is empty), 'dense', or
-        'scheduled' (Alg-2 INDEX/VALUE tables; falls back to the plane
-        datapath where alpha <= 1 or ``schedule`` is off).  'auto' is
-        not ported yet (ROADMAP A5).
-      input_mode: 'windowed' (host-built overlap-save windows) or
-        'halo' (the kernels gather the windows from the raw activation;
-        a halo block's tiles come from one image, so ``block_p`` is per
-        image).  'auto' needs the Hopper cost model (ROADMAP A5).
+        the same as 'dense' when no bin is empty), 'dense', 'scheduled'
+        (Alg-2 INDEX/VALUE tables; falls back to the plane datapath
+        where alpha <= 1 or ``schedule`` is off), or 'auto' (Alg 1 ranks
+        the plane and, where available, the scheduled datapath per
+        layer; the reference's default).
+      input_mode: 'windowed' (host-built overlap-save windows), 'halo'
+        (the kernels gather the windows from the raw activation; a halo
+        block's tiles come from one image, so ``block_p`` is per image),
+        or 'auto' (Alg 1 ranks both per layer; the reference's default).
+        With either mode 'auto', Alg 1 also ranks the three reuse flows
+        (with the m-range widths of ws/is); forced modes build
+        output-stationary layers (``with_flow`` moves them).
+      measure: re-rank each layer's three best predictions by their time
+        on the card (``autotune._make_measure_fn``: the layer's own
+        operands, tables compiled at most once per layer); raises when
+        the plan is not on a CUDA device (there is no CPU timing).
       schedule: run Alg 2 at all (False skips the schedule stats AND
         disables the scheduled datapath).
       schedule_r: r, the BRAM-replica analogue (paper S6.3: 10).
@@ -420,14 +473,8 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     if hadamard not in df.HADAMARD_MODES + ("auto",):
         raise ValueError(f"hadamard must be 'auto' or one of "
                          f"{df.HADAMARD_MODES}, got {hadamard!r}")
-    if input_mode not in df.INPUT_MODES + ("auto",):
-        raise ValueError(f"input_mode must be 'auto' or one of "
-                         f"{df.INPUT_MODES}, got {input_mode!r}")
-    if input_mode == "auto":
-        raise NotImplementedError(
-            "input_mode='auto' ranks the input paths with a cost model; "
-            "the reference's is the TPU's, and its Hopper counterpart is "
-            "not ported yet (ROADMAP A5); force 'windowed' or 'halo'")
+    imodes = _resolve_input_modes(input_mode)
+    flows = _resolve_flows(hadamard, input_mode)
     device = repro_torch.resolve_device(device)
     layers = list(cfg.layers)
     alphas = sp.per_layer_alphas(cfg.alpha, len(layers))
@@ -451,10 +498,11 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
             f"in exactly one node)")
     node_output_shapes(layers, order)   # DAG shape checks (raises)
 
-    # (group, channel) schedules the tables need, to size the pool
+    # (group, channel) schedules the tables may need, to size the pool
     n_pairs = sum(-(-l.c_out // fsc.SCHED_BLOCK_N) * l.c_in
                   for l, a in zip(layers, alphas)
-                  if hadamard == "scheduled" and schedule and a > 1.0)
+                  if hadamard in ("scheduled", "auto") and schedule
+                  and a > 1.0)
     workers = (min(SCHEDULE_WORKERS, os.cpu_count() or 1)
                if n_pairs >= SCHEDULE_POOL_MIN_PAIRS else 1)
     schedule_seconds = 0.0
@@ -483,40 +531,71 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
             dfr, dfi, dvr, dvi = (
                 torch.from_numpy(a).to(device) for a in
                 fsc.overlap_save_operators(cfg.fft_size, layer.ksize, key))
-            (mode,) = _resolve_hadamard_modes(hadamard, alpha, schedule,
-                                              active)
-            tuning = _kernel_tuning(layer, cfg.fft_size, mode,
-                                    input_mode, batch)
-            tables = None
-            if mode == "scheduled":
-                # The paper's offline schedule compilation: one
-                # exact-cover schedule per (kernel-group, channel),
-                # remapped to the compacted bins of the operators above;
-                # group size and channel padding are the scheduled
-                # kernel's block_n and block_m.
-                t0 = time.perf_counter()
-                lt = sch.compile_layer_tables(
-                    sk.indices.numpy(),
-                    sk.values.reshape(layer.c_out, layer.c_in, k2).numpy(),
-                    k2, schedule_r, tuning.block_n, active=active,
-                    m_pad_to=tuning.block_m, pool=pool)
-                schedule_seconds += time.perf_counter() - t0
-                tables = PlanTables(*(torch.from_numpy(a).to(device)
-                                      for a in (lt.idx, lt.sel, lt.vr,
-                                                lt.vi)))
-                cycles, mu = lt.total_cycles, lt.pe_utilization  # exact
+            modes = _resolve_hadamard_modes(hadamard, alpha, schedule,
+                                            active)
+            compiled: list = []
+
+            def tables(sk=sk, layer=layer, active=active):
+                """The layer's Alg-2 tables, compiled at most once: the
+                paper's offline schedule compilation, one exact-cover
+                schedule per (kernel-group, channel), remapped to the
+                compacted bins of the operators above; group size and
+                channel padding are the scheduled kernel's block_n and
+                block_m (the tables do not depend on the flow)."""
+                nonlocal schedule_seconds
+                if not compiled:
+                    t0 = time.perf_counter()
+                    lt = sch.compile_layer_tables(
+                        sk.indices.numpy(),
+                        sk.values.reshape(layer.c_out, layer.c_in,
+                                          k2).numpy(),
+                        k2, schedule_r,
+                        min(fsc.SCHED_BLOCK_N, layer.c_out),
+                        active=active, m_pad_to=fsc.SCHED_BLOCK_M,
+                        pool=pool)
+                    schedule_seconds += time.perf_counter() - t0
+                    compiled.append((PlanTables(
+                        *(torch.from_numpy(a).to(device)
+                          for a in (lt.idx, lt.sel, lt.vr, lt.vi))),
+                        lt.total_cycles, lt.pe_utilization))
+                return compiled[0][0]
+
             node = conv_specs[layer.name]
             epi = EpilogueSpec(bias=True, relu=node.relu,
                                pool=(not explicit_graph
                                      and layer.name in pool_after))
             bias = conv["b"].detach().to(device, torch.float32).reshape(1, -1)
-            plans.append(LayerPlan(
+            lp = LayerPlan(
                 layer=layer, geo=geo, kernels=sk.to(device), alpha=alpha,
-                tuning=tuning, epilogue=epi, bias=bias.contiguous(),
+                tuning=None, epilogue=epi, bias=bias.contiguous(),
                 active=active, wr=wr.to(device), wi=wi.to(device),
-                dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi, hadamard=mode,
-                input_mode=input_mode, schedule_cycles=cycles,
-                pe_utilization=mu, tables=tables))
+                dfr=dfr, dfi=dfi, dvr=dvr, dvi=dvi, hadamard=modes[0],
+                schedule_cycles=cycles, pe_utilization=mu)
+            tuning = at.autotune_layer(
+                layer, cfg.fft_size, alpha, batch=batch, flows=flows,
+                active_bins=lp.n_active_bins, hadamard_modes=modes,
+                input_modes=imodes, schedule_r=schedule_r,
+                measure_fn=(at._make_measure_fn(lp, batch, tables)
+                            if measure else None))
+            lp = dataclasses.replace(lp, tuning=tuning,
+                                     hadamard=tuning.hadamard,
+                                     input_mode=tuning.input_mode)
+            if tuning.hadamard == "scheduled":
+                lp = dataclasses.replace(lp, tables=tables(),
+                                         schedule_cycles=compiled[0][1],
+                                         pe_utilization=compiled[0][2])
+                # priced at an estimated table length: re-price at the
+                # tables' own, and where they outgrew the cap take the
+                # flow's width that fits
+                tn = at.price(tuning, layer, cfg.fft_size, alpha,
+                              batch=batch, active_bins=lp.n_active_bins,
+                              schedule_r=schedule_r,
+                              t_cycles=lp.tables.idx.shape[2])
+                if tn.smem_bytes > fsc.SMEM_PER_CTA and tn.flow != fsc.OS:
+                    tn = _kernel_tuning(lp, cfg.fft_size, batch, tn.flow,
+                                        tn.input_mode)
+                lp = dataclasses.replace(lp, tuning=tn)
+            plans.append(lp)
     layer_index = {name: i for i, name in enumerate(names)}
     pnodes = tuple(
         PlanNode(id=s.id, kind="conv", inputs=tuple(s.inputs),

@@ -74,6 +74,32 @@
 // from the windowed launch of the same layer, since it follows the number
 // of (tile block, group) pairs, and with it the order of the channel sum.
 //
+// The weight- and input-stationary flows (entry points *_ws_f32 and
+// *_is_f32, windowed and halo; replacing the TPU bodies `_kernel_ws_sched`
+// (:642) and `_kernel_is_sched` (:659) of src/repro/kernels/
+// fused_spectral_conv.py with their psum read-modify-write) compute the
+// same function with another reuse.  A flow CTA owns one m range of RM input
+// channels (G = ceil(M / RM) ranges) and no cluster:
+//  * weight-stationary (reuse kernels): CTA = (m range, kernel group).  It
+//    copies the group's table blocks of its RM channels into shared memory
+//    once and walks every 4-tile block with them, so each table entry is
+//    read from device memory once per layer; windows are re-read once per
+//    group.  The 128 KB psum leaves room for about three table blocks (~16
+//    KB each at T = 20), so RM is 1-3.
+//  * input-stationary (reuse activations): CTA = (tile block, m range).  It
+//    computes X~ of its 4 tiles for the m range once ([RM][64 bins] complex)
+//    and walks every kernel group, streaming its tables; each tile-FFT is
+//    computed once per tile block.
+// After each (tile block, group) the CTA folds its psum through the
+// valid-row IFFT as above.  With one m range that is the finished output;
+// otherwise it is range g's partial, stored to slice g of the split-K
+// workspace [G, S2, N, slots], and the finish pass of split_k.cuh sums the
+// slices in ascending g and applies bias and ReLU (no atomics).  Bound: the
+// os kernel's operations plus the IFFT per m range, and its bytes plus the
+// workspace written and read once; ws's few table channels per CTA make G
+// large (64-171 on VGG16), so the workspace, and a fold per tile block,
+// decide its time; is pays the fold once per group.
+//
 // Block sizes come from the build (-DSCH_*), set by the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -82,6 +108,7 @@
 
 #include "cp_async.cuh"
 #include "halo.cuh"
+#include "split_k.cuh"
 
 #if !defined(SCH_BN) || !defined(SCH_THREADS)
 #error "build through repro_torch.kernels._build (defines SCH_* block sizes)"
@@ -105,26 +132,38 @@ static_assert(NT % BN == 0 && BN % 32 == 0, "lane-major thread map");
 static_assert(NT == FMAX * BP, "tile-FFT map: 64 bins x 4 s-phases");
 static_assert(TQ == BP, "epilogue map: cycle phase tq is tile tq");
 
+// the reuse flows
+constexpr int OS = 0;   // output-stationary: channels split over a cluster
+constexpr int WS = 1;   // weight-stationary: table blocks of an m range
+constexpr int IS = 2;   // input-stationary: X~ of an m range resident
+
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // Shared-memory carve-up, in floats (every array 16-byte aligned).  A ring
-// stage holds one channel's input (windows, or a halo block's raw rows) and
-// its table rows; the halo path also expands the raw rows into one window
-// stage.  The epilogue's inverse DFT and spatial partial alias the
-// loop-phase arrays.
+// stage holds one channel's input (windows, or a halo block's raw rows)
+// and, for os, its table rows; for is it holds the input while X~ is built
+// and the table rows afterwards.  The halo path also expands the raw rows
+// into one window stage.  The epilogue's inverse DFT and spatial partial
+// alias the psum.
 struct Layout {
-  int df, psum, xf, stage, stage_size, x_sz, idx_sz, tab_sz, win, part, dv,
-      total;
-  __host__ __device__ Layout(int S, int S2, int T, int R, int NP,
-                             int x_floats, int win_floats) {
+  int df, psum, xf, res, stage, stage_size, x_sz, idx_sz, tab_sz, tab_blk,
+      win, part, dv, total;
+  __host__ __device__ Layout(int flow, int S, int S2, int T, int R, int NP,
+                             int x_floats, int win_floats, int RM) {
     df = 0;                                   // [S][DFP] (re, im)
     psum = df + 2 * S * DFP;                  // re, im [FMAX][BN] float4
-    xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4
-    stage = xf + 2 * FMAX * BP;               // 2 x stage
+    xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4; is:
+                                              // one pair per channel of RM
     x_sz = align4(x_floats);                  // windows [S][BP] or raw rows
     idx_sz = align4(T * R);                   // idx [T][R]
     tab_sz = align4(T * NP);                  // sel, vr, vi [T][NP]
-    stage_size = x_sz + idx_sz + 3 * tab_sz;
+    tab_blk = idx_sz + 3 * tab_sz;            // one (group, channel) block
+    res = xf + 2 * FMAX * BP * (flow == IS ? RM : 1);
+    stage = res + (flow == WS ? RM * tab_blk : 0);   // ws: the m range's
+                                                     // table blocks
+    stage_size = flow == OS ? x_sz + tab_blk
+                            : flow == WS ? x_sz : imax(x_sz, tab_blk);
     win = stage + 2 * stage_size;             // [S][BP] expanded windows
     part = psum;                              // [S2][BN][BP], epilogue
     dv = part + S2 * BN * BP;                 // [S2][FMAX] (re, im)
@@ -143,7 +182,7 @@ struct WindowedPath {
     int p0;
     bool vec;   // 16-byte copies: every row start 16-byte aligned
   };
-  int blocks() const { return (P + BP - 1) / BP; }
+  __host__ __device__ int blocks() const { return (P + BP - 1) / BP; }
   __host__ __device__ int x_floats(int S) const { return S * BP; }
   int win_floats(int) const { return 0; }
   __device__ Blk block(int bx, int) const {
@@ -189,37 +228,48 @@ __device__ __forceinline__ void stage_words(float* dst, const float* src,
   for (int i = done + tid; i < count; i += NT) cp_async4(dst + i, src + i, true);
 }
 
-template <class Path>
+// One kernel for the three flows (FLOW) on either input path (Path).
+// Grid: os (tile block, group, cluster rank over channel chunks); ws (m
+// range, group); is (tile block, m range).  ws (the split-K workspace) is
+// written only when the flow has more than one m range.
+template <class Path, int FLOW>
 __global__ void __launch_bounds__(NT, 1)
-fused_os_sched_kernel(const Path io, const int* __restrict__ idx,
-                      const int* __restrict__ sel,
-                      const float* __restrict__ vr,
-                      const float* __restrict__ vi,
-                      const float* __restrict__ dfr,
-                      const float* __restrict__ dfi,
-                      const float* __restrict__ dvr,
-                      const float* __restrict__ dvi,
-                      const float* __restrict__ bias, float* __restrict__ y,
-                      int S, int M, int Mp, int T, int R, int NP, int Fa,
-                      int N, int S2, int relu) {
+fused_sched_kernel(const Path io, const int* __restrict__ idx,
+                   const int* __restrict__ sel, const float* __restrict__ vr,
+                   const float* __restrict__ vi,
+                   const float* __restrict__ dfr,
+                   const float* __restrict__ dfi,
+                   const float* __restrict__ dvr,
+                   const float* __restrict__ dvi,
+                   const float* __restrict__ bias, float* __restrict__ y,
+                   float* __restrict__ ws, int S, int M, int Mp, int T,
+                   int R, int NP, int Fa, int N, int S2, int relu, int RM) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(S, S2, T, R, NP, io.x_floats(S), 0);
+  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), 0, RM);
   float2* s_df = reinterpret_cast<float2*>(smem + L.df);
   float4* s_pr = reinterpret_cast<float4*>(smem + L.psum);
   float4* s_pi = s_pr + FMAX * BN;
-  float4* s_xr = reinterpret_cast<float4*>(smem + L.xf);
-  float4* s_xi = s_xr + FMAX;
+  float4* s_x = reinterpret_cast<float4*>(smem + L.xf);
+  float* s_part = smem + L.part;
+  float4* s_dv = reinterpret_cast<float4*>(smem + L.dv);   // bin pairs
 
-  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const typename Path::Blk blk = io.block(blockIdx.x, tid);
-  const int g = blockIdx.y;                  // kernel group: lanes g*NP + n
-  const int rank = (int)cluster.block_rank();
-  const int n_ranks = (int)cluster.num_blocks();
-  const int m_lo = rank * M / n_ranks;       // this CTA's input channels
-  const int m_hi = (rank + 1) * M / n_ranks;
-
-  io.prepare(smem + L.win, S, tid);
+  const int slots = io.blocks() * BP;        // workspace tile columns
+  const int GN = (N + NP - 1) / NP;
+  // this CTA's channels: a cluster rank's share (os) or m range r of G
+  int m_lo, m_hi, r = 0, G = 1;
+  if constexpr (FLOW == OS) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int n_ranks = (int)cluster.num_blocks();
+    m_lo = rank * M / n_ranks;
+    m_hi = (rank + 1) * M / n_ranks;
+  } else {
+    G = FLOW == WS ? gridDim.x : gridDim.y;
+    r = FLOW == WS ? blockIdx.x : blockIdx.y;
+    m_lo = r * RM;
+    m_hi = m_lo + RM < M ? m_lo + RM : M;
+  }
 
   // forward DFT rows, bins Fa..63 zero
   for (int i = tid; i < S * FMAX; i += NT) {
@@ -229,24 +279,22 @@ fused_os_sched_kernel(const Path io, const int* __restrict__ idx,
                                : make_float2(0.f, 0.f);
   }
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = tid; i < 2 * FMAX * BN; i += NT) s_pr[i] = zero4;
+  auto zero_psum = [&]() {
+    for (int i = tid; i < 2 * FMAX * BN; i += NT) s_pr[i] = zero4;
+  };
 
   const size_t tab_row = (size_t)T * NP;     // one (g, m) table block
-  // one pipeline step: channel m's input (window rows [S][BP] or raw rows)
-  // and table blocks
-  auto load_step = [&](int buf, int m) {
-    float* sx = smem + L.stage + buf * L.stage_size;
-    io.load(blk, sx, S, M, m, tid);
+  auto ring = [&](int buf) { return smem + L.stage + buf * L.stage_size; };
+  // group g's table block of channel m into dst (idx, sel, vr, vi)
+  auto stage_tables = [&](float* dst, int g, int m) {
     const size_t gm = (size_t)g * Mp + m;
-    float* st = sx + L.x_sz;
-    stage_words(st, reinterpret_cast<const float*>(idx) + gm * T * R, T * R,
-                tid);
-    st += L.idx_sz;
-    stage_words(st, reinterpret_cast<const float*>(sel) + gm * tab_row,
+    stage_words(dst, reinterpret_cast<const float*>(idx) + gm * T * R,
+                T * R, tid);
+    dst += L.idx_sz;
+    stage_words(dst, reinterpret_cast<const float*>(sel) + gm * tab_row,
                 T * NP, tid);
-    stage_words(st + L.tab_sz, vr + gm * tab_row, T * NP, tid);
-    stage_words(st + 2 * L.tab_sz, vi + gm * tab_row, T * NP, tid);
-    cp_async_commit();
+    stage_words(dst + L.tab_sz, vr + gm * tab_row, T * NP, tid);
+    stage_words(dst + 2 * L.tab_sz, vi + gm * tab_row, T * NP, tid);
   };
 
   // tile-FFT map: bin ff, s-phase fh (lanes of 4 reduce by shuffles)
@@ -254,81 +302,74 @@ fused_os_sched_kernel(const Path io, const int* __restrict__ idx,
   // walk map: lane n, cycles t = tq, tq + TQ, ...
   const int n = tid % BN, tq = tid / BN;
 
-  if (m_lo < m_hi) load_step(0, m_lo);
-  for (int m = m_lo; m < m_hi; ++m) {
-    const int buf = (m - m_lo) & 1;
-    cp_async_wait_all();
-    __syncthreads();       // channel m staged; channel m - 1 fully applied
-    if (m + 1 < m_hi) load_step(buf ^ 1, m + 1);
-    const float* sx = smem + L.stage + buf * L.stage_size;
-    const float* xw = io.windows(blk, sx, smem + L.win, tid);
-    const int* s_idx = reinterpret_cast<const int*>(sx + L.x_sz);
+  // Stage 1: tile-FFT of every bin for the 4 tiles of one channel's
+  // windows xw [S][BP] -> xr[f], xi[f]
+  auto fft_channel = [&](const float* xw, float4* xr, float4* xi) {
+    const float4* x4 = reinterpret_cast<const float4*>(xw);
+    float4 ar = zero4, ai = zero4;
+    for (int s = fh; s < S; s += 4) {
+      const float4 xv = x4[s];
+      const float2 d = s_df[s * DFP + ff];
+      ar.x = fmaf(d.x, xv.x, ar.x); ai.x = fmaf(d.y, xv.x, ai.x);
+      ar.y = fmaf(d.x, xv.y, ar.y); ai.y = fmaf(d.y, xv.y, ai.y);
+      ar.z = fmaf(d.x, xv.z, ar.z); ai.z = fmaf(d.y, xv.z, ai.z);
+      ar.w = fmaf(d.x, xv.w, ar.w); ai.w = fmaf(d.y, xv.w, ai.w);
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      ar.x += __shfl_xor_sync(0xffffffffu, ar.x, o);
+      ar.y += __shfl_xor_sync(0xffffffffu, ar.y, o);
+      ar.z += __shfl_xor_sync(0xffffffffu, ar.z, o);
+      ar.w += __shfl_xor_sync(0xffffffffu, ar.w, o);
+      ai.x += __shfl_xor_sync(0xffffffffu, ai.x, o);
+      ai.y += __shfl_xor_sync(0xffffffffu, ai.y, o);
+      ai.z += __shfl_xor_sync(0xffffffffu, ai.z, o);
+      ai.w += __shfl_xor_sync(0xffffffffu, ai.w, o);
+    }
+    if (fh == 0) xr[ff] = ar;
+    if (fh == 1) xi[ff] = ai;
+  };
+
+  // Stage 2: execute lane n's cycles t = tq, tq + TQ, ... of one table
+  // block tab (idx, sel, vr, vi) on all 4 tiles of X~ xr/xi
+  auto apply_tables = [&](const float* tab, const float4* xr,
+                          const float4* xi) {
+    const int* s_idx = reinterpret_cast<const int*>(tab);
     const int* s_sel = s_idx + L.idx_sz;
     const float* s_vr = reinterpret_cast<const float*>(s_sel) + L.tab_sz;
     const float* s_vi = s_vr + L.tab_sz;
-
-    // Stage 1: tile-FFT of every bin for the 4 tiles of channel m
-    {
-      const float4* x4 = reinterpret_cast<const float4*>(xw);
-      float4 ar = zero4, ai = zero4;
-      for (int s = fh; s < S; s += 4) {
-        const float4 xv = x4[s];
-        const float2 d = s_df[s * DFP + ff];
-        ar.x = fmaf(d.x, xv.x, ar.x); ai.x = fmaf(d.y, xv.x, ai.x);
-        ar.y = fmaf(d.x, xv.y, ar.y); ai.y = fmaf(d.y, xv.y, ai.y);
-        ar.z = fmaf(d.x, xv.z, ar.z); ai.z = fmaf(d.y, xv.z, ai.z);
-        ar.w = fmaf(d.x, xv.w, ar.w); ai.w = fmaf(d.y, xv.w, ai.w);
-      }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        ar.x += __shfl_xor_sync(0xffffffffu, ar.x, o);
-        ar.y += __shfl_xor_sync(0xffffffffu, ar.y, o);
-        ar.z += __shfl_xor_sync(0xffffffffu, ar.z, o);
-        ar.w += __shfl_xor_sync(0xffffffffu, ar.w, o);
-        ai.x += __shfl_xor_sync(0xffffffffu, ai.x, o);
-        ai.y += __shfl_xor_sync(0xffffffffu, ai.y, o);
-        ai.z += __shfl_xor_sync(0xffffffffu, ai.z, o);
-        ai.w += __shfl_xor_sync(0xffffffffu, ai.w, o);
-      }
-      if (fh == 0) s_xr[ff] = ar;
-      if (fh == 1) s_xi[ff] = ai;
-    }
-    __syncthreads();                         // X~ of channel m is ready
-
-    // Stage 2: execute lane n's cycles t = tq, tq + TQ, ... on all 4 tiles
-    if (n < NP) {
-      for (int t = tq; t < T; t += TQ) {
-        const int i = t * NP + n;
-        const float wr = s_vr[i], wi = s_vi[i];
-        const int r = s_sel[i];
-        if ((wr != 0.f || wi != 0.f) && (unsigned)r < (unsigned)R) {
-          const int f = s_idx[t * R + r];
-          if ((unsigned)f < (unsigned)Fa) {
-            const float4 xr = s_xr[f], xi = s_xi[f];
-            const int c = f * BN + n;
-            float4 pr = s_pr[c], pi = s_pi[c];
-            pr.x = fmaf(wr, xr.x, fmaf(-wi, xi.x, pr.x));
-            pr.y = fmaf(wr, xr.y, fmaf(-wi, xi.y, pr.y));
-            pr.z = fmaf(wr, xr.z, fmaf(-wi, xi.z, pr.z));
-            pr.w = fmaf(wr, xr.w, fmaf(-wi, xi.w, pr.w));
-            pi.x = fmaf(wr, xi.x, fmaf(wi, xr.x, pi.x));
-            pi.y = fmaf(wr, xi.y, fmaf(wi, xr.y, pi.y));
-            pi.z = fmaf(wr, xi.z, fmaf(wi, xr.z, pi.z));
-            pi.w = fmaf(wr, xi.w, fmaf(wi, xr.w, pi.w));
-            s_pr[c] = pr;
-            s_pi[c] = pi;
-          }
+    if (n >= NP) return;
+    for (int t = tq; t < T; t += TQ) {
+      const int i = t * NP + n;
+      const float wr = s_vr[i], wi = s_vi[i];
+      const int rr = s_sel[i];
+      if ((wr != 0.f || wi != 0.f) && (unsigned)rr < (unsigned)R) {
+        const int f = s_idx[t * R + rr];
+        if ((unsigned)f < (unsigned)Fa) {
+          const float4 x_r = xr[f], x_i = xi[f];
+          const int c = f * BN + n;
+          float4 pr = s_pr[c], pi = s_pi[c];
+          pr.x = fmaf(wr, x_r.x, fmaf(-wi, x_i.x, pr.x));
+          pr.y = fmaf(wr, x_r.y, fmaf(-wi, x_i.y, pr.y));
+          pr.z = fmaf(wr, x_r.z, fmaf(-wi, x_i.z, pr.z));
+          pr.w = fmaf(wr, x_r.w, fmaf(-wi, x_i.w, pr.w));
+          pi.x = fmaf(wr, x_i.x, fmaf(wi, x_r.x, pi.x));
+          pi.y = fmaf(wr, x_i.y, fmaf(wi, x_r.y, pi.y));
+          pi.z = fmaf(wr, x_i.z, fmaf(wi, x_r.z, pi.z));
+          pi.w = fmaf(wr, x_i.w, fmaf(wi, x_r.w, pi.w));
+          s_pr[c] = pr;
+          s_pi[c] = pi;
         }
       }
     }
-  }
-  __syncthreads();                           // every channel applied
+  };
 
-  // Stage 3: valid-row IFFT of this CTA's psum -> spatial partial.  The
+  // Stage 3: valid-row IFFT of the psum -> spatial partial s_part.  The
   // thread's cell (n, tile tq) comes into registers over all bins, then
-  // the partial and the inverse DFT overwrite the psum.
-  float pr[FMAX], pi[FMAX];
-  {
+  // the partial and the inverse DFT overwrite the psum.  Call after the
+  // barrier that ends the last channel.
+  auto fold = [&]() {
+    float pr[FMAX], pi[FMAX];
     const float* psr = reinterpret_cast<const float*>(s_pr);
     const float* psi = reinterpret_cast<const float*>(s_pi);
 #pragma unroll
@@ -336,81 +377,214 @@ fused_os_sched_kernel(const Path io, const int* __restrict__ idx,
       pr[f] = psr[(f * BN + n) * BP + tq];
       pi[f] = psi[(f * BN + n) * BP + tq];
     }
-  }
-  __syncthreads();
-  float* s_part = smem + L.part;
-  float4* s_dv = reinterpret_cast<float4*>(smem + L.dv);   // bin pairs
-  for (int i = tid; i < S2 * FMAX / 2; i += NT) {
-    const int s = i / (FMAX / 2), f = 2 * (i - s * (FMAX / 2));
-    const size_t at = (size_t)s * Fa + f;
-    s_dv[i] = make_float4(f < Fa ? dvr[at] : 0.f, f < Fa ? dvi[at] : 0.f,
-                          f + 1 < Fa ? dvr[at + 1] : 0.f,
-                          f + 1 < Fa ? dvi[at + 1] : 0.f);
-  }
-  __syncthreads();
-  for (int s = 0; s < S2; ++s) {
-    float v = 0.f;
+    __syncthreads();
+    for (int i = tid; i < S2 * FMAX / 2; i += NT) {
+      const int s = i / (FMAX / 2), f = 2 * (i - s * (FMAX / 2));
+      const size_t at = (size_t)s * Fa + f;
+      s_dv[i] = make_float4(f < Fa ? dvr[at] : 0.f, f < Fa ? dvi[at] : 0.f,
+                            f + 1 < Fa ? dvr[at + 1] : 0.f,
+                            f + 1 < Fa ? dvi[at + 1] : 0.f);
+    }
+    __syncthreads();
+    for (int s = 0; s < S2; ++s) {
+      float v = 0.f;
 #pragma unroll
-    for (int f = 0; f < FMAX; f += 2) {
-      const float4 d = s_dv[s * (FMAX / 2) + f / 2];
-      v = fmaf(d.x, pr[f], fmaf(-d.y, pi[f], v));
-      v = fmaf(d.z, pr[f + 1], fmaf(-d.w, pi[f + 1], v));
+      for (int f = 0; f < FMAX; f += 2) {
+        const float4 d = s_dv[s * (FMAX / 2) + f / 2];
+        v = fmaf(d.x, pr[f], fmaf(-d.y, pi[f], v));
+        v = fmaf(d.z, pr[f + 1], fmaf(-d.w, pi[f + 1], v));
+      }
+      s_part[(s * BN + n) * BP + tq] = v;
     }
-    s_part[(s * BN + n) * BP + tq] = v;
-  }
-  cluster.sync();                            // every rank's partial is ready
+  };
 
-  // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
-  // write per output element; rank r finishes rows r, r + C, ...
-  const float* part[MAX_CLUSTER];
-  for (int q = 0; q < n_ranks; ++q)
-    part[q] = cluster.map_shared_rank(s_part, q);
-  const int gn = g * NP + n;
-  for (int s = rank; s < S2; s += n_ranks) {
-    const int at = (s * BN + n) * BP + tq;
-    float v = 0.f;
-    for (int q = 0; q < n_ranks; ++q) v += part[q][at];
-    const long long o =
-        n < NP && gn < N ? io.out_at(blk, s, gn, N, tq) : -1;
-    if (o >= 0) {
-      v += bias[gn];
-      if (relu) v = fmaxf(v, 0.f);
-      y[o] = v;
+  // flows: store this CTA's own partial of group g, tile block bx: the
+  // output (one m range) or workspace slice r
+  auto store = [&](const typename Path::Blk& blk, int bx, int g) {
+    const int gn = g * NP + n;
+    if (n >= NP || gn >= N) return;
+    for (int s = 0; s < S2; ++s) {
+      float v = s_part[(s * BN + n) * BP + tq];
+      if (G == 1) {
+        const long long o = io.out_at(blk, s, gn, N, tq);
+        if (o >= 0) {
+          v += bias[gn];
+          if (relu) v = fmaxf(v, 0.f);
+          y[o] = v;
+        }
+      } else {
+        ws[(((size_t)r * S2 + s) * N + gn) * slots + bx * BP + tq] = v;
+      }
+    }
+  };
+
+  if constexpr (FLOW == OS) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int n_ranks = (int)cluster.num_blocks();
+    const typename Path::Blk blk = io.block(blockIdx.x, tid);
+    const int g = blockIdx.y;                // kernel group: lanes g*NP + n
+    io.prepare(smem + L.win, S, tid);
+    zero_psum();
+    // one pipeline step: channel m's input (window rows [S][BP] or raw
+    // rows) and table blocks
+    auto load_step = [&](int buf, int m) {
+      io.load(blk, ring(buf), S, M, m, tid);
+      stage_tables(ring(buf) + L.x_sz, g, m);
+      cp_async_commit();
+    };
+    float4* s_xr = s_x;
+    float4* s_xi = s_x + FMAX;
+    if (m_lo < m_hi) load_step(0, m_lo);
+    for (int m = m_lo; m < m_hi; ++m) {
+      const int buf = (m - m_lo) & 1;
+      cp_async_wait_all();
+      __syncthreads();     // channel m staged; channel m - 1 fully applied
+      if (m + 1 < m_hi) load_step(buf ^ 1, m + 1);
+      const float* sx = ring(buf);
+      const float* xw = io.windows(blk, sx, smem + L.win, tid);
+      fft_channel(xw, s_xr, s_xi);
+      __syncthreads();                       // X~ of channel m is ready
+      apply_tables(sx + L.x_sz, s_xr, s_xi);
+    }
+    __syncthreads();                         // every channel applied
+    fold();
+    cluster.sync();                          // every rank's partial is ready
+
+    // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
+    // write per output element; rank r finishes rows r, r + C, ...
+    const float* part[MAX_CLUSTER];
+    for (int q = 0; q < n_ranks; ++q)
+      part[q] = cluster.map_shared_rank(s_part, q);
+    const int gn = g * NP + n;
+    for (int s = rank; s < S2; s += n_ranks) {
+      const int at = (s * BN + n) * BP + tq;
+      float v = 0.f;
+      for (int q = 0; q < n_ranks; ++q) v += part[q][at];
+      const long long o =
+          n < NP && gn < N ? io.out_at(blk, s, gn, N, tq) : -1;
+      if (o >= 0) {
+        v += bias[gn];
+        if (relu) v = fmaxf(v, 0.f);
+        y[o] = v;
+      }
+    }
+    cluster.sync();                          // keep partials alive for readers
+  } else if constexpr (FLOW == WS) {
+    // every tile block of one group, the m range's table blocks resident
+    const int g = blockIdx.y;
+    float* s_tab = smem + L.res;
+    for (int m = m_lo; m < m_hi; ++m)
+      stage_tables(s_tab + (m - m_lo) * L.tab_blk, g, m);
+    cp_async_commit();                       // waited for with channel m_lo
+    float4* s_xr = s_x;
+    float4* s_xi = s_x + FMAX;
+    for (int bx = 0; bx < io.blocks(); ++bx) {
+      const typename Path::Blk blk = io.block(bx, tid);
+      io.prepare(smem + L.win, S, tid);
+      zero_psum();
+      auto load_x = [&](int buf, int m) {
+        io.load(blk, ring(buf), S, M, m, tid);
+        cp_async_commit();
+      };
+      load_x(0, m_lo);
+      for (int m = m_lo; m < m_hi; ++m) {
+        const int buf = (m - m_lo) & 1;
+        cp_async_wait_all();
+        __syncthreads();   // channel m staged; channel m - 1 fully applied
+        if (m + 1 < m_hi) load_x(buf ^ 1, m + 1);
+        const float* xw = io.windows(blk, ring(buf), smem + L.win, tid);
+        fft_channel(xw, s_xr, s_xi);
+        __syncthreads();                     // X~ of channel m is ready
+        apply_tables(s_tab + (m - m_lo) * L.tab_blk, s_xr, s_xi);
+      }
+      __syncthreads();                       // every channel applied
+      fold();
+      __syncthreads();                       // partial complete
+      store(blk, bx, g);
+      __syncthreads();                       // partial read: psum reusable
+    }
+  } else {
+    // one tile block: X~ of the m range once, then every group
+    const typename Path::Blk blk = io.block(blockIdx.x, tid);
+    io.prepare(smem + L.win, S, tid);
+    auto xr_of = [&](int m) { return s_x + (m - m_lo) * 2 * FMAX; };
+    auto load_x = [&](int buf, int m) {
+      io.load(blk, ring(buf), S, M, m, tid);
+      cp_async_commit();
+    };
+    load_x(0, m_lo);
+    for (int m = m_lo; m < m_hi; ++m) {
+      const int buf = (m - m_lo) & 1;
+      cp_async_wait_all();
+      __syncthreads();     // channel m staged; channel m - 1 transformed
+      if (m + 1 < m_hi) load_x(buf ^ 1, m + 1);
+      const float* xw = io.windows(blk, ring(buf), smem + L.win, tid);
+      fft_channel(xw, xr_of(m), xr_of(m) + FMAX);
+    }
+    for (int g = 0; g < GN; ++g) {
+      auto load_t = [&](int buf, int m) {
+        stage_tables(ring(buf), g, m);
+        cp_async_commit();
+      };
+      __syncthreads();     // X~ ready / the previous group's partial read
+      zero_psum();
+      load_t(0, m_lo);
+      for (int m = m_lo; m < m_hi; ++m) {
+        const int buf = (m - m_lo) & 1;
+        cp_async_wait_all();
+        __syncthreads();   // channel m staged; channel m - 1 fully applied
+        if (m + 1 < m_hi) load_t(buf ^ 1, m + 1);
+        apply_tables(ring(buf), xr_of(m), xr_of(m) + FMAX);
+      }
+      __syncthreads();                       // every channel applied
+      fold();
+      __syncthreads();                       // partial complete
+      store(blk, blockIdx.x, g);
     }
   }
-  cluster.sync();                            // keep partials alive for readers
 }
 
-// Configure and launch one layer on `stream`; returns the cudaError_t of
-// the configuration and the launch (0 on success).  The input channels are
-// split over a cluster of C CTAs, C the smallest count that gives about two
-// CTAs per SM (at most 8, at most M).  Sizes whose shared memory exceeds
-// the per-block limit fail cudaFuncSetAttribute.
-template <class Path>
+// Configure and launch one layer on `stream` (and, for a flow with more
+// than one m range, the split-K finish pass); returns the cudaError_t of the
+// configuration and the launches (0 on success).  Output-stationary splits
+// the input channels over a cluster of C CTAs, C the smallest count that
+// gives about two CTAs per SM (at most 8, at most M).  Sizes whose shared
+// memory exceeds the per-block limit fail cudaFuncSetAttribute.
+template <class Path, int FLOW>
 int launch(const Path& io, const int* idx, const int* sel, const float* vr,
            const float* vi, const float* dfr, const float* dfi,
            const float* dvr, const float* dvi, const float* bias, float* y,
-           int S, int M, int GN, int Mp, int T, int R, int NP, int Fa, int N,
-           int S2, int relu, void* stream) {
+           float* ws, int S, int M, int GN, int Mp, int T, int R, int NP,
+           int Fa, int N, int S2, int relu, int RM, void* stream) {
   if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || GN < 1 || T < 1 ||
-      R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP || S2 < 1)
+      R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP || S2 < 1 ||
+      RM < 1)
     return (int)cudaErrorInvalidValue;
-  const Layout L(S, S2, T, R, NP, io.x_floats(S), io.win_floats(S));
+  const int G = FLOW == OS ? 1 : (M + RM - 1) / RM;
+  if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), io.win_floats(S),
+                 RM);
   const size_t smem = (size_t)L.total * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_os_sched_kernel<Path>,
+      fused_sched_kernel<Path, FLOW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = io.blocks() * GN;
-  int C = (2 * sms + blocks - 1) / blocks;
-  C = C < 1 ? 1 : C > MAX_CLUSTER ? MAX_CLUSTER : C;
-  C = C > M ? M : C;
+  int C = 1;
+  if (FLOW == OS) {
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = io.blocks() * GN;
+    C = (2 * sms + blocks - 1) / blocks;
+    C = C < 1 ? 1 : C > MAX_CLUSTER ? MAX_CLUSTER : C;
+    C = C > M ? M : C;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(io.blocks(), GN, C);
+  cfg.gridDim = FLOW == OS ? dim3(io.blocks(), GN, C)
+              : FLOW == WS ? dim3(G, GN, 1)
+                           : dim3(io.blocks(), G, 1);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -421,11 +595,49 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
   attr[0].val.clusterDim.z = C;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_os_sched_kernel<Path>, io, idx, sel,
-                           vr, vi, dfr, dfi, dvr, dvi, bias, y, S, M, Mp, T,
-                           R, NP, Fa, N, S2, relu);
+  err = cudaLaunchKernelEx(&cfg, fused_sched_kernel<Path, FLOW>, io, idx,
+                           sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, S,
+                           M, Mp, T, R, NP, Fa, N, S2, relu, RM);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (G > 1)
+    err = launch_finish<Path, BP>(io, ws, bias, y, G, S2, N,
+                                  io.blocks() * BP, relu,
+                                  (cudaStream_t)stream);
+  return (int)err;
+}
+
+template <int FLOW>
+int windowed(const float* xt, const int* idx, const int* sel,
+             const float* vr, const float* vi, const float* dfr,
+             const float* dfi, const float* dvr, const float* dvi,
+             const float* bias, float* y, float* ws, int S, int M, int P,
+             int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa,
+             int N, int S2, int relu, int RM, void* stream) {
+  if (P < 1 || x_pitch < P) return (int)cudaErrorInvalidValue;
+  return launch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, idx, sel,
+                                    vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
+                                    S, M, GN, Mp, T, R, NP, Fa, N, S2, relu,
+                                    RM, stream);
+}
+
+template <int FLOW>
+int halo(const float* x, const int* idx, const int* sel, const float* vr,
+         const float* vi, const float* dfr, const float* dfi,
+         const float* dvr, const float* dvi, const float* bias, float* y,
+         float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
+         int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp,
+         int T, int R, int NP, int Fa, int N, int S2, int relu, int RM,
+         void* stream) {
+  HaloIn io{x, {}};
+  if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
+                     nbh, nbw) ||
+      bth * btw > BP || S2 != io.g.t * io.g.t || NP < 1)
+    return (int)cudaErrorInvalidValue;
+  const int GN = (N + NP - 1) / NP;
+  return launch<HaloIn, FLOW>(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                              bias, y, ws, K * K, M, GN, Mp, T, R, NP, Fa, N,
+                              S2, relu, RM, stream);
 }
 
 }  // namespace
@@ -442,10 +654,34 @@ int fused_spectral_pipeline_scheduled_f32(
     const float* dvi, const float* bias, float* y, int S, int M, int P,
     int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
     int S2, int relu, void* stream) {
-  if (P < 1 || x_pitch < P) return (int)cudaErrorInvalidValue;
-  return launch(WindowedPath{xt, P, x_pitch}, idx, sel, vr, vi, dfr, dfi,
-                dvr, dvi, bias, y, S, M, GN, Mp, T, R, NP, Fa, N, S2, relu,
-                stream);
+  return windowed<OS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y,
+                      nullptr, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
+                      relu, 1, stream);
+}
+
+// Windowed layer, weight- / input-stationary over m ranges of RM channels;
+// with G = ceil(M / RM) > 1 ranges, ws is a workspace of
+// G * S2 * N * ceil(P / 4) * 4 floats.
+int fused_spectral_pipeline_scheduled_ws_f32(
+    const float* xt, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, float* ws, int S, int M,
+    int P, int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, int RM, void* stream) {
+  return windowed<WS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
+                      S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2, relu, RM,
+                      stream);
+}
+
+int fused_spectral_pipeline_scheduled_is_f32(
+    const float* xt, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, float* ws, int S, int M,
+    int P, int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, int RM, void* stream) {
+  return windowed<IS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
+                      S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2, relu, RM,
+                      stream);
 }
 
 // Halo layer: x [B, M, H, W] contiguous, y [B, N, H_out, W_out]; the tile
@@ -458,14 +694,35 @@ int fused_spectral_pipeline_scheduled_halo_f32(
     int W, int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
     int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N, int S2,
     int relu, void* stream) {
-  HaloIn io{x, {}};
-  if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
-                     nbh, nbw) ||
-      bth * btw > BP || S2 != io.g.t * io.g.t)
-    return (int)cudaErrorInvalidValue;
-  const int GN = (N + NP - 1) / NP;
-  return launch(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, K * K, M,
-                GN, Mp, T, R, NP, Fa, N, S2, relu, stream);
+  return halo<OS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, nullptr,
+                  B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
+                  Mp, T, R, NP, Fa, N, S2, relu, 1, stream);
+}
+
+// Halo layer, weight- / input-stationary; ws (G > 1) holds
+// G * S2 * N * B * nbh * nbw * 4 floats.
+int fused_spectral_pipeline_scheduled_halo_ws_f32(
+    const float* x, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, float* ws, int B, int M,
+    int H, int W, int K, int ksize, int pad, int n_th, int n_tw, int bth,
+    int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, int RM, void* stream) {
+  return halo<WS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, B, M,
+                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Mp, T,
+                  R, NP, Fa, N, S2, relu, RM, stream);
+}
+
+int fused_spectral_pipeline_scheduled_halo_is_f32(
+    const float* x, const int* idx, const int* sel, const float* vr,
+    const float* vi, const float* dfr, const float* dfi, const float* dvr,
+    const float* dvi, const float* bias, float* y, float* ws, int B, int M,
+    int H, int W, int K, int ksize, int pad, int n_th, int n_tw, int bth,
+    int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
+    int S2, int relu, int RM, void* stream) {
+  return halo<IS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, B, M,
+                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Mp, T,
+                  R, NP, Fa, N, S2, relu, RM, stream);
 }
 
 }  // extern "C"

@@ -198,7 +198,7 @@ struct HaloPath {
     HaloBlock hb;
     HaloLane ln;
   };
-  int blocks() const { return g.B * g.nbh * g.nbw; }
+  __host__ __device__ int blocks() const { return g.B * g.nbh * g.nbw; }
   __host__ __device__ int x_floats(int) const { return BM * g.chan; }
   int win_floats(int S) const { return S * BM * BP + S; }
   __device__ Blk block(int bx, int tid) const {

@@ -24,6 +24,15 @@ Each has its plain PyTorch version beside it
 (``*_reference``): the wrapper runs it for CPU tensors, and the tests
 and the on-card smoke run hold the kernel to it.
 
+Every wrapper takes the paper's three reuse flows (``flow=``, as the
+reference's kernels do): 'output_stationary' sums all input channels in
+the kernel; 'weight_stationary' (a CTA keeps the kernel operand of an m
+range of ``block_m`` channels resident and walks every tile block) and
+'input_stationary' (a CTA keeps X~ of its tiles for an m range resident
+and walks every output-channel block) sum each m range's partial IFFT in
+a split-K workspace that a second launch reduces in ascending m-range
+order before bias + ReLU.  The plain versions follow the same sum order.
+
 Around the windowed kernels, ``execute_layer_plan`` does the windowed
 input path's host-side layout work: overlap-save window extraction into
 the s-leading ``[S, M, B*T]`` layout, and valid-tile assembly of the
@@ -39,6 +48,7 @@ import numpy as np
 import torch
 
 import repro_torch
+from repro_torch.core.dataflow import FLOWS
 from repro_torch.core.spectral import (HaloGeometry, SpectralGeometry,
                                        assemble_valid_tiles,
                                        extract_tiles_overlapping,
@@ -62,11 +72,94 @@ MAX_CLUSTER = 8       # portable thread-block cluster size
 SCHED_BLOCK_N, SCHED_THREADS = 64, 256
 SCHED_BLOCK_P, SCHED_BLOCK_M, SCHED_MAX_BINS = 4, 1, 64
 
-# Kernel launches per wrapper, counted where the kernel is launched.
-LAUNCHES = {"fused_spectral_pipeline": 0,
-            "fused_spectral_pipeline_scheduled": 0,
-            "fused_spectral_pipeline_halo": 0,
-            "fused_spectral_pipeline_scheduled_halo": 0}
+# The reuse flows and, for the two that split the input channels into m
+# ranges, the m-range widths (``block_m``) the kernels take: a multiple of
+# BLOCK_M for the plane kernel (the range's planes, or its X~, stay in
+# shared memory, which caps the width: 16 for ws, 64 for is at K = 8), any
+# width for the scheduled kernel (about three table blocks fit beside its
+# psum for ws, eight channels' X~ for is).
+OS, WS, IS = FLOWS
+FLOW_BLOCK_M = {("plane", WS): (8, 16), ("plane", IS): (8, 16, 32, 64),
+                ("scheduled", WS): (1, 2, 3),
+                ("scheduled", IS): (2, 4, 8)}
+_FLOW_SUFFIX = {OS: "", WS: "_ws", IS: "_is"}
+
+
+def entry_point(kernel: str, flow: str) -> str:
+    """Name of the CUDA entry point (and ``LAUNCHES`` key) of a kernel
+    wrapper under a flow: the wrapper's name, suffixed ``_ws`` / ``_is``
+    for the weight- / input-stationary flows."""
+    if flow not in FLOWS:
+        raise ValueError(f"flow must be one of {FLOWS}, got {flow!r}")
+    return kernel + _FLOW_SUFFIX[flow]
+
+
+KERNELS = ("fused_spectral_pipeline", "fused_spectral_pipeline_scheduled",
+           "fused_spectral_pipeline_halo",
+           "fused_spectral_pipeline_scheduled_halo")
+
+# The most dynamic shared memory one CTA may take on the H100 (227 KB);
+# a kernel configuration over it does not launch.
+SMEM_PER_CTA = 232_448
+_SCHED_DFP, _SCHED_FMAX = 72, 64     # scheduled kernel: DFT row pitch, bins
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
+                ) -> tuple[int, int]:
+    """(raw-stage floats, expand-stage floats) of the halo input path
+    (``halo.cuh::HaloPath``): bm channels of unclamped raw rows at an odd
+    channel pitch, then the [S][bm][bp] windows and S offsets."""
+    ov, s = geo.ksize - 1, geo.fft_size ** 2
+    chan = ((hg.bth * geo.tile + ov) * (hg.btw * geo.tile + ov)) | 1
+    return bm * chan, s * bm * bp + s
+
+
+def plane_smem_bytes(flow: str, geo: SpectralGeometry,
+                     block_m: int = BLOCK_M,
+                     hg: HaloGeometry | None = None) -> int:
+    """Dynamic shared memory of one plane-kernel CTA: the ``Layout`` of
+    ``csrc/fused_spectral_conv.cu`` (windowed when ``hg`` is None)."""
+    s, s2 = geo.fft_size ** 2, geo.tile ** 2
+    mp, w_plane = BLOCK_M * BLOCK_P, BIN_CHUNK * BLOCK_N * BLOCK_M
+    x_floats, win = ((s * mp, 0) if hg is None
+                     else _halo_stage(geo, hg, BLOCK_M, BLOCK_P))
+    x_sz = _align4(x_floats)
+    head = (2 * s * BIN_CHUNK + 2 * s2 * BIN_CHUNK
+            + 2 * BIN_CHUNK * (block_m * BLOCK_P if flow == IS else mp)
+            + (2 * BIN_CHUNK * BLOCK_N * block_m if flow == WS else 0))
+    x_stage = {OS: x_sz + 2 * w_plane, WS: x_sz,
+               IS: max(x_sz, 2 * w_plane)}[flow]
+    return 4 * (head + max(2 * x_stage + win, s2 * BLOCK_N * BLOCK_P))
+
+
+def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
+                     t_cycles: int, r: int, n_pe: int,
+                     hg: HaloGeometry | None = None) -> int:
+    """Dynamic shared memory of one scheduled-kernel CTA: the ``Layout``
+    of ``csrc/fused_spectral_conv_scheduled.cu`` for tables of
+    ``t_cycles`` cycles, ``r`` replicas and ``n_pe`` lanes."""
+    s, s2 = geo.fft_size ** 2, geo.tile ** 2
+    bp, fmax = SCHED_BLOCK_P, _SCHED_FMAX
+    x_floats, win = ((s * bp, 0) if hg is None
+                     else _halo_stage(geo, hg, 1, bp))
+    x_sz = _align4(x_floats)
+    tab_blk = _align4(t_cycles * r) + 3 * _align4(t_cycles * n_pe)
+    psum = 2 * s * _SCHED_DFP
+    stage = (psum + 2 * fmax * SCHED_BLOCK_N * bp
+             + 2 * fmax * bp * (block_m if flow == IS else 1)
+             + (block_m * tab_blk if flow == WS else 0))
+    size = {OS: x_sz + tab_blk, WS: x_sz, IS: max(x_sz, tab_blk)}[flow]
+    epi = psum + s2 * SCHED_BLOCK_N * bp + 2 * s2 * fmax
+    return 4 * max(stage + 2 * size + win, epi)
+
+
+# Kernel launches per (kernel, flow) entry point, counted where the kernel
+# is launched (a flow's split-K finish pass belongs to its launch).
+LAUNCHES = {entry_point(k, f): 0 for k in KERNELS for f in FLOWS}
 
 
 # ---------------------------------------------------------------------------
@@ -114,13 +207,10 @@ def overlap_save_operators(fft_size: int, ksize: int,
 # The kernel and its plain version
 # ---------------------------------------------------------------------------
 
-def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
-                                      bias, *, relu: bool) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel (same contract as
-    ``fused_spectral_pipeline``): FFT GEMM, Karatsuba complex ``bmm``,
-    valid-row IFFT GEMM, bias + ReLU."""
-    if xt.is_cuda:
-        repro_torch.strict_fp32()
+def _plane_spatial(xt, wr, wi, dfr, dfi, dvr, dvi) -> torch.Tensor:
+    """Re(Dv . sum_m W X~) of the windows' channels, before the epilogue:
+    FFT GEMM, Karatsuba complex ``bmm``, valid-row IFFT GEMM ->
+    [S2, N, P]."""
     s, m, p = xt.shape
     fa, n, _ = wr.shape
     s2 = dvr.shape[0]
@@ -132,8 +222,47 @@ def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
     m3 = torch.bmm(wr + wi, xfr + xfi)
     re = (m1 - m2).reshape(fa, n * p)
     im = (m3 - m1 - m2).reshape(fa, n * p)
-    y = (dvr @ re - dvi @ im).reshape(s2, n, p) + bias[0][None, :, None]
+    return (dvr @ re - dvi @ im).reshape(s2, n, p)
+
+
+def _flow_sum(partial, m: int, flow: str, block_m: int | None
+              ) -> torch.Tensor:
+    """A flow's sum over input channels: ``partial(m0, m1)`` of all M
+    channels (output-stationary), or of each m range of ``block_m``
+    channels summed in ascending order (weight-/input-stationary, the
+    kernels' split-K order)."""
+    if flow == OS:
+        return partial(0, m)
+    if flow not in FLOWS:
+        raise ValueError(f"flow must be one of {FLOWS}, got {flow!r}")
+    if block_m is None or block_m < 1:
+        raise ValueError(f"flow {flow!r} needs block_m >= 1, got {block_m}")
+    acc = partial(0, min(block_m, m))
+    for m0 in range(block_m, m, block_m):
+        acc = acc + partial(m0, min(m0 + block_m, m))
+    return acc
+
+
+def _epilogue(y, bias, relu: bool) -> torch.Tensor:
+    y = y + bias[0][None, :, None]
     return torch.relu(y) if relu else y
+
+
+def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
+                                      bias, *, relu: bool,
+                                      flow: str = OS,
+                                      block_m: int | None = None
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel (same contract as
+    ``fused_spectral_pipeline``): FFT GEMM, Karatsuba complex ``bmm``,
+    valid-row IFFT GEMM per the flow's m ranges, summed in ascending
+    order, then bias + ReLU."""
+    if xt.is_cuda:
+        repro_torch.strict_fp32()
+    y = _flow_sum(lambda m0, m1: _plane_spatial(
+        xt[:, m0:m1], wr[:, :, m0:m1], wi[:, :, m0:m1], dfr, dfi, dvr,
+        dvi), xt.shape[1], flow, block_m)
+    return _epilogue(y, bias, relu)
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
@@ -148,15 +277,19 @@ def build_all() -> dict[str, ctypes.CDLL]:
     # pointers, then ints, then the stream
     plane, sched = libs["fused_spectral_conv"], \
         libs["fused_spectral_conv_scheduled"]
-    for lib, fn, n_ptr, n_int in (
-            (plane, "fused_spectral_pipeline_f32", 9, 8),
-            (plane, "fused_spectral_pipeline_halo_f32", 9, 17),
-            (sched, "fused_spectral_pipeline_scheduled_f32", 11, 13),
-            (sched, "fused_spectral_pipeline_scheduled_halo_f32", 11, 21)):
-        f = getattr(lib, fn)
-        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                      + [ctypes.c_void_p])
-        f.restype = ctypes.c_int
+    # a flow entry point takes the workspace pointer and block_m besides
+    for lib, kernel, n_ptr, n_int in (
+            (plane, "fused_spectral_pipeline", 9, 8),
+            (plane, "fused_spectral_pipeline_halo", 9, 17),
+            (sched, "fused_spectral_pipeline_scheduled", 11, 13),
+            (sched, "fused_spectral_pipeline_scheduled_halo", 11, 21)):
+        for flow in FLOWS:
+            f = getattr(lib, entry_point(kernel, flow) + "_f32")
+            extra = flow != OS
+            f.argtypes = ([ctypes.c_void_p] * (n_ptr + extra)
+                          + [ctypes.c_int] * (n_int + extra)
+                          + [ctypes.c_void_p])
+            f.restype = ctypes.c_int
     return libs
 
 
@@ -219,9 +352,47 @@ def _check_plane_operands(ops: dict[str, torch.Tensor], s: int, m: int,
                          f"wr {tuple(wr.shape)}, dvr {tuple(dvr.shape)}")
 
 
+def _flow_ranges(flow: str, block_m, m: int, kind: str) -> int:
+    """G, the number of m ranges of a flow (1 for output-stationary);
+    raises for a ``block_m`` the ``kind`` ('plane' | 'scheduled') kernel
+    is not built for."""
+    if flow not in FLOWS:
+        raise ValueError(f"flow must be one of {FLOWS}, got {flow!r}")
+    if flow == OS:
+        return 1
+    step = BLOCK_M if kind == "plane" else 1
+    if block_m is None or block_m < step or block_m % step:
+        raise ValueError(f"{kind} kernel, flow {flow!r}: block_m must be a "
+                         f"positive multiple of {step}, got {block_m}")
+    return -(-m // block_m)
+
+
+def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
+            device, ptrs: tuple, ints: tuple, s2: int, n: int) -> None:
+    """Call a kernel's entry point for ``flow`` on the current stream
+    (the flows get a split-K workspace of G * S2 * N * slots floats when
+    G > 1, and ``block_m``); raise on a CUDA error, count the launch."""
+    name = entry_point(kernel, flow)
+    fn = getattr(lib, name + "_f32")
+    stream = torch.cuda.current_stream().cuda_stream
+    if flow == OS:
+        err = fn(*ptrs, *ints, stream)
+    else:
+        ws = (torch.empty(g * s2 * n * slots, dtype=torch.float32,
+                          device=device) if g > 1 else None)
+        err = fn(*ptrs, 0 if ws is None else ws.data_ptr(), *ints,
+                 int(block_m), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
 def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
-                            relu: bool) -> torch.Tensor:
-    """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch.
+                            relu: bool, flow: str = OS,
+                            block_m: int | None = None) -> torch.Tensor:
+    """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two for
+    a weight-/input-stationary flow with more than one m range: the
+    split-K finish pass).
 
     xt:  [S, M, P] f32       overlap-save windows, s-leading (S = K^2,
                              P = B*T); contiguous, or rows of P floats
@@ -232,34 +403,34 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     dfr/dfi: [Fa, S]         forward DFT rows (active bins)
     dvr/dvi: [S2, Fa]        inverse DFT, valid rows x active columns
     bias: [1, N] f32         per-output-channel bias
+    flow / block_m: the reuse flow; weight-/input-stationary take m
+                             ranges of ``block_m`` channels (a value of
+                             ``FLOW_BLOCK_M``)
     returns [S2, N, P] f32 finished outputs (epilogue applied).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (or raise: also when S and S2 need more shared memory per CTA than
     the card has, which the launch reports).
     """
+    g = _flow_ranges(flow, block_m, xt.shape[1], "plane")
     if xt.device.type == "cpu":
         return fused_spectral_pipeline_reference(
-            xt, wr, wi, dfr, dfi, dvr, dvi, bias, relu=relu)
+            xt, wr, wi, dfr, dfi, dvr, dvi, bias, relu=relu, flow=flow,
+            block_m=block_m)
     if xt.device.type != "cuda":
         raise ValueError(f"no kernel for device {xt.device}")
     _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias)
     s, m, p = xt.shape
     fa, n, _ = wr.shape
     s2 = dvr.shape[0]
-    lib = library()
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n, p), dtype=torch.float32, device=xt.device)
-        err = lib.fused_spectral_pipeline_f32(
-            xt.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
-            dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), s, m, p, xt.stride(1), fa, n, s2,
-            int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_spectral_pipeline launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["fused_spectral_pipeline"] += 1
+        _launch(library(), "fused_spectral_pipeline", flow, block_m, g,
+                -(-p // BLOCK_P) * BLOCK_P, xt.device,
+                (xt.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                 dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
+                 dvi.data_ptr(), bias.data_ptr(), y.data_ptr()),
+                (s, m, p, xt.stride(1), fa, n, s2, int(relu)), s2, n)
     return y
 
 
@@ -267,17 +438,14 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
 # The scheduled kernel (Alg-2 tables) and its plain version
 # ---------------------------------------------------------------------------
 
-def fused_spectral_pipeline_scheduled_reference(
-        xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *, n_out: int,
-        relu: bool) -> torch.Tensor:
-    """Plain PyTorch version of the scheduled kernel (same contract as
-    ``fused_spectral_pipeline_scheduled``).  It executes the tables: per
-    cycle t, vectorised over (group, channel, lane, tile), gather
+def _sched_spatial(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                   n_out: int) -> torch.Tensor:
+    """Re(Dv . Y~) of the windows' channels through the tables (channel m
+    of the windows reads table channel m), before the epilogue: per cycle
+    t, vectorised over (group, channel, lane, tile), gather
     ``X~[idx[t][sel[t][n]]]``, complex-MAC with ``vr + i vi`` and
     ``index_add_`` into the ``[GN*N', Fa, P]`` psum (summing channels);
-    then the valid-row IFFT, bias and ReLU."""
-    if xt.is_cuda:
-        repro_torch.strict_fp32()
+    then the valid-row IFFT -> [S2, n_out, P]."""
     s, m, p = xt.shape
     gn, _, n_cycles, _ = idx.shape
     n_pe = sel.shape[3]
@@ -303,9 +471,24 @@ def fused_spectral_pipeline_scheduled_reference(
         acc_i.index_add_(0, dst, w_r * x_i + w_i * x_r)
     re = acc_r.reshape(gn * n_pe, fa, p).permute(1, 0, 2).reshape(fa, -1)
     im = acc_i.reshape(gn * n_pe, fa, p).permute(1, 0, 2).reshape(fa, -1)
-    y = (dvr @ re - dvi @ im).reshape(s2, gn * n_pe, p)[:, :n_out]
-    y = y + bias[0][None, :, None]
-    return torch.relu(y) if relu else y
+    return (dvr @ re - dvi @ im).reshape(s2, gn * n_pe, p)[:, :n_out]
+
+
+def fused_spectral_pipeline_scheduled_reference(
+        xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *, n_out: int,
+        relu: bool, flow: str = OS,
+        block_m: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the scheduled kernel (same contract as
+    ``fused_spectral_pipeline_scheduled``): it executes the tables per
+    the flow's m ranges (``_sched_spatial``), sums the ranges' partials
+    in ascending order, then bias + ReLU."""
+    if xt.is_cuda:
+        repro_torch.strict_fp32()
+    y = _flow_sum(lambda m0, m1: _sched_spatial(
+        xt[:, m0:m1], idx[:, m0:m1], sel[:, m0:m1], vr[:, m0:m1],
+        vi[:, m0:m1], dfr, dfi, dvr, dvi, n_out), xt.shape[1], flow,
+        block_m)
+    return _epilogue(y, bias, relu)
 
 
 def library_scheduled() -> ctypes.CDLL:
@@ -358,9 +541,12 @@ def _check_table_operands(ops: dict[str, torch.Tensor], s: int, m: int,
 
 def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                                       dvi, bias, *, n_out: int,
-                                      relu: bool) -> torch.Tensor:
+                                      relu: bool, flow: str = OS,
+                                      block_m: int | None = None
+                                      ) -> torch.Tensor:
     """FFT -> SCHEDULED sparse Hadamard -> IFFT (+ bias/ReLU) in one
-    kernel launch.
+    kernel launch (plus the split-K finish pass for a weight-/input-
+    stationary flow with more than one m range).
 
     xt:  [S, M, P] f32          overlap-save windows (as for
                                 ``fused_spectral_pipeline``)
@@ -369,6 +555,7 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     sel: [GN, Mp, T, N'] int32  replica column feeding PE lane n
     vr/vi: [GN, Mp, T, N'] f32  lane weights (zero = idle lane)
     dfr/dfi: [Fa, S], dvr/dvi: [S2, Fa], bias: [1, n_out]
+    flow / block_m: the reuse flow and, for ws/is, the m-range width
     returns [S2, n_out, P] f32 finished outputs; output channel
     g*N' + n is lane n of group g.
 
@@ -377,10 +564,11 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (or raise).
     """
+    g = _flow_ranges(flow, block_m, xt.shape[1], "scheduled")
     if xt.device.type == "cpu":
         return fused_spectral_pipeline_scheduled_reference(
             xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, n_out=n_out,
-            relu=relu)
+            relu=relu, flow=flow, block_m=block_m)
     if xt.device.type != "cuda":
         raise ValueError(f"no kernel for device {xt.device}")
     _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
@@ -390,20 +578,18 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     n_pe = sel.shape[3]
     fa = dfr.shape[0]
     s2 = dvr.shape[0]
-    lib = library_scheduled()
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n_out, p), dtype=torch.float32,
                         device=xt.device)
-        err = lib.fused_spectral_pipeline_scheduled_f32(
-            xt.data_ptr(), idx.data_ptr(), sel.data_ptr(), vr.data_ptr(),
-            vi.data_ptr(), dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
-            dvi.data_ptr(), bias.data_ptr(), y.data_ptr(), s, m, p,
-            xt.stride(1), gn, mp, n_cycles, r, n_pe, fa, n_out, s2,
-            int(relu), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_spectral_pipeline_scheduled launch "
-                           f"failed: cudaError {err}")
-    LAUNCHES["fused_spectral_pipeline_scheduled"] += 1
+        _launch(library_scheduled(), "fused_spectral_pipeline_scheduled",
+                flow, block_m, g, -(-p // SCHED_BLOCK_P) * SCHED_BLOCK_P,
+                xt.device,
+                (xt.data_ptr(), idx.data_ptr(), sel.data_ptr(),
+                 vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
+                 dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
+                 bias.data_ptr(), y.data_ptr()),
+                (s, m, p, xt.stride(1), gn, mp, n_cycles, r, n_pe, fa,
+                 n_out, s2, int(relu)), s2, n_out)
     return y
 
 
@@ -447,15 +633,17 @@ def _crop_canvas(y: torch.Tensor, geo: SpectralGeometry, n: int
 
 def fused_spectral_pipeline_halo_reference(x, wr, wi, dfr, dfi, dvr, dvi,
                                            bias, *, geo: SpectralGeometry,
-                                           hg: HaloGeometry, relu: bool
+                                           hg: HaloGeometry, relu: bool,
+                                           flow: str = OS,
+                                           block_m: int | None = None
                                            ) -> torch.Tensor:
     """Plain PyTorch version of the halo plane kernel (same contract as
     ``fused_spectral_pipeline_halo``): the one-hot halo gather, block by
-    block, then the plain plane pipeline, the canvas relayout and the
-    crop.  Returns a contiguous [B, N, H_out, W_out]."""
+    block, then the plain plane pipeline of the flow, the canvas
+    relayout and the crop.  Returns a contiguous [B, N, H_out, W_out]."""
     y = fused_spectral_pipeline_reference(
         _halo_windows(x, geo, hg), wr, wi, dfr, dfi, dvr, dvi, bias,
-        relu=relu)
+        relu=relu, flow=flow, block_m=block_m)
     canvas = _stage_canvas(y, geo, hg, x.shape[0])
     return _crop_canvas(canvas, geo, wr.shape[1]).contiguous()
 
@@ -463,14 +651,16 @@ def fused_spectral_pipeline_halo_reference(x, wr, wi, dfr, dfi, dvr, dvi,
 def fused_spectral_pipeline_scheduled_halo_reference(
         x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *,
         geo: SpectralGeometry, hg: HaloGeometry, n_out: int,
-        relu: bool) -> torch.Tensor:
+        relu: bool, flow: str = OS,
+        block_m: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the halo scheduled kernel (same contract
     as ``fused_spectral_pipeline_scheduled_halo``): the one-hot halo
-    gather, the plain table pipeline, the canvas relayout and the crop.
+    gather, the plain table pipeline of the flow, the canvas relayout
+    and the crop.
     """
     y = fused_spectral_pipeline_scheduled_reference(
         _halo_windows(x, geo, hg), idx, sel, vr, vi, dfr, dfi, dvr, dvi,
-        bias, n_out=n_out, relu=relu)
+        bias, n_out=n_out, relu=relu, flow=flow, block_m=block_m)
     canvas = _stage_canvas(y, geo, hg, x.shape[0])
     return _crop_canvas(canvas, geo, n_out).contiguous()
 
@@ -509,16 +699,21 @@ def _halo_out(x, geo: SpectralGeometry, n: int) -> torch.Tensor:
 
 def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                  geo: SpectralGeometry, hg: HaloGeometry,
-                                 relu: bool) -> torch.Tensor:
+                                 relu: bool, flow: str = OS,
+                                 block_m: int | None = None
+                                 ) -> torch.Tensor:
     """Halo gather -> FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel
-    launch, reading the RAW activation.
+    launch (plus the split-K finish pass for a weight-/input-stationary
+    flow with more than one m range), reading the RAW activation.
 
     x: [B, M, H, W] f32      raw NCHW activation, contiguous (no
                              windowing, no padding: the kernel's
                              zero-filled block copies do both)
-    wr/wi/dfr/dfi/dvr/dvi/bias: as ``fused_spectral_pipeline``.
+    wr/wi/dfr/dfi/dvr/dvi/bias, flow, block_m: as
+        ``fused_spectral_pipeline``.
     geo/hg: tile and halo-block geometry (``halo_block_geometry``; at
-        most ``BLOCK_P`` tiles per block); one CTA per (image, block).
+        most ``BLOCK_P`` tiles per block); one CTA per (image, block)
+        and m range.
     returns [B, N, H_out, W_out] f32, contiguous: each finished tile is
     stored at its place in the cropped output (no host relayout).
 
@@ -526,9 +721,11 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     (or raise).
     """
     _check_halo_input(x, geo, hg, BLOCK_P)
+    g = _flow_ranges(flow, block_m, x.shape[1], "plane")
     if x.device.type == "cpu":
         return fused_spectral_pipeline_halo_reference(
-            x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg, relu=relu)
+            x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg, relu=relu,
+            flow=flow, block_m=block_m)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_plane_operands(dict(x=x, wr=wr, wi=wi, dfr=dfr, dfi=dfi,
@@ -536,18 +733,14 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                           geo.fft_size ** 2, x.shape[1], hg.block_tiles)
     fa, n, _ = wr.shape
     s2 = dvr.shape[0]
-    lib = library()
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n)
-        err = lib.fused_spectral_pipeline_halo_f32(
-            x.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
-            dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), *_halo_ints(x, geo, hg), fa, n,
-            s2, int(relu), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_spectral_pipeline_halo launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["fused_spectral_pipeline_halo"] += 1
+        _launch(library(), "fused_spectral_pipeline_halo", flow, block_m, g,
+                x.shape[0] * hg.n_blocks * BLOCK_P, x.device,
+                (x.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
+                 dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
+                 bias.data_ptr(), y.data_ptr()),
+                (*_halo_ints(x, geo, hg), fa, n, s2, int(relu)), s2, n)
     return y
 
 
@@ -555,22 +748,28 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                                            dvr, dvi, bias, *,
                                            geo: SpectralGeometry,
                                            hg: HaloGeometry, n_out: int,
-                                           relu: bool) -> torch.Tensor:
+                                           relu: bool, flow: str = OS,
+                                           block_m: int | None = None
+                                           ) -> torch.Tensor:
     """Halo gather -> FFT -> SCHEDULED sparse Hadamard -> IFFT (+
-    bias/ReLU) in one kernel launch, reading the RAW activation.
+    bias/ReLU) in one kernel launch (plus the split-K finish pass for a
+    weight-/input-stationary flow with more than one m range), reading
+    the RAW activation.
 
     x: [B, M, H, W] f32 raw NCHW activation, contiguous; tables,
-    operators and bias as ``fused_spectral_pipeline_scheduled``;
-    geo/hg as ``fused_spectral_pipeline_halo`` (at most
-    ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out,
-    W_out] f32, contiguous.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (or raise).
+    operators, bias, flow and block_m as
+    ``fused_spectral_pipeline_scheduled``; geo/hg as
+    ``fused_spectral_pipeline_halo`` (at most ``SCHED_BLOCK_P`` tiles per
+    block).  Returns [B, n_out, H_out, W_out] f32, contiguous.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (or
+    raise).
     """
     _check_halo_input(x, geo, hg, SCHED_BLOCK_P)
+    g = _flow_ranges(flow, block_m, x.shape[1], "scheduled")
     if x.device.type == "cpu":
         return fused_spectral_pipeline_scheduled_halo_reference(
             x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg,
-            n_out=n_out, relu=relu)
+            n_out=n_out, relu=relu, flow=flow, block_m=block_m)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_table_operands(dict(x=x, idx=idx, sel=sel, vr=vr, vi=vi,
@@ -582,19 +781,17 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
     n_pe = sel.shape[3]
     fa = dfr.shape[0]
     s2 = dvr.shape[0]
-    lib = library_scheduled()
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n_out)
-        err = lib.fused_spectral_pipeline_scheduled_halo_f32(
-            x.data_ptr(), idx.data_ptr(), sel.data_ptr(), vr.data_ptr(),
-            vi.data_ptr(), dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
-            dvi.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            *_halo_ints(x, geo, hg), mp, n_cycles, r, n_pe, fa, n_out, s2,
-            int(relu), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_spectral_pipeline_scheduled_halo launch "
-                           f"failed: cudaError {err}")
-    LAUNCHES["fused_spectral_pipeline_scheduled_halo"] += 1
+        _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
+                flow, block_m, g, x.shape[0] * hg.n_blocks * SCHED_BLOCK_P,
+                x.device,
+                (x.data_ptr(), idx.data_ptr(), sel.data_ptr(),
+                 vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
+                 dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
+                 bias.data_ptr(), y.data_ptr()),
+                (*_halo_ints(x, geo, hg), mp, n_cycles, r, n_pe, fa, n_out,
+                 s2, int(relu)), s2, n_out)
     return y
 
 
@@ -630,49 +827,50 @@ def _assemble_output(y: torch.Tensor, geo: SpectralGeometry, b: int,
 
 
 def _fused_conv(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias, *,
-                geo: SpectralGeometry, relu: bool) -> torch.Tensor:
-    """Window layout -> fused kernel -> valid-tile assembly."""
+                geo: SpectralGeometry, relu: bool, **flow) -> torch.Tensor:
+    """Window layout -> fused kernel -> valid-tile assembly (``flow``:
+    the kernel's flow and block_m)."""
     b = x.shape[0]
     n = wr.shape[1]
     xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
     y = fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias,
-                                relu=relu)              # [t^2, N, B*T]
+                                relu=relu, **flow)      # [t^2, N, B*T]
     return _assemble_output(y, geo, b, n, t_cnt, x.dtype)
 
 
 def _fused_conv_scheduled(x: torch.Tensor, tables, dfr, dfi, dvr, dvi,
                           bias, *, geo: SpectralGeometry, n_out: int,
-                          relu: bool) -> torch.Tensor:
+                          relu: bool, **flow) -> torch.Tensor:
     """Window layout -> scheduled fused kernel -> valid-tile assembly."""
     b = x.shape[0]
     xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
     y = fused_spectral_pipeline_scheduled(
         xt, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
-        dvi, bias, n_out=n_out, relu=relu)              # [t^2, N, B*T]
+        dvi, bias, n_out=n_out, relu=relu, **flow)     # [t^2, N, B*T]
     return _assemble_output(y, geo, b, n_out, t_cnt, x.dtype)
 
 
 def _fused_conv_halo(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias,
                      *, geo: SpectralGeometry, block_p: int,
-                     relu: bool) -> torch.Tensor:
+                     relu: bool, **flow) -> torch.Tensor:
     """Halo plane kernel on the raw activation: no host window tensor,
     no host output relayout.  ``block_p`` (tiles per image block) is
     split into the 2-D halo block by ``halo_block_geometry``."""
     return fused_spectral_pipeline_halo(
         x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo,
-        hg=halo_block_geometry(geo, block_p), relu=relu)
+        hg=halo_block_geometry(geo, block_p), relu=relu, **flow)
 
 
 def _fused_conv_scheduled_halo(x: torch.Tensor, tables, dfr, dfi, dvr,
                                dvi, bias, *, geo: SpectralGeometry,
                                block_p: int, n_out: int,
-                               relu: bool) -> torch.Tensor:
+                               relu: bool, **flow) -> torch.Tensor:
     """Halo scheduled kernel on the raw activation (tables as
     ``_fused_conv_scheduled``)."""
     return fused_spectral_pipeline_scheduled_halo(
         x, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
         dvi, bias, geo=geo, hg=halo_block_geometry(geo, block_p),
-        n_out=n_out, relu=relu)
+        n_out=n_out, relu=relu, **flow)
 
 
 def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
@@ -680,28 +878,31 @@ def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
     x [B, M, H, W] -> [B, N, H_out, W_out] (bias and ReLU applied as the
     plan's epilogue says; stride and pooling stay with the caller).
     Dispatches on the plan's Hadamard mode ('dense'/'bin' run the plane
-    kernel, 'scheduled' the table kernel on the precompiled tables) and
-    on its input mode ('windowed' lays out windows and assembles tiles
-    on the host, 'halo' hands the raw activation, which must be
-    contiguous NCHW f32, to the halo kernel); nothing is scheduled or
-    compacted here."""
-    if lp.tuning.flow != "output_stationary":
-        raise NotImplementedError(
-            f"layer {lp.layer.name}: flow {lp.tuning.flow!r} is not "
-            f"ported yet (ROADMAP B2)")
+    kernel, 'scheduled' the table kernel on the precompiled tables), on
+    its input mode ('windowed' lays out windows and assembles tiles on
+    the host, 'halo' hands the raw activation to the halo kernel as
+    contiguous NCHW f32, copying only a producer's view, such as a
+    windowed layer's cropped output) and on its tuning's flow (the
+    weight-/input-stationary flows take m ranges of ``block_m``
+    channels); nothing is scheduled or compacted here."""
+    flow = lp.tuning.flow
+    kw = dict(flow=flow, relu=lp.epilogue.relu)
+    if flow != OS:
+        kw["block_m"] = lp.tuning.block_m
     halo = lp.input_mode == "halo"
+    if halo:    # a windowed producer's output is a cropped view
+        x = x.contiguous()
     bias = lp.bias if lp.epilogue.bias else torch.zeros_like(lp.bias)
     ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias)
-    relu = lp.epilogue.relu
     if lp.hadamard == "scheduled":
         n_out = lp.layer.c_out
         if halo:
             return _fused_conv_scheduled_halo(
                 x, lp.tables, *ops, geo=lp.geo, block_p=lp.tuning.block_p,
-                n_out=n_out, relu=relu)
+                n_out=n_out, **kw)
         return _fused_conv_scheduled(x, lp.tables, *ops, geo=lp.geo,
-                                     n_out=n_out, relu=relu)
+                                     n_out=n_out, **kw)
     if halo:
         return _fused_conv_halo(x, lp.wr, lp.wi, *ops, geo=lp.geo,
-                                block_p=lp.tuning.block_p, relu=relu)
-    return _fused_conv(x, lp.wr, lp.wi, *ops, geo=lp.geo, relu=relu)
+                                block_p=lp.tuning.block_p, **kw)
+    return _fused_conv(x, lp.wr, lp.wi, *ops, geo=lp.geo, **kw)

@@ -1,0 +1,286 @@
+"""Alg 1 on the H100 (``core.autotune``) and its cost model
+(``core.autotune.hopper_fused_flow_cost``).
+
+The cost model's bytes are held to a hand count at VGG16 conv1_2 and
+conv5_1 for each flow, its latency constants to a least-squares fit of
+the card's measured times, the candidate grid to the kernels'
+shared-memory cap, the tuner to a fake measurement, and a measured plan
+without a card to an error.  The plan's own kernels run in
+``test_torch_flows.py`` (CPU) and ``test_torch_gpu.py`` (card).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.vgg16_spectral import SMOKE
+from repro_torch.core import autotune as at
+from repro_torch.core import dataflow as df
+from repro_torch.core import plan as pl
+from repro_torch.core import spectral as spec
+from repro_torch.kernels import fused_spectral_conv as fsc
+from repro_torch.models import cnn
+
+LAYERS = {l.name: l for l in df.VGG16_LAYERS}
+L2 = 50e6
+
+# Batch-1 kernel times of the output-stationary kernels at the 13
+# full-width VGG16 layers, ms: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700 W, before the other flows existed (PERF.md).  Key: (Hadamard kind,
+# input path).  ``autotune.LATENCY_FIT`` is fitted to them.
+MEASURED_OS_MS = {
+    ("plane", "windowed"): (0.1502, 0.4145, 0.2436, 0.4260, 0.2245, 0.4023,
+                            0.4128, 0.3972, 0.7451, 0.7684, 0.3916, 0.3951,
+                            0.3913),
+    ("plane", "halo"): (0.2117, 0.5835, 0.4412, 0.8387, 0.3935, 0.6843,
+                        0.6849, 0.5259, 0.9971, 0.9862, 0.5864, 0.5197,
+                        0.5273),
+    ("scheduled", "windowed"): (0.1797, 0.5606, 0.4318, 0.5370, 0.3997,
+                                0.6688, 0.6680, 0.5192, 0.7657, 0.7709,
+                                0.4225, 0.3599, 0.4276),
+    ("scheduled", "halo"): (0.1975, 0.6328, 0.4601, 0.6135, 0.5813, 1.0001,
+                            0.9932, 0.6347, 1.0603, 1.0566, 0.4096, 0.4135,
+                            0.4013),
+}
+
+
+def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
+    """Bytes of one launch, counted by hand from the kernels' loops: K = 8,
+    t = 6, Fa = 64, S = 64, S2 = 36; planes 8*Fa*N*M bytes, tables
+    4*GN*M*T*(10 + 3*64) with T = ceil(16 / 0.85) = 19."""
+    layer = LAYERS[name]
+    m, n, h = layer.c_in, layer.c_out, layer.h_in
+    n_th = -(-h // 6)                       # tiles per side (h = w)
+    p = batch * n_th * n_th
+    sched = hadamard == "scheduled"
+    bp = 4 if sched else 16
+    if input_mode == "halo":
+        bt = min(bp, n_th * n_th)
+        btw = min(n_th, bt)
+        bth = min(n_th, bt // btw)
+        pb = batch * -(-n_th // bth) * -(-n_th // btw)
+        x = 4 * batch * m * h * h
+        y = 4 * batch * n * h * h
+    else:
+        pb = -(-p // bp)
+        x = 4 * 64 * m * p
+        y = 4 * 36 * n * p
+    nb = -(-n // 64)
+    w = 4 * nb * m * 19 * (10 + 3 * 64) if sched else 8 * 64 * n * m
+    ops = 4 * (2 * 64 * 64 + 2 * 36 * 64 + n)
+    rr = lambda b, k: b if b <= L2 else b * k
+    if flow == "output_stationary":
+        total, g = rr(x, nb) + rr(w, pb), 1
+    elif flow == "weight_stationary":
+        total, g = rr(x, nb) + w, -(-m // block_m)
+    else:
+        total, g = x + rr(w, pb), -(-m // block_m)
+    ws = 4 * g * 36 * n * pb * bp if g > 1 else 0
+    return total + ops + y + 2 * ws
+
+
+@pytest.mark.parametrize("input_mode", ["windowed", "halo"])
+@pytest.mark.parametrize("hadamard", ["bin", "scheduled"])
+@pytest.mark.parametrize("flow", ["output_stationary", "weight_stationary",
+                                  "input_stationary"])
+@pytest.mark.parametrize("name,batch", [("conv1_2", 1), ("conv5_1", 1),
+                                        ("conv5_1", 4)])
+def test_cost_model_bytes_equal_hand_count(name, batch, flow, hadamard,
+                                           input_mode):
+    block_m = {("bin", "weight_stationary"): 16,
+               ("bin", "input_stationary"): 64,
+               ("scheduled", "weight_stationary"): 3,
+               ("scheduled", "input_stationary"): 8}.get((hadamard, flow), 8)
+    c = at.hopper_fused_flow_cost(LAYERS[name], 8, 4.0, flow, hadamard,
+                                  input_mode, batch=batch, active_bins=64,
+                                  block_m=block_m)
+    assert c["hbm_bytes"] == hand_bytes(name, flow, hadamard, input_mode,
+                                        block_m, batch)
+
+
+def test_flow_byte_trade_at_conv5_batch4():
+    """conv5_1 at batch 4: 134 MB of planes, three tile blocks.  Output-
+    and input-stationary stream the planes once per tile block (> L2);
+    weight-stationary reads them once."""
+    kw = dict(batch=4, active_bins=64)
+    planes = 8 * 64 * 512 * 512
+    c = {f: at.hopper_fused_flow_cost(LAYERS["conv5_1"], 8, 4.0, f, "bin",
+                                      "windowed", block_m=16 if f ==
+                                      "weight_stationary" else 64, **kw)
+         for f in df.FLOWS}
+    assert c["output_stationary"]["kernel_hbm_bytes"] == 3 * planes
+    assert c["input_stationary"]["kernel_hbm_bytes"] == 3 * planes
+    assert c["weight_stationary"]["kernel_hbm_bytes"] == planes
+
+
+def test_cost_model_constants_are_the_h100s():
+    """No TPU figure: the H100 SXM data-sheet rates, its 132 SMs, its
+    per-CTA shared memory and L2; the step latency fitted to the card's
+    own output-stationary times (microseconds per CTA wave and per wave
+    and step)."""
+    assert at.H100_HBM_BYTES_PER_S == 3.35e12
+    assert at.H100_FP32_FLOPS == 67e12
+    assert at.H100_SMS == 132
+    assert at.H100_SMEM_PER_CTA == 232_448
+    assert at.H100_L2_BYTES == 50e6
+    assert not any(n.startswith("TPU") for n in (*vars(at), *vars(df)))
+    assert set(at.LATENCY_FIT) == {(k, i) for k in ("plane", "scheduled")
+                                   for i in ("windowed", "halo")}
+    assert all(1e-6 < step < 2e-5 and 0 <= wave < 1e-4
+               for wave, step in at.LATENCY_FIT.values())
+
+
+def test_latency_fit_is_the_least_squares_fit_of_the_measured_times():
+    """LATENCY_FIT's literals are the least-squares (WAVE_S, STEP_S) of
+    time = waves * (WAVE_S + steps * STEP_S) over the measured
+    output-stationary times, one rectangle a CTA."""
+    for (kind, imode), times in MEASURED_OS_MS.items():
+        mode = "scheduled" if kind == "scheduled" else "bin"
+        rows = []
+        for layer in df.VGG16_LAYERS:
+            grid = at.kernel_grid(layer, 8, "output_stationary", mode, imode,
+                                  1, fsc.BLOCK_M, 64)
+            waves = -(-grid["ctas"] // at.H100_SMS)
+            rows.append((waves, waves * grid["steps"]))
+        fit = np.linalg.lstsq(np.asarray(rows, float),
+                              1e-3 * np.asarray(times), rcond=None)[0]
+        np.testing.assert_allclose(fit, at.LATENCY_FIT[(kind, imode)],
+                                   rtol=1e-9)
+
+
+def test_step_fit_reproduces_a_measured_layer():
+    """The fitted latency term, waves * (WAVE_S + steps * STEP_S), lands
+    within 2x of every measured output-stationary batch-1 time it was
+    fitted to."""
+    for (kind, imode), times in MEASURED_OS_MS.items():
+        mode = "scheduled" if kind == "scheduled" else "bin"
+        for layer, ms in zip(df.VGG16_LAYERS, times):
+            c = at.hopper_fused_flow_cost(layer, 8, 4.0,
+                                          "output_stationary", mode, imode,
+                                          active_bins=64)
+            assert 0.5 < c["latency_s"] / (ms * 1e-3) < 2.0, (layer, kind)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("name", [l.name for l in df.VGG16_LAYERS])
+def test_no_kept_candidate_over_shared_memory(name, batch, monkeypatch):
+    layer = LAYERS[name]
+    modes = ("bin", "scheduled")
+    kept = 0
+    for cand in at._layer_candidates(layer, 8, batch, df.FLOWS, modes,
+                                     df.INPUT_MODES):
+        c = at.hopper_fused_flow_cost(layer, 8, 4.0, cand.flow,
+                                      cand.hadamard, cand.input_mode,
+                                      batch=batch, active_bins=64,
+                                      block_m=cand.block_m)
+        kept += c["smem_bytes"] <= fsc.SMEM_PER_CTA
+    tn = at.autotune_layer(layer, 8, 4.0, batch=batch, active_bins=64,
+                           hadamard_modes=modes, input_modes=df.INPUT_MODES)
+    assert tn.smem_bytes <= 232_448 and kept >= 6
+    # a tighter cap drops candidates; none kept is over it
+    monkeypatch.setattr(at, "H100_SMEM_PER_CTA", 200_000)
+    small = at.autotune_layer(layer, 8, 4.0, batch=batch, active_bins=64,
+                              hadamard_modes=modes,
+                              input_modes=df.INPUT_MODES)
+    assert small.smem_bytes <= 200_000
+
+
+def test_shared_memory_mirror_matches_the_kernels_caps():
+    """The Python mirror of the CUDA layouts: ws planes fit at 16
+    channels and not 24, is X~ at 64; scheduled ws tables at 3 channels
+    of T = 21 and not 4."""
+    geo = spec.make_geometry(224, 224, 3, 8, 1)
+    assert fsc.plane_smem_bytes("weight_stationary", geo, 16) <= 232_448
+    assert fsc.plane_smem_bytes("weight_stationary", geo, 24) > 232_448
+    assert fsc.plane_smem_bytes("input_stationary", geo, 64) <= 232_448
+    assert fsc.sched_smem_bytes("weight_stationary", geo, 3, 21, 10,
+                                64) <= 232_448
+    assert fsc.sched_smem_bytes("weight_stationary", geo, 4, 21, 10,
+                                64) > 232_448
+    assert max(w for k, w in [(k, max(v)) for k, v in
+                              fsc.FLOW_BLOCK_M.items()]) == 64
+
+
+def test_autotune_layer_reranks_by_measure_fn():
+    """The measured pass times the three best predictions and keeps the
+    fastest measurement, whatever the prediction said."""
+    layer = LAYERS["conv4_2"]
+    kw = dict(active_bins=64, hadamard_modes=("bin", "scheduled"),
+              input_modes=df.INPUT_MODES)
+    ranked = at.autotune_layer(layer, 8, 4.0, **kw)
+    calls = []
+
+    def fake(tn):
+        calls.append(tn)
+        return 1.0 / (1 + len(calls))       # later candidates "faster"
+
+    tn = at.autotune_layer(layer, 8, 4.0, measure_fn=fake, **kw)
+    assert len(calls) == 3 and calls[0] == ranked
+    assert [c.predicted_s for c in calls] == sorted(c.predicted_s
+                                                    for c in calls)
+    assert dataclasses.replace(tn, measured_s=None, measured=()) == calls[2]
+    assert tn.measured_s == 0.25
+    assert [t for _, t in tn.measured] == [0.5, 1 / 3, 0.25]
+
+
+def test_autotune_network_covers_the_stack():
+    plan = at.autotune_network(batch=1, hadamard_modes=("bin",),
+                               input_modes=("windowed", "halo"))
+    assert list(plan) == [l.name for l in df.VGG16_LAYERS]
+    assert all(t.flow in df.FLOWS and t.predicted_s > 0
+               for t in plan.values())
+
+
+@pytest.fixture(scope="module")
+def smoke_params():
+    return cnn.init(SMOKE, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+
+
+def test_measure_without_a_card_raises(smoke_params):
+    """A measured plan times on the card; on the CPU it raises instead
+    of falling back."""
+    with pytest.raises(RuntimeError, match="card"):
+        pl.build_network_plan(smoke_params, SMOKE, batch=2,
+                              hadamard="auto", input_mode="auto",
+                              measure=True, device="cpu")
+    plan = pl.build_network_plan(smoke_params, SMOKE, batch=2,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        at._make_measure_fn(plan.layers[0], 2, lambda: None)
+
+
+def test_auto_plan_tunings_follow_the_model(smoke_params):
+    """hadamard/input_mode 'auto' rank every flow, mode and path; each
+    layer's tuning is the model's argmin over them, and its operands
+    match its mode (tables only where scheduled)."""
+    plan = pl.build_network_plan(smoke_params, SMOKE, batch=2,
+                                 hadamard="auto", input_mode="auto",
+                                 device="cpu")
+    for lp in plan.layers:
+        best = at.autotune_layer(
+            lp.layer, 8, lp.alpha, batch=2, active_bins=lp.n_active_bins,
+            hadamard_modes=pl._resolve_hadamard_modes("auto", lp.alpha,
+                                                      True, lp.active),
+            input_modes=df.INPUT_MODES)
+        assert (best.flow, best.hadamard, best.input_mode) == (
+            lp.tuning.flow, lp.hadamard, lp.input_mode)
+        assert (lp.tables is not None) == (lp.hadamard == "scheduled")
+    # a forced mode keeps the port's output-stationary default
+    forced = pl.build_network_plan(smoke_params, SMOKE, batch=2,
+                                   device="cpu")
+    assert {lp.tuning.flow for lp in forced.layers} == {"output_stationary"}
+
+
+def test_resolve_modes():
+    assert pl._resolve_hadamard_modes("auto", 4.0, True,
+                                      np.arange(8)) == ["bin", "scheduled"]
+    assert pl._resolve_hadamard_modes("auto", 1.0, True, None) == ["dense"]
+    assert pl._resolve_input_modes("auto") == ["windowed", "halo"]
+    assert pl._resolve_flows("auto", "windowed") == list(df.FLOWS)
+    assert pl._resolve_flows("scheduled", "auto") == list(df.FLOWS)
+    assert pl._resolve_flows("bin", "halo") == ["output_stationary"]
+    with pytest.raises(ValueError, match="input_mode"):
+        pl._resolve_input_modes("strided")

@@ -26,6 +26,7 @@ from repro_torch.core import spectral as spec
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import fused_spectral_conv as fsc
+from repro_torch.models import cnn
 
 REL_TOL = 1e-5
 
@@ -180,10 +181,19 @@ def test_execute_layer_plan_smoke_layers(plans, index):
                                     dict(hadamard="scheduled",
                                          input_mode="auto")])
 def test_unported_plan_modes_raise(kwargs):
-    params = {"convs": [{"w": torch.zeros(8, 3, 3, 3),
-                         "b": torch.zeros(8)}] * len(SMOKE.layers)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pl.build_network_plan(params, SMOKE, device="cpu", **kwargs)
+    """The 'auto' modes are ported (Alg 1 on the H100): they build a plan
+    whose every layer has a concrete mode, path and flow; what still
+    raises is measuring them without a card (there is no CPU timing)."""
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    plan = pl.build_network_plan(params, SMOKE, device="cpu", **kwargs)
+    for lp in plan.layers:
+        assert lp.hadamard in ("dense", "bin", "scheduled")
+        assert lp.input_mode in ("windowed", "halo")
+        assert lp.tuning.flow in fsc.FLOWS
+    with pytest.raises(RuntimeError, match="card"):
+        pl.build_network_plan(params, SMOKE, device="cpu", measure=True,
+                              **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [dict(hadamard="sparse"),

@@ -343,3 +343,238 @@ def test_smoke_halo_forward_on_card_goes_through_kernel(hadamard, kernel):
         params, pl.with_input_mode(plan, "windowed"), x, backend="fused")
     err = float((out - windowed).abs().max() / windowed.abs().max())
     assert err <= 1e-6, err
+
+
+# ---------------------------------------------------------------------------
+# Weight- and input-stationary flows (B2) of all four kernels
+# ---------------------------------------------------------------------------
+
+FLOW_CASES = [(flow, bm) for flow, widths in (
+    ("weight_stationary", (8, 16)), ("input_stationary", (8, 64)))
+    for bm in widths]
+SCHED_FLOW_CASES = [("weight_stationary", 1), ("weight_stationary", 3),
+                    ("input_stationary", 2), ("input_stationary", 8)]
+
+
+def flow_delta(before):
+    """Launches per entry point since ``before`` (non-zero only)."""
+    after = dict(fsc.LAUNCHES)
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def check_flow(run, plain, os_run, kernel, flow):
+    """A flow kernel against its plain version (same m ranges), bitwise
+    repeatable, counted under its own entry point, and within 1e-5 of the
+    output-stationary kernel on the same input."""
+    before = dict(fsc.LAUNCHES)
+    for relu in (False, True):
+        y = run(relu)
+        torch.cuda.synchronize()
+        ref = plain(relu)
+        assert y.shape == ref.shape
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, err
+        assert torch.equal(y, run(relu))          # split-K: no atomics
+        yo = os_run(relu)
+        assert float((y - yo).abs().max() / yo.abs().max()) <= 1e-5
+    assert flow_delta(before) == {fsc.entry_point(kernel, flow): 4,
+                                  kernel: 2}
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow,block_m", FLOW_CASES)
+@pytest.mark.parametrize("s,m,p,fa,n,s2", [
+    (64, 5, 37, 64, 6, 36),        # one m range, ragged everything
+    (64, 70, 21, 60, 70, 36),      # 9 / 5 / 2 ranges, ragged chunk and N
+    (64, 20, 40, 8, 130, 16),      # one bin chunk, k = 5, 3 n blocks
+])
+def test_plane_flow_kernel_matches_plain_on_card(s, m, p, fa, n, s2, flow,
+                                                 block_m):
+    need_card()
+    rng = np.random.default_rng(m + p)
+    shapes = [(s, m, p), (fa, n, m), (fa, n, m), (fa, s), (fa, s),
+              (s2, fa), (s2, fa), (1, n)]
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           .cuda() for sh in shapes]
+    kw = dict(flow=flow, block_m=block_m)
+    check_flow(
+        lambda relu: fsc.fused_spectral_pipeline(*ops, relu=relu, **kw),
+        lambda relu: fsc.fused_spectral_pipeline_reference(*ops, relu=relu,
+                                                           **kw),
+        lambda relu: fsc.fused_spectral_pipeline(*ops, relu=relu),
+        "fused_spectral_pipeline", flow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow,block_m", SCHED_FLOW_CASES)
+@pytest.mark.parametrize("s,m,p,n,fa,s2,pad_cycles", [
+    (64, 5, 37, 70, 64, 36, 0),     # ragged group, ragged P
+    (64, 7, 21, 24, 60, 36, 2),     # Fa = 60, padded cycles
+    (64, 3, 72, 8, 12, 16, 0),      # Fa = 12, k = 5
+])
+def test_scheduled_flow_kernel_matches_plain_on_card(s, m, p, n, fa, s2,
+                                                     pad_cycles, flow,
+                                                     block_m):
+    need_card()
+    ops = scheduled_operands(s, m, p, n, fa, s2, pad_cycles=pad_cycles,
+                             seed=m + p)
+    kw = dict(n_out=n, flow=flow, block_m=block_m)
+    check_flow(
+        lambda relu: fsc.fused_spectral_pipeline_scheduled(*ops, relu=relu,
+                                                           **kw),
+        lambda relu: fsc.fused_spectral_pipeline_scheduled_reference(
+            *ops, relu=relu, **kw),
+        lambda relu: fsc.fused_spectral_pipeline_scheduled(*ops, n_out=n,
+                                                           relu=relu),
+        "fused_spectral_pipeline_scheduled", flow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow,block_m", FLOW_CASES)
+@pytest.mark.parametrize("h,w,b,m,n,fa,block_p", [
+    (13, 12, 2, 5, 6, 64, 16),       # clamped edges, one m range
+    (14, 14, 1, 24, 70, 24, 16),     # conv5-like 3 x 3 block, ragged N
+    (20, 17, 2, 17, 7, 60, 5),       # 1 x 5 blocks, ragged chunk
+])
+def test_plane_halo_flow_kernel_matches_plain_on_card(h, w, b, m, n, fa,
+                                                      block_p, flow,
+                                                      block_m):
+    """Also equal bit for bit to the windowed kernel of the same flow."""
+    need_card()
+    geo, hg, x = halo_case(h, w, 3, b, m, block_p, seed=m + n)
+    s2 = geo.tile ** 2
+    rng = np.random.default_rng(h + w)
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           .cuda() for sh in [(fa, n, m), (fa, n, m), (fa, 64), (fa, 64),
+                              (s2, fa), (s2, fa), (1, n)]]
+    kw = dict(geo=geo, hg=hg, flow=flow, block_m=block_m)
+    y = check_flow(
+        lambda relu: fsc.fused_spectral_pipeline_halo(x, *ops, relu=relu,
+                                                      **kw),
+        lambda relu: fsc.fused_spectral_pipeline_halo_reference(
+            x, *ops, relu=relu, **kw),
+        lambda relu: fsc.fused_spectral_pipeline_halo(x, *ops, geo=geo,
+                                                      hg=hg, relu=relu),
+        "fused_spectral_pipeline_halo", flow)
+    assert torch.equal(y, windowed_output(
+        fsc.fused_spectral_pipeline, x, ops, geo, n, relu=True, flow=flow,
+        block_m=block_m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow,block_m", SCHED_FLOW_CASES)
+@pytest.mark.parametrize("h,w,b,m,n,fa,pad_cycles", [
+    (13, 12, 2, 3, 70, 64, 2),      # ragged group, padding
+    (14, 14, 1, 9, 16, 60, 0),      # conv5-like, Fa = 60
+])
+def test_scheduled_halo_flow_kernel_matches_plain_on_card(h, w, b, m, n, fa,
+                                                          pad_cycles, flow,
+                                                          block_m):
+    """Also equal bit for bit to the windowed kernel of the same flow
+    (no cluster: the same channel order per tile on both paths)."""
+    need_card()
+    geo, hg, x = halo_case(h, w, 3, b, m, fsc.SCHED_BLOCK_P, seed=n)
+    ops = scheduled_operands(64, m, 1, n, fa, geo.tile ** 2,
+                             pad_cycles=pad_cycles, seed=m + n)[1:]
+    kw = dict(geo=geo, hg=hg, n_out=n, flow=flow, block_m=block_m)
+    y = check_flow(
+        lambda relu: fsc.fused_spectral_pipeline_scheduled_halo(
+            x, *ops, relu=relu, **kw),
+        lambda relu: fsc.fused_spectral_pipeline_scheduled_halo_reference(
+            x, *ops, relu=relu, **kw),
+        lambda relu: fsc.fused_spectral_pipeline_scheduled_halo(
+            x, *ops, geo=geo, hg=hg, n_out=n, relu=relu),
+        "fused_spectral_pipeline_scheduled_halo", flow)
+    assert torch.equal(y, windowed_output(
+        fsc.fused_spectral_pipeline_scheduled, x, ops, geo, n, n_out=n,
+        relu=True, flow=flow, block_m=block_m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hadamard,kernel", [
+    ("bin", "fused_spectral_pipeline"),
+    ("scheduled", "fused_spectral_pipeline_scheduled")])
+@pytest.mark.parametrize("input_mode", ["windowed", "halo"])
+@pytest.mark.parametrize("flow", ["weight_stationary", "input_stationary"])
+def test_smoke_flow_forward_on_card_goes_through_kernel(hadamard, kernel,
+                                                        input_mode, flow):
+    """A plan moved to a flow (``with_flow``) launches only that flow's
+    entry point, 13 times per forward, and agrees with einsum."""
+    need_card()
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.with_flow(pl.build_network_plan(
+        params, SMOKE, batch=2, hadamard=hadamard, input_mode=input_mode),
+        flow)
+    if input_mode == "halo":
+        kernel += "_halo"
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = dict(fsc.LAUNCHES)
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    assert flow_delta(before) == {fsc.entry_point(kernel, flow): 13}
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err
+
+
+@pytest.mark.gpu
+def test_autotuned_smoke_plan_on_card():
+    """hadamard='auto', input_mode='auto' with measure=True: every layer
+    timed on the card, the chosen entry points launched 13 times per
+    forward in all, logits against einsum."""
+    need_card()
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, SMOKE, batch=2, hadamard="auto",
+                                 input_mode="auto", measure=True)
+    assert all(lp.tuning.measured_s is not None for lp in plan.layers)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = dict(fsc.LAUNCHES)
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    want: dict[str, int] = {}
+    for lp in plan.layers:
+        name = fsc.entry_point(lp.kernel_name, lp.tuning.flow)
+        want[name] = want.get(name, 0) + 1
+    assert flow_delta(before) == want
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err
+
+
+@pytest.mark.gpu
+def test_shared_memory_mirror_matches_the_kernels():
+    """The Python mirror of the CUDA layouts (what the autotuner drops
+    candidates by) against the card: the widest m range whose mirror
+    fits the cap launches, the next one is refused by the launch."""
+    need_card()
+    geo = spec.make_geometry(14, 14, 3, 8)
+    cap = fsc.SMEM_PER_CTA
+    rng = np.random.default_rng(7)
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           .cuda() for sh in [(64, 96, 9), (64, 8, 96), (64, 8, 96),
+                              (64, 64), (64, 64), (36, 64), (36, 64),
+                              (1, 8)]]
+    for flow, fits, over in (("weight_stationary", 16, 24),
+                             ("input_stationary", 72, 80)):
+        assert fsc.plane_smem_bytes(flow, geo, fits) <= cap
+        assert fsc.plane_smem_bytes(flow, geo, over) > cap
+        fsc.fused_spectral_pipeline(*ops, relu=True, flow=flow,
+                                    block_m=fits)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fsc.fused_spectral_pipeline(*ops, relu=True, flow=flow,
+                                        block_m=over)
+    base = scheduled_operands(64, 6, 9, 64, 64, 36, seed=3)
+    t0 = base[1].shape[2]
+    t_max = max(t for t in range(t0, 64) if fsc.sched_smem_bytes(
+        "weight_stationary", geo, 3, t, 10, 64) <= cap)
+    for t, ok in ((t_max, True), (t_max + 1, False)):
+        ops = scheduled_operands(64, 6, 9, 64, 64, 36, seed=3,
+                                 pad_cycles=t - t0)
+        assert ops[1].shape[2] == t
+        run = lambda: fsc.fused_spectral_pipeline_scheduled(
+            *ops, n_out=64, relu=True, flow="weight_stationary", block_m=3)
+        if ok:
+            run()
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                run()
+    torch.cuda.synchronize()

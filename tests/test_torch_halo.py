@@ -324,10 +324,18 @@ def test_alpha1_halo_logits_match_forward_spatial(hadamard):
 
 @pytest.mark.parametrize("hadamard", ["bin", "scheduled"])
 def test_input_mode_auto_raises_naming_a5(hadamard):
-    params = {"convs": [{"w": torch.zeros(8, 3, 3, 3),
-                         "b": torch.zeros(8)}] * len(SMOKE.layers)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        pl.build_network_plan(params, SMOKE, device="cpu",
+    """input_mode='auto' is ported with the Hopper cost model (A5): each
+    layer gets the path the model ranks first, under the forced Hadamard
+    mode; measuring the ranking raises without a card."""
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    plan = pl.build_network_plan(params, SMOKE, device="cpu",
+                                 hadamard=hadamard, input_mode="auto")
+    for lp in plan.layers:
+        assert lp.input_mode == lp.tuning.input_mode in ("windowed", "halo")
+        assert lp.hadamard in (hadamard, "dense")
+    with pytest.raises(RuntimeError, match="card"):
+        pl.build_network_plan(params, SMOKE, device="cpu", measure=True,
                               hadamard=hadamard, input_mode="auto")
 
 
