@@ -11,7 +11,10 @@ each of which fails the run on error:
       name and power limit from nvidia-smi;
   (b) build: compile every CUDA kernel of the port from the sources in
       this checkout (one nvcc per source, started together), print build
-      time and the ptxas report;
+      time, the ptxas report and the spill stores of each of the 36
+      instantiations (kernel x input path x flow x shortcut placement);
+      an output-stationary kernel without a shortcut that spills fails
+      the run;
   (c) plane kernel vs its plain version at the 13 full-width VGG16
       layer shapes, at every batch size (d) serves (1 and 4: the plan's
       own operands, windows of a random activation in the main path's
@@ -70,17 +73,40 @@ each of which fails the run on error:
   (d6) one batch-1 forward through each of the four plans of (d)-(d4)
       moved to weight- and to input-stationary (``with_flow``): 13
       launches of the flow's entry point, logits vs einsum;
+  (r) ResNet-18 at full width (``configs/resnet18_spectral.py::CONFIG``,
+      ``init`` seed 0, alpha 4): the bin and scheduled plans (Alg-2
+      tables of all 20 layers), each on both input paths and moved to
+      ws and is; every one of the twelve entry points with a residual
+      shortcut against its plain version with the shortcut at the four
+      residual shapes (64ch@112, 128@56, 256@28, 512@14), batch 4 and 1
+      (gate 1e-4), output-stationary in both placements ('hbm', 'vmem';
+      a 'vmem' the wrapper refuses for shared memory is reported), and
+      bit for bit the same launch without it (ReLU off) + shortcut, then
+      ReLU, on the host; at batch 1 the kernel's time without a shortcut
+      and with it in each placement, the plain version's time (one call)
+      and the bound (the twin's, plus the shortcut read once);
+  (dr) the ResNet-18 main path: the forced bin/windowed plan and its
+      halo move (four batch-1 forwards and one batch-4 forward each),
+      one batch-1 forward of the scheduled plans and of every ws/is move
+      ("(dr+)"), then the autotuned plan (``hadamard="auto",
+      input_mode="auto", measure=True``) as the first two: 20 launches
+      per forward, 8 of them fusing the shortcut, logits vs einsum, p50
+      and p50 minus the plan's kernel sum, peak memory, plan-build
+      seconds;
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve: four kernels x three
-      flows), then one JSON line with every entry point's numbers, then
-      the device JSON as the last line.
+      flows), then one JSON line with every entry point's numbers (with
+      its residual form's under "residual"), then the device JSON as the
+      last line.
 
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c5),
 (c6) and (d6); the plane plans are freed; (c2), (d2), (c4), (d4), the
-scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5),
-(e).  So each serve's peak device memory holds the weights and the plans
-of its own kind only (the resident bytes at its start are printed beside
-it).
+scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5);
+VGG16's weights and plans are freed; (r), (dr), (e).  So each serve's
+peak device memory holds the weights and the plans of its own kind only
+(the resident bytes at its start are printed beside it).  REPS (15
+since the ResNet-18 phases came; 25 before) is the VGG16 phases' timed
+launches per kernel and layer.
 
 Bounds use the H100 SXM data-sheet peaks: 67 TFLOP/s fp32 on CUDA
 cores, 3.35 TB/s HBM3.
@@ -101,7 +127,8 @@ PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-4      # max|kernel - plain| / max|plain|, fp32, TF32 off
 LOGITS_TOL = 1e-4      # max|fused - einsum| / max|einsum| on the logits
-REPS = 25
+REPS = 15              # VGG16 phases: timed launches per kernel and layer
+R_REPS = 10            # ResNet-18 phases: the same
 SEED = 0
 BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
 
@@ -364,6 +391,224 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
     return entry, rows, tot
 
 
+def spill_report() -> list[tuple[str, str, str, int, int]]:
+    """(kernel, input path, flow, shortcut placement, spill-store bytes)
+    of every kernel instantiation, from the ptxas -v lines of the build
+    (the template's ints: ... flow, placement, the placement last; see
+    ``csrc/shortcut.cuh``)."""
+    import re
+    from repro_torch.kernels import _build
+    flows = {"0": "os", "1": "ws", "2": "is"}
+    out, name = [], None
+    for log in _build.BUILD_LOG.values():
+        for line in log["ptxas"]:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if not (m and name):
+                continue
+            kind = re.search(r"\d+(fused_\w+?_kernel|finish_partials_kernel)",
+                             name).group(1)
+            ints = re.findall(r"Li(\d+)E", name[:name.index("EEv") + 1])
+            flow = ("os" if kind == "fused_os_kernel"
+                    else "finish" if kind.startswith("finish")
+                    else flows[ints[-2]])
+            out.append((kind, "halo" if "HaloPath" in name else "windowed",
+                        flow, ("none", "global", "staged")[int(ints[-1])],
+                        int(m.group(1))))
+            name = None
+    return out
+
+
+def kernel_call(lp, x_img, sc=None, *, relu=None, placement=None,
+                plain=False):
+    """A no-argument call of the kernel wrapper that ``lp`` runs (or of
+    its plain version) on the activation ``x_img`` [B, M, H, W] with the
+    raw shortcut ``sc``, the windows and the shortcut's tile layout made
+    here, outside the call, as ``execute_layer_plan`` lays them out;
+    ``relu`` and ``placement`` override the plan's.  Returns (the call,
+    the shortcut as the kernel reads it)."""
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    tn = lp.tuning
+    kw = dict(relu=lp.epilogue.relu if relu is None else relu, flow=tn.flow)
+    if tn.flow != fsc.OS:
+        kw["block_m"] = tn.block_m
+    sched = lp.hadamard == "scheduled"
+    weights = tuple(lp.tables) if sched else (lp.wr, lp.wi)
+    if sched:
+        kw["n_out"] = lp.layer.c_out
+    if lp.input_mode == "halo":
+        kw.update(geo=lp.geo,
+                  hg=spec.halo_block_geometry(lp.geo, tn.block_p))
+        inp, sck = x_img, sc
+    else:
+        inp, t_cnt = fsc._windows_layout(x_img, lp.geo)
+        sck = None if sc is None else fsc._shortcut_tiles(sc, lp.geo, t_cnt)
+    if sck is not None:
+        kw["shortcut"] = sck
+        if not plain:
+            kw["shortcut_placement"] = placement or tn.residual or "hbm"
+    fn = getattr(fsc, lp.kernel_name + ("_reference" if plain else ""))
+    ops = (inp, *weights, lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
+    return (lambda: fn(*ops, **kw)), sck
+
+
+def twin_bound(lp, b) -> tuple[float, float]:
+    """(flops, bytes) of the function ``lp``'s kernel computes at batch
+    b: its output-stationary twin's bound on the layer's input path (the
+    flows compute the same function)."""
+    s, s2 = lp.dfr.shape[1], lp.dvr.shape[0]
+    m, n, p = lp.layer.c_in, lp.layer.c_out, b * lp.geo.n_tiles
+    op_bytes = 4 * (lp.dfr.numel() + lp.dfi.numel() + lp.dvr.numel()
+                    + lp.dvi.numel() + lp.bias.numel())
+    if lp.hadamard == "scheduled":
+        tb = lp.tables
+        entries = int(((tb.vr != 0) | (tb.vi != 0)).sum())
+        flops, nbytes = sched_layer_bound(s, m, p, lp.n_active_bins, n, s2,
+                                          entries, tb.nbytes)
+        w_bytes = tb.nbytes
+    else:
+        flops, nbytes = layer_bound(s, m, p, lp.n_active_bins, n, s2)
+        w_bytes = 4 * (lp.wr.numel() + lp.wi.numel())
+    if lp.input_mode == "halo":
+        flops, nbytes = halo_layer_bound(lp, b, w_bytes + op_bytes, flops)
+    return flops, nbytes
+
+
+def once_ms(fn) -> float:
+    """Device time of one call of ``fn`` (already warm), CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def residual_check(plans, names, xgen, flush) -> dict:
+    """(r): every entry point with a shortcut against its plain version
+    with the shortcut, at the layers ``names`` of each plan of ``plans``
+    ({(kind, input path, flow): plan}), batch 4 and 1 (gate 1e-4), both
+    placements on output-stationary (a 'vmem' the wrapper refuses for
+    shared memory is reported), and bit for bit the same launch without
+    it (ReLU off) + shortcut, then ReLU, on the host.  At batch 1 the
+    kernel's time without a shortcut, with it in each placement, the
+    plain version's time (one call) and the bound: the twin's plus the
+    shortcut read once and one add per output.  Returns {entry point:
+    totals over ``names``}."""
+    import torch
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    print("(r) " + "layer      M    N     P  rel_err  max_abs  bitwise "
+          "no_sc_ms    hbm_ms   vmem_ms  plain_ms  bound_ms  bound_by  "
+          "[batch 4: rel_err, max_abs]")
+    totals = {}
+    for (kind, imode, flow), plan in plans.items():
+        entry = fsc.entry_point(plan.layers[0].kernel_name, flow)
+        print(f"  {entry}: block_m " + str([
+            lp.tuning.block_m for lp in plan.layers
+            if lp.layer.name in names]))
+        tot = dict(ms=0.0, no_sc_ms=0.0, vmem_ms=0.0, plain_ms=0.0,
+                   bound_ms=0.0, flops=0.0, bytes=0.0, abs_err=0.0)
+        for lp in plan.layers:
+            if lp.layer.name not in names:
+                continue
+            layer = lp.layer
+            placements = ("hbm", "vmem") if flow == fsc.OS else ("hbm",)
+            errs = {}
+            for b in (4, 1):
+                x = torch.randn((b, layer.c_in, layer.h_in, layer.w_in),
+                                generator=xgen, device=flush.device)
+                sc = torch.randn((b, layer.c_out, layer.h_in, layer.w_in),
+                                 generator=xgen, device=flush.device)
+                unfused = kernel_call(lp, x, relu=False)[0]()
+                plain, sck = kernel_call(lp, x, sc, relu=True, plain=True)
+                ref = plain()
+                for pl_ in placements:
+                    call = kernel_call(lp, x, sc, relu=True, placement=pl_)[0]
+                    try:
+                        y = call()
+                    except ValueError as e:
+                        if pl_ == "vmem" and "shared memory" in str(e):
+                            errs[(b, pl_)] = None      # does not fit
+                            continue
+                        raise
+                    torch.cuda.synchronize()
+                    err = rel_err(y, ref)
+                    abs_err = float((y - ref).abs().max())
+                    same = torch.equal(y, torch.relu(unfused + sck))
+                    if not torch.isfinite(y).all() or err > KERNEL_TOL:
+                        fail(f"(r) {entry} {layer.name} batch {b} "
+                             f"{pl_}: rel err {err:.3e} > {KERNEL_TOL:g}")
+                    if not same:
+                        fail(f"(r) {entry} {layer.name} batch {b} {pl_}: "
+                             f"not bit for bit the unfused launch + "
+                             f"shortcut + ReLU")
+                    errs[(b, pl_)] = (err, abs_err)
+            timing = {"no_sc": timed_ms(kernel_call(lp, x)[0], flush.zero_,
+                                        R_REPS)}
+            for pl_ in placements:
+                timing[pl_] = (timed_ms(kernel_call(
+                    lp, x, sc, relu=True, placement=pl_)[0], flush.zero_,
+                    R_REPS) if errs[(1, pl_)] is not None else None)
+            p_ms = once_ms(plain)
+            flops, nbytes = twin_bound(lp, 1)
+            flops += sck.numel()                 # one add per output
+            nbytes += 4 * sck.numel()            # the shortcut read once
+            b_ms, by = bound_of(flops, nbytes)
+            done = [v for v in errs.values() if v is not None]
+            tot["abs_err"] = max(tot["abs_err"], *(v[1] for v in done))
+            tot["ms"] += timing["hbm"]
+            tot["no_sc_ms"] += timing["no_sc"]
+            tot["vmem_ms"] += timing.get("vmem") or 0.0
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += b_ms
+            tot["flops"] += flops
+            tot["bytes"] += nbytes
+            e1, a1 = errs[(1, "hbm")]
+            e4, a4 = errs[(4, "hbm")]
+            vm = timing.get("vmem")
+            vm = ("       -" if flow != fsc.OS else
+                  "   nofit" if vm is None else f"{vm:9.4f}")
+            print(f"    {layer.name:8s} {layer.c_in:4d} {layer.c_out:4d} "
+                  f"{lp.geo.n_tiles:5d} {e1:8.2e} {a1:8.2e} {'yes':>7s} "
+                  f"{timing['no_sc']:9.4f} {timing['hbm']:9.4f} {vm} "
+                  f"{p_ms:9.4f} {b_ms:9.4f}  {by:10s} [{e4:.2e}, {a4:.2e}]"
+                  + ("" if flow != fsc.OS else "  vmem fits: "
+                     f"b1 {errs[(1, 'vmem')] is not None}, "
+                     f"b4 {errs[(4, 'vmem')] is not None}"))
+        tot["by"] = bound_of(tot["flops"], tot["bytes"])[1]
+        print(f"    total: no shortcut {tot['no_sc_ms']:.4f} ms, hbm "
+              f"{tot['ms']:.4f}" + (f", vmem {tot['vmem_ms']:.4f}"
+                                    if flow == fsc.OS else "")
+              + f", plain {tot['plain_ms']:.4f}, bound "
+              f"{tot['bound_ms']:.4f} ms ({tot['by']})")
+        totals[entry] = tot
+    return totals
+
+
+def plan_kernel_ms(plan, xgen, flush) -> float:
+    """Sum over ``plan``'s layers of the batch-1 kernel time as the plan
+    runs each layer (its flow, input path and shortcut placement; a
+    random activation and, on a residual-fused node, shortcut), the
+    windows laid out outside the timed call."""
+    import torch
+    total = 0.0
+    for lp in plan.layers:
+        layer = lp.layer
+        x = torch.randn((1, layer.c_in, layer.h_in, layer.w_in),
+                        generator=xgen, device=flush.device)
+        sc = (torch.randn((1, layer.c_out, layer.h_in, layer.w_in),
+                          generator=xgen, device=flush.device)
+              if lp.epilogue.residual == "fused" else None)
+        total += timed_ms(kernel_call(lp, x, sc)[0], flush.zero_, R_REPS)
+    return total
+
+
 def ranks(values) -> list[float]:
     order = sorted(range(len(values)), key=values.__getitem__)
     r = [0.0] * len(values)
@@ -427,15 +672,32 @@ def model_check(measured) -> None:
           f"{max(ratios):.2f}")
 
 
-def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms):
+def per_forward_of(plan) -> tuple[dict[str, int], dict[str, int]]:
+    """Launches of each entry point per forward of ``plan``, and of those
+    the residual-fused ones."""
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    launches: dict[str, int] = {}
+    residual: dict[str, int] = {}
+    for lp in plan.layers:
+        entry = fsc.entry_point(lp.kernel_name, lp.tuning.flow)
+        launches[entry] = launches.get(entry, 0) + 1
+        if lp.epilogue.residual == "fused":
+            residual[entry] = residual.get(entry, 0) + 1
+    return launches, residual
+
+
+def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
+          residual_per_forward=None):
     """Drive the main path once: every image batch through
     ``forward_spectral(backend="fused")`` with the launch counts set to 0
     just before and read just after (``per_forward``: launches of each
-    entry point per forward, none of any other); hold the logits to
-    einsum.  Returns the launches, the batch-1 p50 and the batch-1 p50
-    minus ``kernel_sum_ms``.  Peak device memory is taken over the
-    forwards and includes what is resident at their start (the weights
-    and the plans still alive, printed beside it)."""
+    entry point per forward, none of any other;
+    ``residual_per_forward``: those that fuse a shortcut, none by
+    default); hold the logits to einsum.  Returns the launches, the
+    residual launches, the batch-1 p50 and the batch-1 p50 minus
+    ``kernel_sum_ms``.  Peak device memory is taken over the forwards and
+    includes what is resident at their start (the weights and the plans
+    still alive, printed beside it)."""
     import torch
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
@@ -443,6 +705,7 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms):
     resident = torch.cuda.memory_allocated()
     for k in fsc.LAUNCHES:
         fsc.LAUNCHES[k] = 0
+        fsc.RESIDUAL_LAUNCHES[k] = 0
     latency: dict[int, list[float]] = {}
     logits = []
     for x in images:
@@ -453,9 +716,14 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms):
             1e3 * (time.perf_counter() - t0))
         logits.append(out)
     launches = dict(fsc.LAUNCHES)
+    residual = dict(fsc.RESIDUAL_LAUNCHES)
     want = {k: per_forward.get(k, 0) * len(images) for k in launches}
     if launches != want or sum(per_forward.values()) != len(plan.layers):
         fail(f"{label} launched {launches}, expected {want}")
+    want = {k: (residual_per_forward or {}).get(k, 0) * len(images)
+            for k in residual}
+    if residual != want:
+        fail(f"{label} fused a shortcut in {residual}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     for x, out in zip(images, logits):
         b = x.shape[0]
@@ -478,10 +746,108 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms):
     host_ms = p50 - kernel_sum_ms
     print(f"    batch-1 p50 minus the kernel sum {kernel_sum_ms:.4f} ms: "
           f"{host_ms:.2f} ms")
-    print(f"    launches {({k: v for k, v in launches.items() if v})}; "
-          f"peak device memory {peak / 2 ** 30:.3f} GiB, of which "
+    print(f"    launches {({k: v for k, v in launches.items() if v})}"
+          + (f", with a shortcut {({k: v for k, v in residual.items() if v})}"
+             if any(residual.values()) else "")
+          + f"; peak device memory {peak / 2 ** 30:.3f} GiB, of which "
           f"{resident / 2 ** 30:.3f} GiB resident at the start")
-    return launches, p50, host_ms
+    return launches, residual, p50, host_ms
+
+
+def resnet18(dev, xgen, drive) -> dict:
+    """(r) and (dr) on full-width ResNet-18 (``init``, seed 0, alpha 4):
+    the forced bin/windowed plan and the scheduled plan (Alg-2 tables of
+    all 20 layers; (r) uses those of its four layers), each moved to the
+    halo path and to ws/is; (r) holds all twelve entry points with a
+    shortcut to their plain versions at the four residual shapes; (dr)
+    serves the forced plan and its halo move (four batch-1 and one
+    batch-4 forwards each), one batch-1 forward of the scheduled plans
+    and of every flow move, then the autotuned plan (``measure=True``)
+    as the first two.  20 launches per forward, 8 of them fusing the
+    shortcut.  Returns (r)'s totals per entry point."""
+    import torch
+    from repro_torch.configs.resnet18_spectral import CONFIG as RCFG
+    from repro_torch.core.plan import (build_network_plan, with_flow,
+                                       with_input_mode)
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.models import cnn
+
+    params = cnn.init(RCFG, generator=torch.Generator().manual_seed(SEED),
+                      device=dev)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    names, seen = [], set()              # first node of each residual shape
+    for node in RCFG.graph:
+        layer = next((l for l in RCFG.layers if l.name == node.id), None)
+        if node.residual_from and (layer.c_out, layer.h_in) not in seen:
+            seen.add((layer.c_out, layer.h_in))
+            names.append(node.id)
+    base, build_s = {}, {}
+    for kind, hadamard in (("plane", "bin"), ("scheduled", "scheduled")):
+        t0 = time.perf_counter()
+        plan = build_network_plan(params, RCFG, batch=1, hadamard=hadamard,
+                                  device=dev)
+        torch.cuda.synchronize()
+        build_s[kind] = time.perf_counter() - t0
+        fused = [(n.id, plan.layers[n.layer_index].epilogue.residual,
+                  n.shortcut_on_chip) for n in plan.graph if n.residual_from]
+        print(f"(r) ResNet-18 {kind} plan ({len(plan.layers)} convs): built "
+              f"in {build_s[kind]:.1f} s, Alg-2 tables "
+              f"{plan.schedule_seconds:.1f} s; residual nodes (mode, "
+              f"staged) {fused}")
+        base[(kind, "windowed")] = plan
+        base[(kind, "halo")] = with_input_mode(plan, "halo")
+    plans = {(kind, imode, flow): (p if flow == fsc.OS else with_flow(p, flow))
+             for (kind, imode), p in base.items() for flow in fsc.FLOWS}
+    n_fused = sum(1 for n in RCFG.graph if n.residual_from)
+    print(f"    residual shapes: {names}; {len(RCFG.layers)} convs, "
+          f"{n_fused} residual-fused per forward")
+    totals = residual_check(plans, names, xgen, flush)
+
+    images = [torch.randn((b, 3, RCFG.image_size, RCFG.image_size),
+                          generator=xgen, device=dev) for b in BATCHES]
+    for key, label, imgs in (
+            (("plane", "windowed", fsc.OS), "(dr) forced bin/windowed",
+             images),
+            (("plane", "halo", fsc.OS), "(dr) halo", images),
+            (("scheduled", "windowed", fsc.OS), "(dr+) scheduled windowed",
+             images[:1]),
+            (("scheduled", "halo", fsc.OS), "(dr+) scheduled halo",
+             images[:1])) + tuple(
+            (k, f"(dr+) {k[0]} {k[1]} {k[2]}", images[:1])
+            for k in plans if k[2] != fsc.OS):
+        plan = plans[key]
+        per_forward, residual = per_forward_of(plan)
+        if (sum(per_forward.values()) != len(RCFG.layers)
+                or sum(residual.values()) != n_fused):
+            fail(f"{label}: {per_forward} launches, {residual} fused per "
+                 f"forward; expected {len(RCFG.layers)} and {n_fused}")
+        kernel_ms = plan_kernel_ms(plan, xgen, flush)
+        drive(plan, imgs, label, per_forward, kernel_ms, residual, params,
+              RCFG)
+    print(f"    plan build: plane {build_s['plane']:.1f} s, scheduled "
+          f"{build_s['scheduled']:.1f} s")
+    del plans, base, plan
+
+    t0 = time.perf_counter()
+    aplan = build_network_plan(params, RCFG, batch=1, hadamard="auto",
+                               input_mode="auto", measure=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"(dr) autotuned plan (measure=True): built in "
+          f"{time.perf_counter() - t0:.1f} s, Alg-2 tables "
+          f"{aplan.schedule_seconds:.1f} s")
+    for node in aplan.graph:
+        if node.kind == "conv":
+            lp = aplan.layers[node.layer_index]
+            tn = lp.tuning
+            print(f"     {lp.layer.name:6s} {tn.flow:18s} {lp.hadamard:9s} "
+                  f"{lp.input_mode:8s} block_m {tn.block_m:3d} residual "
+                  f"{lp.epilogue.residual} {tn.residual}: measured "
+                  f"{tn.measured_s * 1e3:.4f} ms")
+    per_forward, residual = per_forward_of(aplan)
+    drive(aplan, images, "(dr) autotuned", per_forward,
+          1e3 * sum(lp.tuning.measured_s for lp in aplan.layers), residual,
+          params, RCFG)
+    return totals
 
 
 def main() -> int:
@@ -526,6 +892,19 @@ def main() -> int:
         print(f"    {src}.cu: nvcc {log['seconds']:.2f} s")
         for line in log["ptxas"]:
             print(f"      {line.strip()}")
+    spills = spill_report()
+    print("    spill stores (bytes) per instantiation, kernel / path / flow "
+          "/ shortcut:")
+    for row in sorted(spills):
+        print(f"      {row[0]:24s} {row[1]:8s} {row[2]:6s} {row[3]:6s} "
+              f"{row[4]}")
+    os_spills = [r for r in spills if r[0] == "fused_os_kernel"
+                 or (r[0] == "fused_sched_kernel" and r[2] == "os")]
+    if len(spills) != 36 or len(os_spills) != 12:
+        fail(f"(b) expected 36 kernel instantiations (12 output-"
+             f"stationary), the ptxas report lists {len(spills)}")
+    if any(r[4] for r in os_spills if r[3] == "none"):
+        fail("(b) an output-stationary kernel without a shortcut spills")
 
     # main-path setup: full VGG16 weights and plan on the card ------------
     gen = torch.Generator().manual_seed(SEED)
@@ -588,15 +967,18 @@ def main() -> int:
     images = [torch.randn((b, 3, CONFIG.image_size, CONFIG.image_size),
                           generator=xgen, device=dev)
               for b in BATCHES]
-    main_launches = {k: 0 for k in fsc.LAUNCHES}   # summed over (d)-(d6)
+    main_launches = {k: 0 for k in fsc.LAUNCHES}   # summed over (d)-(dr)
+    main_residual = {k: 0 for k in fsc.LAUNCHES}
     p50s = {}
 
-    def drive(plan_, images_, label, per_forward, kernel_sum_ms):
-        launches, p50s[label], host = serve(params, plan_, CONFIG, images_,
-                                            label, per_forward,
-                                            kernel_sum_ms)
+    def drive(plan_, images_, label, per_forward, kernel_sum_ms,
+              residual=None, params_=None, cfg=CONFIG):
+        launches, res, p50s[label], host = serve(
+            params if params_ is None else params_, plan_, cfg, images_,
+            label, per_forward, kernel_sum_ms, residual)
         for k, v in launches.items():
             main_launches[k] += v
+            main_residual[k] += res[k]
         return host
 
     n_layers = len(plan.layers)
@@ -813,6 +1195,12 @@ def main() -> int:
     drive(aplan, images, "(d5)", per_forward, auto_sum)
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items()))
+    del aplan, params, images
+
+    # ResNet-18: (r) and (dr) ---------------------------------------------
+    rtotals = resnet18(dev, xgen, drive)
+    print("    p50 batch 1: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 
     # every process this run started (nvcc, nvidia-smi, the table pool and
     # its resource tracker) has ended
@@ -837,11 +1225,26 @@ def main() -> int:
     for kname in fsc.KERNELS:
         for flow in fsc.FLOWS:
             entry = fsc.entry_point(kname, flow)
-            t = totals[entry]
+            t, rt = totals[entry], rtotals[entry]
             launches = main_launches[entry]
             if launches < 1:
                 fail(f"{entry} was not launched by the main path")
-            print(f"(e) {entry}: ok, launches={launches}")
+            if main_residual[entry] < 1:
+                fail(f"{entry} was not launched with a shortcut by the "
+                     f"main path")
+            print(f"(e) {entry}: ok, launches={launches}, with a shortcut "
+                  f"{main_residual[entry]}")
+            residual = {
+                "launches": main_residual[entry],
+                "max_abs_err": rt["abs_err"],
+                "ms": rt["ms"],
+                "replaces": f"{ref_file}:463",
+                "no_shortcut_ms": rt["no_sc_ms"],
+                "plain_ms": rt["plain_ms"],
+                "bound_ms": rt["bound_ms"],
+                "bound_by": rt["by"]}
+            if flow == fsc.OS:
+                residual["vmem_ms"] = rt["vmem_ms"]
             kernels.append({
                 "name": entry,
                 "route": "cuda",
@@ -856,6 +1259,7 @@ def main() -> int:
                 "bound_ms": t["bound_ms"],
                 "bound_by": t["by"],
                 "library_ms": None,
+                "residual": residual,
             })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ those the CUDA kernels are built for (``kernels.fused_spectral_conv``):
   block_m   for the weight-/input-stationary flows, the m-range width a
             CTA keeps resident (G = ceil(M / block_m) ranges, the
             reference's block_m); the CTAs' n and tile blocks are fixed
-            by the build.
+            by the build;
+  residual  for a node whose shortcut add is fused into the kernel, where
+            the kernel reads the shortcut: 'hbm' (from device memory at
+            the flush) or 'vmem' (output-stationary only: staged in
+            shared memory before the channel loop, when it fits).
 
 The cap is the 232,448 bytes of shared memory a CTA may take, and the
 model is ``hopper_fused_flow_cost``.  As in Alg 1, the grid is
@@ -82,9 +86,11 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
                 hadamard: str, input_mode: str, batch: int, block_m: int,
                 active_bins: int) -> dict[str, int]:
     """The CUDA launch a layer gets: CTAs, channel steps per CTA, output
-    rectangles per CTA (``rects``), tile blocks, m ranges G and the
-    workspace's tile slots, from the kernels' block sizes and each
-    flow's loop structure (the grid rules of
+    rectangles per CTA (``rects``), tile blocks, m ranges G, the
+    workspace's tile slots and the cluster ranks that share an
+    output-stationary CTA's rectangle (``ranks``: bin chunks, or the
+    scheduled kernel's channel split), from the kernels' block sizes and
+    each flow's loop structure (the grid rules of
     ``csrc/fused_spectral_conv*.cu``)."""
     geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
                         layer.pad)
@@ -97,11 +103,11 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     m = layer.c_in
     g = 1 if flow == fsc.OS else -(-m // block_m)
     width = m if g == 1 else block_m
+    ranks = 1
     if sched:
         nb = -(-layer.c_out // fsc.SCHED_BLOCK_N)      # kernel groups
         if flow == fsc.OS:
-            c = min(fsc.MAX_CLUSTER, max(1, -(-2 * H100_SMS // (pb * nb))),
-                    m)
+            ranks = c = fsc.sched_cluster(pb * nb, m, H100_SMS)
             ctas, steps, rects = pb * nb * c, -(-m // c), 1
         elif flow == fsc.WS:
             ctas, steps, rects = g * nb, pb * width, pb
@@ -109,7 +115,7 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
             ctas, steps, rects = pb * g, width * (1 + nb), nb
     else:
         nb = -(-layer.c_out // fsc.BLOCK_N)
-        chunks = -(-active_bins // fsc.BIN_CHUNK)
+        ranks = chunks = -(-active_bins // fsc.BIN_CHUNK)
         ksteps = -(-width // fsc.BLOCK_M)
         if flow == fsc.OS:
             ctas, steps, rects = pb * nb * chunks, ksteps, 1
@@ -118,7 +124,7 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
         else:
             ctas, steps, rects = pb * g * chunks, ksteps * (1 + nb), nb
     return {"ctas": ctas, "steps": steps, "rects": rects, "p_blocks": pb,
-            "n_blocks": nb, "ranges": g, "slots": pb * bp}
+            "n_blocks": nb, "ranges": g, "slots": pb * bp, "ranks": ranks}
 
 
 def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
@@ -127,7 +133,8 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
                            active_bins: int | None = None,
                            r: int = SCHEDULE_R,
                            t_cycles: int | None = None,
-                           block_m: int | None = None) -> dict[str, float]:
+                           block_m: int | None = None,
+                           residual: str | None = None) -> dict[str, float]:
     """Bytes, operations, shared memory and predicted seconds of ONE
     fused-kernel launch on the H100 (the counterpart of the reference's
     ``tpu_fused_flow_cost``).
@@ -143,6 +150,17 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         have ``fsc.SCHED_BLOCK_N`` lanes per kernel group.
       block_m: the m-range width of the weight-/input-stationary flows
         (channels a CTA keeps resident); unused by output-stationary.
+      residual: a fused shortcut add and where the kernel reads it
+        (the reference's ``tpu_fused_flow_cost(residual=...)`` on the
+        card): None for none; 'hbm' reads the output-sized shortcut once
+        from device memory at the flush (output-stationary, or a flow
+        with one m range) or in the finish pass, after the channel loop,
+        so its read is serial; 'vmem' (output-stationary only) reads it
+        once too, but prefetched into shared memory before the channel
+        loop, so the read overlaps the kernel's own and the staged rows
+        (``fsc.staged_rows`` of each CTA's rectangle) count against the
+        shared-memory cap.  The windowed path also relays the shortcut
+        into the output's tile layout on the host.
 
     Bytes (``hbm_bytes``) follow each kernel's loops: output-stationary
     re-reads the input once per n block (plane kernel) or kernel group
@@ -163,11 +181,18 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     ``serial_s`` is work in separate launches before or after the kernel
     that cannot overlap it: ``relayout_s``, the windowed path's host
     relayout (window tensor written and read back from the raw
-    activation, output tiles assembled), and ``finish_s``, the split-K
-    finish pass (workspace read, output written), both at the HBM rate.
+    activation, output tiles assembled, a shortcut relaid), ``finish_s``,
+    the split-K finish pass (workspace and shortcut read, output
+    written), and ``shortcut_s``, an 'hbm' shortcut read at the flush,
+    all at the HBM rate.
     """
     if flow not in df.FLOWS:
         raise ValueError(f"flow must be one of {df.FLOWS}, got {flow!r}")
+    if residual not in (None, *fsc.SHORTCUT_PLACEMENTS) or (
+            residual == "vmem" and flow != fsc.OS):
+        raise ValueError(f"residual must be None, 'hbm' or (output-"
+                         f"stationary only) 'vmem', got {residual!r} for "
+                         f"{flow!r}")
     if hadamard not in df.HADAMARD_MODES:
         raise ValueError(f"hadamard must be one of {df.HADAMARD_MODES}, "
                          f"got {hadamard!r}")
@@ -215,7 +240,8 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     else:
         x_hbm, w_hbm = x_bytes, reread(w_bytes, pb)
     ws_bytes = 4 * g * s2 * n * grid["slots"] if g > 1 else 0
-    hbm = x_hbm + w_hbm + ops_bytes + y_bytes + 2 * ws_bytes
+    sc_bytes = y_bytes if residual is not None else 0   # laid out like y
+    hbm = x_hbm + w_hbm + ops_bytes + y_bytes + 2 * ws_bytes + sc_bytes
 
     # operations: the kernels' own arithmetic (4 real FMAs per complex
     # MAC, the tile-FFT of every computed bin, the IFFT per m range)
@@ -229,26 +255,34 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     ifft_flops = 4 * s2 * fft_bins * n * p * g
     flops = fft_flops + had_flops + ifft_flops + 2 * s2 * n * p * g
 
+    sc_rows = (fsc.staged_rows(s2, grid["ranks"]) if residual == "vmem"
+               else 0)
     smem = (fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe,
                                  halo_block_geometry(geo, min(
                                      fsc.SCHED_BLOCK_P, geo.n_tiles))
-                                 if halo else None) if sched
+                                 if halo else None, sc_rows) if sched
             else fsc.plane_smem_bytes(flow, geo, block_m,
                                       halo_block_geometry(geo, min(
                                           fsc.BLOCK_P, geo.n_tiles))
-                                      if halo else None))
+                                      if halo else None, sc_rows))
     waves = -(-grid["ctas"] // H100_SMS)
     wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
                                   input_mode)]
     latency_s = waves * (grid["rects"] * wave_s + grid["steps"] * step_s)
     relayout = 0 if halo else (raw_bytes + 2 * 4 * s * m * p
-                               + 4 * s2 * n * p + out_bytes)
-    finish = ws_bytes + y_bytes if g > 1 else 0
-    hbm_s = (hbm - ws_bytes) / H100_HBM_BYTES_PER_S   # main kernel's share
+                               + 4 * s2 * n * p + out_bytes
+                               + (out_bytes + sc_bytes if sc_bytes else 0))
+    finish = ws_bytes + y_bytes + sc_bytes if g > 1 else 0
+    # the shortcut read the channel loop does not hide: at the flush
+    # ('hbm', one m range) or in the finish pass (counted there)
+    flush_sc = sc_bytes if residual == "hbm" and g == 1 else 0
+    hbm_s = ((hbm - ws_bytes - (sc_bytes if residual == "hbm" else 0))
+             / H100_HBM_BYTES_PER_S)                  # main kernel's share
     compute_s = flops / H100_FP32_FLOPS
     relayout_s = relayout / H100_HBM_BYTES_PER_S
     finish_s = finish / H100_HBM_BYTES_PER_S
-    serial_s = relayout_s + finish_s
+    shortcut_s = flush_sc / H100_HBM_BYTES_PER_S
+    serial_s = relayout_s + finish_s + shortcut_s
     return {
         "hbm_bytes": float(hbm),
         "kernel_hbm_bytes": float(w_hbm),
@@ -262,6 +296,7 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         "latency_s": latency_s,
         "relayout_s": relayout_s,
         "finish_s": finish_s,
+        "shortcut_s": shortcut_s,
         "serial_s": serial_s,
         "predicted_s": serial_s + max(hbm_s, compute_s, latency_s),
     }
@@ -274,7 +309,9 @@ class FusedTuning:
     ``block_n`` / ``block_p`` are the kernel's per-CTA output-channel and
     tile blocks (per image on the halo path); ``block_m`` is the
     channels per pipeline step (output-stationary) or the m-range width
-    (weight-/input-stationary).  ``hbm_bytes``, ``smem_bytes``,
+    (weight-/input-stationary); ``residual`` is where a fused shortcut
+    is read ('hbm' | 'vmem', None without one).  ``hbm_bytes``,
+    ``smem_bytes``,
     ``predicted_s`` and ``grid_steps`` (CTAs x channel steps) come from
     the Hopper cost model; ``measured_s`` is the card's time when the
     tuning was measured, and ``measured`` every measured candidate with
@@ -294,6 +331,7 @@ class FusedTuning:
     input_mode: str | None = None
     grid_steps: float | None = None
     measured: tuple = ()
+    residual: str | None = None
 
 
 def predict_seconds(c: dict) -> float:
@@ -321,11 +359,14 @@ def _block_ms(layer: df.ConvLayer, flow: str, hadamard: str) -> list[int]:
 
 def _layer_candidates(layer: df.ConvLayer, fft_size: int, batch: int,
                       flows: Sequence[str], hadamard_modes: Sequence[str],
-                      input_modes: Sequence[str]
+                      input_modes: Sequence[str],
+                      residual: str | None = None
                       ) -> Iterable[FusedTuning]:
     """Every configuration the kernels can launch for this layer (before
     the shared-memory cap): flows x Hadamard modes x input paths x
-    m-range widths, with the kernels' n and tile blocks."""
+    m-range widths, with the kernels' n and tile blocks; a 'vmem'
+    shortcut goes to the output-stationary candidates, the flows read
+    theirs from device memory ('hbm')."""
     tiles = layer.tiles(fft_size)
     for flow, mode, imode in itertools.product(flows, hadamard_modes,
                                                input_modes):
@@ -337,7 +378,9 @@ def _layer_candidates(layer: df.ConvLayer, fft_size: int, batch: int,
             yield FusedTuning(layer=layer.name, flow=flow,
                               block_n=min(bn, layer.c_out), block_m=bm,
                               block_p=min(bp, p), hadamard=mode,
-                              input_mode=imode)
+                              input_mode=imode,
+                              residual=("hbm" if residual == "vmem"
+                                        and flow != fsc.OS else residual))
 
 
 def price(tn: FusedTuning, layer: df.ConvLayer, fft_size: int,
@@ -350,7 +393,7 @@ def price(tn: FusedTuning, layer: df.ConvLayer, fft_size: int,
     c = hopper_fused_flow_cost(
         layer, fft_size, alpha, tn.flow, tn.hadamard, tn.input_mode,
         batch=batch, active_bins=active_bins, r=schedule_r,
-        t_cycles=t_cycles, block_m=tn.block_m)
+        t_cycles=t_cycles, block_m=tn.block_m, residual=tn.residual)
     return dataclasses.replace(
         tn, hbm_bytes=c["hbm_bytes"], smem_bytes=c["smem_bytes"],
         predicted_s=predict_seconds(c),
@@ -365,6 +408,7 @@ def autotune_layer(layer: df.ConvLayer, fft_size: int, alpha: float, *,
                    input_modes: Sequence[str] = ("windowed",),
                    schedule_r: int = SCHEDULE_R,
                    t_cycles: int | None = None,
+                   residual: str | None = None,
                    measure_fn: Callable[[FusedTuning], float] | None = None
                    ) -> FusedTuning:
     """Pick (flow, hadamard, input mode, block_m) for one layer.
@@ -372,19 +416,31 @@ def autotune_layer(layer: df.ConvLayer, fft_size: int, alpha: float, *,
     Analytic pass: ``price`` every candidate (``active_bins`` = the
     plan's compacted Fa, ``t_cycles`` = the tables' length when they
     exist), drop those over ``H100_SMEM_PER_CTA`` and sort by (predicted
-    seconds, CTA steps, bytes).  When none fits (tables longer than the
-    estimate allows), the smallest footprint comes back, its
-    ``smem_bytes`` over the budget for the caller to see; a launch of it
-    raises.  Measured pass (with ``measure_fn``, seconds of one
-    candidate on the card): time the ``MEASURE_TOP_K`` best predictions
-    and keep the fastest, recording every measured candidate in
-    ``FusedTuning.measured``.
+    seconds, CTA steps, bytes).  ``residual`` prices a fused shortcut:
+    'hbm', or 'vmem', which tries the staged placement on each
+    output-stationary candidate first and falls back to 'hbm' where the
+    staged rows do not fit (the reference's fallback, taken per
+    candidate so that such a candidate stays in the ranking); the
+    placement is recorded in ``FusedTuning.residual``.  When none fits
+    (tables longer than the estimate allows), the smallest footprint
+    comes back, its ``smem_bytes`` over the budget for the caller to
+    see; a launch of it raises.  Measured pass (with ``measure_fn``,
+    seconds of one candidate on the card): time the ``MEASURE_TOP_K``
+    best predictions and keep the fastest, recording every measured
+    candidate in ``FusedTuning.measured``.
     """
-    priced = [price(cand, layer, fft_size, alpha, batch=batch,
-                    active_bins=active_bins, schedule_r=schedule_r,
-                    t_cycles=t_cycles)
+    def priced_fit(cand: FusedTuning) -> FusedTuning:
+        tn = price(cand, layer, fft_size, alpha, batch=batch,
+                   active_bins=active_bins, schedule_r=schedule_r,
+                   t_cycles=t_cycles)
+        if tn.residual == "vmem" and tn.smem_bytes > H100_SMEM_PER_CTA:
+            return priced_fit(dataclasses.replace(cand, residual="hbm"))
+        return tn
+
+    priced = [priced_fit(cand)
               for cand in _layer_candidates(layer, fft_size, batch, flows,
-                                            hadamard_modes, input_modes)]
+                                            hadamard_modes, input_modes,
+                                            residual)]
     scored = [t for t in priced if t.smem_bytes <= H100_SMEM_PER_CTA]
     if not scored:
         return min(priced, key=lambda t: t.smem_bytes)
@@ -450,9 +506,11 @@ def _make_measure_fn(lp, batch: int, tables: Callable[[], object]
     ``MEASURE_SEED``), timed by ``device_ms`` with a 128 MiB buffer (over
     the 50 MB L2) zeroed before each launch; both live as long as the
     callable.  ``tables()`` gives the layer's Alg-2 tables (the
-    caller compiles them at most once) for scheduled candidates.
-    Raises when ``lp`` is not on a CUDA device: a measurement never
-    falls back to the CPU."""
+    caller compiles them at most once) for scheduled candidates.  A
+    residual-fused layer (``lp.epilogue.residual == 'fused'``) is timed
+    with a random shortcut of its output's shape, in each candidate's
+    placement.  Raises when ``lp`` is not on a CUDA device: a
+    measurement never falls back to the CPU."""
     dev = lp.wr.device
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(
@@ -463,20 +521,31 @@ def _make_measure_fn(lp, batch: int, tables: Callable[[], object]
     gen = torch.Generator(device=dev).manual_seed(MEASURE_SEED)
     x = torch.randn((batch, layer.c_in, layer.h_in, layer.w_in),
                     generator=gen, device=dev)
+    sc = (torch.randn((batch, layer.c_out, layer.h_in + 2 * layer.pad
+                       - layer.ksize + 1, layer.w_in + 2 * layer.pad
+                       - layer.ksize + 1), generator=gen, device=dev)
+          if lp.epilogue.residual == "fused" else None)
 
     def measure(tn: FusedTuning) -> float:
         tabs = tables() if tn.hadamard == "scheduled" else None
-        if tabs is not None and tn.flow != fsc.OS:
+        if tabs is not None and (tn.flow != fsc.OS
+                                 or tn.residual == "vmem"):
+            ranks = kernel_grid(layer, lp.geo.fft_size, tn.flow, tn.hadamard,
+                                tn.input_mode, batch, tn.block_m,
+                                lp.n_active_bins)["ranks"]
             need = fsc.sched_smem_bytes(
                 tn.flow, lp.geo, tn.block_m, tabs.idx.shape[2],
                 tabs.idx.shape[3], tabs.sel.shape[3],
                 halo_block_geometry(lp.geo, tn.block_p)
-                if tn.input_mode == "halo" else None)
+                if tn.input_mode == "halo" else None,
+                fsc.staged_rows(lp.geo.tile ** 2, ranks)
+                if tn.residual == "vmem" else 0)
             if need > fsc.SMEM_PER_CTA:     # the real T outgrew the cap
                 return float("inf")
         cand = dataclasses.replace(lp, tuning=tn, hadamard=tn.hadamard,
                                    input_mode=tn.input_mode, tables=tabs)
-        return 1e-3 * device_ms(lambda: fsc.execute_layer_plan(x, cand),
-                                flush.zero_)
+        return 1e-3 * device_ms(
+            lambda: fsc.execute_layer_plan(x, cand, shortcut=sc),
+            flush.zero_)
 
     return measure

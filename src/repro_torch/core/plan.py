@@ -20,8 +20,14 @@ Each layer's kernel configuration comes from Alg 1 on the H100
 ('dense' | 'bin' | 'scheduled', 'windowed' | 'halo') or 'auto', which
 ranks the available modes, and then the reuse flows and their m-range
 widths, per layer; ``measure=True`` re-ranks the best predictions by
-their time on the card.  Residual graphs raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+their time on the card.
+
+Residual graphs (a node with ``residual_from``, ResNet-18): a stride-1
+node fuses the shortcut add into its kernel's flush ('fused'), and
+where the kernel reads the shortcut ('hbm' at the flush, or 'vmem',
+staged in shared memory by the output-stationary kernel) is the
+autotuner's per-layer choice, recorded as ``PlanNode.shortcut_on_chip``;
+a strided node adds it on the host after the subsample ('add').
 """
 
 from __future__ import annotations
@@ -52,12 +58,23 @@ from repro_torch.kernels import fused_spectral_conv as fsc
 @dataclasses.dataclass(frozen=True)
 class EpilogueSpec:
     """Post-conv elementwise work fused into the kernel (bias, relu) or
-    run right after it (pool).  The reference's residual-add modes come
-    with residual graphs (ROADMAP A7)."""
+    run right after it (pool).
+
+    ``residual`` is the shortcut-add mode of a DAG node with a
+    ``residual_from`` edge:
+
+      None     no shortcut;
+      'fused'  the shortcut is one more operand of the kernel, added at
+               its flush after the bias and before the ReLU (stride 1:
+               the kernel flushes the stride-1 output);
+      'add'    the conv runs with its ReLU off and the executor applies
+               ``relu(y[::stride, ::stride] + shortcut)`` on the host.
+    """
 
     bias: bool = True
     relu: bool = True
     pool: bool = False       # 2x2 max-pool follows this layer (spatial)
+    residual: str | None = None   # None | 'fused' | 'add'
 
 
 class PlanTables(NamedTuple):
@@ -86,7 +103,11 @@ class PlanNode:
       layer_index   index into ``NetworkPlan.layers`` (-1 for pools).
       pool          'max' | 'avg' (2x2, stride 2) for pool nodes.
       residual_from shortcut producer id, or None.
-      relu          apply ReLU at this node's output.
+      relu          apply ReLU at this node's output (for a residual
+                    node, after the add).
+      shortcut_on_chip  a fused shortcut is staged in shared memory
+                    (the tuning's 'vmem' placement) rather than read
+                    from device memory at the flush ('hbm').
     """
 
     id: str
@@ -96,6 +117,7 @@ class PlanNode:
     pool: str = "max"
     residual_from: str | None = None
     relu: bool = True
+    shortcut_on_chip: bool = False
 
 
 def _linear_node_specs(layers, pool_after) -> tuple:
@@ -354,18 +376,40 @@ def _resolve_flows(hadamard: str, input_mode: str) -> list[str]:
             else [fsc.OS])
 
 
+def _shortcut_search(epilogue: EpilogueSpec) -> str | None:
+    """The autotuner's ``residual`` for a layer: a fused shortcut tries
+    the staged placement first ('vmem', falling back to 'hbm')."""
+    return "vmem" if epilogue.residual == "fused" else None
+
+
 def _kernel_tuning(lp: LayerPlan, fft_size: int, batch: int, flow: str,
                    input_mode: str) -> FusedTuning:
     """The predicted-best configuration of a built layer under a forced
-    flow and input path (its Hadamard mode and tables as they are): the
-    m-range width for ws/is, the kernels' fixed n and tile blocks (a
-    halo CTA takes one halo block of a single image, so its ``block_p``
-    is per image)."""
+    flow and input path (its Hadamard mode, tables and epilogue as they
+    are): the m-range width for ws/is, the kernels' fixed n and tile
+    blocks (a halo CTA takes one halo block of a single image, so its
+    ``block_p`` is per image) and a fused shortcut's placement."""
     t_cycles = lp.tables.idx.shape[2] if lp.tables is not None else None
     return at.autotune_layer(
         lp.layer, fft_size, lp.alpha, batch=batch, flows=(flow,),
         active_bins=lp.n_active_bins, hadamard_modes=(lp.hadamard,),
-        input_modes=(input_mode,), t_cycles=t_cycles)
+        input_modes=(input_mode,), t_cycles=t_cycles,
+        residual=_shortcut_search(lp.epilogue))
+
+
+def _graph_nodes(order, layers: tuple[LayerPlan, ...]) -> tuple:
+    """The plan's DAG: topo-ordered NodeSpecs resolved against the layer
+    plans, with each fused shortcut's placement from its tuning."""
+    index = {lp.layer.name: i for i, lp in enumerate(layers)}
+    return tuple(
+        PlanNode(id=s.id, kind="conv", inputs=tuple(s.inputs),
+                 layer_index=index[s.id], residual_from=s.residual_from,
+                 relu=s.relu, shortcut_on_chip=(
+                     layers[index[s.id]].tuning.residual == "vmem"))
+        if s.kind == "conv" else
+        PlanNode(id=s.id, kind="pool", inputs=tuple(s.inputs),
+                 pool=s.pool)
+        for s in order)
 
 
 def _retuned(plan: NetworkPlan, flow: str | None,
@@ -376,14 +420,17 @@ def _retuned(plan: NetworkPlan, flow: str | None,
         tn = _kernel_tuning(lp, plan.fft_size, plan.batch,
                             flow or lp.tuning.flow, imode)
         layers.append(dataclasses.replace(lp, input_mode=imode, tuning=tn))
-    return dataclasses.replace(plan, layers=tuple(layers))
+    return dataclasses.replace(plan, layers=tuple(layers),
+                               graph=_graph_nodes(plan.graph, tuple(layers)))
 
 
 def with_input_mode(plan: NetworkPlan, input_mode: str) -> NetworkPlan:
     """The same plan on another input path: operands and Alg-2 tables do
     not depend on it, so nothing is rebuilt; each ``LayerPlan`` keeps its
-    flow and gets the mode and the kernel blocks that go with it (equal
-    to what ``build_network_plan(..., input_mode=input_mode)`` builds)."""
+    flow and epilogue (residual modes included) and gets the mode and the
+    kernel blocks that go with it, and a fused shortcut the placement
+    that fits it (equal to what ``build_network_plan(...,
+    input_mode=input_mode)`` builds)."""
     if input_mode not in df.INPUT_MODES:
         raise ValueError(f"input_mode must be one of {df.INPUT_MODES}, "
                          f"got {input_mode!r}")
@@ -393,8 +440,10 @@ def with_input_mode(plan: NetworkPlan, input_mode: str) -> NetworkPlan:
 def with_flow(plan: NetworkPlan, flow: str) -> NetworkPlan:
     """The same plan under another reuse flow: operands and tables do not
     depend on it, so nothing is rebuilt; each ``LayerPlan`` keeps its
-    Hadamard mode and input path and gets the flow with the m-range width
-    the cost model prefers for it."""
+    Hadamard mode, input path and epilogue (residual modes included) and
+    gets the flow with the m-range width the cost model prefers for it
+    (a fused shortcut is read from device memory under ws/is, which have
+    no staged placement)."""
     if flow not in df.FLOWS:
         raise ValueError(f"flow must be one of {df.FLOWS}, got {flow!r}")
     return _retuned(plan, flow, None)
@@ -486,9 +535,6 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     if not explicit_graph:
         graph_specs = _linear_node_specs(layers, pool_after)
     order = _topo_order_specs(graph_specs)
-    if any(s.residual_from is not None for s in order):
-        raise NotImplementedError(
-            "residual shortcut edges are not ported yet (ROADMAP A7)")
     conv_specs = {s.id: s for s in order if s.kind == "conv"}
     names = [l.name for l in layers]
     if sorted(conv_specs) != sorted(names):
@@ -561,9 +607,17 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                 return compiled[0][0]
 
             node = conv_specs[layer.name]
-            epi = EpilogueSpec(bias=True, relu=node.relu,
+            # the fused add needs the stride-1 output the kernel flushes
+            # (the subsample follows the kernel): strided nodes add on the
+            # host, with the kernel's ReLU off (it would clamp the
+            # pre-add value)
+            residual = (None if node.residual_from is None
+                        else "fused" if layer.stride == 1 else "add")
+            epi = EpilogueSpec(bias=True,
+                               relu=node.relu and residual != "add",
                                pool=(not explicit_graph
-                                     and layer.name in pool_after))
+                                     and layer.name in pool_after),
+                               residual=residual)
             bias = conv["b"].detach().to(device, torch.float32).reshape(1, -1)
             lp = LayerPlan(
                 layer=layer, geo=geo, kernels=sk.to(device), alpha=alpha,
@@ -575,6 +629,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                 layer, cfg.fft_size, alpha, batch=batch, flows=flows,
                 active_bins=lp.n_active_bins, hadamard_modes=modes,
                 input_modes=imodes, schedule_r=schedule_r,
+                residual=_shortcut_search(epi),
                 measure_fn=(at._make_measure_fn(lp, batch, tables)
                             if measure else None))
             lp = dataclasses.replace(lp, tuning=tuning,
@@ -586,25 +641,19 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                                          pe_utilization=compiled[0][2])
                 # priced at an estimated table length: re-price at the
                 # tables' own, and where they outgrew the cap take the
-                # flow's width that fits
+                # flow's width (or the shortcut's placement) that fits
                 tn = at.price(tuning, layer, cfg.fft_size, alpha,
                               batch=batch, active_bins=lp.n_active_bins,
                               schedule_r=schedule_r,
                               t_cycles=lp.tables.idx.shape[2])
-                if tn.smem_bytes > fsc.SMEM_PER_CTA and tn.flow != fsc.OS:
+                if tn.smem_bytes > fsc.SMEM_PER_CTA and (
+                        tn.flow != fsc.OS or tn.residual == "vmem"):
                     tn = _kernel_tuning(lp, cfg.fft_size, batch, tn.flow,
                                         tn.input_mode)
                 lp = dataclasses.replace(lp, tuning=tn)
             plans.append(lp)
-    layer_index = {name: i for i, name in enumerate(names)}
-    pnodes = tuple(
-        PlanNode(id=s.id, kind="conv", inputs=tuple(s.inputs),
-                 layer_index=layer_index[s.id], relu=s.relu)
-        if s.kind == "conv" else
-        PlanNode(id=s.id, kind="pool", inputs=tuple(s.inputs),
-                 pool=s.pool)
-        for s in order)
     return NetworkPlan(name=getattr(cfg, "name", "spectral-cnn"),
                        fft_size=cfg.fft_size, batch=batch,
-                       layers=tuple(plans), graph=pnodes,
+                       layers=tuple(plans),
+                       graph=_graph_nodes(order, tuple(plans)),
                        schedule_seconds=schedule_seconds)

@@ -94,6 +94,14 @@
 // (os, ws).  A CTA keeps one of the three arrays resident on top of B1's
 // spatial partial, so RM is capped by shared memory: 16 for ws, 64 for is.
 //
+// Every entry point takes an optional residual shortcut `sc` laid out like
+// y (B6 residual, shortcut.cuh), added after the bias and before the ReLU
+// where the output is stored: B1/B3's flush, the flows' one-range flush or
+// their finish pass.  B1/B3 read it from device memory at the flush or, with
+// `sc_staged`, prefetch rank r's flush rows r, r + C, ... of the CTA's
+// rectangle into shared memory before the channel loop (ceil(S2 / C) rows of
+// BN x BP floats after the Layout; the wrapper checks that they fit).
+//
 // Block sizes come from the build (-DFSC_*), set by the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -102,6 +110,7 @@
 
 #include "cp_async.cuh"
 #include "halo.cuh"
+#include "shortcut.cuh"
 #include "split_k.cuh"
 
 #if !defined(FSC_BN) || !defined(FSC_BP) || !defined(FSC_BM) || \
@@ -142,10 +151,11 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // is it holds the input while X~ is built and the planes afterwards.  The
 // halo path also expands the raw rows into one window stage.  The spatial
 // partial of an output rectangle aliases the ring (and the window stage).
+// A staged shortcut (sc_floats) follows everything.
 struct Layout {
-  int df, dv, xf, res, stage, x_sz, x_stage, win, total;
+  int df, dv, xf, res, stage, x_sz, x_stage, win, sc, total;
   __host__ __device__ Layout(int flow, int S, int S2, int x_floats,
-                             int win_floats, int RM) {
+                             int win_floats, int RM, int sc_floats = 0) {
     df = 0;                                  // [S][FC] (re, im)
     dv = df + 2 * S * FC;                    // [S2][FC] (re, im)
     xf = dv + 2 * S2 * FC;                   // X~ (re, im): [FC][MP]; is:
@@ -159,7 +169,8 @@ struct Layout {
     win = stage + 2 * x_stage;               // [S][MP] expanded windows
     const int loop = 2 * x_stage + win_floats;
     const int acc = S2 * BN * BP;            // spatial partial, aliases both
-    total = stage + imax(loop, acc);
+    sc = stage + imax(loop, acc);            // [rows][BN][BP] staged shortcut
+    total = sc + sc_floats;
   }
 };
 
@@ -176,7 +187,7 @@ struct WindowedPath {
   };
   __host__ __device__ int blocks() const { return (P + BP - 1) / BP; }
   __host__ __device__ int x_floats(int S) const { return S * MP; }
-  int win_floats(int) const { return 0; }
+  __host__ __device__ int win_floats(int) const { return 0; }
   __device__ Blk block(int bx, int) const {
     return {bx * BP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
   }
@@ -217,16 +228,18 @@ using HaloIn = HaloPath<NT, BM, BP>;   // halo.cuh
 
 // Output-stationary (B1 on the windowed path, B3 on the halo path): a CTA
 // owns an (n block, tile block, bin chunk) and sums all of M in registers.
-template <class Path>
+// SC: the shortcut's placement (shortcut.cuh).
+template <class Path, int SC>
 __global__ void __launch_bounds__(NT, 1)
 fused_os_kernel(const Path io, const float* __restrict__ wr,
                 const float* __restrict__ wi, const float* __restrict__ dfr,
                 const float* __restrict__ dfi, const float* __restrict__ dvr,
                 const float* __restrict__ dvi, const float* __restrict__ bias,
-                float* __restrict__ y, int S, int M, int Fa, int N, int S2,
-                int relu) {
+                const float* __restrict__ sc, float* __restrict__ y, int S,
+                int M, int Fa, int N, int S2, int relu) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(OS, S, S2, io.x_floats(S), 0, BM);
+  const Layout L(OS, S, S2, io.x_floats(S),
+                 SC == SC_STAGED ? io.win_floats(S) : 0, BM);
   float* s_df = smem + L.df;
   float* s_dv = smem + L.dv;
   float* s_xf = smem + L.xf;
@@ -296,6 +309,23 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
   for (int f = 0; f < FC; ++f)
 #pragma unroll
     for (int j = 0; j < TN; ++j) ar[f][j] = ai[f][j] = 0.f;
+
+  // staged shortcut: the elements this thread adds at the flush (rows
+  // rank, rank + C, ... in the flush's map), zero where nothing is stored;
+  // the copies join the first step's group
+  float* s_sc = smem + L.sc;
+  if constexpr (SC == SC_STAGED) {
+    const int rank = (int)cluster.block_rank();
+    const int n_ranks = (int)cluster.num_blocks();
+    for (int s = rank, q = 0; s < S2; s += n_ranks, ++q)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = tn + j * NSTRIDE, gn = n0 + n;
+        const long long o = gn < N ? io.out_at(blk, s, gn, N, tp) : -1;
+        cp_async4(s_sc + (q * BN + n) * BP + tp, o >= 0 ? sc + o : sc,
+                  o >= 0);
+      }
+  }
 
   const int n_steps = (M + BM - 1) / BM;
   load_step(0, 0);
@@ -390,13 +420,14 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
   }
   cluster.sync();                           // every chunk's partial is ready
 
-  // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
-  // write per output element; rank r finishes rows r, r + C, ...
+  // Stage 4: sum the cluster's partials in rank order, bias (+ shortcut) +
+  // ReLU, one write per output element; rank r finishes rows r, r + C, ...
   const int rank = (int)cluster.block_rank();
   const int n_ranks = (int)cluster.num_blocks();
   const float* part[MAX_CLUSTER];
   for (int q = 0; q < n_ranks; ++q) part[q] = cluster.map_shared_rank(s_y, q);
-  for (int s = rank; s < S2; s += n_ranks) {
+  if constexpr (SC == SC_STAGED) cp_async_wait_all();   // long since landed
+  for (int s = rank, row = 0; s < S2; s += n_ranks, ++row) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = tn + j * NSTRIDE, gn = n0 + n;
@@ -406,6 +437,8 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
       const long long o = gn < N ? io.out_at(blk, s, gn, N, tp) : -1;
       if (o >= 0) {
         v += bias[gn];
+        if constexpr (SC == SC_GLOBAL) v += sc[o];
+        if constexpr (SC == SC_STAGED) v += s_sc[(row * BN + n) * BP + tp];
         if (relu) v = fmaxf(v, 0.f);
         y[o] = v;
       }
@@ -419,8 +452,9 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
 // chunk); a cluster spans the chunks.  ws (the split-K workspace) is
 // written only when the flow has more than one m range.  (Output-
 // stationary keeps its own kernel above: folding it into this template
-// made the compiler spill its register accumulators.)
-template <class Path, int FLOW>
+// made the compiler spill its register accumulators.)  SC: none or a
+// global shortcut, added here with one m range, else by the finish pass.
+template <class Path, int FLOW, int SC>
 __global__ void __launch_bounds__(NT, 1)
 fused_flow_kernel(const Path io, const float* __restrict__ wr,
                   const float* __restrict__ wi,
@@ -428,10 +462,12 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
                   const float* __restrict__ dfi,
                   const float* __restrict__ dvr,
                   const float* __restrict__ dvi,
-                  const float* __restrict__ bias, float* __restrict__ y,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ sc, float* __restrict__ y,
                   float* __restrict__ ws, int S, int M, int Fa, int N,
                   int S2, int relu, int RM) {
   static_assert(FLOW == WS || FLOW == IS, "output-stationary: above");
+  static_assert(SC == SC_NONE || SC == SC_GLOBAL, "staged: os only");
   extern __shared__ __align__(16) float smem[];
   const Layout L(FLOW, S, S2, io.x_floats(S), 0, RM);
   float* s_df = smem + L.df;
@@ -592,8 +628,8 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
 
   // Stage 4: sum the cluster's partials in rank order, one write per
   // element; rank q finishes rows q, q + C, ...  With one m range the sum
-  // is the output (bias + ReLU, stored through the input path); otherwise
-  // it is range r's partial, stored to workspace slice r.
+  // is the output (bias (+ shortcut) + ReLU, stored through the input
+  // path); otherwise it is range r's partial, stored to workspace slice r.
   auto reduce_store = [&](const typename Path::Blk& blk, int bx, int n0) {
     cluster.sync();                         // every chunk's partial is ready
     const float* part[MAX_CLUSTER];
@@ -611,6 +647,7 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
           const long long o = io.out_at(blk, s, gn, N, tp);
           if (o >= 0) {
             v += bias[gn];
+            if constexpr (SC == SC_GLOBAL) v += sc[o];
             if (relu) v = fmaxf(v, 0.f);
             y[o] = v;
           }
@@ -702,27 +739,32 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
 // than one m range, the split-K finish pass); returns the cudaError_t of the
 // configuration and the launches (0 on success).  A shape whose shared
 // memory exceeds the per-block limit fails cudaFuncSetAttribute.
-template <class Path, int FLOW>
+template <class Path, int FLOW, int SC>
 int launch(const Path& io, const float* wr, const float* wi,
            const float* dfr, const float* dfi, const float* dvr,
-           const float* dvi, const float* bias, float* y, float* ws, int S,
-           int M, int Fa, int N, int S2, int relu, int RM, void* stream) {
+           const float* dvi, const float* bias, const float* sc, float* y,
+           float* ws, int S, int M, int Fa, int N, int S2, int relu, int RM,
+           void* stream) {
   if (FLOW != OS && (RM < BM || RM % BM != 0))
     return (int)cudaErrorInvalidValue;
   const int G = FLOW == OS ? 1 : (M + RM - 1) / RM;
   if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const Layout L(FLOW, S, S2, io.x_floats(S), io.win_floats(S), RM);
+  const int chunks = (Fa + FC - 1) / FC;
+  // a staged shortcut: ceil(S2 / C) rows of the CTA's rectangle
+  const int sc_floats =
+      SC == SC_STAGED ? (S2 + chunks - 1) / chunks * BN * BP : 0;
+  const Layout L(FLOW, S, S2, io.x_floats(S), io.win_floats(S), RM,
+                 sc_floats);
   const size_t smem = (size_t)L.total * sizeof(float);
   const void* kernel;
   if constexpr (FLOW == OS)
-    kernel = (const void*)fused_os_kernel<Path>;
+    kernel = (const void*)fused_os_kernel<Path, SC>;
   else
-    kernel = (const void*)fused_flow_kernel<Path, FLOW>;
+    kernel = (const void*)fused_flow_kernel<Path, FLOW, SC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  const int chunks = (Fa + FC - 1) / FC;
   const int nb = (N + BN - 1) / BN;
   cfg.gridDim = FLOW == OS ? dim3(io.blocks(), nb, chunks)
               : FLOW == WS ? dim3(G, nb, chunks)
@@ -738,19 +780,47 @@ int launch(const Path& io, const float* wr, const float* wi,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if constexpr (FLOW == OS)
-    err = cudaLaunchKernelEx(&cfg, fused_os_kernel<Path>, io, wr, wi, dfr,
-                             dfi, dvr, dvi, bias, y, S, M, Fa, N, S2, relu);
+    err = cudaLaunchKernelEx(&cfg, fused_os_kernel<Path, SC>, io, wr, wi,
+                             dfr, dfi, dvr, dvi, bias, sc, y, S, M, Fa, N,
+                             S2, relu);
   else
-    err = cudaLaunchKernelEx(&cfg, fused_flow_kernel<Path, FLOW>, io, wr, wi,
-                             dfr, dfi, dvr, dvi, bias, y, ws, S, M, Fa, N,
-                             S2, relu, RM);
+    err = cudaLaunchKernelEx(&cfg, fused_flow_kernel<Path, FLOW, SC>, io, wr,
+                             wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
+                             Fa, N, S2, relu, RM);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (G > 1)
-    err = launch_finish<Path, BP>(io, ws, bias, y, G, S2, N,
-                                  io.blocks() * BP, relu,
-                                  (cudaStream_t)stream);
+  if constexpr (FLOW != OS)    // os: one m range, no finish pass
+    if (G > 1)
+      err = launch_finish<Path, BP, SC>(io, ws, bias, sc, y, G, S2, N,
+                                        io.blocks() * BP, relu,
+                                        (cudaStream_t)stream);
   return (int)err;
+}
+
+// The instantiation for the shortcut's placement, chosen on the host: none
+// (sc null), global, or staged (output-stationary only).
+template <class Path, int FLOW>
+int dispatch(const Path& io, const float* wr, const float* wi,
+             const float* dfr, const float* dfi, const float* dvr,
+             const float* dvi, const float* bias, const float* sc, float* y,
+             float* ws, int S, int M, int Fa, int N, int S2, int relu,
+             int RM, int sc_staged, void* stream) {
+  if (sc == nullptr) {
+    if (sc_staged) return (int)cudaErrorInvalidValue;
+    return launch<Path, FLOW, SC_NONE>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
+                                       sc, y, ws, S, M, Fa, N, S2, relu, RM,
+                                       stream);
+  }
+  if (!sc_staged)
+    return launch<Path, FLOW, SC_GLOBAL>(io, wr, wi, dfr, dfi, dvr, dvi,
+                                         bias, sc, y, ws, S, M, Fa, N, S2,
+                                         relu, RM, stream);
+  if constexpr (FLOW == OS)
+    return launch<Path, OS, SC_STAGED>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
+                                       sc, y, ws, S, M, Fa, N, S2, relu, RM,
+                                       stream);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 bool windowed_ok(int S, int M, int P, int x_pitch, int Fa, int N, int S2) {
@@ -761,49 +831,56 @@ bool windowed_ok(int S, int M, int P, int x_pitch, int Fa, int N, int S2) {
 template <int FLOW>
 int windowed(const float* xt, const float* wr, const float* wi,
              const float* dfr, const float* dfi, const float* dvr,
-             const float* dvi, const float* bias, float* y, float* ws, int S,
-             int M, int P, int x_pitch, int Fa, int N, int S2, int relu,
-             int RM, void* stream) {
+             const float* dvi, const float* bias, const float* sc, float* y,
+             float* ws, int S, int M, int P, int x_pitch, int Fa, int N,
+             int S2, int relu, int RM, int sc_staged, void* stream) {
   if (!windowed_ok(S, M, P, x_pitch, Fa, N, S2))
     return (int)cudaErrorInvalidValue;
-  return launch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, wr, wi,
-                                    dfr, dfi, dvr, dvi, bias, y, ws, S, M,
-                                    Fa, N, S2, relu, RM, stream);
+  return dispatch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, wr, wi,
+                                      dfr, dfi, dvr, dvi, bias, sc, y, ws, S,
+                                      M, Fa, N, S2, relu, RM, sc_staged,
+                                      stream);
 }
 
 template <int FLOW>
 int halo(const float* x, const float* wr, const float* wi, const float* dfr,
          const float* dfi, const float* dvr, const float* dvi,
-         const float* bias, float* y, float* ws, int B, int M, int H, int W,
-         int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
-         int nbh, int nbw, int Fa, int N, int S2, int relu, int RM,
-         void* stream) {
+         const float* bias, const float* sc, float* y, float* ws, int B,
+         int M, int H, int W, int K, int ksize, int pad, int n_th, int n_tw,
+         int bth, int btw, int nbh, int nbw, int Fa, int N, int S2, int relu,
+         int RM, int sc_staged, void* stream) {
   HaloIn io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
                      nbh, nbw) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || Fa < 1 ||
       Fa > MAX_CLUSTER * FC || N < 1)
     return (int)cudaErrorInvalidValue;
-  return launch<HaloIn, FLOW>(io, wr, wi, dfr, dfi, dvr, dvi, bias, y, ws,
-                              K * K, M, Fa, N, S2, relu, RM, stream);
+  return dispatch<HaloIn, FLOW>(io, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y,
+                                ws, K * K, M, Fa, N, S2, relu, RM, sc_staged,
+                                stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point: `sc`, the optional residual shortcut laid out like y
+// (null for none), and `sc_staged` (output-stationary only: stage it in
+// shared memory; 0 reads it at the flush).
+
 // Windowed layer.  Fa is at most 8 * FSC_FC (one cluster of
 // ceil(Fa / FSC_FC) CTAs); xt's rows of P floats lie x_pitch floats apart;
-// the caller checks shapes, devices and layouts.
+// sc is [S2, N, P]; the caller checks shapes, devices and layouts.
 int fused_spectral_pipeline_f32(const float* xt, const float* wr,
                                 const float* wi, const float* dfr,
                                 const float* dfi, const float* dvr,
                                 const float* dvi, const float* bias,
-                                float* y, int S, int M, int P, int x_pitch,
-                                int Fa, int N, int S2, int relu,
-                                void* stream) {
-  return windowed<OS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, y, nullptr, S,
-                      M, P, x_pitch, Fa, N, S2, relu, BM, stream);
+                                float* y, const float* sc, int S, int M,
+                                int P, int x_pitch, int Fa, int N, int S2,
+                                int relu, int sc_staged, void* stream) {
+  return windowed<OS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, nullptr,
+                      S, M, P, x_pitch, Fa, N, S2, relu, BM, sc_staged,
+                      stream);
 }
 
 // Windowed layer, weight- / input-stationary over m ranges of RM channels
@@ -813,36 +890,38 @@ int fused_spectral_pipeline_ws_f32(const float* xt, const float* wr,
                                    const float* wi, const float* dfr,
                                    const float* dfi, const float* dvr,
                                    const float* dvi, const float* bias,
-                                   float* y, float* ws, int S, int M, int P,
-                                   int x_pitch, int Fa, int N, int S2,
-                                   int relu, int RM, void* stream) {
-  return windowed<WS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, y, ws, S, M, P,
-                      x_pitch, Fa, N, S2, relu, RM, stream);
+                                   float* y, const float* sc, float* ws,
+                                   int S, int M, int P, int x_pitch, int Fa,
+                                   int N, int S2, int relu, int RM,
+                                   int sc_staged, void* stream) {
+  return windowed<WS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
+                      P, x_pitch, Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_is_f32(const float* xt, const float* wr,
                                    const float* wi, const float* dfr,
                                    const float* dfi, const float* dvr,
                                    const float* dvi, const float* bias,
-                                   float* y, float* ws, int S, int M, int P,
-                                   int x_pitch, int Fa, int N, int S2,
-                                   int relu, int RM, void* stream) {
-  return windowed<IS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, y, ws, S, M, P,
-                      x_pitch, Fa, N, S2, relu, RM, stream);
+                                   float* y, const float* sc, float* ws,
+                                   int S, int M, int P, int x_pitch, int Fa,
+                                   int N, int S2, int relu, int RM,
+                                   int sc_staged, void* stream) {
+  return windowed<IS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
+                      P, x_pitch, Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
-// Halo layer: x [B, M, H, W] contiguous, y [B, N, H_out, W_out]; the tile
-// grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
+// Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
+// tile grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
 // FSC_BP tiles (spectral.halo_block_geometry), one CTA per (image, block).
 int fused_spectral_pipeline_halo_f32(
     const float* x, const float* wr, const float* wi, const float* dfr,
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
-    float* y, int B, int M, int H, int W, int K, int ksize, int pad,
-    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa, int N,
-    int S2, int relu, void* stream) {
-  return halo<OS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, y, nullptr, B, M, H,
-                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
-                  S2, relu, BM, stream);
+    float* y, const float* sc, int B, int M, int H, int W, int K, int ksize,
+    int pad, int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa,
+    int N, int S2, int relu, int sc_staged, void* stream) {
+  return halo<OS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, nullptr, B, M,
+                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
+                  S2, relu, BM, sc_staged, stream);
 }
 
 // Halo layer, weight- / input-stationary; ws (G > 1) holds
@@ -850,23 +929,25 @@ int fused_spectral_pipeline_halo_f32(
 int fused_spectral_pipeline_halo_ws_f32(
     const float* x, const float* wr, const float* wi, const float* dfr,
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
-    float* y, float* ws, int B, int M, int H, int W, int K, int ksize,
-    int pad, int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa,
-    int N, int S2, int relu, int RM, void* stream) {
-  return halo<WS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, y, ws, B, M, H, W, K,
-                  ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N, S2,
-                  relu, RM, stream);
+    float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
+    int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
+    int nbw, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return halo<WS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
+                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
+                  S2, relu, RM, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_halo_is_f32(
     const float* x, const float* wr, const float* wi, const float* dfr,
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
-    float* y, float* ws, int B, int M, int H, int W, int K, int ksize,
-    int pad, int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa,
-    int N, int S2, int relu, int RM, void* stream) {
-  return halo<IS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, y, ws, B, M, H, W, K,
-                  ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N, S2,
-                  relu, RM, stream);
+    float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
+    int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
+    int nbw, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return halo<IS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
+                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
+                  S2, relu, RM, sc_staged, stream);
 }
 
 }  // extern "C"

@@ -100,6 +100,15 @@
 // large (64-171 on VGG16), so the workspace, and a fold per tile block,
 // decide its time; is pays the fold once per group.
 //
+// Every entry point takes an optional residual shortcut `sc` laid out like
+// y (B6 residual, shortcut.cuh), added after the bias and before the ReLU
+// where the output is stored: B4/B5's flush, the flows' one-range store or
+// their finish pass.  B4/B5 read it from device memory at the flush or, with
+// `sc_staged`, prefetch cluster rank r's flush rows r, r + C, ... of the
+// CTA's 4 tiles x 64 lanes into shared memory before the channel loop
+// (ceil(S2 / C) rows of 64 x 4 floats after the Layout; the wrapper checks
+// that they fit, for the C this launch picks).
+//
 // Block sizes come from the build (-DSCH_*), set by the Python wrapper.
 
 #include <cooperative_groups.h>
@@ -108,6 +117,7 @@
 
 #include "cp_async.cuh"
 #include "halo.cuh"
+#include "shortcut.cuh"
 #include "split_k.cuh"
 
 #if !defined(SCH_BN) || !defined(SCH_THREADS)
@@ -145,12 +155,13 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // and, for os, its table rows; for is it holds the input while X~ is built
 // and the table rows afterwards.  The halo path also expands the raw rows
 // into one window stage.  The epilogue's inverse DFT and spatial partial
-// alias the psum.
+// alias the psum.  A staged shortcut (sc_floats) follows everything.
 struct Layout {
   int df, psum, xf, res, stage, stage_size, x_sz, idx_sz, tab_sz, tab_blk,
-      win, part, dv, total;
+      win, part, dv, sc, total;
   __host__ __device__ Layout(int flow, int S, int S2, int T, int R, int NP,
-                             int x_floats, int win_floats, int RM) {
+                             int x_floats, int win_floats, int RM,
+                             int sc_floats = 0) {
     df = 0;                                   // [S][DFP] (re, im)
     psum = df + 2 * S * DFP;                  // re, im [FMAX][BN] float4
     xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4; is:
@@ -169,7 +180,8 @@ struct Layout {
     dv = part + S2 * BN * BP;                 // [S2][FMAX] (re, im)
     const int loop_end = win + win_floats;
     const int epi_end = dv + 2 * S2 * FMAX;
-    total = loop_end > epi_end ? loop_end : epi_end;
+    sc = loop_end > epi_end ? loop_end : epi_end;   // [rows][BN][BP]
+    total = sc + sc_floats;
   }
 };
 
@@ -184,7 +196,7 @@ struct WindowedPath {
   };
   __host__ __device__ int blocks() const { return (P + BP - 1) / BP; }
   __host__ __device__ int x_floats(int S) const { return S * BP; }
-  int win_floats(int) const { return 0; }
+  __host__ __device__ int win_floats(int) const { return 0; }
   __device__ Blk block(int bx, int) const {
     return {bx * BP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
   }
@@ -231,8 +243,9 @@ __device__ __forceinline__ void stage_words(float* dst, const float* src,
 // One kernel for the three flows (FLOW) on either input path (Path).
 // Grid: os (tile block, group, cluster rank over channel chunks); ws (m
 // range, group); is (tile block, m range).  ws (the split-K workspace) is
-// written only when the flow has more than one m range.
-template <class Path, int FLOW>
+// written only when the flow has more than one m range.  SC: the
+// shortcut's placement (shortcut.cuh; staged for os only).
+template <class Path, int FLOW, int SC>
 __global__ void __launch_bounds__(NT, 1)
 fused_sched_kernel(const Path io, const int* __restrict__ idx,
                    const int* __restrict__ sel, const float* __restrict__ vr,
@@ -241,11 +254,14 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
                    const float* __restrict__ dfi,
                    const float* __restrict__ dvr,
                    const float* __restrict__ dvi,
-                   const float* __restrict__ bias, float* __restrict__ y,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ sc, float* __restrict__ y,
                    float* __restrict__ ws, int S, int M, int Mp, int T,
                    int R, int NP, int Fa, int N, int S2, int relu, int RM) {
+  static_assert(SC != SC_STAGED || FLOW == OS, "staged: os only");
   extern __shared__ __align__(16) float smem[];
-  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), 0, RM);
+  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S),
+                 SC == SC_STAGED ? io.win_floats(S) : 0, RM);
   float2* s_df = reinterpret_cast<float2*>(smem + L.df);
   float4* s_pr = reinterpret_cast<float4*>(smem + L.psum);
   float4* s_pi = s_pr + FMAX * BN;
@@ -409,6 +425,7 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
         const long long o = io.out_at(blk, s, gn, N, tq);
         if (o >= 0) {
           v += bias[gn];
+          if constexpr (SC == SC_GLOBAL) v += sc[o];
           if (relu) v = fmaxf(v, 0.f);
           y[o] = v;
         }
@@ -435,6 +452,20 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
     };
     float4* s_xr = s_x;
     float4* s_xi = s_x + FMAX;
+    // staged shortcut: the elements this thread adds at the flush (rows
+    // rank, rank + C, ... of lane n, tile tq), zero where nothing is
+    // stored; their group is waited for with the first channel's
+    float* s_sc = smem + L.sc;
+    if constexpr (SC == SC_STAGED) {
+      const int gn = g * NP + n;
+      for (int s = rank, q = 0; s < S2; s += n_ranks, ++q) {
+        const long long o =
+            n < NP && gn < N ? io.out_at(blk, s, gn, N, tq) : -1;
+        cp_async4(s_sc + (q * BN + n) * BP + tq, o >= 0 ? sc + o : sc,
+                  o >= 0);
+      }
+      cp_async_commit();
+    }
     if (m_lo < m_hi) load_step(0, m_lo);
     for (int m = m_lo; m < m_hi; ++m) {
       const int buf = (m - m_lo) & 1;
@@ -451,13 +482,15 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
     fold();
     cluster.sync();                          // every rank's partial is ready
 
-    // Stage 4: sum the cluster's partials in rank order, bias + ReLU, one
-    // write per output element; rank r finishes rows r, r + C, ...
+    // Stage 4: sum the cluster's partials in rank order, bias (+
+    // shortcut) + ReLU, one write per output element; rank r finishes rows
+    // r, r + C, ...
     const float* part[MAX_CLUSTER];
     for (int q = 0; q < n_ranks; ++q)
       part[q] = cluster.map_shared_rank(s_part, q);
     const int gn = g * NP + n;
-    for (int s = rank; s < S2; s += n_ranks) {
+    if constexpr (SC == SC_STAGED) cp_async_wait_all();  // long since landed
+    for (int s = rank, row = 0; s < S2; s += n_ranks, ++row) {
       const int at = (s * BN + n) * BP + tq;
       float v = 0.f;
       for (int q = 0; q < n_ranks; ++q) v += part[q][at];
@@ -465,6 +498,8 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
           n < NP && gn < N ? io.out_at(blk, s, gn, N, tq) : -1;
       if (o >= 0) {
         v += bias[gn];
+        if constexpr (SC == SC_GLOBAL) v += sc[o];
+        if constexpr (SC == SC_STAGED) v += s_sc[(row * BN + n) * BP + tq];
         if (relu) v = fmaxf(v, 0.f);
         y[o] = v;
       }
@@ -551,25 +586,20 @@ fused_sched_kernel(const Path io, const int* __restrict__ idx,
 // the input channels over a cluster of C CTAs, C the smallest count that
 // gives about two CTAs per SM (at most 8, at most M).  Sizes whose shared
 // memory exceeds the per-block limit fail cudaFuncSetAttribute.
-template <class Path, int FLOW>
+template <class Path, int FLOW, int SC>
 int launch(const Path& io, const int* idx, const int* sel, const float* vr,
            const float* vi, const float* dfr, const float* dfi,
-           const float* dvr, const float* dvi, const float* bias, float* y,
-           float* ws, int S, int M, int GN, int Mp, int T, int R, int NP,
-           int Fa, int N, int S2, int relu, int RM, void* stream) {
+           const float* dvr, const float* dvi, const float* bias,
+           const float* sc, float* y, float* ws, int S, int M, int GN,
+           int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
+           int RM, void* stream) {
   if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || GN < 1 || T < 1 ||
       R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP || S2 < 1 ||
       RM < 1)
     return (int)cudaErrorInvalidValue;
   const int G = FLOW == OS ? 1 : (M + RM - 1) / RM;
   if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), io.win_floats(S),
-                 RM);
-  const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sched_kernel<Path, FLOW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   int C = 1;
   if (FLOW == OS) {
     int dev = 0, sms = 0;
@@ -581,6 +611,15 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
     C = C < 1 ? 1 : C > MAX_CLUSTER ? MAX_CLUSTER : C;
     C = C > M ? M : C;
   }
+  // a staged shortcut: ceil(S2 / C) rows of the CTA's lanes x tiles
+  const int sc_floats = SC == SC_STAGED ? (S2 + C - 1) / C * BN * BP : 0;
+  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), io.win_floats(S),
+                 RM, sc_floats);
+  const size_t smem = (size_t)L.total * sizeof(float);
+  err = cudaFuncSetAttribute(fused_sched_kernel<Path, FLOW, SC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = FLOW == OS ? dim3(io.blocks(), GN, C)
               : FLOW == WS ? dim3(G, GN, 1)
@@ -595,68 +634,102 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
   attr[0].val.clusterDim.z = C;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_sched_kernel<Path, FLOW>, io, idx,
-                           sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, S,
-                           M, Mp, T, R, NP, Fa, N, S2, relu, RM);
+  err = cudaLaunchKernelEx(&cfg, fused_sched_kernel<Path, FLOW, SC>, io, idx,
+                           sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
+                           S, M, Mp, T, R, NP, Fa, N, S2, relu, RM);
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (G > 1)
-    err = launch_finish<Path, BP>(io, ws, bias, y, G, S2, N,
-                                  io.blocks() * BP, relu,
-                                  (cudaStream_t)stream);
+  if constexpr (FLOW != OS)    // os: one m range, no finish pass
+    if (G > 1)
+      err = launch_finish<Path, BP, SC>(io, ws, bias, sc, y, G, S2, N,
+                                        io.blocks() * BP, relu,
+                                        (cudaStream_t)stream);
   return (int)err;
+}
+
+// The instantiation for the shortcut's placement, chosen on the host: none
+// (sc null), global, or staged (output-stationary only).
+template <class Path, int FLOW>
+int dispatch(const Path& io, const int* idx, const int* sel, const float* vr,
+             const float* vi, const float* dfr, const float* dfi,
+             const float* dvr, const float* dvi, const float* bias,
+             const float* sc, float* y, float* ws, int S, int M, int GN,
+             int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
+             int RM, int sc_staged, void* stream) {
+  if (sc == nullptr) {
+    if (sc_staged) return (int)cudaErrorInvalidValue;
+    return launch<Path, FLOW, SC_NONE>(io, idx, sel, vr, vi, dfr, dfi, dvr,
+                                       dvi, bias, sc, y, ws, S, M, GN, Mp, T,
+                                       R, NP, Fa, N, S2, relu, RM, stream);
+  }
+  if (!sc_staged)
+    return launch<Path, FLOW, SC_GLOBAL>(io, idx, sel, vr, vi, dfr, dfi,
+                                         dvr, dvi, bias, sc, y, ws, S, M, GN,
+                                         Mp, T, R, NP, Fa, N, S2, relu, RM,
+                                         stream);
+  if constexpr (FLOW == OS)
+    return launch<Path, OS, SC_STAGED>(io, idx, sel, vr, vi, dfr, dfi, dvr,
+                                       dvi, bias, sc, y, ws, S, M, GN, Mp, T,
+                                       R, NP, Fa, N, S2, relu, RM, stream);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 template <int FLOW>
 int windowed(const float* xt, const int* idx, const int* sel,
              const float* vr, const float* vi, const float* dfr,
              const float* dfi, const float* dvr, const float* dvi,
-             const float* bias, float* y, float* ws, int S, int M, int P,
-             int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa,
-             int N, int S2, int relu, int RM, void* stream) {
+             const float* bias, const float* sc, float* y, float* ws, int S,
+             int M, int P, int x_pitch, int GN, int Mp, int T, int R, int NP,
+             int Fa, int N, int S2, int relu, int RM, int sc_staged,
+             void* stream) {
   if (P < 1 || x_pitch < P) return (int)cudaErrorInvalidValue;
-  return launch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, idx, sel,
-                                    vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
-                                    S, M, GN, Mp, T, R, NP, Fa, N, S2, relu,
-                                    RM, stream);
+  return dispatch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, idx, sel,
+                                      vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
+                                      ws, S, M, GN, Mp, T, R, NP, Fa, N, S2,
+                                      relu, RM, sc_staged, stream);
 }
 
 template <int FLOW>
 int halo(const float* x, const int* idx, const int* sel, const float* vr,
          const float* vi, const float* dfr, const float* dfi,
-         const float* dvr, const float* dvi, const float* bias, float* y,
-         float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
-         int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp,
-         int T, int R, int NP, int Fa, int N, int S2, int relu, int RM,
-         void* stream) {
+         const float* dvr, const float* dvi, const float* bias,
+         const float* sc, float* y, float* ws, int B, int M, int H, int W,
+         int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
+         int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
+         int S2, int relu, int RM, int sc_staged, void* stream) {
   HaloIn io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
                      nbh, nbw) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || NP < 1)
     return (int)cudaErrorInvalidValue;
   const int GN = (N + NP - 1) / NP;
-  return launch<HaloIn, FLOW>(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
-                              bias, y, ws, K * K, M, GN, Mp, T, R, NP, Fa, N,
-                              S2, relu, RM, stream);
+  return dispatch<HaloIn, FLOW>(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                                bias, sc, y, ws, K * K, M, GN, Mp, T, R, NP,
+                                Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every entry point: `sc`, the optional residual shortcut laid out like y
+// (null for none), and `sc_staged` (output-stationary only: stage it in
+// shared memory; 0 reads it at the flush).
+
 // Windowed layer.  Tables are [GN, Mp, T, R] (idx) and [GN, Mp, T, NP]
 // (sel, vr, vi) with NP <= SCH_BN lanes per group and Mp >= M; Fa is at
-// most 64; xt's rows of P floats lie x_pitch floats apart.  The caller
-// checks shapes, devices and layouts.
+// most 64; xt's rows of P floats lie x_pitch floats apart; sc is
+// [S2, N, P].  The caller checks shapes, devices and layouts.
 int fused_spectral_pipeline_scheduled_f32(
     const float* xt, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, int S, int M, int P,
-    int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, void* stream) {
-  return windowed<OS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y,
+    const float* dvi, const float* bias, float* y, const float* sc, int S,
+    int M, int P, int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa,
+    int N, int S2, int relu, int sc_staged, void* stream) {
+  return windowed<OS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                       nullptr, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
-                      relu, 1, stream);
+                      relu, 1, sc_staged, stream);
 }
 
 // Windowed layer, weight- / input-stationary over m ranges of RM channels;
@@ -665,38 +738,41 @@ int fused_spectral_pipeline_scheduled_f32(
 int fused_spectral_pipeline_scheduled_ws_f32(
     const float* xt, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, float* ws, int S, int M,
-    int P, int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, int RM, void* stream) {
-  return windowed<WS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
-                      S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2, relu, RM,
-                      stream);
+    const float* dvi, const float* bias, float* y, const float* sc,
+    float* ws, int S, int M, int P, int x_pitch, int GN, int Mp, int T,
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return windowed<WS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
+                      ws, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
+                      relu, RM, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_scheduled_is_f32(
     const float* xt, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, float* ws, int S, int M,
-    int P, int x_pitch, int GN, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, int RM, void* stream) {
-  return windowed<IS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws,
-                      S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2, relu, RM,
-                      stream);
+    const float* dvi, const float* bias, float* y, const float* sc,
+    float* ws, int S, int M, int P, int x_pitch, int GN, int Mp, int T,
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return windowed<IS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
+                      ws, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
+                      relu, RM, sc_staged, stream);
 }
 
-// Halo layer: x [B, M, H, W] contiguous, y [B, N, H_out, W_out]; the tile
-// grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <= 4
-// tiles (spectral.halo_block_geometry); tables as for the windowed layer.
+// Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
+// tile grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
+// 4 tiles (spectral.halo_block_geometry); tables as for the windowed layer.
 int fused_spectral_pipeline_scheduled_halo_f32(
     const float* x, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, int B, int M, int H,
-    int W, int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
-    int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N, int S2,
-    int relu, void* stream) {
-  return halo<OS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, nullptr,
-                  B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
-                  Mp, T, R, NP, Fa, N, S2, relu, 1, stream);
+    const float* dvi, const float* bias, float* y, const float* sc, int B,
+    int M, int H, int W, int K, int ksize, int pad, int n_th, int n_tw,
+    int bth, int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa,
+    int N, int S2, int relu, int sc_staged, void* stream) {
+  return halo<OS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
+                  nullptr, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
+                  nbh, nbw, Mp, T, R, NP, Fa, N, S2, relu, 1, sc_staged,
+                  stream);
 }
 
 // Halo layer, weight- / input-stationary; ws (G > 1) holds
@@ -704,25 +780,27 @@ int fused_spectral_pipeline_scheduled_halo_f32(
 int fused_spectral_pipeline_scheduled_halo_ws_f32(
     const float* x, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, float* ws, int B, int M,
-    int H, int W, int K, int ksize, int pad, int n_th, int n_tw, int bth,
-    int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, int RM, void* stream) {
-  return halo<WS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, B, M,
-                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Mp, T,
-                  R, NP, Fa, N, S2, relu, RM, stream);
+    const float* dvi, const float* bias, float* y, const float* sc,
+    float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
+    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp, int T,
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return halo<WS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
+                  B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
+                  Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_scheduled_halo_is_f32(
     const float* x, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
-    const float* dvi, const float* bias, float* y, float* ws, int B, int M,
-    int H, int W, int K, int ksize, int pad, int n_th, int n_tw, int bth,
-    int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
-    int S2, int relu, int RM, void* stream) {
-  return halo<IS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, y, ws, B, M,
-                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Mp, T,
-                  R, NP, Fa, N, S2, relu, RM, stream);
+    const float* dvi, const float* bias, float* y, const float* sc,
+    float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
+    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp, int T,
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
+    void* stream) {
+  return halo<IS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
+                  B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
+                  Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 }  // extern "C"

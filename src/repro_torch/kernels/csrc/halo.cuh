@@ -200,7 +200,7 @@ struct HaloPath {
   };
   __host__ __device__ int blocks() const { return g.B * g.nbh * g.nbw; }
   __host__ __device__ int x_floats(int) const { return BM * g.chan; }
-  int win_floats(int S) const { return S * BM * BP + S; }
+  __host__ __device__ int win_floats(int S) const { return S * BM * BP + S; }
   __device__ Blk block(int bx, int tid) const {
     const HaloBlock hb = HaloBlock::of(g, bx);
     return {hb, halo_lane<NT, BM, BP>(g, hb, tid)};

@@ -33,10 +33,20 @@ and walks every output-channel block) sum each m range's partial IFFT in
 a split-K workspace that a second launch reduces in ascending m-range
 order before bias + ReLU.  The plain versions follow the same sum order.
 
+Every wrapper also takes a residual shortcut (``shortcut=``, the
+reference's ``_residual_kernel`` operand, B6 residual): a tensor laid out
+like the wrapper's output that the kernel adds after the bias and before
+the ReLU where it stores each element, bit for bit the unfused launch
+(ReLU off) followed by ``+ shortcut`` and the ReLU.  The output-
+stationary kernels read it from device memory at the flush
+(``shortcut_placement="hbm"``) or prefetch it into shared memory before
+their channel loop (``"vmem"``); the flows read it in their finish pass.
+
 Around the windowed kernels, ``execute_layer_plan`` does the windowed
 input path's host-side layout work: overlap-save window extraction into
-the s-leading ``[S, M, B*T]`` layout, and valid-tile assembly of the
-``[t^2, N, B*T]`` output.  The halo kernels need neither.
+the s-leading ``[S, M, B*T]`` layout, valid-tile assembly of the
+``[t^2, N, B*T]`` output and, for a shortcut, its relayout into that
+tile layout (``_shortcut_tiles``).  The halo kernels need none of them.
 """
 
 from __future__ import annotations
@@ -103,9 +113,28 @@ KERNELS = ("fused_spectral_pipeline", "fused_spectral_pipeline_scheduled",
 SMEM_PER_CTA = 232_448
 _SCHED_DFP, _SCHED_FMAX = 72, 64     # scheduled kernel: DFT row pitch, bins
 
+# Where an output-stationary kernel reads a residual shortcut: from device
+# memory at the flush, or staged into shared memory before its channel
+# loop (the flows' finish pass always reads it from device memory).
+SHORTCUT_PLACEMENTS = ("hbm", "vmem")
+
 
 def _align4(n: int) -> int:
     return (n + 3) & ~3
+
+
+def staged_rows(s2: int, ranks: int) -> int:
+    """Output rows of a CTA's rectangle that a staged ('vmem') shortcut
+    holds: cluster rank r of C flushes rows r, r + C, ... of S2."""
+    return -(-s2 // ranks)
+
+
+def sched_cluster(blocks: int, m: int, sms: int) -> int:
+    """C, the scheduled output-stationary kernel's cluster over input
+    channels: the smallest count giving about two CTAs per SM for
+    ``blocks`` (tile block, group) pairs, at most MAX_CLUSTER and M (the
+    rule of ``launch`` in ``csrc/fused_spectral_conv_scheduled.cu``)."""
+    return min(max(1, -(-2 * sms // blocks)), MAX_CLUSTER, m)
 
 
 def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
@@ -118,34 +147,37 @@ def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
     return bm * chan, s * bm * bp + s
 
 
-def plane_smem_bytes(flow: str, geo: SpectralGeometry,
-                     block_m: int = BLOCK_M,
-                     hg: HaloGeometry | None = None) -> int:
-    """Dynamic shared memory of one plane-kernel CTA: the ``Layout`` of
-    ``csrc/fused_spectral_conv.cu`` (windowed when ``hg`` is None)."""
-    s, s2 = geo.fft_size ** 2, geo.tile ** 2
+def _plane_layout_bytes(flow: str, s: int, s2: int, block_m: int,
+                        x_floats: int, win: int, sc_rows: int) -> int:
     mp, w_plane = BLOCK_M * BLOCK_P, BIN_CHUNK * BLOCK_N * BLOCK_M
-    x_floats, win = ((s * mp, 0) if hg is None
-                     else _halo_stage(geo, hg, BLOCK_M, BLOCK_P))
     x_sz = _align4(x_floats)
     head = (2 * s * BIN_CHUNK + 2 * s2 * BIN_CHUNK
             + 2 * BIN_CHUNK * (block_m * BLOCK_P if flow == IS else mp)
             + (2 * BIN_CHUNK * BLOCK_N * block_m if flow == WS else 0))
     x_stage = {OS: x_sz + 2 * w_plane, WS: x_sz,
                IS: max(x_sz, 2 * w_plane)}[flow]
-    return 4 * (head + max(2 * x_stage + win, s2 * BLOCK_N * BLOCK_P))
+    return 4 * (head + max(2 * x_stage + win, s2 * BLOCK_N * BLOCK_P)
+                + sc_rows * BLOCK_N * BLOCK_P)
 
 
-def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
-                     t_cycles: int, r: int, n_pe: int,
-                     hg: HaloGeometry | None = None) -> int:
-    """Dynamic shared memory of one scheduled-kernel CTA: the ``Layout``
-    of ``csrc/fused_spectral_conv_scheduled.cu`` for tables of
-    ``t_cycles`` cycles, ``r`` replicas and ``n_pe`` lanes."""
-    s, s2 = geo.fft_size ** 2, geo.tile ** 2
+def plane_smem_bytes(flow: str, geo: SpectralGeometry,
+                     block_m: int = BLOCK_M,
+                     hg: HaloGeometry | None = None,
+                     sc_rows: int = 0) -> int:
+    """Dynamic shared memory of one plane-kernel CTA: the ``Layout`` of
+    ``csrc/fused_spectral_conv.cu`` (windowed when ``hg`` is None), with
+    ``sc_rows`` rows of a staged shortcut (``staged_rows``)."""
+    s = geo.fft_size ** 2
+    x_floats, win = ((s * BLOCK_M * BLOCK_P, 0) if hg is None
+                     else _halo_stage(geo, hg, BLOCK_M, BLOCK_P))
+    return _plane_layout_bytes(flow, s, geo.tile ** 2, block_m, x_floats,
+                               win, sc_rows)
+
+
+def _sched_layout_bytes(flow: str, s: int, s2: int, block_m: int,
+                        t_cycles: int, r: int, n_pe: int, x_floats: int,
+                        win: int, sc_rows: int) -> int:
     bp, fmax = SCHED_BLOCK_P, _SCHED_FMAX
-    x_floats, win = ((s * bp, 0) if hg is None
-                     else _halo_stage(geo, hg, 1, bp))
     x_sz = _align4(x_floats)
     tab_blk = _align4(t_cycles * r) + 3 * _align4(t_cycles * n_pe)
     psum = 2 * s * _SCHED_DFP
@@ -154,12 +186,30 @@ def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
              + (block_m * tab_blk if flow == WS else 0))
     size = {OS: x_sz + tab_blk, WS: x_sz, IS: max(x_sz, tab_blk)}[flow]
     epi = psum + s2 * SCHED_BLOCK_N * bp + 2 * s2 * fmax
-    return 4 * max(stage + 2 * size + win, epi)
+    return 4 * (max(stage + 2 * size + win, epi)
+                + sc_rows * SCHED_BLOCK_N * bp)
+
+
+def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
+                     t_cycles: int, r: int, n_pe: int,
+                     hg: HaloGeometry | None = None,
+                     sc_rows: int = 0) -> int:
+    """Dynamic shared memory of one scheduled-kernel CTA: the ``Layout``
+    of ``csrc/fused_spectral_conv_scheduled.cu`` for tables of
+    ``t_cycles`` cycles, ``r`` replicas and ``n_pe`` lanes, with
+    ``sc_rows`` rows of a staged shortcut."""
+    s = geo.fft_size ** 2
+    x_floats, win = ((s * SCHED_BLOCK_P, 0) if hg is None
+                     else _halo_stage(geo, hg, 1, SCHED_BLOCK_P))
+    return _sched_layout_bytes(flow, s, geo.tile ** 2, block_m, t_cycles, r,
+                               n_pe, x_floats, win, sc_rows)
 
 
 # Kernel launches per (kernel, flow) entry point, counted where the kernel
-# is launched (a flow's split-K finish pass belongs to its launch).
+# is launched (a flow's split-K finish pass belongs to its launch), and of
+# those the launches that fused a residual shortcut.
 LAUNCHES = {entry_point(k, f): 0 for k in KERNELS for f in FLOWS}
+RESIDUAL_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -243,26 +293,34 @@ def _flow_sum(partial, m: int, flow: str, block_m: int | None
     return acc
 
 
-def _epilogue(y, bias, relu: bool) -> torch.Tensor:
-    y = y + bias[0][None, :, None]
+def _add_shortcut(y, shortcut, relu: bool) -> torch.Tensor:
+    """The epilogue after the bias: (+ shortcut) -> ReLU."""
+    if shortcut is not None:
+        y = y + shortcut
     return torch.relu(y) if relu else y
+
+
+def _epilogue(y, bias, relu: bool, shortcut=None) -> torch.Tensor:
+    """bias -> (+ shortcut) -> ReLU on [S2, N, P] tiles, the kernels' order
+    (fp32 adds, no FMA)."""
+    return _add_shortcut(y + bias[0][None, :, None], shortcut, relu)
 
 
 def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
                                       bias, *, relu: bool,
                                       flow: str = OS,
-                                      block_m: int | None = None
-                                      ) -> torch.Tensor:
+                                      block_m: int | None = None,
+                                      shortcut=None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel (same contract as
     ``fused_spectral_pipeline``): FFT GEMM, Karatsuba complex ``bmm``,
     valid-row IFFT GEMM per the flow's m ranges, summed in ascending
-    order, then bias + ReLU."""
+    order, then bias (+ shortcut) + ReLU."""
     if xt.is_cuda:
         repro_torch.strict_fp32()
     y = _flow_sum(lambda m0, m1: _plane_spatial(
         xt[:, m0:m1], wr[:, :, m0:m1], wi[:, :, m0:m1], dfr, dfi, dvr,
         dvi), xt.shape[1], flow, block_m)
-    return _epilogue(y, bias, relu)
+    return _epilogue(y, bias, relu, shortcut)
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
@@ -274,15 +332,16 @@ def build_all() -> dict[str, ctypes.CDLL]:
             "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS},
         "fused_spectral_conv_scheduled": {
             "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}})
-    # pointers, then ints, then the stream
+    # pointers (the output, then the shortcut), then ints (the last is
+    # sc_staged), then the stream
     plane, sched = libs["fused_spectral_conv"], \
         libs["fused_spectral_conv_scheduled"]
     # a flow entry point takes the workspace pointer and block_m besides
     for lib, kernel, n_ptr, n_int in (
-            (plane, "fused_spectral_pipeline", 9, 8),
-            (plane, "fused_spectral_pipeline_halo", 9, 17),
-            (sched, "fused_spectral_pipeline_scheduled", 11, 13),
-            (sched, "fused_spectral_pipeline_scheduled_halo", 11, 21)):
+            (plane, "fused_spectral_pipeline", 10, 9),
+            (plane, "fused_spectral_pipeline_halo", 10, 18),
+            (sched, "fused_spectral_pipeline_scheduled", 12, 14),
+            (sched, "fused_spectral_pipeline_scheduled_halo", 12, 22)):
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
             extra = flow != OS
@@ -367,29 +426,69 @@ def _flow_ranges(flow: str, block_m, m: int, kind: str) -> int:
     return -(-m // block_m)
 
 
+def _check_shortcut(shortcut, shape: tuple, device, flow: str,
+                    placement: str) -> None:
+    """A shortcut is laid out exactly like the output (``shape``), f32,
+    contiguous, on the output's device; 'vmem' is output-stationary's."""
+    if placement not in SHORTCUT_PLACEMENTS:
+        raise ValueError(f"shortcut_placement must be one of "
+                         f"{SHORTCUT_PLACEMENTS}, got {placement!r}")
+    if placement == "vmem" and flow != OS:
+        raise ValueError(f"flow {flow!r} reads the shortcut in its finish "
+                         f"pass: 'vmem' is for output-stationary only")
+    if shortcut is None:
+        return
+    if tuple(shortcut.shape) != tuple(shape):
+        raise ValueError(f"shortcut has shape {tuple(shortcut.shape)}, the "
+                         f"output {tuple(shape)}")
+    if shortcut.dtype != torch.float32 or not shortcut.is_contiguous():
+        raise ValueError(f"shortcut must be contiguous float32, got "
+                         f"{shortcut.dtype} with strides {shortcut.stride()}")
+    if shortcut.device != device:
+        raise ValueError(f"shortcut is on {shortcut.device}, the input on "
+                         f"{device}")
+
+
+def _check_staged_fits(kernel: str, smem: int) -> None:
+    """Refuse a 'vmem' shortcut whose CTA would need more shared memory
+    than the card gives one (the launch would fail)."""
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"{kernel}: staging the shortcut ('vmem') needs "
+                         f"{smem} bytes of shared memory per CTA, over the "
+                         f"{SMEM_PER_CTA} a CTA may take; use 'hbm'")
+
+
 def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
-            device, ptrs: tuple, ints: tuple, s2: int, n: int) -> None:
+            device, ptrs: tuple, ints: tuple, s2: int, n: int,
+            shortcut=None, staged: bool = False) -> None:
     """Call a kernel's entry point for ``flow`` on the current stream
     (the flows get a split-K workspace of G * S2 * N * slots floats when
-    G > 1, and ``block_m``); raise on a CUDA error, count the launch."""
+    G > 1, and ``block_m``), with the shortcut (or a null pointer) after
+    the output and ``staged`` last; raise on a CUDA error, count the
+    launch (and, with a shortcut, the residual launch)."""
     name = entry_point(kernel, flow)
     fn = getattr(lib, name + "_f32")
     stream = torch.cuda.current_stream().cuda_stream
+    sc = 0 if shortcut is None else shortcut.data_ptr()
     if flow == OS:
-        err = fn(*ptrs, *ints, stream)
+        err = fn(*ptrs, sc, *ints, int(staged), stream)
     else:
         ws = (torch.empty(g * s2 * n * slots, dtype=torch.float32,
                           device=device) if g > 1 else None)
-        err = fn(*ptrs, 0 if ws is None else ws.data_ptr(), *ints,
-                 int(block_m), stream)
+        err = fn(*ptrs, sc, 0 if ws is None else ws.data_ptr(), *ints,
+                 int(block_m), int(staged), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
+    if shortcut is not None:
+        RESIDUAL_LAUNCHES[name] += 1
 
 
 def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                             relu: bool, flow: str = OS,
-                            block_m: int | None = None) -> torch.Tensor:
+                            block_m: int | None = None, shortcut=None,
+                            shortcut_placement: str = "hbm"
+                            ) -> torch.Tensor:
     """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two for
     a weight-/input-stationary flow with more than one m range: the
     split-K finish pass).
@@ -406,6 +505,13 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     flow / block_m: the reuse flow; weight-/input-stationary take m
                              ranges of ``block_m`` channels (a value of
                              ``FLOW_BLOCK_M``)
+    shortcut: [S2, N, P] f32 residual operand in the output's layout
+                             (``_shortcut_tiles``), added after the bias
+                             and before the ReLU; None for none
+    shortcut_placement: 'hbm' (read at the flush) or 'vmem' (output-
+                             stationary: staged in shared memory before
+                             the channel loop; refused when it does not
+                             fit beside the kernel's stages)
     returns [S2, N, P] f32 finished outputs (epilogue applied).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
@@ -413,16 +519,23 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     the card has, which the launch reports).
     """
     g = _flow_ranges(flow, block_m, xt.shape[1], "plane")
-    if xt.device.type == "cpu":
-        return fused_spectral_pipeline_reference(
-            xt, wr, wi, dfr, dfi, dvr, dvi, bias, relu=relu, flow=flow,
-            block_m=block_m)
-    if xt.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xt.device}")
-    _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias)
     s, m, p = xt.shape
     fa, n, _ = wr.shape
     s2 = dvr.shape[0]
+    _check_shortcut(shortcut, (s2, n, p), xt.device, flow,
+                    shortcut_placement)
+    if xt.device.type == "cpu":
+        return fused_spectral_pipeline_reference(
+            xt, wr, wi, dfr, dfi, dvr, dvi, bias, relu=relu, flow=flow,
+            block_m=block_m, shortcut=shortcut)
+    if xt.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xt.device}")
+    _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias)
+    staged = shortcut is not None and shortcut_placement == "vmem"
+    if staged:
+        _check_staged_fits("fused_spectral_pipeline", _plane_layout_bytes(
+            OS, s, s2, BLOCK_M, s * BLOCK_M * BLOCK_P, 0,
+            staged_rows(s2, -(-fa // BIN_CHUNK))))
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n, p), dtype=torch.float32, device=xt.device)
         _launch(library(), "fused_spectral_pipeline", flow, block_m, g,
@@ -430,7 +543,8 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                 (xt.data_ptr(), wr.data_ptr(), wi.data_ptr(),
                  dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
                  dvi.data_ptr(), bias.data_ptr(), y.data_ptr()),
-                (s, m, p, xt.stride(1), fa, n, s2, int(relu)), s2, n)
+                (s, m, p, xt.stride(1), fa, n, s2, int(relu)), s2, n,
+                shortcut, staged)
     return y
 
 
@@ -476,19 +590,19 @@ def _sched_spatial(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
 
 def fused_spectral_pipeline_scheduled_reference(
         xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *, n_out: int,
-        relu: bool, flow: str = OS,
-        block_m: int | None = None) -> torch.Tensor:
+        relu: bool, flow: str = OS, block_m: int | None = None,
+        shortcut=None) -> torch.Tensor:
     """Plain PyTorch version of the scheduled kernel (same contract as
     ``fused_spectral_pipeline_scheduled``): it executes the tables per
     the flow's m ranges (``_sched_spatial``), sums the ranges' partials
-    in ascending order, then bias + ReLU."""
+    in ascending order, then bias (+ shortcut) + ReLU."""
     if xt.is_cuda:
         repro_torch.strict_fp32()
     y = _flow_sum(lambda m0, m1: _sched_spatial(
         xt[:, m0:m1], idx[:, m0:m1], sel[:, m0:m1], vr[:, m0:m1],
         vi[:, m0:m1], dfr, dfi, dvr, dvi, n_out), xt.shape[1], flow,
         block_m)
-    return _epilogue(y, bias, relu)
+    return _epilogue(y, bias, relu, shortcut)
 
 
 def library_scheduled() -> ctypes.CDLL:
@@ -542,7 +656,9 @@ def _check_table_operands(ops: dict[str, torch.Tensor], s: int, m: int,
 def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                                       dvi, bias, *, n_out: int,
                                       relu: bool, flow: str = OS,
-                                      block_m: int | None = None
+                                      block_m: int | None = None,
+                                      shortcut=None,
+                                      shortcut_placement: str = "hbm"
                                       ) -> torch.Tensor:
     """FFT -> SCHEDULED sparse Hadamard -> IFFT (+ bias/ReLU) in one
     kernel launch (plus the split-K finish pass for a weight-/input-
@@ -556,6 +672,8 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     vr/vi: [GN, Mp, T, N'] f32  lane weights (zero = idle lane)
     dfr/dfi: [Fa, S], dvr/dvi: [S2, Fa], bias: [1, n_out]
     flow / block_m: the reuse flow and, for ws/is, the m-range width
+    shortcut / shortcut_placement: [S2, n_out, P] residual operand, as
+                                for ``fused_spectral_pipeline``
     returns [S2, n_out, P] f32 finished outputs; output channel
     g*N' + n is lane n of group g.
 
@@ -565,19 +683,28 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     (or raise).
     """
     g = _flow_ranges(flow, block_m, xt.shape[1], "scheduled")
+    s, m, p = xt.shape
+    s2 = dvr.shape[0]
+    _check_shortcut(shortcut, (s2, n_out, p), xt.device, flow,
+                    shortcut_placement)
     if xt.device.type == "cpu":
         return fused_spectral_pipeline_scheduled_reference(
             xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, n_out=n_out,
-            relu=relu, flow=flow, block_m=block_m)
+            relu=relu, flow=flow, block_m=block_m, shortcut=shortcut)
     if xt.device.type != "cuda":
         raise ValueError(f"no kernel for device {xt.device}")
     _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
                               bias, n_out)
-    s, m, p = xt.shape
     gn, mp, n_cycles, r = idx.shape
     n_pe = sel.shape[3]
     fa = dfr.shape[0]
-    s2 = dvr.shape[0]
+    staged = shortcut is not None and shortcut_placement == "vmem"
+    if staged:
+        c = sched_cluster(-(-p // SCHED_BLOCK_P) * gn, m, _sms(xt.device))
+        _check_staged_fits(
+            "fused_spectral_pipeline_scheduled", _sched_layout_bytes(
+                OS, s, s2, 1, n_cycles, r, n_pe, s * SCHED_BLOCK_P, 0,
+                staged_rows(s2, c)))
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n_out, p), dtype=torch.float32,
                         device=xt.device)
@@ -589,7 +716,7 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (s, m, p, xt.stride(1), gn, mp, n_cycles, r, n_pe, fa,
-                 n_out, s2, int(relu)), s2, n_out)
+                 n_out, s2, int(relu)), s2, n_out, shortcut, staged)
     return y
 
 
@@ -631,38 +758,45 @@ def _crop_canvas(y: torch.Tensor, geo: SpectralGeometry, n: int
     return y[:, :n, start:start + h_out, start:start + w_out]
 
 
+def _halo_finish(y, geo: SpectralGeometry, hg: HaloGeometry, b: int,
+                 n: int, shortcut, relu: bool) -> torch.Tensor:
+    """[t^2, N, B*nb*bt] block-major outputs (bias applied) -> contiguous
+    [B, N, H_out, W_out]: canvas relayout, crop, (+ shortcut) -> ReLU."""
+    y = _crop_canvas(_stage_canvas(y, geo, hg, b), geo, n)
+    return _add_shortcut(y, shortcut, relu).contiguous()
+
+
 def fused_spectral_pipeline_halo_reference(x, wr, wi, dfr, dfi, dvr, dvi,
                                            bias, *, geo: SpectralGeometry,
                                            hg: HaloGeometry, relu: bool,
                                            flow: str = OS,
-                                           block_m: int | None = None
-                                           ) -> torch.Tensor:
+                                           block_m: int | None = None,
+                                           shortcut=None) -> torch.Tensor:
     """Plain PyTorch version of the halo plane kernel (same contract as
     ``fused_spectral_pipeline_halo``): the one-hot halo gather, block by
-    block, then the plain plane pipeline of the flow, the canvas
-    relayout and the crop.  Returns a contiguous [B, N, H_out, W_out]."""
+    block, then the plain plane pipeline of the flow (bias only), the
+    canvas relayout, the crop, (+ shortcut) and the ReLU.  Returns a
+    contiguous [B, N, H_out, W_out]."""
     y = fused_spectral_pipeline_reference(
         _halo_windows(x, geo, hg), wr, wi, dfr, dfi, dvr, dvi, bias,
-        relu=relu, flow=flow, block_m=block_m)
-    canvas = _stage_canvas(y, geo, hg, x.shape[0])
-    return _crop_canvas(canvas, geo, wr.shape[1]).contiguous()
+        relu=False, flow=flow, block_m=block_m)
+    return _halo_finish(y, geo, hg, x.shape[0], wr.shape[1], shortcut, relu)
 
 
 def fused_spectral_pipeline_scheduled_halo_reference(
         x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *,
         geo: SpectralGeometry, hg: HaloGeometry, n_out: int,
-        relu: bool, flow: str = OS,
-        block_m: int | None = None) -> torch.Tensor:
+        relu: bool, flow: str = OS, block_m: int | None = None,
+        shortcut=None) -> torch.Tensor:
     """Plain PyTorch version of the halo scheduled kernel (same contract
     as ``fused_spectral_pipeline_scheduled_halo``): the one-hot halo
-    gather, the plain table pipeline of the flow, the canvas relayout
-    and the crop.
+    gather, the plain table pipeline of the flow (bias only), the canvas
+    relayout, the crop, (+ shortcut) and the ReLU.
     """
     y = fused_spectral_pipeline_scheduled_reference(
         _halo_windows(x, geo, hg), idx, sel, vr, vi, dfr, dfi, dvr, dvi,
-        bias, n_out=n_out, relu=relu, flow=flow, block_m=block_m)
-    canvas = _stage_canvas(y, geo, hg, x.shape[0])
-    return _crop_canvas(canvas, geo, n_out).contiguous()
+        bias, n_out=n_out, relu=False, flow=flow, block_m=block_m)
+    return _halo_finish(y, geo, hg, x.shape[0], n_out, shortcut, relu)
 
 
 def _check_halo_input(x: torch.Tensor, geo: SpectralGeometry,
@@ -690,17 +824,26 @@ def _halo_ints(x: torch.Tensor, geo: SpectralGeometry,
             geo.n_tiles_w, hg.bth, hg.btw, hg.nbh, hg.nbw)
 
 
+def _halo_out_shape(x, geo: SpectralGeometry, n: int) -> tuple:
+    return (x.shape[0], n, geo.h_in + 2 * geo.pad - geo.ksize + 1,
+            geo.w_in + 2 * geo.pad - geo.ksize + 1)
+
+
 def _halo_out(x, geo: SpectralGeometry, n: int) -> torch.Tensor:
-    h_out = geo.h_in + 2 * geo.pad - geo.ksize + 1
-    w_out = geo.w_in + 2 * geo.pad - geo.ksize + 1
-    return torch.empty((x.shape[0], n, h_out, w_out), dtype=torch.float32,
+    return torch.empty(_halo_out_shape(x, geo, n), dtype=torch.float32,
                        device=x.device)
+
+
+def _sms(device) -> int:
+    """The card's SM count (the scheduled kernel sizes its cluster by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                  geo: SpectralGeometry, hg: HaloGeometry,
                                  relu: bool, flow: str = OS,
-                                 block_m: int | None = None
+                                 block_m: int | None = None, shortcut=None,
+                                 shortcut_placement: str = "hbm"
                                  ) -> torch.Tensor:
     """Halo gather -> FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel
     launch (plus the split-K finish pass for a weight-/input-stationary
@@ -714,6 +857,10 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     geo/hg: tile and halo-block geometry (``halo_block_geometry``; at
         most ``BLOCK_P`` tiles per block); one CTA per (image, block)
         and m range.
+    shortcut / shortcut_placement: raw [B, N, H_out, W_out] f32 residual
+        operand (contiguous; the kernel adds it where it stores each
+        output, so it needs no relayout), placed as for
+        ``fused_spectral_pipeline``.
     returns [B, N, H_out, W_out] f32, contiguous: each finished tile is
     stored at its place in the cropped output (no host relayout).
 
@@ -722,17 +869,23 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     """
     _check_halo_input(x, geo, hg, BLOCK_P)
     g = _flow_ranges(flow, block_m, x.shape[1], "plane")
+    fa, n, _ = wr.shape
+    s2 = dvr.shape[0]
+    _check_shortcut(shortcut, _halo_out_shape(x, geo, n), x.device, flow,
+                    shortcut_placement)
     if x.device.type == "cpu":
         return fused_spectral_pipeline_halo_reference(
             x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg, relu=relu,
-            flow=flow, block_m=block_m)
+            flow=flow, block_m=block_m, shortcut=shortcut)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_plane_operands(dict(x=x, wr=wr, wi=wi, dfr=dfr, dfi=dfi,
                                dvr=dvr, dvi=dvi, bias=bias),
                           geo.fft_size ** 2, x.shape[1], hg.block_tiles)
-    fa, n, _ = wr.shape
-    s2 = dvr.shape[0]
+    staged = shortcut is not None and shortcut_placement == "vmem"
+    if staged:
+        _check_staged_fits("fused_spectral_pipeline_halo", plane_smem_bytes(
+            OS, geo, hg=hg, sc_rows=staged_rows(s2, -(-fa // BIN_CHUNK))))
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n)
         _launch(library(), "fused_spectral_pipeline_halo", flow, block_m, g,
@@ -740,7 +893,8 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                 (x.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
-                (*_halo_ints(x, geo, hg), fa, n, s2, int(relu)), s2, n)
+                (*_halo_ints(x, geo, hg), fa, n, s2, int(relu)), s2, n,
+                shortcut, staged)
     return y
 
 
@@ -749,7 +903,9 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                                            geo: SpectralGeometry,
                                            hg: HaloGeometry, n_out: int,
                                            relu: bool, flow: str = OS,
-                                           block_m: int | None = None
+                                           block_m: int | None = None,
+                                           shortcut=None,
+                                           shortcut_placement: str = "hbm"
                                            ) -> torch.Tensor:
     """Halo gather -> FFT -> SCHEDULED sparse Hadamard -> IFFT (+
     bias/ReLU) in one kernel launch (plus the split-K finish pass for a
@@ -758,18 +914,21 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
 
     x: [B, M, H, W] f32 raw NCHW activation, contiguous; tables,
     operators, bias, flow and block_m as
-    ``fused_spectral_pipeline_scheduled``; geo/hg as
-    ``fused_spectral_pipeline_halo`` (at most ``SCHED_BLOCK_P`` tiles per
-    block).  Returns [B, n_out, H_out, W_out] f32, contiguous.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel (or
-    raise).
+    ``fused_spectral_pipeline_scheduled``; geo/hg, shortcut and
+    shortcut_placement as ``fused_spectral_pipeline_halo`` (at most
+    ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out, W_out]
+    f32, contiguous.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (or raise).
     """
     _check_halo_input(x, geo, hg, SCHED_BLOCK_P)
     g = _flow_ranges(flow, block_m, x.shape[1], "scheduled")
+    _check_shortcut(shortcut, _halo_out_shape(x, geo, n_out), x.device,
+                    flow, shortcut_placement)
     if x.device.type == "cpu":
         return fused_spectral_pipeline_scheduled_halo_reference(
             x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg,
-            n_out=n_out, relu=relu, flow=flow, block_m=block_m)
+            n_out=n_out, relu=relu, flow=flow, block_m=block_m,
+            shortcut=shortcut)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_table_operands(dict(x=x, idx=idx, sel=sel, vr=vr, vi=vi,
@@ -781,6 +940,13 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
     n_pe = sel.shape[3]
     fa = dfr.shape[0]
     s2 = dvr.shape[0]
+    staged = shortcut is not None and shortcut_placement == "vmem"
+    if staged:
+        c = sched_cluster(x.shape[0] * hg.n_blocks * gn, x.shape[1],
+                          _sms(x.device))
+        _check_staged_fits(
+            "fused_spectral_pipeline_scheduled_halo", sched_smem_bytes(
+                OS, geo, 1, n_cycles, r, n_pe, hg, staged_rows(s2, c)))
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n_out)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
@@ -791,7 +957,7 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (*_halo_ints(x, geo, hg), mp, n_cycles, r, n_pe, fa, n_out,
-                 s2, int(relu)), s2, n_out)
+                 s2, int(relu)), s2, n_out, shortcut, staged)
     return y
 
 
@@ -826,54 +992,84 @@ def _assemble_output(y: torch.Tensor, geo: SpectralGeometry, b: int,
     return assemble_valid_tiles(y_tiles.to(dtype), geo)
 
 
-def _fused_conv(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias, *,
-                geo: SpectralGeometry, relu: bool, **flow) -> torch.Tensor:
-    """Window layout -> fused kernel -> valid-tile assembly (``flow``:
-    the kernel's flow and block_m)."""
+def _shortcut_tiles(sc: torch.Tensor, geo: SpectralGeometry,
+                    t_cnt: int) -> torch.Tensor:
+    """Raw [B, N, H_out, W_out] shortcut -> the windowed kernels' output
+    tile layout [t^2, N, B*T], contiguous f32 (the exact inverse of
+    ``_assemble_output``): embedded at the 'same'-crop offset of the
+    valid-tile canvas, zero elsewhere (those outputs are cropped), split
+    into t x t tiles, u-major rows."""
+    b, n, h, w = sc.shape
+    t = geo.tile
+    start = geo.ksize - 1 - geo.pad
+    canvas = sc.new_zeros((b, n, geo.n_tiles_h * t, geo.n_tiles_w * t),
+                          dtype=torch.float32)
+    canvas[:, :, start:start + h, start:start + w] = sc
+    tiles = (canvas.reshape(b, n, geo.n_tiles_h, t, geo.n_tiles_w, t)
+             .permute(0, 1, 2, 4, 3, 5)           # b, n, ith, jtw, u, v
+             .reshape(b, n, t_cnt, t * t))
+    return (tiles.permute(3, 1, 0, 2).reshape(t * t, n, b * t_cnt)
+            .contiguous())
+
+
+def _fused_conv(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias,
+                shortcut=None, *, geo: SpectralGeometry, relu: bool,
+                **flow) -> torch.Tensor:
+    """Window layout (and shortcut tiles) -> fused kernel -> valid-tile
+    assembly (``flow``: the kernel's flow, block_m and shortcut
+    placement)."""
     b = x.shape[0]
     n = wr.shape[1]
     xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
+    sc = None if shortcut is None else _shortcut_tiles(shortcut, geo, t_cnt)
     y = fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias,
-                                relu=relu, **flow)      # [t^2, N, B*T]
+                                relu=relu, shortcut=sc,
+                                **flow)                 # [t^2, N, B*T]
     return _assemble_output(y, geo, b, n, t_cnt, x.dtype)
 
 
 def _fused_conv_scheduled(x: torch.Tensor, tables, dfr, dfi, dvr, dvi,
-                          bias, *, geo: SpectralGeometry, n_out: int,
-                          relu: bool, **flow) -> torch.Tensor:
-    """Window layout -> scheduled fused kernel -> valid-tile assembly."""
+                          bias, shortcut=None, *, geo: SpectralGeometry,
+                          n_out: int, relu: bool, **flow) -> torch.Tensor:
+    """Window layout (and shortcut tiles) -> scheduled fused kernel ->
+    valid-tile assembly."""
     b = x.shape[0]
     xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
+    sc = None if shortcut is None else _shortcut_tiles(shortcut, geo, t_cnt)
     y = fused_spectral_pipeline_scheduled(
         xt, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
-        dvi, bias, n_out=n_out, relu=relu, **flow)     # [t^2, N, B*T]
+        dvi, bias, n_out=n_out, relu=relu, shortcut=sc,
+        **flow)                                         # [t^2, N, B*T]
     return _assemble_output(y, geo, b, n_out, t_cnt, x.dtype)
 
 
 def _fused_conv_halo(x: torch.Tensor, wr, wi, dfr, dfi, dvr, dvi, bias,
-                     *, geo: SpectralGeometry, block_p: int,
+                     shortcut=None, *, geo: SpectralGeometry, block_p: int,
                      relu: bool, **flow) -> torch.Tensor:
-    """Halo plane kernel on the raw activation: no host window tensor,
-    no host output relayout.  ``block_p`` (tiles per image block) is
-    split into the 2-D halo block by ``halo_block_geometry``."""
+    """Halo plane kernel on the raw activation (and raw shortcut): no
+    host window tensor, no host output relayout.  ``block_p`` (tiles per
+    image block) is split into the 2-D halo block by
+    ``halo_block_geometry``."""
     return fused_spectral_pipeline_halo(
         x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo,
-        hg=halo_block_geometry(geo, block_p), relu=relu, **flow)
+        hg=halo_block_geometry(geo, block_p), relu=relu, shortcut=shortcut,
+        **flow)
 
 
 def _fused_conv_scheduled_halo(x: torch.Tensor, tables, dfr, dfi, dvr,
-                               dvi, bias, *, geo: SpectralGeometry,
-                               block_p: int, n_out: int,
-                               relu: bool, **flow) -> torch.Tensor:
+                               dvi, bias, shortcut=None, *,
+                               geo: SpectralGeometry, block_p: int,
+                               n_out: int, relu: bool,
+                               **flow) -> torch.Tensor:
     """Halo scheduled kernel on the raw activation (tables as
     ``_fused_conv_scheduled``)."""
     return fused_spectral_pipeline_scheduled_halo(
         x, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
         dvi, bias, geo=geo, hg=halo_block_geometry(geo, block_p),
-        n_out=n_out, relu=relu, **flow)
+        n_out=n_out, relu=relu, shortcut=shortcut, **flow)
 
 
-def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
+def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
     """Run one conv layer from a precompiled ``core.plan.LayerPlan``:
     x [B, M, H, W] -> [B, N, H_out, W_out] (bias and ReLU applied as the
     plan's epilogue says; stride and pooling stay with the caller).
@@ -884,16 +1080,29 @@ def execute_layer_plan(x: torch.Tensor, lp) -> torch.Tensor:
     contiguous NCHW f32, copying only a producer's view, such as a
     windowed layer's cropped output) and on its tuning's flow (the
     weight-/input-stationary flows take m ranges of ``block_m``
-    channels); nothing is scheduled or compacted here."""
+    channels); nothing is scheduled or compacted here.
+
+    ``shortcut``: raw [B, N, H_out, W_out] residual operand of a node
+    whose epilogue is residual-fused (``lp.epilogue.residual ==
+    'fused'``, stride 1): the kernel adds it after the bias and before
+    the ReLU, placed where the plan's tuning says ('hbm' | 'vmem')."""
     flow = lp.tuning.flow
     kw = dict(flow=flow, relu=lp.epilogue.relu)
     if flow != OS:
         kw["block_m"] = lp.tuning.block_m
+    if shortcut is not None:
+        if lp.epilogue.residual != "fused":
+            raise ValueError(f"{lp.layer.name}: a shortcut goes into the "
+                             f"kernel only on a residual-fused epilogue, "
+                             f"not {lp.epilogue.residual!r}")
+        kw["shortcut_placement"] = lp.tuning.residual or "hbm"
     halo = lp.input_mode == "halo"
-    if halo:    # a windowed producer's output is a cropped view
+    if halo:    # a windowed (or strided) producer's output is a view
         x = x.contiguous()
+        if shortcut is not None:
+            shortcut = shortcut.contiguous()
     bias = lp.bias if lp.epilogue.bias else torch.zeros_like(lp.bias)
-    ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias)
+    ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias, shortcut)
     if lp.hadamard == "scheduled":
         n_out = lp.layer.c_out
         if halo:

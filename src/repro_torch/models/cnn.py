@@ -1,8 +1,9 @@
-"""Spectral VGG16, end to end (counterpart of ``repro.models.cnn``).
+"""Spectral CNNs end to end: VGG16 and the residual ResNet-18 DAG
+(counterpart of ``repro.models.cnn``).
 
 The conv stack runs in the spectral domain by executing a precompiled
-``core.plan.NetworkPlan``; max-pool and the FC head run in the spatial
-domain as plain PyTorch.
+``core.plan.NetworkPlan``; pools, host-side shortcut adds and the FC
+head run in the spatial domain as plain PyTorch.
 """
 
 from __future__ import annotations
@@ -128,9 +129,9 @@ def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
       plan: a ``NetworkPlan`` built once by ``build_network_plan``.
       x: [B, C, H, W] f32 input on the plan's device.
       backend: 'einsum' (the torch.fft + einsum oracle) or 'fused' (one
-        fused-kernel launch per conv layer with bias + ReLU inside the
-        kernel; the reference's 'pallas_fused').  'staged' is not ported
-        yet.
+        fused-kernel launch per conv layer with bias + ReLU, and a
+        residual-fused node's shortcut add, inside the kernel; the
+        reference's 'pallas_fused').  'staged' is not ported yet.
 
     Returns [B, n_classes] logits.
     """
@@ -177,8 +178,11 @@ def _conv_node(x: torch.Tensor, lp: pl.LayerPlan, node: pl.PlanNode,
     """One conv node; epilogue order bias -> stride subsample ->
     (+shortcut) -> ReLU.  The fused backend applies bias, and ReLU when
     no shortcut follows, in the kernel (both are elementwise, so
-    subsampling after them is the same); with a shortcut the ReLU waits
-    until after the add."""
+    subsampling after them is the same).  A residual-fused node
+    (``lp.epilogue.residual == 'fused'``, stride 1) hands the shortcut
+    to the kernel, which adds it before its ReLU; any other shortcut
+    (the 'add' rung of strided nodes) is added on the host after the
+    subsample, with the ReLU after it."""
     stride = lp.layer.stride
     if backend == "einsum":
         y = spec.spectral_conv2d_pretransformed(x, lp.kernels, lp.geo)
@@ -190,6 +194,8 @@ def _conv_node(x: torch.Tensor, lp: pl.LayerPlan, node: pl.PlanNode,
         return torch.relu(y) if node.relu else y
     if sc is None:
         return execute_layer_plan(x, lp)[:, :, ::stride, ::stride]
+    if lp.epilogue.residual == "fused":
+        return execute_layer_plan(x, lp, shortcut=sc)
     lp = dataclasses.replace(
         lp, epilogue=dataclasses.replace(lp.epilogue, relu=False))
     y = execute_layer_plan(x, lp)[:, :, ::stride, ::stride] + sc

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.resnet18_spectral import SMOKE as RESNET_SMOKE
 from repro_torch.configs.vgg16_spectral import SMOKE
 from repro_torch.core import plan as pl
 from repro_torch.core import scheduler as sch
@@ -578,3 +579,154 @@ def test_shared_memory_mirror_matches_the_kernels():
             with pytest.raises(RuntimeError, match="launch failed"):
                 run()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The residual shortcut (B6 residual) in all twelve entry points
+# ---------------------------------------------------------------------------
+
+# (flow, block_m) per Hadamard kind: several m ranges (the finish pass
+# adds the shortcut) and one (the flow kernel's own flush adds it)
+RESIDUAL_FLOWS = {
+    "plane": [("output_stationary", None), ("weight_stationary", 8),
+              ("input_stationary", 16), ("input_stationary", 64)],
+    "scheduled": [("output_stationary", None), ("weight_stationary", 1),
+                  ("input_stationary", 2), ("input_stationary", 8)]}
+
+
+def residual_case(kernel, b, seed=0):
+    """``run(relu, **kw)`` of one wrapper and its plain version at a small
+    shape (13 x 13 images, M = 5 or 20, N = 70: a ragged n block / kernel
+    group, Fa = 24: three bin chunks) and the output's shape."""
+    sched, halo = "scheduled" in kernel, kernel.endswith("_halo")
+    m, n, fa = (5 if sched else 20), 70, 24
+    geo, hg, x = halo_case(13, 13, 3, b, m,
+                           fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P,
+                           seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if sched:
+        weights = scheduled_operands(64, m, 1, n, fa, 36, seed=seed)[1:5]
+        kw = dict(n_out=n)
+    else:
+        weights = [torch.from_numpy(rng.standard_normal((fa, n, m)).astype(
+            np.float32)).cuda() for _ in range(2)]
+        kw = {}
+    ops = weights + [torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).cuda() for sh in [(fa, 64), (fa, 64), (36, fa),
+                                       (36, fa), (1, n)]]
+    if halo:
+        kw.update(geo=geo, hg=hg)
+        inp, shape = x, (b, n, 13, 13)
+    else:
+        inp = fsc._windows_layout(x, geo)[0]
+        shape = (36, n, inp.shape[2])
+    wrapper = getattr(fsc, kernel)
+    plain = getattr(fsc, kernel + "_reference")
+    return (lambda **k: wrapper(inp, *ops, **kw, **k),
+            lambda **k: plain(inp, *ops, **kw, **k), shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("kernel", fsc.KERNELS)
+def test_residual_entry_points_match_plain_on_card(kernel, b):
+    """Each entry point with a shortcut (both placements for
+    output-stationary) against its plain version with the shortcut; bit
+    for bit the same launch without it (ReLU off) + shortcut, then the
+    ReLU, on the host; counted as a residual launch of its entry
+    point."""
+    need_card()
+    run, plain, shape = residual_case(kernel, b, seed=b)
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    kind = "scheduled" if "scheduled" in kernel else "plane"
+    for flow, block_m in RESIDUAL_FLOWS[kind]:
+        kw = dict(flow=flow) if block_m is None else dict(flow=flow,
+                                                          block_m=block_m)
+        sc = torch.randn(shape, generator=gen, device="cuda")
+        unfused = run(relu=False, **kw)
+        entry = fsc.entry_point(kernel, flow)
+        placements = (("hbm", "vmem") if flow == "output_stationary"
+                      else ("hbm",))
+        for placement in placements:
+            before = dict(fsc.RESIDUAL_LAUNCHES)
+            y = run(relu=True, shortcut=sc, shortcut_placement=placement,
+                    **kw)
+            torch.cuda.synchronize()
+            ref = plain(relu=True, shortcut=sc, **kw)
+            err = float((y - ref).abs().max() / ref.abs().max())
+            assert err <= TOL, (flow, placement, err)
+            assert torch.equal(y, torch.relu(unfused + sc)), (flow,
+                                                               placement)
+            assert torch.equal(run(relu=False, shortcut=sc,
+                                   shortcut_placement=placement, **kw),
+                               unfused + sc)
+            delta = {k: v - before[k] for k, v in
+                     fsc.RESIDUAL_LAUNCHES.items() if v != before[k]}
+            assert delta == {entry: 2}, delta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fused_spectral_pipeline",
+                                    "fused_spectral_pipeline_scheduled"])
+def test_staged_shortcut_over_the_limit_is_refused(kernel):
+    """A 'vmem' shortcut whose staged rows do not fit beside the kernel's
+    stages (one cluster rank: all 36 rows) is refused by the wrapper's
+    shared-memory check before any launch; 'hbm' runs."""
+    need_card()
+    rng = np.random.default_rng(3)
+    if kernel == "fused_spectral_pipeline":
+        # Fa = 8: one bin chunk, so one rank flushes every row
+        ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .cuda() for sh in [(64, 9, 40), (8, 70, 9), (8, 70, 9),
+                                  (8, 64), (8, 64), (36, 8), (36, 8),
+                                  (1, 70)]]
+        kw = {}
+        geo = spec.make_geometry(13, 13, 3, 8)
+        need = fsc.plane_smem_bytes("output_stationary", geo, sc_rows=36)
+    else:
+        # M = 1: a cluster of one CTA over the input channels
+        ops = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3)
+        kw = dict(n_out=70)
+        geo = spec.make_geometry(13, 13, 3, 8)
+        need = fsc.sched_smem_bytes("output_stationary", geo, 1,
+                                    ops[1].shape[2], ops[1].shape[3],
+                                    ops[2].shape[3], sc_rows=36)
+    assert need > fsc.SMEM_PER_CTA
+    wrapper = getattr(fsc, kernel)
+    sc = torch.randn((36, 70, 40), device="cuda")
+    before = dict(fsc.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        wrapper(*ops, relu=True, shortcut=sc, shortcut_placement="vmem",
+                **kw)
+    assert fsc.LAUNCHES == before
+    y = wrapper(*ops, relu=True, shortcut=sc, **kw)
+    ref = getattr(fsc, kernel + "_reference")(*ops, relu=True, shortcut=sc,
+                                              **kw)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow", ["output_stationary", "weight_stationary",
+                                  "input_stationary"])
+@pytest.mark.parametrize("input_mode", ["windowed", "halo"])
+@pytest.mark.parametrize("hadamard", ["bin", "scheduled"])
+def test_resnet18_smoke_forward_on_card_fuses_the_shortcut(hadamard,
+                                                           input_mode, flow):
+    """ResNet-18 SMOKE: 10 launches per forward, the 4 residual-fused
+    nodes among them with the shortcut in the kernel; logits against
+    einsum."""
+    need_card()
+    params = cnn.init(RESNET_SMOKE,
+                      generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, RESNET_SMOKE, batch=2,
+                                 hadamard=hadamard, input_mode=input_mode)
+    if flow != "output_stationary":
+        plan = pl.with_flow(plan, flow)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before, rbefore = dict(fsc.LAUNCHES), dict(fsc.RESIDUAL_LAUNCHES)
+    out = cnn.forward_spectral(params, plan, x, backend="fused")
+    assert sum(fsc.LAUNCHES.values()) - sum(before.values()) == 10
+    assert sum(fsc.RESIDUAL_LAUNCHES.values()) - sum(rbefore.values()) == 4
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= TOL, err

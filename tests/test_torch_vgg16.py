@@ -234,9 +234,13 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('repro_torch')))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC)}, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 15
+    imported = set(out.stdout.split())
+    assert len(imported) >= 16
+    assert {"repro_torch.configs.resnet18_spectral",
+            "repro_torch.configs.vgg16_spectral"} <= imported
 
