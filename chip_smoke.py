@@ -10,9 +10,10 @@ each of which fails the run on error:
   (a) device: torch/CUDA versions, device name and count, the card's
       name and power limit from nvidia-smi;
   (b) build: compile every CUDA kernel of the port from the sources in
-      this checkout (one nvcc per source, started together), print build
-      time, the ptxas report and the spill stores of each of the 36
-      instantiations (kernel x input path x flow x shortcut placement);
+      this checkout (five, one nvcc per source, started together), print
+      build time, the ptxas report and the spill stores of each of the
+      fused kernels' 36 instantiations (kernel x input path x flow x
+      shortcut placement);
       an output-stationary kernel without a shortcut that spills fails
       the run;
   (c) plane kernel vs its plain version at the 13 full-width VGG16
@@ -93,20 +94,47 @@ each of which fails the run on error:
       per forward, 8 of them fusing the shortcut, logits vs einsum, p50
       and p50 minus the plan's kernel sum, peak memory, plan-build
       seconds;
+  (s) the staged path's kernels at the 13 VGG16 layer shapes, batch 4
+      and 1: the tile-FFT of the layer's windows, the spectral Hadamard
+      of those spectra against the layer's dense K^2 planes in each flow
+      (ws/is over m ranges of 128, a repeat launch bitwise equal), the
+      tile-IFFT of its output, and at batch 1 the Alg-2 table executor
+      on one 64-lane group of the layer's kernels (r = 10), each against
+      its plain version (gate 1e-4); at batch 1 the kernel's time
+      (S_REPS), the plain version's (one call), one PyTorch call of the
+      same function (library_ms: torch.fft.fft2 / ifft2, a complex
+      matmul; none for the executor) and the bound;
+  (ds) the staged main path: ``forward_spectral(backend="staged")`` on
+      full VGG16 (the (d5) plan's kernels; staged reads no other
+      operand), five batch-1 forwards (the first discarded from the p50)
+      and one batch-4 forward: three launches per conv layer (tile-FFT,
+      Hadamard, tile-IFFT) and none of the fused kernels, logits vs
+      einsum, p50, p50 minus the (s) kernel sum, peak memory; later the
+      same on ResNet-18's forced plan (60 launches per forward);
+  (dh) the other user entry points of the staged path at the 13 VGG16
+      layers, batch 1: ``ops.hadamard`` in the weight- and
+      input-stationary flows and ``ops.scheduled_sparse_conv_group`` on
+      the first 64 kernels, each against the einsum of the same product;
+  (dr4) the full-width scheduled ResNet-18 plans (windowed and halo),
+      built at batch 1, forwarded at batch 4: a residual node whose
+      staged ('vmem') shortcut does not fit a CTA at that batch reads it
+      at the flush ('hbm'; the run fails if no node falls back, so the
+      check reaches the case it guards), 20 launches and 8 fused
+      shortcuts per forward, logits vs einsum;
   (e) a check that no process this run started is still running, one
-      status line per kernel entry point (twelve: four kernels x three
-      flows), then one JSON line with every entry point's numbers (with
-      its residual form's under "residual"), then the device JSON as the
-      last line.
+      status line per kernel entry point (twelve fused: four kernels x
+      three flows; six staged), then one JSON line with every entry
+      point's numbers (a fused one with its residual form's under
+      "residual"), then the device JSON as the last line.
 
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c5),
 (c6) and (d6); the plane plans are freed; (c2), (d2), (c4), (d4), the
-scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5);
-VGG16's weights and plans are freed; (r), (dr), (e).  So each serve's
-peak device memory holds the weights and the plans of its own kind only
-(the resident bytes at its start are printed beside it).  REPS (15
-since the ResNet-18 phases came; 25 before) is the VGG16 phases' timed
-launches per kernel and layer.
+scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5),
+(s), (ds), (dh); VGG16's weights and plans are freed; (r), (dr), (ds),
+(dr4), (e).  So each serve's peak device memory holds the weights and
+the plans of its own kind only (the resident bytes at its start are
+printed beside it).  REPS (15 since the ResNet-18 phases came; 25
+before) is the VGG16 phases' timed launches per kernel and layer.
 
 Bounds use the H100 SXM data-sheet peaks: 67 TFLOP/s fp32 on CUDA
 cores, 3.35 TB/s HBM3.
@@ -129,6 +157,7 @@ KERNEL_TOL = 1e-4      # max|kernel - plain| / max|plain|, fp32, TF32 off
 LOGITS_TOL = 1e-4      # max|fused - einsum| / max|einsum| on the logits
 REPS = 15              # VGG16 phases: timed launches per kernel and layer
 R_REPS = 10            # ResNet-18 phases: the same
+S_REPS = 5             # staged kernels (s): the same
 SEED = 0
 BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
 
@@ -393,14 +422,15 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
 
 def spill_report() -> list[tuple[str, str, str, int, int]]:
     """(kernel, input path, flow, shortcut placement, spill-store bytes)
-    of every kernel instantiation, from the ptxas -v lines of the build
-    (the template's ints: ... flow, placement, the placement last; see
-    ``csrc/shortcut.cuh``)."""
+    of every fused-kernel instantiation, from the ptxas -v lines of the
+    build (the template's ints: ... flow, placement, the placement last;
+    see ``csrc/shortcut.cuh``)."""
     import re
     from repro_torch.kernels import _build
     flows = {"0": "os", "1": "ws", "2": "is"}
+    from repro_torch.kernels import fused_spectral_conv as fsc
     out, name = [], None
-    for log in _build.BUILD_LOG.values():
+    for log in (_build.BUILD_LOG[src] for src in fsc.SOURCES):
         for line in log["ptxas"]:
             m = re.search(r"Function properties for (\S+)", line)
             if m:
@@ -686,39 +716,63 @@ def per_forward_of(plan) -> tuple[dict[str, int], dict[str, int]]:
     return launches, residual
 
 
+def counters() -> tuple[dict, ...]:
+    """Every kernel wrapper's launch counts, one dict per module (the
+    entry-point names are distinct across them)."""
+    from repro_torch.kernels import fft8
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.kernels import sparse_hadamard as sh
+    from repro_torch.kernels import spectral_hadamard as shad
+    return (fsc.LAUNCHES, fsc.RESIDUAL_LAUNCHES, fft8.LAUNCHES,
+            shad.LAUNCHES, sh.LAUNCHES)
+
+
+def all_launches() -> dict[str, int]:
+    """The launch count of every entry point of the port."""
+    c = counters()
+    return {k: v for d in c[:1] + c[2:] for k, v in d.items()}
+
+
+def reset_launches() -> None:
+    for d in counters():
+        for k in d:
+            d[k] = 0
+
+
 def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
-          residual_per_forward=None):
+          residual_per_forward=None, backend="fused", discard_first=False):
     """Drive the main path once: every image batch through
-    ``forward_spectral(backend="fused")`` with the launch counts set to 0
-    just before and read just after (``per_forward``: launches of each
-    entry point per forward, none of any other;
-    ``residual_per_forward``: those that fuse a shortcut, none by
-    default); hold the logits to einsum.  Returns the launches, the
-    residual launches, the batch-1 p50 and the batch-1 p50 minus
-    ``kernel_sum_ms``.  Peak device memory is taken over the forwards and
-    includes what is resident at their start (the weights and the plans
-    still alive, printed beside it)."""
+    ``forward_spectral(backend=backend)`` with every launch count set to
+    0 just before and read just after (``per_forward``: launches of each
+    entry point per forward, none of any other: one per conv layer on the
+    fused backend, three on the staged one; ``residual_per_forward``:
+    those that fuse a shortcut, none by default); hold the logits to
+    einsum.  Returns the launches, the residual launches, the batch-1 p50
+    (without the first forward when ``discard_first``) and the batch-1
+    p50 minus ``kernel_sum_ms``.  Peak device memory is taken over the
+    forwards and includes what is resident at their start (the weights
+    and the plans still alive, printed beside it)."""
     import torch
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    for k in fsc.LAUNCHES:
-        fsc.LAUNCHES[k] = 0
-        fsc.RESIDUAL_LAUNCHES[k] = 0
+    reset_launches()
     latency: dict[int, list[float]] = {}
     logits = []
     for x in images:
         t0 = time.perf_counter()
-        out = cnn.forward_spectral(params, plan, x, backend="fused")
+        out = cnn.forward_spectral(params, plan, x, backend=backend)
         torch.cuda.synchronize()
         latency.setdefault(x.shape[0], []).append(
             1e3 * (time.perf_counter() - t0))
         logits.append(out)
-    launches = dict(fsc.LAUNCHES)
+    launches = all_launches()
     residual = dict(fsc.RESIDUAL_LAUNCHES)
     want = {k: per_forward.get(k, 0) * len(images) for k in launches}
-    if launches != want or sum(per_forward.values()) != len(plan.layers):
+    per_layer = 3 if backend == "staged" else 1
+    if (launches != want
+            or sum(per_forward.values()) != per_layer * len(plan.layers)):
         fail(f"{label} launched {launches}, expected {want}")
     want = {k: (residual_per_forward or {}).get(k, 0) * len(images)
             for k in residual}
@@ -733,15 +787,19 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
         ref = cnn.forward_spectral(params, plan, x, backend="einsum")
         err = rel_err(out, ref)
         top1 = bool((out.argmax(-1) == ref.argmax(-1)).all())
-        print(f"{label} batch {b}: fused vs einsum logits rel err "
+        print(f"{label} batch {b}: {backend} vs einsum logits rel err "
               f"{err:.3e}, max|logit| {float(ref.abs().max()):.3e}, top-1 "
               f"equal {top1}")
         if err > LOGITS_TOL or not top1:
-            fail(f"{label} batch-{b} fused logits disagree with the einsum "
-                 f"oracle")
+            fail(f"{label} batch-{b} {backend} logits disagree with the "
+                 f"einsum oracle")
+    if discard_first:
+        latency[images[0].shape[0]].pop(0)
     for b, ts in sorted(latency.items()):
         print(f"    p50 latency batch {b}: {statistics.median(ts):.2f} ms "
-              f"over {len(ts)} forwards {[round(t, 2) for t in ts]}")
+              f"over {len(ts)} forwards {[round(t, 2) for t in ts]}"
+              + (" (the first forward discarded)"
+                 if discard_first and b == images[0].shape[0] else ""))
     p50 = statistics.median(latency[1])
     host_ms = p50 - kernel_sum_ms
     print(f"    batch-1 p50 minus the kernel sum {kernel_sum_ms:.4f} ms: "
@@ -754,6 +812,228 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
     return launches, residual, p50, host_ms
 
 
+STAGED = ("fft2_tiles", "spectral_hadamard", "spectral_hadamard_ws",
+          "spectral_hadamard_is", "ifft2_tiles", "scheduled_sparse_hadamard")
+# the three launches of one conv node of forward_spectral(backend="staged")
+STAGED_PATH = ("fft2_tiles", "spectral_hadamard", "ifft2_tiles")
+
+
+def staged_bounds(f, n, m, p, tiles_in, tiles_out) -> dict:
+    """(flops, bytes) of each staged entry point at one layer: the
+    tile-FFT of ``tiles_in`` real 8 x 8 windows (two 8 x 8 DFT products:
+    12 K^3 flops a tile; 4 K^2 bytes in, 8 K^2 out), the Karatsuba
+    Hadamard over F bins (three real GEMMs, the two sum planes and the
+    combination; the [F, N, M], [F, M, P] and [F, N, P] planes, complex,
+    moved once; ws/is compute the same function), and the Re-IFFT of
+    ``tiles_out`` tiles (12 K^3 flops; 8 K^2 bytes in, 4 K^2 out)."""
+    k = 8
+    had = (6 * f * n * m * p + 2 * f * (n * m + m * p) + 3 * f * n * p,
+           8 * (f * n * m + f * m * p + f * n * p))
+    return {"fft2_tiles": (12 * k ** 3 * tiles_in, 12 * k * k * tiles_in),
+            "spectral_hadamard": had, "spectral_hadamard_ws": had,
+            "spectral_hadamard_is": had,
+            "ifft2_tiles": (12 * k ** 3 * tiles_out, 12 * k * k * tiles_out)}
+
+
+def table_bound(packed, f, p) -> tuple[float, float]:
+    """(flops, bytes) of the table executor on one group's stacked tables
+    at F bins and P tiles: one complex MAC (8 flops) per valid table
+    entry and tile; the tables, X [M, F, P] and Y [N', F, P] (complex)
+    moved once."""
+    idx, sel = packed[0], packed[1]
+    m, n_pe = idx.shape[0], sel.shape[2]
+    entries = int((packed[2] != 0).sum())
+    nbytes = sum(a.numel() * 4 for a in packed) + 8 * (m + n_pe) * f * p
+    return 8 * entries * p, nbytes
+
+
+def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
+    """(s): the staged ``entries`` against their plain versions at every
+    layer of ``plan`` (``model`` at full width), batch 4 and 1 (the
+    tile-FFT of the layer's windows of a random activation, the
+    Hadamard of those spectra against the layer's dense planes in each
+    flow, m ranges of 128 for ws/is, a repeat launch bitwise equal, the
+    IFFT of the Hadamard's output; gate 1e-4 relative); the table
+    executor at batch 1 on one 64-lane group of the layer's kernels
+    (Alg-2 tables, r = 10).  At batch 1 the kernel's time (S_REPS, L2
+    flushed), the plain version's (one call), one PyTorch call of the
+    same function (``torch.fft.fft2``, ``torch.fft.ifft2``, a complex
+    ``torch.matmul``; none for the executor) and the bound.  Returns the
+    totals per entry point."""
+    import torch
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fft8
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sparse_hadamard as sh
+    from repro_torch.kernels import spectral_hadamard as shad
+    print(f"(s) staged entry points vs plain at the {model} layers: layer, "
+          "entry point, rel_err batch 1 / 4, kernel_ms, plain_ms, "
+          "library_ms, bound_ms, bound_by")
+    tot = {e: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   flops=0.0, bytes=0.0, abs_err=0.0, err=0.0)
+           for e in entries}
+    flows = {e: flow for e, flow in (("spectral_hadamard", shad.OS),
+                                     ("spectral_hadamard_ws", shad.WS),
+                                     ("spectral_hadamard_is", shad.IS))
+             if e in entries}
+    for lp in plan.layers:
+        layer, geo = lp.layer, lp.geo
+        wr, wi = kops._w_planes(lp.kernels.values)
+        wc = torch.complex(wr, wi)
+        rows = {}
+        for b in (4, 1):
+            x = torch.randn((b, layer.c_in, layer.h_in, layer.w_in),
+                            generator=xgen, device=flush.device)
+            t = geo.n_tiles
+            tiles = spec.extract_tiles_overlapping(x, geo).reshape(
+                -1, 8, 8).contiguous()
+            xr, xi = fft8.fft2_tiles(tiles, fft_size=8)
+            calls = {"fft2_tiles": (
+                lambda: fft8.fft2_tiles(tiles, fft_size=8),
+                lambda: fft8.fft2_tiles_reference(tiles, 8),
+                lambda: torch.fft.fft2(tiles))}
+            pr, pi = kops._x_plane(xr, b, layer.c_in), kops._x_plane(
+                xi, b, layer.c_in)
+            xc = torch.complex(pr, pi)
+            for e, flow in flows.items():
+                calls[e] = (
+                    lambda flow=flow: shad.spectral_hadamard(
+                        wr, wi, pr, pi, flow=flow),
+                    lambda flow=flow: shad.spectral_hadamard_reference(
+                        wr, wi, pr, pi, flow=flow),
+                    lambda: torch.matmul(wc, xc))
+            yr, yi = shad.spectral_hadamard(wr, wi, pr, pi)
+            tr, ti = (kops._y_tiles(a, b, t, 8) for a in (yr, yi))
+            tc = torch.complex(tr, ti)
+            calls["ifft2_tiles"] = (
+                lambda: fft8.ifft2_tiles(tr, ti),
+                lambda: fft8.ifft2_tiles_reference(tr, ti),
+                lambda: torch.fft.ifft2(tc))
+            if b == 1 and "scheduled_sparse_hadamard" in entries:
+                k = lp.kernels
+                packed, _ = kops.group_tables(k.values[:64], k.indices[:64],
+                                              r=10)
+                packed = tuple(a.to(flush.device) for a in packed)
+                gx = torch.complex(xr, xi).reshape(layer.c_in, t, 64)
+                gr = gx.real.permute(0, 2, 1).contiguous()
+                gi = gx.imag.permute(0, 2, 1).contiguous()
+                calls["scheduled_sparse_hadamard"] = (
+                    lambda: sh.scheduled_sparse_hadamard(*packed, gr, gi),
+                    lambda: sh.scheduled_sparse_hadamard_reference(
+                        *packed, gr, gi), None)
+            for e, (kern, plain, _) in calls.items():
+                y = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                y, ref = ((y,), (ref,)) if torch.is_tensor(y) else (y, ref)
+                err = max(rel_err(a, c) for a, c in zip(y, ref))
+                abs_err = max(float((a - c).abs().max())
+                              for a, c in zip(y, ref))
+                if (not all(torch.isfinite(a).all() for a in y)
+                        or err > KERNEL_TOL):
+                    fail(f"(s) {e} {layer.name} batch {b}: kernel vs plain "
+                         f"rel err {err:.3e} > {KERNEL_TOL:g}")
+                if e in ("spectral_hadamard_ws", "spectral_hadamard_is"):
+                    again = kern()
+                    if not all(torch.equal(a, c) for a, c in zip(y, again)):
+                        fail(f"(s) {e} {layer.name} batch {b}: a repeat "
+                             f"launch differs")
+                rows.setdefault(e, []).append((b, err, abs_err))
+        bounds = staged_bounds(64, layer.c_out, layer.c_in, t, layer.c_in * t,
+                               layer.c_out * t)
+        if "scheduled_sparse_hadamard" in entries:
+            bounds["scheduled_sparse_hadamard"] = table_bound(
+                packed, geo.fft_size ** 2, t)
+        for e, (kern, plain, lib) in calls.items():
+            k_ms = timed_ms(kern, flush.zero_, S_REPS)
+            p_ms = once_ms(plain)
+            l_ms = None if lib is None else timed_ms(lib, flush.zero_,
+                                                     S_REPS)
+            flops, nbytes = bounds[e]
+            b_ms, by = bound_of(flops, nbytes)
+            tt = tot[e]
+            tt["ms"] += k_ms
+            tt["plain_ms"] += p_ms
+            tt["library_ms"] = (None if l_ms is None
+                                else tt["library_ms"] + l_ms)
+            tt["bound_ms"] += b_ms
+            tt["flops"] += flops
+            tt["bytes"] += nbytes
+            tt["abs_err"] = max([tt["abs_err"]] + [r[2] for r in rows[e]])
+            tt["err"] = max([tt["err"]] + [r[1] for r in rows[e]])
+            errs = " / ".join(f"{r[1]:.2e}" for r in sorted(rows[e]))
+            print(f"    {layer.name:8s} {e:26s} {errs:19s} {k_ms:9.4f} "
+                  f"{p_ms:9.4f} "
+                  + ("        -" if l_ms is None else f"{l_ms:9.4f}")
+                  + f" {b_ms:9.4f}  {by}")
+    for e, tt in tot.items():
+        tt["by"] = bound_of(tt["flops"], tt["bytes"])[1]
+        lib = tt["library_ms"]
+        print(f"    total {e}: kernel {tt['ms']:.4f} ms, plain "
+              f"{tt['plain_ms']:.4f}, library "
+              + ("none" if lib is None else f"{lib:.4f}")
+              + f", bound {tt['bound_ms']:.4f} ms ({tt['by']}), max rel "
+              f"err {tt['err']:.2e}")
+    return tot
+
+
+def drive_ops(plan, xgen) -> dict[str, int]:
+    """(dh): the staged path's other entry points as a user calls them, at
+    every VGG16 layer at batch 1 with every launch count set to 0 just
+    before and read just after: ``ops.hadamard`` in the weight- and
+    input-stationary flows on the layer's spectral kernels and the
+    spectra of a random activation's windows, and
+    ``ops.scheduled_sparse_conv_group`` on the first 64 kernels (r = 10);
+    each held to the einsum of the same product (1e-4 relative).  One
+    launch of each per layer.  Returns the launches."""
+    import torch
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import spectral_hadamard as shad
+    reset_launches()
+    outs = []
+    t0 = time.perf_counter()
+    for lp in plan.layers:
+        layer, k = lp.layer, lp.kernels
+        x = torch.randn((1, layer.c_in, layer.h_in, layer.w_in),
+                        generator=xgen, device=k.values.device)
+        x_f = torch.fft.fft2(spec.extract_tiles_overlapping(x, lp.geo))
+        for flow in (shad.WS, shad.IS):
+            outs.append((f"{layer.name} hadamard {flow}",
+                         kops.hadamard(k.values, x_f, flow=flow),
+                         lambda x_f=x_f, k=k: spec.hadamard_accumulate(
+                             x_f, k.values)))
+        y, stats = kops.scheduled_sparse_conv_group(
+            k.values[:64], k.indices[:64], x_f, r=10)
+        outs.append((f"{layer.name} table group (T {stats['cycles']}, mu "
+                     f"{stats['utilization']:.3f})", y,
+                     lambda x_f=x_f, k=k: spec.hadamard_accumulate(
+                         x_f, k.values[:64])[0]))
+    torch.cuda.synchronize()
+    launches = all_launches()
+    seconds = time.perf_counter() - t0
+    n = len(plan.layers)
+    want = {e: (n if e in ("spectral_hadamard_ws", "spectral_hadamard_is",
+                           "scheduled_sparse_hadamard") else 0)
+            for e in launches}
+    if launches != want:
+        fail(f"(dh) launched {launches}, expected {want}")
+    worst = 0.0
+    for label, y, ref_fn in outs:
+        ref = ref_fn()
+        err = max(rel_err(y.real, ref.real), rel_err(y.imag, ref.imag))
+        worst = max(worst, err)
+        if not torch.isfinite(torch.view_as_real(y)).all() or err > \
+                KERNEL_TOL:
+            fail(f"(dh) {label}: vs einsum rel err {err:.3e}")
+    print(f"(dh) ops.hadamard (ws, is) and ops.scheduled_sparse_conv_group "
+          f"at the {n} VGG16 layers, batch 1: {seconds:.1f} s (Alg-2 "
+          f"tables on the host included); max rel err vs einsum "
+          f"{worst:.2e}; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def resnet18(dev, xgen, drive) -> dict:
     """(r) and (dr) on full-width ResNet-18 (``init``, seed 0, alpha 4):
     the forced bin/windowed plan and the scheduled plan (Alg-2 tables of
@@ -764,7 +1044,11 @@ def resnet18(dev, xgen, drive) -> dict:
     batch-4 forwards each), one batch-1 forward of the scheduled plans
     and of every flow move, then the autotuned plan (``measure=True``)
     as the first two.  20 launches per forward, 8 of them fusing the
-    shortcut.  Returns (r)'s totals per entry point."""
+    shortcut.  Between them, (s) holds the staged backend's three
+    launches to their plain versions at the 20 layers, (ds) serves the
+    forced plan through that backend, and (dr4) the scheduled plans
+    (built at batch 1) at batch 4.  Returns (r)'s totals per entry point
+    and (s)'s."""
     import torch
     from repro_torch.configs.resnet18_spectral import CONFIG as RCFG
     from repro_torch.core.plan import (build_network_plan, with_flow,
@@ -805,6 +1089,7 @@ def resnet18(dev, xgen, drive) -> dict:
 
     images = [torch.randn((b, 3, RCFG.image_size, RCFG.image_size),
                           generator=xgen, device=dev) for b in BATCHES]
+    kernel_ms_of = {}
     for key, label, imgs in (
             (("plane", "windowed", fsc.OS), "(dr) forced bin/windowed",
              images),
@@ -821,11 +1106,48 @@ def resnet18(dev, xgen, drive) -> dict:
                 or sum(residual.values()) != n_fused):
             fail(f"{label}: {per_forward} launches, {residual} fused per "
                  f"forward; expected {len(RCFG.layers)} and {n_fused}")
-        kernel_ms = plan_kernel_ms(plan, xgen, flush)
-        drive(plan, imgs, label, per_forward, kernel_ms, residual, params,
-              RCFG)
+        kernel_ms_of[key] = plan_kernel_ms(plan, xgen, flush)
+        drive(plan, imgs, label, per_forward, kernel_ms_of[key], residual,
+              params, RCFG)
     print(f"    plan build: plane {build_s['plane']:.1f} s, scheduled "
           f"{build_s['scheduled']:.1f} s")
+
+    # (s), (ds) the staged backend on the forced plan's kernels
+    plan = plans[("plane", "windowed", fsc.OS)]
+    stotals = staged_check(plan, "ResNet-18", xgen, flush, STAGED_PATH)
+    drive(plan, images[:1] + images, "(ds) ResNet-18 staged",
+          dict.fromkeys(STAGED_PATH, len(RCFG.layers)),
+          sum(stotals[e]["ms"] for e in STAGED_PATH), None, params, RCFG,
+          backend="staged", discard_first=True)
+
+    # (dr4) the scheduled plans, built at batch 1, forwarded at batch 4:
+    # a staged ('vmem') shortcut whose rows do not fit at that batch is
+    # read at the flush ('hbm') instead
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for imode in ("windowed", "halo"):
+        plan = plans[("scheduled", imode, fsc.OS)]
+        moved = []
+        for node in plan.graph:
+            lp = plan.layers[node.layer_index] if node.kind == "conv" \
+                else None
+            if lp is None or lp.epilogue.residual != "fused":
+                continue
+            got = {b: fsc.placement_at_batch(lp, b, sms) for b in (1, 4)}
+            if got[1] != (lp.tuning.residual or "hbm"):
+                fail(f"(dr4) {node.id}: the batch-1 plan's placement "
+                     f"{lp.tuning.residual} became {got[1]} at batch 1")
+            if got[4] != got[1]:
+                moved.append(node.id)
+            print(f"(dr4) {imode} {node.id}: planned {lp.tuning.residual}, "
+                  f"batch 1 {got[1]}, batch 4 {got[4]}")
+        if not moved:
+            fail(f"(dr4) {imode}: no staged shortcut falls back at batch 4; "
+                 f"the check does not reach the fault it guards")
+        per_forward, residual = per_forward_of(plan)
+        drive(plan, [images[0], images[-1], images[-1]],
+              f"(dr4) scheduled {imode}, built at batch 1", per_forward,
+              kernel_ms_of[("scheduled", imode, fsc.OS)], residual, params,
+              RCFG)
     del plans, base, plan
 
     t0 = time.perf_counter()
@@ -847,7 +1169,7 @@ def resnet18(dev, xgen, drive) -> dict:
     drive(aplan, images, "(dr) autotuned", per_forward,
           1e3 * sum(lp.tuning.measured_s for lp in aplan.layers), residual,
           params, RCFG)
-    return totals
+    return totals, stotals
 
 
 def main() -> int:
@@ -860,6 +1182,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     import repro_torch
+    import repro_torch.kernels
     from repro_torch.configs.vgg16_spectral import CONFIG
     from repro_torch.core import autotune as at
     from repro_torch.core import spectral as spec
@@ -885,7 +1208,7 @@ def main() -> int:
 
     # (b) build ----------------------------------------------------------
     t0 = time.perf_counter()
-    fsc.build_all()
+    repro_torch.kernels.build_all()
     print(f"(b) built {sorted(_build.BUILD_LOG)} for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s")
     for src, log in sorted(_build.BUILD_LOG.items()):
@@ -967,18 +1290,19 @@ def main() -> int:
     images = [torch.randn((b, 3, CONFIG.image_size, CONFIG.image_size),
                           generator=xgen, device=dev)
               for b in BATCHES]
-    main_launches = {k: 0 for k in fsc.LAUNCHES}   # summed over (d)-(dr)
-    main_residual = {k: 0 for k in fsc.LAUNCHES}
+    main_launches = dict.fromkeys(all_launches(), 0)   # summed over (d)-(dr4)
+    main_residual = dict.fromkeys(fsc.LAUNCHES, 0)
     p50s = {}
 
     def drive(plan_, images_, label, per_forward, kernel_sum_ms,
-              residual=None, params_=None, cfg=CONFIG):
+              residual=None, params_=None, cfg=CONFIG, **how):
         launches, res, p50s[label], host = serve(
             params if params_ is None else params_, plan_, cfg, images_,
-            label, per_forward, kernel_sum_ms, residual)
+            label, per_forward, kernel_sum_ms, residual, **how)
         for k, v in launches.items():
             main_launches[k] += v
-            main_residual[k] += res[k]
+        for k, v in res.items():
+            main_residual[k] += v
         return host
 
     n_layers = len(plan.layers)
@@ -1195,10 +1519,21 @@ def main() -> int:
     drive(aplan, images, "(d5)", per_forward, auto_sum)
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items()))
-    del aplan, params, images
+
+    # (s), (ds), (dh) the staged backend on the same weights (it reads
+    # only the plan's spectral kernels and geometry: any plan serves)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    stotals = staged_check(aplan, "VGG16", xgen, flush)
+    drive(aplan, images[:1] + images, "(ds) VGG16 staged",
+          dict.fromkeys(STAGED_PATH, n_layers),
+          sum(stotals[e]["ms"] for e in STAGED_PATH), backend="staged",
+          discard_first=True)
+    for k, v in drive_ops(aplan, xgen).items():
+        main_launches[k] += v
+    del aplan, params, images, flush
 
     # ResNet-18: (r) and (dr) ---------------------------------------------
-    rtotals = resnet18(dev, xgen, drive)
+    rtotals, rstotals = resnet18(dev, xgen, drive)
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 
@@ -1261,6 +1596,43 @@ def main() -> int:
                 "library_ms": None,
                 "residual": residual,
             })
+    staged_src = {"fft2_tiles": ("fft_tiles.cu", "fft8.py:85"),
+                  "ifft2_tiles": ("fft_tiles.cu", "fft8.py:111"),
+                  "spectral_hadamard": ("spectral_hadamard.cu",
+                                        "spectral_hadamard.py:110"),
+                  "spectral_hadamard_ws": ("spectral_hadamard.cu",
+                                           "spectral_hadamard.py:80"),
+                  "spectral_hadamard_is": ("spectral_hadamard.cu",
+                                           "spectral_hadamard.py:80"),
+                  "scheduled_sparse_hadamard": ("sparse_hadamard.cu",
+                                                "sparse_hadamard.py:101")}
+    for entry in STAGED:
+        t = stotals[entry]
+        launches = main_launches[entry]
+        if launches < 1:
+            fail(f"{entry} was not launched by the main path")
+        print(f"(e) {entry}: ok, launches={launches}")
+        src, ref = staged_src[entry]
+        row = {
+            "name": entry,
+            "route": "cuda",
+            "source": csrc + src,
+            "replaces": "src/repro/kernels/" + ref,
+            "launches": launches,
+            "max_abs_err": t["abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["by"],
+            "library_ms": t["library_ms"],
+        }
+        if entry in rstotals:       # also checked at the ResNet-18 layers
+            rt = rstotals[entry]
+            row["max_abs_err"] = max(t["abs_err"], rt["abs_err"])
+            row["resnet18"] = {k: rt[k] for k in (
+                "abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+            row["resnet18"]["bound_by"] = rt["by"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

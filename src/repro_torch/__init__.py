@@ -7,10 +7,13 @@ find:
 
 - ``core``:    tile geometry, spectral transform and pruning, the
                compile-once network plan;
-- ``kernels``: the fused spectral-conv kernel (CUDA source under
-               ``kernels/csrc``), its plain PyTorch version, the build
-               helper;
-- ``models``:  the spectral VGG16 forward pass and its spatial oracle;
+- ``kernels``: the fused spectral-conv kernels, the staged path's
+               tile-FFT, spectral Hadamard and tile-IFFT kernels and
+               the Alg-2 table executor (CUDA sources under
+               ``kernels/csrc``), their plain PyTorch versions, the
+               build helper;
+- ``models``:  the spectral VGG16 / ResNet-18 forward pass and its
+               spatial oracle;
 - ``configs``: model presets.
 
 Entry points run on the CUDA device unless the caller passes

@@ -255,16 +255,18 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     ifft_flops = 4 * s2 * fft_bins * n * p * g
     flops = fft_flops + had_flops + ifft_flops + 2 * s2 * n * p * g
 
-    sc_rows = (fsc.staged_rows(s2, grid["ranks"]) if residual == "vmem"
-               else 0)
-    smem = (fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe,
-                                 halo_block_geometry(geo, min(
-                                     fsc.SCHED_BLOCK_P, geo.n_tiles))
-                                 if halo else None, sc_rows) if sched
-            else fsc.plane_smem_bytes(flow, geo, block_m,
-                                      halo_block_geometry(geo, min(
-                                          fsc.BLOCK_P, geo.n_tiles))
-                                      if halo else None, sc_rows))
+    hg = (halo_block_geometry(geo, min(fsc.SCHED_BLOCK_P if sched
+                                       else fsc.BLOCK_P, geo.n_tiles))
+          if halo else None)
+    if residual == "vmem":          # the rule by which the wrappers refuse it
+        smem = fsc.staged_shortcut_bytes(
+            s, s2, fa, halo=None if hg is None else (geo, hg),
+            tables=(t_cyc, r, n_pe) if sched else None, blocks=pb * nb,
+            m=m, sms=H100_SMS)
+    elif sched:
+        smem = fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe, hg)
+    else:
+        smem = fsc.plane_smem_bytes(flow, geo, block_m, hg)
     waves = -(-grid["ctas"] // H100_SMS)
     wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
                                   input_mode)]
@@ -528,22 +530,19 @@ def _make_measure_fn(lp, batch: int, tables: Callable[[], object]
 
     def measure(tn: FusedTuning) -> float:
         tabs = tables() if tn.hadamard == "scheduled" else None
-        if tabs is not None and (tn.flow != fsc.OS
-                                 or tn.residual == "vmem"):
-            ranks = kernel_grid(layer, lp.geo.fft_size, tn.flow, tn.hadamard,
-                                tn.input_mode, batch, tn.block_m,
-                                lp.n_active_bins)["ranks"]
+        if tabs is not None and tn.flow != fsc.OS:
             need = fsc.sched_smem_bytes(
                 tn.flow, lp.geo, tn.block_m, tabs.idx.shape[2],
                 tabs.idx.shape[3], tabs.sel.shape[3],
                 halo_block_geometry(lp.geo, tn.block_p)
-                if tn.input_mode == "halo" else None,
-                fsc.staged_rows(lp.geo.tile ** 2, ranks)
-                if tn.residual == "vmem" else 0)
+                if tn.input_mode == "halo" else None)
             if need > fsc.SMEM_PER_CTA:     # the real T outgrew the cap
                 return float("inf")
         cand = dataclasses.replace(lp, tuning=tn, hadamard=tn.hadamard,
                                    input_mode=tn.input_mode, tables=tabs)
+        if tn.residual == "vmem" and fsc.placement_at_batch(
+                cand, batch, H100_SMS) != "vmem":
+            return float("inf")             # the staged rows do not fit
         return 1e-3 * device_ms(
             lambda: fsc.execute_layer_plan(x, cand, shortcut=sc),
             flush.zero_)

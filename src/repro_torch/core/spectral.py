@@ -268,7 +268,8 @@ def spectral_conv2d_pretransformed(x: torch.Tensor, w_f,
     (possibly pruned) kernel.
 
     ``w_f`` is a dense complex [N, M, K, K] tensor or a
-    ``sparse.SparseSpectralKernels`` (duck-typed on ``.values``); for
+    ``sparse.SparseSpectralKernels`` (anything with ``.values`` and
+    ``.active_bins`` that is not a tensor); for
     pruned kernels the Hadamard product is restricted to the frequency
     bins that are non-zero in some kernel.  Defines the pruned-conv
     semantics the fused kernel is held to.
@@ -286,7 +287,7 @@ def spectral_conv2d_pretransformed(x: torch.Tensor, w_f,
 
 def _hadamard_maybe_sparse(x_f: torch.Tensor, w_f,
                            geo: SpectralGeometry) -> torch.Tensor:
-    if not hasattr(w_f, "values"):                      # dense kernel
+    if isinstance(w_f, torch.Tensor):                   # dense kernel
         return hadamard_accumulate(x_f, w_f)
     values = w_f.values
     kk = geo.fft_size

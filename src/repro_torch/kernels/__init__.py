@@ -9,7 +9,29 @@ versions beside them.
   split-K finish launch) (sources: csrc/fused_spectral_conv.cu,
   csrc/fused_spectral_conv_scheduled.cu, csrc/halo.cuh,
   csrc/split_k.cuh).
+- fft8, spectral_hadamard: the staged path's three launches per layer —
+  tile-FFT, the frequency-binned complex GEMM (three flows), tile-IFFT —
+  with the spectra in device memory between them (csrc/fft_tiles.cu,
+  csrc/spectral_hadamard.cu); ``ops.spectral_conv2d_staged`` chains them.
+- sparse_hadamard: the standalone Alg-2 table executor of one PE group
+  (csrc/sparse_hadamard.cu); ``ops.scheduled_sparse_conv_group`` compiles
+  the schedule and runs it.
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and loads the
-libraries with ctypes.
+libraries with ctypes; ``build_all`` builds every source at once.
 """
+
+
+def build_all() -> dict:
+    """Build (at first use; one nvcc per source, all started together)
+    and load every kernel library of the package, keyed by source name,
+    with each entry point's ctypes signature set."""
+    from repro_torch.kernels import (_build, fft8, sparse_hadamard,
+                                     spectral_hadamard)
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    mods = (fsc, fft8, spectral_hadamard, sparse_hadamard)
+    libs = _build.build({k: v for mod in mods for k, v in mod.SOURCES.items()})
+    fsc.library()
+    for mod in mods[1:]:
+        mod.library()
+    return libs

@@ -323,15 +323,19 @@ def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
     return _epilogue(y, bias, relu, shortcut)
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
+# The kernels' sources and their -D defines (``_build.build``).
+SOURCES = {
+    "fused_spectral_conv": {
+        "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
+        "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS},
+    "fused_spectral_conv_scheduled": {
+        "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}}
+
+
+def _libraries() -> dict[str, ctypes.CDLL]:
     """Build (at first use; one nvcc per source, started together) and
     load both kernel libraries, keyed by source name."""
-    libs = _build.build({
-        "fused_spectral_conv": {
-            "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
-            "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS},
-        "fused_spectral_conv_scheduled": {
-            "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}})
+    libs = _build.build(SOURCES)
     # pointers (the output, then the shortcut), then ints (the last is
     # sc_staged), then the stream
     plane, sched = libs["fused_spectral_conv"], \
@@ -354,7 +358,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 def library() -> ctypes.CDLL:
     """The plane kernel's library (built at first use)."""
-    return build_all()["fused_spectral_conv"]
+    return _libraries()["fused_spectral_conv"]
 
 
 def _check_layouts(ops: dict[str, torch.Tensor],
@@ -449,6 +453,56 @@ def _check_shortcut(shortcut, shape: tuple, device, flow: str,
                          f"{device}")
 
 
+def staged_shortcut_bytes(s: int, s2: int, fa: int, *, halo=None,
+                          tables: tuple[int, int, int] | None = None,
+                          blocks: int = 1, m: int = 1, sms: int = 1) -> int:
+    """Dynamic shared memory of one output-stationary CTA that stages a
+    'vmem' shortcut, the rule by which the wrappers refuse that placement
+    and ``placement_at_batch`` falls back from it: the plane kernel's
+    layout, whose cluster splits the ``fa`` active bins, or, given the
+    tables' (cycles T, replicas r, lanes N'), the scheduled kernel's,
+    whose cluster over the ``m`` input channels (``sched_cluster``) is
+    sized for ``blocks`` (tile block, group) pairs on ``sms`` SMs.
+    ``halo`` is the (geometry, halo block) pair of the halo input path,
+    None for windows; S = K^2 window rows, S2 = t^2 output rows."""
+    bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_BLOCK_P)
+    x_floats, win = ((s * bm * bp, 0) if halo is None
+                     else _halo_stage(*halo, bm, bp))
+    if tables is None:
+        return _plane_layout_bytes(OS, s, s2, BLOCK_M, x_floats, win,
+                                   staged_rows(s2, -(-fa // BIN_CHUNK)))
+    t_cycles, r, n_pe = tables
+    return _sched_layout_bytes(OS, s, s2, 1, t_cycles, r, n_pe, x_floats,
+                               win, staged_rows(s2,
+                                                sched_cluster(blocks, m, sms)))
+
+
+def placement_at_batch(lp, batch: int, sms: int) -> str:
+    """Where ``execute_layer_plan`` has the kernel read ``lp``'s shortcut
+    at ``batch`` images on a card of ``sms`` SMs: the plan's placement
+    ('hbm' when it chose none), except that a planned 'vmem' whose staged
+    rows do not fit one CTA's shared memory at this batch
+    (``staged_shortcut_bytes``) becomes 'hbm'.  The scheduled kernel's
+    cluster, and with it the staged rows, follows the batch, so a plan
+    built at one batch may not fit at another; both placements give the
+    same bits."""
+    want = lp.tuning.residual or "hbm"
+    if want != "vmem":
+        return want
+    halo = ((lp.geo, halo_block_geometry(lp.geo, lp.tuning.block_p))
+            if lp.input_mode == "halo" else None)
+    tables, blocks = None, 1
+    if lp.hadamard == "scheduled":
+        gn, _, t_cycles, r = lp.tables.idx.shape
+        tables = (t_cycles, r, lp.tables.sel.shape[-1])
+        blocks = gn * (batch * halo[1].n_blocks if halo is not None
+                       else -(-batch * lp.geo.n_tiles // SCHED_BLOCK_P))
+    smem = staged_shortcut_bytes(lp.dfr.shape[1], lp.dvr.shape[0],
+                                 lp.n_active_bins, halo=halo, tables=tables,
+                                 blocks=blocks, m=lp.layer.c_in, sms=sms)
+    return want if smem <= SMEM_PER_CTA else "hbm"
+
+
 def _check_staged_fits(kernel: str, smem: int) -> None:
     """Refuse a 'vmem' shortcut whose CTA would need more shared memory
     than the card gives one (the launch would fail)."""
@@ -533,9 +587,8 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias)
     staged = shortcut is not None and shortcut_placement == "vmem"
     if staged:
-        _check_staged_fits("fused_spectral_pipeline", _plane_layout_bytes(
-            OS, s, s2, BLOCK_M, s * BLOCK_M * BLOCK_P, 0,
-            staged_rows(s2, -(-fa // BIN_CHUNK))))
+        _check_staged_fits("fused_spectral_pipeline",
+                           staged_shortcut_bytes(s, s2, fa))
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n, p), dtype=torch.float32, device=xt.device)
         _launch(library(), "fused_spectral_pipeline", flow, block_m, g,
@@ -607,7 +660,7 @@ def fused_spectral_pipeline_scheduled_reference(
 
 def library_scheduled() -> ctypes.CDLL:
     """The scheduled kernel's library (built at first use)."""
-    return build_all()["fused_spectral_conv_scheduled"]
+    return _libraries()["fused_spectral_conv_scheduled"]
 
 
 def _check_scheduled_operands(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
@@ -700,11 +753,11 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     fa = dfr.shape[0]
     staged = shortcut is not None and shortcut_placement == "vmem"
     if staged:
-        c = sched_cluster(-(-p // SCHED_BLOCK_P) * gn, m, _sms(xt.device))
         _check_staged_fits(
-            "fused_spectral_pipeline_scheduled", _sched_layout_bytes(
-                OS, s, s2, 1, n_cycles, r, n_pe, s * SCHED_BLOCK_P, 0,
-                staged_rows(s2, c)))
+            "fused_spectral_pipeline_scheduled", staged_shortcut_bytes(
+                s, s2, fa, tables=(n_cycles, r, n_pe),
+                blocks=-(-p // SCHED_BLOCK_P) * gn, m=m,
+                sms=_sms(xt.device)))
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n_out, p), dtype=torch.float32,
                         device=xt.device)
@@ -884,8 +937,9 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                           geo.fft_size ** 2, x.shape[1], hg.block_tiles)
     staged = shortcut is not None and shortcut_placement == "vmem"
     if staged:
-        _check_staged_fits("fused_spectral_pipeline_halo", plane_smem_bytes(
-            OS, geo, hg=hg, sc_rows=staged_rows(s2, -(-fa // BIN_CHUNK))))
+        _check_staged_fits("fused_spectral_pipeline_halo",
+                           staged_shortcut_bytes(geo.fft_size ** 2, s2, fa,
+                                                 halo=(geo, hg)))
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n)
         _launch(library(), "fused_spectral_pipeline_halo", flow, block_m, g,
@@ -942,11 +996,12 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
     s2 = dvr.shape[0]
     staged = shortcut is not None and shortcut_placement == "vmem"
     if staged:
-        c = sched_cluster(x.shape[0] * hg.n_blocks * gn, x.shape[1],
-                          _sms(x.device))
         _check_staged_fits(
-            "fused_spectral_pipeline_scheduled_halo", sched_smem_bytes(
-                OS, geo, 1, n_cycles, r, n_pe, hg, staged_rows(s2, c)))
+            "fused_spectral_pipeline_scheduled_halo", staged_shortcut_bytes(
+                geo.fft_size ** 2, s2, fa, halo=(geo, hg),
+                tables=(n_cycles, r, n_pe),
+                blocks=x.shape[0] * hg.n_blocks * gn, m=x.shape[1],
+                sms=_sms(x.device)))
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n_out)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
@@ -1085,7 +1140,9 @@ def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
     ``shortcut``: raw [B, N, H_out, W_out] residual operand of a node
     whose epilogue is residual-fused (``lp.epilogue.residual ==
     'fused'``, stride 1): the kernel adds it after the bias and before
-    the ReLU, placed where the plan's tuning says ('hbm' | 'vmem')."""
+    the ReLU, placed where the plan's tuning says ('hbm' | 'vmem'), or
+    in 'hbm' where a planned 'vmem' does not fit at this batch
+    (``placement_at_batch``)."""
     flow = lp.tuning.flow
     kw = dict(flow=flow, relu=lp.epilogue.relu)
     if flow != OS:
@@ -1095,7 +1152,9 @@ def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
             raise ValueError(f"{lp.layer.name}: a shortcut goes into the "
                              f"kernel only on a residual-fused epilogue, "
                              f"not {lp.epilogue.residual!r}")
-        kw["shortcut_placement"] = lp.tuning.residual or "hbm"
+        kw["shortcut_placement"] = (
+            placement_at_batch(lp, x.shape[0], _sms(x.device)) if x.is_cuda
+            else lp.tuning.residual or "hbm")
     halo = lp.input_mode == "halo"
     if halo:    # a windowed (or strided) producer's output is a view
         x = x.contiguous()

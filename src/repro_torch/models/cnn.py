@@ -19,6 +19,7 @@ from repro_torch.core import plan as pl
 from repro_torch.core import sparse as sp
 from repro_torch.core import spectral as spec
 from repro_torch.kernels.fused_spectral_conv import execute_layer_plan
+from repro_torch.kernels.ops import spectral_conv2d_staged
 from repro_torch.models import layers as L
 
 # after which conv layers a 2x2 max-pool follows
@@ -104,9 +105,9 @@ def _pool(x: torch.Tensor, kind: str = "max") -> torch.Tensor:
     return x.amax(dim=(3, 5)) if kind == "max" else x.mean(dim=(3, 5))
 
 
-# 'fused' is the counterpart of the reference's 'pallas_fused'; the
-# reference's 'pallas_staged' ('staged' here) is not ported yet.
-BACKENDS = ("einsum", "fused")
+# 'staged' and 'fused' are the counterparts of the reference's
+# 'pallas_staged' and 'pallas_fused'.
+BACKENDS = ("einsum", "staged", "fused")
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -128,16 +129,18 @@ def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
         only the plan's operands).
       plan: a ``NetworkPlan`` built once by ``build_network_plan``.
       x: [B, C, H, W] f32 input on the plan's device.
-      backend: 'einsum' (the torch.fft + einsum oracle) or 'fused' (one
+      backend: 'einsum' (the torch.fft + einsum oracle), 'staged' (three
+        kernel launches per conv layer: tile-FFT, spectral Hadamard over
+        the dense K^2 kernel planes, tile-IFFT, with the spectra in
+        device memory between them, then bias, stride, shortcut and ReLU
+        on the host; the reference's 'pallas_staged') or 'fused' (one
         fused-kernel launch per conv layer with bias + ReLU, and a
         residual-fused node's shortcut add, inside the kernel; the
-        reference's 'pallas_fused').  'staged' is not ported yet.
+        reference's 'pallas_fused').  'staged' reads only the plan's
+        ``kernels`` and ``geo``, so it runs any plan.
 
     Returns [B, n_classes] logits.
     """
-    if backend == "staged":
-        raise NotImplementedError(
-            "the staged backend is not ported yet (ROADMAP A8)")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}")
     graph = plan.graph
@@ -182,10 +185,13 @@ def _conv_node(x: torch.Tensor, lp: pl.LayerPlan, node: pl.PlanNode,
     (``lp.epilogue.residual == 'fused'``, stride 1) hands the shortcut
     to the kernel, which adds it before its ReLU; any other shortcut
     (the 'add' rung of strided nodes) is added on the host after the
-    subsample, with the ReLU after it."""
+    subsample, with the ReLU after it.  The einsum and staged backends
+    run the whole epilogue on the host."""
     stride = lp.layer.stride
-    if backend == "einsum":
-        y = spec.spectral_conv2d_pretransformed(x, lp.kernels, lp.geo)
+    if backend in ("einsum", "staged"):
+        y = (spec.spectral_conv2d_pretransformed(x, lp.kernels, lp.geo)
+             if backend == "einsum" else
+             spectral_conv2d_staged(x, lp.kernels.values, lp.geo))
         if lp.epilogue.bias:
             y = y + lp.bias[0][None, :, None, None]
         y = y[:, :, ::stride, ::stride]

@@ -19,8 +19,13 @@ from repro_torch.configs.resnet18_spectral import SMOKE as RESNET_SMOKE
 from repro_torch.configs.vgg16_spectral import SMOKE
 from repro_torch.core import plan as pl
 from repro_torch.core import scheduler as sch
+from repro_torch.core import sparse as sp
 from repro_torch.core import spectral as spec
+from repro_torch.kernels import fft8
 from repro_torch.kernels import fused_spectral_conv as fsc
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import sparse_hadamard as sh
+from repro_torch.kernels import spectral_hadamard as shad
 from repro_torch.models import cnn
 
 TOL = 1e-4
@@ -730,3 +735,137 @@ def test_resnet18_smoke_forward_on_card_fuses_the_shortcut(hadamard,
     ref = cnn.forward_spectral(params, plan, x, backend="einsum")
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= TOL, err
+
+
+# --- the staged backend and the table executor (B7a, B7b, B8) and C1 -------
+
+def _launched(counters, before):
+    return {k: v - before[k] for k, v in counters.items() if v != before[k]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,b", [(8, 1), (8, 1000), (6, 300)])
+def test_fft_kernels_match_plain_on_card(t, b):
+    """Tile FFT and IFFT against torch.fft: a batch that is not a multiple
+    of the 32 tiles a CTA step takes, t < K padded in the kernel's load;
+    the round trip gives the padded tiles back."""
+    need_card()
+    x = torch.randn(b, t, t, device="cuda")
+    before = dict(fft8.LAUNCHES)
+    yr, yi = fft8.fft2_tiles(x, fft_size=8)
+    back = fft8.ifft2_tiles(yr, yi)
+    torch.cuda.synchronize()
+    assert _launched(fft8.LAUNCHES, before) == {"fft2_tiles": 1,
+                                                "ifft2_tiles": 1}
+    rr, ri = fft8.fft2_tiles_reference(x, 8)
+    for got, ref in ((yr, rr), (yi, ri),
+                     (back, fft8.ifft2_tiles_reference(rr, ri))):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= TOL
+    pad = torch.nn.functional.pad(x, (0, 8 - t, 0, 8 - t))
+    assert float((back - pad).abs().max() / pad.abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow,block_m", [("output_stationary", 128),
+                                          ("weight_stationary", 16),
+                                          ("weight_stationary", 128),
+                                          ("input_stationary", 32),
+                                          ("input_stationary", 128)])
+@pytest.mark.parametrize("f,n,m,p", [(3, 70, 45, 130), (64, 64, 64, 9),
+                                     (2, 1, 1, 1)])
+def test_spectral_hadamard_matches_plain_on_card(f, n, m, p, flow, block_m):
+    """Each flow against its plain version (the same m ranges) at ragged
+    shapes; a repeat launch is bitwise equal (no atomics)."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(f + n)
+    ops = [torch.randn(s, generator=gen, device="cuda")
+           for s in ((f, n, m), (f, n, m), (f, m, p), (f, m, p))]
+    before = dict(shad.LAUNCHES)
+    yr, yi = shad.spectral_hadamard(*ops, flow=flow, block_m=block_m)
+    torch.cuda.synchronize()
+    assert _launched(shad.LAUNCHES, before) == {shad.ENTRY_POINTS[flow]: 1}
+    rr, ri = shad.spectral_hadamard_reference(*ops, flow=flow,
+                                              block_m=block_m)
+    for got, ref in ((yr, rr), (yi, ri)):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= TOL
+    again = shad.spectral_hadamard(*ops, flow=flow, block_m=block_m)
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pe,m,p", [(64, 7, 37), (20, 3, 4), (64, 1, 1)])
+def test_table_executor_matches_plain_on_card(n_pe, m, p):
+    """The Fig-6 table executor against its plain version on one group's
+    tables (alpha 4, r = 10), ragged tile count, bitwise repeatable."""
+    need_card()
+    rng = np.random.default_rng(n_pe + m)
+    w = torch.from_numpy(rng.standard_normal((n_pe, m, 3, 3)).astype(
+        np.float32))
+    sk = sp.prune_magnitude(spec.spectral_kernel(w, 8), 4.0)
+    packed, _ = kops.group_tables(sk.values, sk.indices, r=10)
+    packed = [a.cuda() for a in packed]
+    xr, xi = (torch.randn(m, 64, p, device="cuda") for _ in range(2))
+    before = dict(sh.LAUNCHES)
+    yr, yi = sh.scheduled_sparse_hadamard(*packed, xr, xi)
+    torch.cuda.synchronize()
+    assert _launched(sh.LAUNCHES, before) == {"scheduled_sparse_hadamard": 1}
+    rr, ri = sh.scheduled_sparse_hadamard_reference(*packed, xr, xi)
+    for got, ref in ((yr, rr), (yi, ri)):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= TOL
+    again = sh.scheduled_sparse_hadamard(*packed, xr, xi)
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["vgg16", "resnet18"])
+def test_staged_smoke_forward_on_card(model):
+    """SMOKE through the staged backend: three launches per conv node
+    (tile-FFT, Hadamard, tile-IFFT), none of the fused kernels; logits
+    against einsum, top-1 equal."""
+    need_card()
+    cfg = SMOKE if model == "vgg16" else RESNET_SMOKE
+    params = cnn.init(cfg, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, cfg, batch=2)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = (dict(fft8.LAUNCHES), dict(shad.LAUNCHES), dict(fsc.LAUNCHES))
+    out = cnn.forward_spectral(params, plan, x, backend="staged")
+    n = len(plan.layers)
+    assert _launched(fft8.LAUNCHES, before[0]) == {"fft2_tiles": n,
+                                                   "ifft2_tiles": n}
+    assert _launched(shad.LAUNCHES, before[1]) == {"spectral_hadamard": n}
+    assert fsc.LAUNCHES == before[2]
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+    assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("input_mode", ["windowed", "halo"])
+def test_staged_shortcut_plan_runs_at_another_batch(input_mode):
+    """A scheduled plan built at batch 1 for ResNet-18's first stage at
+    full width (224 x 224: stem, s1b1a, s1b1b, whose 64ch@112 shortcut
+    the plan stages in shared memory) forwards a batch of 4: the staged
+    rows do not fit at that batch, so s1b1b reads its shortcut at the
+    flush ('hbm'); 3 launches, 1 with the shortcut, logits vs einsum."""
+    need_card()
+    from repro_torch.configs.resnet18_spectral import resnet18_config
+    cfg = resnet18_config(stage_mults=(1,), blocks_per_stage=1)
+    params = cnn.init(cfg, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, cfg, batch=1, hadamard="scheduled")
+    if input_mode == "halo":
+        plan = pl.with_input_mode(plan, "halo")
+    lp = plan.layers[-1]
+    assert lp.layer.name == "s1b1b" and lp.tuning.residual == "vmem"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fsc.placement_at_batch(lp, 1, sms) == "vmem"
+    assert fsc.placement_at_batch(lp, 4, sms) == "hbm"
+    for b in (1, 4):
+        x = torch.randn(b, 3, 224, 224, device="cuda")
+        before, rbefore = dict(fsc.LAUNCHES), dict(fsc.RESIDUAL_LAUNCHES)
+        out = cnn.forward_spectral(params, plan, x, backend="fused")
+        assert sum(fsc.LAUNCHES.values()) - sum(before.values()) == 3
+        assert (sum(fsc.RESIDUAL_LAUNCHES.values())
+                - sum(rbefore.values())) == 1
+        ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+        assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+        assert torch.equal(out.argmax(-1), ref.argmax(-1))

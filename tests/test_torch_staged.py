@@ -1,0 +1,267 @@
+"""The staged backend of repro_torch == repro's 'pallas_staged'.
+
+The tile-FFT / tile-IFFT (``kernels.fft8``) and the spectral Hadamard
+(``kernels.spectral_hadamard``, all three flows, and ``ops.hadamard``) run
+their plain PyTorch versions here (CPU tensors) and are held to the
+reference's Pallas kernels in interpret mode on the same numpy inputs at
+max|port - jax| <= 1e-5 * max|jax|.  SMOKE logits through
+``forward_spectral(backend="staged")`` are held to the reference's
+``pallas_staged`` and to the port's einsum (VGG16 at alpha 1 and 4, the
+former also to ``forward_spatial``; ResNet-18 at alpha 4), top-1 equal.
+Plans are windowed (the reference's halo path does not run on this jax).
+
+Also here: the placement rule of a staged ('vmem') shortcut at another
+batch than the plan's (``fsc.placement_at_batch``), on ResNet-18's first
+full-width residual node.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import resnet18_spectral as jresnet
+from repro.configs.vgg16_spectral import SMOKE as JAX_VGG_SMOKE
+from repro.core import plan as jpl
+from repro.core import spectral as jspec
+from repro.kernels import fft8 as jfft8
+from repro.kernels import ops as jops
+from repro.kernels import spectral_hadamard as jshad
+from repro.models import cnn as jcnn
+from repro_torch.configs import resnet18_spectral as resnet
+from repro_torch.configs.vgg16_spectral import SMOKE as VGG_SMOKE
+from repro_torch.core import autotune as at
+from repro_torch.core import plan as pl
+from repro_torch.core import spectral as spec
+from repro_torch.interop import params_from_numpy
+from repro_torch.kernels import fft8, ops
+from repro_torch.kernels import fused_spectral_conv as fsc
+from repro_torch.kernels import spectral_hadamard as shad
+from repro_torch.models import cnn
+
+REL_TOL = 1e-5
+FLOWS = ("output_stationary", "weight_stationary", "input_stationary")
+
+
+def assert_rel(port, ref, tol=REL_TOL):
+    port = port.detach().cpu().numpy()
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape
+    err = np.abs(port - ref).max()
+    assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# --- B7a: tile FFT / IFFT ---------------------------------------------------
+
+@pytest.mark.parametrize("t", [6, 8])
+def test_fft2_tiles_matches_reference(t):
+    """300 tiles: not a multiple of the reference's block_b (256)."""
+    x = _rand(np.random.default_rng(t), (300, t, t))
+    jr, ji = jfft8.fft2_tiles(jnp.asarray(x), fft_size=8)
+    yr, yi = fft8.fft2_tiles(torch.from_numpy(x), fft_size=8)
+    assert yr.shape == yi.shape == (300, 8, 8)
+    assert_rel(yr, jr)
+    assert_rel(yi, ji)
+
+
+def test_ifft2_tiles_matches_reference():
+    rng = np.random.default_rng(1)
+    xr, xi = _rand(rng, (300, 8, 8)), _rand(rng, (300, 8, 8))
+    ref = jfft8.ifft2_tiles(jnp.asarray(xr), jnp.asarray(xi))
+    assert_rel(fft8.ifft2_tiles(torch.from_numpy(xr), torch.from_numpy(xi)),
+               ref)
+
+
+@pytest.mark.parametrize("t", [6, 8])
+def test_fft_round_trip(t):
+    """ifft(fft(x)) is x, zero-padded to K x K."""
+    x = _rand(np.random.default_rng(2), (37, t, t))
+    yr, yi = fft8.fft2_tiles(torch.from_numpy(x), fft_size=8)
+    want = np.zeros((37, 8, 8), np.float32)
+    want[:, :t, :t] = x
+    assert_rel(fft8.ifft2_tiles(yr, yi), want)
+
+
+def test_fft_arguments_checked():
+    with pytest.raises(ValueError, match="t <= 8"):
+        fft8.fft2_tiles(torch.zeros(3, 9, 9), fft_size=8)
+    with pytest.raises(ValueError, match="planes"):
+        fft8.ifft2_tiles(torch.zeros(3, 8, 8), torch.zeros(2, 8, 8))
+
+
+# --- B7b: spectral Hadamard -------------------------------------------------
+
+@pytest.mark.parametrize("flow", FLOWS)
+@pytest.mark.parametrize("f,n,m,p,block_m", [
+    (4, 48, 40, 40, 16),      # not multiples of the blocks, three ranges
+    (3, 7, 3, 5, 16),         # everything smaller than a block
+    (64, 64, 64, 9, 32),      # the paper geometry, K^2 = 64, P' = 9
+])
+def test_spectral_hadamard_matches_reference(flow, f, n, m, p, block_m):
+    rng = np.random.default_rng(f * 1000 + n)
+    ops_ = [_rand(rng, (f, n, m)), _rand(rng, (f, n, m)),
+            _rand(rng, (f, m, p)), _rand(rng, (f, m, p))]
+    jr, ji = jshad.spectral_hadamard(*map(jnp.asarray, ops_), flow=flow,
+                                     block_n=16, block_m=block_m,
+                                     block_p=16)
+    yr, yi = shad.spectral_hadamard(*map(torch.from_numpy, ops_), flow=flow,
+                                    block_m=block_m)
+    assert_rel(yr, jr)
+    assert_rel(yi, ji)
+
+
+def test_one_range_flow_equals_output_stationary():
+    """With one m range the weight-/input-stationary sum is the
+    output-stationary one, bit for bit (the same Karatsuba GEMMs)."""
+    rng = np.random.default_rng(5)
+    ops_ = [torch.from_numpy(_rand(rng, s)) for s in
+            ((4, 9, 30), (4, 9, 30), (4, 30, 11), (4, 30, 11))]
+    os_ = shad.spectral_hadamard(*ops_)
+    for flow in FLOWS[1:]:
+        y = shad.spectral_hadamard(*ops_, flow=flow, block_m=32)
+        assert torch.equal(y[0], os_[0]) and torch.equal(y[1], os_[1])
+
+
+def test_hadamard_arguments_checked():
+    w, x = torch.zeros(2, 3, 4), torch.zeros(2, 4, 5)
+    with pytest.raises(ValueError, match="flow"):
+        shad.spectral_hadamard(w, w, x, x, flow="row_stationary")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        shad.spectral_hadamard(w, w, x, x, flow="weight_stationary",
+                               block_m=24)
+    with pytest.raises(ValueError, match="xi has shape"):
+        shad.spectral_hadamard(w, w, x, torch.zeros(2, 4, 6))
+    with pytest.raises(TypeError, match="float32"):
+        shad.spectral_hadamard(w, w.double(), x, x)
+
+
+@pytest.mark.parametrize("flow", FLOWS)
+def test_ops_hadamard_matches_reference(flow):
+    """Complex [N, M, K, K] kernels on complex [B, M, T, K, K] spectra."""
+    rng = np.random.default_rng(7)
+    w = (_rand(rng, (6, 20, 8, 8)) + 1j * _rand(rng, (6, 20, 8, 8))
+         ).astype(np.complex64)
+    x = (_rand(rng, (2, 20, 5, 8, 8)) + 1j * _rand(rng, (2, 20, 5, 8, 8))
+         ).astype(np.complex64)
+    ref = jops.hadamard(jnp.asarray(w), jnp.asarray(x), flow=flow,
+                        block_m=16)
+    y = ops.hadamard(torch.from_numpy(w), torch.from_numpy(x), flow=flow,
+                     block_m=16)
+    assert y.shape == (2, 6, 5, 8, 8) and y.dtype == torch.complex64
+    assert_rel(y.real, np.real(ref))
+    assert_rel(y.imag, np.imag(ref))
+
+
+def test_staged_conv_matches_reference():
+    """fft -> hadamard -> ifft -> assembly on a 13 x 13 image == the
+    reference's ``spectral_conv2d_pallas`` and the port's einsum."""
+    rng = np.random.default_rng(11)
+    x, w = _rand(rng, (2, 3, 13, 13)), _rand(rng, (5, 3, 3, 3))
+    jgeo = jspec.make_geometry(13, 13, 3, 8)
+    ref = jops.spectral_conv2d_pallas(
+        jnp.asarray(x), jspec.spectral_kernel(jnp.asarray(w), 8), jgeo)
+    geo = spec.make_geometry(13, 13, 3, 8)
+    w_f = spec.spectral_kernel(torch.from_numpy(w), 8)
+    y = ops.spectral_conv2d_staged(torch.from_numpy(x), w_f, geo)
+    assert_rel(y, ref)
+    assert_rel(y, spec.spectral_conv2d_pretransformed(torch.from_numpy(x),
+                                                      w_f, geo))
+
+
+# --- the slice: SMOKE logits through the staged backend ---------------------
+
+def _pair(jsmoke, smoke, alpha, seed=0):
+    jcfg = dataclasses.replace(jsmoke, alpha=alpha)
+    cfg = dataclasses.replace(smoke, alpha=alpha)
+    jparams = jcnn.init(jax.random.PRNGKey(seed), jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.array, jparams),
+                               "cpu")
+    x = np.random.default_rng(seed).standard_normal(
+        (2, 3, cfg.image_size, cfg.image_size)).astype(np.float32)
+    jplan = jpl.build_network_plan(jparams, jcfg, batch=2,
+                                   input_mode="windowed", hadamard="dense",
+                                   schedule=False)
+    plan = pl.build_network_plan(params, cfg, batch=2, device="cpu")
+    return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, params=params, x=x,
+                jplan=jplan, plan=plan)
+
+
+@pytest.mark.parametrize("model,alpha", [("vgg16", 1.0), ("vgg16", 4.0),
+                                         ("resnet18", 4.0)])
+def test_staged_logits_match_reference_and_einsum(model, alpha):
+    jsmoke, smoke = ((JAX_VGG_SMOKE, VGG_SMOKE) if model == "vgg16"
+                     else (jresnet.SMOKE, resnet.SMOKE))
+    d = _pair(jsmoke, smoke, alpha)
+    ref = np.asarray(jcnn.forward_spectral(
+        d["jparams"], d["jplan"], jnp.asarray(d["x"]),
+        backend="pallas_staged", interpret=True))
+    x = torch.from_numpy(d["x"])
+    out = cnn.forward_spectral(d["params"], d["plan"], x, backend="staged")
+    einsum = cnn.forward_spectral(d["params"], d["plan"], x,
+                                  backend="einsum")
+    assert out.shape == (2, smoke.n_classes)
+    assert_rel(out, ref)
+    assert_rel(out, einsum.numpy())
+    assert (out.argmax(-1).numpy() == ref.argmax(-1)).all()
+    assert torch.equal(out.argmax(-1), einsum.argmax(-1))
+    if alpha == 1.0:
+        spatial = jcnn.forward_spatial(d["jparams"], d["jcfg"],
+                                       jnp.asarray(d["x"]))
+        assert_rel(out, spatial)
+
+
+def test_staged_runs_any_plan():
+    """Staged reads only the plan's kernels and geometry: a scheduled halo
+    plan moved to weight-stationary gives the bin plan's staged logits."""
+    d = _pair(JAX_VGG_SMOKE, VGG_SMOKE, 4.0)
+    other = pl.with_flow(pl.with_input_mode(pl.build_network_plan(
+        d["params"], d["cfg"], batch=2, hadamard="scheduled",
+        device="cpu"), "halo"), "weight_stationary")
+    x = torch.from_numpy(d["x"])
+    assert torch.equal(
+        cnn.forward_spectral(d["params"], other, x, backend="staged"),
+        cnn.forward_spectral(d["params"], d["plan"], x, backend="staged"))
+
+
+# --- C1: a staged shortcut at another batch than the plan's -----------------
+
+def test_staged_shortcut_falls_back_where_it_does_not_fit():
+    """ResNet-18's s1b1b (64ch@112) at full width, scheduled, built at
+    batch 1: the plan stages its shortcut ('vmem'); at batch 4 the
+    kernel's cluster over channels shrinks (C 3 -> 1), the staged rows no
+    longer fit a CTA, and the layer's placement becomes 'hbm' on both
+    input paths.  The wrappers refuse by the same rule."""
+    cfg = resnet.resnet18_config(stage_mults=(1,), blocks_per_stage=1)
+    params = cnn.init(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    plan = pl.build_network_plan(params, cfg, batch=1, hadamard="scheduled",
+                                 device="cpu")
+    for p in (plan, pl.with_input_mode(plan, "halo")):
+        lp = next(l for l in p.layers if l.layer.name == "s1b1b")
+        assert (lp.layer.c_in, lp.layer.h_in) == (64, 112)
+        assert lp.epilogue.residual == "fused"
+        assert lp.tuning.residual == "vmem"
+        assert fsc.placement_at_batch(lp, 1, at.H100_SMS) == "vmem"
+        assert fsc.placement_at_batch(lp, 4, at.H100_SMS) == "hbm"
+        gn, _, t_cycles, r = lp.tables.idx.shape
+        halo = ((lp.geo, spec.halo_block_geometry(lp.geo, lp.tuning.block_p))
+                if lp.input_mode == "halo" else None)
+        blocks = {b: gn * (b * halo[1].n_blocks if halo else
+                           -(-b * lp.geo.n_tiles // fsc.SCHED_BLOCK_P))
+                  for b in (1, 4)}
+        need = {b: fsc.staged_shortcut_bytes(
+            64, 36, lp.n_active_bins, halo=halo,
+            tables=(t_cycles, r, lp.tables.sel.shape[-1]), blocks=blocks[b],
+            m=64, sms=at.H100_SMS) for b in (1, 4)}
+        assert need[1] <= fsc.SMEM_PER_CTA < need[4]
+    # a plan without a staged shortcut keeps its placement at any batch
+    lp = dataclasses.replace(lp, tuning=dataclasses.replace(
+        lp.tuning, residual="hbm"))
+    assert fsc.placement_at_batch(lp, 4, at.H100_SMS) == "hbm"

@@ -211,11 +211,16 @@ def test_entry_points_default_to_cuda():
             cnn.init(SMOKE)
 
 
-def test_staged_backend_not_ported(alpha4):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cnn.forward_spectral(alpha4["params"], alpha4["plan"],
-                             torch.from_numpy(alpha4["x"]),
-                             backend="staged")
+def test_staged_backend_matches_einsum(alpha4):
+    """The staged backend (tile-FFT, spectral Hadamard and tile-IFFT
+    launches; their plain versions on the CPU) gives the einsum logits."""
+    x = torch.from_numpy(alpha4["x"])
+    out = cnn.forward_spectral(alpha4["params"], alpha4["plan"], x,
+                               backend="staged")
+    ref = cnn.forward_spectral(alpha4["params"], alpha4["plan"], x,
+                               backend="einsum")
+    assert_rel(out, ref.numpy())
+    assert torch.equal(out.argmax(-1), ref.argmax(-1))
 
 
 def test_plan_input_mismatch_raises(alpha4):
@@ -240,7 +245,10 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, env={"PYTHONPATH": str(SRC)}, timeout=120)
     assert out.returncode == 0, out.stderr
     imported = set(out.stdout.split())
-    assert len(imported) >= 16
+    assert len(imported) >= 20
     assert {"repro_torch.configs.resnet18_spectral",
-            "repro_torch.configs.vgg16_spectral"} <= imported
+            "repro_torch.configs.vgg16_spectral",
+            "repro_torch.kernels.fft8", "repro_torch.kernels.ops",
+            "repro_torch.kernels.spectral_hadamard",
+            "repro_torch.kernels.sparse_hadamard"} <= imported
 
