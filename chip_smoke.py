@@ -115,6 +115,29 @@ each of which fails the run on error:
       layers, batch 1: ``ops.hadamard`` in the weight- and
       input-stationary flows and ``ops.scheduled_sparse_conv_group`` on
       the first 64 kernels, each against the einsum of the same product;
+  (c8) the band entry points (B6 band: the four windowed / halo, plane /
+      scheduled kernels on a shard's band, ``execute_band_plan``) of the
+      VGG16 plans split over BAND_D = 4 shards (spatial), at every band
+      shape, batch 4 and 1, against their plain versions (gate 1e-4
+      relative) on the D extended bands of a random activation (the halo
+      exchange), the halo band against the windowed band of the same
+      layer (plane bit for bit, scheduled within 1e-5 relative), and the
+      band flows the autotuned sharded plan picks; at batch 1 the kernel
+      time summed over the D bands, the plain version's (one call a band)
+      and the bound (the twin's at the band shape, times D; a halo band
+      also reads its k-1 halo rows once); later the same for ResNet-18's
+      forced plan and its halo move split spatial, the band shapes that
+      ResNet-18's (d7) runs;
+  (d7) sharded forwards (``distributed.executor.forward_spectral_sharded``)
+      on ``make_spectral_mesh(4, devices=[cuda:0] * 4)``: four shards run
+      one after another on the one card.  VGG16 bin windowed and halo,
+      each split spatial and channel, the autotuned sharded plan
+      (strategy, flow and input path per layer), the scheduled plans split
+      spatial; later ResNet-18's forced plan split spatial and channel.
+      Per forward: the strategy per layer, launches per entry point (band
+      launches > 0 on a spatial plan), logits vs the unsharded plan's fused
+      forward and vs einsum (gate 1e-4 relative, top-1 equal), batch-1 p50
+      (the first forward discarded), the kernel sum, peak memory;
   (dr4) the full-width scheduled ResNet-18 plans (windowed and halo),
       built at batch 1, forwarded at batch 4: a residual node whose
       staged ('vmem') shortcut does not fit a CTA at that batch reads it
@@ -123,16 +146,17 @@ each of which fails the run on error:
       shortcuts per forward, logits vs einsum;
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve fused: four kernels x
-      three flows; six staged), then one JSON line with every entry
-      point's numbers (a fused one with its residual form's under
-      "residual"), then the device JSON as the last line.
+      three flows; six staged; the band entry points), then one JSON line
+      with every entry point's numbers (a fused one with its residual
+      form's under "residual"), then the device JSON as the last line.
 
-The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c5),
-(c6) and (d6); the plane plans are freed; (c2), (d2), (c4), (d4), the
-scheduled kernel's (c5), (c6) and (d6); every plan is freed; (c7), (d5),
-(s), (ds), (dh); VGG16's weights and plans are freed; (r), (dr), (ds),
-(dr4), (e).  So each serve's peak device memory holds the weights and
-the plans of its own kind only (the resident bytes at its start are
+The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c8) and
+(d7), its (c5), (c6) and (d6); the plane plans are freed; (c2), (d2),
+(c4), (d4), the scheduled kernel's (c8), (d7), (c5), (c6) and (d6); every
+plan is freed; (c7), (d5), (s), (ds), (dh); VGG16's weights and plans are
+freed; (r), (dr), ResNet-18's (c8) and (d7), (ds), (dr4), (e).  So each
+serve's peak device memory holds the weights and the plans of its own
+kind only (the resident bytes at its start are
 printed beside it).  REPS (15 since the ResNet-18 phases came; 25
 before) is the VGG16 phases' timed launches per kernel and layer.
 
@@ -160,6 +184,13 @@ R_REPS = 10            # ResNet-18 phases: the same
 S_REPS = 5             # staged kernels (s): the same
 SEED = 0
 BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
+BAND_D = 4             # (c8), (d7): shards of a sharded plan, on one card
+# the reference's band wrapper each band entry point replaces (its
+# fused_spectral_conv.py; execute_band_plan at :1618 dispatches to them)
+BAND_REF = {"fused_spectral_pipeline": 1541,
+            "fused_spectral_pipeline_scheduled": 1561,
+            "fused_spectral_pipeline_halo": 1581,
+            "fused_spectral_pipeline_scheduled_halo": 1601}
 
 
 def fail(msg: str):
@@ -453,13 +484,15 @@ def spill_report() -> list[tuple[str, str, str, int, int]]:
 
 
 def kernel_call(lp, x_img, sc=None, *, relu=None, placement=None,
-                plain=False):
+                plain=False, band=False):
     """A no-argument call of the kernel wrapper that ``lp`` runs (or of
     its plain version) on the activation ``x_img`` [B, M, H, W] with the
     raw shortcut ``sc``, the windows and the shortcut's tile layout made
     here, outside the call, as ``execute_layer_plan`` lays them out;
-    ``relu`` and ``placement`` override the plan's.  Returns (the call,
-    the shortcut as the kernel reads it)."""
+    ``relu`` and ``placement`` override the plan's.  ``band``: ``lp`` is
+    a band plan and ``x_img`` one extended band, run as
+    ``execute_band_plan`` runs it (the halo kernels in band mode).
+    Returns (the call, the shortcut as the kernel reads it)."""
     from repro_torch.core import spectral as spec
     from repro_torch.kernels import fused_spectral_conv as fsc
     tn = lp.tuning
@@ -470,6 +503,8 @@ def kernel_call(lp, x_img, sc=None, *, relu=None, placement=None,
     weights = tuple(lp.tables) if sched else (lp.wr, lp.wi)
     if sched:
         kw["n_out"] = lp.layer.c_out
+    if band and (lp.input_mode == "halo" or not plain):
+        kw["band"] = True           # the windowed plain versions count none
     if lp.input_mode == "halo":
         kw.update(geo=lp.geo,
                   hg=spec.halo_block_geometry(lp.geo, tn.block_p))
@@ -734,7 +769,8 @@ def all_launches() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    for d in counters():
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    for d in counters() + (fsc.BAND_LAUNCHES,):
         for k in d:
             d[k] = 0
 
@@ -810,6 +846,231 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
           + f"; peak device memory {peak / 2 ** 30:.3f} GiB, of which "
           f"{resident / 2 ** 30:.3f} GiB resident at the start")
     return launches, residual, p50, host_ms
+
+
+def band_entry(lp) -> str:
+    """The kernels-line name of the band entry point a band plan runs."""
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    return "band:" + fsc.entry_point(lp.kernel_name, lp.tuning.flow)
+
+
+def band_bound(lp, b, n_shards) -> tuple[float, float]:
+    """(flops, bytes) of one layer's D bands at batch b: the twin's bound
+    at the band shape, times D.  A windowed band's windows already hold
+    its k-1 halo rows; a halo band reads them once besides the
+    shard-local rows that ``twin_bound`` counts."""
+    flops, nbytes = twin_bound(lp, b)
+    if lp.input_mode == "halo":
+        nbytes += 4 * b * lp.layer.c_in * (lp.geo.ksize - 1) * lp.geo.w_in
+    return n_shards * flops, n_shards * nbytes
+
+
+def band_check(label, sharded, xgen, flush, keep=None) -> dict:
+    """(c8): the band entry point of every spatial layer of each sharded
+    plan in ``sharded`` ([(plan, its windowed twin or None)]; ``keep(lp)``
+    filters the band plans) against its plain version on the D extended
+    bands of a random activation (``spectral.halo_exchange_reference``),
+    batch 4 and 1 (gate 1e-4 relative); a halo band's canvas against its
+    windowed twin's (plane bit for bit, scheduled within 1e-5 relative).
+    At batch 1 the kernel time summed over the D bands (R_REPS), the plain
+    version's (one call a band) and ``band_bound``.  A residual node's band
+    runs with the ReLU off, as the executor runs it (the shortcut and the
+    ReLU follow the collective).  Returns the totals per band entry
+    point."""
+    import torch
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    print(f"{label} band entry points vs plain, D = {BAND_D}: layer, entry, "
+          "tile rows per band, rel_err batch 1 / 4, max|halo - windowed| "
+          "rel, kernel_ms (D bands), plain_ms, bound_ms, bound_by")
+    totals: dict[str, dict] = {}
+    for splan, twin in sharded:
+        for i, slp in enumerate(splan.layers):
+            lp = slp.shards[0] if slp.strategy == "spatial" else None
+            if lp is None or (keep is not None and not keep(lp)):
+                continue
+            layer, geo = slp.base.layer, slp.base.geo
+            entry = band_entry(lp)
+            relu = lp.epilogue.relu and lp.epilogue.residual is None
+            errs, twin_err = {}, 0.0
+            for b in (4, 1):
+                x = torch.randn((b, layer.c_in, layer.h_in, layer.w_in),
+                                generator=xgen, device=flush.device)
+                bands = spec.halo_exchange_reference(x, geo, BAND_D)
+                calls = [kernel_call(lp, xb, relu=relu, band=True)[0]
+                         for xb in bands]
+                plains = [kernel_call(lp, xb, relu=relu, plain=True,
+                                      band=True)[0] for xb in bands]
+                ys = [c() for c in calls]
+                torch.cuda.synchronize()
+                refs = [p() for p in plains]
+                err = max(rel_err(y, r) for y, r in zip(ys, refs))
+                abs_err = max(float((y - r).abs().max())
+                              for y, r in zip(ys, refs))
+                if (not all(torch.isfinite(y).all() for y in ys)
+                        or err > KERNEL_TOL):
+                    fail(f"{label} {entry} {layer.name} batch {b}: kernel "
+                         f"vs plain rel err {err:.3e} > {KERNEL_TOL:g}")
+                errs[b] = (err, abs_err)
+                if twin is not None:
+                    tlp = twin.layers[i].shards[0]
+                    for xb in bands:
+                        yh = fsc.execute_band_plan(xb, lp)
+                        yw = fsc.execute_band_plan(xb, tlp)
+                        twin_err = max(twin_err, rel_err(yh, yw))
+                        if (lp.hadamard != "scheduled"
+                                and not torch.equal(yh, yw)) or \
+                                twin_err > 1e-5:
+                            fail(f"{label} {entry} {layer.name} batch {b}: "
+                                 f"halo band vs windowed band rel "
+                                 f"{twin_err:.3e}")
+            k_ms = timed_ms(lambda: [c() for c in calls], flush.zero_, R_REPS)
+            p_ms = once_ms(lambda: [p() for p in plains])
+            flops, nbytes = band_bound(lp, 1, BAND_D)
+            b_ms, by = bound_of(flops, nbytes)
+            tot = totals.setdefault(entry, dict(
+                ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0.0, bytes=0.0,
+                abs_err=0.0, err=0.0))
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += b_ms
+            tot["flops"] += flops
+            tot["bytes"] += nbytes
+            tot["abs_err"] = max(tot["abs_err"], *(e[1] for e in
+                                                   errs.values()))
+            tot["err"] = max(tot["err"], *(e[0] for e in errs.values()))
+            print(f"    {layer.name:8s} {entry:48s} {lp.geo.n_tiles_h:2d} "
+                  f"{errs[1][0]:.2e} / {errs[4][0]:.2e} "
+                  + (f"{twin_err:.2e}" if twin is not None else "       -")
+                  + f" {k_ms:9.4f} {p_ms:9.4f} {b_ms:9.4f}  {by}")
+    for entry, tot in totals.items():
+        tot["by"] = bound_of(tot["flops"], tot["bytes"])[1]
+        print(f"    total {entry}: kernel {tot['ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f}, bound {tot['bound_ms']:.4f} ms "
+              f"({tot['by']}), max rel err {tot['err']:.2e}")
+    return totals
+
+
+def per_forward_sharded(splan) -> tuple[dict, dict, dict]:
+    """Launches of each entry point per sharded forward of ``splan``, of
+    those the band launches and the residual-fused ones: a replicated
+    layer launches its base plan's entry point once (with the shortcut on
+    a residual-fused node), a spatial or channel layer its shard plans'
+    D times."""
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    launches: dict[str, int] = {}
+    band: dict[str, int] = {}
+    residual: dict[str, int] = {}
+    for slp in splan.layers:
+        lp = slp.base if slp.strategy == "replicate" else slp.shards[0]
+        entry = fsc.entry_point(lp.kernel_name, lp.tuning.flow)
+        times = 1 if slp.strategy == "replicate" else slp.n_shards
+        launches[entry] = launches.get(entry, 0) + times
+        if slp.strategy == "spatial":
+            band[entry] = band.get(entry, 0) + times
+        if slp.strategy == "replicate" and lp.epilogue.residual == "fused":
+            residual[entry] = residual.get(entry, 0) + 1
+    return launches, band, residual
+
+
+def sharded_kernel_ms(splan, xgen, flush) -> float:
+    """Sum over ``splan``'s layers of the batch-1 kernel time as the
+    sharded forward runs each layer (the base plan's launch, the D band
+    launches or the D channel-shard launches; windows laid out outside the
+    timed call), R_REPS each."""
+    import torch
+    from repro_torch.core import spectral as spec
+    total = 0.0
+    for slp in splan.layers:
+        layer = slp.base.layer
+        x = torch.randn((1, layer.c_in, layer.h_in, layer.w_in),
+                        generator=xgen, device=flush.device)
+        if slp.strategy == "spatial":
+            calls = [kernel_call(slp.shards[0], xb, band=True)[0]
+                     for xb in spec.halo_exchange_reference(
+                         x, slp.base.geo, slp.n_shards)]
+        elif slp.strategy == "channel":
+            m = slp.shards[0].layer.c_in
+            calls = [kernel_call(sh, x[:, d * m:(d + 1) * m].contiguous())[0]
+                     for d, sh in enumerate(slp.shards)]
+        else:
+            sc = (torch.randn((1, layer.c_out, layer.h_in, layer.w_in),
+                              generator=xgen, device=flush.device)
+                  if slp.base.epilogue.residual == "fused" else None)
+            calls = [kernel_call(slp.base, x, sc)[0]]
+        total += timed_ms(lambda: [c() for c in calls], flush.zero_, R_REPS)
+    return total
+
+
+def serve_sharded(params, splan, cfg, images, label, mesh, xgen, flush):
+    """(d7): drive the sharded main path once: every image batch through
+    ``forward_spectral_sharded`` on ``mesh`` with every launch count set
+    to 0 just before and read just after, the launches held to
+    ``per_forward_sharded`` (band launches > 0 on a plan with a spatial
+    layer); the logits held to the unsharded base plan's fused forward and
+    to einsum.  Prints the strategy per layer, the batch-1 p50 (the first
+    forward discarded), the kernel sum and p50 minus it, peak memory.
+    Returns the launches and the band launches."""
+    import torch
+    from repro_torch.distributed.executor import forward_spectral_sharded
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.models import cnn
+    print(f"{label}: " + ", ".join(
+        f"{slp.base.layer.name} {slp.strategy}"
+        + ("" if slp.strategy == "replicate" else
+           f" {slp.shards[0].tuning.flow} {slp.shards[0].input_mode}")
+        for slp in splan.layers))
+    kernel_ms = sharded_kernel_ms(splan, xgen, flush)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    latency: dict[int, list[float]] = {}
+    logits = []
+    for x in images:
+        t0 = time.perf_counter()
+        out = forward_spectral_sharded(params, splan, x, mesh=mesh)
+        torch.cuda.synchronize()
+        latency.setdefault(x.shape[0], []).append(
+            1e3 * (time.perf_counter() - t0))
+        logits.append(out)
+    launches, band = all_launches(), dict(fsc.BAND_LAUNCHES)
+    residual = dict(fsc.RESIDUAL_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per, per_band, per_res = per_forward_sharded(splan)
+    for got, want, what in ((launches, per, "launched"),
+                            (band, per_band, "launched on bands"),
+                            (residual, per_res, "fused a shortcut in")):
+        want = {k: want.get(k, 0) * len(images) for k in got}
+        if got != want:
+            fail(f"{label} {what} {got}, expected {want}")
+    if "spatial" in splan.strategies.values() and not any(band.values()):
+        fail(f"{label}: a spatial plan launched no band kernel")
+    for x, out in zip(images[1:], logits[1:]):
+        b = x.shape[0]
+        if out.shape != (b, cfg.n_classes) or not torch.isfinite(out).all():
+            fail(f"{label} batch-{b} logits: shape {tuple(out.shape)} or "
+                 f"not finite")
+        for name in ("fused", "einsum"):
+            ref = cnn.forward_spectral(params, splan.base, x, backend=name)
+            err = rel_err(out, ref)
+            top1 = bool((out.argmax(-1) == ref.argmax(-1)).all())
+            print(f"    batch {b}: sharded vs unsharded {name} logits rel err "
+                  f"{err:.3e}, top-1 equal {top1}")
+            if err > LOGITS_TOL or not top1:
+                fail(f"{label} batch-{b} sharded logits disagree with the "
+                     f"unsharded {name} forward")
+    latency[images[0].shape[0]].pop(0)
+    p50 = statistics.median(latency[1])
+    print(f"    batch-1 p50 {p50:.2f} ms over {len(latency[1])} forwards "
+          f"(the first discarded) {[round(t, 2) for t in latency[1]]}; "
+          + "".join(f"batch {b} {statistics.median(ts):.2f} ms; "
+                    for b, ts in sorted(latency.items()) if b != 1)
+          + f"kernel sum {kernel_ms:.4f} ms, p50 minus it "
+          f"{p50 - kernel_ms:.2f} ms")
+    print(f"    launches per forward {per}, on bands {per_band}; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB, of which "
+          f"{resident / 2 ** 30:.3f} GiB resident at the start")
+    return launches, band
 
 
 STAGED = ("fft2_tiles", "spectral_hadamard", "spectral_hadamard_ws",
@@ -1034,7 +1295,7 @@ def drive_ops(plan, xgen) -> dict[str, int]:
     return launches
 
 
-def resnet18(dev, xgen, drive) -> dict:
+def resnet18(dev, xgen, drive, drive_sharded) -> dict:
     """(r) and (dr) on full-width ResNet-18 (``init``, seed 0, alpha 4):
     the forced bin/windowed plan and the scheduled plan (Alg-2 tables of
     all 20 layers; (r) uses those of its four layers), each moved to the
@@ -1044,11 +1305,16 @@ def resnet18(dev, xgen, drive) -> dict:
     batch-4 forwards each), one batch-1 forward of the scheduled plans
     and of every flow move, then the autotuned plan (``measure=True``)
     as the first two.  20 launches per forward, 8 of them fusing the
-    shortcut.  Between them, (s) holds the staged backend's three
+    shortcut.  (c8) holds the band entry points of the forced plan and
+    of its halo move, split spatially over BAND_D shards, to their plain
+    versions (and the halo bands to the windowed ones); (d7) splits the
+    forced plan over BAND_D shards, spatial and channel, one forward each
+    after a discarded one.  Between them,
+    (s) holds the staged backend's three
     launches to their plain versions at the 20 layers, (ds) serves the
     forced plan through that backend, and (dr4) the scheduled plans
-    (built at batch 1) at batch 4.  Returns (r)'s totals per entry point
-    and (s)'s."""
+    (built at batch 1) at batch 4.  Returns (r)'s totals per entry point,
+    (s)'s and (c8)'s."""
     import torch
     from repro_torch.configs.resnet18_spectral import CONFIG as RCFG
     from repro_torch.core.plan import (build_network_plan, with_flow,
@@ -1112,6 +1378,25 @@ def resnet18(dev, xgen, drive) -> dict:
     print(f"    plan build: plane {build_s['plane']:.1f} s, scheduled "
           f"{build_s['scheduled']:.1f} s")
 
+    # (c8) the band entry points at ResNet-18's band shapes, (d7) the
+    # forced plan split spatial and channel
+    from repro_torch.core.plan import _shard_network_plan
+    spatial = {m: _shard_network_plan(plans[("plane", m, fsc.OS)],
+                                      n_shards=BAND_D,
+                                      strategies=("spatial",), input_mode=m)
+               for m in ("windowed", "halo")}
+    btotals = band_check("(c8) ResNet-18 plane",
+                         [(spatial["windowed"], None),
+                          (spatial["halo"], spatial["windowed"])],
+                         xgen, flush)
+    drive_sharded(spatial["windowed"], images[:1] * 3,
+                  "(d7) ResNet-18 bin windowed spatial", params, RCFG, flush)
+    drive_sharded(_shard_network_plan(
+        plans[("plane", "windowed", fsc.OS)], n_shards=BAND_D,
+        strategies=("channel",)), images[:1] * 3,
+        "(d7) ResNet-18 bin windowed channel", params, RCFG, flush)
+    del spatial
+
     # (s), (ds) the staged backend on the forced plan's kernels
     plan = plans[("plane", "windowed", fsc.OS)]
     stotals = staged_check(plan, "ResNet-18", xgen, flush, STAGED_PATH)
@@ -1169,7 +1454,7 @@ def resnet18(dev, xgen, drive) -> dict:
     drive(aplan, images, "(dr) autotuned", per_forward,
           1e3 * sum(lp.tuning.measured_s for lp in aplan.layers), residual,
           params, RCFG)
-    return totals, stotals
+    return totals, stotals, btotals
 
 
 def main() -> int:
@@ -1186,20 +1471,22 @@ def main() -> int:
     from repro_torch.configs.vgg16_spectral import CONFIG
     from repro_torch.core import autotune as at
     from repro_torch.core import spectral as spec
-    from repro_torch.core.plan import (build_network_plan, with_flow,
+    from repro_torch.core.plan import (_shard_network_plan,
+                                       build_network_plan, with_flow,
                                        with_input_mode)
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.launch.mesh import make_spectral_mesh
     from repro_torch.models import cnn
 
     repro_torch.strict_fp32()
     dev = torch.device("cuda", 0)
 
     # (a) device ---------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"(a) torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"device {name!r}, count {count}")
+          f"device {device_name!r}, count {count}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1305,6 +1592,27 @@ def main() -> int:
             main_residual[k] += v
         return host
 
+    # (d7): the sharded forwards on one card named BAND_D times; their
+    # band launches summed, and (c8)'s totals per band entry point
+    mesh = make_spectral_mesh(BAND_D, devices=[dev] * BAND_D)
+    main_band = dict.fromkeys(fsc.BAND_LAUNCHES, 0)
+    band_totals: dict[str, dict] = {}
+
+    def shard(base, strategies, **modes):
+        """A built plan split over BAND_D shards (its tables reused)."""
+        return _shard_network_plan(base, n_shards=BAND_D,
+                                   strategies=strategies, **modes)
+
+    def drive_sharded(splan_, images_, label, params_=None, cfg=CONFIG,
+                      flush_=None):
+        launches, band = serve_sharded(
+            params if params_ is None else params_, splan_, cfg, images_,
+            label, mesh, xgen, flush if flush_ is None else flush_)
+        for k, v in launches.items():
+            main_launches[k] += v
+        for k, v in band.items():
+            main_band[k] += v
+
     n_layers = len(plan.layers)
     per13 = lambda name: {name: n_layers}
     plane_host = drive(plan, images, "(d)", per13("fused_spectral_pipeline"),
@@ -1375,6 +1683,26 @@ def main() -> int:
                       per13("fused_spectral_pipeline_halo"), htot["ms"])
     print(f"    p50 minus kernel sum, batch 1: (d3) halo {halo_host:.2f} ms,"
           f" (d) windowed {plane_host:.2f} ms")
+
+    # (c8), (d7) the plane plans split over BAND_D shards of the one card;
+    # the autotuned sharded plan ranks strategy, flow and input path
+    bases = {"windowed": plan, "halo": hplan}
+    spatial = {m: shard(b, ("spatial",), input_mode=m)
+               for m, b in bases.items()}
+    auto_sharded = shard(plan, None, input_mode="auto")
+    band_totals.update(band_check(
+        "(c8) plane", [(spatial["windowed"], None),
+                       (spatial["halo"], spatial["windowed"])], xgen, flush))
+    band_totals.update(band_check(
+        "(c8) autotuned sharded plan's flows", [(auto_sharded, None)], xgen,
+        flush, keep=lambda lp: lp.tuning.flow != fsc.OS))
+    d7_images = images[:1] + images
+    for m, b in bases.items():
+        drive_sharded(spatial[m], d7_images, f"(d7) bin {m} spatial")
+        drive_sharded(shard(b, ("channel",), input_mode=m), d7_images,
+                      f"(d7) bin {m} channel")
+    drive_sharded(auto_sharded, d7_images, "(d7) autotuned sharded")
+    del bases, spatial, auto_sharded
 
     # (c5), (c6), (d6) the plane kernel's weight- and input-stationary
     # flows; then the plane plans are freed, so that the scheduled plans'
@@ -1478,6 +1806,17 @@ def main() -> int:
     print(f"    p50 minus kernel sum, batch 1: (d4) halo {shalo_host:.2f} "
           f"ms, (d2) windowed {sched_host:.2f} ms")
 
+    # (c8), (d7) the scheduled plans split spatially (their tables reused)
+    sspatial = {m: shard(b, ("spatial",), hadamard="scheduled", input_mode=m)
+                for m, b in (("windowed", splan), ("halo", shplan))}
+    band_totals.update(band_check(
+        "(c8) scheduled", [(sspatial["windowed"], None),
+                           (sspatial["halo"], sspatial["windowed"])], xgen,
+        flush))
+    for m, sp_ in sspatial.items():
+        drive_sharded(sp_, images[:1] * 3, f"(d7) scheduled {m} spatial")
+    del sspatial
+
     # (c5), (c6), (d6) the scheduled kernel's flows; then every plan so
     # far is freed, so that (d5)'s peak holds the autotuned plan alone
     flows_of("scheduled", {"windowed": splan, "halo": shplan}, sched_bound,
@@ -1533,7 +1872,7 @@ def main() -> int:
     del aplan, params, images, flush
 
     # ResNet-18: (r) and (dr) ---------------------------------------------
-    rtotals, rstotals = resnet18(dev, xgen, drive)
+    rtotals, rstotals, rbtotals = resnet18(dev, xgen, drive, drive_sharded)
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 
@@ -1633,9 +1972,38 @@ def main() -> int:
                 "abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
             row["resnet18"]["bound_by"] = rt["by"]
         kernels.append(row)
+    for entry, t in sorted(band_totals.items()):
+        band_name = entry.removeprefix("band:")
+        kname = band_name.removesuffix("_ws").removesuffix("_is")
+        launches = main_band[band_name]
+        if launches < 1:
+            fail(f"{entry} was not launched by the sharded forwards")
+        print(f"(e) {entry}: ok, launches={launches}")
+        row = {
+            "name": entry,
+            "route": "cuda",
+            "source": csrc + ("fused_spectral_conv_scheduled.cu"
+                              if "scheduled" in kname
+                              else "fused_spectral_conv.cu"),
+            "replaces": f"{ref_file}:{BAND_REF[kname]}",
+            "launches": launches,
+            "max_abs_err": t["abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["by"],
+            "library_ms": None,
+        }
+        if entry in rbtotals:       # also checked at the ResNet-18 bands
+            rt = rbtotals[entry]
+            row["max_abs_err"] = max(t["abs_err"], rt["abs_err"])
+            row["resnet18"] = {k: rt[k] for k in (
+                "abs_err", "ms", "plain_ms", "bound_ms")}
+            row["resnet18"]["bound_by"] = rt["by"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": device_name, "count": count}}))
     return 0
 
 

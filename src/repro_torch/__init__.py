@@ -14,6 +14,8 @@ find:
                build helper;
 - ``models``:  the spectral VGG16 / ResNet-18 forward pass and its
                spatial oracle;
+- ``distributed``, ``launch``: sharded inference (the executor of a
+               sharded plan and the device mesh it runs on);
 - ``configs``: model presets.
 
 Entry points run on the CUDA device unless the caller passes

@@ -22,7 +22,10 @@ those the CUDA kernels are built for (``kernels.fused_spectral_conv``):
             shared memory before the channel loop, when it fits).
 
 The cap is the 232,448 bytes of shared memory a CTA may take, and the
-model is ``hopper_fused_flow_cost``.  As in Alg 1, the grid is
+model is ``hopper_fused_flow_cost``.  One level up, on a D-device mesh,
+``autotune_layer_sharded`` adds the partitioning strategy (replicate,
+channel, spatial) and prices ``hopper_sharded_flow_cost``: one device's
+kernel on its shard-local layer plus the collective's bytes over NVLink.  As in Alg 1, the grid is
 enumerated, configurations over the cap are dropped and the predicted
 argmin is kept; with a measurement callable (``_make_measure_fn``: the
 layer's own operands on the card) the best few predictions are timed and
@@ -51,6 +54,10 @@ H100_FP32_FLOPS = 67e12            # fp32 FMA on CUDA cores, no tensor cores
 H100_SMS = 132
 H100_SMEM_PER_CTA = fsc.SMEM_PER_CTA   # 232,448 B of dynamic shared memory
 H100_L2_BYTES = 50e6
+# NVLink 4 on the H100 SXM: 900 GB/s from a card to the others of its
+# host, 450 GB/s each way (NVIDIA's published per-direction figure, not a
+# measurement).  The sharded cost model charges collective bytes at it.
+H100_NVLINK_BYTES_PER_S = 450e9
 
 # Alg-2 knobs for pricing tables before they exist (paper S6.3: r = 10;
 # mu, the Eq-14 PE utilization, measures 0.850-0.857 on full VGG16 at
@@ -477,6 +484,171 @@ def autotune_network(layers: Sequence[df.ConvLayer] = df.VGG16_LAYERS,
         active_bins=(active_bins or {}).get(layer.name),
         hadamard_modes=hadamard_modes, input_modes=input_modes,
         measure_fn=(measure_fns or {}).get(layer.name))
+        for layer, a in zip(layers, alphas)}
+
+
+# ---------------------------------------------------------------------------
+# Two-level Alg 1: partitioning strategy x kernel configuration per layer
+# ---------------------------------------------------------------------------
+
+def hopper_sharded_flow_cost(layer: df.ConvLayer, fft_size: int,
+                             alpha: float, flow: str, hadamard: str,
+                             input_mode: str, *, n_shards: int,
+                             strategy: str, batch: int = 1,
+                             active_bins: int | None = None,
+                             r: int = SCHEDULE_R,
+                             t_cycles: int | None = None,
+                             block_m: int | None = None,
+                             residual: str | None = None
+                             ) -> "dict[str, float] | None":
+    """The two-level cost of one sharded layer (the counterpart of the
+    reference's ``tpu_sharded_flow_cost``): ONE device's
+    ``hopper_fused_flow_cost`` of the shard-local layer
+    (``dataflow.shard_local_layer``), plus the collective's bytes
+    (``dataflow.shard_ici_bytes``) at ``H100_NVLINK_BYTES_PER_S``.  None
+    when the strategy is infeasible at ``n_shards``.
+
+    It prices the mesh it is given: D devices joined by NVLink, also when
+    the mesh repeats one card (whose bands then run one after another).
+    It prices the reference's collectives only: the executor
+    (``distributed.executor``) also gathers every layer's output on the
+    mesh's first device and the next layer scatters it from there, link
+    traffic on a mesh of distinct cards that this cost leaves out.
+    Adds to the per-device dict: 'strategy', 'n_shards',
+    'per_chip_hbm_bytes' (the local 'hbm_bytes'), 'ici_bytes', 'ici_s'
+    and 'sharded_s' = 'predicted_s' + 'ici_s'.  ``residual`` is the
+    shortcut's placement as ``hopper_fused_flow_cost`` takes it; a sharded
+    layer also moves the shortcut into the shards' layout (its link
+    bytes).
+    """
+    local = df.shard_local_layer(layer, fft_size, n_shards, strategy)
+    if local is None:
+        return None
+    c = hopper_fused_flow_cost(local, fft_size, alpha, flow, hadamard,
+                               input_mode, batch=batch,
+                               active_bins=active_bins, r=r,
+                               t_cycles=t_cycles, block_m=block_m,
+                               residual=residual)
+    ici = df.shard_ici_bytes(layer, n_shards, strategy, batch=batch,
+                             residual=residual is not None)
+    ici_s = ici / H100_NVLINK_BYTES_PER_S
+    c.update(strategy=strategy, n_shards=n_shards,
+             per_chip_hbm_bytes=c["hbm_bytes"], ici_bytes=ici, ici_s=ici_s,
+             sharded_s=c["predicted_s"] + ici_s)
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardTuning:
+    """The chosen (strategy, shard-local kernel configuration) of one conv
+    layer on a D-device mesh.  ``base`` is the ``FusedTuning`` of the
+    shard-local layer, its ``predicted_s`` one device's kernel without the
+    collective; ``sharded_s = predicted_s + ici_s`` is what the choice
+    minimizes."""
+
+    base: FusedTuning
+    strategy: str                # one of dataflow.SHARD_STRATEGIES
+    n_shards: int
+    ici_bytes: float
+    ici_s: float
+    per_chip_hbm_bytes: float
+    sharded_s: float
+
+
+def autotune_layer_sharded(layer: df.ConvLayer, fft_size: int,
+                           alpha: float, *, n_shards: int,
+                           strategies: Sequence[str] | None = None,
+                           batch: int = 1,
+                           flows: Sequence[str] = df.FLOWS,
+                           active_bins: int | None = None,
+                           hadamard_modes: Sequence[str] = ("bin",),
+                           input_modes: Sequence[str] = ("windowed",),
+                           schedule_r: int = SCHEDULE_R,
+                           t_cycles: int | None = None,
+                           residual: str | None = None) -> ShardTuning:
+    """Alg 1 one level up: pick (strategy, flow, Hadamard mode, input
+    path, block_m) for one layer on an ``n_shards``-device mesh.
+
+    Every feasible strategy of ``strategies`` (default: all of
+    ``dataflow.SHARD_STRATEGIES``; 'replicate' is always feasible) is
+    crossed with ``autotune_layer``'s candidates for the shard-local
+    layer, each priced by ``hopper_sharded_flow_cost``; those over the
+    shared-memory cap drop out and the rest sort by (sharded seconds, CTA
+    steps, device + link bytes).  ``residual`` is the layer's shortcut
+    search as ``autotune_layer`` takes it: a replicated layer runs it in
+    its kernel ('vmem' falls back to 'hbm' where it does not fit), a
+    sharded one adds it after the collective, read from device memory
+    ('hbm').  When nothing fits, the layer is replicated with
+    ``autotune_layer``'s own choice."""
+    def priced(cand: FusedTuning, strategy: str) -> ShardTuning | None:
+        c = hopper_sharded_flow_cost(
+            layer, fft_size, alpha, cand.flow, cand.hadamard,
+            cand.input_mode, n_shards=n_shards, strategy=strategy,
+            batch=batch, active_bins=active_bins, r=schedule_r,
+            t_cycles=t_cycles, block_m=cand.block_m, residual=cand.residual)
+        if c is None:
+            return None
+        if cand.residual == "vmem" and c["smem_bytes"] > H100_SMEM_PER_CTA:
+            return priced(dataclasses.replace(cand, residual="hbm"),
+                          strategy)
+        tn = dataclasses.replace(
+            cand, hbm_bytes=c["hbm_bytes"], smem_bytes=c["smem_bytes"],
+            predicted_s=predict_seconds(c),
+            grid_steps=float(c["ctas"] * c["steps"]))
+        return ShardTuning(base=tn, strategy=strategy, n_shards=n_shards,
+                           ici_bytes=c["ici_bytes"], ici_s=c["ici_s"],
+                           per_chip_hbm_bytes=c["per_chip_hbm_bytes"],
+                           sharded_s=c["sharded_s"])
+
+    scored: list[ShardTuning] = []
+    for strategy in (df.SHARD_STRATEGIES if strategies is None
+                     else strategies):
+        local = df.shard_local_layer(layer, fft_size, n_shards, strategy)
+        if local is None:
+            continue
+        res = (residual if strategy == "replicate" or n_shards <= 1
+               else residual and "hbm")
+        for cand in _layer_candidates(local, fft_size, batch, flows,
+                                      hadamard_modes, input_modes, res):
+            st = priced(cand, strategy)
+            if st is not None and st.base.smem_bytes <= H100_SMEM_PER_CTA:
+                scored.append(st)
+    if not scored:
+        tn = autotune_layer(layer, fft_size, alpha, batch=batch, flows=flows,
+                            active_bins=active_bins,
+                            hadamard_modes=hadamard_modes,
+                            input_modes=input_modes, schedule_r=schedule_r,
+                            t_cycles=t_cycles, residual=residual)
+        return ShardTuning(base=tn, strategy="replicate", n_shards=n_shards,
+                           ici_bytes=0.0, ici_s=0.0,
+                           per_chip_hbm_bytes=tn.hbm_bytes,
+                           sharded_s=tn.predicted_s)
+    scored.sort(key=lambda st: (st.sharded_s, st.base.grid_steps,
+                                st.per_chip_hbm_bytes + st.ici_bytes))
+    return scored[0]
+
+
+def autotune_network_sharded(layers: Sequence[df.ConvLayer]
+                             = df.VGG16_LAYERS,
+                             fft_size: int = 8,
+                             alpha: "float | Sequence[float]" = 4.0, *,
+                             n_shards: int,
+                             batch: int = 1,
+                             active_bins: dict[str, int] | None = None,
+                             hadamard_modes: Sequence[str] = ("bin",),
+                             input_modes: Sequence[str] = ("windowed",)
+                             ) -> dict[str, ShardTuning]:
+    """Two-level Alg 1 over a conv stack -> {layer name: ShardTuning};
+    layers are chosen independently (the sharded executor returns every
+    layer's output in the global layout, so strategies mix freely)."""
+    from repro_torch.core.sparse import per_layer_alphas
+
+    layers = list(layers)
+    alphas = per_layer_alphas(alpha, len(layers))
+    return {layer.name: autotune_layer_sharded(
+        layer, fft_size, a, n_shards=n_shards, batch=batch,
+        active_bins=(active_bins or {}).get(layer.name),
+        hadamard_modes=hadamard_modes, input_modes=input_modes)
         for layer, a in zip(layers, alphas)}
 
 

@@ -1,16 +1,17 @@
 """Layer and graph descriptions shared by the plan, the kernels and the
 models (counterpart of ``repro.core.dataflow``).
 
-Only the static descriptions are here.  The Hopper counterpart of the
-reference's TPU cost model is in ``core.autotune``; its FPGA model is
-not part of this package yet.
+The static descriptions, and the shard-local sub-problem and collective
+bytes of a sharded layer.  The Hopper counterpart of the reference's TPU
+cost model is in ``core.autotune``; its FPGA model is not part of this
+package yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.spectral import make_geometry
+from repro_torch.core.spectral import make_geometry, shard_band_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,3 +109,65 @@ INPUT_MODES = ("windowed", "halo")
 # Hadamard-stage datapaths: full-K^2 kernel planes, planes compacted to
 # the active bins, or the Alg-2 INDEX/VALUE tables.
 HADAMARD_MODES = ("dense", "bin", "scheduled")
+
+
+# How one conv layer is partitioned over a D-device mesh (the two-level
+# Alg 1, ``autotune.autotune_layer_sharded``):
+#   'replicate'  every device runs the whole layer (always feasible);
+#   'channel'    shard d owns c_in/D input channels and the matching
+#                kernel slice, computes a partial sum with its epilogue
+#                deferred, and the partials are summed across devices.
+#                Feasible iff D divides c_in;
+#   'spatial'    shard d owns a band of ceil(n_tiles_h/D) tile rows and
+#                receives the k-1 raw halo rows of its upper neighbour
+#                before the conv.  Feasible iff every shard has a tile row.
+SHARD_STRATEGIES = ("replicate", "channel", "spatial")
+
+
+def shard_local_layer(layer: ConvLayer, fft_size: int, n_shards: int,
+                      strategy: str) -> "ConvLayer | None":
+    """The sub-problem ONE device computes, as a ConvLayer, or None when
+    ``strategy`` is infeasible at ``n_shards``: 'channel' shrinks c_in;
+    'spatial' shrinks h_in to ``tr*t - pad``, the height whose tile grid
+    is exactly the band's tr tile rows (the band's k-1 halo rows are
+    priced as link bytes, ``shard_ici_bytes``)."""
+    if strategy not in SHARD_STRATEGIES:
+        raise ValueError(f"strategy must be one of {SHARD_STRATEGIES}, "
+                         f"got {strategy!r}")
+    if strategy == "replicate" or n_shards <= 1:
+        return layer
+    if strategy == "channel":
+        if layer.c_in % n_shards:
+            return None
+        return dataclasses.replace(layer, c_in=layer.c_in // n_shards)
+    geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
+                        layer.pad)
+    if n_shards > geo.n_tiles_h:
+        return None
+    tr = shard_band_rows(geo, n_shards)
+    return dataclasses.replace(layer, h_in=tr * geo.tile - layer.pad)
+
+
+def shard_ici_bytes(layer: ConvLayer, n_shards: int, strategy: str,
+                    batch: int = 1, bytes_per_el: int = 4,
+                    residual: bool = False) -> float:
+    """Bytes one sharded layer forward moves between devices:
+    'replicate' none; 'channel' a ring all-reduce of the [B, N, H_out,
+    W_out] partial sums, 2(D-1)/D of the output bytes per device;
+    'spatial' (D-1) * (k-1) * W * M * B halo words, one hop down each
+    interior boundary.  ``residual`` adds (D-1)/D of the output bytes:
+    the shortcut moved into the shards' layout (a replicated layer pays
+    nothing)."""
+    if strategy == "replicate" or n_shards <= 1:
+        return 0.0
+    h_out = layer.h_in + 2 * layer.pad - layer.ksize + 1
+    w_out = layer.w_in + 2 * layer.pad - layer.ksize + 1
+    out_bytes = layer.c_out * h_out * w_out * batch * bytes_per_el
+    sc = ((n_shards - 1) / n_shards * out_bytes) if residual else 0.0
+    if strategy == "channel":
+        return 2.0 * (n_shards - 1) / n_shards * out_bytes + sc
+    if strategy == "spatial":
+        return float((n_shards - 1) * (layer.ksize - 1) * layer.w_in
+                     * layer.c_in * batch * bytes_per_el) + sc
+    raise ValueError(f"strategy must be one of {SHARD_STRATEGIES}, "
+                     f"got {strategy!r}")

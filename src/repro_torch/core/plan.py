@@ -657,3 +657,353 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                        layers=tuple(plans),
                        graph=_graph_nodes(order, tuple(plans)),
                        schedule_seconds=schedule_seconds)
+
+
+# ---------------------------------------------------------------------------
+# Sharded plans: a NetworkPlan partitioned over a D-device mesh
+# ---------------------------------------------------------------------------
+
+def _pad_layer_tables(tabs, device) -> list[PlanTables]:
+    """Per-shard Alg-2 tables (``scheduler.LayerTables``) padded to one
+    cycle count T, on ``device``.  Padded cycles carry idx = sel = 0 and
+    vr = vi = 0, so they are inert (``compile_layer_tables``' own
+    padding)."""
+    t_max = max(t.idx.shape[2] for t in tabs)
+    pads = ((0, 0), (0, 0), (0, 0), (0, 0))
+    out = []
+    for t in tabs:
+        pad = list(pads)
+        pad[2] = (0, t_max - t.idx.shape[2])
+        out.append(PlanTables(*(torch.from_numpy(np.pad(a, pad)).to(device)
+                                for a in (t.idx, t.sel, t.vr, t.vi))))
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedLayerPlan:
+    """One conv layer's plan on a D-device mesh.
+
+    ``base`` is the unsharded ``LayerPlan`` (full geometry, kernels and
+    epilogue; what a replicated layer runs).  ``shards`` holds the
+    shard-local plans the executor (``distributed.executor``) runs:
+
+      'replicate'  () — every device would run ``base``;
+      'spatial'    (band_plan,) — one plan for every shard: the
+          shard-local layer (``dataflow.shard_local_layer``) on the band
+          geometry (``spectral.make_band_geometry``, pre_halo_h = k-1),
+          full channels and the base epilogue;
+      'channel'    D plans — shard d owns input channels [d*M/D,
+          (d+1)*M/D): kernels, planes and tables sliced on the channel
+          axis, bias and ReLU deferred (the outputs are partial sums; the
+          executor applies ``base.epilogue`` after the sum).
+
+    ``tuning`` is the two-level Alg-1 choice (``autotune.ShardTuning``).
+    """
+
+    base: LayerPlan
+    strategy: str                     # dataflow.SHARD_STRATEGIES
+    n_shards: int
+    tuning: at.ShardTuning
+    shards: tuple[LayerPlan, ...]
+    provenance: tuple[str, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedNetworkPlan:
+    """A ``NetworkPlan`` and its per-layer partitioning for one mesh.
+    ``base`` stays executable on one device (the sharded forward's
+    reference); ``layers`` align with ``base.layers``; ``mesh_shape`` is
+    the device topology the plan was built for."""
+
+    base: NetworkPlan
+    n_shards: int
+    mesh_shape: tuple[int, ...]
+    layers: tuple[ShardedLayerPlan, ...]
+
+    @property
+    def name(self) -> str:
+        return self.base.name
+
+    @property
+    def fft_size(self) -> int:
+        return self.base.fft_size
+
+    @property
+    def batch(self) -> int:
+        return self.base.batch
+
+    @property
+    def strategies(self) -> dict[str, str]:
+        return {slp.base.layer.name: slp.strategy for slp in self.layers}
+
+
+def _compile_tables(lp: LayerPlan, sk: sp.SparseSpectralKernels,
+                    schedule_r: int):
+    """Alg-2 tables of ``sk`` (the layer's kernels or a channel slice) for
+    the scheduled kernel (groups of its block_n lanes, the layer's active
+    bins), compiled serially."""
+    n, m = sk.values.shape[:2]
+    k2 = lp.geo.fft_size ** 2
+    return sch.compile_layer_tables(
+        sk.indices.cpu().numpy(), sk.values.reshape(n, m, k2).cpu().numpy(),
+        k2, schedule_r, min(fsc.SCHED_BLOCK_N, n), active=lp.active,
+        m_pad_to=fsc.SCHED_BLOCK_M)
+
+
+def _band_tables(lp: LayerPlan, tn: FusedTuning,
+                 schedule_r: int) -> PlanTables | None:
+    """Tables of a spatial band plan (full channels): the base plan's
+    when it has them (the port's tables do not depend on the flow or its
+    m ranges), else compiled."""
+    if tn.hadamard != "scheduled":
+        return None
+    if lp.tables is not None:
+        return lp.tables
+    return _pad_layer_tables([_compile_tables(lp, lp.kernels, schedule_r)],
+                             lp.wr.device)[0]
+
+
+def make_sharded_layer_plan(lp: LayerPlan, st: at.ShardTuning,
+                            n_shards: int, *,
+                            schedule_r: int = 10) -> ShardedLayerPlan:
+    """The shard-local plans of one layer (see ``ShardedLayerPlan``).  A
+    strategy that is infeasible at ``n_shards`` (or any strategy on one
+    shard) replicates.
+
+    A channel shard of a scheduled layer takes the base plan's tables
+    sliced on the channel axis where the base has them: Alg 2 schedules
+    every (kernel group, channel) pair on its own, so the slices are the
+    tables a compile of the shard's kernels gives, padded to the base's
+    T (and the base carries the layer's schedule statistics); otherwise
+    each shard's tables are compiled and padded to one T.
+    """
+    replicate = ShardedLayerPlan(base=lp, strategy="replicate",
+                                 n_shards=n_shards, tuning=st, shards=())
+    if n_shards <= 1 or st.strategy == "replicate":
+        return replicate
+    local = df.shard_local_layer(lp.layer, lp.geo.fft_size, n_shards,
+                                 st.strategy)
+    if local is None:
+        return replicate
+    tn = st.base
+    hadamard = tn.hadamard or lp.hadamard
+    input_mode = tn.input_mode or lp.input_mode
+    tn = dataclasses.replace(tn, hadamard=hadamard, input_mode=input_mode)
+    if st.strategy == "spatial":
+        band_geo = spec.make_band_geometry(
+            lp.geo, spec.shard_band_rows(lp.geo, n_shards))
+        band = dataclasses.replace(
+            lp, layer=local, geo=band_geo, tuning=tn,
+            epilogue=dataclasses.replace(lp.epilogue, pool=False),
+            hadamard=hadamard, input_mode=input_mode,
+            tables=_band_tables(lp, tn, schedule_r))
+        return ShardedLayerPlan(base=lp, strategy="spatial",
+                                n_shards=n_shards, tuning=st,
+                                shards=(band,))
+    mloc = local.c_in
+    sk = lp.kernels
+    sliced = [sk._replace(values=sk.values[:, d * mloc:(d + 1) * mloc],
+                          mask=sk.mask[:, d * mloc:(d + 1) * mloc],
+                          indices=sk.indices[:, d * mloc:(d + 1) * mloc])
+              for d in range(n_shards)]
+    tables: list = [None] * n_shards
+    stats = [(lp.schedule_cycles, lp.pe_utilization)] * n_shards
+    if hadamard == "scheduled" and lp.tables is not None:
+        tables = [PlanTables(*(t[:, d * mloc:(d + 1) * mloc].contiguous()
+                               for t in lp.tables))
+                  for d in range(n_shards)]
+        stats = [(None, None)] * n_shards
+    elif hadamard == "scheduled":
+        raw = [_compile_tables(lp, skd, schedule_r) for skd in sliced]
+        tables = _pad_layer_tables(raw, lp.wr.device)
+        stats = [(t.total_cycles, t.pe_utilization) for t in raw]
+    no_epi = EpilogueSpec(bias=False, relu=False, pool=False)
+    shards = tuple(
+        dataclasses.replace(
+            lp, layer=local, kernels=sliced[d], tuning=tn, epilogue=no_epi,
+            bias=torch.zeros_like(lp.bias),
+            wr=lp.wr[:, :, d * mloc:(d + 1) * mloc].contiguous(),
+            wi=lp.wi[:, :, d * mloc:(d + 1) * mloc].contiguous(),
+            hadamard=hadamard, input_mode=input_mode,
+            schedule_cycles=stats[d][0], pe_utilization=stats[d][1],
+            tables=tables[d])
+        for d in range(n_shards))
+    return ShardedLayerPlan(base=lp, strategy="channel", n_shards=n_shards,
+                            tuning=st, shards=shards)
+
+
+def resharded_layer_plan(slp: ShardedLayerPlan, new_base: LayerPlan, *,
+                         schedule_r: int = 10,
+                         note: str | None = None) -> ShardedLayerPlan:
+    """A ``ShardedLayerPlan`` rebuilt around another base plan (one moved
+    down the degradation ladder): the shard tuning takes the new base's
+    Hadamard mode and input path, and ``note`` joins the provenance."""
+    tn = dataclasses.replace(slp.tuning.base, hadamard=new_base.hadamard,
+                             input_mode=new_base.input_mode)
+    rebuilt = make_sharded_layer_plan(
+        new_base, dataclasses.replace(slp.tuning, base=tn), slp.n_shards,
+        schedule_r=schedule_r)
+    return dataclasses.replace(
+        rebuilt, provenance=slp.provenance + ((note,) if note else ()))
+
+
+def validate_layer_partition(slp: ShardedLayerPlan) -> None:
+    """The partition invariants of one ``ShardedLayerPlan``, the shapes
+    the executor's split, halo exchange and sum assume; raises ValueError
+    naming every one that fails.
+
+      spatial   one band plan; pre_halo_h == k-1 (the rows the exchange
+          ships); tile rows == ``shard_band_rows`` (so the D bands cover
+          the tile grid); h_in == k-1 + tr*t and h_pad == tr*t; the W axis
+          and the channels are the base's;
+      channel   D plans; D | c_in; every shard the same local channels,
+          output channels and geometry as the base; bias and ReLU
+          deferred; the shards' tables of one T;
+      replicate no shard plans.
+    """
+    name = slp.base.layer.name
+    errors: list[str] = []
+    if slp.strategy not in df.SHARD_STRATEGIES:
+        errors.append(f"unknown strategy {slp.strategy!r}; must be one of "
+                      f"{df.SHARD_STRATEGIES}")
+    elif slp.strategy == "replicate":
+        if slp.shards:
+            errors.append(f"replicate carries {len(slp.shards)} shard "
+                          f"plans; expected none")
+    elif slp.strategy == "spatial":
+        errors += _spatial_partition_errors(slp)
+    else:
+        errors += _channel_partition_errors(slp)
+    if errors:
+        raise ValueError(f"layer {name}: " + "; ".join(errors))
+
+
+def _spatial_partition_errors(slp: ShardedLayerPlan) -> list[str]:
+    geo, d = slp.base.geo, slp.n_shards
+    if len(slp.shards) != 1:
+        return [f"spatial wants one band plan, got {len(slp.shards)}"]
+    band = slp.shards[0]
+    bg, ov = band.geo, geo.ksize - 1
+    tr = spec.shard_band_rows(geo, d)
+    errors = []
+    if bg.pre_halo_h != ov:
+        errors.append(f"band pre_halo_h={bg.pre_halo_h} != k-1={ov}, the "
+                      f"rows the halo exchange ships")
+    if bg.n_tiles_h != tr:
+        errors.append(f"band has {bg.n_tiles_h} tile rows, shard_band_rows "
+                      f"says {tr}")
+    if bg.h_in != ov + tr * geo.tile or bg.h_pad != tr * geo.tile:
+        errors.append(f"band h_in={bg.h_in}/h_pad={bg.h_pad} do not match "
+                      f"{tr} tile rows of {geo.tile} plus {ov} halo rows")
+    if (bg.w_in, bg.w_pad, bg.n_tiles_w) != (geo.w_in, geo.w_pad,
+                                             geo.n_tiles_w):
+        errors.append(f"band W axis {(bg.w_in, bg.w_pad, bg.n_tiles_w)} != "
+                      f"base {(geo.w_in, geo.w_pad, geo.n_tiles_w)}")
+    if band.layer.c_in != slp.base.layer.c_in:
+        errors.append(f"band c_in={band.layer.c_in} != "
+                      f"{slp.base.layer.c_in}: bands keep every channel")
+    return errors
+
+
+def _channel_partition_errors(slp: ShardedLayerPlan) -> list[str]:
+    base, d = slp.base, slp.n_shards
+    if len(slp.shards) != d:
+        return [f"channel wants {d} shard plans, got {len(slp.shards)}"]
+    m = base.layer.c_in
+    if m % d:
+        return [f"c_in={m} is not divisible by D={d}"]
+    errors, t_lens = [], set()
+    for i, sh in enumerate(slp.shards):
+        if sh.layer.c_in != m // d:
+            errors.append(f"shard {i} c_in={sh.layer.c_in} != c_in/D="
+                          f"{m // d}")
+        if sh.layer.c_out != base.layer.c_out or sh.geo != base.geo:
+            errors.append(f"shard {i} output (c_out={sh.layer.c_out}, "
+                          f"geometry {'equal' if sh.geo == base.geo else 'differs'}) "
+                          f"is not the base's; the partial sums must agree "
+                          f"elementwise")
+        if sh.epilogue.bias or sh.epilogue.relu:
+            errors.append(f"shard {i} applies bias/ReLU to a partial sum; "
+                          f"channel shards defer the epilogue")
+        if sh.tables is not None:
+            t_lens.add(int(sh.tables.idx.shape[2]))
+    if len(t_lens) > 1:
+        errors.append(f"shard tables disagree on the cycle count T "
+                      f"{sorted(t_lens)}; pad them to one T")
+    return errors
+
+
+def validate_sharded_plan(splan: ShardedNetworkPlan) -> None:
+    """``validate_layer_partition`` of every layer, and the layers aligned
+    with the base plan's."""
+    if len(splan.layers) != len(splan.base.layers) or any(
+            slp.base is not lp
+            for slp, lp in zip(splan.layers, splan.base.layers)):
+        raise ValueError("sharded layers do not align with the base plan's")
+    for slp in splan.layers:
+        validate_layer_partition(slp)
+
+
+def _shard_network_plan(base: NetworkPlan, *, n_shards: int,
+                        mesh_shape=None, strategies=None,
+                        hadamard: str = "bin", input_mode: str = "windowed",
+                        schedule: bool = True, schedule_r: int = 10,
+                        validate: bool = True) -> ShardedNetworkPlan:
+    """Partition an already-built plan: the two-level Alg 1
+    (``autotune.autotune_layer_sharded``) per layer over the Hadamard
+    modes, input paths and flows that ``hadamard`` and ``input_mode``
+    admit (as ``build_network_plan`` ranks them), then the shard-local
+    plans."""
+    imodes = _resolve_input_modes(input_mode)
+    flows = _resolve_flows(hadamard, input_mode)
+    layers = []
+    for lp in base.layers:
+        residual = (None if lp.epilogue.residual is None
+                    else _shortcut_search(lp.epilogue) or "hbm")
+        st = at.autotune_layer_sharded(
+            lp.layer, base.fft_size, lp.alpha, n_shards=n_shards,
+            strategies=strategies, batch=base.batch, flows=flows,
+            active_bins=lp.n_active_bins,
+            hadamard_modes=_resolve_hadamard_modes(hadamard, lp.alpha,
+                                                   schedule, lp.active),
+            input_modes=imodes, schedule_r=schedule_r,
+            t_cycles=(lp.tables.idx.shape[2] if lp.tables is not None
+                      else None),
+            residual=residual)
+        layers.append(make_sharded_layer_plan(lp, st, n_shards,
+                                              schedule_r=schedule_r))
+    splan = ShardedNetworkPlan(
+        base=base, n_shards=n_shards,
+        mesh_shape=(tuple(int(d) for d in mesh_shape)
+                    if mesh_shape is not None else (n_shards,)),
+        layers=tuple(layers))
+    if validate:
+        validate_sharded_plan(splan)
+    return splan
+
+
+def build_sharded_network_plan(params: dict, cfg, *, n_shards: int,
+                               mesh_shape=None, batch: int = 1,
+                               strategies=None, validate: bool = True,
+                               **build_kwargs) -> ShardedNetworkPlan:
+    """Compile a ``NetworkPlan`` and its per-layer partitioning for an
+    ``n_shards``-device mesh.
+
+    The base plan comes first (``build_network_plan(params, cfg,
+    batch=batch, **build_kwargs)``; it is also the sharded forward's
+    reference), then Alg 1 one level up picks each layer's strategy and
+    shard-local configuration (``autotune.autotune_layer_sharded``, over
+    the modes and flows that the build's ``hadamard`` and ``input_mode``
+    admit), and the shard-local plans are built.  ``strategies``
+    restricts the partitionings (e.g. ``("channel",)``); ``mesh_shape``
+    defaults to ``(n_shards,)``; ``validate`` checks every layer's
+    partition invariants (``validate_layer_partition``).
+    """
+    base = build_network_plan(params, cfg, batch=batch, **build_kwargs)
+    return _shard_network_plan(
+        base, n_shards=n_shards, mesh_shape=mesh_shape,
+        strategies=strategies,
+        hadamard=build_kwargs.get("hadamard", "bin"),
+        input_mode=build_kwargs.get("input_mode", "windowed"),
+        schedule=build_kwargs.get("schedule", True),
+        schedule_r=build_kwargs.get("schedule_r", 10), validate=validate)

@@ -37,6 +37,13 @@ class SpectralGeometry(NamedTuple):
     n_tiles_w: int
     h_pad: int           # n_tiles_h * tile
     w_pad: int
+    # Rows of top halo already in the input (a shard's band,
+    # ``make_band_geometry``): the first pre_halo_h input rows are the
+    # upper neighbour's last rows (zeros on the first shard), so the
+    # windows pad only the remaining k-1-pre_halo_h rows on top and every
+    # H-axis window and gather coordinate shifts down by pre_halo_h.  0 is
+    # the single-device geometry.
+    pre_halo_h: int = 0
 
     @property
     def n_tiles(self) -> int:
@@ -72,10 +79,13 @@ def spectral_kernel(w: torch.Tensor, fft_size: int) -> torch.Tensor:
 def extract_tiles_overlapping(x: torch.Tensor, geo: SpectralGeometry
                               ) -> torch.Tensor:
     """[B, M, H, W] -> [B, M, T, K, K] overlap-save input windows: K x K
-    windows with stride t starting at offset -(k-1)."""
+    windows with stride t starting at offset -(k-1) (at row offset
+    pre_halo_h - (k-1) when the input carries its top halo)."""
     b, m = x.shape[:2]
     ov = geo.ksize - 1
-    x = F.pad(x, (ov, geo.w_pad - geo.w_in, ov, geo.h_pad - geo.h_in))
+    pre = geo.pre_halo_h
+    x = F.pad(x, (ov, geo.w_pad - geo.w_in, ov - pre,
+                  geo.h_pad + pre - geo.h_in))
     k, t = geo.fft_size, geo.tile
     win = x.unfold(2, k, t).unfold(3, k, t)       # [B, M, n_th, n_tw, K, K]
     return win.reshape(b, m, geo.n_tiles, k, k)
@@ -144,7 +154,7 @@ def halo_block_starts(geo: SpectralGeometry, hg: HaloGeometry
     same.)
     """
     ov = geo.ksize - 1
-    sh = np.arange(hg.nbh) * hg.bth * geo.tile - ov
+    sh = np.arange(hg.nbh) * hg.bth * geo.tile - ov + geo.pre_halo_h
     sw = np.arange(hg.nbw) * hg.btw * geo.tile - ov
     return (np.clip(sh, 0, geo.h_in - hg.rh),
             np.clip(sw, 0, geo.w_in - hg.rw))
@@ -168,7 +178,7 @@ def halo_gather_matrices(geo: SpectralGeometry, hg: HaloGeometry
     ov = geo.ksize - 1
     sh, sw = halo_block_starts(geo, hg)
 
-    def axis(nb, bt, n_tiles, start, size, extent):
+    def axis(nb, bt, n_tiles, start, size, extent, pre=0):
         g = np.zeros((nb, bt * k, size), np.float32)
         for ib in range(nb):
             for ii in range(bt):
@@ -176,12 +186,13 @@ def halo_gather_matrices(geo: SpectralGeometry, hg: HaloGeometry
                 if tile_idx >= n_tiles:
                     continue                      # block padding tile
                 for kh in range(k):
-                    raw = tile_idx * geo.tile - ov + kh
+                    raw = tile_idx * geo.tile - ov + kh + pre
                     if 0 <= raw < extent:
                         g[ib, ii * k + kh, raw - start[ib]] = 1.0
         return g
 
-    return (axis(hg.nbh, hg.bth, geo.n_tiles_h, sh, hg.rh, geo.h_in),
+    return (axis(hg.nbh, hg.bth, geo.n_tiles_h, sh, hg.rh, geo.h_in,
+                 geo.pre_halo_h),
             axis(hg.nbw, hg.btw, geo.n_tiles_w, sw, hg.rw, geo.w_in))
 
 
@@ -254,6 +265,56 @@ def assemble_valid_tiles(y_tiles: torch.Tensor, geo: SpectralGeometry
                          ) -> torch.Tensor:
     """[B, N, T, t, t] valid tiles -> [B, N, H_out, W_out]."""
     return crop_canvas_same(assemble_tile_canvas(y_tiles, geo), geo)
+
+
+# ---------------------------------------------------------------------------
+# Spatial sharding: tile-row bands and the cross-shard halo
+# ---------------------------------------------------------------------------
+#
+# Spatial sharding splits the image into horizontal bands of whole tile
+# rows (pruned-kernel overlap-save results depend on where the tiles lie,
+# so shard boundaries fall on tile boundaries).  Shard d owns tile rows
+# [d*tr, (d+1)*tr) = raw rows [d*tr*t, (d+1)*tr*t) and needs exactly
+# k-1 rows of top halo from shard d-1 (zeros on shard 0: the global
+# 'same' padding) and no bottom halo.  The extended band [B, C,
+# (k-1) + tr*t, W] is described by ``make_band_geometry``.
+
+def shard_band_rows(geo: SpectralGeometry, n_shards: int) -> int:
+    """Tile rows per shard band: ceil(n_tiles_h / n_shards)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    return -(-geo.n_tiles_h // n_shards)
+
+
+def make_band_geometry(geo: SpectralGeometry,
+                       tile_rows: int) -> SpectralGeometry:
+    """Per-shard geometry of a ``tile_rows``-tall band of ``geo``: the
+    input is the extended band (h_in counts the k-1 halo rows, which
+    pre_halo_h marks), the canvas is tile_rows*t rows; the W axis is
+    inherited (bands span the full width)."""
+    ov = geo.ksize - 1
+    return SpectralGeometry(
+        geo.fft_size, geo.tile, geo.ksize, geo.pad,
+        h_in=ov + tile_rows * geo.tile, w_in=geo.w_in,
+        n_tiles_h=tile_rows, n_tiles_w=geo.n_tiles_w,
+        h_pad=tile_rows * geo.tile, w_pad=geo.w_pad, pre_halo_h=ov)
+
+
+def halo_exchange_reference(x: torch.Tensor, geo: SpectralGeometry,
+                            n_shards: int) -> list[torch.Tensor]:
+    """The cross-shard halo exchange, in plain PyTorch (tests, and the
+    sharded executor's own split): the ``n_shards`` extended bands
+    [B, C, (k-1) + tr*t, W] of x zero-padded at the bottom to
+    n_shards * tr * t rows, shard d's band prefixed by the last k-1 rows
+    of shard d-1's (zeros for shard 0)."""
+    ov = geo.ksize - 1
+    hb = shard_band_rows(geo, n_shards) * geo.tile
+    b, c, h, w = x.shape
+    xp = F.pad(x, (0, 0, 0, n_shards * hb - h))
+    return [torch.cat([x.new_zeros((b, c, ov, w)) if d == 0
+                       else xp[:, :, d * hb - ov:d * hb],
+                       xp[:, :, d * hb:(d + 1) * hb]], dim=2)
+            for d in range(n_shards)]
 
 
 def hadamard_accumulate(x_f: torch.Tensor, w_f: torch.Tensor

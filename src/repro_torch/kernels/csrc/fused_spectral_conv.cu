@@ -847,11 +847,11 @@ int halo(const float* x, const float* wr, const float* wi, const float* dfr,
          const float* dfi, const float* dvr, const float* dvi,
          const float* bias, const float* sc, float* y, float* ws, int B,
          int M, int H, int W, int K, int ksize, int pad, int n_th, int n_tw,
-         int bth, int btw, int nbh, int nbw, int Fa, int N, int S2, int relu,
-         int RM, int sc_staged, void* stream) {
+         int bth, int btw, int nbh, int nbw, int pre, int band, int Fa,
+         int N, int S2, int relu, int RM, int sc_staged, void* stream) {
   HaloIn io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
-                     nbh, nbw) ||
+                     nbh, nbw, pre, band) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || Fa < 1 ||
       Fa > MAX_CLUSTER * FC || N < 1)
     return (int)cudaErrorInvalidValue;
@@ -913,15 +913,18 @@ int fused_spectral_pipeline_is_f32(const float* xt, const float* wr,
 // Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
 // tile grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
 // FSC_BP tiles (spectral.halo_block_geometry), one CTA per (image, block).
+// Band mode (band = 1): x is a shard's extended band whose first pre = k - 1
+// rows are its top halo, and y is the uncropped band canvas
+// [B, N, n_th*t, n_tw*t] (halo.cuh); pre = band = 0 is the plain layer.
 int fused_spectral_pipeline_halo_f32(
     const float* x, const float* wr, const float* wi, const float* dfr,
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
     float* y, const float* sc, int B, int M, int H, int W, int K, int ksize,
-    int pad, int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Fa,
-    int N, int S2, int relu, int sc_staged, void* stream) {
+    int pad, int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int pre,
+    int band, int Fa, int N, int S2, int relu, int sc_staged, void* stream) {
   return halo<OS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, nullptr, B, M,
-                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
-                  S2, relu, BM, sc_staged, stream);
+                  H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, pre,
+                  band, Fa, N, S2, relu, BM, sc_staged, stream);
 }
 
 // Halo layer, weight- / input-stationary; ws (G > 1) holds
@@ -931,11 +934,11 @@ int fused_spectral_pipeline_halo_ws_f32(
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
     float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
     int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
-    int nbw, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int nbw, int pre, int band, int Fa, int N, int S2, int relu, int RM,
+    int sc_staged, void* stream) {
   return halo<WS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
-                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
-                  S2, relu, RM, sc_staged, stream);
+                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, pre, band,
+                  Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_halo_is_f32(
@@ -943,11 +946,11 @@ int fused_spectral_pipeline_halo_is_f32(
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
     float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
     int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
-    int nbw, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int nbw, int pre, int band, int Fa, int N, int S2, int relu, int RM,
+    int sc_staged, void* stream) {
   return halo<IS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
-                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, Fa, N,
-                  S2, relu, RM, sc_staged, stream);
+                  W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, pre, band,
+                  Fa, N, S2, relu, RM, sc_staged, stream);
 }
 
 }  // extern "C"

@@ -696,11 +696,12 @@ int halo(const float* x, const int* idx, const int* sel, const float* vr,
          const float* dvr, const float* dvi, const float* bias,
          const float* sc, float* y, float* ws, int B, int M, int H, int W,
          int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
-         int nbh, int nbw, int Mp, int T, int R, int NP, int Fa, int N,
-         int S2, int relu, int RM, int sc_staged, void* stream) {
+         int nbh, int nbw, int pre, int band, int Mp, int T, int R, int NP,
+         int Fa, int N, int S2, int relu, int RM, int sc_staged,
+         void* stream) {
   HaloIn io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
-                     nbh, nbw) ||
+                     nbh, nbw, pre, band) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || NP < 1)
     return (int)cudaErrorInvalidValue;
   const int GN = (N + NP - 1) / NP;
@@ -762,17 +763,21 @@ int fused_spectral_pipeline_scheduled_is_f32(
 // Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
 // tile grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
 // 4 tiles (spectral.halo_block_geometry); tables as for the windowed layer.
+// Band mode (band = 1): x is a shard's extended band whose first pre = k - 1
+// rows are its top halo, and y is the uncropped band canvas
+// [B, N, n_th*t, n_tw*t] (halo.cuh); pre = band = 0 is the plain layer.
 int fused_spectral_pipeline_scheduled_halo_f32(
     const float* x, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
     const float* dvi, const float* bias, float* y, const float* sc, int B,
     int M, int H, int W, int K, int ksize, int pad, int n_th, int n_tw,
-    int bth, int btw, int nbh, int nbw, int Mp, int T, int R, int NP, int Fa,
-    int N, int S2, int relu, int sc_staged, void* stream) {
+    int bth, int btw, int nbh, int nbw, int pre, int band, int Mp, int T,
+    int R, int NP, int Fa, int N, int S2, int relu, int sc_staged,
+    void* stream) {
   return halo<OS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                   nullptr, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
-                  nbh, nbw, Mp, T, R, NP, Fa, N, S2, relu, 1, sc_staged,
-                  stream);
+                  nbh, nbw, pre, band, Mp, T, R, NP, Fa, N, S2, relu, 1,
+                  sc_staged, stream);
 }
 
 // Halo layer, weight- / input-stationary; ws (G > 1) holds
@@ -782,12 +787,13 @@ int fused_spectral_pipeline_scheduled_halo_ws_f32(
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
     const float* dvi, const float* bias, float* y, const float* sc,
     float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
-    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp, int T,
-    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int pre,
+    int band, int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
+    int RM, int sc_staged, void* stream) {
   return halo<WS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
                   B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
-                  Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged, stream);
+                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged,
+                  stream);
 }
 
 int fused_spectral_pipeline_scheduled_halo_is_f32(
@@ -795,12 +801,13 @@ int fused_spectral_pipeline_scheduled_halo_is_f32(
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
     const float* dvi, const float* bias, float* y, const float* sc,
     float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
-    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int Mp, int T,
-    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int pre,
+    int band, int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
+    int RM, int sc_staged, void* stream) {
   return halo<IS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
                   B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
-                  Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged, stream);
+                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged,
+                  stream);
 }
 
 }  // extern "C"

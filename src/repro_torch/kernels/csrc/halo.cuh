@@ -28,6 +28,15 @@
 //    only.  That folds the reference's canvas relayout and 'same' crop into
 //    the flush: y is contiguous NCHW, the next layer's raw input after a
 //    pool.
+//
+// Band mode (B6 band, the reference's `execute_band_plan` with
+// `_band_conv_halo` / `_band_conv_scheduled_halo`): x is one shard's
+// extended band, whose top `pre` = k - 1 rows are real data (the upper
+// neighbour's last rows, or zeros on the first shard), so every block's raw
+// stage starts `pre` rows lower; and the store writes the UNCROPPED band
+// canvas y[B, N, n_th*t, n_tw*t] (c = 0), because the 'same' crop is global
+// and runs once after the bands are joined.  With pre = 0 and band mode off
+// every offset is what it was.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,37 +50,42 @@ namespace repro_torch {
 struct HaloGeo {
   int B, M, H, W;           // raw input x [B, M, H, W], contiguous f32
   int K, t, ov;             // FFT size, tile K - k + 1, halo k - 1
+  int pre;                  // top halo rows already in x (a band: k - 1)
   int n_th, n_tw;           // tile grid
   int bth, btw, nbh, nbw;   // tiles per block, blocks per axis
   int H_out, W_out, crop;   // output [B, N, H_out, W_out]; crop k - 1 - pad
+                            // (band mode: the n_th*t x n_tw*t canvas, 0)
   int rows, cols, chan;     // raw stage of a channel: rows x cols at an odd
                             // channel pitch (spreads channels over banks)
 };
 
 // Fill `g`; false for a geometry the kernels cannot take (the tile grid
-// must cover the output and the blocks the grid, with no empty block).
+// must cover the output and the blocks the grid, with no empty block; a
+// top halo in x only in band mode, at most k - 1 rows).
 inline bool make_halo_geo(HaloGeo& g, int B, int M, int H, int W, int K,
                           int ksize, int pad, int n_th, int n_tw, int bth,
-                          int btw, int nbh, int nbw) {
+                          int btw, int nbh, int nbw, int pre, int band) {
   g.B = B; g.M = M; g.H = H; g.W = W; g.K = K;
-  g.t = K - ksize + 1; g.ov = ksize - 1;
+  g.t = K - ksize + 1; g.ov = ksize - 1; g.pre = pre;
   g.n_th = n_th; g.n_tw = n_tw;
   g.bth = bth; g.btw = btw; g.nbh = nbh; g.nbw = nbw;
-  g.H_out = H + 2 * pad - ksize + 1;
-  g.W_out = W + 2 * pad - ksize + 1;
-  g.crop = ksize - 1 - pad;
+  g.H_out = band ? n_th * g.t : H + 2 * pad - ksize + 1;
+  g.W_out = band ? n_tw * g.t : W + 2 * pad - ksize + 1;
+  g.crop = band ? 0 : ksize - 1 - pad;
   g.rows = bth * g.t + g.ov;
   g.cols = btw * g.t + g.ov;
   g.chan = (g.rows * g.cols) | 1;
   return B >= 1 && M >= 1 && H >= 1 && W >= 1 && ksize >= 1 && g.t >= 1 &&
          pad >= 0 && g.crop >= 0 && g.H_out >= 1 && g.W_out >= 1 &&
+         pre >= 0 && pre <= g.ov && (band || pre == 0) &&
          bth >= 1 && btw >= 1 && n_th * g.t >= g.H_out + g.crop &&
          n_tw * g.t >= g.W_out + g.crop && (nbh - 1) * bth < n_th &&
          nbh * bth >= n_th && (nbw - 1) * btw < n_tw && nbw * btw >= n_tw;
 }
 
 // One CTA's halo block: image b, block row ib / col jb, and the raw
-// coordinates of its stage's first row and column (unclamped).
+// coordinates of its stage's first row and column (unclamped; the rows
+// shifted down by the band's in-buffer halo).
 struct HaloBlock {
   int b, ib, jb, r0, c0;
 
@@ -82,7 +96,7 @@ struct HaloBlock {
     const int q = blk - hb.b * nb;
     hb.ib = q / g.nbw;
     hb.jb = q - hb.ib * g.nbw;
-    hb.r0 = hb.ib * g.bth * g.t - g.ov;
+    hb.r0 = hb.ib * g.bth * g.t - g.ov + g.pre;
     hb.c0 = hb.jb * g.btw * g.t - g.ov;
     return hb;
   }

@@ -47,6 +47,14 @@ input path's host-side layout work: overlap-save window extraction into
 the s-leading ``[S, M, B*T]`` layout, valid-tile assembly of the
 ``[t^2, N, B*T]`` output and, for a shortcut, its relayout into that
 tile layout (``_shortcut_tiles``).  The halo kernels need none of them.
+
+``execute_band_plan`` runs one shard's band of a spatially sharded layer
+(B6 band): the same four kernels on an extended band whose top k-1 rows
+are its halo (``spectral.make_band_geometry``), returning the uncropped
+band canvas, since the 'same' crop is global and follows the join of the
+bands.  The windowed kernels run unchanged on the band's windows; the halo
+kernels take a band mode (``band=True``: the raw stage starts k-1 rows
+lower and the store writes the uncropped canvas, ``csrc/halo.cuh``).
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import torch
 import repro_torch
 from repro_torch.core.dataflow import FLOWS
 from repro_torch.core.spectral import (HaloGeometry, SpectralGeometry,
+                                       assemble_tile_canvas,
                                        assemble_valid_tiles,
                                        extract_tiles_overlapping,
                                        halo_block_geometry,
@@ -210,6 +219,8 @@ def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
 # those the launches that fused a residual shortcut.
 LAUNCHES = {entry_point(k, f): 0 for k in KERNELS for f in FLOWS}
 RESIDUAL_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# and of those the launches on a shard's band (``execute_band_plan``)
+BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -343,9 +354,9 @@ def _libraries() -> dict[str, ctypes.CDLL]:
     # a flow entry point takes the workspace pointer and block_m besides
     for lib, kernel, n_ptr, n_int in (
             (plane, "fused_spectral_pipeline", 10, 9),
-            (plane, "fused_spectral_pipeline_halo", 10, 18),
+            (plane, "fused_spectral_pipeline_halo", 10, 20),
             (sched, "fused_spectral_pipeline_scheduled", 12, 14),
-            (sched, "fused_spectral_pipeline_scheduled_halo", 12, 22)):
+            (sched, "fused_spectral_pipeline_scheduled_halo", 12, 24)):
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
             extra = flow != OS
@@ -514,12 +525,13 @@ def _check_staged_fits(kernel: str, smem: int) -> None:
 
 def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
             device, ptrs: tuple, ints: tuple, s2: int, n: int,
-            shortcut=None, staged: bool = False) -> None:
+            shortcut=None, staged: bool = False, band: bool = False) -> None:
     """Call a kernel's entry point for ``flow`` on the current stream
     (the flows get a split-K workspace of G * S2 * N * slots floats when
     G > 1, and ``block_m``), with the shortcut (or a null pointer) after
     the output and ``staged`` last; raise on a CUDA error, count the
-    launch (and, with a shortcut, the residual launch)."""
+    launch (and, with a shortcut, the residual launch; on a shard's
+    ``band``, the band launch)."""
     name = entry_point(kernel, flow)
     fn = getattr(lib, name + "_f32")
     stream = torch.cuda.current_stream().cuda_stream
@@ -536,13 +548,15 @@ def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
     LAUNCHES[name] += 1
     if shortcut is not None:
         RESIDUAL_LAUNCHES[name] += 1
+    if band:
+        BAND_LAUNCHES[name] += 1
 
 
 def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                             relu: bool, flow: str = OS,
                             block_m: int | None = None, shortcut=None,
-                            shortcut_placement: str = "hbm"
-                            ) -> torch.Tensor:
+                            shortcut_placement: str = "hbm",
+                            band: bool = False) -> torch.Tensor:
     """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two for
     a weight-/input-stationary flow with more than one m range: the
     split-K finish pass).
@@ -566,6 +580,9 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                              stationary: staged in shared memory before
                              the channel loop; refused when it does not
                              fit beside the kernel's stages)
+    band: the windows are a shard's band (``execute_band_plan``): the
+                             launch is also counted in ``BAND_LAUNCHES``
+                             (the kernel is the same)
     returns [S2, N, P] f32 finished outputs (epilogue applied).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
@@ -597,7 +614,7 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                  dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
                  dvi.data_ptr(), bias.data_ptr(), y.data_ptr()),
                 (s, m, p, xt.stride(1), fa, n, s2, int(relu)), s2, n,
-                shortcut, staged)
+                shortcut, staged, band)
     return y
 
 
@@ -711,8 +728,8 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                                       relu: bool, flow: str = OS,
                                       block_m: int | None = None,
                                       shortcut=None,
-                                      shortcut_placement: str = "hbm"
-                                      ) -> torch.Tensor:
+                                      shortcut_placement: str = "hbm",
+                                      band: bool = False) -> torch.Tensor:
     """FFT -> SCHEDULED sparse Hadamard -> IFFT (+ bias/ReLU) in one
     kernel launch (plus the split-K finish pass for a weight-/input-
     stationary flow with more than one m range).
@@ -727,6 +744,8 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
     flow / block_m: the reuse flow and, for ws/is, the m-range width
     shortcut / shortcut_placement: [S2, n_out, P] residual operand, as
                                 for ``fused_spectral_pipeline``
+    band: count the launch in ``BAND_LAUNCHES`` too, as for
+                                ``fused_spectral_pipeline``
     returns [S2, n_out, P] f32 finished outputs; output channel
     g*N' + n is lane n of group g.
 
@@ -769,7 +788,7 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (s, m, p, xt.stride(1), gn, mp, n_cycles, r, n_pe, fa,
-                 n_out, s2, int(relu)), s2, n_out, shortcut, staged)
+                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band)
     return y
 
 
@@ -812,10 +831,15 @@ def _crop_canvas(y: torch.Tensor, geo: SpectralGeometry, n: int
 
 
 def _halo_finish(y, geo: SpectralGeometry, hg: HaloGeometry, b: int,
-                 n: int, shortcut, relu: bool) -> torch.Tensor:
+                 n: int, shortcut, relu: bool, band: bool = False
+                 ) -> torch.Tensor:
     """[t^2, N, B*nb*bt] block-major outputs (bias applied) -> contiguous
-    [B, N, H_out, W_out]: canvas relayout, crop, (+ shortcut) -> ReLU."""
-    y = _crop_canvas(_stage_canvas(y, geo, hg, b), geo, n)
+    [B, N, H_out, W_out]: canvas relayout, crop, (+ shortcut) -> ReLU.  A
+    ``band`` keeps the uncropped [B, N, h_pad, w_pad] canvas (the
+    channel and block-padding crop only)."""
+    y = _stage_canvas(y, geo, hg, b)
+    y = (y[:, :n, :geo.h_pad, :geo.w_pad] if band
+         else _crop_canvas(y, geo, n))
     return _add_shortcut(y, shortcut, relu).contiguous()
 
 
@@ -824,38 +848,52 @@ def fused_spectral_pipeline_halo_reference(x, wr, wi, dfr, dfi, dvr, dvi,
                                            hg: HaloGeometry, relu: bool,
                                            flow: str = OS,
                                            block_m: int | None = None,
-                                           shortcut=None) -> torch.Tensor:
+                                           shortcut=None, band: bool = False
+                                           ) -> torch.Tensor:
     """Plain PyTorch version of the halo plane kernel (same contract as
     ``fused_spectral_pipeline_halo``): the one-hot halo gather, block by
-    block, then the plain plane pipeline of the flow (bias only), the
-    canvas relayout, the crop, (+ shortcut) and the ReLU.  Returns a
-    contiguous [B, N, H_out, W_out]."""
+    block (from pre_halo_h rows lower on a band), then the plain plane
+    pipeline of the flow (bias only), the canvas relayout, the crop (none
+    on a band), (+ shortcut) and the ReLU.  Returns a contiguous
+    [B, N, H_out, W_out] ([B, N, h_pad, w_pad] on a band)."""
     y = fused_spectral_pipeline_reference(
         _halo_windows(x, geo, hg), wr, wi, dfr, dfi, dvr, dvi, bias,
         relu=False, flow=flow, block_m=block_m)
-    return _halo_finish(y, geo, hg, x.shape[0], wr.shape[1], shortcut, relu)
+    return _halo_finish(y, geo, hg, x.shape[0], wr.shape[1], shortcut, relu,
+                        band)
 
 
 def fused_spectral_pipeline_scheduled_halo_reference(
         x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, *,
         geo: SpectralGeometry, hg: HaloGeometry, n_out: int,
         relu: bool, flow: str = OS, block_m: int | None = None,
-        shortcut=None) -> torch.Tensor:
+        shortcut=None, band: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the halo scheduled kernel (same contract
     as ``fused_spectral_pipeline_scheduled_halo``): the one-hot halo
     gather, the plain table pipeline of the flow (bias only), the canvas
-    relayout, the crop, (+ shortcut) and the ReLU.
+    relayout, the crop (none on a band), (+ shortcut) and the ReLU.
     """
     y = fused_spectral_pipeline_scheduled_reference(
         _halo_windows(x, geo, hg), idx, sel, vr, vi, dfr, dfi, dvr, dvi,
         bias, n_out=n_out, relu=False, flow=flow, block_m=block_m)
-    return _halo_finish(y, geo, hg, x.shape[0], n_out, shortcut, relu)
+    return _halo_finish(y, geo, hg, x.shape[0], n_out, shortcut, relu, band)
 
 
 def _check_halo_input(x: torch.Tensor, geo: SpectralGeometry,
-                      hg: HaloGeometry, block_p: int) -> None:
+                      hg: HaloGeometry, block_p: int, band: bool = False,
+                      shortcut=None) -> None:
     """The halo kernels read x as a contiguous NCHW f32 image of the
-    geometry's extent; they do not copy another layout silently."""
+    geometry's extent; they do not copy another layout silently.  An input
+    that carries its top halo is a band, and a band takes no shortcut."""
+    if geo.pre_halo_h and not band:
+        raise ValueError(f"pre_halo_h={geo.pre_halo_h}: a band geometry "
+                         f"runs in band mode (band=True)")
+    if band and shortcut is not None:
+        raise ValueError("a band takes no shortcut: the sharded executor "
+                         "adds it after the bands are joined")
+    if not 0 <= geo.pre_halo_h <= geo.ksize - 1:
+        raise ValueError(f"pre_halo_h={geo.pre_halo_h} must be in "
+                         f"[0, {geo.ksize - 1}]")
     if x.dim() != 4 or tuple(x.shape[2:]) != (geo.h_in, geo.w_in):
         raise ValueError(f"x must be [B, M, {geo.h_in}, {geo.w_in}], got "
                          f"{tuple(x.shape)}")
@@ -869,21 +907,25 @@ def _check_halo_input(x: torch.Tensor, geo: SpectralGeometry,
                          f"the kernel's {block_p} tile slots")
 
 
-def _halo_ints(x: torch.Tensor, geo: SpectralGeometry,
-               hg: HaloGeometry) -> tuple[int, ...]:
+def _halo_ints(x: torch.Tensor, geo: SpectralGeometry, hg: HaloGeometry,
+               band: bool) -> tuple[int, ...]:
     """The halo kernels' geometry arguments, in their order."""
     b, m, h, w = x.shape
     return (b, m, h, w, geo.fft_size, geo.ksize, geo.pad, geo.n_tiles_h,
-            geo.n_tiles_w, hg.bth, hg.btw, hg.nbh, hg.nbw)
+            geo.n_tiles_w, hg.bth, hg.btw, hg.nbh, hg.nbw, geo.pre_halo_h,
+            int(band))
 
 
-def _halo_out_shape(x, geo: SpectralGeometry, n: int) -> tuple:
+def _halo_out_shape(x, geo: SpectralGeometry, n: int,
+                    band: bool = False) -> tuple:
+    if band:
+        return (x.shape[0], n, geo.h_pad, geo.w_pad)
     return (x.shape[0], n, geo.h_in + 2 * geo.pad - geo.ksize + 1,
             geo.w_in + 2 * geo.pad - geo.ksize + 1)
 
 
-def _halo_out(x, geo: SpectralGeometry, n: int) -> torch.Tensor:
-    return torch.empty(_halo_out_shape(x, geo, n), dtype=torch.float32,
+def _halo_out(x, geo: SpectralGeometry, n: int, band: bool) -> torch.Tensor:
+    return torch.empty(_halo_out_shape(x, geo, n, band), dtype=torch.float32,
                        device=x.device)
 
 
@@ -896,8 +938,8 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                  geo: SpectralGeometry, hg: HaloGeometry,
                                  relu: bool, flow: str = OS,
                                  block_m: int | None = None, shortcut=None,
-                                 shortcut_placement: str = "hbm"
-                                 ) -> torch.Tensor:
+                                 shortcut_placement: str = "hbm",
+                                 band: bool = False) -> torch.Tensor:
     """Halo gather -> FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel
     launch (plus the split-K finish pass for a weight-/input-stationary
     flow with more than one m range), reading the RAW activation.
@@ -914,13 +956,17 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
         operand (contiguous; the kernel adds it where it stores each
         output, so it needs no relayout), placed as for
         ``fused_spectral_pipeline``.
+    band: x is a shard's extended band (``geo`` from
+        ``spectral.make_band_geometry``: its first pre_halo_h = k-1 rows
+        are the top halo) and the result is the uncropped band canvas
+        [B, N, h_pad, w_pad]; no shortcut.  Counted in ``BAND_LAUNCHES``.
     returns [B, N, H_out, W_out] f32, contiguous: each finished tile is
     stored at its place in the cropped output (no host relayout).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (or raise).
     """
-    _check_halo_input(x, geo, hg, BLOCK_P)
+    _check_halo_input(x, geo, hg, BLOCK_P, band, shortcut)
     g = _flow_ranges(flow, block_m, x.shape[1], "plane")
     fa, n, _ = wr.shape
     s2 = dvr.shape[0]
@@ -929,7 +975,7 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     if x.device.type == "cpu":
         return fused_spectral_pipeline_halo_reference(
             x, wr, wi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg, relu=relu,
-            flow=flow, block_m=block_m, shortcut=shortcut)
+            flow=flow, block_m=block_m, shortcut=shortcut, band=band)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_plane_operands(dict(x=x, wr=wr, wi=wi, dfr=dfr, dfi=dfi,
@@ -941,14 +987,14 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                            staged_shortcut_bytes(geo.fft_size ** 2, s2, fa,
                                                  halo=(geo, hg)))
     with torch.cuda.device(x.device):
-        y = _halo_out(x, geo, n)
+        y = _halo_out(x, geo, n, band)
         _launch(library(), "fused_spectral_pipeline_halo", flow, block_m, g,
                 x.shape[0] * hg.n_blocks * BLOCK_P, x.device,
                 (x.data_ptr(), wr.data_ptr(), wi.data_ptr(), dfr.data_ptr(),
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
-                (*_halo_ints(x, geo, hg), fa, n, s2, int(relu)), s2, n,
-                shortcut, staged)
+                (*_halo_ints(x, geo, hg, band), fa, n, s2, int(relu)), s2, n,
+                shortcut, staged, band)
     return y
 
 
@@ -959,7 +1005,8 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                                            relu: bool, flow: str = OS,
                                            block_m: int | None = None,
                                            shortcut=None,
-                                           shortcut_placement: str = "hbm"
+                                           shortcut_placement: str = "hbm",
+                                           band: bool = False
                                            ) -> torch.Tensor:
     """Halo gather -> FFT -> SCHEDULED sparse Hadamard -> IFFT (+
     bias/ReLU) in one kernel launch (plus the split-K finish pass for a
@@ -968,13 +1015,14 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
 
     x: [B, M, H, W] f32 raw NCHW activation, contiguous; tables,
     operators, bias, flow and block_m as
-    ``fused_spectral_pipeline_scheduled``; geo/hg, shortcut and
-    shortcut_placement as ``fused_spectral_pipeline_halo`` (at most
-    ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out, W_out]
-    f32, contiguous.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (or raise).
+    ``fused_spectral_pipeline_scheduled``; geo/hg, shortcut,
+    shortcut_placement and band as ``fused_spectral_pipeline_halo`` (at
+    most ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out,
+    W_out] f32, contiguous ([B, n_out, h_pad, w_pad] on a band).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel (or
+    raise).
     """
-    _check_halo_input(x, geo, hg, SCHED_BLOCK_P)
+    _check_halo_input(x, geo, hg, SCHED_BLOCK_P, band, shortcut)
     g = _flow_ranges(flow, block_m, x.shape[1], "scheduled")
     _check_shortcut(shortcut, _halo_out_shape(x, geo, n_out), x.device,
                     flow, shortcut_placement)
@@ -982,7 +1030,7 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
         return fused_spectral_pipeline_scheduled_halo_reference(
             x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, geo=geo, hg=hg,
             n_out=n_out, relu=relu, flow=flow, block_m=block_m,
-            shortcut=shortcut)
+            shortcut=shortcut, band=band)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     _check_table_operands(dict(x=x, idx=idx, sel=sel, vr=vr, vi=vi,
@@ -1003,7 +1051,7 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                 blocks=x.shape[0] * hg.n_blocks * gn, m=x.shape[1],
                 sms=_sms(x.device)))
     with torch.cuda.device(x.device):
-        y = _halo_out(x, geo, n_out)
+        y = _halo_out(x, geo, n_out, band)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
                 flow, block_m, g, x.shape[0] * hg.n_blocks * SCHED_BLOCK_P,
                 x.device,
@@ -1011,13 +1059,13 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                  vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
-                (*_halo_ints(x, geo, hg), mp, n_cycles, r, n_pe, fa, n_out,
-                 s2, int(relu)), s2, n_out, shortcut, staged)
+                (*_halo_ints(x, geo, hg, band), mp, n_cycles, r, n_pe, fa,
+                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band)
     return y
 
 
 # ---------------------------------------------------------------------------
-# Layer execution around the kernel 
+# Layer execution around the kernel
 # ---------------------------------------------------------------------------
 
 def _windows_layout(x: torch.Tensor, geo: SpectralGeometry
@@ -1038,13 +1086,19 @@ def _windows_layout(x: torch.Tensor, geo: SpectralGeometry
     return xt, t_cnt
 
 
+def _output_tiles(y: torch.Tensor, geo: SpectralGeometry, b: int, n: int,
+                  t_cnt: int, dtype) -> torch.Tensor:
+    """[t^2, N, B*T] kernel output -> [B, N, T, t, t] valid tiles."""
+    s2 = geo.tile * geo.tile
+    return (y.reshape(s2, n, b, t_cnt).permute(2, 1, 3, 0)
+            .reshape(b, n, t_cnt, geo.tile, geo.tile).to(dtype))
+
+
 def _assemble_output(y: torch.Tensor, geo: SpectralGeometry, b: int,
                      n: int, t_cnt: int, dtype) -> torch.Tensor:
     """[t^2, N, B*T] kernel output -> assembled [B, N, H, W]."""
-    s2 = geo.tile * geo.tile
-    y_tiles = (y.reshape(s2, n, b, t_cnt).permute(2, 1, 3, 0)
-               .reshape(b, n, t_cnt, geo.tile, geo.tile))
-    return assemble_valid_tiles(y_tiles.to(dtype), geo)
+    return assemble_valid_tiles(_output_tiles(y, geo, b, n, t_cnt, dtype),
+                                geo)
 
 
 def _shortcut_tiles(sc: torch.Tensor, geo: SpectralGeometry,
@@ -1174,3 +1228,66 @@ def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
         return _fused_conv_halo(x, lp.wr, lp.wi, *ops, geo=lp.geo,
                                 block_p=lp.tuning.block_p, **kw)
     return _fused_conv(x, lp.wr, lp.wi, *ops, geo=lp.geo, **kw)
+
+
+# ---------------------------------------------------------------------------
+# A shard's band of a spatially sharded layer (B6 band)
+# ---------------------------------------------------------------------------
+
+def _band_conv(x: torch.Tensor, weights: tuple, dfr, dfi, dvr, dvi, bias, *,
+               geo: SpectralGeometry, n_out: int | None, relu: bool,
+               **flow) -> torch.Tensor:
+    """Band windows -> the windowed plane kernel (``weights`` = (wr, wi))
+    or scheduled kernel (the four tables, ``n_out``) -> the uncropped
+    band canvas [B, N, h_pad, w_pad] (``assemble_tile_canvas``)."""
+    b = x.shape[0]
+    xt, t_cnt = _windows_layout(x.to(torch.float32), geo)
+    if n_out is None:
+        n = weights[0].shape[1]
+        y = fused_spectral_pipeline(xt, *weights, dfr, dfi, dvr, dvi, bias,
+                                    relu=relu, band=True, **flow)
+    else:
+        n = n_out
+        y = fused_spectral_pipeline_scheduled(
+            xt, *weights, dfr, dfi, dvr, dvi, bias, n_out=n_out, relu=relu,
+            band=True, **flow)
+    return assemble_tile_canvas(_output_tiles(y, geo, b, n, t_cnt, x.dtype),
+                                geo)
+
+
+def execute_band_plan(x_ext: torch.Tensor, lp) -> torch.Tensor:
+    """Run one shard's band of a spatially sharded conv layer from its band
+    plan (a ``core.plan.LayerPlan`` on a ``spectral.make_band_geometry``
+    geometry, pre_halo_h = k-1; ``core.plan.make_sharded_layer_plan``).
+
+    ``x_ext`` is the extended band [B, M, (k-1) + tr*t, W]: the shard's
+    raw rows under the k-1 halo rows its upper neighbour sent (zeros on
+    the first shard).  Returns the UNCROPPED band canvas [B, N, tr*t,
+    w_pad] (bias and ReLU as the plan's epilogue says): the 'same' crop is
+    global, so it runs once after the bands are joined
+    (``spectral.crop_canvas_same``).  Dispatches as
+    ``execute_layer_plan`` does, on the Hadamard mode, the input path (the
+    windowed kernels on the band's windows, or the halo kernels in band
+    mode) and the tuning's flow; every launch is also counted in
+    ``BAND_LAUNCHES``.
+    """
+    flow = lp.tuning.flow
+    kw = dict(flow=flow, relu=lp.epilogue.relu)
+    if flow != OS:
+        kw["block_m"] = lp.tuning.block_m
+    bias = lp.bias if lp.epilogue.bias else torch.zeros_like(lp.bias)
+    ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, bias)
+    sched = lp.hadamard == "scheduled"
+    weights = tuple(lp.tables) if sched else (lp.wr, lp.wi)
+    n_out = lp.layer.c_out if sched else None
+    if lp.input_mode != "halo":
+        return _band_conv(x_ext, weights, *ops, geo=lp.geo, n_out=n_out,
+                          **kw)
+    x_ext = x_ext.to(torch.float32).contiguous()
+    hg = halo_block_geometry(lp.geo, lp.tuning.block_p)
+    if sched:
+        return fused_spectral_pipeline_scheduled_halo(
+            x_ext, *weights, *ops, geo=lp.geo, hg=hg, n_out=n_out, band=True,
+            **kw)
+    return fused_spectral_pipeline_halo(x_ext, *weights, *ops, geo=lp.geo,
+                                        hg=hg, band=True, **kw)

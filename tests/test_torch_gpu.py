@@ -869,3 +869,112 @@ def test_staged_shortcut_plan_runs_at_another_batch(input_mode):
         ref = cnn.forward_spectral(params, plan, x, backend="einsum")
         assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
         assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Sharded inference: the band entry points (B6 band) and the executor on a
+# mesh that repeats the card
+# ---------------------------------------------------------------------------
+
+def band_plans(hadamard):
+    """The windowed and halo band plans of VGG16's conv2_1 (64 -> 128
+    channels at 112 x 112; 19 tile rows, bands of 5) split over 4 shards,
+    built on the card, and the sharded plans they come from."""
+    from repro_torch.core.dataflow import ConvLayer
+    cfg = cnn.SpectralCNNConfig(
+        name="conv2_1", layers=(ConvLayer("conv2_1", 64, 128, 112, 112),),
+        pool_after=frozenset(), image_size=112, n_classes=4, fc_dim=8)
+    params = cnn.init(cfg, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for imode in ("windowed", "halo"):
+        splan = pl.build_sharded_network_plan(
+            params, cfg, n_shards=4, strategies=("spatial",),
+            hadamard=hadamard, input_mode=imode)
+        out[imode] = splan.layers[0].shards[0]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("hadamard", ["bin", "scheduled"])
+def test_band_entry_points_match_plain_on_card(hadamard, b):
+    """Each band entry point against its plain version (the same band plan
+    on the CPU) on the four bands of a random activation: the windowed and
+    halo kernels within 1e-4 relative, the halo band bitwise equal to the
+    windowed band on the plane kernel and within 1e-5 relative on the
+    scheduled one; one launch per band, counted in BAND_LAUNCHES."""
+    need_card()
+    from repro_torch.distributed.executor import _on_device
+    from repro_torch.kernels.fused_spectral_conv import execute_band_plan
+    plans = band_plans(hadamard)
+    geo = spec.make_geometry(112, 112, 3, 8)
+    x = torch.randn(b, 64, 112, 112, device="cuda")
+    bands = spec.halo_exchange_reference(x, geo, 4)
+    got = {}
+    for imode, lp in plans.items():
+        entry = fsc.entry_point(lp.kernel_name, lp.tuning.flow)
+        before, bbefore = fsc.LAUNCHES[entry], fsc.BAND_LAUNCHES[entry]
+        cpu = _on_device(lp, torch.device("cpu"))
+        got[imode] = []
+        for xb in bands:
+            y = execute_band_plan(xb, lp)
+            torch.cuda.synchronize()
+            assert y.shape == (b, 128, lp.geo.h_pad, lp.geo.w_pad)
+            ref = execute_band_plan(xb.cpu(), cpu)
+            err = float((y.cpu() - ref).abs().max()
+                        / ref.abs().max().clamp_min(1e-30))
+            assert err <= TOL, (imode, err)
+            got[imode].append(y)
+        assert fsc.LAUNCHES[entry] == before + 4
+        assert fsc.BAND_LAUNCHES[entry] == bbefore + 4
+    for yh, yw in zip(got["halo"], got["windowed"]):
+        if hadamard == "bin":
+            assert torch.equal(yh, yw)
+        else:
+            assert float((yh - yw).abs().max()
+                         / yw.abs().max().clamp_min(1e-30)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["spatial", "channel"])
+def test_sharded_smoke_forward_on_a_repeated_card(strategy):
+    """VGG16 SMOKE split 4 ways on a mesh that names the one card four
+    times: logits against the unsharded plan's fused forward and against
+    einsum; a spatial plan launches the band kernels."""
+    need_card()
+    from repro_torch.distributed.executor import forward_spectral_sharded
+    from repro_torch.launch.mesh import make_spectral_mesh
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    splan = pl.build_sharded_network_plan(params, SMOKE, n_shards=4,
+                                          batch=2, strategies=(strategy,))
+    assert strategy in splan.strategies.values()
+    mesh = make_spectral_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    before = sum(fsc.BAND_LAUNCHES.values())
+    out = forward_spectral_sharded(params, splan, x, mesh=mesh)
+    bands = sum(fsc.BAND_LAUNCHES.values()) - before
+    assert (bands > 0) == (strategy == "spatial")
+    for ref in (cnn.forward_spectral(params, splan.base, x, backend="fused"),
+                cnn.forward_spectral(params, splan.base, x,
+                                     backend="einsum")):
+        assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+        assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_band_launch_over_the_shared_memory_limit_raises():
+    """A halo band whose tables (400 padded cycles) need more shared memory
+    per CTA than the card has: the launch is refused and the wrapper
+    raises; nothing is counted and nothing runs on the CPU instead."""
+    need_card()
+    geo = spec.make_band_geometry(spec.make_geometry(28, 28, 3, 8), 2)
+    hg = spec.halo_block_geometry(geo, fsc.SCHED_BLOCK_P)
+    ops = scheduled_operands(64, 2, 9, 8, 64, 36, pad_cycles=400)
+    x = torch.randn(1, 2, geo.h_in, geo.w_in, device="cuda")
+    entry = "fused_spectral_pipeline_scheduled_halo"
+    before, bbefore = fsc.LAUNCHES[entry], fsc.BAND_LAUNCHES[entry]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fsc.fused_spectral_pipeline_scheduled_halo(
+            x, *ops[1:], geo=geo, hg=hg, n_out=8, relu=True, band=True)
+    assert fsc.LAUNCHES[entry] == before
+    assert fsc.BAND_LAUNCHES[entry] == bbefore

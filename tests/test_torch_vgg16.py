@@ -250,5 +250,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.vgg16_spectral",
             "repro_torch.kernels.fft8", "repro_torch.kernels.ops",
             "repro_torch.kernels.spectral_hadamard",
-            "repro_torch.kernels.sparse_hadamard"} <= imported
+            "repro_torch.kernels.sparse_hadamard",
+            "repro_torch.distributed.executor",
+            "repro_torch.launch.mesh"} <= imported
 
