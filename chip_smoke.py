@@ -10,7 +10,7 @@ each of which fails the run on error:
   (a) device: torch/CUDA versions, device name and count, the card's
       name and power limit from nvidia-smi;
   (b) build: compile every CUDA kernel of the port from the sources in
-      this checkout (five, one nvcc per source, started together), print
+      this checkout (six, one nvcc per source, started together), print
       build time, the ptxas report and the spill stores of each of the
       fused kernels' 36 instantiations (kernel x input path x flow x
       shortcut placement);
@@ -144,24 +144,62 @@ each of which fails the run on error:
       at the flush ('hbm'; the run fails if no node falls back, so the
       check reaches the case it guards), 20 launches and 8 fused
       shortcuts per forward, logits vs einsum;
+  (la) the flash-attention kernel (B9) against its plain version at the
+      full-width LM shapes, causal, in bf16 and f32: qwen3-8b (Hq 32,
+      Hkv 8, D 128) at S = 4096, batch 1 and 4; h2o-danube-1.8b (D 80,
+      window 4096) at S = 8192; smollm-135m (9 query heads over 3, D 64)
+      at S = 4096; then qwen3-8b at the prefill_32k length (S = 32768,
+      batch 1 of the shape's 32, bf16) against the plain
+      ``_chunked_sdpa`` (the S^2 oracle would not fit).  Gate max|Δ| <=
+      1e-5 of max|plain| in f32, 1e-2 in bf16, a repeat launch bitwise
+      equal; kernel ms (CUDA events, L2 flushed, median of LA_REPS),
+      plain ms (one call), one ``scaled_dot_product_attention`` call
+      (library_ms, the backend named) and the bound (4 B Hq D flops per
+      unmasked (q, k) pair at the peak of the input type: bf16 on the
+      tensor cores, f32 on the CUDA cores; q, k, v, o moved once; a bf16
+      row also prints its bound at the f32 CUDA-core rate);
+  (dl) full-width qwen3-8b (36 layers, published widths, random weights
+      from ``api.init`` on the card): in f32, a 4096-token ``api.prefill``
+      (the chunked route: 36 B9 launches) against the same prefill with
+      ``attention.CHUNKED_THRESHOLD`` patched above S, so every layer's
+      attention is the materialised ``_sdpa`` (gate 1e-4 relative, top-1
+      equal); the weights cast to bf16: p50 over 5
+      batch-1 prefills (the first discarded; host clock ending in
+      ``torch.cuda.synchronize()``), p50 minus 36 x (la)'s kernel time,
+      one batch-4 prefill, peak device memory beside the resident bytes,
+      0 B9 launches at a 4095-token prompt;
+  (sl) the full-width ``launch/serve.py::Server`` (slots 4, max_len 256)
+      with 4 requests of 8-token prompts and 16 new tokens: in f32 every
+      request completes and equals a sequential greedy decode on the same
+      weights, token for token; in bf16 the same run timed (tick mean and
+      p95), 0 B9 launches (decode attention is ``_sdpa``); one more bf16
+      tick with all four slots busy under ``torch.profiler`` (kernels per
+      tick, their device time, the device's idle share of the untraced
+      mean tick, the top host ops and kernels; information only); then
+      the documented command ``python -m repro_torch.launch.serve --arch
+      qwen3-8b --config-set full`` as its own process (8 requests over 4
+      slots, every one completed, exit 0);
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve fused: four kernels x
-      three flows; six staged; the band entry points), then one JSON line
-      with every entry point's numbers (a fused one with its residual
-      form's under "residual"), then the device JSON as the last line.
+      three flows; six staged; the band entry points; flash attention),
+      then one JSON line with every entry point's numbers (a fused one
+      with its residual form's under "residual", flash attention's per
+      (la) shape under "shapes"), then the device JSON as the last line.
 
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c8) and
 (d7), its (c5), (c6) and (d6); the plane plans are freed; (c2), (d2),
 (c4), (d4), the scheduled kernel's (c8), (d7), (c5), (c6) and (d6); every
 plan is freed; (c7), (d5), (s), (ds), (dh); VGG16's weights and plans are
-freed; (r), (dr), ResNet-18's (c8) and (d7), (ds), (dr4), (e).  So each
+freed; (r), (dr), ResNet-18's (c8) and (d7), (ds), (dr4); (la), (dl),
+(sl), (e).  So each
 serve's peak device memory holds the weights and the plans of its own
 kind only (the resident bytes at its start are
 printed beside it).  REPS (15 since the ResNet-18 phases came; 25
 before) is the VGG16 phases' timed launches per kernel and layer.
 
 Bounds use the H100 SXM data-sheet peaks: 67 TFLOP/s fp32 on CUDA
-cores, 3.35 TB/s HBM3.
+cores, 989 TFLOP/s dense bf16 on the tensor cores (bf16 inputs of
+(la) only), 3.35 TB/s HBM3.
 """
 
 from __future__ import annotations
@@ -173,9 +211,11 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-4      # max|kernel - plain| / max|plain|, fp32, TF32 off
 LOGITS_TOL = 1e-4      # max|fused - einsum| / max|einsum| on the logits
@@ -225,9 +265,10 @@ def timed_ms(fn, flush, reps: int = REPS) -> float:
     return device_ms(fn, flush, reps)
 
 
-def bound_of(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms on the card, what bounds it)."""
-    ops_s, bytes_s = flops / PEAK_FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound_of(flops: float, nbytes: float,
+             peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """(least ms on the card, what bounds it), the flops at ``peak``."""
+    ops_s, bytes_s = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s
                                        else "bytes")
 
@@ -755,11 +796,12 @@ def counters() -> tuple[dict, ...]:
     """Every kernel wrapper's launch counts, one dict per module (the
     entry-point names are distinct across them)."""
     from repro_torch.kernels import fft8
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.kernels import sparse_hadamard as sh
     from repro_torch.kernels import spectral_hadamard as shad
     return (fsc.LAUNCHES, fsc.RESIDUAL_LAUNCHES, fft8.LAUNCHES,
-            shad.LAUNCHES, sh.LAUNCHES)
+            shad.LAUNCHES, sh.LAUNCHES, fa.LAUNCHES)
 
 
 def all_launches() -> dict[str, int]:
@@ -1457,6 +1499,431 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
     return totals, stotals, btotals
 
 
+# (la): the flash-attention kernel's full-width shapes, causal: (arch,
+# S, batch); heads, head_dim and window are the arch's published ones
+LA_SHAPES = (("qwen3-8b", 4096, 1), ("qwen3-8b", 4096, 4),
+             ("h2o-danube-1.8b", 8192, 1), ("smollm-135m", 4096, 1))
+LA_REPS = 5            # (la): timed launches per kernel and shape
+FA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max
+LM_ARCH = "qwen3-8b"   # (dl), (sl): the LM served at full width
+LM_S = 4096            # (dl): prompt tokens, the chunked route's threshold
+LM_REQUESTS = 5        # (dl): batch-1 prefills (the first discarded)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 16   # (sl)
+
+
+def causal_pairs(s: int, window: int | None) -> int:
+    """Unmasked (q, k) pairs of one causal head: sum_q min(q + 1, w)."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def sdpa_library(q, k, v, window):
+    """One ``torch.nn.functional.scaled_dot_product_attention`` call on
+    the same inputs, causal (an explicit mask for a window), through the
+    first fused backend that takes them (the math backend would hold
+    B Hq S^2 floats): (callable, backend name), or (None, reason).  Timed
+    only; the port never calls it."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s = q.shape[2]
+    kw = {"is_causal": window is None, "enable_gqa": True}
+    if window is not None:
+        i = torch.arange(s, device=q.device)
+        kw["attn_mask"] = ((i[None, :] <= i[:, None])
+                           & (i[None, :] > i[:, None] - window))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, **kw)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:     # this backend does not take the inputs
+            continue
+        return call, backend.name
+    # no fused backend takes the grouped heads: repeat K/V to Hq heads
+    # (not timed) for the memory-efficient backend
+    rep = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+    kw["enable_gqa"] = False
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, kr, vr, **kw)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            call()
+    except RuntimeError:
+        return None, "no fused backend takes these inputs"
+    return call, "EFFICIENT_ATTENTION (K/V repeated to Hq heads)"
+
+
+def flash_check(dev, flush) -> dict:
+    """(la): B9 against its plain version at the full-width shapes, each
+    in bf16 and f32, then at the prefill_32k length in bf16 against the
+    plain ``_chunked_sdpa``; kernel / plain / library times and the
+    bound.  Returns one row per shape, keyed by its label."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    s32k = configs.SHAPES["prefill_32k"].seq_len
+    cases = [(a, s, b, dt) for a, s, b in LA_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append((LM_ARCH, s32k, 1, torch.bfloat16))
+    rows = {}
+    print("(la) flash attention (B9) vs plain, causal; CUDA events, L2 "
+          "flushed, median of", LA_REPS)
+    for arch, s, b, dtype in cases:
+        cfg = configs.get_config(arch)
+        hq, hkv, d, window = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        dt = str(dtype).removeprefix("torch.")
+        label = f"{arch} S={s} b={b} {dt}"
+        out = fa.flash_attention(q, k, v, window=window)
+        if s == s32k:       # the S^2 oracle would not fit: the plain route
+            pos = torch.arange(s, device=dev)[None].expand(b, s)
+            acfg = attn.AttnConfig(cfg.d_model, hq, hkv, d, window=window)
+
+            def plain():
+                return attn._chunked_sdpa(q, k, v, acfg, pos, pos)
+            plain_name = "_chunked_sdpa"
+        else:
+            def plain():
+                return fa.flash_attention_reference(q, k, v, window=window)
+            plain_name = "flash_attention_reference"
+        ref = plain()
+        torch.cuda.synchronize()
+        if out.shape != q.shape or out.dtype != dtype \
+                or not torch.isfinite(out).all():
+            fail(f"(la) {label}: output {tuple(out.shape)} {out.dtype} "
+                 f"or not finite")
+        err = rel_err(out.float(), ref.float())
+        abs_err = float((out.float() - ref.float()).abs().max())
+        again = torch.equal(out, fa.flash_attention(q, k, v, window=window))
+        if err > FA_TOL[dt] or not again:
+            fail(f"(la) {label}: kernel vs {plain_name} rel err {err:.3e} "
+                 f"(gate {FA_TOL[dt]}), repeat bitwise equal {again}")
+        k_ms = timed_ms(lambda: fa.flash_attention(q, k, v, window=window),
+                        flush.zero_, LA_REPS)
+        p_ms = once_ms(plain)
+        lib, backend = sdpa_library(q, k, v, window)
+        l_ms = None if lib is None else timed_ms(lib, flush.zero_, LA_REPS)
+        pairs = causal_pairs(s, window)
+        flops = 4 * b * hq * d * pairs
+        nbytes = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+        # bf16 products are exact in f32: the tensor cores' bf16 rate is
+        # the floor for bf16 inputs, the CUDA cores' f32 rate for f32
+        bound_ms, by = bound_of(flops, nbytes, PEAK_BF16_FLOPS
+                                if dtype == torch.bfloat16
+                                else PEAK_FP32_FLOPS)
+        fp32_core_ms = bound_of(flops, nbytes)[0]
+        rows[label] = {"abs_err": abs_err, "rel_err": err, "ms": k_ms,
+                       "plain_ms": p_ms, "plain": plain_name,
+                       "bound_ms": bound_ms, "by": by,
+                       "fp32_core_bound_ms": fp32_core_ms,
+                       "library_ms": l_ms, "library_backend": backend,
+                       "pairs": pairs}
+        print(f"    {label:38s} Hq {hq} Hkv {hkv} D {d} window {window}: "
+              f"rel err {err:.3e} (max abs {abs_err:.3e}) vs {plain_name}, "
+              f"repeat bitwise; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"sdpa {l_ms if l_ms is None else round(l_ms, 4)} ms "
+              f"({backend}), bound {bound_ms:.4f} ms ({by}), "
+              f"{bound_ms / k_ms:.1%} of it; at the f32 CUDA-core rate "
+              f"{fp32_core_ms:.4f} ms")
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sequential_greedy(params, cfg, prompt, n_new, max_len, dev) -> list:
+    """Single-request oracle of the server: a plain batch-1 decode loop."""
+    import torch
+    from repro_torch.models import api
+    cache = api.init_cache(cfg, 1, max_len, device=dev)
+    for t, tok in enumerate(prompt[:-1]):
+        _, cache = api.decode(params, cfg,
+                              torch.tensor([[int(tok)]], device=dev), cache,
+                              t)
+    pos, cur, out = len(prompt) - 1, int(prompt[-1]), []
+    for _ in range(n_new):
+        logits, cache = api.decode(params, cfg,
+                                   torch.tensor([[cur]], device=dev), cache,
+                                   pos)
+        cur = int(logits[0, -1].argmax())
+        out.append(cur)
+        pos += 1
+    return out
+
+
+def serve_lm(srv, prompts, label) -> tuple[dict, list]:
+    """Submit one request per prompt to ``srv`` and drain it, every
+    launch count set to 0 just before; fails unless all complete."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import Request
+    reqs = [Request(i, p, SERVE_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = srv.run_until_drained()
+    wall = time.perf_counter() - t0
+    stats["flash_launches"] = fa.LAUNCHES["flash_attention"]
+    print(f"{label}: {stats['completed']} of {len(reqs)} completed, "
+          f"{stats['failed']} failed, {stats['ticks']} ticks in {wall:.2f} s; "
+          f"tick mean {stats['mean_tick_ms']:.2f} ms, p95 "
+          f"{stats['p95_tick_ms']:.2f} ms; B9 launches "
+          f"{stats['flash_launches']}")
+    if stats["completed"] != len(reqs) or stats["failed"]:
+        fail(f"{label}: {stats}")
+    if stats["flash_launches"]:
+        fail(f"{label}: decode launched the flash-attention kernel")
+    return stats, reqs
+
+
+def tick_trace(srv, prompts, tick_mean_ms) -> dict:
+    """One decode tick of ``srv`` with every slot busy, under
+    ``torch.profiler``: the kernels it ran and their device time, the
+    device's idle share of an unprofiled tick (``tick_mean_ms``), the host
+    ops and kernels that take the most time.  Information, not a gate;
+    the requests are drained after it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import Request
+    for i, p in enumerate(prompts):
+        srv.submit(Request(len(prompts) + i, p, SERVE_NEW))
+    srv.tick()                  # admits every request
+    srv.tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.tick()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    stats = srv.run_until_drained()
+    if stats["failed"]:
+        fail(f"(sl) traced run: {stats}")
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    out = {"kernels": len(kern), "device_ms": busy_ms,
+           "profiled_tick_ms": wall_ms,
+           "idle_share": (1 - busy_ms / tick_mean_ms) if kern else None}
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    by_name: dict[str, list] = {}
+    for e in kern:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    print(f"(sl) one bf16 tick traced (torch.profiler): {len(kern)} kernels, "
+          f"device time {busy_ms:.3f} ms; the tick {wall_ms:.2f} ms traced, "
+          f"{tick_mean_ms:.2f} ms untraced (mean); device idle share of "
+          f"the untraced tick "
+          + ("not measured (the profiler saw no kernel)" if not kern
+             else f"{out['idle_share']:.1%}"))
+    print("    host ops by self CPU time: " + "; ".join(
+        f"{e.key} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
+        for e in host[:5]))
+    print("    kernels by device time: " + "; ".join(
+        f"{name[:60]} x{n} {ms:.3f} ms" for name, (ms, n) in top[:5]))
+    return out
+
+
+def serve_cli() -> dict:
+    """The documented command, ``python -m repro_torch.launch.serve --arch
+    qwen3-8b --config-set full``, as its own process (its own bf16
+    weights made on the card, 8 requests over 4 slots); fails unless it
+    exits 0 with every request completed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, "--config-set", "full", "--json", "-"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        fail(f"(sl) {' '.join(cmd[1:])} exited {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    head, _, payload = run.stdout.partition("\n")
+    stats = json.loads(payload)
+    print(f"(sl) python -m repro_torch.launch.serve --arch {LM_ARCH} "
+          f"--config-set full: {head.strip()!r}; {stats['completed']} of "
+          f"{stats['requests']} completed, {stats['failed']} failed; the "
+          f"process took {wall:.1f} s")
+    if stats["completed"] != stats["requests"] or stats["failed"]:
+        fail(f"(sl) the serve command: {stats}")
+    return stats
+
+
+def lm(dev, flash_rows) -> dict:
+    """(dl) and (sl): full-width qwen3-8b (36 layers, d_model 4096, 32/8
+    heads, head_dim 128, d_ff 12288, vocab 151936), random weights from
+    the port's ``init`` on the card.  f32 first: a 4096-token prefill
+    through ``api.prefill`` (auto -> B9) against the materialised route
+    (gate 1e-4 relative, top-1 equal, 36 B9 launches), then the
+    full-width ``Server`` against a sequential greedy decode on the same
+    weights (equal tokens).  Then the weights cast to bf16: prefill p50
+    over batch-1 requests (the first discarded), a batch-4 request, peak
+    memory, 0 launches at 4095 tokens, and the same server run timed.
+    Returns the (dl) launch count and numbers for the kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    cfg16 = configs.get_config(LM_ARCH)
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = api.init(cfg32, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"(dl) {LM_ARCH} f32 weights from init on the card: {n_params:,} "
+          f"parameters ({cfg16.param_count():,} by the config), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    tokens = torch.randint(0, cfg16.vocab, (LM_REQUESTS + 4, LM_S),
+                           generator=tgen, device=dev)
+    per_forward = cfg16.n_layers
+    launches = 0
+    with torch.no_grad():
+        reset_launches()
+        out32 = api.prefill(params, cfg32, {"tokens": tokens[:1]})
+        torch.cuda.synchronize()
+        n = fa.LAUNCHES["flash_attention"]
+        launches += n
+        # the same prefill with every layer's attention on the
+        # materialised _sdpa: the chunked route's threshold out of reach
+        with mock.patch.object(attn, "CHUNKED_THRESHOLD", LM_S + 1):
+            ref = api.prefill(params, cfg32, {"tokens": tokens[:1]})
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"] != n:
+            fail("(dl) the materialised route launched the kernel")
+        err = rel_err(out32, ref)
+        top1 = bool(torch.equal(out32.argmax(-1), ref.argmax(-1)))
+        print(f"(dl) f32 prefill S={LM_S}: logits {tuple(out32.shape)} vs "
+              f"the materialised route rel err {err:.3e}, max|logit| "
+              f"{float(ref.abs().max()):.3e}, top-1 equal {top1}; B9 "
+              f"launches {n} (per forward: {per_forward} expected)")
+        if out32.shape != (1, 1, cfg16.vocab) \
+                or not torch.isfinite(out32).all():
+            fail("(dl) f32 logits: wrong shape or not finite")
+        if err > LOGITS_TOL or not top1 or n != per_forward:
+            fail("(dl) f32 prefill disagrees with the materialised route "
+                 "or missed the kernel")
+        del ref
+
+    # (sl) f32: the full-width server on these weights vs sequential greedy
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg16.vocab, size=SERVE_PROMPT)
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    srv = Server(LM_ARCH, config_set="full", slots=SERVE_REQUESTS,
+                 max_len=256)
+    torch.cuda.synchronize()
+    print(f"(sl) Server({LM_ARCH!r}, config_set='full', slots="
+          f"{SERVE_REQUESTS}, max_len=256) with its own bf16 weights in "
+          f"{time.perf_counter() - t0:.1f} s; swapped to the f32 weights")
+    srv.cfg, srv.params = cfg32, params
+    srv.cache = api.init_cache(cfg32, srv.slots, srv.max_len, device=dev)
+    with torch.no_grad():
+        _, reqs = serve_lm(srv, prompts, "(sl) f32")
+        for r, p in zip(reqs, prompts):
+            want = sequential_greedy(params, cfg32, p, SERVE_NEW,
+                                     srv.max_len, dev)
+            if r.out != want:
+                fail(f"(sl) request {r.rid}: server {r.out} != sequential "
+                     f"greedy {want}")
+        print(f"(sl) f32: all {len(reqs)} requests equal a sequential "
+              f"greedy decode, token for token")
+
+    # bf16: the weights cast in place, the published dtypes
+    params.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    kernel_ms = flash_rows[f"{LM_ARCH} S={LM_S} b=1 bfloat16"]["ms"]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        times = []
+        for i in range(LM_REQUESTS):
+            t0 = time.perf_counter()
+            out16 = api.prefill(params, cfg16, {"tokens": tokens[i:i + 1]})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                first16 = out16
+        t0 = time.perf_counter()
+        out4 = api.prefill(params, cfg16, {"tokens": tokens[-4:]})
+        torch.cuda.synchronize()
+        b4_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        n = fa.LAUNCHES["flash_attention"]
+        launches += n
+        if n != per_forward * (LM_REQUESTS + 1):
+            fail(f"(dl) bf16: {n} B9 launches, expected "
+                 f"{per_forward * (LM_REQUESTS + 1)}")
+        for o, b in ((first16, 1), (out4, 4)):
+            if o.shape != (b, 1, cfg16.vocab) or not torch.isfinite(o).all():
+                fail(f"(dl) bf16 batch-{b} logits: shape {tuple(o.shape)} "
+                     f"or not finite")
+        p50 = statistics.median(times[1:])
+        drift = rel_err(first16.float(), out32)
+        print(f"(dl) bf16 prefill S={LM_S}: batch-1 p50 {p50:.2f} ms over "
+              f"{len(times) - 1} requests {[round(t, 2) for t in times]} "
+              f"(the first discarded); minus {per_forward} x B9 "
+              f"{kernel_ms:.4f} ms: {p50 - per_forward * kernel_ms:.2f} ms; "
+              f"batch 4 {b4_ms:.2f} ms; peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB, of which {resident / 2 ** 30:.3f} "
+              f"GiB resident at the start; B9 launches {n}; max|bf16 - f32| "
+              f"of the logits {drift:.3e} of max|f32| (information, not a "
+              f"gate), top-1 equal "
+              f"{bool(torch.equal(first16.argmax(-1), out32.argmax(-1)))}")
+        reset_launches()
+        api.prefill(params, cfg16, {"tokens": tokens[:1, :LM_S - 1]})
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"]:
+            fail(f"(dl) a {LM_S - 1}-token prompt launched the kernel")
+        print(f"(dl) a {LM_S - 1}-token prompt: 0 B9 launches (_sdpa)")
+
+    # (sl) bf16: the same run timed
+    srv.cfg, srv.params = cfg16, params
+    srv.cache = api.init_cache(cfg16, srv.slots, srv.max_len, device=dev)
+    srv.tick_times.clear()
+    with torch.no_grad():
+        stats, _ = serve_lm(srv, prompts, "(sl) bf16")
+        trace = tick_trace(srv, prompts, stats["mean_tick_ms"])
+    del srv, params, out32, first16, out4
+    torch.cuda.empty_cache()
+    cli = serve_cli()
+    return {"launches": launches, "per_forward": per_forward,
+            "prefill_p50_ms": p50, "prefill_b4_ms": b4_ms,
+            "tick_mean_ms": stats["mean_tick_ms"],
+            "tick_p95_ms": stats["p95_tick_ms"],
+            "tick_kernels": trace["kernels"],
+            "tick_device_ms": trace["device_ms"],
+            "tick_idle_share": trace["idle_share"],
+            "cli_mean_tick_ms": cli["mean_tick_ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1876,6 +2343,10 @@ def main() -> int:
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 
+    # LM serving: (la) B9 at the full-width shapes, (dl) prefill, (sl)
+    flash_rows = flash_check(dev, torch.empty(128 * 2 ** 20 // 4, device=dev))
+    lm_totals = lm(dev, flash_rows)
+
     # every process this run started (nvcc, nvidia-smi, the table pool and
     # its resource tracker) has ended
     left = child_processes()
@@ -2001,6 +2472,32 @@ def main() -> int:
                 "abs_err", "ms", "plain_ms", "bound_ms")}
             row["resnet18"]["bound_by"] = rt["by"]
         kernels.append(row)
+    main_row = flash_rows[f"{LM_ARCH} S={LM_S} b=1 bfloat16"]
+    if lm_totals["launches"] < 1:
+        fail("flash_attention was not launched by the prefill")
+    print(f"(e) flash_attention: ok, launches={lm_totals['launches']} "
+          f"({lm_totals['per_forward']} per prefill forward)")
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": csrc + "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": lm_totals["launches"],
+        "per_forward": lm_totals["per_forward"],
+        "max_abs_err": max(r["abs_err"] for r in flash_rows.values()),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["by"],
+        "library_ms": main_row["library_ms"],
+        "library_backend": main_row["library_backend"],
+        "shapes": {label: {k: r[k] for k in (
+            "abs_err", "rel_err", "ms", "plain_ms", "plain", "bound_ms",
+            "by", "fp32_core_bound_ms", "library_ms", "library_backend")}
+            for label, r in flash_rows.items()},
+        "prefill": {k: v for k, v in lm_totals.items()
+                    if k not in ("launches", "per_forward")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": count}}))

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA implementation of the spectral-CNN inference path.
+"""PyTorch + CUDA implementation of the spectral-CNN inference path and
+the LM pillar's serving path.
 
 A second implementation of the ``repro`` package, written against
 ``torch`` and hand-written CUDA kernels for Hopper (``sm_90a``).  The
@@ -8,15 +9,17 @@ find:
 - ``core``:    tile geometry, spectral transform and pruning, the
                compile-once network plan;
 - ``kernels``: the fused spectral-conv kernels, the staged path's
-               tile-FFT, spectral Hadamard and tile-IFFT kernels and
-               the Alg-2 table executor (CUDA sources under
-               ``kernels/csrc``), their plain PyTorch versions, the
-               build helper;
+               tile-FFT, spectral Hadamard and tile-IFFT kernels, the
+               Alg-2 table executor and the LM's flash attention (CUDA
+               sources under ``kernels/csrc``), their plain PyTorch
+               versions, the build helper;
 - ``models``:  the spectral VGG16 / ResNet-18 forward pass and its
-               spatial oracle;
+               spatial oracle; the dense LM (config, layers, attention,
+               transformer, api);
 - ``distributed``, ``launch``: sharded inference (the executor of a
-               sharded plan and the device mesh it runs on);
-- ``configs``: model presets.
+               sharded plan and the device mesh it runs on) and the LM
+               server;
+- ``configs``: model presets and the LM architecture registry.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain

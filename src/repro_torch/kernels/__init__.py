@@ -16,6 +16,9 @@ versions beside them.
 - sparse_hadamard: the standalone Alg-2 table executor of one PE group
   (csrc/sparse_hadamard.cu); ``ops.scheduled_sparse_conv_group`` compiles
   the schedule and runs it.
+- flash_attention: blocked online-softmax attention, the LM prefill's
+  attention at S >= 4096 (csrc/flash_attention.cu); ``ops.attention``
+  is its user entry point.
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and loads the
 libraries with ctypes; ``build_all`` builds every source at once.
@@ -26,10 +29,10 @@ def build_all() -> dict:
     """Build (at first use; one nvcc per source, all started together)
     and load every kernel library of the package, keyed by source name,
     with each entry point's ctypes signature set."""
-    from repro_torch.kernels import (_build, fft8, sparse_hadamard,
-                                     spectral_hadamard)
+    from repro_torch.kernels import (_build, fft8, flash_attention,
+                                     sparse_hadamard, spectral_hadamard)
     from repro_torch.kernels import fused_spectral_conv as fsc
-    mods = (fsc, fft8, spectral_hadamard, sparse_hadamard)
+    mods = (fsc, fft8, spectral_hadamard, sparse_hadamard, flash_attention)
     libs = _build.build({k: v for mod in mods for k, v in mod.SOURCES.items()})
     fsc.library()
     for mod in mods[1:]:

@@ -7,7 +7,8 @@ whose spectral intermediates round-trip through device memory — the
 traffic the fused kernel removes — computing the same function.
 ``hadamard`` is Eq 3 on complex tensors, and
 ``scheduled_sparse_conv_group`` runs one PE group's Alg-2 schedule
-through the Fig-6 table executor.  The [F, N, M] / [F, M, P] plane
+through the Fig-6 table executor, and ``attention`` is the LM's flash
+attention.  The [F, N, M] / [F, M, P] plane
 relayouts around the kernels are plain PyTorch, made per call, as in the
 reference.
 """
@@ -23,6 +24,7 @@ from repro_torch.core.spectral import (SpectralGeometry,
                                        assemble_valid_tiles,
                                        extract_tiles_overlapping)
 from repro_torch.kernels import fft8
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import sparse_hadamard as sh
 from repro_torch.kernels import spectral_hadamard as shad
 
@@ -146,3 +148,12 @@ def scheduled_sparse_conv_group(sk_values, sk_indices, x_f: torch.Tensor, *,
         *(a.to(x_f.device) for a in packed), xr, xi)
     y = torch.complex(yr, yi).permute(0, 2, 1)                   # [N', T, F]
     return y.reshape(-1, t, kk, kk), stats
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Flash attention, q [B, Hq, S, D], k/v [B, Hkv, S, D]: the kernel
+    on a CUDA tensor, its plain version on a CPU tensor."""
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)

@@ -1,2 +1,3 @@
-"""Models: the spectral VGG16 forward pass (``cnn``) and shared layer
-initializers (``layers``)."""
+"""Models: the spectral CNN forward pass (``cnn``), the dense LM
+(``config``, ``attention``, ``transformer``, ``api``) and the shared
+layers (``layers``)."""

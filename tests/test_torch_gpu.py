@@ -978,3 +978,102 @@ def test_band_launch_over_the_shared_memory_limit_raises():
             x, *ops[1:], geo=geo, hg=hg, n_out=8, relu=True, band=True)
     assert fsc.LAUNCHES[entry] == before
     assert fsc.BAND_LAUNCHES[entry] == bbefore
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention and the LM prefill that runs it
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def attention_inputs(b, hq, hkv, s, d, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 4, 2, 256, 128, True, None),     # qwen3's head_dim
+    (2, 4, 2, 200, 128, True, None),     # ragged S (not a tile multiple)
+    (1, 8, 1, 192, 80, True, None),      # danube's head_dim, MQA
+    (1, 9, 3, 256, 64, True, None),      # smollm: 9 query heads over 3
+    (1, 4, 2, 300, 64, True, 100),       # a window smaller than S
+    (1, 4, 4, 256, 112, False, None),    # non-causal; kimi's head_dim
+    (2, 2, 1, 70, 16, True, 8),          # the smallest lane grid
+])
+def test_flash_attention_matches_plain_on_card(b, hq, hkv, s, d, causal,
+                                               window, dtype):
+    """Against the plain version on the same inputs (f32 inside both);
+    a repeat launch is bitwise equal, and each launch is counted."""
+    need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attention_inputs(b, hq, hkv, s, d, dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = fa.flash_attention_reference(q, k, v, causal=causal,
+                                       window=window)
+    err = float((out.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    assert err <= FA_TOL[dtype], err
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_bad_inputs_on_card():
+    """A non-contiguous or wrong-dtype operand raises; nothing is launched
+    and nothing runs on the CPU instead."""
+    need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = attention_inputs(1, 4, 2, 64, 64, torch.float32)
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                           k, v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*attention_inputs(1, 2, 2, 16, 144,
+                                             torch.float32))
+    assert fa.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.gpu
+def test_full_width_qwen3_prefill_two_layers_on_card(monkeypatch):
+    """qwen3-8b at full width, cut to 2 layers, in f32: a 4096-token
+    prefill goes through the kernel (one launch a layer) and matches the
+    materialised route (the chunked threshold patched above S) at 1e-4 of
+    max|ref| with the same top-1."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    repro_torch.strict_fp32()
+    cfg = configs.get_config("qwen3-8b").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = api.init(cfg, generator=torch.Generator(device="cuda")
+                      .manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 4096), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    before = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        out = api.prefill(params, cfg, {"tokens": tokens})
+        assert fa.LAUNCHES["flash_attention"] == before + 2
+        monkeypatch.setattr(attn, "CHUNKED_THRESHOLD", 4097)
+        ref = api.prefill(params, cfg, {"tokens": tokens})
+        assert fa.LAUNCHES["flash_attention"] == before + 2
+    err = float((out - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-4, err
+    assert torch.equal(out.argmax(-1), ref.argmax(-1))

@@ -252,5 +252,18 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.spectral_hadamard",
             "repro_torch.kernels.sparse_hadamard",
             "repro_torch.distributed.executor",
-            "repro_torch.launch.mesh"} <= imported
+            "repro_torch.launch.mesh",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_6b",
+            "repro_torch.configs.smollm_135m",
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.configs.chameleon_34b",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.xlstm_350m",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.models.config", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.models.api",
+            "repro_torch.kernels.ref", "repro_torch.kernels.flash_attention",
+            "repro_torch.launch.serve"} <= imported
 
