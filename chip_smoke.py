@@ -10,7 +10,7 @@ each of which fails the run on error:
   (a) device: torch/CUDA versions, device name and count, the card's
       name and power limit from nvidia-smi;
   (b) build: compile every CUDA kernel of the port from the sources in
-      this checkout (six, one nvcc per source, started together), print
+      this checkout (seven, one nvcc per source, started together), print
       build time, the ptxas report and the spill stores of each of the
       fused kernels' 36 instantiations (kernel x input path x flow x
       shortcut placement);
@@ -103,7 +103,8 @@ each of which fails the run on error:
       its plain version (gate 1e-4); at batch 1 the kernel's time
       (S_REPS), the plain version's (one call), one PyTorch call of the
       same function (library_ms: torch.fft.fft2 / ifft2, a complex
-      matmul; none for the executor) and the bound;
+      matmul; for the executor a complex matmul of the group's densified
+      planes, whose pruned bins are zeros) and the bound;
   (ds) the staged main path: ``forward_spectral(backend="staged")`` on
       full VGG16 (the (d5) plan's kernels; staged reads no other
       operand), five batch-1 forwards (the first discarded from the p50)
@@ -144,7 +145,9 @@ each of which fails the run on error:
       at the flush ('hbm'; the run fails if no node falls back, so the
       check reaches the case it guards), 20 launches and 8 fused
       shortcuts per forward, logits vs einsum;
-  (la) the flash-attention kernel (B9) against its plain version at the
+  (la) the flash-attention kernels (B9; bf16: the tensor-core kernel,
+      whose SASS must hold HGMMA or HMMA, counted by ``cuobjdump -sass``;
+      f32: the CUDA-core kernel) against their plain version at the
       full-width LM shapes, causal, in bf16 and f32: qwen3-8b (Hq 32,
       Hkv 8, D 128) at S = 4096, batch 1 and 4; h2o-danube-1.8b (D 80,
       window 4096) at S = 8192; smollm-135m (9 query heads over 3, D 64)
@@ -152,12 +155,17 @@ each of which fails the run on error:
       batch 1 of the shape's 32, bf16) against the plain
       ``_chunked_sdpa`` (the S^2 oracle would not fit).  Gate max|Δ| <=
       1e-5 of max|plain| in f32, 1e-2 in bf16, a repeat launch bitwise
-      equal; kernel ms (CUDA events, L2 flushed, median of LA_REPS),
+      equal; in bf16 also by row, max|Δ| of a row <= 3e-2 of that row's
+      max|plain| (FA_ROW_TOL), where the last 128 rows recomputed in f32
+      torch ops must pass and the same rows with their first 128-key
+      tile left out must fail (a control: the gate sees a lost tile in
+      the rows that see the most keys); kernel ms (CUDA events, L2 flushed, median of LA_REPS),
       plain ms (one call), one ``scaled_dot_product_attention`` call
       (library_ms, the backend named) and the bound (4 B Hq D flops per
       unmasked (q, k) pair at the peak of the input type: bf16 on the
       tensor cores, f32 on the CUDA cores; q, k, v, o moved once; a bf16
-      row also prints its bound at the f32 CUDA-core rate);
+      row also prints its bound at the f32 CUDA-core rate); each row also
+      its achieved TFLOP/s, its share of the bound and kernel / sdpa;
   (dl) full-width qwen3-8b (36 layers, published widths, random weights
       from ``api.init`` on the card): in f32, a 4096-token ``api.prefill``
       (the chunked route: 36 B9 launches) against the same prefill with
@@ -1161,8 +1169,9 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
     (Alg-2 tables, r = 10).  At batch 1 the kernel's time (S_REPS, L2
     flushed), the plain version's (one call), one PyTorch call of the
     same function (``torch.fft.fft2``, ``torch.fft.ifft2``, a complex
-    ``torch.matmul``; none for the executor) and the bound.  Returns the
-    totals per entry point."""
+    ``torch.matmul``; for the executor a complex ``torch.matmul`` of the
+    group's densified planes) and the bound.  Returns the totals per
+    entry point."""
     import torch
     from repro_torch.core import spectral as spec
     from repro_torch.kernels import fft8
@@ -1220,10 +1229,14 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                 gx = torch.complex(xr, xi).reshape(layer.c_in, t, 64)
                 gr = gx.real.permute(0, 2, 1).contiguous()
                 gi = gx.imag.permute(0, 2, 1).contiguous()
+                # the group's function as one complex matmul over its
+                # densified planes (the pruned bins are zeros)
+                wg = wc[:, :64].contiguous()
                 calls["scheduled_sparse_hadamard"] = (
                     lambda: sh.scheduled_sparse_hadamard(*packed, gr, gi),
                     lambda: sh.scheduled_sparse_hadamard_reference(
-                        *packed, gr, gi), None)
+                        *packed, gr, gi),
+                    lambda: torch.matmul(wg, xc))
             for e, (kern, plain, _) in calls.items():
                 y = kern()
                 torch.cuda.synchronize()
@@ -1505,6 +1518,12 @@ LA_SHAPES = (("qwen3-8b", 4096, 1), ("qwen3-8b", 4096, 4),
              ("h2o-danube-1.8b", 8192, 1), ("smollm-135m", 4096, 1))
 LA_REPS = 5            # (la): timed launches per kernel and shape
 FA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max
+# bf16, normalised row by row: max over query rows of max|kernel - plain|
+# / max|plain| in that row (a late row's values are a softmax average,
+# ~sqrt(e / rows) each, far under the first rows' max); 1 bf16 ulp of a
+# row's largest value is 2^-8..2^-7 of it
+FA_ROW_TOL = 3e-2
+LA_TILE = 128          # (la): the keys of one bf16 KV tile, for the control
 LM_ARCH = "qwen3-8b"   # (dl), (sl): the LM served at full width
 LM_S = 4096            # (dl): prompt tokens, the chunked route's threshold
 LM_REQUESTS = 5        # (dl): batch-1 prefills (the first discarded)
@@ -1564,6 +1583,41 @@ def sdpa_library(q, k, v, window):
     return call, "EFFICIENT_ATTENTION (K/V repeated to Hq heads)"
 
 
+def row_err(a, b) -> float:
+    """max over rows (the last axis is a row) of max|a - b| / max|b|."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs().amax(-1)
+                  / b.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def dropped_tile_control(q, k, v, window, ref) -> tuple[float, float]:
+    """The last ``LA_TILE`` query rows recomputed in f32 torch ops from the
+    same inputs, causal: once with every key the mask allows, and once
+    with the first ``LA_TILE``-key tile those rows see left out (a kernel
+    whose tile range starts one tile late).  Returns both ``row_err``
+    readings against ``ref``'s rows: the first must pass the row gate, the
+    second must not."""
+    import torch
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    r0 = max(s - LA_TILE, 0)
+    qf = q[:, :, r0:].float().reshape(b, hkv, hq // hkv, s - r0, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    sc = (qf @ kf.transpose(-1, -2)) * d ** -0.5
+    qi = torch.arange(r0, s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    first = (0 if window is None else max(r0 - window + 1, 0)) // LA_TILE
+    readings = []
+    for m in (mask, mask & (ki // LA_TILE != first)):
+        p = torch.softmax(sc.masked_fill(~m, float("-inf")), dim=-1)
+        rows = (p @ vf).reshape(b, hq, s - r0, d).to(q.dtype)
+        readings.append(row_err(rows, ref[:, :, r0:]))
+    return readings[0], readings[1]
+
+
 def flash_check(dev, flush) -> dict:
     """(la): B9 against its plain version at the full-width shapes, each
     in bf16 and f32, then at the prefill_32k length in bf16 against the
@@ -1571,9 +1625,18 @@ def flash_check(dev, flush) -> dict:
     bound.  Returns one row per shape, keyed by its label."""
     import torch
     from repro_torch import configs
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import attention as attn
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    # the bf16 kernel's tensor-core instructions, from its built library
+    sass = _build.sass_counts("flash_attention_bf16",
+                              "flash_attention_bf16_kernel")
+    print(f"(la) bf16 kernel SASS (cuobjdump -sass, "
+          f"flash_attention_bf16_kernel): {sass}")
+    if not (sass["HGMMA"] or sass["HMMA"]):
+        fail("(la) the bf16 flash-attention kernel has no tensor-core "
+             "instruction (HGMMA or HMMA)")
     s32k = configs.SHAPES["prefill_32k"].seq_len
     cases = [(a, s, b, dt) for a, s, b in LA_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
@@ -1613,6 +1676,18 @@ def flash_check(dev, flush) -> dict:
         if err > FA_TOL[dt] or not again:
             fail(f"(la) {label}: kernel vs {plain_name} rel err {err:.3e} "
                  f"(gate {FA_TOL[dt]}), repeat bitwise equal {again}")
+        row = {}
+        if dtype == torch.bfloat16:
+            full_ctl, drop_ctl = dropped_tile_control(q, k, v, window, ref)
+            row = {"row_err": row_err(out, ref),
+                   "control_row_err": full_ctl,
+                   "dropped_tile_row_err": drop_ctl}
+            if not (row["row_err"] <= FA_ROW_TOL and full_ctl <= FA_ROW_TOL
+                    and drop_ctl > FA_ROW_TOL):
+                fail(f"(la) {label}: row-normalised error kernel "
+                     f"{row['row_err']:.3e}, f32 control {full_ctl:.3e} (both "
+                     f"must be <= {FA_ROW_TOL}), control with one KV tile "
+                     f"dropped {drop_ctl:.3e} (must be > {FA_ROW_TOL})")
         k_ms = timed_ms(lambda: fa.flash_attention(q, k, v, window=window),
                         flush.zero_, LA_REPS)
         p_ms = once_ms(plain)
@@ -1632,14 +1707,27 @@ def flash_check(dev, flush) -> dict:
                        "bound_ms": bound_ms, "by": by,
                        "fp32_core_bound_ms": fp32_core_ms,
                        "library_ms": l_ms, "library_backend": backend,
-                       "pairs": pairs}
+                       "pairs": pairs, "tflops": flops / k_ms / 1e9,
+                       "share_of_bound": bound_ms / k_ms,
+                       "over_library": None if l_ms is None
+                       else k_ms / l_ms, **row}
+        if dtype == torch.bfloat16:
+            rows[label]["sass"] = sass
         print(f"    {label:38s} Hq {hq} Hkv {hkv} D {d} window {window}: "
               f"rel err {err:.3e} (max abs {abs_err:.3e}) vs {plain_name}, "
-              f"repeat bitwise; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              + (f"by row {row['row_err']:.3e} (f32 control "
+                 f"{row['control_row_err']:.3e}, one KV tile dropped "
+                 f"{row['dropped_tile_row_err']:.3e}; gate {FA_ROW_TOL}), "
+                 if row else "")
+              + f"repeat bitwise; kernel {k_ms:.4f} ms "
+              f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
               f"sdpa {l_ms if l_ms is None else round(l_ms, 4)} ms "
-              f"({backend}), bound {bound_ms:.4f} ms ({by}), "
+              f"({backend}; kernel / sdpa "
+              + ("-" if l_ms is None else f"{k_ms / l_ms:.2f}")
+              + f"), bound {bound_ms:.4f} ms ({by}), "
               f"{bound_ms / k_ms:.1%} of it; at the f32 CUDA-core rate "
-              f"{fp32_core_ms:.4f} ms")
+              f"{fp32_core_ms:.4f} ms"
+              + (f"; SASS {sass}" if dtype == torch.bfloat16 else ""))
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return rows
@@ -2480,7 +2568,8 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
-        "source": csrc + "flash_attention.cu",
+        "source": csrc + "flash_attention_bf16.cu",
+        "f32_source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": lm_totals["launches"],
         "per_forward": lm_totals["per_forward"],
@@ -2493,7 +2582,9 @@ def main() -> int:
         "library_backend": main_row["library_backend"],
         "shapes": {label: {k: r[k] for k in (
             "abs_err", "rel_err", "ms", "plain_ms", "plain", "bound_ms",
-            "by", "fp32_core_bound_ms", "library_ms", "library_backend")}
+            "by", "fp32_core_bound_ms", "library_ms", "library_backend",
+            "tflops", "share_of_bound", "over_library", "sass", "row_err",
+            "control_row_err", "dropped_tile_row_err") if k in r}
             for label, r in flash_rows.items()},
         "prefill": {k: v for k, v in lm_totals.items()
                     if k not in ("launches", "per_forward")},

@@ -17,8 +17,10 @@ versions beside them.
   (csrc/sparse_hadamard.cu); ``ops.scheduled_sparse_conv_group`` compiles
   the schedule and runs it.
 - flash_attention: blocked online-softmax attention, the LM prefill's
-  attention at S >= 4096 (csrc/flash_attention.cu); ``ops.attention``
-  is its user entry point.
+  attention at S >= 4096: bf16 on the tensor cores (wgmma, a TMA K/V
+  ring; csrc/flash_attention_bf16.cu, csrc/sm90.cuh), f32 on the CUDA
+  cores (csrc/flash_attention.cu); ``ops.attention`` is its user entry
+  point.
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use and loads the
 libraries with ctypes; ``build_all`` builds every source at once.

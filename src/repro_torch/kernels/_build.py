@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -111,3 +112,23 @@ def _finish(started: dict, sources: dict[str, dict[str, int]],
             "seconds": (time.perf_counter() - t0) if job else 0.0,
             "ptxas": ptxas}
         _loaded[name] = ctypes.CDLL(str(lib))
+
+
+def sass_counts(name: str, function: str) -> dict:
+    """How often each tensor-core SASS opcode (HGMMA, HMMA) occurs in the
+    functions of source ``name``'s built library whose (mangled) name
+    contains ``function``, from ``cuobjdump -sass`` (the toolkit's,
+    beside nvcc).  Builds the library first if it is not built; raises if
+    no function matches."""
+    build({name: {}})
+    lib, _ = _target(name, {})
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    bodies = [f for f in re.split(r"\n\s*Function : ", out)[1:]
+              if function in f.split("\n", 1)[0]]
+    if not bodies:
+        raise RuntimeError(f"no function matching {function!r} in the SASS "
+                           f"of {lib.name}")
+    return {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in bodies)
+            for op in ("HGMMA", "HMMA")}

@@ -1,19 +1,19 @@
-// Blocked online-softmax (flash) attention, for Hopper (sm_90a).
+// Blocked online-softmax (flash) attention in f32, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py:
-// `flash_attention` (body `_attn_kernel`), the attention of every layer
-// of an LM prefill at S >= 4096.  For each query row q of head h, with
-// KV head g = h / (Hq / Hkv):
+// `flash_attention` (body `_attn_kernel`) for f32 inputs, the attention
+// of every layer of an f32 LM prefill at S >= 4096 (bf16 inputs run
+// flash_attention_bf16.cu, on the tensor cores).  For each query row q
+// of head h, with KV head g = h / (Hq / Hkv):
 //
 //   s[k]  = (q . k_k) * D^-0.5                  in f32 from f32 inputs
 //   s[k]  = -1e30 unless  k < S,  k <= q (causal),  k > q - window
 //   o     = sum_k softmax(s)[k] v_k, streamed over KV tiles with a running
 //           (max m, denominator l, accumulator acc) in f32; a row that has
 //           seen no unmasked key keeps p = 0 (the exp(-1e30 + 1e30) = 1
-//           trap); o = acc / max(l, 1e-30), cast to the input type.
+//           trap); o = acc / max(l, 1e-30).
 //
 //   flash_attention_f32:  q [B, Hq, S, D], k, v [B, Hkv, S, D] f32 -> o
-//   flash_attention_bf16: the same in bf16 (computed in f32)
 //
 // Bound on an H100 SXM: operations.  A causal layer does 4 D flops per
 // unmasked (q, k) pair (two products) against 2 S D bytes per head of
@@ -25,9 +25,8 @@
 //  * One CTA of 256 threads per (batch x query head, 64-row query tile);
 //    the heaviest causal tiles launch first.  The Q tile sits in shared
 //    memory transposed ([D][64], read as float4 of a thread's four rows);
-//    K and V tiles of 64 rows stream through shared memory in f32
-//    (bf16 converted as it is loaded).  About 112 KB a CTA at D = 128,
-//    so two CTAs share an SM.
+//    K and V tiles of 64 rows stream through shared memory in f32.
+//    About 112 KB a CTA at D = 128, so two CTAs share an SM.
 //  * Thread (ty, tx) of the 16 x 16 grid owns query rows 4 ty .. 4 ty + 3:
 //    the S tile's columns tx + 16 j (j < 4) and the output's columns
 //    tx + 16 j (j < D / 16).  The row max and sum of the online softmax
@@ -39,7 +38,6 @@
 //  * KV tiles wholly above the causal diagonal or wholly outside the
 //    window are skipped: for every row of the tile they would add p = 0
 //    with alpha = 1, an exact no-op.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,13 +51,7 @@ constexpr float NEG_INF = -1e30f;
 static_assert(RG == 4, "a thread's rows are one float4 of the Q/P tiles");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Shared floats of one CTA for head dims up to DP = 16 DJ.
 constexpr size_t smem_floats(int dp) {
@@ -276,13 +268,4 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    void* stream) {
   return dispatch<float>(q, k, v, o, b, hq, hkv, s, d, scale, causal,
                          use_window, window, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int hq,
-                                    int hkv, int s, int d, float scale,
-                                    int causal, int use_window, int window,
-                                    void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, scale,
-                                 causal, use_window, window, stream);
 }

@@ -7,10 +7,15 @@ softmax over its unmasked keys streamed block by block with a running
 from global indices; GQA by reading KV head ``h // (Hq / Hkv)``, with no
 repeated K/V in memory.
 
-One hand-written CUDA kernel (``csrc/flash_attention.cu``, f32 and bf16
-inputs, head dims up to 128), with its plain PyTorch version beside it:
-the wrapper runs the plain version for CPU tensors, and the tests and
-the on-card smoke run hold the kernel to it.
+Two hand-written CUDA kernels, one per input dtype, with one plain
+PyTorch version beside them: the wrapper runs the plain version for CPU
+tensors, and the tests and the on-card smoke run hold each kernel to it.
+- bf16 (``csrc/flash_attention_bf16.cu``): Hopper's tensor cores
+  (``wgmma``, bf16 in, f32 accumulate), K/V streamed by TMA through a
+  two-stage ring; head dims up to 128 that are a multiple of 8, operands
+  16-byte aligned.
+- f32 (``csrc/flash_attention.cu``): f32 FMAs on the CUDA cores (the
+  reference's f32 arithmetic, the correctness path); head dims up to 128.
 """
 
 from __future__ import annotations
@@ -21,28 +26,34 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCES = {"flash_attention": {}}
+SOURCES = {"flash_attention": {}, "flash_attention_bf16": {}}
 
 # Kernel launches, counted where the kernel is launched.
 LAUNCHES = {"flash_attention": 0}
 
 NEG_INF = -1e30
-# The CUDA kernel's head-dim limit (its lane grid covers 8 x 16 columns).
+# The CUDA kernels' head-dim limit (the f32 lane grid covers 8 x 16
+# columns; the bf16 kernel's tiles two 64-column TMA boxes).
 MAX_HEAD_DIM = 128
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+# The bf16 kernel's TMA needs 16-byte rows and 16-byte aligned operands.
+BF16_HEAD_DIM_MULTIPLE = 8
+BF16_ALIGN = 16
+# input dtype -> (source, entry point)
+_ENTRY = {torch.float32: ("flash_attention", "flash_attention_f32"),
+          torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16")}
 
 
-def library() -> ctypes.CDLL:
-    """The flash-attention kernels' library (built at first use)."""
-    lib = _build.build(SOURCES)["flash_attention"]
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
+def library() -> dict[str, ctypes.CDLL]:
+    """The flash-attention kernels' libraries, keyed by source (built at
+    first use)."""
+    libs = _build.build(SOURCES)
+    for src, name in _ENTRY.values():
+        fn = getattr(libs[src], name)
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return libs
 
 
 def _padded_len(s: int, block_q: int, block_k: int) -> int:
@@ -115,6 +126,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _check_kernel(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    """What the CUDA kernels take, checked before a launch."""
+    b, hq, _, d = q.shape
+    if q.dtype == torch.float32:
+        if d > MAX_HEAD_DIM or b * hq > 65535:
+            raise ValueError(f"the f32 kernel takes head_dim <= "
+                             f"{MAX_HEAD_DIM} and B * Hq <= 65535, got {d} "
+                             f"and {b * hq}")
+        return
+    if d > MAX_HEAD_DIM or d % BF16_HEAD_DIM_MULTIPLE:
+        raise ValueError(f"the bf16 kernel takes a head_dim <= "
+                         f"{MAX_HEAD_DIM} that is a multiple of "
+                         f"{BF16_HEAD_DIM_MULTIPLE}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % BF16_ALIGN:
+            raise ValueError(f"the bf16 kernel needs {BF16_ALIGN}-byte "
+                             f"aligned operands, {name} is at "
+                             f"{t.data_ptr():#x}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
@@ -124,9 +156,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_q`` / ``block_k`` are the reference's blocks: they fix the
     plain version's KV blocking and the padded length (a non-causal S
     that is not a multiple of the block raises, as in the reference).
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    whose own tiles are 64 x 64, or raise.  (A window is clamped to
-    [-S, S] for the kernel: beyond that it masks all keys or none.)"""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    their dtype (bf16: 128 x 128 tiles on the tensor cores; f32: 64 x 64
+    on the CUDA cores), or raise.  (A window is clamped to [-S, S] for
+    the kernel: beyond that it masks all keys or none.)"""
     _check(q, k, v)
     b, hq, s, d = q.shape
     if not causal and _padded_len(s, block_q, block_k) != s:
@@ -141,12 +174,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}, got "
                              f"{t.device} with strides {t.stride()}")
-    if d > MAX_HEAD_DIM or b * hq > 65535:
-        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
-                         f"B * Hq <= 65535, got {d} and {b * hq}")
+    _check_kernel(q, k, v)
+    src, entry = _ENTRY[q.dtype]
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
-        err = getattr(library(), _ENTRY[q.dtype])(
+        err = getattr(library()[src], entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
             k.shape[1], s, d, d ** -0.5, int(causal), int(window is not None),
             0 if window is None else max(-s, min(int(window), s)),

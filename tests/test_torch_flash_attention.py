@@ -24,6 +24,8 @@ from repro_torch.kernels import ref
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
+# bf16 row by row: max over rows of max|Δ| in the row / max|ref| in the row
+BF16_ROW_TOL = 3e-2
 
 
 def _inputs(seed, b, hq, hkv, s, d, dtype=np.float32):
@@ -126,3 +128,77 @@ def test_wrapper_checks_shapes_and_dtypes():
     q, k, v = _torch(_inputs(5, 1, 4, 2, 16, 8))
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         fa.flash_attention(q, k.double(), v)
+
+
+def _row_rel(out, want) -> float:
+    out, want = out.float(), want.float()
+    return float(((out - want).abs().amax(-1)
+                  / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def _tensor_core_rounding(q, k, v, *, window=None, block_k=128,
+                          drop=None):
+    """The bf16 kernel's arithmetic in torch: S = Q K^T in f32 from the
+    bf16 q, k (the products are exact), the online softmax over key blocks
+    of ``block_k`` in f32, P rounded to bf16 before P V (accumulated in
+    f32), ``l`` summed from the f32 p, the output rounded to bf16.
+    ``drop=(row, block)`` leaves key block ``block`` out of every query
+    row from ``row`` on (a faulty kernel)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, s, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    q_idx = torch.arange(s)[:, None]
+    m = torch.full((b, hkv, hq // hkv, s, 1), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, s, block_k):
+        kb, vb = kf[..., k0:k0 + block_k, :], vf[..., k0:k0 + block_k, :]
+        sc = (qf @ kb.transpose(-1, -2)) * d ** -0.5
+        k_idx = k0 + torch.arange(kb.shape[-2])[None, :]
+        mask = k_idx <= q_idx
+        if window is not None:
+            mask &= k_idx > q_idx - window
+        if drop is not None and k0 == drop[1] * block_k:
+            mask &= q_idx < drop[0]
+        sc = sc.masked_fill(~mask, fa.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.where(m_new > fa.NEG_INF / 2, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vb
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(b, hq, s, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_bf16_tensor_core_rounding_holds_the_bf16_gate(window):
+    """The one rounding the bf16 tensor-core kernel adds (P to bf16 before
+    P V) keeps it inside the bf16 gate against the plain version: under
+    BF16_TOL, and in fact within 4e-3 (the bf16 output's own rounding is
+    2^-9 relative)."""
+    q, k, v = _torch(_inputs(6, 1, 4, 1, 512, 128), torch.bfloat16)
+    out = _tensor_core_rounding(q, k, v, window=window)
+    want = fa.flash_attention_reference(q, k, v, window=window)
+    err = _rel(out.float(), want.float())
+    assert err <= BF16_TOL
+    assert err <= 4e-3, err
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_bf16_row_gate_holds_the_rounding_and_catches_a_dropped_tile(window):
+    """The row-normalised bf16 gate (max|Δ| of a row over that row's
+    max|ref|), as the card checks it: the tensor-core rounding stays
+    under BF16_ROW_TOL (it reads one bf16 ulp of a row's largest value,
+    2^-7), and the same arithmetic with the first 128-key block that the
+    last 128 rows see left out of those rows is far above it."""
+    s = 512
+    q, k, v = _torch(_inputs(6, 1, 4, 1, s, 128), torch.bfloat16)
+    want = fa.flash_attention_reference(q, k, v, window=window)
+    assert _row_rel(_tensor_core_rounding(q, k, v, window=window),
+                    want) <= BF16_ROW_TOL
+    first = (0 if window is None else s - 128 - window + 1) // 128
+    faulty = _tensor_core_rounding(q, k, v, window=window,
+                                   drop=(s - 128, first))
+    assert _row_rel(faulty, want) > 10 * BF16_ROW_TOL

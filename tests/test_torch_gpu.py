@@ -985,6 +985,9 @@ def test_band_launch_over_the_shared_memory_limit_raises():
 # ---------------------------------------------------------------------------
 
 FA_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# bf16, normalised row by row: max over rows of max|kernel - plain| in the
+# row / max|plain| in the row (chip_smoke.py's FA_ROW_TOL)
+FA_ROW_TOL = 3e-2
 
 
 def attention_inputs(b, hq, hkv, s, d, dtype, seed=0):
@@ -1003,11 +1006,21 @@ def attention_inputs(b, hq, hkv, s, d, dtype, seed=0):
     (1, 4, 2, 300, 64, True, 100),       # a window smaller than S
     (1, 4, 4, 256, 112, False, None),    # non-causal; kimi's head_dim
     (2, 2, 1, 70, 16, True, 8),          # the smallest lane grid
+    # the bf16 kernel's 128-row tile edges
+    (1, 2, 1, 127, 128, True, None),
+    (1, 2, 1, 128, 128, True, None),
+    (1, 2, 1, 129, 128, True, None),
+    (1, 2, 1, 255, 128, True, None),
+    (1, 2, 1, 257, 128, True, None),
+    (1, 4, 2, 384, 128, True, 128),      # the window edge on a tile edge
+    (2, 32, 8, 1024, 128, True, None),   # qwen3-8b's grouping
+    (1, 4, 2, 200, 8, True, None),       # D = 8, padded to a 64-column box
 ])
 def test_flash_attention_matches_plain_on_card(b, hq, hkv, s, d, causal,
                                                window, dtype):
-    """Against the plain version on the same inputs (f32 inside both);
-    a repeat launch is bitwise equal, and each launch is counted."""
+    """Against the plain version on the same inputs (f32 inside both),
+    in bf16 also row by row; a repeat launch is bitwise equal, and each
+    launch is counted."""
     need_card()
     from repro_torch.kernels import flash_attention as fa
     q, k, v = attention_inputs(b, hq, hkv, s, d, dtype)
@@ -1021,6 +1034,10 @@ def test_flash_attention_matches_plain_on_card(b, hq, hkv, s, d, causal,
     err = float((out.float() - ref.float()).abs().max()
                 / ref.float().abs().max())
     assert err <= FA_TOL[dtype], err
+    if dtype == torch.bfloat16:
+        by_row = float(((out.float() - ref.float()).abs().amax(-1)
+                        / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
+        assert by_row <= FA_ROW_TOL, by_row
     assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
                                                window=window))
     assert fa.LAUNCHES["flash_attention"] == before + 2
@@ -1044,6 +1061,39 @@ def test_flash_attention_refuses_bad_inputs_on_card():
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(*attention_inputs(1, 2, 2, 16, 144,
                                              torch.float32))
+    assert fa.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_runs_on_the_tensor_cores():
+    """The bf16 kernel's SASS (``cuobjdump -sass`` of its library) holds
+    warpgroup tensor-core products (HGMMA)."""
+    need_card()
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts("flash_attention_bf16",
+                                "flash_attention_bf16_kernel")
+    assert counts["HGMMA"] > 0, counts
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_refuses_what_its_tma_cannot_load():
+    """A bf16 head_dim that is not a multiple of 8, or an operand that is
+    not 16-byte aligned, raises ValueError with nothing launched."""
+    need_card()
+    from repro_torch.kernels import flash_attention as fa
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(*attention_inputs(1, 2, 1, 64, 60,
+                                             torch.bfloat16))
+    q, k, v = attention_inputs(1, 2, 1, 64, 64, torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view(q.shape)          # 2 bytes past an aligned start
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, k, flat[1:v.numel() + 1].view(v.shape))
     assert fa.LAUNCHES["flash_attention"] == before
 
 
