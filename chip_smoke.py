@@ -15,7 +15,9 @@ each of which fails the run on error:
       fused kernels' 36 instantiations (kernel x input path x flow x
       shortcut placement);
       an output-stationary kernel without a shortcut that spills fails
-      the run;
+      the run, as does a spill store in the staged Hadamard libraries
+      (spectral_hadamard, sparse_hadamard) or a spectral Hadamard whose
+      SASS holds no HMMA (its 3xTF32 tensor-core products);
   (c) plane kernel vs its plain version at the 13 full-width VGG16
       layer shapes, at every batch size (d) serves (1 and 4: the plan's
       own operands, windows of a random activation in the main path's
@@ -99,10 +101,13 @@ each of which fails the run on error:
       of those spectra against the layer's dense K^2 planes in each flow
       (ws/is over m ranges of 128, a repeat launch bitwise equal), the
       tile-IFFT of its output, and at batch 1 the Alg-2 table executor
-      on one 64-lane group of the layer's kernels (r = 10), each against
-      its plain version (gate 1e-4); at batch 1 the kernel's time
-      (S_REPS), the plain version's (one call), one PyTorch call of the
-      same function (library_ms: torch.fft.fft2 / ifft2, a complex
+      on one 64-lane group of the layer's kernels (r = 10; its plain
+      version summed in the kernel's channel ranges, a repeat launch
+      bitwise equal, its grid printed), each against its plain version
+      (gate 1e-4); at batch 1 the kernel's device time (S_REPS, the
+      wrapper's host work hidden behind a spin kernel; call_ms with it),
+      the plain version's (one call), one PyTorch call of the same
+      function timed alike (library_ms: torch.fft.fft2 / ifft2, a complex
       matmul; for the executor a complex matmul of the group's densified
       planes, whose pruned bins are zeros) and the bound;
   (ds) the staged main path: ``forward_spectral(backend="staged")`` on
@@ -230,6 +235,7 @@ LOGITS_TOL = 1e-4      # max|fused - einsum| / max|einsum| on the logits
 REPS = 15              # VGG16 phases: timed launches per kernel and layer
 R_REPS = 10            # ResNet-18 phases: the same
 S_REPS = 5             # staged kernels (s): the same
+SLEEP_CYCLES = 1_000_000   # (s): the spin before a timed launch (~0.5 ms)
 SEED = 0
 BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
 BAND_D = 4             # (c8), (d7): shards of a sharded plan, on one card
@@ -532,6 +538,16 @@ def spill_report() -> list[tuple[str, str, str, int, int]]:
     return out
 
 
+def lib_spill_stores(src: str) -> int | None:
+    """Spill-store bytes summed over a library's functions, from its build's
+    ptxas -v lines (None where this run did not build it)."""
+    import re
+    from repro_torch.kernels import _build
+    found = [int(m.group(1)) for line in _build.BUILD_LOG[src]["ptxas"]
+             for m in [re.search(r"(\d+) bytes spill stores", line)] if m]
+    return sum(found) if found else None
+
+
 def kernel_call(lp, x_img, sc=None, *, relu=None, placement=None,
                 plain=False, band=False):
     """A no-argument call of the kernel wrapper that ``lp`` runs (or of
@@ -590,6 +606,29 @@ def twin_bound(lp, b) -> tuple[float, float]:
     if lp.input_mode == "halo":
         flops, nbytes = halo_layer_bound(lp, b, w_bytes + op_bytes, flops)
     return flops, nbytes
+
+
+def enqueued_ms(fn, flush, reps: int = S_REPS) -> float:
+    """Median device time of ``fn``'s launches with the host's enqueue
+    hidden: an L2 flush (``flush()``) and a spin kernel
+    (``torch.cuda._sleep``, longer than a wrapper's host work) run before
+    the start event, so the launches are already queued when the card
+    reaches it.  ``timed_ms`` instead counts a wrapper's host time that
+    outlasts the flush."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 def once_ms(fn) -> float:
@@ -1166,24 +1205,31 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
     flow, m ranges of 128 for ws/is, a repeat launch bitwise equal, the
     IFFT of the Hadamard's output; gate 1e-4 relative); the table
     executor at batch 1 on one 64-lane group of the layer's kernels
-    (Alg-2 tables, r = 10).  At batch 1 the kernel's time (S_REPS, L2
-    flushed), the plain version's (one call), one PyTorch call of the
-    same function (``torch.fft.fft2``, ``torch.fft.ifft2``, a complex
-    ``torch.matmul``; for the executor a complex ``torch.matmul`` of the
-    group's densified planes) and the bound.  Returns the totals per
-    entry point."""
+    (Alg-2 tables, r = 10; its plain version summed in the kernel's
+    channel ranges, a repeat launch bitwise equal, its grid printed).
+    At batch 1 the kernel's device time (``enqueued_ms``: S_REPS, L2
+    flushed, the wrapper's host work hidden; ``call_ms`` with it, as
+    ``timed_ms`` counts it), the plain version's (one call), one PyTorch
+    call of the same function (``torch.fft.fft2``, ``torch.fft.ifft2``, a
+    complex ``torch.matmul``; for the executor a complex ``torch.matmul``
+    of the group's densified planes; timed as the kernel) and the bound.
+    Returns the totals per entry point."""
     import torch
     from repro_torch.core import spectral as spec
+    from repro_torch.kernels import _build
     from repro_torch.kernels import fft8
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import sparse_hadamard as sh
     from repro_torch.kernels import spectral_hadamard as shad
     print(f"(s) staged entry points vs plain at the {model} layers: layer, "
-          "entry point, rel_err batch 1 / 4, kernel_ms, plain_ms, "
+          "entry point, rel_err batch 1 / 4, kernel_ms, call_ms, plain_ms, "
           "library_ms, bound_ms, bound_by")
-    tot = {e: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   flops=0.0, bytes=0.0, abs_err=0.0, err=0.0)
+    tot = {e: dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, flops=0.0, bytes=0.0, abs_err=0.0, err=0.0)
            for e in entries}
+    repeats = ("spectral_hadamard_ws", "spectral_hadamard_is",
+               "scheduled_sparse_hadamard")
+    grids = {}
     flows = {e: flow for e, flow in (("spectral_hadamard", shad.OS),
                                      ("spectral_hadamard_ws", shad.WS),
                                      ("spectral_hadamard_is", shad.IS))
@@ -1229,13 +1275,17 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                 gx = torch.complex(xr, xi).reshape(layer.c_in, t, 64)
                 gr = gx.real.permute(0, 2, 1).contiguous()
                 gi = gx.imag.permute(0, 2, 1).contiguous()
+                grid = sh.launch_geometry(64, layer.c_in, 64, t,
+                                          _build.sm_count(flush.device))
+                grids[layer.name] = grid
                 # the group's function as one complex matmul over its
                 # densified planes (the pruned bins are zeros)
                 wg = wc[:, :64].contiguous()
                 calls["scheduled_sparse_hadamard"] = (
                     lambda: sh.scheduled_sparse_hadamard(*packed, gr, gi),
-                    lambda: sh.scheduled_sparse_hadamard_reference(
-                        *packed, gr, gi),
+                    lambda rm=grid.range_m: (
+                        sh.scheduled_sparse_hadamard_reference(
+                            *packed, gr, gi, range_m=rm)),
                     lambda: torch.matmul(wg, xc))
             for e, (kern, plain, _) in calls.items():
                 y = kern()
@@ -1249,7 +1299,7 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                         or err > KERNEL_TOL):
                     fail(f"(s) {e} {layer.name} batch {b}: kernel vs plain "
                          f"rel err {err:.3e} > {KERNEL_TOL:g}")
-                if e in ("spectral_hadamard_ws", "spectral_hadamard_is"):
+                if e in repeats:
                     again = kern()
                     if not all(torch.equal(a, c) for a, c in zip(y, again)):
                         fail(f"(s) {e} {layer.name} batch {b}: a repeat "
@@ -1261,14 +1311,15 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
             bounds["scheduled_sparse_hadamard"] = table_bound(
                 packed, geo.fft_size ** 2, t)
         for e, (kern, plain, lib) in calls.items():
-            k_ms = timed_ms(kern, flush.zero_, S_REPS)
+            k_ms = enqueued_ms(kern, flush.zero_)
+            c_ms = timed_ms(kern, flush.zero_, S_REPS)
             p_ms = once_ms(plain)
-            l_ms = None if lib is None else timed_ms(lib, flush.zero_,
-                                                     S_REPS)
+            l_ms = None if lib is None else enqueued_ms(lib, flush.zero_)
             flops, nbytes = bounds[e]
             b_ms, by = bound_of(flops, nbytes)
             tt = tot[e]
             tt["ms"] += k_ms
+            tt["call_ms"] += c_ms
             tt["plain_ms"] += p_ms
             tt["library_ms"] = (None if l_ms is None
                                 else tt["library_ms"] + l_ms)
@@ -1278,15 +1329,21 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
             tt["abs_err"] = max([tt["abs_err"]] + [r[2] for r in rows[e]])
             tt["err"] = max([tt["err"]] + [r[1] for r in rows[e]])
             errs = " / ".join(f"{r[1]:.2e}" for r in sorted(rows[e]))
+            grid = (grids[layer.name] if e == "scheduled_sparse_hadamard"
+                    else None)
             print(f"    {layer.name:8s} {e:26s} {errs:19s} {k_ms:9.4f} "
-                  f"{p_ms:9.4f} "
+                  f"{c_ms:9.4f} {p_ms:9.4f} "
                   + ("        -" if l_ms is None else f"{l_ms:9.4f}")
-                  + f" {b_ms:9.4f}  {by}")
+                  + f" {b_ms:9.4f}  {by}"
+                  + ("" if grid is None else
+                     f"  grid {grid.tile_blocks} tile blocks x "
+                     f"{grid.lane_blocks} lane blocks x {grid.ranges} "
+                     f"ranges of {grid.range_m}"))
     for e, tt in tot.items():
         tt["by"] = bound_of(tt["flops"], tt["bytes"])[1]
         lib = tt["library_ms"]
-        print(f"    total {e}: kernel {tt['ms']:.4f} ms, plain "
-              f"{tt['plain_ms']:.4f}, library "
+        print(f"    total {e}: kernel {tt['ms']:.4f} ms (call "
+              f"{tt['call_ms']:.4f}), plain {tt['plain_ms']:.4f}, library "
               + ("none" if lib is None else f"{lib:.4f}")
               + f", bound {tt['bound_ms']:.4f} ms ({tt['by']}), max rel "
               f"err {tt['err']:.2e}")
@@ -2070,6 +2127,17 @@ def main() -> int:
              f"stationary), the ptxas report lists {len(spills)}")
     if any(r[4] for r in os_spills if r[3] == "none"):
         fail("(b) an output-stationary kernel without a shortcut spills")
+    staged_spills = {src: lib_spill_stores(src)
+                     for src in ("spectral_hadamard", "sparse_hadamard")}
+    hadamard_sass = _build.sass_counts("spectral_hadamard",
+                                       "hadamard_tf32_kernel")
+    print(f"    spill stores (bytes): {staged_spills}; spectral_hadamard's "
+          f"SASS: {hadamard_sass}")
+    if any(v != 0 for v in staged_spills.values()):
+        fail(f"(b) a staged library spills (or reported no ptxas lines): "
+             f"{staged_spills}")
+    if hadamard_sass["HMMA"] < 1:
+        fail("(b) the spectral Hadamard's SASS holds no HMMA")
 
     # main-path setup: full VGG16 weights and plan on the card ------------
     gen = torch.Generator().manual_seed(SEED)
@@ -2523,7 +2591,12 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["by"],
             "library_ms": t["library_ms"],
+            "call_ms": t["call_ms"],
         }
+        if src in ("spectral_hadamard.cu", "sparse_hadamard.cu"):
+            row["spill_stores"] = staged_spills[src[:-3]]
+        if src == "spectral_hadamard.cu":
+            row["sass"] = hadamard_sass
         if entry in rstotals:       # also checked at the ResNet-18 layers
             rt = rstotals[entry]
             row["max_abs_err"] = max(t["abs_err"], rt["abs_err"])

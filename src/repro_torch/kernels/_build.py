@@ -14,6 +14,7 @@ per build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -112,6 +113,13 @@ def _finish(started: dict, sources: dict[str, dict[str, int]],
             "seconds": (time.perf_counter() - t0) if job else 0.0,
             "ptxas": ptxas}
         _loaded[name] = ctypes.CDLL(str(lib))
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (queried once)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def sass_counts(name: str, function: str) -> dict:

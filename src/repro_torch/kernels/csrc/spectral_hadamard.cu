@@ -13,312 +13,457 @@
 //   m1 = Wr Xr, m2 = Wi Xi, m3 = (Wr + Wi)(Xr + Xi);
 //   re = m1 - m2, im = (m3 - m1) - m2.
 //
-// Bound on an H100 SXM: 6 F N M P flops at 67 TFLOP/s fp32 against
-// 8 (F N M + F M P + F N P) bytes at 3.35 TB/s.  The staged VGG16 layers at
-// batch 1 (P = T <= 1444 tiles, F = 64 bins, dense K^2 planes) sit near the
-// balance point, about 20 flop/byte: the early layers lean to operations,
-// conv4_x/conv5_x (P = 36 or 9, N = M = 512, 134 MB of planes) to bytes.
+// Bound on an H100 SXM: 6 F N M P flops against 8 (F N M + F M P + F N P)
+// bytes at 3.35 TB/s.  The staged VGG16 layers at batch 1 (P <= 1444 tiles,
+// F = 64 bins, dense K^2 planes) sit near the balance point: the early
+// layers lean to operations, conv4_x/conv5_x (P = 25 or 9, N = M = 512,
+// 134 MB of W planes a layer) to bytes, where W is nearly all of them.
 //
-// Design (fp32 FMA on CUDA cores, no TF32, no library GEMM):
-//  * A CTA of 256 threads computes a 64 (n) x 64 (p) output tile of one
-//    bin, each thread 4 x 4 outputs with three accumulators per output
-//    (m1, m2, m3) in registers.  Operands pass through shared memory in
-//    chunks of 16 channels: W as [k][n] (transposed on the load, rows of 68
-//    floats), X as [k][p], each with its Karatsuba sum plane (Wr + Wi,
-//    Xr + Xi) formed on the load; a thread reads its 4 n and 4 p of a
-//    channel as float4s.  Ragged N, M and P edges are zero-filled on the
-//    load and masked on the store.
+// Design (tensor cores in 3xTF32, a cp.async ring, no library GEMM):
+//  * The three real products run on `mma.sync.m16n8k8` TF32 with f32
+//    accumulation: n rows are the MMA's m, channels its k, tiles its n.
+//    Each f32 operand is split into a TF32 high part and the TF32 rounding
+//    of its remainder (`cvt.rna.tf32.f32` both), and a product is
+//    lo*hi + hi*lo + hi*hi: three MMAs, which keep f32 accuracy (the
+//    dropped lo*lo is ~2^-22 of a product) where one TF32 pass keeps
+//    ~1e-3.  The Karatsuba sum planes (Wr + Wi, Xr + Xi) are formed in f32
+//    in registers from the fragments, then split.  `mma.sync`, not
+//    `wgmma`: wgmma's TF32 B operand must be K-major in shared memory,
+//    and X [F, M, P] is P-major, so it would need a transpose on the load;
+//    mma.sync's fragments are read from shared memory by index.
+//  * A CTA is four warps.  Its output tile follows P: 64 n x 64 p (warps
+//    2 x 2, 32 x 32 each) for P > 32; for P <= 32 a narrow 128 n x BP p
+//    tile (BP = 8, 16 or 32, warps 4 x 1) so that W, which then carries
+//    nearly all of the bytes, streams once with no 64-wide p padding.
+//  * Operands stream through a cp.async ring (16-byte copies where a row
+//    is 16-byte aligned, else 4-byte; ragged N, M and P zero-filled):
+//    three stages of 32 channels (wide) or four of 16 (narrow), so two or
+//    three chunks are in flight while one computes.  W is copied in its
+//    stored [n][m] layout, the MMA's row-major A, with no transpose; X
+//    [m][p] is the MMA's B.  Row pitches (36 / 20 floats for W, BP + 8
+//    for X; 8 at BP 8) make every fragment read conflict-free.
 //  * The three flows keep the reference's meaning of "what stays resident"
 //    while the other operand streams:
-//      output-stationary: CTA = (p tile, n tile, bin), walks all M;
+//      output-stationary: CTA = (p tile, n tile, bin), walks its m range;
 //      weight-stationary: CTA = (n tile, m range, bin) keeps its W block
-//        (64 x RM, three planes, <= 104 KB) in shared memory and walks
-//        every p tile;
+//        (BN x RM, both planes) in shared memory and walks every p tile,
+//        streaming X;
 //      input-stationary:  CTA = (p tile, m range, bin) keeps its X block
-//        (RM x 64, three planes, <= 96 KB) and walks every n tile.
+//        (RM x BP) and walks every n tile, streaming W.
 //  * On the TPU the ws/is grids read-modify-write Y in HBM across an
 //    in-order m axis.  CUDA CTAs run in no order, so each m range g of
 //    RM channels writes its (re, im) tile to slice g of a split-K
-//    workspace [G][2][F][N][P], and a second launch sums the slices in
-//    ascending g (the reference's RMW order).  No atomics: a launch gives
-//    the same bits every time.  With one range (G = 1) the tile goes
+//    workspace [G][2][F][N][P], and a second launch (`sum_slices.cuh`)
+//    sums the slices in ascending g (the reference's RMW order).  No
+//    atomics: a launch gives the same bits every time.  Output-stationary
+//    takes the same split where its grid would not fill the card (the
+//    wrapper's `launch_geometry`).  With one range (G = 1) the tile goes
 //    straight to Y.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "sum_slices.cuh"
 
 namespace {
 
-constexpr int BN = 64, BP = 64;    // output tile: n x p
-constexpr int KC = 16;             // channels per shared-memory chunk
-constexpr int AP = BN + 4;         // row pitch of the [k][n] W stage
-constexpr int NT = 256;            // threads: 16 x 16, 4 x 4 outputs each
-constexpr int RM_MAX = 128;        // widest m range (weight/input-stat.)
+using repro_torch::clamp_bytes;
+using repro_torch::cp_async16;
+using repro_torch::cp_async4;
+using repro_torch::cp_async_commit;
+using repro_torch::cp_async_wait;
+
+constexpr int NT = 128;            // four warps
+constexpr int RM_MAX = 128;        // widest resident m range (ws / is)
+constexpr int SMEM_MAX = 232448;
 enum { OS = 0, WS = 1, IS = 2 };
 
-struct Acc {
-  float m1[4][4], m2[4][4], m3[4][4];
+template <int BN_, int BP_, int BK_, int STAGES_, int WARPS_N_>
+struct Tile {
+  static constexpr int BN = BN_, BP = BP_, BK = BK_, STAGES = STAGES_;
+  static constexpr int WARPS_N = WARPS_N_, WARPS_P = 4 / WARPS_N_;
+  static constexpr int WN = BN / WARPS_N, WP = BP / WARPS_P;
+  static constexpr int MT = WN / 16, PT = WP / 8;  // MMA tiles a warp
+  static constexpr int AP = BK + 4;                // pitch of a W chunk
+  static constexpr int XP = BP == 8 ? 8 : BP + 8;  // pitch of an X row
+  static_assert(MT >= 1 && PT >= 1 && BK % 8 == 0, "tile shape");
 };
+using Wide = Tile<64, 64, 32, 3, 2>;
+template <int BP>
+using Narrow = Tile<128, BP, 16, 4, 4>;
 
-__device__ __forceinline__ void zero(Acc& a) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a.m1[i][j] = a.m2[i][j] = a.m3[i][j] = 0.f;
+// Channels a resident block of RM holds, and its W row pitch (pitch % 32
+// is 4 or 20: conflict-free A fragments).
+template <class T>
+__host__ __device__ inline int resident_k(int RM) {
+  return (RM + T::BK - 1) / T::BK * T::BK;
 }
 
-// W[f][n0 .. n0+63][k0 .. k0+15] (channels >= khi and rows >= N as zeros)
-// into rows row0 .. row0+15 of the [k][AP] stages (re, im, re + im).
-__device__ __forceinline__ void load_w(const float* __restrict__ wr,
-                                       const float* __restrict__ wi,
-                                       long long fo, int N, int M, int n0,
-                                       int k0, int khi, float* sr, float* si,
-                                       float* ss, int row0) {
-  for (int e = threadIdx.x; e < BN * KC; e += NT) {
-    const int n = e / KC, k = e % KC;
-    const int gn = n0 + n, gm = k0 + k;
-    float a = 0.f, b = 0.f;
-    if (gn < N && gm < khi) {
-      const long long i = fo + (long long)gn * M + gm;
-      a = wr[i];
-      b = wi[i];
+template <class T>
+__host__ __device__ inline int smem_floats(int flow, int RM) {
+  const int w_chunk = 2 * T::BN * T::AP, x_chunk = 2 * T::BK * T::XP;
+  if (flow == WS)
+    return 2 * T::BN * (resident_k<T>(RM) + 4) + T::STAGES * x_chunk;
+  if (flow == IS) return 2 * resident_k<T>(RM) * T::XP + T::STAGES * w_chunk;
+  return T::STAGES * (w_chunk + x_chunk);
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo in TF32 (hi the rounding of x, lo of the remainder).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A B in 3xTF32 for the warp's MT x PT MMA tiles.
+template <int MT, int PT>
+__device__ __forceinline__ void mma3(float (&acc)[MT][PT][4],
+                                     const float (&a)[MT][4],
+                                     const float (&b)[PT][2]) {
+  uint32_t ah[MT][4], al[MT][4], bh[PT][2], bl[PT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split(a[i][r], ah[i][r], al[i][r]);
+#pragma unroll
+  for (int j = 0; j < PT; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) split(b[j][r], bh[j][r], bl[j][r]);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < PT; ++j) {
+      mma(acc[i][j], al[i], bh[j]);
+      mma(acc[i][j], ah[i], bl[j]);
+      mma(acc[i][j], ah[i], bh[j]);
     }
-    const int s = (row0 + k) * AP + n;
-    sr[s] = a;
-    si[s] = b;
-    ss[s] = a + b;
-  }
 }
 
-// X[f][k0 .. k0+15][p0 .. p0+63] into rows row0 .. row0+15 of the [k][BP]
-// stages (re, im, re + im).
-__device__ __forceinline__ void load_x(const float* __restrict__ xr,
-                                       const float* __restrict__ xi,
-                                       long long fo, int M, int P, int p0,
-                                       int k0, int khi, float* sr, float* si,
-                                       float* ss, int row0) {
-  for (int e = threadIdx.x; e < KC * BP; e += NT) {
-    const int k = e / BP, p = e % BP;
-    const int gm = k0 + k, gp = p0 + p;
-    float a = 0.f, b = 0.f;
-    if (gm < khi && gp < P) {
-      const long long i = fo + (long long)gm * P + gp;
-      a = xr[i];
-      b = xi[i];
+// Copy W[n0 .. n0+BN)[k0 .. k0+BK) (channels >= khi, rows >= N as zeros)
+// into both planes of a [BN][pitch] block at column `col`.
+template <class T>
+__device__ __forceinline__ void load_w(const float* wr, const float* wi,
+                                       long long wo, int N, int M, int n0,
+                                       int k0, int khi, float* dst, int pitch,
+                                       int col, bool vec) {
+  float* dr = dst + col;
+  float* di = dr + T::BN * pitch;
+  if (vec) {
+    constexpr int C4 = T::BK / 4;
+    for (int e = threadIdx.x; e < T::BN * C4; e += NT) {
+      const int n = e / C4, c = e % C4;
+      const int k = k0 + 4 * c;
+      const int bytes = n0 + n < N ? clamp_bytes(khi - k) : 0;
+      const long long g = wo + (long long)(n0 + n) * M + k;
+      cp_async16(dr + n * pitch + 4 * c, bytes ? wr + g : wr, bytes);
+      cp_async16(di + n * pitch + 4 * c, bytes ? wi + g : wi, bytes);
     }
-    const int s = (row0 + k) * BP + p;
-    sr[s] = a;
-    si[s] = b;
-    ss[s] = a + b;
-  }
-}
-
-// One chunk of KC channels: rows ka.. of the W stages against rows kb.. of
-// the X stages into the thread's 4 x 4 outputs.
-__device__ __forceinline__ void mac(const float* ar, const float* ai,
-                                    const float* as, int ka,
-                                    const float* br, const float* bi,
-                                    const float* bs, int kb, Acc& acc) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int k = 0; k < KC; ++k) {
-    const float4 wr = *reinterpret_cast<const float4*>(
-        &ar[(ka + k) * AP + ty * 4]);
-    const float4 wi = *reinterpret_cast<const float4*>(
-        &ai[(ka + k) * AP + ty * 4]);
-    const float4 ws = *reinterpret_cast<const float4*>(
-        &as[(ka + k) * AP + ty * 4]);
-    const float4 xr = *reinterpret_cast<const float4*>(
-        &br[(kb + k) * BP + tx * 4]);
-    const float4 xi = *reinterpret_cast<const float4*>(
-        &bi[(kb + k) * BP + tx * 4]);
-    const float4 xs = *reinterpret_cast<const float4*>(
-        &bs[(kb + k) * BP + tx * 4]);
-    const float a1[4] = {wr.x, wr.y, wr.z, wr.w};
-    const float a2[4] = {wi.x, wi.y, wi.z, wi.w};
-    const float a3[4] = {ws.x, ws.y, ws.z, ws.w};
-    const float b1[4] = {xr.x, xr.y, xr.z, xr.w};
-    const float b2[4] = {xi.x, xi.y, xi.z, xi.w};
-    const float b3[4] = {xs.x, xs.y, xs.z, xs.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc.m1[i][j] = fmaf(a1[i], b1[j], acc.m1[i][j]);
-        acc.m2[i][j] = fmaf(a2[i], b2[j], acc.m2[i][j]);
-        acc.m3[i][j] = fmaf(a3[i], b3[j], acc.m3[i][j]);
-      }
-  }
-}
-
-// The tile's (re, im) = (m1 - m2, m3 - m1 - m2) at [.., n0.., p0..] of two
-// [N][P] planes starting at offset fo.
-__device__ __forceinline__ void store(const Acc& acc, float* __restrict__ yr,
-                                      float* __restrict__ yi, long long fo,
-                                      int N, int P, int n0, int p0) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + tx * 4 + j;
-      if (p >= P) continue;
-      const long long o = fo + (long long)n * P + p;
-      yr[o] = acc.m1[i][j] - acc.m2[i][j];
-      yi[o] = acc.m3[i][j] - acc.m1[i][j] - acc.m2[i][j];
+  } else {
+    for (int e = threadIdx.x; e < T::BN * T::BK; e += NT) {
+      const int n = e / T::BK, c = e % T::BK;
+      const bool in = n0 + n < N && k0 + c < khi;
+      const long long g = wo + (long long)(n0 + n) * M + k0 + c;
+      cp_async4(dr + n * pitch + c, in ? wr + g : wr, in);
+      cp_async4(di + n * pitch + c, in ? wi + g : wi, in);
     }
   }
 }
 
-// Floats of dynamic shared memory of a flow's CTA for m ranges of RM.
-int smem_floats(int flow, int RM) {
-  const int rk = (RM + KC - 1) / KC * KC;
-  if (flow == WS) return 3 * rk * AP + 3 * KC * BP;
-  if (flow == IS) return 3 * rk * BP + 3 * KC * AP;
-  return 3 * KC * AP + 3 * KC * BP;
+// Copy X[k0 .. k0+BK)[p0 .. p0+BP) into both planes of a [rows][XP] block
+// from row `row`; `plane` floats apart.
+template <class T>
+__device__ __forceinline__ void load_x(const float* xr, const float* xi,
+                                       long long xo, int P, int p0, int k0,
+                                       int khi, float* dst, int plane,
+                                       int row, bool vec) {
+  float* dr = dst + row * T::XP;
+  float* di = dr + plane;
+  if (vec) {
+    constexpr int C4 = T::BP / 4;
+    for (int e = threadIdx.x; e < T::BK * C4; e += NT) {
+      const int k = e / C4, c = e % C4;
+      const int p = p0 + 4 * c;
+      const int bytes = k0 + k < khi && p < P ? clamp_bytes(P - p) : 0;
+      const long long g = xo + (long long)(k0 + k) * P + p;
+      cp_async16(dr + k * T::XP + 4 * c, bytes ? xr + g : xr, bytes);
+      cp_async16(di + k * T::XP + 4 * c, bytes ? xi + g : xi, bytes);
+    }
+  } else {
+    for (int e = threadIdx.x; e < T::BK * T::BP; e += NT) {
+      const int k = e / T::BP, c = e % T::BP;
+      const bool in = k0 + k < khi && p0 + c < P;
+      const long long g = xo + (long long)(k0 + k) * P + p0 + c;
+      cp_async4(dr + k * T::XP + c, in ? xr + g : xr, in);
+      cp_async4(di + k * T::XP + c, in ? xi + g : xi, in);
+    }
+  }
 }
 
-template <int FLOW>
+template <class T, int FLOW>
 __global__ void __launch_bounds__(NT)
-hadamard_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
-                const float* __restrict__ xr, const float* __restrict__ xi,
-                float* __restrict__ yr, float* __restrict__ yi,
-                float* __restrict__ ws, int F, int N, int M, int P, int RM,
-                int G) {
+hadamard_tf32_kernel(const float* __restrict__ wr,
+                     const float* __restrict__ wi,
+                     const float* __restrict__ xr,
+                     const float* __restrict__ xi, float* __restrict__ yr,
+                     float* __restrict__ yi, float* __restrict__ ws, int F,
+                     int N, int M, int P, int RM, int G, int vec_w,
+                     int vec_x) {
+  constexpr int BN = T::BN, BP = T::BP, BK = T::BK, S = T::STAGES;
+  constexpr int MT = T::MT, PT = T::PT, AP = T::AP, XP = T::XP;
   extern __shared__ __align__(16) float smem[];
-  const int f = blockIdx.z;
+  const int f = blockIdx.z % F, g = blockIdx.z / F;
+  const int mlo = g * RM, mhi = min(M, mlo + RM);
+  const int nk = (mhi - mlo + BK - 1) / BK;           // chunks of the range
   const long long wo = (long long)f * N * M, xo = (long long)f * M * P;
   const long long plane = (long long)F * N * P;
   const long long yo = (long long)f * N * P;
-  Acc acc;
-  if constexpr (FLOW == OS) {
-    float *ar = smem, *ai = ar + KC * AP, *as = ai + KC * AP;
-    float *br = as + KC * AP, *bi = br + KC * BP, *bs = bi + KC * BP;
-    const int n0 = blockIdx.y * BN, p0 = blockIdx.x * BP;
-    zero(acc);
-    for (int k0 = 0; k0 < M; k0 += KC) {
-      load_w(wr, wi, wo, N, M, n0, k0, M, ar, ai, as, 0);
-      load_x(xr, xi, xo, M, P, p0, k0, M, br, bi, bs, 0);
-      __syncthreads();
-      mac(ar, ai, as, 0, br, bi, bs, 0, acc);
-      __syncthreads();
-    }
-    store(acc, yr, yi, yo, N, P, n0, p0);
-    return;
-  }
-  // weight- / input-stationary: m range g of RM channels
-  const int g = blockIdx.y;
-  const int mlo = g * RM, mhi = min(M, mlo + RM);
-  const int rk = (mhi - mlo + KC - 1) / KC * KC;
-  float* outr = G > 1 ? ws + (2LL * g) * plane : yr;
+  float* outr = G > 1 ? ws + 2LL * g * plane : yr;
   float* outi = G > 1 ? ws + (2LL * g + 1) * plane : yi;
-  if constexpr (FLOW == WS) {
-    float *ar = smem, *ai = ar + rk * AP, *as = ai + rk * AP;
-    float *br = as + rk * AP, *bi = br + KC * BP, *bs = bi + KC * BP;
-    const int n0 = blockIdx.x * BN;
-    for (int k0 = mlo; k0 < mhi; k0 += KC)
-      load_w(wr, wi, wo, N, M, n0, k0, mhi, ar, ai, as, k0 - mlo);
-    for (int p0 = 0; p0 < P; p0 += BP) {
-      zero(acc);
-      for (int k0 = mlo; k0 < mhi; k0 += KC) {
-        load_x(xr, xi, xo, M, P, p0, k0, mhi, br, bi, bs, 0);
-        __syncthreads();
-        mac(ar, ai, as, k0 - mlo, br, bi, bs, 0, acc);
-        __syncthreads();
+  // the output tiles this CTA walks: its own (os), every p tile (ws) or
+  // every n tile (is)
+  const int walk = FLOW == WS ? (P + BP - 1) / BP
+                   : FLOW == IS ? (N + BN - 1) / BN : 1;
+  const int steps = walk * nk;
+  const int rk = resident_k<T>(RM);
+  const int rp = rk + 4;                              // resident W pitch
+  // shared memory: the resident block (ws: W [2][BN][rp], is: X
+  // [2][rk][XP]) and then the ring
+  float* res = smem;
+  float* ring = smem + (FLOW == WS ? 2 * BN * rp : FLOW == IS ? 2 * rk * XP
+                                                              : 0);
+  constexpr int w_chunk = 2 * BN * AP, x_chunk = 2 * BK * XP;
+  constexpr int slot = FLOW == WS ? x_chunk : FLOW == IS ? w_chunk
+                                                         : w_chunk + x_chunk;
+  auto tile_n0 = [&](int tile) {
+    return FLOW == WS ? (int)blockIdx.x * BN
+                      : FLOW == IS ? tile * BN : (int)blockIdx.y * BN;
+  };
+  auto tile_p0 = [&](int tile) {
+    return FLOW == WS ? tile * BP : (int)blockIdx.x * BP;
+  };
+  // start the copies of step s (tile s / nk, chunk s % nk) into its slot
+  auto fetch = [&](int s) {
+    const int tile = s / nk, c = s % nk;
+    const int k0 = mlo + c * BK;
+    float* dst = ring + (s % S) * slot;
+    if (FLOW != WS)
+      load_w<T>(wr, wi, wo, N, M, tile_n0(tile), k0, mhi, dst, AP, 0, vec_w);
+    if (FLOW != IS)
+      load_x<T>(xr, xi, xo, P, tile_p0(tile), k0, mhi,
+                dst + (FLOW == OS ? w_chunk : 0), BK * XP, 0, vec_x);
+  };
+  if (FLOW == WS)
+    for (int c = 0; c < nk; ++c)
+      load_w<T>(wr, wi, wo, N, M, (int)blockIdx.x * BN, mlo + c * BK, mhi, res,
+                rp, c * BK, vec_w);
+  if (FLOW == IS)
+    for (int c = 0; c < nk; ++c)
+      load_x<T>(xr, xi, xo, P, (int)blockIdx.x * BP, mlo + c * BK, mhi, res,
+                rk * XP, c * BK, vec_x);
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < steps) fetch(s);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wn = warp / T::WARPS_P, wp = warp % T::WARPS_P;
+  const int gq = lane / 4, tq = lane % 4;
+  float m1[MT][PT][4], m2[MT][PT][4], m3[MT][PT][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < PT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) m1[i][j][r] = m2[i][j][r] = m3[i][j][r] = 0.f;
+  };
+  zero();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();               // step s has landed; slot s - 1 is free
+    if (s + S - 1 < steps) fetch(s + S - 1);
+    cp_async_commit();
+    const int tile = s / nk, c = s % nk;
+    const float* sl = ring + (s % S) * slot;
+    // A (W) [BN][pa] from column ca; B (X) [..][XP] from row cb
+    const float* a_r = FLOW == WS ? res : sl;
+    const int pa = FLOW == WS ? rp : AP, ca = FLOW == WS ? c * BK : 0;
+    const int pla = BN * pa;
+    const float* b_r = FLOW == IS ? res : sl + (FLOW == OS ? w_chunk : 0);
+    const int cb = FLOW == IS ? c * BK : 0;
+    const int plb = FLOW == IS ? rk * XP : BK * XP;
+    const int k8 = (min(BK, mhi - mlo - c * BK) + 7) / 8;
+    for (int kk = 0; kk < k8; ++kk) {
+      float ar[MT][4], ai[MT][4], br[PT][2], bi[PT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int o = (wn * T::WN + i * 16 + gq) * pa + ca + kk * 8 + tq;
+        const int o2[4] = {o, o + 8 * pa, o + 4, o + 8 * pa + 4};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ar[i][r] = a_r[o2[r]];
+          ai[i][r] = a_r[pla + o2[r]];
+        }
       }
-      store(acc, outr, outi, yo, N, P, n0, p0);
-    }
-  } else {
-    float *br = smem, *bi = br + rk * BP, *bs = bi + rk * BP;
-    float *ar = bs + rk * BP, *ai = ar + KC * AP, *as = ai + KC * AP;
-    const int p0 = blockIdx.x * BP;
-    for (int k0 = mlo; k0 < mhi; k0 += KC)
-      load_x(xr, xi, xo, M, P, p0, k0, mhi, br, bi, bs, k0 - mlo);
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      zero(acc);
-      for (int k0 = mlo; k0 < mhi; k0 += KC) {
-        load_w(wr, wi, wo, N, M, n0, k0, mhi, ar, ai, as, 0);
-        __syncthreads();
-        mac(ar, ai, as, 0, br, bi, bs, k0 - mlo, acc);
-        __syncthreads();
+#pragma unroll
+      for (int j = 0; j < PT; ++j) {
+        const int o = (cb + kk * 8 + tq) * XP + wp * T::WP + j * 8 + gq;
+        br[j][0] = b_r[o];
+        br[j][1] = b_r[o + 4 * XP];
+        bi[j][0] = b_r[plb + o];
+        bi[j][1] = b_r[plb + o + 4 * XP];
       }
-      store(acc, outr, outi, yo, N, P, n0, p0);
+      mma3<MT, PT>(m1, ar, br);
+      mma3<MT, PT>(m2, ai, bi);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ar[i][r] += ai[i][r];
+#pragma unroll
+      for (int j = 0; j < PT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) br[j][r] += bi[j][r];
+      mma3<MT, PT>(m3, ar, br);
     }
+    if (c != nk - 1) continue;
+    // the tile's (re, im) = (m1 - m2, (m3 - m1) - m2)
+    const int n0 = tile_n0(tile), p0 = tile_p0(tile);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < PT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // rows gq, gq + 8: two p each
+          const int n = n0 + wn * T::WN + i * 16 + gq + 8 * h;
+          const int p = p0 + wp * T::WP + j * 8 + 2 * tq;
+          if (n >= N || p >= P) continue;
+          const long long o = yo + (long long)n * P + p;
+          float re[2], im[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 2 * h + c;
+            re[c] = m1[i][j][r] - m2[i][j][r];
+            im[c] = m3[i][j][r] - m1[i][j][r] - m2[i][j][r];
+          }
+          if (P % 2 == 0) {             // p even: an aligned pair
+            *reinterpret_cast<float2*>(outr + o) = make_float2(re[0], re[1]);
+            *reinterpret_cast<float2*>(outi + o) = make_float2(im[0], im[1]);
+          } else {
+            outr[o] = re[0];
+            outi[o] = im[0];
+            if (p + 1 < P) {
+              outr[o + 1] = re[1];
+              outi[o + 1] = im[1];
+            }
+          }
+        }
+    zero();
   }
 }
 
-// Split-K finish: Y = sum over g ascending of the workspace slices.
-__global__ void __launch_bounds__(256)
-finish_kernel(const float* __restrict__ ws, float* __restrict__ yr,
-              float* __restrict__ yi, long long plane, int G) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < plane; i += (long long)gridDim.x * blockDim.x) {
-    float re = ws[i], im = ws[plane + i];
-    for (int g = 1; g < G; ++g) {
-      re += ws[2LL * g * plane + i];
-      im += ws[(2LL * g + 1) * plane + i];
-    }
-    yr[i] = re;
-    yi[i] = im;
-  }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <class T, int FLOW>
+int launch_tile(const float* wr, const float* wi, const float* xr,
+                const float* xi, float* yr, float* yi, float* ws, int F,
+                int N, int M, int P, int RM, int G, cudaStream_t stream) {
+  const int bytes = 4 * smem_floats<T>(FLOW, RM);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      hadamard_tf32_kernel<T, FLOW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_w = M % 4 == 0 && aligned16(wr) && aligned16(wi);
+  const int vec_x = P % 4 == 0 && aligned16(xr) && aligned16(xi);
+  const unsigned pb = (P + T::BP - 1) / T::BP, nb = (N + T::BN - 1) / T::BN;
+  const dim3 grid(FLOW == WS ? nb : pb, FLOW == OS ? nb : 1, F * G);
+  hadamard_tf32_kernel<T, FLOW><<<grid, NT, bytes, stream>>>(
+      wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM, G, vec_w, vec_x);
+  return (int)cudaGetLastError();
 }
 
 template <int FLOW>
 int launch(const float* wr, const float* wi, const float* xr, const float* xi,
            float* yr, float* yi, float* ws, int F, int N, int M, int P,
-           int RM, cudaStream_t stream) {
-  if (F < 1 || N < 1 || M < 1 || P < 1 || F > 65535)
+           int RM, int BP, cudaStream_t stream) {
+  if (F < 1 || N < 1 || M < 1 || P < 1 || RM < 1)
     return (int)cudaErrorInvalidValue;
-  if (FLOW != OS && (RM < 1 || RM > RM_MAX || RM % KC))
-    return (int)cudaErrorInvalidValue;
-  const int G = FLOW == OS ? 1 : (M + RM - 1) / RM;
-  if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const int bytes = 4 * smem_floats(FLOW, FLOW == OS ? KC : RM < M ? RM : M);
-  cudaError_t err = cudaFuncSetAttribute(
-      hadamard_kernel<FLOW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned pb = (P + BP - 1) / BP, nb = (N + BN - 1) / BN;
-  dim3 grid(FLOW == WS ? nb : pb, FLOW == OS ? nb : G, F);
-  hadamard_kernel<FLOW><<<grid, NT, bytes, stream>>>(
-      wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM, G);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || G == 1) return (int)err;
-  const long long plane = (long long)F * N * P;
-  long long blocks = (plane + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  finish_kernel<<<(unsigned)blocks, 256, 0, stream>>>(ws, yr, yi, plane, G);
-  return (int)cudaGetLastError();
+  if (FLOW != OS && (RM > RM_MAX || RM % 16)) return (int)cudaErrorInvalidValue;
+  const int G = (M + RM - 1) / RM;
+  if (G > 1 && (ws == nullptr || RM % 4)) return (int)cudaErrorInvalidValue;
+  if ((long long)F * G > 65535) return (int)cudaErrorInvalidValue;
+  if (RM > M) RM = M;              // one range: size the block to M
+  int err;
+  switch (BP) {
+    case 8:
+      err = launch_tile<Narrow<8>, FLOW>(wr, wi, xr, xi, yr, yi, ws, F, N, M,
+                                         P, RM, G, stream);
+      break;
+    case 16:
+      err = launch_tile<Narrow<16>, FLOW>(wr, wi, xr, xi, yr, yi, ws, F, N,
+                                          M, P, RM, G, stream);
+      break;
+    case 32:
+      err = launch_tile<Narrow<32>, FLOW>(wr, wi, xr, xi, yr, yi, ws, F, N,
+                                          M, P, RM, G, stream);
+      break;
+    case 64:
+      err = launch_tile<Wide, FLOW>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P,
+                                    RM, G, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || G == 1) return err;
+  return (int)repro_torch::launch_sum_slices(ws, yr, yi, (long long)F * N * P,
+                                             G, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Output-stationary.  The caller checks shapes, devices and layouts.
+// The three flows, each over m ranges of RM channels (ws / is: a multiple
+// of 16, at most 128; os: a multiple of 4, or M) with an output tile BP p
+// wide (8, 16, 32: 128 n rows; 64: 64 n rows); with G = ceil(M / RM) > 1
+// ranges, ws is a workspace of G * 2 * F * N * P floats.  The caller checks
+// shapes, devices and layouts.
 int spectral_hadamard_f32(const float* wr, const float* wi, const float* xr,
-                          const float* xi, float* yr, float* yi, int F, int N,
-                          int M, int P, void* stream) {
-  return launch<OS>(wr, wi, xr, xi, yr, yi, nullptr, F, N, M, P, 0,
+                          const float* xi, float* yr, float* yi, float* ws,
+                          int F, int N, int M, int P, int RM, int BP,
+                          void* stream) {
+  return launch<OS>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM, BP,
                     (cudaStream_t)stream);
 }
 
-// Weight- / input-stationary over m ranges of RM channels (a multiple of
-// 16, at most 128); with G = ceil(M / RM) > 1 ranges, ws is a workspace of
-// G * 2 * F * N * P floats.
 int spectral_hadamard_ws_f32(const float* wr, const float* wi,
                              const float* xr, const float* xi, float* yr,
                              float* yi, float* ws, int F, int N, int M, int P,
-                             int RM, void* stream) {
-  return launch<WS>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM,
+                             int RM, int BP, void* stream) {
+  return launch<WS>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM, BP,
                     (cudaStream_t)stream);
 }
 
 int spectral_hadamard_is_f32(const float* wr, const float* wi,
                              const float* xr, const float* xi, float* yr,
                              float* yi, float* ws, int F, int N, int M, int P,
-                             int RM, void* stream) {
-  return launch<IS>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM,
+                             int RM, int BP, void* stream) {
+  return launch<IS>(wr, wi, xr, xi, yr, yi, ws, F, N, M, P, RM, BP,
                     (cudaStream_t)stream);
 }
 

@@ -25,11 +25,18 @@ the direct Fig-6 datapath for a spectral input given from outside
 (``csrc/sparse_hadamard.cu``), with its plain PyTorch version beside it:
 the wrapper runs the plain version for CPU tensors, and the tests and
 the on-card smoke run hold the kernel to it.
+
+The kernel splits the channels into ranges over CTAs (a split-K sum,
+finished in ascending range order by a second launch);
+``launch_geometry`` chooses the CTA shape and the ranges per launch, and
+the plain version takes the same split (``range_m``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,8 +47,43 @@ from repro_torch.kernels.fused_spectral_conv import SMEM_PER_CTA
 
 SOURCES = {"sparse_hadamard": {}}
 
-# Kernel launches, counted where the kernel is launched.
+# Kernel launches, counted where the kernel is launched (a split-K finish
+# pass belongs to its launch).
 LAUNCHES = {"scheduled_sparse_hadamard": 0}
+
+# The kernel's CTA: ``LANES`` consumer warps, warp w one PE lane and its 32
+# threads ``TILES`` tiles, plus producer warps (one CTA fits an SM); the
+# grid aims at one CTA for each SM.
+TILES, LANES = 32, 8
+
+
+class Geometry(NamedTuple):
+    """One launch of the table executor: CTAs of ``lanes`` PE lanes x
+    ``tiles`` tiles in a grid of ``tile_blocks`` x ``lane_blocks`` x
+    ``ranges``, range g summing channels [g * range_m, (g + 1) * range_m);
+    a split-K workspace of ``workspace`` floats ([ranges, 2, N', F, P]; 0
+    for one range)."""
+    lanes: int
+    tiles: int
+    tile_blocks: int
+    lane_blocks: int
+    ranges: int
+    range_m: int
+    workspace: int
+
+
+def launch_geometry(n_pe: int, m: int, f: int, p: int,
+                    sms: int) -> Geometry:
+    """The kernel's launch for a group of ``n_pe`` lanes, ``m`` channels,
+    ``f`` bins and ``p`` tiles: CTAs of 8 lanes x 32 tiles, then as many
+    channel ranges (at most M) as bring the grid to one CTA for each of
+    ``sms`` SMs."""
+    tile_blocks, lane_blocks = -(-p // TILES), -(-n_pe // LANES)
+    g = min(m, max(1, -(-sms // (tile_blocks * lane_blocks))))
+    range_m = -(-m // g)
+    g = -(-m // range_m)
+    return Geometry(LANES, TILES, tile_blocks, lane_blocks, g, range_m,
+                    g * 2 * n_pe * f * p if g > 1 else 0)
 
 
 def stack_tables(tables: list[ScheduleTables]) -> tuple[torch.Tensor, ...]:
@@ -66,37 +108,47 @@ def stack_tables(tables: list[ScheduleTables]) -> tuple[torch.Tensor, ...]:
 
 
 def scheduled_sparse_hadamard_reference(idx, sel, valid, val_r, val_i,
-                                        out_index, xr, xi
+                                        out_index, xr, xi, *,
+                                        range_m: int | None = None
                                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``scheduled_sparse_hadamard``: per channel, every
     cycle at once: gather the replica bins each lane reads
     (``idx[t, sel[t, n]]``), the masked complex MAC, and one
     ``index_add_`` into the [N' * F, P] psum in (cycle, lane) order, so
-    every psum sees its adds in channel, then cycle order."""
+    every psum sees its adds in channel, then cycle order.  With
+    ``range_m`` (the kernel's split, ``launch_geometry``) the channels
+    are summed in ranges of ``range_m`` and the ranges' sums added in
+    ascending order; by default in one range."""
     m = idx.shape[0]
     n_pe = sel.shape[2]
     f, p = xr.shape[1], xr.shape[2]
-    acc_r = xr.new_zeros((n_pe * f, p))
-    acc_i = xr.new_zeros((n_pe * f, p))
     lanes = torch.arange(n_pe, device=xr.device) * f
-    for c in range(m):
-        bins = torch.gather(idx[c].long(), 1, sel[c].long())      # [T, N']
-        in_r, in_i = xr[c][bins], xi[c][bins]                     # [T, N', P]
-        v = valid[c][..., None]
-        w_r, w_i = val_r[c][..., None], val_i[c][..., None]
-        dst = (lanes + out_index[c].long()).reshape(-1)
-        pr = v * (w_r * in_r - w_i * in_i)
-        pi = v * (w_r * in_i + w_i * in_r)
-        acc_r.index_add_(0, dst, pr.reshape(-1, p))
-        acc_i.index_add_(0, dst, pi.reshape(-1, p))
-    return acc_r.reshape(n_pe, f, p), acc_i.reshape(n_pe, f, p)
+    step = m if range_m is None else range_m
+    y_r = y_i = None
+    for lo in range(0, m, step):
+        acc_r = xr.new_zeros((n_pe * f, p))
+        acc_i = xr.new_zeros((n_pe * f, p))
+        for c in range(lo, min(lo + step, m)):
+            bins = torch.gather(idx[c].long(), 1, sel[c].long())  # [T, N']
+            in_r, in_i = xr[c][bins], xi[c][bins]                 # [T, N', P]
+            v = valid[c][..., None]
+            w_r, w_i = val_r[c][..., None], val_i[c][..., None]
+            dst = (lanes + out_index[c].long()).reshape(-1)
+            pr = v * (w_r * in_r - w_i * in_i)
+            pi = v * (w_r * in_i + w_i * in_r)
+            acc_r.index_add_(0, dst, pr.reshape(-1, p))
+            acc_i.index_add_(0, dst, pi.reshape(-1, p))
+        y_r = acc_r if y_r is None else y_r + acc_r
+        y_i = acc_i if y_i is None else y_i + acc_i
+    return y_r.reshape(n_pe, f, p), y_i.reshape(n_pe, f, p)
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
     """The table executor's library (built at first use)."""
     lib = _build.build(SOURCES)["sparse_hadamard"]
     fn = lib.scheduled_sparse_hadamard_f32
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.sparse_hadamard_smem_bytes.argtypes = [ctypes.c_int] * 3
@@ -140,9 +192,11 @@ def scheduled_sparse_hadamard(idx, sel, valid, val_r, val_i, out_index, xr,
     scheduler builds them.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (a
-    group the kernel takes, with F and r small enough for its accumulator
+    group the kernel takes: F, r and T small enough for its accumulators
     and table ring to fit a CTA's shared memory, as the library's
-    ``sparse_hadamard_smem_bytes`` reckons it) or raise.
+    ``sparse_hadamard_smem_bytes`` reckons it; the geometry of
+    ``launch_geometry``, plus the split-K finish pass with more than one
+    channel range) or raise.
     """
     _check(dict(idx=idx, sel=sel, valid=valid, val_r=val_r, val_i=val_i,
                 out_index=out_index, xr=xr, xi=xi))
@@ -160,18 +214,23 @@ def scheduled_sparse_hadamard(idx, sel, valid, val_r, val_i, out_index, xr,
         if min(m, t, r, n_pe, f, p) == 0:
             return yr.zero_(), yi.zero_()
         lib = library()
-        need = lib.sparse_hadamard_smem_bytes(n_pe, f, r)
-        if need < 0:
-            raise ValueError(f"the kernel takes no group of {n_pe} lanes")
+        geo = launch_geometry(n_pe, m, f, p, _build.sm_count(xr.device))
+        if any(a.data_ptr() % 16 for a in (idx, xr, xi)):
+            raise ValueError("idx, xr and xi must be 16-byte aligned (the "
+                             "kernel stages them in 16-byte copies)")
+        need = lib.sparse_hadamard_smem_bytes(f, r, t)
         if need > SMEM_PER_CTA:
-            raise ValueError(f"{n_pe} lanes x {f} bins x {r} replicas need "
-                             f"{need} bytes of shared memory, over the "
-                             f"{SMEM_PER_CTA} of a CTA")
+            raise ValueError(f"{f} bins x {r} replicas need {need} bytes of "
+                             f"shared memory, over the {SMEM_PER_CTA} of a "
+                             f"CTA")
+        ws = (torch.empty(geo.workspace, dtype=torch.float32,
+                          device=xr.device) if geo.workspace else None)
         err = lib.scheduled_sparse_hadamard_f32(
             idx.data_ptr(), sel.data_ptr(), valid.data_ptr(),
             val_r.data_ptr(), val_i.data_ptr(), out_index.data_ptr(),
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), m, t,
-            r, n_pe, f, p, torch.cuda.current_stream().cuda_stream)
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            0 if ws is None else ws.data_ptr(), m, t, r, n_pe, f, p,
+            geo.range_m, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"scheduled_sparse_hadamard launch failed: "
                                f"cudaError {err}")

@@ -15,16 +15,21 @@ channels and walks every tile; 'input_stationary' keeps an X block and
 walks every output-channel block.  The latter two sum their m ranges'
 partials in ascending order (the reference's read-modify-write order).
 
-One hand-written CUDA kernel per flow (``csrc/spectral_hadamard.cu``;
-the ws/is ranges go through a split-K workspace and a finish pass), with
-its plain PyTorch version beside it: the wrapper runs the plain version
-for CPU tensors, and the tests and the on-card smoke run hold the kernel
-to it.
+One hand-written CUDA kernel per flow (``csrc/spectral_hadamard.cu``: the
+real products on the tensor cores in 3xTF32, operands through a cp.async
+ring; the ws/is ranges go through a split-K workspace and a finish pass,
+as does an output-stationary launch whose grid would not fill the card),
+with its plain PyTorch version beside it: the wrapper runs the plain
+version for CPU tensors, and the tests and the on-card smoke run hold the
+kernel to it.  ``launch_geometry`` chooses the output tile and the m
+ranges of a launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,9 +47,47 @@ BLOCK_M_CHUNK, BLOCK_M_MAX = 16, 128
 
 ENTRY_POINTS = {OS: "spectral_hadamard", WS: "spectral_hadamard_ws",
                 IS: "spectral_hadamard_is"}
-# Kernel launches per entry point (a ws/is finish pass belongs to its
+# Kernel launches per entry point (a split-K finish pass belongs to its
 # launch), counted where the kernel is launched.
 LAUNCHES = dict.fromkeys(ENTRY_POINTS.values(), 0)
+
+# Output-stationary splits M over CTAs when its grid is under one CTA an SM:
+# into ranges of whole 16-channel chunks, up to two CTAs an SM.
+OS_SPLIT_CTAS_PER_SM = 2
+
+
+class Geometry(NamedTuple):
+    """One launch: an output tile of ``tile_n`` x ``tile_p``, m ranges of
+    ``range_m`` channels (``ranges`` of them; more than one goes through a
+    split-K workspace of ``workspace`` floats, [ranges, 2, F, N, P])."""
+    tile_n: int
+    tile_p: int
+    ranges: int
+    range_m: int
+    workspace: int
+
+
+def launch_geometry(flow: str, f: int, n: int, m: int, p: int,
+                    block_m: int, sms: int) -> Geometry:
+    """The kernel's tile and m ranges for a flow at [F, N, M] x [F, M, P]:
+    the narrowest p tile of 8, 16 or 32 that covers P, with 128 n rows
+    (W, which then carries the bytes, streams once), else 64 x 64; ws/is
+    ranges of ``block_m``; output-stationary one range, or, where
+    F x n tiles x p tiles is under ``sms``, enough 16-channel-aligned
+    ranges to bring the grid to two CTAs an SM."""
+    tile_p = next((w for w in (8, 16, 32) if p <= w), 64)
+    tile_n = 64 if tile_p == 64 else 128
+    if flow != OS:
+        range_m = block_m
+    else:
+        base = f * -(-n // tile_n) * -(-p // tile_p)
+        g = 1 if base >= sms else min(
+            -(-OS_SPLIT_CTAS_PER_SM * sms // base), -(-m // BLOCK_M_CHUNK))
+        range_m = m if g == 1 else BLOCK_M_CHUNK * -(-m // (
+            BLOCK_M_CHUNK * g))
+    g = -(-m // range_m)
+    return Geometry(tile_n, tile_p, g, range_m, g * 2 * f * n * p
+                    if g > 1 else 0)
 
 
 def _karatsuba(wr, wi, xr, xi) -> torch.Tensor:
@@ -76,18 +119,15 @@ def spectral_hadamard_reference(wr, wi, xr, xi, *, flow: str = OS,
     return y[0], y[1]
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
     """The spectral Hadamard kernels' library (built at first use)."""
     lib = _build.build(SOURCES)["spectral_hadamard"]
-    lib.spectral_hadamard_f32.argtypes = ([ctypes.c_void_p] * 6
-                                          + [ctypes.c_int] * 4
-                                          + [ctypes.c_void_p])
-    for flow in (WS, IS):
-        fn = getattr(lib, ENTRY_POINTS[flow] + "_f32")
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
     for name in ENTRY_POINTS.values():
-        getattr(lib, name + "_f32").restype = ctypes.c_int
+        fn = getattr(lib, name + "_f32")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -122,8 +162,8 @@ def spectral_hadamard(wr, wi, xr, xi, *, flow: str = OS,
     multiple of 16, at most 128).  Returns (yr, yi): [F, N, P] f32.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel of
-    the flow (plus its split-K finish pass when there is more than one m
-    range) or raise.
+    the flow (``launch_geometry``'s tile and m ranges, plus its split-K
+    finish pass when there is more than one range) or raise.
     """
     if flow not in FLOWS:
         raise ValueError(f"flow must be one of {FLOWS}, got {flow!r}")
@@ -147,17 +187,14 @@ def spectral_hadamard(wr, wi, xr, xi, *, flow: str = OS,
         if min(f, n, m, p) == 0:
             return yr.zero_(), yi.zero_()
         fn = getattr(library(), name + "_f32")
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (wr.data_ptr(), wi.data_ptr(), xr.data_ptr(), xi.data_ptr(),
-                yr.data_ptr(), yi.data_ptr())
-        if flow == OS:
-            err = fn(*ptrs, f, n, m, p, stream)
-        else:
-            g = -(-m // block_m)
-            ws = (torch.empty(g * 2 * f * n * p, dtype=torch.float32,
-                              device=wr.device) if g > 1 else None)
-            err = fn(*ptrs, 0 if ws is None else ws.data_ptr(), f, n, m, p,
-                     block_m, stream)
+        geo = launch_geometry(flow, f, n, m, p, block_m,
+                              _build.sm_count(wr.device))
+        ws = (torch.empty(geo.workspace, dtype=torch.float32,
+                          device=wr.device) if geo.workspace else None)
+        err = fn(wr.data_ptr(), wi.data_ptr(), xr.data_ptr(), xi.data_ptr(),
+                 yr.data_ptr(), yi.data_ptr(),
+                 0 if ws is None else ws.data_ptr(), f, n, m, p, geo.range_m,
+                 geo.tile_p, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {err}")
         LAUNCHES[name] += 1

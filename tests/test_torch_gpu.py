@@ -817,6 +817,66 @@ def test_table_executor_matches_plain_on_card(n_pe, m, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,p", [(512, 9), (64, 1444)])
+def test_table_executor_at_vgg16_shapes_on_card(m, p):
+    """The executor at VGG16's deep shape (64 lanes, 512 channels, 9
+    tiles: 32 channel ranges through the split-K finish) and at conv1_2's
+    (64 channels, 1444 tiles: one range, 91 tile blocks): against the
+    plain version summed in the kernel's ranges, bitwise on repeat."""
+    need_card()
+    rng = np.random.default_rng(m + p)
+    w = torch.from_numpy(rng.standard_normal((64, m, 3, 3)).astype(
+        np.float32))
+    sk = sp.prune_magnitude(spec.spectral_kernel(w, 8), 4.0)
+    packed, _ = kops.group_tables(sk.values, sk.indices, r=10)
+    packed = [a.cuda() for a in packed]
+    xr, xi = (torch.randn(m, 64, p, device="cuda") for _ in range(2))
+    geo = sh.launch_geometry(64, m, 64, p, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert (geo.ranges > 1) == (m == 512)
+    before = dict(sh.LAUNCHES)
+    yr, yi = sh.scheduled_sparse_hadamard(*packed, xr, xi)
+    torch.cuda.synchronize()
+    assert _launched(sh.LAUNCHES, before) == {"scheduled_sparse_hadamard": 1}
+    rr, ri = sh.scheduled_sparse_hadamard_reference(*packed, xr, xi,
+                                                    range_m=geo.range_m)
+    for got, ref in ((yr, rr), (yi, ri)):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= TOL
+    again = sh.scheduled_sparse_hadamard(*packed, xr, xi)
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flow", ["output_stationary", "weight_stationary",
+                                  "input_stationary"])
+@pytest.mark.parametrize("f,n,m,p", [(64, 512, 512, 9), (64, 64, 64, 1444)])
+def test_spectral_hadamard_at_vgg16_shapes_on_card(f, n, m, p, flow):
+    """Each flow at conv5's shape (the narrow 128 x 16 tile, W streamed)
+    and conv1_2's (64 x 64 tiles, 23 of them): within 1e-5 of the plain
+    f32 Karatsuba (3xTF32 keeps f32 accuracy), bitwise on repeat."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(n + p)
+    ops = [torch.randn(s, generator=gen, device="cuda")
+           for s in ((f, n, m), (f, n, m), (f, m, p), (f, m, p))]
+    yr, yi = shad.spectral_hadamard(*ops, flow=flow)
+    rr, ri = shad.spectral_hadamard_reference(*ops, flow=flow)
+    for got, ref in ((yr, rr), (yi, ri)):
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    again = shad.spectral_hadamard(*ops, flow=flow)
+    assert torch.equal(again[0], yr) and torch.equal(again[1], yi)
+
+
+@pytest.mark.gpu
+def test_spectral_hadamard_runs_on_the_tensor_cores():
+    """The spectral Hadamard's SASS (``cuobjdump -sass`` of its library)
+    holds tensor-core products (HMMA: the 3xTF32 mma.sync)."""
+    need_card()
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts("spectral_hadamard", "hadamard_tf32_kernel")
+    assert counts["HMMA"] > 0, counts
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model", ["vgg16", "resnet18"])
 def test_staged_smoke_forward_on_card(model):
     """SMOKE through the staged backend: three launches per conv node

@@ -149,3 +149,58 @@ def test_executor_arguments_checked():
             np.ones((4, 2, 8, 8), np.complex64),
             np.tile(np.arange(64), (4, 2, 1)).astype(np.int32),
             torch.zeros(2, 2, 3, 8, 8, dtype=torch.complex64))
+
+
+# --- the kernel's channel split (split-K over CTAs) --------------------------
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, "M"])
+def test_range_split_plain_matches_reference_kernel(ranges):
+    """The plain version summed as the kernel sums it (``range_m``: each
+    range in (channel, cycle) order, then the ranges in ascending order)
+    against the reference's Pallas table kernel on one 64-lane group's
+    tables at alpha 4, r = 10, for 1, 2, 3 and M ranges."""
+    rng = np.random.default_rng(11)
+    m, p = 5, 9
+    w = rng.standard_normal((64, m, 3, 3)).astype(np.float32)
+    sk = sp.prune_magnitude(spec.spectral_kernel(torch.from_numpy(w), 8), 4.)
+    packed, _ = ops.group_tables(sk.values, sk.indices, r=10)
+    x = rng.standard_normal((2, m, 64, p)).astype(np.float32)
+    jr, ji = jsh.scheduled_sparse_hadamard(
+        *(jnp.asarray(a.numpy()) for a in packed), jnp.asarray(x[0]),
+        jnp.asarray(x[1]))
+    g = m if ranges == "M" else ranges
+    yr, yi = sh.scheduled_sparse_hadamard_reference(
+        *packed, torch.from_numpy(x[0]), torch.from_numpy(x[1]),
+        range_m=-(-m // g))
+    assert_rel(yr, jr)
+    assert_rel(yi, ji)
+    if g == 1:      # one range is the default order, bit for bit
+        dr, di = sh.scheduled_sparse_hadamard_reference(
+            *packed, torch.from_numpy(x[0]), torch.from_numpy(x[1]))
+        assert torch.equal(dr, yr) and torch.equal(di, yi)
+
+
+@pytest.mark.parametrize("n_pe,m,p,sms", [
+    (64, 512, 9, 132), (64, 512, 25, 132), (64, 256, 100, 132),
+    (64, 64, 1444, 132), (64, 3, 1444, 132), (20, 3, 4, 132),
+    (64, 1, 1, 132), (64, 7, 37, 132), (13, 100, 70, 8)])
+def test_launch_geometry_covers_every_channel_once(n_pe, m, p, sms):
+    """``launch_geometry``: the channel ranges cover [0, M) exactly once in
+    ascending order, there are at most M of them, the tile and lane
+    blocks cover P and N', the grid reaches an SM count where there are
+    channels enough, and the workspace is [ranges, 2, N', F, P] (none for
+    one range), the size the wrapper allocates."""
+    f = 64
+    geo = sh.launch_geometry(n_pe, m, f, p, sms)
+    bounds = [(lo, min(lo + geo.range_m, m))
+              for lo in range(0, m, geo.range_m)]
+    assert len(bounds) == geo.ranges <= m
+    assert [c for lo, hi in bounds for c in range(lo, hi)] == list(range(m))
+    assert all(hi > lo for lo, hi in bounds)
+    assert geo.tile_blocks * geo.tiles >= p > (geo.tile_blocks - 1) * \
+        geo.tiles
+    assert geo.lane_blocks * geo.lanes >= n_pe
+    ctas = geo.tile_blocks * geo.lane_blocks * geo.ranges
+    assert ctas >= min(sms, geo.tile_blocks * geo.lane_blocks * m)
+    want = geo.ranges * 2 * n_pe * f * p if geo.ranges > 1 else 0
+    assert geo.workspace == want

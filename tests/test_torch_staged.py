@@ -265,3 +265,96 @@ def test_staged_shortcut_falls_back_where_it_does_not_fit():
     lp = dataclasses.replace(lp, tuning=dataclasses.replace(
         lp.tuning, residual="hbm"))
     assert fsc.placement_at_batch(lp, 4, at.H100_SMS) == "hbm"
+
+
+# --- B7b's 3xTF32 products and launch geometry -------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the nearest
+    10-bit mantissa, ties away from zero (the low 13 bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """A B from TF32 parts, as the kernel's MMAs form it: a = ah + al, b =
+    bh + bl, al / bl the TF32 rounding of the remainders; three passes
+    al bh + ah bl + ah bh, or one (ah bh).  The parts' products are exact
+    (11-bit mantissas) and are summed in float64 here, so that what is
+    measured is the split, not an order of f32 additions."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    mm = lambda u, v: torch.bmm(u.double(), v.double())  # noqa: E731
+    if passes == 1:
+        return mm(ah, bh)
+    return mm(al, bh) + mm(ah, bl) + mm(ah, bh)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """``_tf32`` keeps 10 mantissa bits, rounds to nearest, ties away."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+
+
+def test_3xtf32_karatsuba_matches_f32_at_conv5():
+    """At VGG16's conv5 shape (F 64, N = M = 512, P 9, uncut) the
+    Karatsuba product with each real product in three TF32 passes (the
+    kernel's split) is within 1e-6 of the exact (float64) product,
+    relative to its largest value, and no farther from it than the plain
+    f32 Karatsuba is (the two differ from each other by about that f32
+    rounding, ~1e-6 here); one TF32 pass is not (about 5e-4): that is
+    why the kernel takes three."""
+    rng = np.random.default_rng(20)
+    f, n, m, p = 64, 512, 512, 9
+    err = {"3x": 0.0, "1x": 0.0, "plain": 0.0}
+    top = 0.0
+    for _ in range(0, f, 8):       # 8 bins at a time: memory stays small
+        wr, wi = (torch.from_numpy(_rand(rng, (8, n, m))) for _ in range(2))
+        xr, xi = (torch.from_numpy(_rand(rng, (8, m, p))) for _ in range(2))
+        pr, pi = shad.spectral_hadamard_reference(wr, wi, xr, xi)
+        planes = ((wr, xr), (wi, xi), (wr + wi, xr + xi))
+        exact = [torch.bmm(a.double(), b.double()) for a, b in planes]
+        er, ei = exact[0] - exact[1], exact[2] - exact[0] - exact[1]
+        top = max(top, float(er.abs().max()), float(ei.abs().max()))
+        err["plain"] = max(err["plain"], float((pr - er).abs().max()),
+                           float((pi - ei).abs().max()))
+        for passes in (3, 1):
+            m1, m2, m3 = (_tf32_product(a, b, passes) for a, b in planes)
+            key = f"{passes}x"
+            err[key] = max(err[key], float((m1 - m2 - er).abs().max()),
+                           float((m3 - m1 - m2 - ei).abs().max()))
+    rel = {k: v / top for k, v in err.items()}
+    assert rel["3x"] <= 1e-6, rel
+    assert rel["3x"] <= rel["plain"], rel
+    assert rel["1x"] > 1e-4, rel
+
+
+@pytest.mark.parametrize("flow", FLOWS)
+@pytest.mark.parametrize("f,n,m,p,block_m,sms", [
+    (64, 512, 512, 9, 128, 132), (64, 512, 512, 25, 128, 132),
+    (64, 64, 64, 1444, 128, 132), (64, 64, 3, 1444, 128, 132),
+    (3, 70, 45, 130, 16, 132), (2, 1, 1, 1, 32, 132),
+    (4, 40, 300, 33, 48, 8)])
+def test_hadamard_launch_geometry(flow, f, n, m, p, block_m, sms):
+    """``launch_geometry``: the p tile is the narrowest of 8, 16, 32 that
+    covers P (128 n rows), else 64 x 64; ws/is ranges are ``block_m``;
+    output-stationary keeps one range unless its grid is under one CTA an
+    SM, then splits M into 16-channel-aligned ranges; ranges cover M
+    once, and the workspace is [ranges, 2, F, N, P] (none for one)."""
+    geo = shad.launch_geometry(flow, f, n, m, p, block_m, sms)
+    assert geo.tile_p >= min(p, 64)
+    assert geo.tile_p == 64 or geo.tile_p < 2 * max(p, 5)
+    assert geo.tile_n == (64 if geo.tile_p == 64 else 128)
+    if flow != shad.OS:
+        assert geo.range_m == block_m
+    else:
+        grid = f * -(-n // geo.tile_n) * -(-p // geo.tile_p)
+        assert (geo.ranges > 1) == (grid < sms and m > 16)
+        assert geo.ranges == 1 or geo.range_m % 16 == 0
+    assert geo.ranges == -(-m // geo.range_m)
+    assert (geo.ranges - 1) * geo.range_m < m
+    want = geo.ranges * 2 * f * n * p if geo.ranges > 1 else 0
+    assert geo.workspace == want
