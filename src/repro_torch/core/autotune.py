@@ -19,7 +19,8 @@ those the CUDA kernels are built for (``kernels.fused_spectral_conv``):
   residual  for a node whose shortcut add is fused into the kernel, where
             the kernel reads the shortcut: 'hbm' (from device memory at
             the flush) or 'vmem' (output-stationary only: staged in
-            shared memory before the channel loop, when it fits).
+            shared memory before the channel loop, when it fits and,
+            on the plane kernel, when its launch is not split).
 
 The cap is the 232,448 bytes of shared memory a CTA may take, and the
 model is ``hopper_fused_flow_cost``.  One level up, on a D-device mesh,
@@ -58,6 +59,11 @@ H100_L2_BYTES = 50e6
 # host, 450 GB/s each way (NVIDIA's published per-direction figure, not a
 # measurement).  The sharded cost model charges collective bytes at it.
 H100_NVLINK_BYTES_PER_S = 450e9
+# Clusters of c output-stationary plane CTAs (one an SM) an H100 runs at
+# once, by c: ``fsc.os_cluster_capacity`` on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py (c)).  Clusters stay within a GPC, so large ones leave
+# SMs idle; the model prices the plane kernel's launch with it.
+H100_OS_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 # Alg-2 knobs for pricing tables before they exist (paper S6.3: r = 10;
 # mu, the Eq-14 PE utilization, measures 0.850-0.857 on full VGG16 at
@@ -78,8 +84,11 @@ MEASURE_SEED = 0
 # CTA) to the batch-1 times of the four output-stationary kernels at the
 # 13 full-width VGG16 layers, chip_smoke.py on an NVIDIA H100 80GB HBM3
 # at 700 W, before the other flows existed (PERF.md); the times and the
-# fit are in tests/test_torch_autotune.py.  A B1 step is latency-bound,
-# so this term, not bytes or flops, is what the measured times follow.
+# fit are in tests/test_torch_autotune.py.  A step is latency-bound, so
+# this term, not bytes or flops, is what the measured times follow.  The
+# plane kernel's flows keep it; its output-stationary launch, redesigned
+# since, is priced by its own launch model (``fsc.os_launch_geometry``,
+# ``fsc.os_latency_s``), the one the wrapper launches by.
 LATENCY_FIT = {
     ("plane", "windowed"): (1.099054504396958e-05, 7.737558692451554e-06),
     ("plane", "halo"): (9.523439047744236e-06, 9.310391638598346e-06),
@@ -92,13 +101,17 @@ LATENCY_FIT = {
 def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
                 hadamard: str, input_mode: str, batch: int, block_m: int,
                 active_bins: int) -> dict[str, int]:
-    """The CUDA launch a layer gets: CTAs, channel steps per CTA, output
-    rectangles per CTA (``rects``), tile blocks, m ranges G, the
-    workspace's tile slots and the cluster ranks that share an
-    output-stationary CTA's rectangle (``ranks``: bin chunks, or the
+    """The CUDA launch a layer gets: CTAs, their ``waves``, channel steps
+    per CTA, output rectangles per CTA (``rects``), tile blocks, m ranges
+    (``ranges``), the split-K workspace's slices (``slices``; 1 for none)
+    and tile slots, and the cluster ranks that share an output-stationary
+    CTA's rectangle (``ranks``: its cluster over the bin chunks, or the
     scheduled kernel's channel split), from the kernels' block sizes and
     each flow's loop structure (the grid rules of
-    ``csrc/fused_spectral_conv*.cu``)."""
+    ``csrc/fused_spectral_conv*.cu``).  The plane kernel's
+    output-stationary launch is the wrapper's own,
+    ``fsc.os_launch_geometry`` on ``H100_OS_CLUSTERS`` (the halo path
+    takes its windowed twin's split over its own tile blocks)."""
     geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
                         layer.pad)
     sched = hadamard == "scheduled"
@@ -110,7 +123,7 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     m = layer.c_in
     g = 1 if flow == fsc.OS else -(-m // block_m)
     width = m if g == 1 else block_m
-    ranks = 1
+    ranks, waves, slices = 1, None, g
     if sched:
         nb = -(-layer.c_out // fsc.SCHED_BLOCK_N)      # kernel groups
         if flow == fsc.OS:
@@ -125,13 +138,23 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
         ranks = chunks = -(-active_bins // fsc.BIN_CHUNK)
         ksteps = -(-width // fsc.BLOCK_M)
         if flow == fsc.OS:
-            ctas, steps, rects = pb * nb * chunks, ksteps, 1
+            og = fsc.os_launch_geometry(
+                -(-batch * geo.n_tiles // fsc.BLOCK_P), layer.c_out, m,
+                active_bins, geo.tile ** 2, H100_OS_CLUSTERS)
+            clusters = pb * nb * og.ranges * (chunks // og.cluster)
+            waves = -(-clusters // H100_OS_CLUSTERS[og.cluster])
+            ranks, g, slices = og.cluster, og.ranges, og.slices
+            ctas, steps = clusters * og.cluster, -(-og.range_m // fsc.BLOCK_M)
+            rects = 1
         elif flow == fsc.WS:
             ctas, steps, rects = g * nb * chunks, pb * ksteps, pb
         else:
             ctas, steps, rects = pb * g * chunks, ksteps * (1 + nb), nb
-    return {"ctas": ctas, "steps": steps, "rects": rects, "p_blocks": pb,
-            "n_blocks": nb, "ranges": g, "slots": pb * bp, "ranks": ranks}
+    if waves is None:
+        waves = -(-ctas // H100_SMS)
+    return {"ctas": ctas, "waves": waves, "steps": steps, "rects": rects,
+            "p_blocks": pb, "n_blocks": nb, "ranges": g, "slices": slices,
+            "slots": pb * bp, "ranks": ranks}
 
 
 def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
@@ -166,8 +189,11 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         once too, but prefetched into shared memory before the channel
         loop, so the read overlaps the kernel's own and the staged rows
         (``fsc.staged_rows`` of each CTA's rectangle) count against the
-        shared-memory cap.  The windowed path also relays the shortcut
-        into the output's tile layout on the host.
+        shared-memory cap; on a plane output-stationary launch that
+        ``kernel_grid`` splits, the finish pass reads it, so it is priced
+        as 'hbm', the placement that runs (``residual`` in the result).
+        The windowed path also relays the shortcut into the output's tile
+        layout on the host.
 
     Bytes (``hbm_bytes``) follow each kernel's loops: output-stationary
     re-reads the input once per n block (plane kernel) or kernel group
@@ -175,16 +201,19 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     weight-stationary reads the kernel operand once and re-reads the
     input per n block or group; input-stationary reads the input once
     and re-reads the kernel operand per tile block.  A re-read operand
-    that fits the 50 MB L2 is counted once.  With more than one m range
-    the split-K workspace (G x S2 x N x slots floats) is written and read
-    once.  Operators, bias and the output are counted once.
+    that fits the 50 MB L2 is counted once.  With more than one slice (m
+    ranges; on the plane output-stationary launch, ranges x bin groups)
+    the split-K workspace (slices x S2 x N x slots floats) is written and
+    read once.  Operators, bias and the output are counted once.
 
     Time: ``predicted_s = serial_s + max(hbm_s, compute_s, latency_s)``
     with ``latency_s = waves * (rects * WAVE_S + steps * STEP_S)``
     (``LATENCY_FIT``): waves = ceil(ctas / 132), ``rects`` = output
     rectangles a CTA finishes (1 for output-stationary, every tile block
     for weight-stationary, every n block or group for
-    input-stationary), ``steps`` = channel steps a CTA runs.
+    input-stationary), ``steps`` = channel steps a CTA runs; the plane
+    kernel's output-stationary launch is priced as the wrapper launches
+    it, ``fsc.os_latency_s`` over its cluster waves (``kernel_grid``).
     ``serial_s`` is work in separate launches before or after the kernel
     that cannot overlap it: ``relayout_s``, the windowed path's host
     relayout (window tensor written and read back from the raw
@@ -220,6 +249,10 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     grid = kernel_grid(layer, fft_size, flow, hadamard, input_mode, batch,
                        block_m, fa)
     pb, nb, g = grid["p_blocks"], grid["n_blocks"], grid["ranges"]
+    slices = grid["slices"]
+    plane_os = flow == fsc.OS and not sched
+    if residual == "vmem" and plane_os and slices > 1:
+        residual = "hbm"        # the finish pass reads it, as it runs
     nnz = max(1, int(round(k2 / alpha)))
     t_cyc = t_cycles if t_cycles is not None else math.ceil(
         nnz / SCHEDULE_MU)
@@ -246,7 +279,7 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         x_hbm, w_hbm = reread(x_bytes, nb), w_bytes
     else:
         x_hbm, w_hbm = x_bytes, reread(w_bytes, pb)
-    ws_bytes = 4 * g * s2 * n * grid["slots"] if g > 1 else 0
+    ws_bytes = 4 * slices * s2 * n * grid["slots"] if slices > 1 else 0
     sc_bytes = y_bytes if residual is not None else 0   # laid out like y
     hbm = x_hbm + w_hbm + ops_bytes + y_bytes + 2 * ws_bytes + sc_bytes
 
@@ -274,17 +307,21 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         smem = fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe, hg)
     else:
         smem = fsc.plane_smem_bytes(flow, geo, block_m, hg)
-    waves = -(-grid["ctas"] // H100_SMS)
-    wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
-                                  input_mode)]
-    latency_s = waves * (grid["rects"] * wave_s + grid["steps"] * step_s)
+    waves = grid["waves"]
+    if plane_os:
+        latency_s = fsc.os_latency_s(waves, grid["steps"], halo)
+    else:
+        wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
+                                      input_mode)]
+        latency_s = waves * (grid["rects"] * wave_s
+                             + grid["steps"] * step_s)
     relayout = 0 if halo else (raw_bytes + 2 * 4 * s * m * p
                                + 4 * s2 * n * p + out_bytes
                                + (out_bytes + sc_bytes if sc_bytes else 0))
-    finish = ws_bytes + y_bytes + sc_bytes if g > 1 else 0
+    finish = ws_bytes + y_bytes + sc_bytes if slices > 1 else 0
     # the shortcut read the channel loop does not hide: at the flush
     # ('hbm', one m range) or in the finish pass (counted there)
-    flush_sc = sc_bytes if residual == "hbm" and g == 1 else 0
+    flush_sc = sc_bytes if residual == "hbm" and slices == 1 else 0
     hbm_s = ((hbm - ws_bytes - (sc_bytes if residual == "hbm" else 0))
              / H100_HBM_BYTES_PER_S)                  # main kernel's share
     compute_s = flops / H100_FP32_FLOPS
@@ -308,6 +345,7 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         "shortcut_s": shortcut_s,
         "serial_s": serial_s,
         "predicted_s": serial_s + max(hbm_s, compute_s, latency_s),
+        "residual": residual,
     }
 
 
@@ -406,7 +444,7 @@ def price(tn: FusedTuning, layer: df.ConvLayer, fft_size: int,
     return dataclasses.replace(
         tn, hbm_bytes=c["hbm_bytes"], smem_bytes=c["smem_bytes"],
         predicted_s=predict_seconds(c),
-        grid_steps=float(c["ctas"] * c["steps"]))
+        grid_steps=float(c["ctas"] * c["steps"]), residual=c["residual"])
 
 
 def autotune_layer(layer: df.ConvLayer, fft_size: int, alpha: float, *,
@@ -429,8 +467,10 @@ def autotune_layer(layer: df.ConvLayer, fft_size: int, alpha: float, *,
     'hbm', or 'vmem', which tries the staged placement on each
     output-stationary candidate first and falls back to 'hbm' where the
     staged rows do not fit (the reference's fallback, taken per
-    candidate so that such a candidate stays in the ranking); the
-    placement is recorded in ``FusedTuning.residual``.  When none fits
+    candidate so that such a candidate stays in the ranking) or where
+    the plane kernel's launch is split (``kernel_grid``: its finish pass
+    reads the shortcut); the placement is recorded in
+    ``FusedTuning.residual``.  When none fits
     (tables longer than the estimate allows), the smallest footprint
     comes back, its ``smem_bytes`` over the budget for the caller to
     see; a launch of it raises.  Measured pass (with ``measure_fn``,
@@ -594,7 +634,8 @@ def autotune_layer_sharded(layer: df.ConvLayer, fft_size: int,
         tn = dataclasses.replace(
             cand, hbm_bytes=c["hbm_bytes"], smem_bytes=c["smem_bytes"],
             predicted_s=predict_seconds(c),
-            grid_steps=float(c["ctas"] * c["steps"]))
+            grid_steps=float(c["ctas"] * c["steps"]),
+            residual=c["residual"])
         return ShardTuning(base=tn, strategy=strategy, n_shards=n_shards,
                            ici_bytes=c["ici_bytes"], ici_s=c["ici_s"],
                            per_chip_hbm_bytes=c["per_chip_hbm_bytes"],

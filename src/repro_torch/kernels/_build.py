@@ -122,14 +122,17 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def sass_counts(name: str, function: str) -> dict:
-    """How often each tensor-core SASS opcode (HGMMA, HMMA) occurs in the
-    functions of source ``name``'s built library whose (mangled) name
-    contains ``function``, from ``cuobjdump -sass`` (the toolkit's,
-    beside nvcc).  Builds the library first if it is not built; raises if
-    no function matches."""
-    build({name: {}})
-    lib, _ = _target(name, {})
+def sass_counts(name: str, function: str,
+                defines: dict[str, int] | None = None) -> dict:
+    """How often each tensor-core SASS opcode (HGMMA, HMMA), and the
+    local-memory store STL (a spill or a stack array), occurs in the
+    functions of source ``name``'s built library (with its ``-D``
+    ``defines``) whose (mangled) name contains ``function``, from
+    ``cuobjdump -sass`` (the toolkit's, beside nvcc).  Builds the library
+    first if it is not built; raises if no function matches."""
+    defines = defines or {}
+    build({name: defines})
+    lib, _ = _target(name, defines)
     tool = Path(_nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True).stdout
@@ -139,4 +142,4 @@ def sass_counts(name: str, function: str) -> dict:
         raise RuntimeError(f"no function matching {function!r} in the SASS "
                            f"of {lib.name}")
     return {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in bodies)
-            for op in ("HGMMA", "HMMA")}
+            for op in ("HGMMA", "HMMA", "STL")}

@@ -315,29 +315,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
 // [heads, s, d] bf16, boxes of 64 columns x 128 rows x 1 head
 bool tensor_map(CUtensorMap* map, const void* base, long long heads, int s,
                 int d) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s,
                               (cuuint64_t)heads};

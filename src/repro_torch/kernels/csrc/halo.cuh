@@ -242,6 +242,32 @@ struct HaloPath {
                               int p) const {
     return halo_out_offset(g, k.hb, N, s2, n, p);
   }
+  // The output-stationary plane kernel's tile-FFT reads its B operand
+  // straight from the raw rows (no expand pass): window element s of
+  // (channel, slot) column `col` is raw[base + soff[s]], 0 in a slot that
+  // holds no tile.
+  struct FftCol {
+    int base;
+    bool real;
+  };
+  template <int T>
+  __device__ void load_os(const Blk& k, float* sx, int S, int M, int m0,
+                          int tid) const {
+    static_assert(T == NT, "the path's own thread count");
+    load(k, sx, S, M, m0, tid);
+  }
+  __device__ void fft_offsets(int* soff, int tid) const {
+    halo_window_offsets<NT>(soff, g, tid);
+  }
+  __device__ FftCol fft_col(const Blk& k, int col, int) const {
+    const int m = col / BP, p = col - m * BP;
+    const int ii = p / g.btw, jj = p - ii * g.btw;
+    return {m * g.chan + ii * g.t * g.cols + jj * g.t, k.hb.real(g, p)};
+  }
+  __device__ float fft_x(const float* raw, const int* soff, FftCol c, int s,
+                         int S) const {
+    return c.real && s < S ? raw[c.base + soff[s]] : 0.f;
+  }
 };
 
 }  // namespace repro_torch

@@ -8,10 +8,12 @@
 // Replaces the TPU kernel `spectral_hadamard` of
 // src/repro/kernels/spectral_hadamard.py, with its bodies `_kernel_os`
 // (output-stationary) and `_kernel_rmw` (weight- and input-stationary), the
-// second launch of the staged spectral conv.  Complex products use the
-// reference's 3-multiplication Karatsuba form over an m range:
-//   m1 = Wr Xr, m2 = Wi Xi, m3 = (Wr + Wi)(Xr + Xi);
-//   re = m1 - m2, im = (m3 - m1) - m2.
+// second launch of the staged spectral conv.  The reference forms complex
+// products in Karatsuba's three multiplications; this kernel takes the four
+// real products, re = Wr Xr - Wi Xi and im = Wr Xi + Wi Xr, because
+// Karatsuba's im = (Wr + Wi)(Xr + Xi) - Wr Xr - Wi Xi cancels against the
+// larger sum plane: in 3xTF32 it read 4.7e-6 of max|Y| at M = 512, the four
+// products under 1e-6 (mma_tf32.cuh).
 //
 // Bound on an H100 SXM: 6 F N M P flops against 8 (F N M + F M P + F N P)
 // bytes at 3.35 TB/s.  The staged VGG16 layers at batch 1 (P <= 1444 tiles,
@@ -20,14 +22,15 @@
 // 134 MB of W planes a layer) to bytes, where W is nearly all of them.
 //
 // Design (tensor cores in 3xTF32, a cp.async ring, no library GEMM):
-//  * The three real products run on `mma.sync.m16n8k8` TF32 with f32
+//  * The four real products run on `mma.sync.m16n8k8` TF32 with f32
 //    accumulation: n rows are the MMA's m, channels its k, tiles its n.
-//    Each f32 operand is split into a TF32 high part and the TF32 rounding
-//    of its remainder (`cvt.rna.tf32.f32` both), and a product is
-//    lo*hi + hi*lo + hi*hi: three MMAs, which keep f32 accuracy (the
-//    dropped lo*lo is ~2^-22 of a product) where one TF32 pass keeps
-//    ~1e-3.  The Karatsuba sum planes (Wr + Wi, Xr + Xi) are formed in f32
-//    in registers from the fragments, then split.  `mma.sync`, not
+//    Each f32 operand is split once into a TF32 high part and the TF32
+//    rounding of its remainder, and a product is lo*hi + hi*lo + hi*hi
+//    (mma_tf32.cuh): three MMAs, which keep f32 accuracy where one TF32
+//    pass keeps ~1e-3.  Each k step's products go to fresh accumulators
+//    that are then added to the running (re, im) in f32: a long sum kept
+//    in the MMA accumulator loses low bits (mma_tf32.cuh).
+//    `mma.sync`, not
 //    `wgmma`: wgmma's TF32 B operand must be K-major in shared memory,
 //    and X [F, M, P] is P-major, so it would need a transpose on the load;
 //    mma.sync's fragments are read from shared memory by index.
@@ -63,6 +66,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "mma_tf32.cuh"
 #include "sum_slices.cuh"
 
 namespace {
@@ -72,6 +76,8 @@ using repro_torch::cp_async16;
 using repro_torch::cp_async4;
 using repro_torch::cp_async_commit;
 using repro_torch::cp_async_wait;
+using repro_torch::mma3;
+using repro_torch::split_frag;
 
 constexpr int NT = 128;            // four warps
 constexpr int RM_MAX = 128;        // widest resident m range (ws / is)
@@ -106,50 +112,6 @@ __host__ __device__ inline int smem_floats(int flow, int RM) {
     return 2 * T::BN * (resident_k<T>(RM) + 4) + T::STAGES * x_chunk;
   if (flow == IS) return 2 * resident_k<T>(RM) * T::XP + T::STAGES * w_chunk;
   return T::STAGES * (w_chunk + x_chunk);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo in TF32 (hi the rounding of x, lo of the remainder).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += A B in 3xTF32 for the warp's MT x PT MMA tiles.
-template <int MT, int PT>
-__device__ __forceinline__ void mma3(float (&acc)[MT][PT][4],
-                                     const float (&a)[MT][4],
-                                     const float (&b)[PT][2]) {
-  uint32_t ah[MT][4], al[MT][4], bh[PT][2], bl[PT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split(a[i][r], ah[i][r], al[i][r]);
-#pragma unroll
-  for (int j = 0; j < PT; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) split(b[j][r], bh[j][r], bl[j][r]);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < PT; ++j) {
-      mma(acc[i][j], al[i], bh[j]);
-      mma(acc[i][j], ah[i], bl[j]);
-      mma(acc[i][j], ah[i], bh[j]);
-    }
 }
 
 // Copy W[n0 .. n0+BN)[k0 .. k0+BK) (channels >= khi, rows >= N as zeros)
@@ -213,7 +175,7 @@ __device__ __forceinline__ void load_x(const float* xr, const float* xi,
 }
 
 template <class T, int FLOW>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 hadamard_tf32_kernel(const float* __restrict__ wr,
                      const float* __restrict__ wi,
                      const float* __restrict__ xr,
@@ -281,14 +243,14 @@ hadamard_tf32_kernel(const float* __restrict__ wr,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wn = warp / T::WARPS_P, wp = warp % T::WARPS_P;
   const int gq = lane / 4, tq = lane % 4;
-  float m1[MT][PT][4], m2[MT][PT][4], m3[MT][PT][4];
+  float are[MT][PT][4], aim[MT][PT][4];
   auto zero = [&]() {
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < PT; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) m1[i][j][r] = m2[i][j][r] = m3[i][j][r] = 0.f;
+        for (int r = 0; r < 4; ++r) are[i][j][r] = aim[i][j][r] = 0.f;
   };
   zero();
   for (int s = 0; s < steps; ++s) {
@@ -326,20 +288,35 @@ hadamard_tf32_kernel(const float* __restrict__ wr,
         bi[j][0] = b_r[plb + o];
         bi[j][1] = b_r[plb + o + 4 * XP];
       }
-      mma3<MT, PT>(m1, ar, br);
-      mma3<MT, PT>(m2, ai, bi);
+      // re += Wr Xr - Wi Xi, im += Wr Xi + Wi Xr, each in 3xTF32 into
+      // fresh accumulators added in f32; X's parts are split per W row
+      // tile, which keeps few fragments live
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i) {
+        uint32_t arh[4], arl[4], aih[4], ail[4];
+        split_frag(ar[i], arh, arl);
+        split_frag(ai[i], aih, ail);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) ar[i][r] += ai[i][r];
+        for (int j = 0; j < PT; ++j) {
+          uint32_t brh[2], brl[2], bih[2], bil[2];
+          split_frag(br[j], brh, brl);
+          split_frag(bi[j], bih, bil);
+          float tr[4] = {0.f, 0.f, 0.f, 0.f}, tq[4] = {0.f, 0.f, 0.f, 0.f};
+          float ti[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(tr, arh, arl, brh, brl);
+          mma3(tq, aih, ail, bih, bil);
+          mma3(ti, arh, arl, bih, bil);
+          mma3(ti, aih, ail, brh, brl);
 #pragma unroll
-      for (int j = 0; j < PT; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) br[j][r] += bi[j][r];
-      mma3<MT, PT>(m3, ar, br);
+          for (int r = 0; r < 4; ++r) {
+            are[i][j][r] += tr[r] - tq[r];
+            aim[i][j][r] += ti[r];
+          }
+        }
+      }
     }
     if (c != nk - 1) continue;
-    // the tile's (re, im) = (m1 - m2, (m3 - m1) - m2)
+    // the tile's (re, im)
     const int n0 = tile_n0(tile), p0 = tile_p0(tile);
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -351,13 +328,8 @@ hadamard_tf32_kernel(const float* __restrict__ wr,
           const int p = p0 + wp * T::WP + j * 8 + 2 * tq;
           if (n >= N || p >= P) continue;
           const long long o = yo + (long long)n * P + p;
-          float re[2], im[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int r = 2 * h + c;
-            re[c] = m1[i][j][r] - m2[i][j][r];
-            im[c] = m3[i][j][r] - m1[i][j][r] - m2[i][j][r];
-          }
+          const float re[2] = {are[i][j][2 * h], are[i][j][2 * h + 1]};
+          const float im[2] = {aim[i][j][2 * h], aim[i][j][2 * h + 1]};
           if (P % 2 == 0) {             // p even: an aligned pair
             *reinterpret_cast<float2*>(outr + o) = make_float2(re[0], re[1]);
             *reinterpret_cast<float2*>(outi + o) = make_float2(im[0], im[1]);

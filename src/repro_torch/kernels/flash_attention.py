@@ -14,8 +14,11 @@ tensors, and the tests and the on-card smoke run hold each kernel to it.
   (``wgmma``, bf16 in, f32 accumulate), K/V streamed by TMA through a
   two-stage ring; head dims up to 128 that are a multiple of 8, operands
   16-byte aligned.
-- f32 (``csrc/flash_attention.cu``): f32 FMAs on the CUDA cores (the
-  reference's f32 arithmetic, the correctness path); head dims up to 128.
+- f32 (``csrc/flash_attention.cu``): the tensor cores in 3xTF32
+  (``mma.sync``, each f32 operand split into TF32 hi + lo, f32
+  accumulation and softmax: the reference's f32 accuracy, the correctness
+  path), K/V streamed by ``cp.async`` through a two-stage ring; head dims
+  up to 128.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ SOURCES = {"flash_attention": {}, "flash_attention_bf16": {}}
 LAUNCHES = {"flash_attention": 0}
 
 NEG_INF = -1e30
-# The CUDA kernels' head-dim limit (the f32 lane grid covers 8 x 16
-# columns; the bf16 kernel's tiles two 64-column TMA boxes).
+# The CUDA kernels' head-dim limit (the f32 kernel's Q, K and V rows fit
+# its shared memory up to 128 floats; the bf16 kernel's tiles two
+# 64-column TMA boxes).
 MAX_HEAD_DIM = 128
 # The bf16 kernel's TMA needs 16-byte rows and 16-byte aligned operands.
 BF16_HEAD_DIM_MULTIPLE = 8
@@ -157,8 +161,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version's KV blocking and the padded length (a non-causal S
     that is not a multiple of the block raises, as in the reference).
     CPU tensors run the plain version; CUDA tensors launch the kernel of
-    their dtype (bf16: 128 x 128 tiles on the tensor cores; f32: 64 x 64
-    on the CUDA cores), or raise.  (A window is clamped to [-S, S] for
+    their dtype (bf16: 128 x 128 tiles on the tensor cores; f32: 128 x 64
+    tiles on the tensor cores in 3xTF32), or raise.  (A window is clamped to [-S, S] for
     the kernel: beyond that it masks all keys or none.)"""
     _check(q, k, v)
     b, hq, s, d = q.shape

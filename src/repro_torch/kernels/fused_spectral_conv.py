@@ -6,7 +6,10 @@ device memory:
 
 - ``fused_spectral_pipeline`` (``csrc/fused_spectral_conv.cu``):
   tile-FFT -> complex Hadamard against kernel planes summed over input
-  channels -> valid-row IFFT -> bias + ReLU;
+  channels -> valid-row IFFT -> bias + ReLU, all three products on the
+  tensor cores in 3xTF32; where its clusters would leave SMs idle it
+  takes smaller clusters over the bin chunks and splits the input
+  channels over CTAs, summed by a finish pass (``os_launch_geometry``);
 - ``fused_spectral_pipeline_scheduled``
   (``csrc/fused_spectral_conv_scheduled.cu``): the same pipeline whose
   Hadamard executes the Alg-2 INDEX/VALUE tables of
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -82,6 +86,28 @@ from repro_torch.kernels import _build
 # fits the 227 KB limit at K = 8.
 BLOCK_N, BLOCK_P, BLOCK_M, BIN_CHUNK, THREADS = 64, 16, 8, 8, 512
 MAX_CLUSTER = 8       # portable thread-block cluster size
+# The output-stationary plane kernel (tensor cores, 3xTF32): the deepest
+# TMA / cp.async ring it takes (-DFSC_OS_STAGES; two stages where three do
+# not fit) and its threads (-DFSC_OS_THREADS: a warp per bin, 255
+# registers a thread for its accumulator fragments).
+# ``os_launch_geometry`` splits M into ranges of at least OS_RANGE_MIN
+# channels, and the bin chunks into smaller clusters, where that fills the
+# card better; it prices a launch (``os_latency_s``, which the cost model
+# of ``core.autotune`` prices it by too) by its waves, OS_STEP_S a
+# BLOCK_M-channel step and OS_FIXED_S a CTA's set-up and epilogue (the
+# order of the per-layer device times, waves and ranges that
+# ``chip_smoke.py`` (c) prints for VGG16 on an H100; the choices it makes
+# there do not move within 3-3.5 us and 20-30 us), and the split-K
+# workspace written and read once at OS_HBM_BYTES_S.  The halo path
+# launches its windowed twin's split, but its steps gather raw rows by
+# cp.async: the cost model prices them at OS_HALO_STEP_S and
+# OS_HALO_FIXED_S (least-squares fit to its VGG16 batch-1 device times,
+# ``chip_smoke.py`` (c3) on an H100: 6.19 and 30.39 us).
+OS_STAGES, OS_THREADS = 3, 256
+OS_ALIGN = 256        # floats: the ring's alignment (1024 bytes)
+OS_RANGE_MIN = 32
+OS_STEP_S, OS_FIXED_S, OS_HBM_BYTES_S = 3e-6, 20e-6, 3.35e12
+OS_HALO_STEP_S, OS_HALO_FIXED_S = 6.2e-6, 30e-6
 
 # Scheduled kernel: PE lanes per kernel group (the tables' N'; the plan
 # compiles them for this group size) and threads per CTA, compiled in as
@@ -156,15 +182,48 @@ def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
     return bm * chan, s * bm * bp + s
 
 
+class OsLayout(NamedTuple):
+    """The output-stationary plane kernel's shared memory (``OsLayout`` of
+    ``csrc/fused_spectral_conv.cu``): bytes a CTA, and its ring stages."""
+    bytes: int
+    stages: int
+
+
+def os_layout(s: int, s2: int, x_floats: int, sc_rows: int = 0
+              ) -> OsLayout:
+    """Mirror of the source's ``OsLayout`` for S = K^2 window rows, S2 =
+    t^2 output rows, ``x_floats`` of input a ring slot (windows S x BM x BP,
+    or the halo path's raw rows) and ``sc_rows`` rows of a staged shortcut:
+    the FFT's and IFFT's split A fragments, X~ (re, im; rows padded; the
+    Y~ stage after the m loop), the window offsets, one mbarrier a slot,
+    then (1024-byte aligned, as the TMA swizzles want; 1 KB of slack
+    aligns the base) a ring of three slots (two where three would pass the
+    card's limit) that the spatial partial aliases."""
+    ks, mt2 = -(-s // 8), -(-s2 // 16)
+    xfp = BLOCK_M * (BLOCK_P + 8) + 8
+    head = (2 * ks * 128 + 2 * mt2 * 256 + 2 * BIN_CHUNK * xfp
+            + _align4(s) + _align4(2 * OS_STAGES))
+    ring = -(-head // OS_ALIGN) * OS_ALIGN
+    slot = -(-x_floats // 128) * 128 + 2 * BIN_CHUNK * BLOCK_N * BLOCK_M
+    epi = s2 * BLOCK_N * BLOCK_P
+    sc = sc_rows * BLOCK_N * BLOCK_P
+    for stages in range(OS_STAGES, 1, -1):
+        total = 4 * (ring + max(stages * slot, epi) + sc + OS_ALIGN)
+        if total <= SMEM_PER_CTA:
+            break
+    return OsLayout(total, stages)
+
+
 def _plane_layout_bytes(flow: str, s: int, s2: int, block_m: int,
                         x_floats: int, win: int, sc_rows: int) -> int:
+    if flow == OS:
+        return os_layout(s, s2, x_floats, sc_rows).bytes
     mp, w_plane = BLOCK_M * BLOCK_P, BIN_CHUNK * BLOCK_N * BLOCK_M
     x_sz = _align4(x_floats)
     head = (2 * s * BIN_CHUNK + 2 * s2 * BIN_CHUNK
             + 2 * BIN_CHUNK * (block_m * BLOCK_P if flow == IS else mp)
             + (2 * BIN_CHUNK * BLOCK_N * block_m if flow == WS else 0))
-    x_stage = {OS: x_sz + 2 * w_plane, WS: x_sz,
-               IS: max(x_sz, 2 * w_plane)}[flow]
+    x_stage = x_sz if flow == WS else max(x_sz, 2 * w_plane)
     return 4 * (head + max(2 * x_stage + win, s2 * BLOCK_N * BLOCK_P)
                 + sc_rows * BLOCK_N * BLOCK_P)
 
@@ -173,7 +232,8 @@ def plane_smem_bytes(flow: str, geo: SpectralGeometry,
                      block_m: int = BLOCK_M,
                      hg: HaloGeometry | None = None,
                      sc_rows: int = 0) -> int:
-    """Dynamic shared memory of one plane-kernel CTA: the ``Layout`` of
+    """Dynamic shared memory of one plane-kernel CTA: the ``OsLayout``
+    (output-stationary) or ``Layout`` (the flows) of
     ``csrc/fused_spectral_conv.cu`` (windowed when ``hg`` is None), with
     ``sc_rows`` rows of a staged shortcut (``staged_rows``)."""
     s = geo.fft_size ** 2
@@ -219,6 +279,10 @@ def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
 # those the launches that fused a residual shortcut.
 LAUNCHES = {entry_point(k, f): 0 for k in KERNELS for f in FLOWS}
 RESIDUAL_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# and of those the launches that staged it in shared memory: a 'vmem'
+# shortcut as it ran (an output-stationary plane launch that its geometry
+# splits adds it in the finish pass, from device memory: 'hbm')
+STAGED_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # and of those the launches on a shard's band (``execute_band_plan``)
 BAND_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
@@ -338,7 +402,8 @@ def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
 SOURCES = {
     "fused_spectral_conv": {
         "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
-        "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS},
+        "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS,
+        "FSC_OS_STAGES": OS_STAGES, "FSC_OS_THREADS": OS_THREADS},
     "fused_spectral_conv_scheduled": {
         "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}}
 
@@ -351,7 +416,9 @@ def _libraries() -> dict[str, ctypes.CDLL]:
     # sc_staged), then the stream
     plane, sched = libs["fused_spectral_conv"], \
         libs["fused_spectral_conv_scheduled"]
-    # a flow entry point takes the workspace pointer and block_m besides
+    # a flow entry point (and every plane entry point, whose output-
+    # stationary kernel also splits M and the bin chunks) takes the
+    # workspace pointer and block_m besides, the latter its cluster size
     for lib, kernel, n_ptr, n_int in (
             (plane, "fused_spectral_pipeline", 10, 9),
             (plane, "fused_spectral_pipeline_halo", 10, 20),
@@ -359,9 +426,10 @@ def _libraries() -> dict[str, ctypes.CDLL]:
             (sched, "fused_spectral_pipeline_scheduled_halo", 12, 24)):
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
-            extra = flow != OS
+            extra = flow != OS or kernel in _SPLIT_OS
+            cluster = flow == OS and kernel in _SPLIT_OS
             f.argtypes = ([ctypes.c_void_p] * (n_ptr + extra)
-                          + [ctypes.c_int] * (n_int + extra)
+                          + [ctypes.c_int] * (n_int + extra + cluster)
                           + [ctypes.c_void_p])
             f.restype = ctypes.c_int
     return libs
@@ -514,6 +582,100 @@ def placement_at_batch(lp, batch: int, sms: int) -> str:
     return want if smem <= SMEM_PER_CTA else "hbm"
 
 
+# The output-stationary entry points that split M over CTAs
+# (``os_launch_geometry``); the scheduled ones size a cluster over M.
+_SPLIT_OS = ("fused_spectral_pipeline", "fused_spectral_pipeline_halo")
+
+
+class OsGeometry(NamedTuple):
+    """One output-stationary plane launch: ``ctas`` (tile blocks x n
+    blocks x bin chunks x ranges) in clusters of ``cluster`` CTAs, run in
+    ``waves`` (of the card's cluster capacity), M summed in ``ranges``
+    ranges of ``range_m`` channels; ``slices`` (ranges x bin groups) > 1
+    go through the split-K workspace and its finish pass."""
+    ctas: int
+    cluster: int
+    waves: int
+    ranges: int
+    range_m: int
+    slices: int
+
+
+def os_launch_geometry(blocks: int, n: int, m: int, fa: int, s2: int,
+                       capacity: dict[int, int]) -> OsGeometry:
+    """The output-stationary plane kernel's grid for ``blocks`` tile blocks
+    (ceil(P / BLOCK_P) of the windowed path; the halo path takes its
+    windowed twin's, so that both sum each output in the same order and
+    agree bit for bit), N output and M input channels, ``fa`` active bins
+    and S2 output rows, on a card that runs ``capacity[c]`` clusters of c
+    CTAs at once (one CTA an SM; ``os_cluster_capacity``).  Among
+    clusters whose size divides the bin chunks (a cluster covers 1 / H of
+    them) and M in ranges of whole BLOCK_M steps (at least OS_RANGE_MIN
+    channels), the launch of least priced time, ties to fewer slices
+    (cached: the search costs about as much host time as a layer's
+    kernel)."""
+    return _os_geometry(blocks, n, m, fa, s2, tuple(sorted(capacity.items())))
+
+
+def os_latency_s(waves: int, steps: int, halo: bool = False) -> float:
+    """Priced seconds of an output-stationary plane launch's CTA waves,
+    each of ``steps`` BLOCK_M-channel steps and a CTA's set-up and
+    epilogue (``os_launch_geometry`` and the cost model's price; ``halo``:
+    the halo path's steps)."""
+    if halo:
+        return waves * (steps * OS_HALO_STEP_S + OS_HALO_FIXED_S)
+    return waves * (steps * OS_STEP_S + OS_FIXED_S)
+
+
+@functools.lru_cache(maxsize=4096)
+def _os_geometry(blocks: int, n: int, m: int, fa: int, s2: int,
+                 capacity: tuple[tuple[int, int], ...]) -> OsGeometry:
+    capacity = dict(capacity)
+    chunks, nb = -(-fa // BIN_CHUNK), -(-n // BLOCK_N)
+    best = None
+    for cl in (c for c in range(chunks, 0, -1) if chunks % c == 0):
+        for g in range(1, max(1, -(-m // OS_RANGE_MIN)) + 1):
+            range_m = m if g == 1 else BLOCK_M * -(-m // (BLOCK_M * g))
+            ranges = -(-m // range_m)
+            slices = ranges * (chunks // cl)
+            clusters = blocks * nb * ranges * (chunks // cl)
+            waves = -(-clusters // capacity[cl])
+            cost = os_latency_s(waves, -(-range_m // BLOCK_M))
+            if slices > 1:
+                cost += (8 * slices * s2 * n * blocks * BLOCK_P
+                         / OS_HBM_BYTES_S)
+            key = (cost, slices)
+            if best is None or key < best[0]:
+                best = (key, OsGeometry(clusters * cl, cl, waves, ranges,
+                                        range_m, slices))
+    return best[1]
+
+
+@functools.cache
+def _os_capacity(index: int) -> tuple[tuple[int, int], ...]:
+    fn = library().fused_spectral_pipeline_os_max_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = []
+    for cl in range(1, MAX_CLUSTER + 1):
+        count = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = fn(cl, ctypes.byref(count))
+        if err != 0 or count.value < 1:
+            raise RuntimeError(f"cluster capacity query failed for {cl} "
+                               f"CTAs: cudaError {err}")
+        out.append((cl, count.value))
+    return tuple(out)
+
+
+def os_cluster_capacity(device) -> dict[int, int]:
+    """How many clusters of 1 to MAX_CLUSTER output-stationary CTAs (one
+    an SM) the card runs at once, by cluster size (queried once per
+    device): clusters stay within a GPC, so a card holds fewer SMs' worth
+    of large clusters."""
+    return dict(_os_capacity(torch.device(device).index or 0))
+
+
 def _check_staged_fits(kernel: str, smem: int) -> None:
     """Refuse a 'vmem' shortcut whose CTA would need more shared memory
     than the card gives one (the launch would fail)."""
@@ -525,29 +687,34 @@ def _check_staged_fits(kernel: str, smem: int) -> None:
 
 def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
             device, ptrs: tuple, ints: tuple, s2: int, n: int,
-            shortcut=None, staged: bool = False, band: bool = False) -> None:
+            shortcut=None, staged: bool = False, band: bool = False,
+            cluster: int | None = None) -> None:
     """Call a kernel's entry point for ``flow`` on the current stream
-    (the flows get a split-K workspace of G * S2 * N * slots floats when
-    G > 1, and ``block_m``), with the shortcut (or a null pointer) after
-    the output and ``staged`` last; raise on a CUDA error, count the
-    launch (and, with a shortcut, the residual launch; on a shard's
-    ``band``, the band launch)."""
+    (the flows, and the plane kernels' output-stationary launch, get a
+    split-K workspace of G * S2 * N * slots floats when G > 1 slices, and
+    ``block_m``; the latter also its ``cluster`` size), with the shortcut
+    (or a null pointer) after the output and ``staged`` last; raise on a
+    CUDA error, count the launch (and, with a shortcut, the residual
+    launch; on a shard's ``band``, the band launch)."""
     name = entry_point(kernel, flow)
     fn = getattr(lib, name + "_f32")
     stream = torch.cuda.current_stream().cuda_stream
     sc = 0 if shortcut is None else shortcut.data_ptr()
-    if flow == OS:
+    if flow == OS and kernel not in _SPLIT_OS:
         err = fn(*ptrs, sc, *ints, int(staged), stream)
     else:
         ws = (torch.empty(g * s2 * n * slots, dtype=torch.float32,
                           device=device) if g > 1 else None)
+        extra = () if cluster is None else (int(cluster),)
         err = fn(*ptrs, sc, 0 if ws is None else ws.data_ptr(), *ints,
-                 int(block_m), int(staged), stream)
+                 int(block_m), *extra, int(staged), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1
     if shortcut is not None:
         RESIDUAL_LAUNCHES[name] += 1
+    if staged:
+        STAGED_LAUNCHES[name] += 1
     if band:
         BAND_LAUNCHES[name] += 1
 
@@ -557,9 +724,10 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                             block_m: int | None = None, shortcut=None,
                             shortcut_placement: str = "hbm",
                             band: bool = False) -> torch.Tensor:
-    """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two for
-    a weight-/input-stationary flow with more than one m range: the
-    split-K finish pass).
+    """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two
+    with more than one m range: a weight-/input-stationary flow's, or the
+    output-stationary split of ``os_launch_geometry``, each followed by
+    the split-K finish pass).
 
     xt:  [S, M, P] f32       overlap-save windows, s-leading (S = K^2,
                              P = B*T); contiguous, or rows of P floats
@@ -579,7 +747,10 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
     shortcut_placement: 'hbm' (read at the flush) or 'vmem' (output-
                              stationary: staged in shared memory before
                              the channel loop; refused when it does not
-                             fit beside the kernel's stages)
+                             fit beside the kernel's stages; read as
+                             'hbm' by the finish pass where
+                             ``os_launch_geometry`` splits the launch,
+                             counted apart in ``STAGED_LAUNCHES``)
     band: the windows are a shard's band (``execute_band_plan``): the
                              launch is also counted in ``BAND_LAUNCHES``
                              (the kernel is the same)
@@ -603,6 +774,12 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
         raise ValueError(f"no kernel for device {xt.device}")
     _check_operands(xt, wr, wi, dfr, dfi, dvr, dvi, bias)
     staged = shortcut is not None and shortcut_placement == "vmem"
+    cluster = None
+    if flow == OS:
+        og = os_launch_geometry(-(-p // BLOCK_P), n, m, fa, s2,
+                                os_cluster_capacity(xt.device))
+        g, block_m, cluster = og.slices, og.range_m, og.cluster
+        staged = staged and og.slices == 1      # else 'hbm', the same bits
     if staged:
         _check_staged_fits("fused_spectral_pipeline",
                            staged_shortcut_bytes(s, s2, fa))
@@ -614,7 +791,7 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                  dfr.data_ptr(), dfi.data_ptr(), dvr.data_ptr(),
                  dvi.data_ptr(), bias.data_ptr(), y.data_ptr()),
                 (s, m, p, xt.stride(1), fa, n, s2, int(relu)), s2, n,
-                shortcut, staged, band)
+                shortcut, staged, band, cluster)
     return y
 
 
@@ -941,8 +1118,8 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                  shortcut_placement: str = "hbm",
                                  band: bool = False) -> torch.Tensor:
     """Halo gather -> FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel
-    launch (plus the split-K finish pass for a weight-/input-stationary
-    flow with more than one m range), reading the RAW activation.
+    launch (plus the split-K finish pass with more than one m range, as
+    for ``fused_spectral_pipeline``), reading the RAW activation.
 
     x: [B, M, H, W] f32      raw NCHW activation, contiguous (no
                              windowing, no padding: the kernel's
@@ -982,6 +1159,13 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                dvr=dvr, dvi=dvi, bias=bias),
                           geo.fft_size ** 2, x.shape[1], hg.block_tiles)
     staged = shortcut is not None and shortcut_placement == "vmem"
+    cluster = None
+    if flow == OS:          # the windowed twin's split: the same sums
+        og = os_launch_geometry(-(-x.shape[0] * geo.n_tiles // BLOCK_P), n,
+                                x.shape[1], fa, s2,
+                                os_cluster_capacity(x.device))
+        g, block_m, cluster = og.slices, og.range_m, og.cluster
+        staged = staged and og.slices == 1      # else 'hbm', the same bits
     if staged:
         _check_staged_fits("fused_spectral_pipeline_halo",
                            staged_shortcut_bytes(geo.fft_size ** 2, s2, fa,
@@ -994,7 +1178,7 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (*_halo_ints(x, geo, hg, band), fa, n, s2, int(relu)), s2, n,
-                shortcut, staged, band)
+                shortcut, staged, band, cluster)
     return y
 
 

@@ -7,13 +7,17 @@ complex GEMM contracting input channels:
     Y[f, n, p] = sum_m W[f, n, m] * X[f, m, p]
 
 in the reference's 3-multiplication Karatsuba form (m1 = Wr Xr,
-m2 = Wi Xi, m3 = (Wr + Wi)(Xr + Xi); re = m1 - m2, im = m3 - m1 - m2).
-The paper's three dataflows are which operand stays resident while the
-other streams: 'output_stationary' sums all M channels per output tile;
-'weight_stationary' keeps a W block of an m range of ``block_m``
-channels and walks every tile; 'input_stationary' keeps an X block and
-walks every output-channel block.  The latter two sum their m ranges'
-partials in ascending order (the reference's read-modify-write order).
+m2 = Wi Xi, m3 = (Wr + Wi)(Xr + Xi); re = m1 - m2, im = m3 - m1 - m2),
+which the plain version keeps.  The kernel forms it from four real
+products instead (re = Wr Xr - Wi Xi, im = Wr Xi + Wi Xr): in 3xTF32,
+Karatsuba's m3 - m1 - m2 lost 4.7e-6 of max|Y| at M = 512 to its
+cancellation.  The paper's three dataflows are which operand stays
+resident while the other streams: 'output_stationary' sums all M
+channels per output tile; 'weight_stationary' keeps a W block of an m
+range of ``block_m`` channels and walks every tile; 'input_stationary'
+keeps an X block and walks every output-channel block.  The latter two
+sum their m ranges' partials in ascending order (the reference's
+read-modify-write order).
 
 One hand-written CUDA kernel per flow (``csrc/spectral_hadamard.cu``: the
 real products on the tensor cores in 3xTF32, operands through a cp.async

@@ -5,8 +5,8 @@
   * ``'flash'``   — ``kernels.ops.attention`` (the flash-attention kernel
     on a CUDA tensor, its plain version on a CPU tensor);
   * ``'chunked'`` (and ``'auto'`` at ``s >= CHUNKED_THRESHOLD``) — the
-    online-softmax attention: on a CUDA tensor the same kernel, on a CPU
-    tensor the plain ``_chunked_sdpa``;
+    online-softmax attention: on a CUDA tensor with the default positions
+    the same kernel, otherwise the plain ``_chunked_sdpa``;
   * otherwise (``'reference'``, ``'auto'`` below the threshold) — the
     materialised ``_sdpa`` in torch ops.
 Decode attends over the cache with ``_sdpa``.
@@ -171,8 +171,10 @@ def forward(params, cfg: AttnConfig, x: torch.Tensor,
 
     On a CUDA tensor the online-softmax route is the flash-attention
     kernel, whose masks come from the default positions ``arange(s)``
-    (the only ones ``transformer.forward`` passes): given other
-    positions it raises ``NotImplementedError``."""
+    (what ``transformer.forward`` passes unless its caller gives
+    positions); given other positions it is the plain ``_chunked_sdpa``,
+    the reference's route there, which masks by the positions
+    themselves."""
     b, s, d = x.shape
     given = positions
     if positions is None:
@@ -181,15 +183,11 @@ def forward(params, cfg: AttnConfig, x: torch.Tensor,
     if impl == "flash":
         out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
     elif impl == "chunked" or (impl == "auto" and s >= CHUNKED_THRESHOLD):
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" or (given is not None and not torch.equal(
+                given.to(torch.int64).expand(b, s),
+                _default_positions(b, s, x.device).to(torch.int64))):
             out = _chunked_sdpa(q, k, v, cfg, positions, positions)
         else:
-            if given is not None and not torch.equal(
-                    given.to(torch.int64).expand(b, s),
-                    _default_positions(b, s, x.device).to(torch.int64)):
-                raise NotImplementedError(
-                    "the flash-attention kernel masks by the default "
-                    "positions arange(s); other positions have no kernel")
             out = ops.attention(q, k, v, causal=cfg.causal,
                                 window=cfg.window)
     else:

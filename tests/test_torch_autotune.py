@@ -29,7 +29,9 @@ L2 = 50e6
 # Batch-1 kernel times of the output-stationary kernels at the 13
 # full-width VGG16 layers, ms: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
 # 700 W, before the other flows existed (PERF.md).  Key: (Hadamard kind,
-# input path).  ``autotune.LATENCY_FIT`` is fitted to them.
+# input path).  ``autotune.LATENCY_FIT`` is fitted to them; the plane
+# kernel's rows are of its first output-stationary design, whose launch
+# (``pre_redesign_plane_grid``) the redesigned kernel no longer makes.
 MEASURED_OS_MS = {
     ("plane", "windowed"): (0.1502, 0.4145, 0.2436, 0.4260, 0.2245, 0.4023,
                             0.4128, 0.3972, 0.7451, 0.7684, 0.3916, 0.3951,
@@ -46,10 +48,32 @@ MEASURED_OS_MS = {
 }
 
 
+# Batch-1 device times (the wrapper's host work hidden) of the redesigned
+# plane output-stationary kernel at the 13 full-width VGG16 layers, ms:
+# chip_smoke.py (c) and (c3), ``x_device_ms``, on an NVIDIA H100 80GB HBM3
+# at 700 W, one run (PERF.md).  Key: input path.  ``fsc.OS_HALO_STEP_S``
+# and ``OS_HALO_FIXED_S`` are the least-squares fit of the halo row.
+MEASURED_PLANE_OS_DEVICE_MS = {
+    "windowed": (0.1812, 0.3798, 0.2007, 0.2811, 0.1640, 0.2695, 0.2702,
+                 0.1657, 0.2703, 0.2707, 0.1667, 0.1655, 0.1654),
+    "halo": (0.2820, 0.5923, 0.4244, 0.6592, 0.3422, 0.6008, 0.6001,
+             0.2705, 0.4976, 0.4981, 0.2754, 0.2746, 0.2753),
+}
+
+# Split-K slices of the plane kernel's output-stationary launch
+# (``fsc.os_launch_geometry`` on an H100; tests/test_torch_os_geometry.py
+# holds it by hand): conv1_2 at batch 1 takes clusters of 2 over its 8 bin
+# chunks (4 groups, M whole), conv5_1 also two 256-channel ranges, at
+# batch 1 and 4.
+OS_SLICES = {("conv1_2", 1): 4, ("conv5_1", 1): 8, ("conv5_1", 4): 8}
+
+
 def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
     """Bytes of one launch, counted by hand from the kernels' loops: K = 8,
     t = 6, Fa = 64, S = 64, S2 = 36; planes 8*Fa*N*M bytes, tables
-    4*GN*M*T*(10 + 3*64) with T = ceil(16 / 0.85) = 19."""
+    4*GN*M*T*(10 + 3*64) with T = ceil(16 / 0.85) = 19; the split-K
+    workspace of ``OS_SLICES`` or the flows' m ranges written and read
+    once."""
     layer = LAYERS[name]
     m, n, h = layer.c_in, layer.c_out, layer.h_in
     n_th = -(-h // 6)                       # tiles per side (h = w)
@@ -72,7 +96,8 @@ def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
     ops = 4 * (2 * 64 * 64 + 2 * 36 * 64 + n)
     rr = lambda b, k: b if b <= L2 else b * k
     if flow == "output_stationary":
-        total, g = rr(x, nb) + rr(w, pb), 1
+        total = rr(x, nb) + rr(w, pb)
+        g = 1 if sched else OS_SLICES[(name, batch)]
     elif flow == "weight_stationary":
         total, g = rr(x, nb) + w, -(-m // block_m)
     else:
@@ -130,37 +155,88 @@ def test_cost_model_constants_are_the_h100s():
                                    for i in ("windowed", "halo")}
     assert all(1e-6 < step < 2e-5 and 0 <= wave < 1e-4
                for wave, step in at.LATENCY_FIT.values())
+    # the plane output-stationary launch's cluster capacity, as
+    # ``fsc.os_cluster_capacity`` read it on the card: never more SMs
+    # than the card has, large clusters fewer
+    assert at.H100_OS_CLUSTERS == {1: 132, 2: 66, 3: 39, 4: 30, 5: 22,
+                                   6: 17, 7: 15, 8: 15}
+    assert all(c * n <= at.H100_SMS for c, n in at.H100_OS_CLUSTERS.items())
+
+
+def pre_redesign_plane_grid(layer, imode):
+    """(waves, steps) of the launch the plane kernel's first
+    output-stationary design made at batch 1, Fa 64: one CTA a (tile
+    block, n block, bin chunk), all M in BLOCK_M steps, 132 CTAs a wave."""
+    grid = at.kernel_grid(layer, 8, "output_stationary", "bin", imode, 1,
+                          fsc.BLOCK_M, 64)
+    ctas = grid["p_blocks"] * grid["n_blocks"] * 8
+    return -(-ctas // at.H100_SMS), -(-layer.c_in // fsc.BLOCK_M)
 
 
 def test_latency_fit_is_the_least_squares_fit_of_the_measured_times():
     """LATENCY_FIT's literals are the least-squares (WAVE_S, STEP_S) of
     time = waves * (WAVE_S + steps * STEP_S) over the measured
-    output-stationary times, one rectangle a CTA."""
+    output-stationary times, one rectangle a CTA, on the launches they
+    were measured on."""
     for (kind, imode), times in MEASURED_OS_MS.items():
-        mode = "scheduled" if kind == "scheduled" else "bin"
         rows = []
         for layer in df.VGG16_LAYERS:
-            grid = at.kernel_grid(layer, 8, "output_stationary", mode, imode,
-                                  1, fsc.BLOCK_M, 64)
-            waves = -(-grid["ctas"] // at.H100_SMS)
-            rows.append((waves, waves * grid["steps"]))
+            if kind == "plane":
+                waves, steps = pre_redesign_plane_grid(layer, imode)
+            else:
+                grid = at.kernel_grid(layer, 8, "output_stationary",
+                                      "scheduled", imode, 1, fsc.BLOCK_M, 64)
+                waves, steps = grid["waves"], grid["steps"]
+            rows.append((waves, waves * steps))
         fit = np.linalg.lstsq(np.asarray(rows, float),
                               1e-3 * np.asarray(times), rcond=None)[0]
         np.testing.assert_allclose(fit, at.LATENCY_FIT[(kind, imode)],
                                    rtol=1e-9)
 
 
+def test_halo_os_constants_are_the_fit_of_its_device_times():
+    """``fsc.OS_HALO_STEP_S`` / ``OS_HALO_FIXED_S`` are the least-squares
+    (step, fixed) of time = waves * (steps * STEP + FIXED) over the halo
+    kernel's measured device times, on the launch ``kernel_grid`` gives
+    it (rounded to 0.1 us and 1 us)."""
+    rows = []
+    for layer in df.VGG16_LAYERS:
+        grid = at.kernel_grid(layer, 8, "output_stationary", "bin", "halo",
+                              1, fsc.BLOCK_M, 64)
+        rows.append((grid["waves"] * grid["steps"], grid["waves"]))
+    step, fixed = np.linalg.lstsq(
+        np.asarray(rows, float),
+        1e-3 * np.asarray(MEASURED_PLANE_OS_DEVICE_MS["halo"]),
+        rcond=None)[0]
+    assert fsc.OS_HALO_STEP_S == pytest.approx(step, abs=0.05e-6)
+    assert fsc.OS_HALO_FIXED_S == pytest.approx(fixed, abs=0.5e-6)
+
+
 def test_step_fit_reproduces_a_measured_layer():
-    """The fitted latency term, waves * (WAVE_S + steps * STEP_S), lands
-    within 2x of every measured output-stationary batch-1 time it was
-    fitted to."""
+    """The latency term lands within 2x of every measured
+    output-stationary batch-1 time: the fitted term, waves * (WAVE_S +
+    steps * STEP_S), at the times it was fitted to (the scheduled
+    kernel's as the cost model prices them, the plane kernel's first
+    design's on its launch), and the cost model's price of the
+    redesigned plane kernel (``fsc.os_latency_s`` over the launch of
+    ``fsc.os_launch_geometry``) at that kernel's device times."""
     for (kind, imode), times in MEASURED_OS_MS.items():
-        mode = "scheduled" if kind == "scheduled" else "bin"
+        for layer, ms in zip(df.VGG16_LAYERS, times):
+            if kind == "plane":
+                waves, steps = pre_redesign_plane_grid(layer, imode)
+                wave_s, step_s = at.LATENCY_FIT[(kind, imode)]
+                latency_s = waves * (wave_s + steps * step_s)
+            else:
+                latency_s = at.hopper_fused_flow_cost(
+                    layer, 8, 4.0, "output_stationary", "scheduled", imode,
+                    active_bins=64)["latency_s"]
+            assert 0.5 < latency_s / (ms * 1e-3) < 2.0, (layer, kind)
+    for imode, times in MEASURED_PLANE_OS_DEVICE_MS.items():
         for layer, ms in zip(df.VGG16_LAYERS, times):
             c = at.hopper_fused_flow_cost(layer, 8, 4.0,
-                                          "output_stationary", mode, imode,
+                                          "output_stationary", "bin", imode,
                                           active_bins=64)
-            assert 0.5 < c["latency_s"] / (ms * 1e-3) < 2.0, (layer, kind)
+            assert 0.5 < c["latency_s"] / (ms * 1e-3) < 2.0, (layer, imode)
 
 
 @pytest.mark.parametrize("batch", [1, 4])

@@ -583,6 +583,32 @@ def test_shared_memory_mirror_matches_the_kernels():
         else:
             with pytest.raises(RuntimeError, match="launch failed"):
                 run()
+    # the output-stationary kernel's OsLayout: a staged shortcut of
+    # ceil(36 / chunks) rows fits beside a two-stage ring at Fa = 24 (12
+    # rows), not at Fa = 16 (18 rows); the entry point, called past the
+    # wrapper's check, launches the first and refuses the second
+    lib = fsc.library()
+    for fa_, ok in ((24, True), (16, False)):
+        chunks = -(-fa_ // fsc.BIN_CHUNK)
+        layout = fsc.os_layout(64, 36, 64 * fsc.BLOCK_M * fsc.BLOCK_P,
+                               fsc.staged_rows(36, chunks))
+        assert (layout.bytes <= cap) == ok and layout.stages == 2
+        ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .cuda() for sh in [(64, 8, 40), (fa_, 70, 8), (fa_, 70, 8),
+                                  (fa_, 64), (fa_, 64), (36, fa_),
+                                  (36, fa_), (1, 70)]]
+        y = torch.empty((36, 70, 40), device="cuda")
+        sc = torch.randn((36, 70, 40), device="cuda")
+        err = lib.fused_spectral_pipeline_f32(
+            *(t.data_ptr() for t in ops), y.data_ptr(), sc.data_ptr(), 0,
+            64, 8, 40, 40, fa_, 70, 36, 1, 8, chunks, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert (err == 0) == ok, err
+        if ok:
+            ref = fsc.fused_spectral_pipeline_reference(*ops, relu=True,
+                                                        shortcut=sc)
+            assert _rel(y, ref) <= TOL
     torch.cuda.synchronize()
 
 
@@ -708,6 +734,41 @@ def test_staged_shortcut_over_the_limit_is_refused(kernel):
     ref = getattr(fsc, kernel + "_reference")(*ops, relu=True, shortcut=sc,
                                               **kw)
     assert float((y - ref).abs().max() / ref.abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,p,split", [(512, 9, True), (256, 100, False)])
+def test_staged_shortcut_runs_where_the_launch_is_one_slice(m, p, split):
+    """The plane output-stationary launch at conv5's shape, batch 1
+    (M = N = 512, 9 tiles), is split by ``os_launch_geometry``: its finish
+    pass reads a 'vmem' shortcut from device memory, so the request runs
+    as 'hbm', bit for bit, and is not counted as staged.  At conv3's
+    (256, 100 tiles) the launch is one slice and the shortcut is
+    staged."""
+    need_card()
+    og = fsc.os_launch_geometry(-(-p // fsc.BLOCK_P), m, m, 64, 36,
+                                fsc.os_cluster_capacity("cuda"))
+    assert (og.slices > 1) == split, og
+    gen = torch.Generator(device="cuda").manual_seed(m + p)
+    dft = [torch.from_numpy(a).cuda()
+           for a in fsc.overlap_save_operators(8, 3)]
+    ops = (torch.randn((64, m, p), generator=gen, device="cuda"),
+           *(torch.randn((64, m, m), generator=gen, device="cuda")
+             / m ** 0.5 for _ in range(2)), *dft,
+           torch.randn((1, m), generator=gen, device="cuda"))
+    sc = torch.randn((36, m, p), generator=gen, device="cuda")
+    entry = fsc.entry_point("fused_spectral_pipeline", "output_stationary")
+    got = {}
+    for placement in ("hbm", "vmem"):
+        staged = fsc.STAGED_LAUNCHES[entry]
+        residual = fsc.RESIDUAL_LAUNCHES[entry]
+        got[placement] = fsc.fused_spectral_pipeline(
+            *ops, relu=True, shortcut=sc, shortcut_placement=placement)
+        torch.cuda.synchronize()
+        assert fsc.RESIDUAL_LAUNCHES[entry] == residual + 1
+        assert fsc.STAGED_LAUNCHES[entry] == staged + (
+            placement == "vmem" and not split)
+    assert torch.equal(got["vmem"], got["hbm"])
 
 
 @pytest.mark.gpu
@@ -1187,3 +1248,194 @@ def test_full_width_qwen3_prefill_two_layers_on_card(monkeypatch):
     err = float((out - ref).abs().max() / ref.abs().max())
     assert err <= 1e-4, err
     assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 tensor-core kernels held to f32 accuracy (B1, B7b, B9 f32)
+# and the reference's own gate on the CUDA forward
+# ---------------------------------------------------------------------------
+
+# max|kernel - plain| / max|plain| of a kernel whose products run in
+# 3xTF32: f32-level, where one TF32 pass keeps ~1e-3
+TC_TOL = 2e-6
+# VGG16's conv layers: (name, M, N, H); tile 6 (K = 8, k = 3)
+VGG16_LAYERS = [
+    ("conv1_1", 3, 64, 224), ("conv1_2", 64, 64, 224),
+    ("conv2_1", 64, 128, 112), ("conv2_2", 128, 128, 112),
+    ("conv3_1", 128, 256, 56), ("conv3_2", 256, 256, 56),
+    ("conv3_3", 256, 256, 56), ("conv4_1", 256, 512, 28),
+    ("conv4_2", 512, 512, 28), ("conv4_3", 512, 512, 28),
+    ("conv5_1", 512, 512, 14), ("conv5_2", 512, 512, 14),
+    ("conv5_3", 512, 512, 14)]
+
+
+def _rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["staged", "fused", "fused_autotuned"])
+def test_dense_resnet18_forward_within_the_reference_gate_on_card(route):
+    """The reference holds 'pallas_staged' and 'pallas_fused' to 1e-5
+    absolute of ``forward_spatial`` on dense ResNet-18 SMOKE (alpha 1,
+    no pruning loss); the port's CUDA forward is held to the same gate:
+    the staged backend, the fused backend on the default plan and on the
+    autotuned plan (measured on the card)."""
+    need_card()
+    import dataclasses
+
+    import repro_torch
+    repro_torch.strict_fp32()
+    dense = dataclasses.replace(RESNET_SMOKE, alpha=1.0)
+    params = cnn.init(dense, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((1, 3, dense.image_size, dense.image_size),
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    kw = (dict(hadamard="auto", input_mode="auto", measure=True)
+          if route == "fused_autotuned" else {})
+    plan = pl.build_network_plan(params, dense, batch=1, **kw)
+    backend = "staged" if route == "staged" else "fused"
+    counter = shad.LAUNCHES if backend == "staged" else fsc.LAUNCHES
+    before = sum(counter.values())
+    y = cnn.forward_spectral(params, plan, x, backend=backend)
+    assert sum(counter.values()) > before
+    ref = cnn.forward_spatial(params, dense, x)
+    assert float((y - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_offset_positions_at_s4096_take_the_chunked_route_on_card(
+        monkeypatch):
+    """qwen3-8b at full width, cut to 2 layers, f32, S = 4096 with
+    positions other than arange(S) (a constant offset at batch 1, one
+    offset per row at batch 2): the online-softmax route is the plain
+    ``_chunked_sdpa`` (the reference's route there), no B9 launch, within
+    1e-4 of the materialised ``_sdpa`` route."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    repro_torch.strict_fp32()
+    cfg = configs.get_config("qwen3-8b").replace(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = api.init(cfg, generator=torch.Generator(device="cuda")
+                      .manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 4096), device="cuda",
+                           generator=gen)
+    ar = torch.arange(4096, device="cuda")[None]
+    model = api.module(cfg)
+    for toks, pos in ((tokens[:1], ar + 5),
+                      (tokens, ar + torch.tensor([[3], [11]],
+                                                 device="cuda"))):
+        before = fa.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            out = model.forward(params, cfg, toks, positions=pos,
+                                last_only=True)
+            assert fa.LAUNCHES["flash_attention"] == before
+            with monkeypatch.context() as m:
+                m.setattr(attn, "CHUNKED_THRESHOLD", 4097)
+                ref = model.forward(params, cfg, toks, positions=pos,
+                                    last_only=True)
+        assert _rel(out, ref) <= 1e-4
+        assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_plane_os_kernel_at_vgg16_layers_on_card(name, m, n, h):
+    """B1 at every VGG16 layer shape (the forward DFT operators on all 64
+    bins, random planes), batch 1 and 4: within 2e-6 of max|plain|, as
+    the launch geometry splits it (clusters, m ranges), bitwise on
+    repeat."""
+    need_card()
+    import repro_torch
+    repro_torch.strict_fp32()
+    geo = spec.make_geometry(h, h, 3, 8)
+    gen = torch.Generator(device="cuda").manual_seed(m + n + h)
+    dft = [torch.from_numpy(a).cuda()
+           for a in fsc.overlap_save_operators(8, 3)]
+    wr, wi = (torch.randn((64, n, m), generator=gen, device="cuda")
+              / m ** 0.5 for _ in range(2))
+    bias = torch.randn((1, n), generator=gen, device="cuda")
+    for b in (1, 4):
+        x = torch.randn((b, m, h, h), generator=gen, device="cuda")
+        xt = fsc._windows_layout(x, geo)[0]
+        ops = (xt, wr, wi, *dft, bias)
+        y = fsc.fused_spectral_pipeline(*ops, relu=True)
+        torch.cuda.synchronize()
+        ref = fsc.fused_spectral_pipeline_reference(*ops, relu=True)
+        assert _rel(y, ref) <= TC_TOL, (b, _rel(y, ref))
+        assert torch.equal(y, fsc.fused_spectral_pipeline(*ops, relu=True))
+
+
+@pytest.mark.gpu
+def test_plane_os_kernel_runs_on_the_tensor_cores():
+    """B1/B3's SASS (``cuobjdump -sass`` of the plane library) holds
+    tensor-core products (HMMA: the 3xTF32 mma.sync) and no local-memory
+    store (STL: no spill) in any of its output-stationary kernels."""
+    need_card()
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts("fused_spectral_conv", "fused_os_kernel",
+                                fsc.SOURCES["fused_spectral_conv"])
+    assert counts["HMMA"] > 0 and counts["STL"] == 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,s,b", [("qwen3-8b", 4096, 1),
+                                      ("qwen3-8b", 4096, 4),
+                                      ("h2o-danube-1.8b", 8192, 1),
+                                      ("smollm-135m", 4096, 1)])
+def test_flash_attention_f32_at_prefill_shapes_on_card(arch, s, b):
+    """B9 f32 at the full-width (la) shapes (each config's heads, head
+    dim and window; causal): within 2e-6 of max|plain|, bitwise on
+    repeat."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    repro_torch.strict_fp32()
+    cfg = configs.get_config(arch)
+    q, k, v = attention_inputs(b, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd,
+                               torch.float32)
+    out = fa.flash_attention(q, k, v, window=cfg.window)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(q, k, v, window=cfg.window)
+    assert _rel(out, ref) <= TC_TOL, _rel(out, ref)
+    assert torch.equal(out, fa.flash_attention(q, k, v, window=cfg.window))
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_runs_on_the_tensor_cores():
+    """The f32 kernel's SASS holds HMMA (3xTF32 mma.sync) and no
+    local-memory store (STL: no spill)."""
+    need_card()
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts("flash_attention", "flash_attention_kernel")
+    assert counts["HMMA"] > 0 and counts["STL"] == 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_spectral_hadamard_at_every_vgg16_layer_on_card(name, m, n, h):
+    """B7b (four real products in 3xTF32) in all three flows at every
+    VGG16 layer's [64, N, M] x [64, M, P], batch 1 and 4: within 2e-6 of
+    max|plain| (the plain version: the reference's f32 Karatsuba)."""
+    need_card()
+    import repro_torch
+    repro_torch.strict_fp32()
+    tiles = spec.make_geometry(h, h, 3, 8).n_tiles
+    gen = torch.Generator(device="cuda").manual_seed(m * n + h)
+    w = [torch.randn((64, n, m), generator=gen, device="cuda")
+         for _ in range(2)]
+    for b in (1, 4):
+        x = [torch.randn((64, m, b * tiles), generator=gen, device="cuda")
+             for _ in range(2)]
+        for flow in ("output_stationary", "weight_stationary",
+                     "input_stationary"):
+            got = shad.spectral_hadamard(*w, *x, flow=flow)
+            torch.cuda.synchronize()
+            ref = shad.spectral_hadamard_reference(*w, *x, flow=flow)
+            for g_, r_ in zip(got, ref):
+                assert _rel(g_, r_) <= TC_TOL, (b, flow, _rel(g_, r_))

@@ -245,24 +245,50 @@ LAYER = ConvLayer("s3b1b", 256, 256, 28, 28)
 def test_cost_model_prices_the_shortcut_bytes(hadamard, input_mode):
     """'hbm' and 'vmem' both read the output-sized shortcut once; 'hbm'
     reads it after the channel loop (serial), 'vmem' beside it, with its
-    staged rows in shared memory."""
-    cost = lambda r, flow=OS, bm=None: at.hopper_fused_flow_cost(
-        LAYER, 8, 4.0, flow, hadamard, input_mode, batch=1, active_bins=64,
+    staged rows in shared memory.  The plane kernel is priced at batch 4,
+    where its output-stationary launch is one slice; at batch 1 it is
+    split (``kernel_grid``), its finish pass reads the shortcut, and
+    'vmem' is priced as the 'hbm' that runs."""
+    batch = 1 if hadamard == "scheduled" else 4
+    cost = lambda r, flow=OS, bm=None, b=batch: at.hopper_fused_flow_cost(
+        LAYER, 8, 4.0, flow, hadamard, input_mode, batch=b, active_bins=64,
         residual=r, block_m=bm)
     base, hbm, vmem = cost(None), cost("hbm"), cost("vmem")
     geo = spec.make_geometry(28, 28, 3, 8)
     y_bytes = (4 * 256 * 28 * 28 if input_mode == "halo"
                else 4 * 36 * 256 * geo.n_tiles)
+    if hadamard == "bin":
+        split = {r: cost(r, b=1) for r in (None, "hbm", "vmem")}
+        assert at.kernel_grid(LAYER, 8, OS, hadamard, input_mode, 1, 8,
+                              64)["slices"] > 1
+        assert vmem["residual"] == "vmem" and split["vmem"]["residual"] \
+            == "hbm"
+        assert split["vmem"]["predicted_s"] == split["hbm"]["predicted_s"]
+        assert split["vmem"]["smem_bytes"] == split[None]["smem_bytes"]
+        assert split["hbm"]["shortcut_s"] == 0
+        assert split["hbm"]["finish_s"] == pytest.approx(
+            split[None]["finish_s"] + y_bytes / 3.35e12)
+        y_bytes *= batch
     assert hbm["hbm_bytes"] == vmem["hbm_bytes"] == base["hbm_bytes"] \
         + y_bytes
     assert hbm["shortcut_s"] == pytest.approx(y_bytes / 3.35e12)
     assert vmem["shortcut_s"] == base["shortcut_s"] == 0
     assert hbm["smem_bytes"] == base["smem_bytes"]
-    ranks = at.kernel_grid(LAYER, 8, OS, hadamard, input_mode, 1,
+    ranks = at.kernel_grid(LAYER, 8, OS, hadamard, input_mode, batch,
                            1 if hadamard == "scheduled" else 8, 64)["ranks"]
-    bn_bp = 64 * (4 if hadamard == "scheduled" else 16)
-    assert vmem["smem_bytes"] == base["smem_bytes"] + 4 * bn_bp * \
-        fsc.staged_rows(36, ranks)
+    rows = fsc.staged_rows(36, ranks)
+    if hadamard == "scheduled":
+        assert vmem["smem_bytes"] == base["smem_bytes"] + 4 * 64 * 4 * rows
+    else:
+        # the plane kernel's output-stationary ring gives up its third
+        # stage where the staged rows would not fit beside it
+        hg = (spec.halo_block_geometry(geo, fsc.BLOCK_P)
+              if input_mode == "halo" else None)
+        x_floats = (64 * 8 * 16 if hg is None else
+                    8 * (((hg.bth * 6 + 2) * (hg.btw * 6 + 2)) | 1))
+        assert base["smem_bytes"] == fsc.os_layout(64, 36, x_floats).bytes
+        assert vmem["smem_bytes"] == fsc.os_layout(64, 36, x_floats,
+                                                   rows).bytes
     assert vmem["predicted_s"] <= hbm["predicted_s"]
     ws = cost("hbm", WS, 1 if hadamard == "scheduled" else 8)
     assert ws["finish_s"] > cost(None, WS, 1 if hadamard == "scheduled"
@@ -274,11 +300,15 @@ def test_cost_model_prices_the_shortcut_bytes(hadamard, input_mode):
 def test_autotune_places_the_shortcut():
     """A staged shortcut is tried first on output-stationary candidates
     and falls back to 'hbm' where its rows do not fit (one bin chunk:
-    all 36 rows); ws/is read it globally."""
-    fits = at.autotune_layer(LAYER, 8, 4.0, flows=(OS,), active_bins=64,
-                             residual="vmem")
+    all 36 rows) or where the plane kernel's launch is split (batch 1:
+    its finish pass reads the shortcut); ws/is read it globally."""
+    fits = at.autotune_layer(LAYER, 8, 4.0, flows=(OS,), batch=4,
+                             active_bins=64, residual="vmem")
     assert fits.residual == "vmem"
     assert fits.smem_bytes <= at.H100_SMEM_PER_CTA
+    split = at.autotune_layer(LAYER, 8, 4.0, flows=(OS,), active_bins=64,
+                              residual="vmem")
+    assert split.residual == "hbm"
     one_chunk = at.autotune_layer(LAYER, 8, 4.0, flows=(OS,),
                                   active_bins=8, residual="vmem")
     assert one_chunk.residual == "hbm"

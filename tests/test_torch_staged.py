@@ -332,6 +332,53 @@ def test_3xtf32_karatsuba_matches_f32_at_conv5():
     assert rel["1x"] > 1e-4, rel
 
 
+def test_3xtf32_four_products_match_f32_at_conv5():
+    """The kernel's form at the same conv5 shape: re = Wr Xr - Wi Xi and
+    im = Wr Xi + Wi Xr, each real product in three TF32 passes (-Wi Xi from
+    Wi's parts with the sign flipped, exact).  Within 1e-6 of the exact
+    (float64) product relative to its largest value, no farther than f32
+    four-product GEMMs nor than the 3xTF32 Karatsuba form above, and within
+    2e-6 of max|plain| of the plain version (the reference's f32 Karatsuba,
+    the card tests' gate); f32 four products are within half the plain
+    version's error, whose m3 - m1 - m2 cancels the rounding of the larger
+    sum plane's GEMM."""
+    rng = np.random.default_rng(20)
+    f, n, m, p = 64, 512, 512, 9
+    err = {"3x": 0.0, "four": 0.0, "3x karatsuba": 0.0, "plain": 0.0}
+    top = off_plain = top_plain = 0.0
+    for _ in range(0, f, 8):
+        wr, wi = (torch.from_numpy(_rand(rng, (8, n, m))) for _ in range(2))
+        xr, xi = (torch.from_numpy(_rand(rng, (8, m, p))) for _ in range(2))
+        pr, pi = shad.spectral_hadamard_reference(wr, wi, xr, xi)
+        dd = lambda a, b: torch.bmm(a.double(), b.double())  # noqa: E731
+        er, ei = dd(wr, xr) - dd(wi, xi), dd(wr, xi) + dd(wi, xr)
+        top = max(top, float(er.abs().max()), float(ei.abs().max()))
+        err["plain"] = max(err["plain"], float((pr - er).abs().max()),
+                           float((pi - ei).abs().max()))
+        fr = torch.bmm(wr, xr) - torch.bmm(wi, xi)
+        fi = torch.bmm(wr, xi) + torch.bmm(wi, xr)
+        err["four"] = max(err["four"], float((fr - er).abs().max()),
+                          float((fi - ei).abs().max()))
+        tr = _tf32_product(wr, xr, 3) - _tf32_product(wi, xi, 3)
+        ti = _tf32_product(wr, xi, 3) + _tf32_product(wi, xr, 3)
+        err["3x"] = max(err["3x"], float((tr - er).abs().max()),
+                        float((ti - ei).abs().max()))
+        m1, m2, m3 = (_tf32_product(a, b, 3) for a, b in
+                      ((wr, xr), (wi, xi), (wr + wi, xr + xi)))
+        err["3x karatsuba"] = max(err["3x karatsuba"],
+                                  float((m3 - m1 - m2 - ei).abs().max()))
+        top_plain = max(top_plain, float(pr.abs().max()),
+                        float(pi.abs().max()))
+        off_plain = max(off_plain, float((tr - pr.double()).abs().max()),
+                        float((ti - pi.double()).abs().max()))
+    rel = {k: v / top for k, v in err.items()}
+    assert rel["3x"] <= 1e-6, rel
+    assert rel["3x"] <= rel["four"], rel
+    assert rel["3x"] <= rel["3x karatsuba"], rel
+    assert rel["four"] <= rel["plain"] / 2, rel
+    assert off_plain / top_plain <= 2e-6, (off_plain / top_plain, rel)
+
+
 @pytest.mark.parametrize("flow", FLOWS)
 @pytest.mark.parametrize("f,n,m,p,block_m,sms", [
     (64, 512, 512, 9, 128, 132), (64, 512, 512, 25, 128, 132),
