@@ -15,11 +15,12 @@ each of which fails the run on error:
       fused kernels' 38 instantiations (kernel x input path x flow x
       shortcut placement, and the finish passes);
       an output-stationary kernel without a shortcut that spills fails
-      the run, as do a spill in the plane output-stationary kernel (B1,
-      B3) or no HMMA in its SASS, a spill store in the staged Hadamard
-      libraries (spectral_hadamard, sparse_hadamard) or a spectral
-      Hadamard whose SASS holds no HMMA (its 3xTF32 tensor-core
-      products);
+      the run, as do a spill in a tensor-core fused kernel (the plane
+      output-stationary kernel, B1/B3; the plane input-stationary kernel,
+      B2 is plane; the scheduled output-stationary kernel, B4/B5) or no
+      HMMA in its SASS, a spill store in the staged Hadamard libraries
+      (spectral_hadamard, sparse_hadamard) or a spectral Hadamard whose
+      SASS holds no HMMA (its 3xTF32 tensor-core products);
   (c) plane kernel vs its plain version at the 13 full-width VGG16
       layer shapes, at every batch size (d) serves (1 and 4: the plan's
       own operands, windows of a random activation in the main path's
@@ -41,8 +42,10 @@ each of which fails the run on error:
       all 13 layers) from the same weights: plan-build and
       schedule-compile seconds, per layer T, exact Eq-14 utilization,
       table and plane bytes; the scheduled kernel vs its plain version
-      at every layer shape at batch 1 and 4 (gate 1e-4), batch-1 times
-      and bound as in (c);
+      at every layer shape at batch 1 and 4 (gate 1e-4; whether every
+      layer is within 2e-6 is printed), batch-1 times and bound as in
+      (c), with the device time (``x_device_ms``, the wrapper's host work
+      hidden) per layer and in total;
   (d2) the same five forwards on the scheduled plan: 13 scheduled-kernel
       launches per forward and none of the plane kernel, logits vs
       einsum, p50 latency and peak memory;
@@ -56,7 +59,8 @@ each of which fails the run on error:
       and p50 minus the kernel sum beside (d)'s, peak memory;
   (c4), (d4) the same for the halo scheduled kernel (B5) on the
       scheduled plan moved to ``input_mode="halo"`` (the tables do not
-      depend on the input path, so nothing is recompiled);
+      depend on the input path, so nothing is recompiled), its device
+      time and the 2e-6 line too;
   (c5) the weight- and input-stationary flows (B2) of the two windowed
       kernels, on the plane and scheduled plans moved to each flow with
       ``plan.with_flow`` (m-range widths from the Hopper cost model): each
@@ -64,8 +68,10 @@ each of which fails the run on error:
       layer shape and batch, a repeat launch bitwise equal; at batch 1
       kernel / plain / bound times (the bound is the function's own,
       the output-stationary twin's; beside it the bound with the flow's
-      further IFFTs and split-K workspace), the output-stationary
-      kernel's time on the same input and max|flow - os|;
+      further IFFTs and split-K workspace), the device time
+      (``x_device_ms``) per layer and in total, the output-stationary
+      kernel's time on the same input and max|flow - os|, and whether
+      every layer is within 2e-6 of max|plain|;
   (c6) the same for the four halo flow kernels, plus max|halo -
       windowed| of the same flow;
   (c7) the Hopper cost model against the batch-1 kernel times of
@@ -75,9 +81,10 @@ each of which fails the run on error:
       input_mode="auto", measure=True)``: plan-build and table-compile
       seconds, the fitted latency constants, per layer the chosen (flow,
       mode, input path, block_m) and every measured candidate's predicted
-      and measured time, and whether both ranked them alike; then the
-      five forwards, launches per entry point equal to the plan's
-      choices (13 per forward), logits vs einsum, p50 beside (d)-(d4);
+      and measured time, and whether both ranked them alike, the launches
+      per forward by entry point; then the five forwards, launches per
+      entry point equal to the plan's choices (13 per forward), logits vs
+      einsum, p50 beside (d)-(d4);
   (d6) one batch-1 forward through each of the four plans of (d)-(d4)
       moved to weight- and to input-stationary (``with_flow``): 13
       launches of the flow's entry point, logits vs einsum;
@@ -154,9 +161,15 @@ each of which fails the run on error:
   (dr4) the full-width scheduled ResNet-18 plans (windowed and halo),
       built at batch 1, forwarded at batch 4: a residual node whose
       staged ('vmem') shortcut does not fit a CTA at that batch reads it
-      at the flush ('hbm'; the run fails if no node falls back, so the
-      check reaches the case it guards), 20 launches and 8 fused
-      shortcuts per forward, logits vs einsum;
+      at the flush ('hbm'), 20 launches and 8 fused shortcuts per
+      forward, logits vs einsum; then a block that really falls back
+      (``fallback_block``: ResNet-18's first stage at 128 channels on
+      112 x 112 images, s1b1b's tables padded to 110 cycles and its
+      shortcut planned 'vmem'), forwarded at batch 1 and 4 on both input
+      paths through ``execute_layer_plan``: the run fails unless one
+      batch stages the shortcut and the other reads it at the flush on
+      each path, with 3 launches, 1 fused shortcut, the staged launches
+      counted, and logits vs einsum;
   (la) the flash-attention kernels (B9; bf16: the tensor-core kernel,
       whose SASS must hold HGMMA or HMMA, counted by ``cuobjdump -sass``;
       f32: the 3xTF32 tensor-core kernel, whose SASS must hold HMMA and
@@ -473,23 +486,34 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
 
     def flow_bound_ms(lp, b):
         """The bound plus the flow design's own work: G - 1 further
-        valid-row IFFTs and epilogues, and the [G, S2, N, slots]
-        workspace written and read once."""
+        valid-row IFFTs and epilogues, and the [slices, S2, N, slots]
+        workspace written and read once (slices: the G m ranges, times
+        the bin groups of the plane input-stationary launch's clusters,
+        ``fsc.is_launch_geometry``)."""
         flops, nbytes = bound(lp, b)
         g = -(-lp.layer.c_in // lp.tuning.block_m)
         n, s2, p = lp.layer.c_out, lp.dvr.shape[0], b * lp.geo.n_tiles
         flops += (g - 1) * (4 * s2 * lp.n_active_bins * n * p + s2 * n * p)
-        if g > 1:
+        slices = g
+        if not sched and flow == fsc.IS:
+            slices = fsc.is_launch_geometry(
+                -(-p // fsc.BLOCK_P), g, min(lp.tuning.block_m,
+                                             lp.layer.c_in), n,
+                lp.n_active_bins, s2,
+                fsc.os_cluster_capacity(flush.device)).slices
+        if slices > 1:
             bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
             pb = (b * spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
                   .n_blocks if halo else -(-p // bp))
-            nbytes += 2 * 4 * g * s2 * n * pb * bp
+            nbytes += 2 * 4 * slices * s2 * n * pb * bp
         return bound_of(flops, nbytes)[0]
 
     def extra(lp, x_img, flush_fn):
         ops = make_ops(lp, x_img)
         y, yo = wrapper(*ops, **kw(lp)), wrapper(*ops, **kw(lp, False))
-        return {"x_os_ms": timed_ms(lambda: wrapper(*ops, **kw(lp, False)),
+        return {"x_device_ms": enqueued_ms(lambda: wrapper(*ops, **kw(lp)),
+                                           flush_fn, REPS),
+                "x_os_ms": timed_ms(lambda: wrapper(*ops, **kw(lp, False)),
                                     flush_fn),
                 "x_os_abs": float((y - yo).abs().max()),
                 "x_flow_bound_ms": flow_bound_ms(lp, 1)}
@@ -516,7 +540,18 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
         lambda lp, ops: reference(*ops, **kw(lp)), make_ops, bound, xgen,
         flush, extra=extra, twin=twin if halo else None, repeat=True,
         plain_reps=3)
+    tc_gate(f"{label} {entry}", rows)
     return entry, rows, tot
+
+
+def tc_gate(label, rows) -> float:
+    """Print whether every layer's kernel, batch 1 and 4, is within
+    OS_TC_TOL of max|plain| (the 3xTF32 kernels' card-test gate; the run's
+    own gate stays KERNEL_TOL) and return the largest error."""
+    worst = max(max(r["err"], r["batch4"][1]) for r in rows)
+    print(f"    {label}: every layer, batch 1 and 4, within {OS_TC_TOL:g} of "
+          f"max|plain|: {worst <= OS_TC_TOL}, the largest {worst:.3e}")
+    return worst
 
 
 def spill_report() -> list[tuple[str, str, str, int, int]]:
@@ -541,7 +576,9 @@ def spill_report() -> list[tuple[str, str, str, int, int]]:
             kind = re.search(r"\d+(fused_\w+?_kernel|finish_partials_kernel)",
                              name).group(1)
             ints = re.findall(r"Li(\d+)E", name[:name.index("EEv") + 1])
-            flow = ("os" if kind == "fused_os_kernel"
+            flow = ("os" if kind in ("fused_os_kernel",
+                                     "fused_sched_os_kernel")
+                    else "is" if kind == "fused_is_kernel"
                     else "finish" if kind.startswith("finish")
                     else flows[ints[-2]])
             out.append((kind, "halo" if "HaloPath" in name else "windowed",
@@ -1540,7 +1577,7 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
     # (dr4) the scheduled plans, built at batch 1, forwarded at batch 4:
     # a staged ('vmem') shortcut whose rows do not fit at that batch is
     # read at the flush ('hbm') instead
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cap = fsc.sched_cluster_capacity(dev)
     for imode in ("windowed", "halo"):
         plan = plans[("scheduled", imode, fsc.OS)]
         moved = []
@@ -1549,7 +1586,7 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
                 else None
             if lp is None or lp.epilogue.residual != "fused":
                 continue
-            got = {b: fsc.placement_at_batch(lp, b, sms) for b in (1, 4)}
+            got = {b: fsc.placement_at_batch(lp, b, cap) for b in (1, 4)}
             if got[1] != (lp.tuning.residual or "hbm"):
                 fail(f"(dr4) {node.id}: the batch-1 plan's placement "
                      f"{lp.tuning.residual} became {got[1]} at batch 1")
@@ -1557,15 +1594,15 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
                 moved.append(node.id)
             print(f"(dr4) {imode} {node.id}: planned {lp.tuning.residual}, "
                   f"batch 1 {got[1]}, batch 4 {got[4]}")
-        if not moved:
-            fail(f"(dr4) {imode}: no staged shortcut falls back at batch 4; "
-                 f"the check does not reach the fault it guards")
+        print(f"(dr4) {imode}: staged shortcuts that fall back at batch 4: "
+              f"{moved or 'none (the rows fit at both batches)'}")
         per_forward, residual = per_forward_of(plan)
         drive(plan, [images[0], images[-1], images[-1]],
               f"(dr4) scheduled {imode}, built at batch 1", per_forward,
               kernel_ms_of[("scheduled", imode, fsc.OS)], residual, params,
               RCFG)
     del plans, base, plan
+    fallback_block(dev, cap)
 
     t0 = time.perf_counter()
     aplan = build_network_plan(params, RCFG, batch=1, hadamard="auto",
@@ -1587,6 +1624,71 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
           1e3 * sum(lp.tuning.measured_s for lp in aplan.layers), residual,
           params, RCFG)
     return totals, stotals, btotals
+
+
+def fallback_block(dev, cap) -> None:
+    """(dr4)'s fallback case: ResNet-18's first stage at 128 channels on
+    112 x 112 images (stem, s1b1a, s1b1b with its 128ch@56 shortcut),
+    scheduled, built at batch 1, s1b1b's tables padded to 110 cycles
+    (zero weights: idle lanes, the same function) and its shortcut planned
+    'vmem'.  The scheduled output-stationary kernel's cluster follows the
+    batch, and with it the staged rows: on each input path one of batch 1
+    and 4 stages them and the other reads the shortcut at the flush
+    (``placement_at_batch``).  Each forward: 3 launches, 1 fused
+    shortcut, a staged launch exactly where the placement is 'vmem',
+    logits vs einsum (fails otherwise)."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.resnet18_spectral import resnet18_config
+    from repro_torch.core import plan as pl
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.models import cnn
+
+    cfg = resnet18_config(image_size=112, width=128, stage_mults=(1,),
+                          blocks_per_stage=1)
+    params = cnn.init(cfg, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    base = pl.build_network_plan(params, cfg, batch=1, hadamard="scheduled",
+                                 device=dev)
+    xgen = torch.Generator(device=dev).manual_seed(4)
+    for imode in ("windowed", "halo"):
+        plan = base if imode == "windowed" else pl.with_input_mode(base,
+                                                                  imode)
+        lp = plan.layers[-1]
+        pad = (0, 0, 0, 110 - lp.tables.idx.shape[2])
+        lp = dataclasses.replace(
+            lp, tables=pl.PlanTables(*(F.pad(t, pad) for t in lp.tables)),
+            tuning=dataclasses.replace(lp.tuning, residual="vmem"))
+        plan = dataclasses.replace(plan, layers=plan.layers[:-1] + (lp,))
+        got = {b: fsc.placement_at_batch(lp, b, cap) for b in (1, 4)}
+        print(f"(dr4) fallback block {imode} (s1b1b 128ch@56, 110 cycles, "
+              f"planned vmem): batch 1 {got[1]}, batch 4 {got[4]}")
+        if sorted(got.values()) != ["hbm", "vmem"]:
+            fail(f"(dr4) fallback block {imode}: placements {got}, want "
+                 f"one batch staged and the other at the flush")
+        for b in (1, 4):
+            x = torch.randn((b, 3, 112, 112), generator=xgen, device=dev)
+            counts = (fsc.LAUNCHES, fsc.RESIDUAL_LAUNCHES,
+                      fsc.STAGED_LAUNCHES)
+            before = [sum(c.values()) for c in counts]
+            out = cnn.forward_spectral(params, plan, x, backend="fused")
+            torch.cuda.synchronize()
+            delta = [sum(c.values()) - n for c, n in zip(counts, before)]
+            ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+            err = float((out - ref).abs().max() / ref.abs().max())
+            top1 = bool(torch.equal(out.argmax(-1), ref.argmax(-1)))
+            print(f"(dr4) fallback block {imode} batch {b}: launches "
+                  f"{delta[0]}, fused shortcuts {delta[1]}, staged "
+                  f"{delta[2]}; logits vs einsum {err:.3e}, top-1 equal "
+                  f"{top1}")
+            if delta != [3, 1, int(got[b] == "vmem")]:
+                fail(f"(dr4) fallback block {imode} batch {b}: launches, "
+                     f"fused shortcuts, staged {delta}, want "
+                     f"[3, 1, {int(got[b] == 'vmem')}]")
+            if not err <= LOGITS_TOL or not top1:
+                fail(f"(dr4) fallback block {imode} batch {b}: logits "
+                     f"{err:.3e} of einsum, top-1 equal {top1}")
 
 
 # (la): the flash-attention kernel's full-width shapes, causal: (arch,
@@ -2177,20 +2279,25 @@ def main() -> int:
     for row in sorted(spills):
         print(f"      {row[0]:24s} {row[1]:8s} {row[2]:6s} {row[3]:6s} "
               f"{row[4]}")
-    os_spills = [r for r in spills if r[0] == "fused_os_kernel"
-                 or (r[0] == "fused_sched_kernel" and r[2] == "os")]
+    os_spills = [r for r in spills if r[2] == "os"]
     if len(spills) != 38 or len(os_spills) != 12:
         fail(f"(b) expected 38 kernel instantiations (12 output-"
              f"stationary), the ptxas report lists {len(spills)}")
+    # the tensor-core kernels: no spill, HMMA in their SASS
+    tc_kernels = {"fused_os_kernel": ("fused_spectral_conv", "B1, B3"),
+                  "fused_is_kernel": ("fused_spectral_conv", "B2 is plane"),
+                  "fused_sched_os_kernel": ("fused_spectral_conv_scheduled",
+                                            "B4, B5")}
     if any(r[4] for r in os_spills if r[3] == "none"):
         fail("(b) an output-stationary kernel without a shortcut spills")
-    if any(r[4] for r in spills if r[0] == "fused_os_kernel"):
-        fail("(b) the plane output-stationary kernel spills")
-    os_sass = _build.sass_counts("fused_spectral_conv", "fused_os_kernel",
-                                 fsc.SOURCES["fused_spectral_conv"])
-    print(f"    fused_os_kernel's SASS (B1, B3): {os_sass}")
-    if os_sass["HMMA"] < 1:
-        fail("(b) the plane output-stationary kernel's SASS holds no HMMA")
+    tc_sass = {}
+    for kname, (src, label) in tc_kernels.items():
+        if any(r[4] for r in spills if r[0] == kname):
+            fail(f"(b) {kname} ({label}) spills")
+        tc_sass[kname] = _build.sass_counts(src, kname, fsc.SOURCES[src])
+        print(f"    {kname}'s SASS ({label}): {tc_sass[kname]}")
+        if tc_sass[kname]["HMMA"] < 1:
+            fail(f"(b) {kname} ({label})'s SASS holds no HMMA")
     staged_spills = {src: lib_spill_stores(src)
                      for src in ("spectral_hadamard", "sparse_hadamard")}
     hadamard_sass = _build.sass_counts("spectral_hadamard",
@@ -2247,7 +2354,11 @@ def main() -> int:
     print(f"(c) clusters of 1 to 8 output-stationary CTAs the card runs at "
           f"once, by size: {capacity} (the cost model's "
           f"autotune.H100_OS_CLUSTERS: equal "
-          f"{capacity == at.H100_OS_CLUSTERS})")
+          f"{capacity == at.H100_OS_CLUSTERS}); the input-stationary "
+          f"kernel's own (fsc.is_cluster_capacity) equal "
+          f"{fsc.is_cluster_capacity(dev) == at.H100_OS_CLUSTERS}, the "
+          f"scheduled output-stationary kernel's equal "
+          f"{fsc.sched_cluster_capacity(dev) == at.H100_OS_CLUSTERS}")
 
     def conv2d_ms(lp, x_img, flush_fn):
         """The dense conv's time (context), B1's device time with the
@@ -2456,6 +2567,14 @@ def main() -> int:
             lp.n_active_bins, lp.layer.c_out, lp.dvr.shape[0],
             entries[lp.layer.name], lp.tables.nbytes)
 
+    def sched_extra(lp, x_img, flush_fn):
+        """B4's device time, the wrapper's host work hidden."""
+        ops = (windows(lp, x_img), *lp.tables, lp.dfr, lp.dfi, lp.dvr,
+               lp.dvi, lp.bias)
+        return {"x_device_ms": enqueued_ms(
+            lambda: fsc.fused_spectral_pipeline_scheduled(
+                *ops, n_out=lp.layer.c_out, relu=True), flush_fn, REPS)}
+
     print("     " + header)
     srows, stot = check_layers(
         splan, "(c2)",
@@ -2465,7 +2584,8 @@ def main() -> int:
             *ops, n_out=lp.layer.c_out, relu=True),
         lambda lp, x_img: (windows(lp, x_img), *lp.tables, lp.dfr, lp.dfi,
                            lp.dvr, lp.dvi, lp.bias),
-        sched_bound, xgen, flush)
+        sched_bound, xgen, flush, extra=sched_extra)
+    tc_gate("(c2) B4", srows)
     totals[fsc.entry_point("fused_spectral_pipeline_scheduled",
                            fsc.OS)] = stot
     measured["fused_spectral_pipeline_scheduled"] = (model_ms(splan), srows)
@@ -2493,7 +2613,11 @@ def main() -> int:
         return {"x_windowed_ms": timed_ms(
             lambda: fsc.fused_spectral_pipeline_scheduled(
                 xt, *ops, n_out=lp.layer.c_out, relu=True), flush_fn),
-            "x_idle": idle_share(lp, fsc.SCHED_BLOCK_P)}
+            "x_idle": idle_share(lp, fsc.SCHED_OS_BLOCK_P),
+            "x_device_ms": enqueued_ms(
+                lambda: fsc.fused_spectral_pipeline_scheduled_halo(
+                    x_img, *ops, geo=lp.geo, hg=halo_blocks(lp),
+                    n_out=lp.layer.c_out, relu=True), flush_fn, REPS)}
 
     def sched_ops_bytes(lp):
         return lp.tables.nbytes + 4 * (
@@ -2513,6 +2637,7 @@ def main() -> int:
         lambda lp, b: halo_layer_bound(lp, b, sched_ops_bytes(lp),
                                        sched_bound(lp, b)[0]),
         xgen, flush, extra=sched_halo_extra, twin=sched_windowed)
+    tc_gate("(c4) B5", shrows)
     totals[fsc.entry_point("fused_spectral_pipeline_scheduled_halo",
                            fsc.OS)] = shtot
     measured["fused_spectral_pipeline_scheduled_halo"] = (model_ms(shplan),
@@ -2551,7 +2676,7 @@ def main() -> int:
           f"measure=True): built in {time.perf_counter() - t0:.1f} s, of "
           f"which Alg-2 table compile {aplan.schedule_seconds:.1f} s")
     print("     latency fit (WAVE_S, STEP_S) us: " + ", ".join(
-        f"{k[0]}/{k[1]} ({a * 1e6:.2f}, {b * 1e6:.2f})"
+        f"{'/'.join(k)} ({a * 1e6:.2f}, {b * 1e6:.2f})"
         for k, (a, b) in at.LATENCY_FIT.items()))
     per_forward: dict[str, int] = {}
     alike_layers = 0
@@ -2572,6 +2697,8 @@ def main() -> int:
                   f"{c.predicted_s * 1e3:.4f} ms, measured {t * 1e3:.4f} ms")
     print(f"     prediction and measurement ranked the candidates alike on "
           f"{alike_layers} of {len(aplan.layers)} layers")
+    print(f"(d5) launches per forward by entry point: "
+          f"{dict(sorted(per_forward.items()))}")
     auto_sum = 1e3 * sum(lp.tuning.measured_s for lp in aplan.layers)
     drive(aplan, images, "(d5)", per_forward, auto_sum)
     print("    p50 batch 1: " + ", ".join(
@@ -2641,7 +2768,7 @@ def main() -> int:
                 "bound_by": rt["by"]}
             if flow == fsc.OS:
                 residual["vmem_ms"] = rt["vmem_ms"]
-            kernels.append({
+            row = {
                 "name": entry,
                 "route": "cuda",
                 "source": csrc + ("fused_spectral_conv_scheduled.cu"
@@ -2651,12 +2778,21 @@ def main() -> int:
                 "launches": launches,
                 "max_abs_err": t["abs_err"],
                 "ms": t["ms"],
+                "device_ms": t.get("x_device_ms"),
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": t["by"],
                 "library_ms": None,
                 "residual": residual,
-            })
+            }
+            tc_kernel = ("fused_sched_os_kernel" if "scheduled" in kname
+                         and flow == fsc.OS
+                         else "fused_os_kernel" if flow == fsc.OS
+                         else "fused_is_kernel" if flow == fsc.IS
+                         and "scheduled" not in kname else None)
+            if tc_kernel:
+                row["sass"] = tc_sass[tc_kernel]
+            kernels.append(row)
     staged_src = {"fft2_tiles": ("fft_tiles.cu", "fft8.py:85"),
                   "ifft2_tiles": ("fft_tiles.cu", "fft8.py:111"),
                   "spectral_hadamard": ("spectral_hadamard.cu",

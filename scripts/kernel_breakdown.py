@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of the fused spectral conv kernels by stage.
+
+    python3 scripts/kernel_breakdown.py [--src SRC] [--only NAME,...]
+                                        [--block-m N] [--json OUT]
+
+Needs one CUDA device and nvcc.  For each kernel it knows (the plane
+kernel's input-stationary flow, ``plane_is``; the scheduled kernel's
+output-stationary launch, ``sched_os``) it builds development variants of
+the kernel's source in which one stage is cut out by a text substitution
+(the tile-FFT, the Hadamard or table walk, the valid-row IFFT, or all
+three, leaving the copies, barriers and the store; for the scheduled
+kernel also its copies, a 1xTF32 FFT and an eight-stage ring), and of
+designs tried and not kept, each a patch of the source under
+``scripts/variants/`` (for the scheduled kernel, ``shared_fft``: the
+tile-FFT shared by the Q (group, lane half) CTAs of a tile block over
+DSMEM, with its launch rule as written, forced to Q = 1, and forced to
+the widest share with no channel split), then times each
+variant device-only at the 13 full-width VGG16 layers, batch 1, on the
+operands of a plan built from seed 0: an L2 flush and a spin kernel run
+before the start event, so the wrapper's host work is hidden (as
+``chip_smoke.py``'s ``enqueued_ms``).  A variant whose substitution finds
+nothing in the source is reported as not applicable, so the script runs
+on any tree: ``--src`` puts another checkout's ``src`` first on the path
+(its kernels, wrappers and plan), e.g. an unpacked parent commit.  The
+variants compute wrong results; only their times mean anything.  Builds
+go to ``build/kernel_breakdown/`` (git-ignored with ``build/``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parents[1]
+REPS = 10
+SLEEP_CYCLES = 1_000_000
+
+# (variant, alternatives) per kernel: an alternative is a list of (old,
+# new[, followed by]) pairs, each `old` (followed by that text, which
+# stays) matched exactly once, any run of whitespace matching any other;
+# the first alternative that applies is taken (one per kernel design: the
+# CUDA-core kernels, then the tensor-core ones)
+VARIANTS = {
+    "plane_is": ("fused_spectral_conv", "input_stationary", [
+        ("no_fft", [
+            [("fft_step(sx, s_xf + step * MP, pitch);", "")],
+            [("mma3_f32(c[j], ah, al, bh, bl);", "",
+              "} } #pragma unroll for (int j = 0; j < 2; ++j) { "
+              "const int o = gq * L.xfp")]]),
+        ("no_hadamard", [
+            [("hadamard_step(stage, stage + W_PLANE, BM, 0, "
+              "s_xf + step * MP, pitch);", "")],
+            [("add4(are[mt][pt], tr); add4(aim[mt][pt], ti);", "",
+              "} } } if (s < n_steps - 1) continue;")]]),
+        ("no_ifft", [
+            [("fold(); reduce_store(blk, blockIdx.x, n0);",
+              "reduce_store(blk, blockIdx.x, n0);")],
+            [("for (int i0 = 2 * warp; i0 < n_cts; i0 += 2 * WARPS) {",
+              "for (int i0 = n_cts; i0 < n_cts; i0 += 2 * WARPS) {")]]),
+    ]),
+    "sched_os": ("fused_spectral_conv_scheduled", "output_stationary", [
+        ("no_fft", [
+            [("fft_channel(xw, s_xr, s_xi); __syncthreads(); "
+              "// X~ of channel m is ready apply_tables(sx + L.x_sz",
+              "__syncthreads(); apply_tables(sx + L.x_sz")],
+            [("mma3_f32(c, ah, al, bh, bl);", "")]]),
+        ("no_walk", [
+            [("apply_tables(sx + L.x_sz, s_xr, s_xi);", "")],
+            [("for (int e = tid - ONT / 2; e < T * OLN; e += ONT / 2) {",
+              "for (int e = T * OLN; e < T * OLN; e += ONT / 2) {"),
+             ("if (i > 0) macs(i - 1);", "")]]),
+        ("no_ifft", [
+            [("fold(); cluster.sync(); "
+              "// every rank's partial is ready",
+              "cluster.sync();")],
+            [("for (int j = 0; j < 2; ++j) mma3_f32(acc[m2][j], ah, al, "
+              "bh[j], bl[j]);", "")]]),
+    ]),
+}
+# more cuts of one design, timed where they apply: the copies left out
+# (every step computes on whatever its ring slot holds)
+EXTRA = {
+    "sched_os": [
+        ("fft_1xtf32", [("mma3_f32(c, ah, al, bh, bl);",
+                         "mma_tf32(c, ah, bh);")]),
+        ("stages8", [("constexpr int OS_STAGES = 5;",
+                      "constexpr int OS_STAGES = 8;")]),
+        ("no_copies", [("if (nx < n_steps) load_step(nx % L.stages, "
+                        "m_lo + nx);", ""),
+                       ("if (st < n_steps) load_step(st, m_lo + st);", "")]),
+        ("no_copies", [("if (i + L.stages - 1 < n_steps) load_step((i + "
+                        "L.stages - 1) % L.stages, m_lo + i + L.stages - 1);",
+                        ""),
+                       ("if (st < n_steps) load_step(st, m_lo + st);", "")]),
+    ],
+}
+# designs tried and not kept: (variant, patch under scripts/variants/,
+# substitutions applied to the patched source)
+PATCHES = {
+    "sched_os": [
+        ("shared_fft", "sched_os_shared_fft.patch", []),
+        ("shared_fft_q1", "sched_os_shared_fft.patch",
+         [("for (int q = 1; q <= MAX_CLUSTER; ++q) {",
+           "for (int q = 1; q <= 1; ++q) {")]),
+        ("shared_fft_max", "sched_os_shared_fft.patch",
+         [("if (best_cost < 0 || cost < best_cost) {",
+           "if (c == 1 && (best_cost < 0 || q > best.Q)) {")]),
+    ],
+}
+
+
+def apply_patch(text: str, diff: str) -> str | None:
+    """``text`` with the unified diff ``diff`` applied, None where a
+    hunk's old lines are not where it says."""
+    lines, out, pos = text.split("\n"), [], 0
+    for m in re.finditer(r"^@@ -(\d+)(?:,\d+)? \+\d+(?:,\d+)? @@.*\n"
+                         r"((?:[ +\-\\].*\n?)*)", diff, re.M):
+        body = [ln for ln in m.group(2).split("\n")
+                if ln and not ln.startswith("\\")]
+        old = [ln[1:] for ln in body if ln[0] in " -"]
+        new = [ln[1:] for ln in body if ln[0] in " +"]
+        start = int(m.group(1)) - 1 if old else int(m.group(1))
+        if start < pos or lines[start:start + len(old)] != old:
+            return None
+        out += lines[pos:start] + new
+        pos = start + len(old)
+    return "\n".join(out + lines[pos:])
+
+
+def source_of(name: str, variant: str, text: str) -> str | None:
+    """The source a variant builds: ``text`` with its substitutions, or
+    its patch and then its substitutions (None where they do not apply)."""
+    for v, patch, pairs in PATCHES.get(name, []):
+        if v == variant:
+            body = apply_patch(text, (ROOT / "scripts" / "variants"
+                                      / patch).read_text())
+            return None if body is None else patched(body, pairs)
+    pairs = dict(variants_of(name, text))[variant]
+    return None if pairs is None else patched(text, pairs)
+
+
+def variants_of(name: str, text: str) -> list[tuple[str, list | None]]:
+    """base, each single cut, ``copies_only`` (every cut at once) and the
+    kernel's extra cuts: the pairs of the first alternative that applies
+    to ``text``, None where none does."""
+    cuts = [(v, next((a for a in alts if patched(text, a) is not None),
+                     None)) for v, alts in VARIANTS[name][2]]
+    every = (None if any(a is None for _, a in cuts)
+             else [p for _, a in cuts for p in a])
+    extra = {}
+    for v, pairs in EXTRA.get(name, []):
+        if extra.get(v) is None:
+            extra[v] = pairs if patched(text, pairs) is not None else None
+    return ([("base", [])] + cuts + [("copies_only", every)]
+            + list(extra.items())
+            + [(v, []) for v, _, _ in PATCHES.get(name, [])])
+
+
+def _words(text: str) -> str:
+    return r"\s+".join(re.escape(w) for w in text.split())
+
+
+def patched(text: str, pairs) -> str | None:
+    for old, new, *after in pairs:
+        pattern = _words(old) + (rf"(?=\s*{_words(after[0])})" if after
+                                 else "")
+        text, n = re.subn(pattern, lambda _: new, text)
+        if n != 1:
+            return None
+    return text
+
+
+def build_variants(names) -> dict[tuple[str, str], Path | None]:
+    """One nvcc per (kernel, variant), all started together; the library
+    path, or None where a substitution did not apply."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    csrc = Path(fsc.__file__).resolve().parent / "csrc"
+    out_dir = ROOT / "build" / "kernel_breakdown"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    nvcc, jobs, libs = _build._nvcc(), {}, {}
+    for name in names:
+        source = VARIANTS[name][0]
+        text = (csrc / f"{source}.cu").read_text()
+        for variant, _ in variants_of(name, text):
+            body = source_of(name, variant, text)
+            if body is None:
+                libs[(name, variant)] = None
+                continue
+            d = out_dir / f"{name}-{variant}"
+            shutil.copytree(csrc, d)
+            (d / f"{source}.cu").write_text(body)
+            lib = d / f"lib{source}.so"
+            flags = list(_build.NVCC_FLAGS) + [
+                f"-D{k}={v}" for k, v in sorted(fsc.SOURCES[source].items())]
+            jobs[(name, variant)] = subprocess.Popen(
+                [nvcc, *flags, "-o", str(lib), str(d / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            libs[(name, variant)] = lib
+    for key, proc in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {key}:\n{out}")
+    return libs
+
+
+def device_ms(fn, flush) -> float:
+    import torch
+    fn()
+    times = []
+    for _ in range(REPS):
+        flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--only", default=",".join(VARIANTS))
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--block-m", type=int, default=None,
+                    help="the flows' m-range width (rounded up to 8, at "
+                         "most M) instead of the plan's")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_breakdown: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import repro_torch
+    from repro_torch.configs.vgg16_spectral import CONFIG
+    from repro_torch.core.plan import build_network_plan, with_flow
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.models import cnn
+
+    names = [n for n in args.only.split(",") if n]
+    repro_torch.strict_fp32()
+    dev = torch.device("cuda", 0)
+    print(f"kernel_breakdown: {torch.cuda.get_device_name(0)}; kernels "
+          f"from {fsc.__file__}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    t0 = time.perf_counter()
+    libs = build_variants(names)
+    print(f"built {sum(v is not None for v in libs.values())} variants in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _build.BUILD_DIR = ROOT / "build" / "kernel_breakdown" / "base"
+    base_libs = _build.build(fsc.SOURCES)      # the other source, as built
+    params = cnn.init(CONFIG, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    xgen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    result = {}
+    for name in names:
+        source, flow, _ = VARIANTS[name]
+        sched = source.endswith("scheduled")
+        plan = build_network_plan(params, CONFIG, batch=1, device=dev,
+                                  **(dict(hadamard="scheduled") if sched
+                                     else {}))
+        if flow != fsc.OS:
+            plan = with_flow(plan, flow)
+        calls = []
+        for lp in plan.layers:
+            layer = lp.layer
+            x = torch.randn((1, layer.c_in, layer.h_in, layer.w_in),
+                            generator=xgen, device=dev)
+            xt = fsc._windows_layout(x, lp.geo)[0]
+            kw = dict(relu=True, flow=flow)
+            if flow != fsc.OS:
+                kw["block_m"] = (lp.tuning.block_m if args.block_m is None
+                                 else min(args.block_m,
+                                          -(-layer.c_in // 8) * 8))
+            ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
+            if sched:
+                calls.append((layer.name, lambda xt=xt, lp=lp, kw=kw, ops=ops:
+                              fsc.fused_spectral_pipeline_scheduled(
+                                  xt, *lp.tables, *ops,
+                                  n_out=lp.layer.c_out, **kw),
+                              kw.get("block_m", 1)))
+            else:
+                calls.append((layer.name, lambda xt=xt, lp=lp, kw=kw, ops=ops:
+                              fsc.fused_spectral_pipeline(
+                                  xt, lp.wr, lp.wi, *ops, **kw),
+                              kw["block_m"]))
+        print(f"{name} ({source}, {flow}): block_m "
+              f"{[c[2] for c in calls]}")
+        rows = {}
+        for variant in [v for v, _ in variants_of(name, "")]:
+            path = libs[(name, variant)]
+            if path is None:
+                print(f"  {variant:12s} not applicable to this source")
+                continue
+            lib = {**base_libs, source: ctypes.CDLL(str(path))}
+            with mock.patch.object(_build, "build", lambda s, lib=lib: lib):
+                loaded = fsc._libraries()
+            with mock.patch.object(fsc, "_libraries", lambda l=loaded: l):
+                ms = [device_ms(fn, flush.zero_) for _, fn, _ in calls]
+            rows[variant] = ms
+            print(f"  {variant:12s} total {sum(ms):9.4f} ms  per layer "
+                  + " ".join(f"{t:.4f}" for t in ms))
+        result[name] = {"layers": [c[0] for c in calls],
+                        "block_m": [c[2] for c in calls], "ms": rows}
+        del plan, calls
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

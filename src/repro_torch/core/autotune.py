@@ -59,10 +59,11 @@ H100_L2_BYTES = 50e6
 # host, 450 GB/s each way (NVIDIA's published per-direction figure, not a
 # measurement).  The sharded cost model charges collective bytes at it.
 H100_NVLINK_BYTES_PER_S = 450e9
-# Clusters of c output-stationary plane CTAs (one an SM) an H100 runs at
-# once, by c: ``fsc.os_cluster_capacity`` on an NVIDIA H100 80GB HBM3
-# (chip_smoke.py (c)).  Clusters stay within a GPC, so large ones leave
-# SMs idle; the model prices the plane kernel's launch with it.
+# Clusters of c output-stationary CTAs (one an SM) an H100 runs at once,
+# by c: ``fsc.os_cluster_capacity`` (plane) and
+# ``fsc.sched_cluster_capacity`` (scheduled) on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py (c), (c2)).  Clusters stay within a GPC, so large ones
+# leave SMs idle; the model prices both kernels' launches with it.
 H100_OS_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
 
 # Alg-2 knobs for pricing tables before they exist (paper S6.3: r = 10;
@@ -76,25 +77,41 @@ SCHEDULE_MU = 0.85
 MEASURE_TOP_K = 3
 MEASURE_SEED = 0
 
-# (WAVE_S, STEP_S) per (Hadamard kind, input path): seconds per output
-# rectangle a CTA finishes (fold, cluster reduction, store) and per
-# channel step, in time = waves * (rects * WAVE_S + steps * STEP_S),
-# waves = ceil(CTAs / 132) (one CTA per SM: every configuration takes
-# over half an SM's shared memory).  Least-squares fit (one rectangle a
-# CTA) to the batch-1 times of the four output-stationary kernels at the
-# 13 full-width VGG16 layers, chip_smoke.py on an NVIDIA H100 80GB HBM3
-# at 700 W, before the other flows existed (PERF.md); the times and the
-# fit are in tests/test_torch_autotune.py.  A step is latency-bound, so
-# this term, not bytes or flops, is what the measured times follow.  The
-# plane kernel's flows keep it; its output-stationary launch, redesigned
-# since, is priced by its own launch model (``fsc.os_launch_geometry``,
-# ``fsc.os_latency_s``), the one the wrapper launches by.
+# (WAVE_S, STEP_S) per (Hadamard kind, flow, input path): seconds per
+# output rectangle a CTA finishes (IFFT, cluster reduction, store) and per
+# channel step, in time = waves * (rects * WAVE_S + steps * STEP_S), waves
+# the launch's CTA waves (``kernel_grid``).  Least-squares fit to the
+# batch-1 device times (the wrapper's host work hidden) of the kernels it
+# prices at the 13 full-width VGG16 layers: the plane kernel's weight- and
+# input-stationary flows and the scheduled kernel's three flows,
+# chip_smoke.py (c2), (c4)-(c6) ``x_device_ms`` on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md); the times and the fit are in
+# tests/test_torch_autotune.py.  A step is latency-bound, so this term,
+# not bytes or flops, is what the measured times follow.  The plane
+# kernel's output-stationary launch is priced by its own launch model
+# (``fsc.os_launch_geometry``, ``fsc.os_latency_s``), the one the wrapper
+# launches by.
 LATENCY_FIT = {
-    ("plane", "windowed"): (1.099054504396958e-05, 7.737558692451554e-06),
-    ("plane", "halo"): (9.523439047744236e-06, 9.310391638598346e-06),
-    ("scheduled", "windowed"): (6.70327655857626e-05,
-                                1.8618080576482148e-06),
-    ("scheduled", "halo"): (7.401647839242545e-05, 2.3531091069464697e-06),
+    ("plane", "weight_stationary", "windowed"): (
+        1.0707618612287552e-05, 6.264908860239931e-06),
+    ("plane", "weight_stationary", "halo"): (
+        1.4314893300985302e-05, 5.619317225330493e-06),
+    # the input-stationary launch's own model, by which the wrapper sizes
+    # it (``fsc.is_launch_geometry``)
+    ("plane", "input_stationary", "windowed"): fsc.IS_LATENCY["windowed"],
+    ("plane", "input_stationary", "halo"): fsc.IS_LATENCY["halo"],
+    ("scheduled", "output_stationary", "windowed"): (
+        2.417234150923295e-05, 2.3071455926639617e-06),
+    ("scheduled", "output_stationary", "halo"): (
+        2.804302569726495e-05, 2.5289022589124823e-06),
+    ("scheduled", "weight_stationary", "windowed"): (
+        2.1680187582180606e-05, 6.930320494792699e-06),
+    ("scheduled", "weight_stationary", "halo"): (
+        2.3143806089647277e-05, 5.481722259332906e-06),
+    ("scheduled", "input_stationary", "windowed"): (
+        2.163809336650928e-05, 2.08257850052939e-06),
+    ("scheduled", "input_stationary", "halo"): (
+        2.507925714685258e-05, 2.0387412516397986e-06),
 }
 
 
@@ -111,11 +128,13 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     ``csrc/fused_spectral_conv*.cu``).  The plane kernel's
     output-stationary launch is the wrapper's own,
     ``fsc.os_launch_geometry`` on ``H100_OS_CLUSTERS`` (the halo path
-    takes its windowed twin's split over its own tile blocks)."""
+    takes its windowed twin's split over its own tile blocks); the
+    scheduled one's cluster is ``fsc.sched_cluster`` on the same
+    capacity, whose waves count its clusters."""
     geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
                         layer.pad)
     sched = hadamard == "scheduled"
-    bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
+    bp = fsc.sched_block_p(flow) if sched else fsc.BLOCK_P
     if input_mode == "halo":
         pb = batch * halo_block_geometry(geo, min(bp, geo.n_tiles)).n_blocks
     else:
@@ -127,8 +146,11 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     if sched:
         nb = -(-layer.c_out // fsc.SCHED_BLOCK_N)      # kernel groups
         if flow == fsc.OS:
-            ranks = c = fsc.sched_cluster(pb * nb, m, H100_SMS)
-            ctas, steps, rects = pb * nb * c, -(-m // c), 1
+            halves = fsc.sched_halves(min(fsc.SCHED_BLOCK_N, layer.c_out))
+            ranks = c = fsc.sched_cluster(pb * nb * halves, m,
+                                          H100_OS_CLUSTERS)
+            ctas, steps, rects = pb * nb * halves * c, -(-m // c), 1
+            waves = -(-pb * nb * halves // H100_OS_CLUSTERS[c])
         elif flow == fsc.WS:
             ctas, steps, rects = g * nb, pb * width, pb
         else:
@@ -148,8 +170,15 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
             rects = 1
         elif flow == fsc.WS:
             ctas, steps, rects = g * nb * chunks, pb * ksteps, pb
+            waves = -(-g * nb // H100_OS_CLUSTERS[chunks])
         else:
             ctas, steps, rects = pb * g * chunks, ksteps * (1 + nb), nb
+            ig = fsc.is_launch_geometry(
+                -(-batch * geo.n_tiles // fsc.BLOCK_P), g, width,
+                layer.c_out, active_bins, geo.tile ** 2, H100_OS_CLUSTERS)
+            ranks, slices = ig.cluster, ig.slices
+            waves = -(-pb * g * (chunks // ig.cluster)
+                      // H100_OS_CLUSTERS[ig.cluster])
     if waves is None:
         waves = -(-ctas // H100_SMS)
     return {"ctas": ctas, "waves": waves, "steps": steps, "rects": rects,
@@ -208,7 +237,9 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
 
     Time: ``predicted_s = serial_s + max(hbm_s, compute_s, latency_s)``
     with ``latency_s = waves * (rects * WAVE_S + steps * STEP_S)``
-    (``LATENCY_FIT``): waves = ceil(ctas / 132), ``rects`` = output
+    (``LATENCY_FIT``): waves = the launch's CTA waves (``kernel_grid``:
+    clusters over the card's cluster capacity where the kernel runs
+    clusters, else ceil(ctas / 132)), ``rects`` = output
     rectangles a CTA finishes (1 for output-stationary, every tile block
     for weight-stationary, every n block or group for
     input-stationary), ``steps`` = channel steps a CTA runs; the plane
@@ -286,7 +317,9 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     # operations: the kernels' own arithmetic (4 real FMAs per complex
     # MAC, the tile-FFT of every computed bin, the IFFT per m range)
     fft_bins = 64 if sched else fa
-    refft = 1 if flow == fsc.IS else nb
+    refft = (1 if flow == fsc.IS
+             else nb * fsc.sched_halves(min(n_pe, n))
+             if sched and flow == fsc.OS else nb)
     fft_flops = 4 * fft_bins * s * m * p * refft
     if sched:
         had_flops = 8 * n * m * nnz * p
@@ -295,14 +328,15 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     ifft_flops = 4 * s2 * fft_bins * n * p * g
     flops = fft_flops + had_flops + ifft_flops + 2 * s2 * n * p * g
 
-    hg = (halo_block_geometry(geo, min(fsc.SCHED_BLOCK_P if sched
+    hg = (halo_block_geometry(geo, min(fsc.sched_block_p(flow) if sched
                                        else fsc.BLOCK_P, geo.n_tiles))
           if halo else None)
     if residual == "vmem":          # the rule by which the wrappers refuse it
         smem = fsc.staged_shortcut_bytes(
             s, s2, fa, halo=None if hg is None else (geo, hg),
-            tables=(t_cyc, r, n_pe) if sched else None, blocks=pb * nb,
-            m=m, sms=H100_SMS)
+            tables=(t_cyc, r, n_pe) if sched else None,
+            blocks=pb * nb * fsc.sched_halves(min(n_pe, n)), m=m,
+            capacity=H100_OS_CLUSTERS)
     elif sched:
         smem = fsc.sched_smem_bytes(flow, geo, block_m, t_cyc, r, n_pe, hg)
     else:
@@ -312,7 +346,7 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         latency_s = fsc.os_latency_s(waves, grid["steps"], halo)
     else:
         wave_s, step_s = LATENCY_FIT[("scheduled" if sched else "plane",
-                                      input_mode)]
+                                      flow, input_mode)]
         latency_s = waves * (grid["rects"] * wave_s
                              + grid["steps"] * step_s)
     relayout = 0 if halo else (raw_bytes + 2 * 4 * s * m * p
@@ -419,7 +453,7 @@ def _layer_candidates(layer: df.ConvLayer, fft_size: int, batch: int,
                                                input_modes):
         sched = mode == "scheduled"
         bn = fsc.SCHED_BLOCK_N if sched else fsc.BLOCK_N
-        bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
+        bp = fsc.sched_block_p(flow) if sched else fsc.BLOCK_P
         p = tiles * (1 if imode == "halo" else batch)
         for bm in _block_ms(layer, flow, mode):
             yield FusedTuning(layer=layer.name, flow=flow,
@@ -754,7 +788,7 @@ def _make_measure_fn(lp, batch: int, tables: Callable[[], object]
         cand = dataclasses.replace(lp, tuning=tn, hadamard=tn.hadamard,
                                    input_mode=tn.input_mode, tables=tabs)
         if tn.residual == "vmem" and fsc.placement_at_batch(
-                cand, batch, H100_SMS) != "vmem":
+                cand, batch, fsc.sched_cluster_capacity(x.device)) != "vmem":
             return float("inf")             # the staged rows do not fit
         return 1e-3 * device_ms(
             lambda: fsc.execute_layer_plan(x, cand, shortcut=sc),

@@ -81,27 +81,31 @@
 // tile-FFT reads its window elements from them by offset, and the flush
 // stores finished tiles straight into y[B, N, H_out, W_out].  The FFT,
 // Hadamard, IFFT, cluster split and rank-order reduction are the windowed
-// kernel's code (the kernel is templated on the input path).  The flows
-// below keep the expand pass into a [S][BM][BP] window stage.  Its bound is B1's operations on the
-// real tiles and the raw activation read once; idle slots (blocks past the
-// tile grid, 3x3-tile blocks in 16 slots) cost time, not bytes.
+// kernel's code (the kernel is templated on the input path); so are the
+// input-stationary kernel's.  The weight-stationary flow keeps the expand
+// pass into a [S][BM][BP] window stage.  Its bound is B1's operations on
+// the real tiles and the raw activation read once; idle slots (blocks past
+// the tile grid, 3x3-tile blocks in 16 slots) cost time, not bytes.
 //
 // The weight- and input-stationary flows (entry points *_ws_f32 and
 // *_is_f32, windowed and halo; replacing the TPU bodies `_kernel_ws` (:571)
 // and `_kernel_is` (:591) of src/repro/kernels/fused_spectral_conv.py with
 // their psum read-modify-write `_dma_rmw_start` (:487) / `_dma_rmw_finish`
-// (:497)) compute the same function with another reuse, on the CUDA cores
-// (f32 FMAs; TN outputs x FC bins a thread).  A flow CTA owns one m range of RM input
-// channels (RM a multiple of FSC_BM; G = ceil(M / RM) ranges) and one bin
-// chunk of a cluster, as above:
-//  * weight-stationary (reuse kernels): CTA = (m range, n block, chunk).  It
+// (:497)) compute the same function with another reuse.  A flow CTA owns
+// one m range of RM input channels (RM a multiple of FSC_BM; G = ceil(M /
+// RM) ranges) and one bin chunk of a cluster, as above:
+//  * weight-stationary (reuse kernels; on the CUDA cores, f32 FMAs, TN
+//    outputs x FC bins a thread): CTA = (m range, n block, chunk).  It
 //    copies its plane block [FC][BN][RM] into shared memory once and walks
 //    every tile block with it, so each plane element is read from device
 //    memory once per layer.  Windows are re-read once per n block.
-//  * input-stationary (reuse activations): CTA = (tile block, m range,
-//    chunk).  It computes X~ of its windows for the whole m range once into
-//    shared memory ([FC][RM][BP]) and walks every n block, streaming the
-//    planes; each tile-FFT is computed once per tile block.
+//  * input-stationary (reuse activations; `fused_is_kernel`, B1's
+//    tensor-core design): CTA = (tile block, m range, chunk).  It computes
+//    X~ of its windows for the whole m range once into shared memory
+//    ([FC][RM][BP], the tile-FFT in 3xTF32 MMAs, the windows by TMA through
+//    a three-stage mbarrier ring) and walks every n block, streaming its
+//    planes by TMA boxes through the same ring into B1's Hadamard, IFFT and
+//    cluster reduction; each tile-FFT is computed once per tile block.
 // After each output rectangle the cluster sums its bin chunks over
 // distributed shared memory in rank order, as B1 does.  With one m range
 // (G = 1) that is the finished output (bias, ReLU, stored as B1 stores it).
@@ -233,31 +237,73 @@ struct OsLayout {
   }
 };
 
-// The TMA tensor maps of an output-stationary launch: the windows
-// (windowed path) and both kernel planes.
+// The TMA tensor maps of an output-stationary or input-stationary launch:
+// the windows (windowed path) and both kernel planes.
 struct OsMaps {
   CUtensorMap x, wr, wi;
 };
 
-// Shared-memory carve-up of the weight- and input-stationary kernels, in
-// floats.  A ring stage holds the step's input (windows, or a halo block's
-// raw rows); for is it holds the input while X~ is built and the planes
-// afterwards.  The halo path also expands the raw rows into one window
-// stage.  The spatial partial of an output rectangle aliases the ring (and
-// the window stage).
+// Shared-memory carve-up of the input-stationary kernel, in floats, from a
+// base aligned to 1024 bytes: the FFT's A fragments (as in OsLayout), whose
+// place the gather buffer takes once X~ is built (every chunk's Y~ of the
+// n-tiles this cluster rank finishes: [C sources][16 rows, re then im of
+// the source's bins][is_lc(C) columns, 8 floats of padding]; sized for the
+// largest C), X~ of the CTA's whole m range (re, im:
+// [FC][RM channel rows of BP], swizzled, not padded: tile p of channel m
+// at p ^ is_swz(m); bins RM BP + 8 = 8 mod 32 floats apart), the IFFT's A
+// (Dvr, -Dvi of every bin: [2][16 mt2 rows][IS_DVP]), the halo path's S
+// window offsets, one mbarrier a ring slot, then (1024-byte aligned) a
+// ring of `stages` slots, each one step's windows or raw rows while X~ is
+// built, then one step's planes (re, im).  Three stages where they fit
+// the card's limit, else two.
+__host__ __device__ constexpr int is_swz(int m) { return ((m >> 1) & 1) << 3; }
+constexpr int IS_NT = BN * BP / 8;          // n-tiles (8 columns) a block
+__host__ __device__ constexpr int is_lc(int C) {   // a rank's row pitch:
+  return 8 * ((IS_NT + C - 1) / C) + 8;            // its columns, padded
+}
+__host__ __device__ constexpr int is_recv() {
+  int most = 0;
+  for (int c = 1; c <= MAX_CLUSTER; ++c) most = imax(most, c * 16 * is_lc(c));
+  return most;
+}
+constexpr int IS_DVP = MAX_CLUSTER * FC + 4;     // A row pitch (4 mod 32)
+struct IsLayout {
+  int da, rv, xfp, xf, dv, soff, bar, ring, x_sz, slot, stages, total;
+  __host__ __device__ IsLayout(int S, int S2, int x_floats, int RM) {
+    const int ks = (S + 7) / 8, mt2 = (S2 + 15) / 16;
+    da = rv = 0;                             // [2][ks][32 lanes][4]; gather
+    xfp = RM * BP + 8;                       // X~ pitch of a bin
+    xf = imax(2 * ks * 128, is_recv());      // [2][FC][xfp]
+    dv = xf + 2 * FC * xfp;                  // [2][16 mt2][IS_DVP]
+    soff = dv + 2 * 16 * mt2 * IS_DVP;       // [S] ints
+    bar = soff + align4(S);                  // [OS_STAGES] mbarriers
+    ring = align_to(bar + align4(2 * OS_STAGES), OS_ALIGN);
+    x_sz = align_to(x_floats, 128);
+    slot = imax(x_sz, 2 * W_PLANE);
+    for (stages = OS_STAGES;; --stages) {
+      total = ring + stages * slot + OS_ALIGN;
+      if (stages <= 2 || 4 * total <= SMEM_MAX) break;
+    }
+  }
+};
+
+// Shared-memory carve-up of the weight-stationary kernel, in floats.  A
+// ring stage holds the step's input (windows, or a halo block's raw rows);
+// the halo path also expands the raw rows into one window stage.  The
+// spatial partial of an output rectangle aliases the ring (and the window
+// stage).
 struct Layout {
   int df, dv, xf, res, stage, x_sz, x_stage, win, total;
-  __host__ __device__ Layout(int flow, int S, int S2, int x_floats,
-                             int win_floats, int RM) {
+  __host__ __device__ Layout(int S, int S2, int x_floats, int win_floats,
+                             int RM) {
     df = 0;                                  // [S][FC] (re, im)
     dv = df + 2 * S * FC;                    // [S2][FC] (re, im)
-    xf = dv + 2 * S2 * FC;                   // X~ (re, im): [FC][MP]; is:
-                                             // [FC][RM * BP] (the m range)
-    res = xf + 2 * FC * (flow == IS ? RM * BP : MP);
-    stage = res + (flow == WS ? 2 * FC * BN * RM : 0);   // ws: wr, wi
-                                             // [FC][BN][RM] of the m range
+    xf = dv + 2 * S2 * FC;                   // X~ (re, im): [FC][MP]
+    res = xf + 2 * FC * MP;
+    stage = res + 2 * FC * BN * RM;          // wr, wi [FC][BN][RM] of the
+                                             // m range
     x_sz = align4(x_floats);
-    x_stage = flow == WS ? x_sz : imax(x_sz, 2 * W_PLANE);
+    x_stage = x_sz;
     win = stage + 2 * x_stage;               // [S][MP] expanded windows
     const int loop = 2 * x_stage + win_floats;
     const int acc = S2 * BN * BP;            // spatial partial, aliases both
@@ -708,13 +754,358 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
   cluster.sync();                           // keep partials alive for readers
 }
 
-// The weight- and input-stationary flows (FLOW) on either input path
-// (Path).  Grid: ws (m range, n block, chunk); is (tile block, m range,
-// chunk); a cluster spans the chunks.  ws (the split-K workspace) is
-// written only when the flow has more than one m range.  (Output-
-// stationary keeps its own kernel above: folding it into this template
-// made the compiler spill its register accumulators.)  SC: none or a
-// global shortcut, added here with one m range, else by the finish pass.
+// Input-stationary (B2 is plane, both input paths) on the tensor cores: a
+// CTA owns a tile block, m range r of RM channels and a bin chunk; a
+// cluster of C CTAs spans the chunks.  One pipeline runs every step of the
+// CTA through the ring: first the range's window steps, whose tile-FFT
+// (fused_os_kernel's) builds X~ of the chunk for the whole range once,
+// then, for each n block, the range's plane steps, whose Hadamard
+// (fused_os_kernel's) sums the range in fresh MMA accumulators against
+// the resident X~.  The copies run ahead across n blocks: the epilogue of
+// an n block touches no ring slot.  Epilogue: each warp stages its bin's
+// Y~ (re, im) into the CTA's Y~ stage; after a cluster barrier, rank q
+// computes the valid-row IFFT of the n-tiles (8 columns) q, q + C, ... of
+// the block over every chunk's bins, its B fragments read from the
+// chunks' Y~ stages through distributed shared memory and its A (Dv, all
+// bins) from device memory, in 3xTF32, and stores the finished columns
+// from registers: the output (bias (+ shortcut) + ReLU) with one m range,
+// else range r's partial to workspace slice r for split_k.cuh's finish
+// pass.  The chunks are summed inside each k-loop in rank order, so the
+// result repeats bit for bit.  The cluster's arrive after the gather and
+// its wait before the next n block's Y~ is written let the plane steps
+// run in between.
+template <class Path, int SC>
+__global__ void __launch_bounds__(ONT, 1)
+fused_is_kernel(const Path io, const float* __restrict__ wr,
+                const float* __restrict__ wi, const float* __restrict__ dfr,
+                const float* __restrict__ dfi, const float* __restrict__ dvr,
+                const float* __restrict__ dvi, const float* __restrict__ bias,
+                const float* __restrict__ sc, float* __restrict__ y,
+                float* __restrict__ ws, int S, int M, int Fa, int N, int S2,
+                int relu, int RM, const __grid_constant__ OsMaps maps,
+                int tma_x, int tma_w) {
+  static_assert(SC == SC_NONE || SC == SC_GLOBAL, "staged: os only");
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 4 * OS_ALIGN - 1) &
+      ~(uintptr_t)(4 * OS_ALIGN - 1));
+  const IsLayout L(S, S2, io.x_floats(S), RM);
+  const int ST = L.stages;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const bool tma = tma_x || tma_w;
+  uint32_t* s_da = reinterpret_cast<uint32_t*>(smem + L.da);
+  float* s_rv = smem + L.rv;                // gather buffer, after the FFT
+  float* s_dv = smem + L.dv;                // IFFT A [2][16 mt2][IS_DVP]
+  float* s_xr = smem + L.xf;                // X~ [FC][xfp], re then im
+  float* s_xi = s_xr + FC * L.xfp;
+  int* s_soff = reinterpret_cast<int*>(smem + L.soff);
+  float* ring = smem + L.ring;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;   // MMA fragment coordinates
+  const typename Path::Blk blk = io.block(blockIdx.x, tid);
+  const int G = gridDim.y, r = blockIdx.y;
+  const int f0 = blockIdx.z * FC;           // this CTA's bin chunk
+  const int fc = Fa - f0 < FC ? Fa - f0 : FC;
+  const int m_lo = r * RM, m_hi = min(M, m_lo + RM);
+  const int n_steps = (m_hi - m_lo + BM - 1) / BM;
+  const int nb = (N + BN - 1) / BN;
+  const int ks = (S + 7) / 8, mt2 = (S2 + 15) / 16;
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // the cluster's bin group (clusters of C consecutive chunks) and the
+  // workspace slice of (m range, bin group)
+  const int H = gridDim.z / n_ranks, hg = blockIdx.z / n_ranks;
+  const int slice = r * H + hg, slices = G * H;
+
+  // the FFT's A fragments, as fused_os_kernel splits them
+  for (int i = tid; i < ks * 128; i += ONT) {
+    const int kk = i / 128, ln = (i / 4) % 32, e = i % 4;
+    const int rr = ln / 4 + (e & 1) * 8;
+    const int s = kk * 8 + fft_row(ln % 4 + (e & 2) * 2);
+    const int f = rr % 8;
+    float x = 0.f;
+    if (f < fc && s < S) x = (rr < 8 ? dfr : dfi)[(size_t)(f0 + f) * S + s];
+    split(x, s_da[i], s_da[ks * 128 + i]);
+  }
+  // the IFFT's A over every bin: row s2 of part h Dvr (h = 0) or -Dvi,
+  // zero past S2 and Fa
+  for (int i = tid; i < 2 * 16 * mt2 * IS_DVP; i += ONT) {
+    const int h = i / (16 * mt2 * IS_DVP), rw = i % (16 * mt2 * IS_DVP);
+    const int s2 = rw / IS_DVP, f = rw % IS_DVP;
+    s_dv[i] = s2 < S2 && f < Fa
+                  ? (h ? -dvi[(size_t)s2 * Fa + f] : dvr[(size_t)s2 * Fa + f])
+                  : 0.f;
+  }
+  io.fft_offsets(s_soff, tid);
+  if (tma && tid == 0) {
+    for (int q = 0; q < ST; ++q) sm90::mbar_init(&bars[q], 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // step q of the pipeline: q < n_steps the window step q, else plane
+  // step (q - n_steps) % n_steps of n block (q - n_steps) / n_steps.
+  // Thread 0 arms slot q % ST's barrier with the step's TMA bytes; the
+  // copies (TMA boxes, or cp.async where rows are not 16-byte aligned)
+  // land in fused_os_kernel's swizzled layouts.
+  const int total = n_steps * (1 + nb);
+  auto issue = [&](int q) {
+    const int slot = q % ST;
+    float* st = ring + slot * L.slot;
+    if (q < n_steps) {
+      const int m0 = m_lo + q * BM;
+      if (tma && tid == 0)
+        sm90::mbar_expect_tx(&bars[slot], tma_x ? 4 * S * BM * BP : 0);
+      if constexpr (std::is_same<Path, WindowedPath>::value)
+        if (tma_x && tid == 0)
+          sm90::tma_load_3d(st, &maps.x, &bars[slot], io.tma_p0(blk), 0, m0);
+      if (!tma_x) io.template load_os<ONT>(blk, st, S, M, m0, tid);
+      return;
+    }
+    const int p = q - n_steps, n0 = p / n_steps * BN;
+    const int m0 = m_lo + (p % n_steps) * BM;
+    float* swr = st;
+    float* swi = swr + W_PLANE;
+    if (tma && tid == 0)
+      sm90::mbar_expect_tx(&bars[slot], tma_w ? 8 * W_PLANE : 0);
+    if (tma_w) {
+      if (tid == 0) {
+        sm90::tma_load_3d(swr, &maps.wr, &bars[slot], m0, n0, f0);
+        sm90::tma_load_3d(swi, &maps.wi, &bars[slot], m0, n0, f0);
+      }
+      return;
+    }
+    for (int i = tid; i < W_PLANE; i += ONT) {
+      const int f = i / (BN * BM), rw = i - f * (BN * BM);
+      const int n = rw / BM, m = rw - n * BM;
+      const bool ok = n0 + n < N && m0 + m < M && f < fc;
+      const size_t gi = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
+      const int d = (f * BN + n) * BM + (m ^ (((n >> 2) & 1) << 2));
+      cp_async4(swr + d, ok ? wr + gi : wr, ok);
+      cp_async4(swi + d, ok ? wi + gi : wi, ok);
+    }
+  };
+
+  // step q's stage once it landed (the slot of step q - 1 is free then
+  // and takes step q + ST - 1's copies)
+  auto begin = [&](int q) {
+    if (ST == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    if (tma) sm90::mbar_wait(&bars[q % ST], (q / ST) & 1);
+    __syncthreads();
+    if (q + ST - 1 < total) issue(q + ST - 1);
+    cp_async_commit();
+    return ring + (q % ST) * L.slot;
+  };
+  for (int q = 0; q < ST - 1; ++q) {
+    if (q < total) issue(q);
+    cp_async_commit();
+  }
+
+  // Stage 1, the window steps: X~ rows q BM + warp of each bin, the
+  // tile-FFT of step q; the warp's columns: channel `warp`, tiles 8 j + gq
+  {
+    const typename Path::FftCol fcol[2] = {
+        io.fft_col(blk, warp * BP + gq, tq),
+        io.fft_col(blk, warp * BP + 8 + gq, tq)};
+#pragma unroll 1
+    for (int q = 0; q < n_steps; ++q) {
+      const float* st = begin(q);
+      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const uint4* ah4 = reinterpret_cast<const uint4*>(s_da);
+      const uint4* al4 = reinterpret_cast<const uint4*>(s_da + ks * 128);
+#pragma unroll 2
+      for (int kk = 0; kk < ks; ++kk) {
+        const uint4 h = ah4[kk * 32 + lane], l = al4[kk * 32 + lane];
+        const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
+        const uint32_t al[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float b[2] = {
+              io.fft_x(st, s_soff, fcol[j], kk * 8 + fft_row(tq), S),
+              io.fft_x(st, s_soff, fcol[j], kk * 8 + fft_row(tq + 4), S)};
+          uint32_t bh[2], bl[2];
+          split_frag(b, bh, bl);
+          mma3_f32(c[j], ah, al, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int o = gq * L.xfp + (q * BM + warp) * BP +
+                      ((j * 8 + 2 * tq) ^ is_swz(warp));
+        *reinterpret_cast<float2*>(s_xr + o) = make_float2(c[j][0], c[j][1]);
+        *reinterpret_cast<float2*>(s_xi + o) = make_float2(c[j][2], c[j][3]);
+      }
+    }
+  }
+  sm90::cluster_arrive();   // this CTA's FFT fragments are no longer read
+
+  // Stage 2, the plane steps: step s of n block n0 against the resident
+  // X~; the warp's bin `warp`, A rows 16 mt + gq (+ 8), k swizzled as the
+  // plane stage
+  const int hf = warp;
+  float are[4][2][4], aim[4][2][4];
+#pragma unroll 1
+  for (int q = n_steps; q < total; ++q) {
+    const float* st = begin(q);
+    const int p = q - n_steps, s = p % n_steps, n0 = p / n_steps * BN;
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) are[i][j][e] = aim[i][j][e] = 0.f;
+    }
+    {
+      const float* swr = st;
+      const float* swi = swr + W_PLANE;
+      const int k_lo = tq ^ (gq & 4), k_hi = (tq + 4) ^ (gq & 4);
+      uint32_t brh[2][2], brl[2][2], bih[2][2], bil[2][2];
+#pragma unroll
+      for (int pt = 0; pt < 2; ++pt) {
+        const int o = hf * L.xfp + (s * BM + tq) * BP +
+                      ((pt * 8 + gq) ^ is_swz(tq));
+        const float br[2] = {s_xr[o], s_xr[o + 4 * BP]};
+        const float bi[2] = {s_xi[o], s_xi[o + 4 * BP]};
+        split_frag(br, brh[pt], brl[pt]);
+        split_frag(bi, bih[pt], bil[pt]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int row = (hf * BN + mt * 16 + gq) * BM;
+        const float ar[4] = {swr[row + k_lo], swr[row + 8 * BM + k_lo],
+                             swr[row + k_hi], swr[row + 8 * BM + k_hi]};
+        const float ai[4] = {swi[row + k_lo], swi[row + 8 * BM + k_lo],
+                             swi[row + k_hi], swi[row + 8 * BM + k_hi]};
+        uint32_t arh[4], arl[4], aih[4], ail[4], nih[4], nil[4];
+        split_frag(ar, arh, arl);
+        split_frag(ai, aih, ail);
+        neg_frag(aih, nih);
+        neg_frag(ail, nil);
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {    // this step's sum, f32 adds
+          float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3_f32(tr, arh, arl, brh[pt], brl[pt]);
+          mma3_f32(tr, nih, nil, bih[pt], bil[pt]);
+          mma3_f32(ti, arh, arl, bih[pt], bil[pt]);
+          mma3_f32(ti, aih, ail, brh[pt], brl[pt]);
+          add4(are[mt][pt], tr);
+          add4(aim[mt][pt], ti);
+        }
+      }
+    }
+    if (s < n_steps - 1) continue;
+
+    // Stage 3: the n block's epilogue.  Every peer is done with its gather
+    // buffer (its FFT, or the previous n block's gather: wait); the warp
+    // pushes its bin's Y~ (row hf re, 8 + hf im) of each n-tile into the
+    // buffer of the rank that finishes it, and the cluster meets.
+    sm90::cluster_wait();
+    const int lc_n = is_lc(n_ranks);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int pt = 0; pt < 2; ++pt) {
+          const int ct = (mt * 16 + gq + 8 * hh) * 2 + pt;   // its n-tile
+          float* dst = cluster.map_shared_rank(s_rv, ct % n_ranks) +
+                       rank * 16 * lc_n;
+          const int lc = (ct / n_ranks) * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(dst + hf * lc_n + lc) =
+              make_float2(are[mt][pt][2 * hh], are[mt][pt][2 * hh + 1]);
+          *reinterpret_cast<float2*>(dst + (8 + hf) * lc_n + lc) =
+              make_float2(aim[mt][pt][2 * hh], aim[mt][pt][2 * hh + 1]);
+        }
+    cluster.sync();     // every chunk's Y~ of this rank's n-tiles is here
+
+    // the valid-row IFFT of the rank's n-tiles ct = rank + C i (columns
+    // 8 ct .., n = ct / 2), warp w two of them at a time: partial[s2][col]
+    // = sum over the source chunks q (rank order) of Re/Im bins 8 q ..
+    const int slots = io.blocks() * BP;
+    const int n_cts = (IS_NT - rank + n_ranks - 1) / n_ranks;
+    for (int i0 = 2 * warp; i0 < n_cts; i0 += 2 * WARPS) {
+      const bool two = i0 + 1 < n_cts;
+      float d[MT2_MAX][2][4];
+#pragma unroll
+      for (int a = 0; a < MT2_MAX; ++a)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[a][j][e] = 0.f;
+#pragma unroll 1
+      for (int kq = 0; kq < 2 * n_ranks; ++kq) {   // (source, re / im)
+        const int cq = kq / 2, h = kq % 2;
+        const float* rb = s_rv + (cq * 16 + h * 8 + tq) * lc_n;
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int lc = (i0 + (two ? j : 0)) * 8 + gq;
+          const float b[2] = {rb[lc], rb[4 * lc_n + lc]};
+          split_frag(b, bh[j], bl[j]);
+        }
+        const float* av =
+            s_dv + h * 16 * mt2 * IS_DVP + (hg * n_ranks + cq) * FC + tq;
+#pragma unroll
+        for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+          if (m2 >= mt2) break;
+          const float* ar = av + (m2 * 16 + gq) * IS_DVP;
+          const float a[4] = {ar[0], ar[8 * IS_DVP], ar[4],
+                              ar[8 * IS_DVP + 4]};
+          uint32_t ah[4], al[4];
+          split_frag(a, ah, al);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) mma3_f32(d[m2][j], ah, al, bh[j],
+                                               bl[j]);
+        }
+      }
+      // the finished columns: output or workspace slice r
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j == 1 && !two) break;
+        const int ct = rank + n_ranks * (i0 + j);
+        const int n = ct / 2, gn = n0 + n;
+        if (gn >= N) continue;
+#pragma unroll
+        for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+          if (m2 >= mt2) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s2 = m2 * 16 + gq + (e >> 1) * 8;
+            const int pp = (ct % 2) * 8 + 2 * tq + (e & 1);
+            if (s2 >= S2) continue;
+            float v = d[m2][j][e];
+            if (slices > 1) {
+              ws[(((size_t)slice * S2 + s2) * N + gn) * slots +
+                 blockIdx.x * BP + pp] = v;
+              continue;
+            }
+            const long long o = io.out_at(blk, s2, gn, N, pp);
+            if (o >= 0) {
+              v += bias[gn];
+              if constexpr (SC == SC_GLOBAL) v += sc[o];
+              if (relu) v = fmaxf(v, 0.f);
+              y[o] = v;
+            }
+          }
+        }
+      }
+    }
+    sm90::cluster_arrive();   // this CTA's gather buffer is read
+  }
+  sm90::cluster_wait();     // no CTA exits while a peer may still push
+}
+
+// The weight-stationary flow (FLOW == WS) on either input path (Path), on
+// the CUDA cores.  Grid (m range, n block, chunk); a cluster spans the
+// chunks.  ws (the split-K workspace) is written only when the flow has
+// more than one m range.  SC: none or a global shortcut, added here with
+// one m range, else by the finish pass.
 template <class Path, int FLOW, int SC>
 __global__ void __launch_bounds__(NT, 1)
 fused_flow_kernel(const Path io, const float* __restrict__ wr,
@@ -727,10 +1118,10 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
                   const float* __restrict__ sc, float* __restrict__ y,
                   float* __restrict__ ws, int S, int M, int Fa, int N,
                   int S2, int relu, int RM) {
-  static_assert(FLOW == WS || FLOW == IS, "output-stationary: above");
+  static_assert(FLOW == WS, "output- and input-stationary: above");
   static_assert(SC == SC_NONE || SC == SC_GLOBAL, "staged: os only");
   extern __shared__ __align__(16) float smem[];
-  const Layout L(FLOW, S, S2, io.x_floats(S), 0, RM);
+  const Layout L(S, S2, io.x_floats(S), 0, RM);
   float* s_df = smem + L.df;
   float* s_dv = smem + L.dv;
   float2* s_xf = reinterpret_cast<float2*>(smem + L.xf);
@@ -746,8 +1137,7 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
   const int n_ranks = (int)cluster.num_blocks();
 
   // this CTA's m range: range r of G
-  const int G = FLOW == WS ? gridDim.x : gridDim.y;
-  const int r = FLOW == WS ? blockIdx.x : blockIdx.y;
+  const int G = gridDim.x, r = blockIdx.x;
   const int m_lo = r * RM;
   const int m_hi = m_lo + RM < M ? m_lo + RM : M;
   const int n_steps = (m_hi - m_lo + BM - 1) / BM;
@@ -920,7 +1310,7 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
     cluster.sync();                         // keep partials alive for readers
   };
 
-  if constexpr (FLOW == WS) {
+  {
     // every tile block of one n block, the m range's planes resident
     const int n0 = blockIdx.y * BN;
     load_w(s_res, n0, m_lo, RM);
@@ -949,49 +1339,6 @@ fused_flow_kernel(const Path io, const float* __restrict__ wr,
       }
       fold();
       reduce_store(blk, bx, n0);
-    }
-  } else {
-    // is: one tile block; X~ of the m range once, then every n block
-    const typename Path::Blk blk = io.block(blockIdx.x, tid);
-    io.prepare(smem + L.win, S, tid);
-    const int pitch = RM * BP;
-    auto load_x = [&](int buf, int m0) {
-      io.load(blk, ring(buf), S, M, m0, tid);
-      cp_async_commit();
-    };
-    load_x(0, m_lo);
-    for (int step = 0; step < n_steps; ++step) {
-      if (step + 1 < n_steps)
-        load_x((step + 1) & 1, m_lo + (step + 1) * BM);
-      else
-        cp_async_commit();
-      cp_async_wait_prev();
-      __syncthreads();
-      const float* sx = io.windows(blk, ring(step & 1), smem + L.win, tid);
-      fft_step(sx, s_xf + step * MP, pitch);
-      __syncthreads();                      // stage free for reuse
-    }
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      auto load_p = [&](int buf, int m0) {
-        load_w(ring(buf), n0, m0, BM);
-        cp_async_commit();
-      };
-      zero_acc();
-      load_p(0, m_lo);
-      for (int step = 0; step < n_steps; ++step) {
-        if (step + 1 < n_steps)
-          load_p((step + 1) & 1, m_lo + (step + 1) * BM);
-        else
-          cp_async_commit();
-        cp_async_wait_prev();
-        __syncthreads();
-        const float* stage = ring(step & 1);
-        hadamard_step(stage, stage + W_PLANE, BM, 0, s_xf + step * MP,
-                      pitch);
-        __syncthreads();
-      }
-      fold();
-      reduce_store(blk, blockIdx.x, n0);
     }
   }
 }
@@ -1057,6 +1404,29 @@ bool plane_map(CUtensorMap* map, const float* w, int M, int N, int Fa) {
                        {BM, BN, FC}, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
+// The TMA maps of a plane launch: windows (windowed path, rows 16-byte
+// aligned) and planes (M % 4 == 0, 16-byte aligned) by TMA, the rest by
+// the copies, which write the same layouts; false where the CUDA
+// driver API refuses a map.
+template <class Path>
+bool os_maps(const Path& io, const float* wr, const float* wi, int S, int M,
+             int N, int Fa, OsMaps& maps, int& tma_x, int& tma_w) {
+  maps = {};
+  tma_x = tma_w = 0;
+  if constexpr (std::is_same<Path, WindowedPath>::value)
+    if (io.x_pitch % 4 == 0 && aligned16(io.xt)) {
+      if (!window_map(&maps.x, io.xt, io.P, S, M, io.x_pitch)) return false;
+      tma_x = 1;
+    }
+  if (M % 4 == 0 && aligned16(wr) && aligned16(wi)) {
+    if (!plane_map(&maps.wr, wr, M, N, Fa) ||
+        !plane_map(&maps.wi, wi, M, N, Fa))
+      return false;
+    tma_w = 1;
+  }
+  return true;
+}
+
 // Configure and launch one output-stationary layer on `stream` over m
 // ranges of RM channels (a multiple of BM, or M for one range) and, with
 // more than one range, the split-K finish pass; returns the cudaError_t of
@@ -1088,23 +1458,13 @@ int launch_os(const Path& io, const float* wr, const float* wi,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   // TMA for the windows and the planes where their rows are 16-byte
-  // aligned (the copies load the rest into the same layout)
-  OsMaps maps = {};
-  int tma_x = 0, tma_w = 0;
-  if constexpr (std::is_same<Path, WindowedPath>::value)
-    if (io.x_pitch % 4 == 0 && aligned16(io.xt)) {
-      if (!window_map(&maps.x, io.xt, io.P, S, M, io.x_pitch))
-        return (int)cudaErrorInvalidValue;
-      tma_x = 1;
-    }
-  // (aligned planes: TMA or no launch, so the kernel's 16-byte plane
-  // copies are unreachable)
-  if (M % 4 == 0 && aligned16(wr) && aligned16(wi)) {
-    if (!plane_map(&maps.wr, wr, M, N, Fa) ||
-        !plane_map(&maps.wi, wi, M, N, Fa))
-      return (int)cudaErrorInvalidValue;
-    tma_w = 1;
-  }
+  // aligned (the copies load the rest into the same layout; aligned
+  // planes: TMA or no launch, so the kernel's 16-byte plane copies are
+  // unreachable)
+  OsMaps maps;
+  int tma_x, tma_w;
+  if (!os_maps(io, wr, wi, S, M, N, Fa, maps, tma_x, tma_w))
+    return (int)cudaErrorInvalidValue;
   const int nb = (N + BN - 1) / BN;
   ClusterLaunch cl(dim3(io.blocks(), nb, chunks * G), ONT, smem, CL, stream);
   err = cudaLaunchKernelEx(&cl.cfg, fused_os_kernel<Path, SC>, io, wr, wi,
@@ -1132,35 +1492,67 @@ int os_max_clusters(int cluster, int* count) {
   return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cl.cfg);
 }
 
+// The same for the input-stationary kernel's clusters of `cluster` CTAs.
+int is_max_clusters(int cluster, int* count) {
+  const void* kernel = (const void*)fused_is_kernel<WindowedPath, SC_NONE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch cl(dim3(1, 1, cluster), ONT, SMEM_MAX, cluster, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cl.cfg);
+}
+
 // Configure and launch one weight- / input-stationary layer on `stream`
-// (and, with more than one m range, the split-K finish pass), as above.
+// (and, with more than one slice, the split-K finish pass), as above: ws
+// over G m ranges (a cluster over all bin chunks); is over G m ranges x
+// chunks / CL bin groups (clusters of CL chunks, CL dividing them).
 template <class Path, int FLOW, int SC>
 int launch_flow(const Path& io, const float* wr, const float* wi,
                 const float* dfr, const float* dfi, const float* dvr,
                 const float* dvi, const float* bias, const float* sc,
                 float* y, float* ws, int S, int M, int Fa, int N, int S2,
-                int relu, int RM, void* stream) {
+                int relu, int RM, int CL, void* stream) {
   if (RM < BM || RM % BM != 0) return (int)cudaErrorInvalidValue;
   const int G = (M + RM - 1) / RM;
-  if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int chunks = (Fa + FC - 1) / FC;
-  const Layout L(FLOW, S, S2, io.x_floats(S), io.win_floats(S), RM);
-  const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_flow_kernel<Path, FLOW, SC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (FLOW == WS) CL = chunks;
+  if (CL < 1 || chunks % CL != 0) return (int)cudaErrorInvalidValue;
+  const int slices = G * (chunks / CL);
+  if (slices > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const int nb = (N + BN - 1) / BN;
-  ClusterLaunch cl(FLOW == WS ? dim3(G, nb, chunks)
-                              : dim3(io.blocks(), G, chunks),
-                   NT, smem, chunks, stream);
-  err = cudaLaunchKernelEx(&cl.cfg, fused_flow_kernel<Path, FLOW, SC>, io,
-                           wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
-                           Fa, N, S2, relu, RM);
+  cudaError_t err;
+  if constexpr (FLOW == IS) {
+    if (S2 > 16 * MT2_MAX) return (int)cudaErrorInvalidValue;
+    const IsLayout L(S, S2, io.x_floats(S), RM);
+    const size_t smem = (size_t)L.total * sizeof(float);
+    err = cudaFuncSetAttribute(fused_is_kernel<Path, SC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    OsMaps maps;
+    int tma_x, tma_w;
+    if (!os_maps(io, wr, wi, S, M, N, Fa, maps, tma_x, tma_w))
+      return (int)cudaErrorInvalidValue;
+    ClusterLaunch cl(dim3(io.blocks(), G, chunks), ONT, smem, CL, stream);
+    err = cudaLaunchKernelEx(&cl.cfg, fused_is_kernel<Path, SC>, io, wr, wi,
+                             dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M, Fa,
+                             N, S2, relu, RM, maps, tma_x, tma_w);
+  } else {
+    const Layout L(S, S2, io.x_floats(S), io.win_floats(S), RM);
+    const size_t smem = (size_t)L.total * sizeof(float);
+    err = cudaFuncSetAttribute(fused_flow_kernel<Path, FLOW, SC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ClusterLaunch cl(dim3(G, nb, chunks), NT, smem, chunks, stream);
+    err = cudaLaunchKernelEx(&cl.cfg, fused_flow_kernel<Path, FLOW, SC>, io,
+                             wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S,
+                             M, Fa, N, S2, relu, RM);
+  }
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (G > 1)
-    err = launch_finish<Path, BP, SC>(io, ws, bias, sc, y, G, S2, N,
+  if (slices > 1)
+    err = launch_finish<Path, BP, SC>(io, ws, bias, sc, y, slices, S2, N,
                                       io.blocks() * BP, relu,
                                       (cudaStream_t)stream);
   return (int)err;
@@ -1194,10 +1586,10 @@ int dispatch(const Path& io, const float* wr, const float* wi,
     if (sc == nullptr)
       return launch_flow<Path, FLOW, SC_NONE>(io, wr, wi, dfr, dfi, dvr, dvi,
                                               bias, sc, y, ws, S, M, Fa, N,
-                                              S2, relu, RM, stream);
+                                              S2, relu, RM, CL, stream);
     return launch_flow<Path, FLOW, SC_GLOBAL>(io, wr, wi, dfr, dfi, dvr, dvi,
                                               bias, sc, y, ws, S, M, Fa, N,
-                                              S2, relu, RM, stream);
+                                              S2, relu, RM, CL, stream);
   }
 }
 
@@ -1228,8 +1620,9 @@ int halo(const float* x, const float* wr, const float* wi, const float* dfr,
          int bth, int btw, int nbh, int nbw, int pre, int band, int Fa,
          int N, int S2, int relu, int RM, int CL, int sc_staged,
          void* stream) {
-  // the output-stationary kernel runs its own thread count
-  typename std::conditional<FLOW == OS, HaloOs, HaloIn>::type io{x, {}};
+  // the tensor-core kernels (output- and input-stationary) run their own
+  // thread count
+  typename std::conditional<FLOW == WS, HaloIn, HaloOs>::type io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
                      nbh, nbw, pre, band) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || Fa < 1 ||
@@ -1282,16 +1675,19 @@ int fused_spectral_pipeline_ws_f32(const float* xt, const float* wr,
                       P, x_pitch, Fa, N, S2, relu, RM, 0, sc_staged, stream);
 }
 
+// Input-stationary: the chunks in clusters of CL CTAs (CL divides them);
+// with S = G * chunks / CL > 1 slices, ws holds S * S2 * N * ceil(P /
+// FSC_BP) * FSC_BP floats.
 int fused_spectral_pipeline_is_f32(const float* xt, const float* wr,
                                    const float* wi, const float* dfr,
                                    const float* dfi, const float* dvr,
                                    const float* dvi, const float* bias,
                                    float* y, const float* sc, float* ws,
                                    int S, int M, int P, int x_pitch, int Fa,
-                                   int N, int S2, int relu, int RM,
+                                   int N, int S2, int relu, int RM, int CL,
                                    int sc_staged, void* stream) {
   return windowed<IS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
-                      P, x_pitch, Fa, N, S2, relu, RM, 0, sc_staged, stream);
+                      P, x_pitch, Fa, N, S2, relu, RM, CL, sc_staged, stream);
 }
 
 // Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
@@ -1335,16 +1731,21 @@ int fused_spectral_pipeline_halo_is_f32(
     float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
     int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
     int nbw, int pre, int band, int Fa, int N, int S2, int relu, int RM,
-    int sc_staged, void* stream) {
+    int CL, int sc_staged, void* stream) {
   return halo<IS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
                   W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, pre, band,
-                  Fa, N, S2, relu, RM, 0, sc_staged, stream);
+                  Fa, N, S2, relu, RM, CL, sc_staged, stream);
 }
 
 // The most clusters of `cluster` output-stationary CTAs the card runs at
 // once, into *count (the wrapper sizes its launch geometry by it).
 int fused_spectral_pipeline_os_max_clusters(int cluster, int* count) {
   return os_max_clusters(cluster, count);
+}
+
+// The same for the input-stationary kernel (is_launch_geometry reads it).
+int fused_spectral_pipeline_is_max_clusters(int cluster, int* count) {
+  return is_max_clusters(cluster, count);
 }
 
 }  // extern "C"

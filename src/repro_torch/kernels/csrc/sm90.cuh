@@ -56,6 +56,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// --- clusters ----------------------------------------------------------------
+
+// The two halves of a cluster-wide barrier (cluster.sync() is both):
+// arrive releases this thread's shared-memory writes to the cluster, wait
+// blocks until every thread of every CTA arrived and acquires theirs.  In
+// between a CTA may run work that touches no shared memory its peers read.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // --- TMA -----------------------------------------------------------------
 
 // Copy one box of a 3-D tensor map at element coordinates (c0 innermost,

@@ -111,11 +111,19 @@ OS_HALO_STEP_S, OS_HALO_FIXED_S = 6.2e-6, 30e-6
 
 # Scheduled kernel: PE lanes per kernel group (the tables' N'; the plan
 # compiles them for this group size) and threads per CTA, compiled in as
-# -DSCH_*; tiles per CTA and the most active bins, fixed in the source.
-# It steps one input channel at a time, so the tables need no channel
+# -DSCH_*; tiles per CTA and the most active bins, fixed in the source:
+# the weight- and input-stationary flows take SCHED_BLOCK_P tiles and the
+# whole group a CTA, the output-stationary kernel SCHED_OS_BLOCK_P tiles
+# and one half of a group (SCHED_LANES lanes; ``sched_block_p``).  It
+# steps one input channel at a time, so the tables need no channel
 # padding (block_m 1).
 SCHED_BLOCK_N, SCHED_THREADS = 64, 256
 SCHED_BLOCK_P, SCHED_BLOCK_M, SCHED_MAX_BINS = 4, 1, 64
+SCHED_OS_BLOCK_P, SCHED_LANES, SCHED_OS_THREADS = 8, 32, 512
+SCHED_OS_STAGES = 5   # the deepest cp.async ring the os kernel takes
+# The output-stationary kernel's cluster rule (``sched_cluster``) prices a
+# CTA's set-up, IFFT and reduction as this many channel steps.
+SCHED_FIXED_STEPS = 24
 
 # The reuse flows and, for the two that split the input channels into m
 # ranges, the m-range widths (``block_m``) the kernels take: a multiple of
@@ -164,12 +172,31 @@ def staged_rows(s2: int, ranks: int) -> int:
     return -(-s2 // ranks)
 
 
-def sched_cluster(blocks: int, m: int, sms: int) -> int:
+def sched_block_p(flow: str) -> int:
+    """Tiles per CTA of the scheduled kernel under ``flow`` (the halo path
+    takes halo blocks of at most as many tiles)."""
+    return SCHED_OS_BLOCK_P if flow == OS else SCHED_BLOCK_P
+
+
+def sched_halves(n_pe: int) -> int:
+    """CTAs a kernel group of ``n_pe`` lanes takes in the scheduled
+    output-stationary kernel (SCHED_LANES lanes each)."""
+    return -(-n_pe // SCHED_LANES)
+
+
+def sched_cluster(blocks: int, m: int, capacity: dict[int, int]) -> int:
     """C, the scheduled output-stationary kernel's cluster over input
-    channels: the smallest count giving about two CTAs per SM for
-    ``blocks`` (tile block, group) pairs, at most MAX_CLUSTER and M (the
-    rule of ``launch`` in ``csrc/fused_spectral_conv_scheduled.cu``)."""
-    return min(max(1, -(-2 * sms // blocks)), MAX_CLUSTER, m)
+    channels for ``blocks`` (tile block, group, lane half) clusters on a
+    card that runs ``capacity[c]`` clusters of c CTAs at once
+    (``sched_cluster_capacity``): among C <= min(MAX_CLUSTER, M), the
+    least waves x (ceil(M / C) + SCHED_FIXED_STEPS), ties to the smaller C
+    (``os_cluster`` in ``csrc/fused_spectral_conv_scheduled.cu``)."""
+    best = None
+    for c in range(1, min(MAX_CLUSTER, m) + 1):
+        cost = (-(-blocks // capacity[c])) * (-(-m // c) + SCHED_FIXED_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, c)
+    return best[1]
 
 
 def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
@@ -214,17 +241,46 @@ def os_layout(s: int, s2: int, x_floats: int, sc_rows: int = 0
     return OsLayout(total, stages)
 
 
+def is_layout(s: int, s2: int, x_floats: int, block_m: int) -> OsLayout:
+    """Mirror of the source's ``IsLayout`` (the input-stationary plane
+    kernel) for S window rows, S2 output rows, ``x_floats`` of input a
+    ring step and m ranges of ``block_m`` channels: the FFT's split A
+    fragments, whose place the gather buffer takes once X~ is built (a
+    cluster rank's n-tiles of every chunk's Y~: C x 16 rows of
+    8 ceil(BLOCK_N BLOCK_P / 8 / C) + 8 floats, sized for the largest
+    C), X~ of the range (re, im; a bin's rows unpadded, bins 8 floats
+    apart), the IFFT's A (2 x 16 ceil(S2 / 16) rows of 68 floats), the
+    window offsets, one mbarrier a slot, then (1024-byte aligned; 1 KB of
+    slack aligns the base) a ring of three slots (two where three would
+    pass the card's limit) of a step's windows or planes."""
+    ks, mt2 = -(-s // 8), -(-s2 // 16)
+    n_tiles = BLOCK_N * BLOCK_P // 8
+    recv = max(c * 16 * (8 * -(-n_tiles // c) + 8)
+               for c in range(1, MAX_CLUSTER + 1))
+    head = (max(2 * ks * 128, recv)
+            + 2 * BIN_CHUNK * (block_m * BLOCK_P + 8)
+            + 2 * 16 * mt2 * (MAX_CLUSTER * BIN_CHUNK + 4) + _align4(s)
+            + _align4(2 * OS_STAGES))
+    ring = -(-head // OS_ALIGN) * OS_ALIGN
+    slot = max(-(-x_floats // 128) * 128, 2 * BIN_CHUNK * BLOCK_N * BLOCK_M)
+    for stages in range(OS_STAGES, 1, -1):
+        total = 4 * (ring + stages * slot + OS_ALIGN)
+        if total <= SMEM_PER_CTA:
+            break
+    return OsLayout(total, stages)
+
+
 def _plane_layout_bytes(flow: str, s: int, s2: int, block_m: int,
                         x_floats: int, win: int, sc_rows: int) -> int:
     if flow == OS:
         return os_layout(s, s2, x_floats, sc_rows).bytes
-    mp, w_plane = BLOCK_M * BLOCK_P, BIN_CHUNK * BLOCK_N * BLOCK_M
+    if flow == IS:
+        return is_layout(s, s2, x_floats, block_m).bytes
     x_sz = _align4(x_floats)
     head = (2 * s * BIN_CHUNK + 2 * s2 * BIN_CHUNK
-            + 2 * BIN_CHUNK * (block_m * BLOCK_P if flow == IS else mp)
-            + (2 * BIN_CHUNK * BLOCK_N * block_m if flow == WS else 0))
-    x_stage = x_sz if flow == WS else max(x_sz, 2 * w_plane)
-    return 4 * (head + max(2 * x_stage + win, s2 * BLOCK_N * BLOCK_P)
+            + 2 * BIN_CHUNK * BLOCK_M * BLOCK_P
+            + 2 * BIN_CHUNK * BLOCK_N * block_m)
+    return 4 * (head + max(2 * x_sz + win, s2 * BLOCK_N * BLOCK_P)
                 + sc_rows * BLOCK_N * BLOCK_P)
 
 
@@ -233,8 +289,10 @@ def plane_smem_bytes(flow: str, geo: SpectralGeometry,
                      hg: HaloGeometry | None = None,
                      sc_rows: int = 0) -> int:
     """Dynamic shared memory of one plane-kernel CTA: the ``OsLayout``
-    (output-stationary) or ``Layout`` (the flows) of
-    ``csrc/fused_spectral_conv.cu`` (windowed when ``hg`` is None), with
+    (output-stationary), ``IsLayout`` (input-stationary) or ``Layout``
+    (weight-stationary) of ``csrc/fused_spectral_conv.cu`` (windowed when
+    ``hg`` is None; the halo path's input-stationary ring takes raw rows
+    and needs no expand stage), with
     ``sc_rows`` rows of a staged shortcut (``staged_rows``)."""
     s = geo.fft_size ** 2
     x_floats, win = ((s * BLOCK_M * BLOCK_P, 0) if hg is None
@@ -243,9 +301,39 @@ def plane_smem_bytes(flow: str, geo: SpectralGeometry,
                                win, sc_rows)
 
 
+def sched_os_layout(s: int, s2: int, t_cycles: int, r: int, x_floats: int,
+                    sc_rows: int = 0) -> OsLayout:
+    """Mirror of the scheduled source's ``OsLayout`` (the output-
+    stationary kernel).  The channel loop: the tile-FFT's split A
+    fragments (2 x 8 row tiles x 8 k steps x 128 words), X~ and the
+    expanded weights of two channels (2 x 2 x 64 x SCHED_OS_BLOCK_P and
+    2 x 2 x 64 x SCHED_LANES floats), the window offsets, then a ring of
+    five slots (fewer, at least two, where five would pass the card's
+    limit), each a channel's input (``x_floats``) and its table rows (idx
+    T x r, then sel, vr, vi T x SCHED_LANES).  After the loop the same
+    bytes hold Y~ (2 x 64 rows of SCHED_LANES x SCHED_OS_BLOCK_P + 8) and
+    the IFFT's split A fragments (2 x ceil(S2 / 16) x 16 k steps x 128);
+    ``sc_rows`` rows of a staged shortcut follow both."""
+    fmax, bp, lanes = _SCHED_FMAX, SCHED_OS_BLOCK_P, SCHED_LANES
+    head = (2 * 8 * 8 * 128 + 2 * 2 * fmax * bp + 2 * 2 * fmax * lanes
+            + _align4(s))
+    slot = (_align4(x_floats) + _align4(t_cycles * r)
+            + 3 * t_cycles * lanes)
+    epi = (2 * fmax * (lanes * bp + 8)
+           + 2 * -(-s2 // 16) * (2 * fmax // 8) * 128)
+    for stages in range(SCHED_OS_STAGES, 1, -1):
+        total = 4 * (max(head + stages * slot, epi)
+                     + sc_rows * lanes * bp)
+        if total <= SMEM_PER_CTA:
+            break
+    return OsLayout(total, stages)
+
+
 def _sched_layout_bytes(flow: str, s: int, s2: int, block_m: int,
                         t_cycles: int, r: int, n_pe: int, x_floats: int,
                         win: int, sc_rows: int) -> int:
+    if flow == OS:
+        return sched_os_layout(s, s2, t_cycles, r, x_floats, sc_rows).bytes
     bp, fmax = SCHED_BLOCK_P, _SCHED_FMAX
     x_sz = _align4(x_floats)
     tab_blk = _align4(t_cycles * r) + 3 * _align4(t_cycles * n_pe)
@@ -253,23 +341,24 @@ def _sched_layout_bytes(flow: str, s: int, s2: int, block_m: int,
     stage = (psum + 2 * fmax * SCHED_BLOCK_N * bp
              + 2 * fmax * bp * (block_m if flow == IS else 1)
              + (block_m * tab_blk if flow == WS else 0))
-    size = {OS: x_sz + tab_blk, WS: x_sz, IS: max(x_sz, tab_blk)}[flow]
+    size = x_sz if flow == WS else max(x_sz, tab_blk)
     epi = psum + s2 * SCHED_BLOCK_N * bp + 2 * s2 * fmax
-    return 4 * (max(stage + 2 * size + win, epi)
-                + sc_rows * SCHED_BLOCK_N * bp)
+    return 4 * max(stage + 2 * size + win, epi)
 
 
 def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
                      t_cycles: int, r: int, n_pe: int,
                      hg: HaloGeometry | None = None,
                      sc_rows: int = 0) -> int:
-    """Dynamic shared memory of one scheduled-kernel CTA: the ``Layout``
-    of ``csrc/fused_spectral_conv_scheduled.cu`` for tables of
-    ``t_cycles`` cycles, ``r`` replicas and ``n_pe`` lanes, with
-    ``sc_rows`` rows of a staged shortcut."""
+    """Dynamic shared memory of one scheduled-kernel CTA: the ``OsLayout``
+    (output-stationary) or ``Layout`` (the flows) of
+    ``csrc/fused_spectral_conv_scheduled.cu`` for tables of ``t_cycles``
+    cycles, ``r`` replicas and ``n_pe`` lanes, with ``sc_rows`` rows of a
+    staged shortcut (output-stationary)."""
     s = geo.fft_size ** 2
-    x_floats, win = ((s * SCHED_BLOCK_P, 0) if hg is None
-                     else _halo_stage(geo, hg, 1, SCHED_BLOCK_P))
+    bp = sched_block_p(flow)
+    x_floats, win = ((s * bp, 0) if hg is None
+                     else _halo_stage(geo, hg, 1, bp))
     return _sched_layout_bytes(flow, s, geo.tile ** 2, block_m, t_cycles, r,
                                n_pe, x_floats, win, sc_rows)
 
@@ -405,7 +494,9 @@ SOURCES = {
         "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS,
         "FSC_OS_STAGES": OS_STAGES, "FSC_OS_THREADS": OS_THREADS},
     "fused_spectral_conv_scheduled": {
-        "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS}}
+        "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS,
+        "SCH_OS_THREADS": SCHED_OS_THREADS,
+        "SCH_FIXED_STEPS": SCHED_FIXED_STEPS}}
 
 
 def _libraries() -> dict[str, ctypes.CDLL]:
@@ -418,7 +509,8 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         libs["fused_spectral_conv_scheduled"]
     # a flow entry point (and every plane entry point, whose output-
     # stationary kernel also splits M and the bin chunks) takes the
-    # workspace pointer and block_m besides, the latter its cluster size
+    # workspace pointer and block_m besides, and the plane kernel's
+    # output- and input-stationary ones their cluster size
     for lib, kernel, n_ptr, n_int in (
             (plane, "fused_spectral_pipeline", 10, 9),
             (plane, "fused_spectral_pipeline_halo", 10, 20),
@@ -427,7 +519,7 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
             extra = flow != OS or kernel in _SPLIT_OS
-            cluster = flow == OS and kernel in _SPLIT_OS
+            cluster = flow != WS and kernel in _SPLIT_OS
             f.argtypes = ([ctypes.c_void_p] * (n_ptr + extra)
                           + [ctypes.c_int] * (n_int + extra + cluster)
                           + [ctypes.c_void_p])
@@ -534,31 +626,34 @@ def _check_shortcut(shortcut, shape: tuple, device, flow: str,
 
 def staged_shortcut_bytes(s: int, s2: int, fa: int, *, halo=None,
                           tables: tuple[int, int, int] | None = None,
-                          blocks: int = 1, m: int = 1, sms: int = 1) -> int:
+                          blocks: int = 1, m: int = 1,
+                          capacity: dict[int, int] | None = None) -> int:
     """Dynamic shared memory of one output-stationary CTA that stages a
     'vmem' shortcut, the rule by which the wrappers refuse that placement
     and ``placement_at_batch`` falls back from it: the plane kernel's
     layout, whose cluster splits the ``fa`` active bins, or, given the
     tables' (cycles T, replicas r, lanes N'), the scheduled kernel's,
     whose cluster over the ``m`` input channels (``sched_cluster``) is
-    sized for ``blocks`` (tile block, group) pairs on ``sms`` SMs.
+    sized for ``blocks`` (tile block, group, lane half) clusters on a
+    card of cluster ``capacity`` (``sched_cluster``).
     ``halo`` is the (geometry, halo block) pair of the halo input path,
     None for windows; S = K^2 window rows, S2 = t^2 output rows."""
-    bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_BLOCK_P)
+    bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_OS_BLOCK_P)
     x_floats, win = ((s * bm * bp, 0) if halo is None
                      else _halo_stage(*halo, bm, bp))
     if tables is None:
         return _plane_layout_bytes(OS, s, s2, BLOCK_M, x_floats, win,
                                    staged_rows(s2, -(-fa // BIN_CHUNK)))
     t_cycles, r, n_pe = tables
-    return _sched_layout_bytes(OS, s, s2, 1, t_cycles, r, n_pe, x_floats,
-                               win, staged_rows(s2,
-                                                sched_cluster(blocks, m, sms)))
+    return _sched_layout_bytes(
+        OS, s, s2, 1, t_cycles, r, n_pe, x_floats, win,
+        staged_rows(s2, sched_cluster(blocks, m, capacity)))
 
 
-def placement_at_batch(lp, batch: int, sms: int) -> str:
+def placement_at_batch(lp, batch: int, capacity: dict[int, int]) -> str:
     """Where ``execute_layer_plan`` has the kernel read ``lp``'s shortcut
-    at ``batch`` images on a card of ``sms`` SMs: the plan's placement
+    at ``batch`` images on a card of cluster ``capacity``
+    (``sched_cluster_capacity``): the plan's placement
     ('hbm' when it chose none), except that a planned 'vmem' whose staged
     rows do not fit one CTA's shared memory at this batch
     (``staged_shortcut_bytes``) becomes 'hbm'.  The scheduled kernel's
@@ -574,11 +669,13 @@ def placement_at_batch(lp, batch: int, sms: int) -> str:
     if lp.hadamard == "scheduled":
         gn, _, t_cycles, r = lp.tables.idx.shape
         tables = (t_cycles, r, lp.tables.sel.shape[-1])
-        blocks = gn * (batch * halo[1].n_blocks if halo is not None
-                       else -(-batch * lp.geo.n_tiles // SCHED_BLOCK_P))
+        blocks = gn * sched_halves(tables[2]) * (
+            batch * halo[1].n_blocks if halo is not None
+            else -(-batch * lp.geo.n_tiles // SCHED_OS_BLOCK_P))
     smem = staged_shortcut_bytes(lp.dfr.shape[1], lp.dvr.shape[0],
                                  lp.n_active_bins, halo=halo, tables=tables,
-                                 blocks=blocks, m=lp.layer.c_in, sms=sms)
+                                 blocks=blocks, m=lp.layer.c_in,
+                                 capacity=capacity)
     return want if smem <= SMEM_PER_CTA else "hbm"
 
 
@@ -627,6 +724,64 @@ def os_latency_s(waves: int, steps: int, halo: bool = False) -> float:
     return waves * (steps * OS_STEP_S + OS_FIXED_S)
 
 
+# The input-stationary plane launch's latency, (WAVE_S, STEP_S) per input
+# path: seconds per n block a CTA finishes (Y~ gathered, IFFT, store) and
+# per window or plane step, in time = waves x (n blocks x WAVE_S + steps
+# x STEP_S).  Least-squares fit to the redesigned kernel's batch-1 device
+# times at the 13 full-width VGG16 layers (``chip_smoke.py`` (c5), (c6)
+# ``x_device_ms`` on an NVIDIA H100 80GB HBM3, 700 W; the times and the
+# fit are in tests/test_torch_autotune.py).  ``is_launch_geometry`` sizes
+# the launch by it, and ``core.autotune`` prices the launch by it.
+IS_LATENCY = {"windowed": (2.400677314218486e-05, 2.357374733044491e-06),
+              "halo": (2.3002775118782575e-05, 2.9853373828800447e-06)}
+
+
+def is_latency_s(waves: int, rects: int, steps: int,
+                 halo: bool = False) -> float:
+    """Priced seconds of an input-stationary plane launch's CTA waves,
+    each CTA finishing ``rects`` n blocks over ``steps`` window and plane
+    steps (``IS_LATENCY`` of the input path)."""
+    wave_s, step_s = IS_LATENCY["halo" if halo else "windowed"]
+    return waves * (rects * wave_s + steps * step_s)
+
+
+class IsGeometry(NamedTuple):
+    """One input-stationary plane launch: clusters of ``cluster`` CTAs
+    over consecutive bin chunks (``chunks / cluster`` bin groups), run in
+    ``waves`` (of the card's cluster capacity); ``slices`` (m ranges x
+    bin groups) > 1 go through the split-K workspace and its finish
+    pass."""
+    cluster: int
+    waves: int
+    slices: int
+
+
+def is_launch_geometry(blocks: int, ranges: int, range_m: int, n: int,
+                       fa: int, s2: int,
+                       capacity: dict[int, int]) -> IsGeometry:
+    """The input-stationary plane kernel's clusters for ``blocks`` tile
+    blocks, ``ranges`` m ranges of ``range_m`` channels, N output
+    channels, ``fa`` active bins and S2 output rows on a card of cluster
+    ``capacity`` (``is_cluster_capacity``): among cluster sizes dividing
+    the bin chunks, the least priced launch, its waves of ``blocks x
+    ranges x chunks / size`` clusters priced by ``is_latency_s`` (a CTA's
+    window and BLOCK_M-channel plane steps and its n blocks' epilogues;
+    the windowed path's constants, since the halo path takes its windowed
+    twin's clusters) plus the split-K workspace written and read once at
+    OS_HBM_BYTES_S, ties to the larger cluster (fewer slices)."""
+    chunks, nb = -(-fa // BIN_CHUNK), -(-n // BLOCK_N)
+    steps = -(-range_m // BLOCK_M) * (1 + nb)
+    best = None
+    for cl in (c for c in range(chunks, 0, -1) if chunks % c == 0):
+        waves = -(-blocks * ranges * (chunks // cl) // capacity[cl])
+        slices = ranges * (chunks // cl)
+        cost = is_latency_s(waves, nb, steps) + (8 * slices * s2 * n * blocks * BLOCK_P
+                                / OS_HBM_BYTES_S if slices > 1 else 0.0)
+        if best is None or cost < best[0]:
+            best = (cost, IsGeometry(cl, waves, slices))
+    return best[1]
+
+
 @functools.lru_cache(maxsize=4096)
 def _os_geometry(blocks: int, n: int, m: int, fa: int, s2: int,
                  capacity: tuple[tuple[int, int], ...]) -> OsGeometry:
@@ -652,8 +807,11 @@ def _os_geometry(blocks: int, n: int, m: int, fa: int, s2: int,
 
 
 @functools.cache
-def _os_capacity(index: int) -> tuple[tuple[int, int], ...]:
-    fn = library().fused_spectral_pipeline_os_max_clusters
+def _os_capacity(index: int, kernel: str = "os"
+                 ) -> tuple[tuple[int, int], ...]:
+    fn = (library_scheduled().fused_spectral_pipeline_scheduled_os_max_clusters
+          if kernel == "sched" else
+          getattr(library(), f"fused_spectral_pipeline_{kernel}_max_clusters"))
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = []
@@ -674,6 +832,18 @@ def os_cluster_capacity(device) -> dict[int, int]:
     device): clusters stay within a GPC, so a card holds fewer SMs' worth
     of large clusters."""
     return dict(_os_capacity(torch.device(device).index or 0))
+
+
+def sched_cluster_capacity(device) -> dict[int, int]:
+    """The same for the scheduled output-stationary kernel (its launch's
+    cluster rule reads it; ``sched_cluster`` mirrors the rule)."""
+    return dict(_os_capacity(torch.device(device).index or 0, "sched"))
+
+
+def is_cluster_capacity(device) -> dict[int, int]:
+    """The same for the plane kernel's input-stationary flow
+    (``fused_is_kernel``; ``is_launch_geometry`` reads it)."""
+    return dict(_os_capacity(torch.device(device).index or 0, "is"))
 
 
 def _check_staged_fits(kernel: str, smem: int) -> None:
@@ -725,8 +895,9 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                             shortcut_placement: str = "hbm",
                             band: bool = False) -> torch.Tensor:
     """FFT -> Hadamard -> IFFT (+ bias/ReLU) in one kernel launch (two
-    with more than one m range: a weight-/input-stationary flow's, or the
-    output-stationary split of ``os_launch_geometry``, each followed by
+    with more than one split-K slice: a weight-stationary flow's m
+    ranges, or the output-stationary split of ``os_launch_geometry`` or
+    the input-stationary one of ``is_launch_geometry``, each followed by
     the split-K finish pass).
 
     xt:  [S, M, P] f32       overlap-save windows, s-leading (S = K^2,
@@ -780,6 +951,10 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                 os_cluster_capacity(xt.device))
         g, block_m, cluster = og.slices, og.range_m, og.cluster
         staged = staged and og.slices == 1      # else 'hbm', the same bits
+    elif flow == IS:
+        ig = is_launch_geometry(-(-p // BLOCK_P), g, min(block_m, m), n,
+                                fa, s2, is_cluster_capacity(xt.device))
+        g, cluster = ig.slices, ig.cluster
     if staged:
         _check_staged_fits("fused_spectral_pipeline",
                            staged_shortcut_bytes(s, s2, fa))
@@ -952,13 +1127,14 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
         _check_staged_fits(
             "fused_spectral_pipeline_scheduled", staged_shortcut_bytes(
                 s, s2, fa, tables=(n_cycles, r, n_pe),
-                blocks=-(-p // SCHED_BLOCK_P) * gn, m=m,
-                sms=_sms(xt.device)))
+                blocks=-(-p // SCHED_OS_BLOCK_P) * gn * sched_halves(n_pe),
+                m=m, capacity=sched_cluster_capacity(xt.device)))
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n_out, p), dtype=torch.float32,
                         device=xt.device)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled",
-                flow, block_m, g, -(-p // SCHED_BLOCK_P) * SCHED_BLOCK_P,
+                flow, block_m, g,
+                -(-p // sched_block_p(flow)) * sched_block_p(flow),
                 xt.device,
                 (xt.data_ptr(), idx.data_ptr(), sel.data_ptr(),
                  vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
@@ -1106,11 +1282,6 @@ def _halo_out(x, geo: SpectralGeometry, n: int, band: bool) -> torch.Tensor:
                        device=x.device)
 
 
-def _sms(device) -> int:
-    """The card's SM count (the scheduled kernel sizes its cluster by it)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                  geo: SpectralGeometry, hg: HaloGeometry,
                                  relu: bool, flow: str = OS,
@@ -1166,6 +1337,11 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                 os_cluster_capacity(x.device))
         g, block_m, cluster = og.slices, og.range_m, og.cluster
         staged = staged and og.slices == 1      # else 'hbm', the same bits
+    elif flow == IS:        # the windowed twin's clusters: the same sums
+        ig = is_launch_geometry(-(-x.shape[0] * geo.n_tiles // BLOCK_P), g,
+                                min(block_m, x.shape[1]), n, fa, s2,
+                                is_cluster_capacity(x.device))
+        g, cluster = ig.slices, ig.cluster
     if staged:
         _check_staged_fits("fused_spectral_pipeline_halo",
                            staged_shortcut_bytes(geo.fft_size ** 2, s2, fa,
@@ -1201,13 +1377,13 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
     operators, bias, flow and block_m as
     ``fused_spectral_pipeline_scheduled``; geo/hg, shortcut,
     shortcut_placement and band as ``fused_spectral_pipeline_halo`` (at
-    most ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out,
+    most ``sched_block_p(flow)`` tiles per block).  Returns [B, n_out, H_out,
     W_out] f32, contiguous ([B, n_out, h_pad, w_pad] on a band).  CPU
     tensors run the plain version; CUDA tensors launch the kernel (or
     raise).
     """
-    _check_halo_input(x, geo, hg, SCHED_BLOCK_P, band, shortcut)
     g = _flow_ranges(flow, block_m, x.shape[1], "scheduled")
+    _check_halo_input(x, geo, hg, sched_block_p(flow), band, shortcut)
     _check_shortcut(shortcut, _halo_out_shape(x, geo, n_out), x.device,
                     flow, shortcut_placement)
     if x.device.type == "cpu":
@@ -1232,12 +1408,13 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
             "fused_spectral_pipeline_scheduled_halo", staged_shortcut_bytes(
                 geo.fft_size ** 2, s2, fa, halo=(geo, hg),
                 tables=(n_cycles, r, n_pe),
-                blocks=x.shape[0] * hg.n_blocks * gn, m=x.shape[1],
-                sms=_sms(x.device)))
+                blocks=x.shape[0] * hg.n_blocks * gn * sched_halves(n_pe),
+                m=x.shape[1], capacity=sched_cluster_capacity(x.device)))
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n_out, band)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
-                flow, block_m, g, x.shape[0] * hg.n_blocks * SCHED_BLOCK_P,
+                flow, block_m, g,
+                x.shape[0] * hg.n_blocks * sched_block_p(flow),
                 x.device,
                 (x.data_ptr(), idx.data_ptr(), sel.data_ptr(),
                  vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
@@ -1391,7 +1568,9 @@ def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
                              f"kernel only on a residual-fused epilogue, "
                              f"not {lp.epilogue.residual!r}")
         kw["shortcut_placement"] = (
-            placement_at_batch(lp, x.shape[0], _sms(x.device)) if x.is_cuda
+            placement_at_batch(lp, x.shape[0],
+                               sched_cluster_capacity(x.device))
+            if x.is_cuda
             else lp.tuning.residual or "hbm")
     halo = lp.input_mode == "halo"
     if halo:    # a windowed (or strided) producer's output is a view

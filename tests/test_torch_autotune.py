@@ -26,25 +26,53 @@ from repro_torch.models import cnn
 LAYERS = {l.name: l for l in df.VGG16_LAYERS}
 L2 = 50e6
 
-# Batch-1 kernel times of the output-stationary kernels at the 13
-# full-width VGG16 layers, ms: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
-# 700 W, before the other flows existed (PERF.md).  Key: (Hadamard kind,
-# input path).  ``autotune.LATENCY_FIT`` is fitted to them; the plane
-# kernel's rows are of its first output-stationary design, whose launch
-# (``pre_redesign_plane_grid``) the redesigned kernel no longer makes.
-MEASURED_OS_MS = {
-    ("plane", "windowed"): (0.1502, 0.4145, 0.2436, 0.4260, 0.2245, 0.4023,
-                            0.4128, 0.3972, 0.7451, 0.7684, 0.3916, 0.3951,
-                            0.3913),
-    ("plane", "halo"): (0.2117, 0.5835, 0.4412, 0.8387, 0.3935, 0.6843,
-                        0.6849, 0.5259, 0.9971, 0.9862, 0.5864, 0.5197,
-                        0.5273),
-    ("scheduled", "windowed"): (0.1797, 0.5606, 0.4318, 0.5370, 0.3997,
-                                0.6688, 0.6680, 0.5192, 0.7657, 0.7709,
-                                0.4225, 0.3599, 0.4276),
-    ("scheduled", "halo"): (0.1975, 0.6328, 0.4601, 0.6135, 0.5813, 1.0001,
-                            0.9932, 0.6347, 1.0603, 1.0566, 0.4096, 0.4135,
-                            0.4013),
+# Batch-1 device times (the wrapper's host work hidden) of the kernels
+# ``autotune.LATENCY_FIT`` prices, at the 13 full-width VGG16 layers, ms,
+# beside the m-range widths they ran at: chip_smoke.py (c2), (c4)-(c6)
+# ``x_device_ms`` on an NVIDIA H100 80GB HBM3 at 700 W, one run (PERF.md).
+# Key: (Hadamard kind, flow, input path).  ``autotune.LATENCY_FIT`` is
+# their least-squares fit.
+MEASURED_DEVICE_MS = {
+    ("plane", "weight_stationary", "windowed"): (
+        (8, 8, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16),
+        (1.542, 1.547, 0.5156, 1.021, 0.4807, 0.8049, 0.7984, 0.4444, 0.8483,
+        0.8504, 0.4594, 0.4604, 0.4581)),
+    ("plane", "weight_stationary", "halo"): (
+        (8, 8, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16),
+        (2.47, 2.075, 0.9675, 1.9, 0.7422, 1.233, 1.232, 0.5067, 0.9835,
+        0.9815, 0.5202, 0.5194, 0.52)),
+    ("plane", "input_stationary", "windowed"): (
+        (8, 64, 32, 64, 64, 64, 64, 32, 64, 64, 32, 32, 32),
+        (0.2039, 0.4315, 0.2539, 0.3383, 0.173, 0.3285, 0.328, 0.2738, 0.355,
+        0.3545, 0.2908, 0.2934, 0.2917)),
+    ("plane", "input_stationary", "halo"): (
+        (8, 64, 32, 64, 32, 64, 64, 32, 64, 64, 32, 32, 32),
+        (0.3096, 0.6326, 0.4657, 0.6393, 0.3745, 0.5342, 0.5305, 0.3015,
+        0.3958, 0.3958, 0.3219, 0.3226, 0.3207)),
+    ("scheduled", "output_stationary", "windowed"): (
+        (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+        (0.09565, 0.5151, 0.2898, 0.5132, 0.327, 0.617, 0.6164, 0.3236, 0.607,
+        0.608, 0.4202, 0.4263, 0.4223)),
+    ("scheduled", "output_stationary", "halo"): (
+        (1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1),
+        (0.115, 0.5779, 0.392, 0.7124, 0.5672, 1.056, 1.058, 0.5551, 1.039,
+        1.032, 0.4837, 0.4811, 0.4843)),
+    ("scheduled", "weight_stationary", "windowed"): (
+        (1, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3),
+        (9.761, 10.39, 4.007, 4.137, 2.329, 3.312, 3.312, 1.591, 3.038, 3.042,
+        1.092, 1.101, 1.093)),
+    ("scheduled", "weight_stationary", "halo"): (
+        (1, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3),
+        (10.31, 11.01, 3.938, 4.008, 2.487, 3.478, 3.471, 2.282, 4.342, 4.334,
+        1.058, 1.063, 1.057)),
+    ("scheduled", "input_stationary", "windowed"): (
+        (4, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8),
+        (0.1457, 1.22, 0.6078, 1.086, 0.6795, 1.178, 1.177, 0.7022, 1.306,
+        1.305, 0.6162, 0.6269, 0.6164)),
+    ("scheduled", "input_stationary", "halo"): (
+        (4, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8),
+        (0.1468, 1.374, 0.6518, 1.208, 0.7759, 1.422, 1.423, 1.082, 1.759,
+        1.761, 0.6401, 0.6504, 0.6396)),
 }
 
 
@@ -66,20 +94,29 @@ MEASURED_PLANE_OS_DEVICE_MS = {
 # chunks (4 groups, M whole), conv5_1 also two 256-channel ranges, at
 # batch 1 and 4.
 OS_SLICES = {("conv1_2", 1): 4, ("conv5_1", 1): 8, ("conv5_1", 4): 8}
+# Split-K slices of the plane kernel's input-stationary launch at block_m
+# 64 (``fsc.is_launch_geometry`` on an H100): conv1_2 at batch 1 takes
+# clusters of 2 over its 8 bin chunks (91 tile blocks: 6 waves of 66
+# clusters against 7 of 15 clusters of 8), so M whole in 4 bin groups;
+# conv5_1 keeps clusters of 8 over its 8 m ranges.
+IS_SLICES = {("conv1_2", 1): 4, ("conv5_1", 1): 8, ("conv5_1", 4): 8}
 
 
 def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
     """Bytes of one launch, counted by hand from the kernels' loops: K = 8,
     t = 6, Fa = 64, S = 64, S2 = 36; planes 8*Fa*N*M bytes, tables
     4*GN*M*T*(10 + 3*64) with T = ceil(16 / 0.85) = 19; the split-K
-    workspace of ``OS_SLICES`` or the flows' m ranges written and read
+    workspace of ``OS_SLICES``, ``IS_SLICES`` (the plane kernel's
+    input-stationary launch) or the flows' m ranges written and read
     once."""
     layer = LAYERS[name]
     m, n, h = layer.c_in, layer.c_out, layer.h_in
     n_th = -(-h // 6)                       # tiles per side (h = w)
     p = batch * n_th * n_th
     sched = hadamard == "scheduled"
-    bp = 4 if sched else 16
+    # tiles per CTA: the scheduled output-stationary kernel's 8, its flows'
+    # 4, the plane kernel's 16
+    bp = (8 if flow == "output_stationary" else 4) if sched else 16
     if input_mode == "halo":
         bt = min(bp, n_th * n_th)
         btw = min(n_th, bt)
@@ -102,6 +139,8 @@ def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
         total, g = rr(x, nb) + w, -(-m // block_m)
     else:
         total, g = x + rr(w, pb), -(-m // block_m)
+        if not sched:
+            g = IS_SLICES[(name, batch)]
     ws = 4 * g * 36 * n * pb * bp if g > 1 else 0
     return total + ops + y + 2 * ws
 
@@ -151,8 +190,11 @@ def test_cost_model_constants_are_the_h100s():
     assert at.H100_SMEM_PER_CTA == 232_448
     assert at.H100_L2_BYTES == 50e6
     assert not any(n.startswith("TPU") for n in (*vars(at), *vars(df)))
-    assert set(at.LATENCY_FIT) == {(k, i) for k in ("plane", "scheduled")
-                                   for i in ("windowed", "halo")}
+    assert set(at.LATENCY_FIT) == (
+        {("plane", f, i) for f in ("weight_stationary", "input_stationary")
+         for i in ("windowed", "halo")}
+        | {("scheduled", f, i) for f in df.FLOWS
+           for i in ("windowed", "halo")})
     assert all(1e-6 < step < 2e-5 and 0 <= wave < 1e-4
                for wave, step in at.LATENCY_FIT.values())
     # the plane output-stationary launch's cluster capacity, as
@@ -163,35 +205,29 @@ def test_cost_model_constants_are_the_h100s():
     assert all(c * n <= at.H100_SMS for c, n in at.H100_OS_CLUSTERS.items())
 
 
-def pre_redesign_plane_grid(layer, imode):
-    """(waves, steps) of the launch the plane kernel's first
-    output-stationary design made at batch 1, Fa 64: one CTA a (tile
-    block, n block, bin chunk), all M in BLOCK_M steps, 132 CTAs a wave."""
-    grid = at.kernel_grid(layer, 8, "output_stationary", "bin", imode, 1,
-                          fsc.BLOCK_M, 64)
-    ctas = grid["p_blocks"] * grid["n_blocks"] * 8
-    return -(-ctas // at.H100_SMS), -(-layer.c_in // fsc.BLOCK_M)
+def latency_rows(key, block_ms):
+    """(waves x rects, waves x steps) of each VGG16 layer's batch-1
+    launch of the kernel ``key`` at the m-range widths it ran at, as
+    ``kernel_grid`` gives them (Fa 64)."""
+    kind, flow, imode = key
+    rows = []
+    for layer, bm in zip(df.VGG16_LAYERS, block_ms):
+        grid = at.kernel_grid(layer, 8, flow, "bin" if kind == "plane"
+                              else "scheduled", imode, 1, bm, 64)
+        rows.append((grid["waves"] * grid["rects"],
+                     grid["waves"] * grid["steps"]))
+    return np.asarray(rows, float)
 
 
 def test_latency_fit_is_the_least_squares_fit_of_the_measured_times():
     """LATENCY_FIT's literals are the least-squares (WAVE_S, STEP_S) of
-    time = waves * (WAVE_S + steps * STEP_S) over the measured
-    output-stationary times, one rectangle a CTA, on the launches they
-    were measured on."""
-    for (kind, imode), times in MEASURED_OS_MS.items():
-        rows = []
-        for layer in df.VGG16_LAYERS:
-            if kind == "plane":
-                waves, steps = pre_redesign_plane_grid(layer, imode)
-            else:
-                grid = at.kernel_grid(layer, 8, "output_stationary",
-                                      "scheduled", imode, 1, fsc.BLOCK_M, 64)
-                waves, steps = grid["waves"], grid["steps"]
-            rows.append((waves, waves * steps))
-        fit = np.linalg.lstsq(np.asarray(rows, float),
+    time = waves * (rects * WAVE_S + steps * STEP_S) over the measured
+    device times, on the launches they were measured on."""
+    assert set(at.LATENCY_FIT) == set(MEASURED_DEVICE_MS)
+    for key, (block_ms, times) in MEASURED_DEVICE_MS.items():
+        fit = np.linalg.lstsq(latency_rows(key, block_ms),
                               1e-3 * np.asarray(times), rcond=None)[0]
-        np.testing.assert_allclose(fit, at.LATENCY_FIT[(kind, imode)],
-                                   rtol=1e-9)
+        np.testing.assert_allclose(fit, at.LATENCY_FIT[key], rtol=1e-9)
 
 
 def test_halo_os_constants_are_the_fit_of_its_device_times():
@@ -213,24 +249,19 @@ def test_halo_os_constants_are_the_fit_of_its_device_times():
 
 
 def test_step_fit_reproduces_a_measured_layer():
-    """The latency term lands within 2x of every measured
-    output-stationary batch-1 time: the fitted term, waves * (WAVE_S +
-    steps * STEP_S), at the times it was fitted to (the scheduled
-    kernel's as the cost model prices them, the plane kernel's first
-    design's on its launch), and the cost model's price of the
-    redesigned plane kernel (``fsc.os_latency_s`` over the launch of
-    ``fsc.os_launch_geometry``) at that kernel's device times."""
-    for (kind, imode), times in MEASURED_OS_MS.items():
-        for layer, ms in zip(df.VGG16_LAYERS, times):
-            if kind == "plane":
-                waves, steps = pre_redesign_plane_grid(layer, imode)
-                wave_s, step_s = at.LATENCY_FIT[(kind, imode)]
-                latency_s = waves * (wave_s + steps * step_s)
-            else:
-                latency_s = at.hopper_fused_flow_cost(
-                    layer, 8, 4.0, "output_stationary", "scheduled", imode,
-                    active_bins=64)["latency_s"]
-            assert 0.5 < latency_s / (ms * 1e-3) < 2.0, (layer, kind)
+    """The latency term lands within 2x of every measured batch-1 device
+    time: the cost model's price of each kernel LATENCY_FIT prices (at
+    the m-range widths it ran at), and of the redesigned plane
+    output-stationary kernel (``fsc.os_latency_s`` over the launch of
+    ``fsc.os_launch_geometry``)."""
+    for (kind, flow, imode), (block_ms, times) in \
+            MEASURED_DEVICE_MS.items():
+        for layer, bm, ms in zip(df.VGG16_LAYERS, block_ms, times):
+            c = at.hopper_fused_flow_cost(
+                layer, 8, 4.0, flow, "bin" if kind == "plane"
+                else "scheduled", imode, active_bins=64, block_m=bm)
+            assert 0.5 < c["latency_s"] / (ms * 1e-3) < 2.0, (layer, kind,
+                                                              flow, imode)
     for imode, times in MEASURED_PLANE_OS_DEVICE_MS.items():
         for layer, ms in zip(df.VGG16_LAYERS, times):
             c = at.hopper_fused_flow_cost(layer, 8, 4.0,

@@ -560,7 +560,7 @@ def test_shared_memory_mirror_matches_the_kernels():
                               (64, 64), (64, 64), (36, 64), (36, 64),
                               (1, 8)]]
     for flow, fits, over in (("weight_stationary", 16, 24),
-                             ("input_stationary", 72, 80)):
+                             ("input_stationary", 64, 72)):
         assert fsc.plane_smem_bytes(flow, geo, fits) <= cap
         assert fsc.plane_smem_bytes(flow, geo, over) > cap
         fsc.fused_spectral_pipeline(*ops, relu=True, flow=flow,
@@ -583,6 +583,29 @@ def test_shared_memory_mirror_matches_the_kernels():
         else:
             with pytest.raises(RuntimeError, match="launch failed"):
                 run()
+    # the scheduled output-stationary kernel's OsLayout: with all 36 rows
+    # of a staged shortcut (M = 1: a cluster of one), the longest tables
+    # whose two-stage ring fits launch, one cycle more is refused by the
+    # entry point, called past the wrapper's check
+    t0 = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3)[1].shape[2]
+    t_fit = max(t for t in range(t0, 160) if fsc.sched_smem_bytes(
+        "output_stationary", geo, 1, t, 10, 64, sc_rows=36) <= cap)
+    for t, ok in ((t_fit, True), (t_fit + 1, False)):
+        ops = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3,
+                                 pad_cycles=t - t0)
+        y = torch.empty((36, 70, 40), device="cuda")
+        sc = torch.randn((36, 70, 40), device="cuda")
+        gn_, mp_, t_, r_ = ops[1].shape
+        err = fsc.library_scheduled().fused_spectral_pipeline_scheduled_f32(
+            *(a.data_ptr() for a in ops), y.data_ptr(), sc.data_ptr(), 64, 1,
+            40, 40, gn_, mp_, t_, r_, ops[2].shape[3], 64, 70, 36, 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert (err == 0) == ok, (t, err)
+        if ok:
+            ref = fsc.fused_spectral_pipeline_scheduled_reference(
+                *ops, n_out=70, relu=True, shortcut=sc)
+            assert _rel(y, ref) <= TOL
     # the output-stationary kernel's OsLayout: a staged shortcut of
     # ceil(36 / chunks) rows fits beside a two-stage ring at Fa = 24 (12
     # rows), not at Fa = 16 (18 rows); the entry point, called past the
@@ -715,8 +738,12 @@ def test_staged_shortcut_over_the_limit_is_refused(kernel):
         geo = spec.make_geometry(13, 13, 3, 8)
         need = fsc.plane_smem_bytes("output_stationary", geo, sc_rows=36)
     else:
-        # M = 1: a cluster of one CTA over the input channels
-        ops = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3)
+        # M = 1: a cluster of one CTA over the input channels; tables of
+        # 110 cycles (zero cycles appended), whose ring of two stages
+        # leaves no room for the 36 rows
+        t0 = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3)[1].shape[2]
+        ops = scheduled_operands(64, 1, 40, 70, 64, 36, seed=3,
+                                 pad_cycles=110 - t0)
         kw = dict(n_out=70)
         geo = spec.make_geometry(13, 13, 3, 8)
         need = fsc.sched_smem_bytes("output_stationary", geo, 1,
@@ -963,33 +990,61 @@ def test_staged_smoke_forward_on_card(model):
 @pytest.mark.gpu
 @pytest.mark.parametrize("input_mode", ["windowed", "halo"])
 def test_staged_shortcut_plan_runs_at_another_batch(input_mode):
-    """A scheduled plan built at batch 1 for ResNet-18's first stage at
-    full width (224 x 224: stem, s1b1a, s1b1b, whose 64ch@112 shortcut
-    the plan stages in shared memory) forwards a batch of 4: the staged
-    rows do not fit at that batch, so s1b1b reads its shortcut at the
-    flush ('hbm'); 3 launches, 1 with the shortcut, logits vs einsum."""
+    """A scheduled plan built at batch 1 for ResNet-18's first stage at 128
+    channels on 112 x 112 images (stem, s1b1a, s1b1b with its 128ch@56
+    shortcut), s1b1b's tables padded to 110 cycles (zero weights) and its
+    shortcut planned 'vmem', forwards batches of 1 and 4: the scheduled
+    output-stationary kernel's cluster follows the batch, and with it the
+    staged rows, so one batch stages them and the other reads the
+    shortcut at the flush (``placement_at_batch``; on the windowed path
+    batch 4 falls back, on the halo path batch 1).  3 launches, 1 with the
+    shortcut, a staged launch exactly where the placement is 'vmem',
+    logits vs einsum."""
     need_card()
+    import dataclasses
+    import torch.nn.functional as F
     from repro_torch.configs.resnet18_spectral import resnet18_config
-    cfg = resnet18_config(stage_mults=(1,), blocks_per_stage=1)
+    cfg = resnet18_config(image_size=112, width=128, stage_mults=(1,),
+                          blocks_per_stage=1)
     params = cnn.init(cfg, generator=torch.Generator().manual_seed(0))
     plan = pl.build_network_plan(params, cfg, batch=1, hadamard="scheduled")
     if input_mode == "halo":
         plan = pl.with_input_mode(plan, "halo")
     lp = plan.layers[-1]
-    assert lp.layer.name == "s1b1b" and lp.tuning.residual == "vmem"
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert fsc.placement_at_batch(lp, 1, sms) == "vmem"
-    assert fsc.placement_at_batch(lp, 4, sms) == "hbm"
+    assert lp.layer.name == "s1b1b" and lp.epilogue.residual == "fused"
+    pad = (0, 0, 0, 110 - lp.tables.idx.shape[2])
+    lp = dataclasses.replace(
+        lp, tables=pl.PlanTables(*(F.pad(t, pad) for t in lp.tables)),
+        tuning=dataclasses.replace(lp.tuning, residual="vmem"))
+    plan = dataclasses.replace(plan, layers=plan.layers[:-1] + (lp,))
+    cap = fsc.sched_cluster_capacity("cuda")
+    got = {b: fsc.placement_at_batch(lp, b, cap) for b in (1, 4)}
+    assert sorted(got.values()) == ["hbm", "vmem"], got
+    counts = (fsc.LAUNCHES, fsc.RESIDUAL_LAUNCHES, fsc.STAGED_LAUNCHES)
     for b in (1, 4):
-        x = torch.randn(b, 3, 224, 224, device="cuda")
-        before, rbefore = dict(fsc.LAUNCHES), dict(fsc.RESIDUAL_LAUNCHES)
+        x = torch.randn(b, 3, 112, 112, device="cuda")
+        before = [sum(c.values()) for c in counts]
         out = cnn.forward_spectral(params, plan, x, backend="fused")
-        assert sum(fsc.LAUNCHES.values()) - sum(before.values()) == 3
-        assert (sum(fsc.RESIDUAL_LAUNCHES.values())
-                - sum(rbefore.values())) == 1
+        assert [sum(c.values()) - n for c, n in zip(counts, before)] == [
+            3, 1, int(got[b] == "vmem")]
         ref = cnn.forward_spectral(params, plan, x, backend="einsum")
         assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
         assert torch.equal(out.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.gpu
+def test_cluster_capacities_are_the_cost_models():
+    """The three cluster launches the wrappers size by the card's capacity
+    (the plane kernel's output- and input-stationary flows, the scheduled
+    output-stationary kernel) each query their own kernel, and on an H100
+    all three hold the cost model's ``autotune.H100_OS_CLUSTERS``."""
+    need_card()
+    from repro_torch.core import autotune as at
+    if "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("the cost model's capacity is the H100's")
+    for query in (fsc.os_cluster_capacity, fsc.is_cluster_capacity,
+                  fsc.sched_cluster_capacity):
+        assert query("cuda") == at.H100_OS_CLUSTERS, query.__name__
 
 
 # ---------------------------------------------------------------------------
@@ -1439,3 +1494,112 @@ def test_spectral_hadamard_at_every_vgg16_layer_on_card(name, m, n, h):
             ref = shad.spectral_hadamard_reference(*w, *x, flow=flow)
             for g_, r_ in zip(got, ref):
                 assert _rel(g_, r_) <= TC_TOL, (b, flow, _rel(g_, r_))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_plane_flow_kernel_at_vgg16_layers_on_card(name, m, n, h):
+    """B2 plane, weight- and input-stationary (the m-range widths the cost
+    model picks for the layer, and the narrowest), on windows and on the
+    halo path, at every VGG16 layer shape (the forward DFT operators on
+    all 64 bins, random planes), batch 1 and 4: within 2e-6 of max|plain|
+    (the plain version in the flow's m-range order), bitwise on repeat."""
+    need_card()
+    import repro_torch
+    from repro_torch.core import autotune as at
+    from repro_torch.core import dataflow as df
+    repro_torch.strict_fp32()
+    geo = spec.make_geometry(h, h, 3, 8)
+    layer = next(l for l in df.VGG16_LAYERS if l.name == name)
+    gen = torch.Generator(device="cuda").manual_seed(m + n + h + 1)
+    dft = [torch.from_numpy(a).cuda()
+           for a in fsc.overlap_save_operators(8, 3)]
+    wr, wi = (torch.randn((64, n, m), generator=gen, device="cuda")
+              / m ** 0.5 for _ in range(2))
+    bias = torch.randn((1, n), generator=gen, device="cuda")
+    for flow in ("weight_stationary", "input_stationary"):
+        widths = {fsc.FLOW_BLOCK_M[("plane", flow)][0],
+                  at.autotune_layer(layer, 8, 4.0, flows=(flow,),
+                                    hadamard_modes=("bin",),
+                                    input_modes=("windowed",)).block_m}
+        for block_m in sorted(widths):
+            for b in (1, 4):
+                x = torch.randn((b, m, h, h), generator=gen, device="cuda")
+                kw = dict(relu=True, flow=flow, block_m=block_m)
+                hg = spec.halo_block_geometry(geo, fsc.BLOCK_P)
+                for run, plain in (
+                        ((fsc.fused_spectral_pipeline, (fsc._windows_layout(
+                            x, geo)[0], wr, wi, *dft, bias), {}),
+                         fsc.fused_spectral_pipeline_reference),
+                        ((fsc.fused_spectral_pipeline_halo,
+                          (x, wr, wi, *dft, bias), dict(geo=geo, hg=hg)),
+                         fsc.fused_spectral_pipeline_halo_reference)):
+                    fn, ops, extra = run
+                    y = fn(*ops, **kw, **extra)
+                    torch.cuda.synchronize()
+                    ref = plain(*ops, **kw, **extra)
+                    assert _rel(y, ref) <= TC_TOL, (flow, block_m, b,
+                                                    fn.__name__,
+                                                    _rel(y, ref))
+                    assert torch.equal(y, fn(*ops, **kw, **extra))
+
+
+def vgg16_layer_tables(m, n, seed):
+    """Alg-2 tables for an M x N layer at full width, cheaply: one 64-lane
+    group of 8 channels compiled by the port's scheduler (K = 8, all 64
+    bins, alpha 4, r = 10) and tiled over the layer's channels and groups
+    (a valid exact cover per group and channel)."""
+    ops = scheduled_operands(64, 8, 1, 64, 64, 36, seed=seed)
+    reps = -(-m // 8)
+    gn = -(-n // 64)
+    return [t.repeat(gn, reps, 1, 1)[:, :m].contiguous() for t in ops[1:5]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_scheduled_os_kernel_at_vgg16_layers_on_card(name, m, n, h):
+    """B4 (windows) and B5 (halo blocks of up to 8 tiles) at every VGG16
+    layer shape (tables of ``vgg16_layer_tables``, the forward DFT
+    operators on all 64 bins), batch 1 and 4: within 2e-6 of max|plain|,
+    bitwise on repeat, counted once a call."""
+    need_card()
+    import repro_torch
+    repro_torch.strict_fp32()
+    geo = spec.make_geometry(h, h, 3, 8)
+    hg = spec.halo_block_geometry(geo, fsc.SCHED_OS_BLOCK_P)
+    gen = torch.Generator(device="cuda").manual_seed(m * n + h)
+    tabs = vgg16_layer_tables(m, n, seed=m + h)
+    dft = [torch.from_numpy(a).cuda()
+           for a in fsc.overlap_save_operators(8, 3)]
+    bias = torch.randn((1, n), generator=gen, device="cuda")
+    for b in (1, 4):
+        x = torch.randn((b, m, h, h), generator=gen, device="cuda")
+        for fn, inp, extra in (
+                (fsc.fused_spectral_pipeline_scheduled,
+                 fsc._windows_layout(x, geo)[0], {}),
+                (fsc.fused_spectral_pipeline_scheduled_halo, x,
+                 dict(geo=geo, hg=hg))):
+            before = dict(fsc.LAUNCHES)
+            y = fn(inp, *tabs, *dft, bias, n_out=n, relu=True, **extra)
+            torch.cuda.synchronize()
+            assert flow_delta(before) == {fn.__name__: 1}
+            ref = getattr(fsc, fn.__name__ + "_reference")(
+                inp, *tabs, *dft, bias, n_out=n, relu=True, **extra)
+            assert _rel(y, ref) <= TC_TOL, (fn.__name__, b, _rel(y, ref))
+            assert torch.equal(y, fn(inp, *tabs, *dft, bias, n_out=n,
+                                     relu=True, **extra))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source,function", [
+    ("fused_spectral_conv", "fused_is_kernel"),
+    ("fused_spectral_conv_scheduled", "fused_sched_os_kernel")])
+def test_redesigned_kernel_runs_on_the_tensor_cores(source, function):
+    """B2 is plane's and B4/B5's SASS (``cuobjdump -sass`` of their
+    library) holds tensor-core products (HMMA: the 3xTF32 mma.sync of the
+    tile-FFT, Hadamard or IFFT) and no local-memory store (STL: no spill)
+    in any instantiation."""
+    need_card()
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts(source, function, fsc.SOURCES[source])
+    assert counts["HMMA"] > 0 and counts["STL"] == 0, counts

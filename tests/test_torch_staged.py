@@ -234,37 +234,51 @@ def test_staged_runs_any_plan():
 
 def test_staged_shortcut_falls_back_where_it_does_not_fit():
     """ResNet-18's s1b1b (64ch@112) at full width, scheduled, built at
-    batch 1: the plan stages its shortcut ('vmem'); at batch 4 the
-    kernel's cluster over channels shrinks (C 3 -> 1), the staged rows no
-    longer fit a CTA, and the layer's placement becomes 'hbm' on both
-    input paths.  The wrappers refuse by the same rule."""
+    batch 1: the plan stages its shortcut ('vmem'), and the scheduled
+    output-stationary kernel's rows (32 lanes x 8 tiles a CTA) fit at
+    batch 4 too, on both input paths.  Where a planned 'vmem' does not fit
+    at another batch, the layer's placement becomes 'hbm': a 256ch@28
+    layer with tables of 110 cycles stages ceil(36 / 3) rows at batch 1
+    (a cluster of 3 over the channels) and would need all 36 at batch 4
+    (the cluster shrinks to 1), past a CTA's shared memory.  The wrappers
+    refuse by the same rule."""
     cfg = resnet.resnet18_config(stage_mults=(1,), blocks_per_stage=1)
     params = cnn.init(cfg, generator=torch.Generator().manual_seed(0),
                       device="cpu")
     plan = pl.build_network_plan(params, cfg, batch=1, hadamard="scheduled",
                                  device="cpu")
+    cap = at.H100_OS_CLUSTERS
     for p in (plan, pl.with_input_mode(plan, "halo")):
         lp = next(l for l in p.layers if l.layer.name == "s1b1b")
         assert (lp.layer.c_in, lp.layer.h_in) == (64, 112)
         assert lp.epilogue.residual == "fused"
         assert lp.tuning.residual == "vmem"
-        assert fsc.placement_at_batch(lp, 1, at.H100_SMS) == "vmem"
-        assert fsc.placement_at_batch(lp, 4, at.H100_SMS) == "hbm"
-        gn, _, t_cycles, r = lp.tables.idx.shape
-        halo = ((lp.geo, spec.halo_block_geometry(lp.geo, lp.tuning.block_p))
-                if lp.input_mode == "halo" else None)
-        blocks = {b: gn * (b * halo[1].n_blocks if halo else
-                           -(-b * lp.geo.n_tiles // fsc.SCHED_BLOCK_P))
-                  for b in (1, 4)}
-        need = {b: fsc.staged_shortcut_bytes(
-            64, 36, lp.n_active_bins, halo=halo,
-            tables=(t_cycles, r, lp.tables.sel.shape[-1]), blocks=blocks[b],
-            m=64, sms=at.H100_SMS) for b in (1, 4)}
-        assert need[1] <= fsc.SMEM_PER_CTA < need[4]
+        assert fsc.placement_at_batch(lp, 1, cap) == "vmem"
+        assert fsc.placement_at_batch(lp, 4, cap) == "vmem"
+    # the fallback: s1b1b's plan moved to a 256ch@28 layer, its tables
+    # padded to 110 cycles (zero weights: idle lanes)
+    layer = dataclasses.replace(lp.layer, name="s3", c_in=256, c_out=256,
+                                h_in=28, w_in=28)
+    geo = spec.make_geometry(28, 28, 3, 8)
+    tabs = pl.PlanTables(
+        torch.zeros((4, 256, 110, 10), dtype=torch.int32),
+        torch.zeros((4, 256, 110, 64), dtype=torch.int32),
+        torch.zeros((4, 256, 110, 64)), torch.zeros((4, 256, 110, 64)))
+    big = dataclasses.replace(lp, layer=layer, geo=geo, tables=tabs,
+                              input_mode="windowed")
+    blocks = {b: 4 * fsc.sched_halves(64)
+              * -(-b * geo.n_tiles // fsc.SCHED_OS_BLOCK_P) for b in (1, 4)}
+    assert [fsc.sched_cluster(blocks[b], 256, cap) for b in (1, 4)] == [3, 1]
+    need = {b: fsc.staged_shortcut_bytes(
+        64, 36, big.n_active_bins, tables=(110, 10, 64), blocks=blocks[b],
+        m=256, capacity=cap) for b in (1, 4)}
+    assert need[1] <= fsc.SMEM_PER_CTA < need[4]
+    assert fsc.placement_at_batch(big, 1, cap) == "vmem"
+    assert fsc.placement_at_batch(big, 4, cap) == "hbm"
     # a plan without a staged shortcut keeps its placement at any batch
     lp = dataclasses.replace(lp, tuning=dataclasses.replace(
         lp.tuning, residual="hbm"))
-    assert fsc.placement_at_batch(lp, 4, at.H100_SMS) == "hbm"
+    assert fsc.placement_at_batch(lp, 4, cap) == "hbm"
 
 
 # --- B7b's 3xTF32 products and launch geometry -------------------------------
