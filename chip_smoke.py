@@ -12,12 +12,14 @@ each of which fails the run on error:
   (b) build: compile every CUDA kernel of the port from the sources in
       this checkout (seven, one nvcc per source, started together), print
       build time, the ptxas report and the spill stores of each of the
-      fused kernels' 38 instantiations (kernel x input path x flow x
-      shortcut placement, and the finish passes);
+      fused kernels' 34 instantiations (kernel x input path x flow x
+      shortcut placement, and the finish passes; the scheduled flows'
+      kernel takes no shortcut, its finish pass does);
       an output-stationary kernel without a shortcut that spills fails
       the run, as do a spill in a tensor-core fused kernel (the plane
       output-stationary kernel, B1/B3; the plane input-stationary kernel,
-      B2 is plane; the scheduled output-stationary kernel, B4/B5) or no
+      B2 is plane; the scheduled output-stationary kernel, B4/B5; the
+      scheduled weight-/input-stationary kernel, B2 ws / is sched) or no
       HMMA in its SASS, a spill store in the staged Hadamard libraries
       (spectral_hadamard, sparse_hadamard) or a spectral Hadamard whose
       SASS holds no HMMA (its 3xTF32 tensor-core products);
@@ -71,7 +73,10 @@ each of which fails the run on error:
       further IFFTs and split-K workspace), the device time
       (``x_device_ms``) per layer and in total, the output-stationary
       kernel's time on the same input and max|flow - os|, and whether
-      every layer is within 2e-6 of max|plain|;
+      every layer is within 2e-6 of max|plain|; for the scheduled flows
+      also each layer's launch (``fsc.sched_flow_launch``: CTAs, waves, m
+      ranges, split: ws chunks of tile blocks, is shares of the group
+      walk);
   (c6) the same for the four halo flow kernels, plus max|halo -
       windowed| of the same flow;
   (c7) the Hopper cost model against the batch-1 kernel times of
@@ -501,12 +506,26 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
                                              lp.layer.c_in), n,
                 lp.n_active_bins, s2,
                 fsc.os_cluster_capacity(flush.device)).slices
-        if slices > 1:
+        if slices > 1 or sched:     # the scheduled flows' one slice too
             bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
-            pb = (b * spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
-                  .n_blocks if halo else -(-p // bp))
-            nbytes += 2 * 4 * slices * s2 * n * pb * bp
+            nbytes += 2 * 4 * slices * s2 * n * blocks(lp, b, bp) * bp
         return bound_of(flops, nbytes)[0]
+
+    def blocks(lp, b, bp):
+        return (b * spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
+                .n_blocks if halo else -(-b * lp.geo.n_tiles // bp))
+
+    def geometry(lp):
+        """The scheduled flow's batch-1 launch (``sched_flow_launch``):
+        CTAs, waves, m ranges and its split (ws chunks, is walk shares)."""
+        layer = lp.layer
+        fg = fsc.sched_flow_launch(flow, blocks(lp, 1, fsc.SCHED_BLOCK_P),
+                                   layer.c_in, lp.tuning.block_m,
+                                   layer.c_out, lp.tables.sel.shape[-1],
+                                   flush.device)
+        return {"x_ctas": fg.ctas, "x_waves": fg.waves,
+                "x_ranges": -(-layer.c_in // lp.tuning.block_m),
+                "x_split": fg.split}
 
     def extra(lp, x_img, flush_fn):
         ops = make_ops(lp, x_img)
@@ -516,7 +535,8 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
                 "x_os_ms": timed_ms(lambda: wrapper(*ops, **kw(lp, False)),
                                     flush_fn),
                 "x_os_abs": float((y - yo).abs().max()),
-                "x_flow_bound_ms": flow_bound_ms(lp, 1)}
+                "x_flow_bound_ms": flow_bound_ms(lp, 1),
+                **(geometry(lp) if sched else {})}
 
     def twin(lp, x_img):
         """The windowed kernel of the same flow and m ranges, assembled."""
@@ -576,14 +596,17 @@ def spill_report() -> list[tuple[str, str, str, int, int]]:
             kind = re.search(r"\d+(fused_\w+?_kernel|finish_partials_kernel)",
                              name).group(1)
             ints = re.findall(r"Li(\d+)E", name[:name.index("EEv") + 1])
-            flow = ("os" if kind in ("fused_os_kernel",
-                                     "fused_sched_os_kernel")
-                    else "is" if kind == "fused_is_kernel"
-                    else "finish" if kind.startswith("finish")
-                    else flows[ints[-2]])
+            placement = ("none", "global", "staged")[int(ints[-1])]
+            if kind == "fused_sched_flow_kernel":   # its finish pass adds
+                flow, placement = flows[ints[-1]], "none"   # the shortcut
+            else:
+                flow = ("os" if kind in ("fused_os_kernel",
+                                         "fused_sched_os_kernel")
+                        else "is" if kind == "fused_is_kernel"
+                        else "finish" if kind.startswith("finish")
+                        else flows[ints[-2]])
             out.append((kind, "halo" if "HaloPath" in name else "windowed",
-                        flow, ("none", "global", "staged")[int(ints[-1])],
-                        int(m.group(1))))
+                        flow, placement, int(m.group(1))))
             name = None
     return out
 
@@ -2280,14 +2303,16 @@ def main() -> int:
         print(f"      {row[0]:24s} {row[1]:8s} {row[2]:6s} {row[3]:6s} "
               f"{row[4]}")
     os_spills = [r for r in spills if r[2] == "os"]
-    if len(spills) != 38 or len(os_spills) != 12:
-        fail(f"(b) expected 38 kernel instantiations (12 output-"
+    if len(spills) != 34 or len(os_spills) != 12:
+        fail(f"(b) expected 34 kernel instantiations (12 output-"
              f"stationary), the ptxas report lists {len(spills)}")
     # the tensor-core kernels: no spill, HMMA in their SASS
     tc_kernels = {"fused_os_kernel": ("fused_spectral_conv", "B1, B3"),
                   "fused_is_kernel": ("fused_spectral_conv", "B2 is plane"),
                   "fused_sched_os_kernel": ("fused_spectral_conv_scheduled",
-                                            "B4, B5")}
+                                            "B4, B5"),
+                  "fused_sched_flow_kernel": ("fused_spectral_conv_scheduled",
+                                              "B2 ws / is sched")}
     if any(r[4] for r in os_spills if r[3] == "none"):
         fail("(b) an output-stationary kernel without a shortcut spills")
     tc_sass = {}
@@ -2613,7 +2638,7 @@ def main() -> int:
         return {"x_windowed_ms": timed_ms(
             lambda: fsc.fused_spectral_pipeline_scheduled(
                 xt, *ops, n_out=lp.layer.c_out, relu=True), flush_fn),
-            "x_idle": idle_share(lp, fsc.SCHED_OS_BLOCK_P),
+            "x_idle": idle_share(lp, fsc.SCHED_BLOCK_P),
             "x_device_ms": enqueued_ms(
                 lambda: fsc.fused_spectral_pipeline_scheduled_halo(
                     x_img, *ops, geo=lp.geo, hg=halo_blocks(lp),
@@ -2787,9 +2812,11 @@ def main() -> int:
             }
             tc_kernel = ("fused_sched_os_kernel" if "scheduled" in kname
                          and flow == fsc.OS
+                         else "fused_sched_flow_kernel" if "scheduled"
+                         in kname
                          else "fused_os_kernel" if flow == fsc.OS
                          else "fused_is_kernel" if flow == fsc.IS
-                         and "scheduled" not in kname else None)
+                         else None)
             if tc_kernel:
                 row["sass"] = tc_sass[tc_kernel]
             kernels.append(row)

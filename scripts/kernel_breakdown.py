@@ -2,11 +2,14 @@
 """Device-time breakdown of the fused spectral conv kernels by stage.
 
     python3 scripts/kernel_breakdown.py [--src SRC] [--only NAME,...]
-                                        [--block-m N] [--json OUT]
+                                        [--block-m N] [--input-mode halo]
+                                        [--json OUT]
 
 Needs one CUDA device and nvcc.  For each kernel it knows (the plane
 kernel's input-stationary flow, ``plane_is``; the scheduled kernel's
-output-stationary launch, ``sched_os``) it builds development variants of
+output-stationary launch, ``sched_os``, and its weight- and
+input-stationary flows, ``sched_ws`` and ``sched_is``) it builds
+development variants of
 the kernel's source in which one stage is cut out by a text substitution
 (the tile-FFT, the Hadamard or table walk, the valid-row IFFT, or all
 three, leaving the copies, barriers and the store; for the scheduled
@@ -17,7 +20,10 @@ tile-FFT shared by the Q (group, lane half) CTAs of a tile block over
 DSMEM, with its launch rule as written, forced to Q = 1, and forced to
 the widest share with no channel split), then times each
 variant device-only at the 13 full-width VGG16 layers, batch 1, on the
-operands of a plan built from seed 0: an L2 flush and a spin kernel run
+operands of a plan built from seed 0 (``--input-mode halo``: the plan
+moved to the halo path, the halo entry point on the raw activation;
+the plane kernel's variants are windowed only): an L2 flush and a spin
+kernel run
 before the start event, so the wrapper's host work is hidden (as
 ``chip_smoke.py``'s ``enqueued_ms``).  A variant whose substitution finds
 nothing in the source is reported as not applicable, so the script runs
@@ -78,13 +84,45 @@ VARIANTS = {
             [("apply_tables(sx + L.x_sz, s_xr, s_xi);", "")],
             [("for (int e = tid - ONT / 2; e < T * OLN; e += ONT / 2) {",
               "for (int e = T * OLN; e < T * OLN; e += ONT / 2) {"),
-             ("if (i > 0) macs(i - 1);", "")]]),
+             ("if (i > 0) macs(i - 1);", "")],
+            [("expand_tables(s_w + (i & 1) * FMAX * OLN, st + L.x_sz,", "if "
+              "(false) expand_tables(s_w + (i & 1) * FMAX * OLN, st + L.x_sz,"),
+             ("if (i > 0) // Stage 3 mac_channel(", "if (false) mac_channel(")]]),
         ("no_ifft", [
             [("fold(); cluster.sync(); "
               "// every rank's partial is ready",
               "cluster.sync();")],
             [("for (int j = 0; j < 2; ++j) mma3_f32(acc[m2][j], ah, al, "
-              "bh[j], bl[j]);", "")]]),
+              "bh[j], bl[j]);", "")],
+            [("ifft_mma<KS2, 2, 2>(acc, s_y,",
+              "if (false) ifft_mma<KS2, 2, 2>(acc, s_y,")]]),
+    ]),
+    # the scheduled flows' tensor-core kernel (its FFT, walk and IFFT cut
+    # in the flow's own loop; the parent's CUDA-core kernel: base only)
+    "sched_ws": ("fused_spectral_conv_scheduled", "weight_stationary", [
+        ("no_fft", [[("if (warp < 8) tile_fft<FLOW_FFT_UNROLL>(io, st,",
+                      "if (false) tile_fft<FLOW_FFT_UNROLL>(io, st,")]]),
+        ("no_walk", [[("expand_tables(s_w + (i & 1) * FMAX * OLN, s_tab + i "
+                       "* L.tslot,", "if (false) expand_tables(s_w + (i & 1) "
+                       "* FMAX * OLN, s_tab + i * L.tslot,"),
+                      ("mac_channel(pr, pi, smem + L.xf + ((i - 1) & 1) * 2 "
+                       "* FMAX * OBP,", "if (false) mac_channel(pr, pi, smem "
+                       "+ L.xf + ((i - 1) & 1) * 2 * FMAX * OBP,")]]),
+        ("no_ifft", [[("ifft_mma<4, 1, 1>(acc,",
+                       "if (false) ifft_mma<4, 1, 1>(acc,")]]),
+    ]),
+    "sched_is": ("fused_spectral_conv_scheduled", "input_stationary", [
+        ("no_fft", [[("if (c < n_ch) tile_fft<FLOW_FFT_UNROLL>(",
+                      "if (false) tile_fft<FLOW_FFT_UNROLL>(")]]),
+        ("no_walk", [[("expand_tables(s_w + (i & 1) * FMAX * OLN, ring + (s "
+                       "% L.stages) * L.slot,", "if (false) expand_tables(s_w "
+                       "+ (i & 1) * FMAX * OLN, ring + (s % L.stages) * "
+                       "L.slot,"),
+                      ("mac_channel(pr, pi, smem + L.xf + (i - 1) * 2 * FMAX "
+                       "* OBP,", "if (false) mac_channel(pr, pi, smem + L.xf "
+                       "+ (i - 1) * 2 * FMAX * OBP,")]]),
+        ("no_ifft", [[("ifft_mma<4, 1, 2>(acc,",
+                       "if (false) ifft_mma<4, 1, 2>(acc,")]]),
     ]),
 }
 # more cuts of one design, timed where they apply: the copies left out
@@ -102,6 +140,19 @@ EXTRA = {
                         "L.stages - 1) % L.stages, m_lo + i + L.stages - 1);",
                         ""),
                        ("if (st < n_steps) load_step(st, m_lo + st);", "")]),
+    ],
+    "sched_ws": [
+        ("no_copies", [("if (s + L.stages - 1 < total) load_step(s + "
+                        "L.stages - 1);", ""),
+                       ("if (st < total) load_step(st);", "")]),
+    ],
+    "sched_is": [
+        ("no_copies", [("if (j + L.stages - 1 < pairs) load_pair(j + "
+                        "L.stages - 1);", ""),
+                       ("if (st < pairs) load_pair(st);", ""),
+                       ("if (s + L.stages - 1 < total) load_tab(s + "
+                        "L.stages - 1);", ""),
+                       ("if (st < total) load_tab(st);", "")]),
     ],
 }
 # designs tried and not kept: (variant, patch under scripts/variants/,
@@ -239,6 +290,9 @@ def main() -> int:
     ap.add_argument("--block-m", type=int, default=None,
                     help="the flows' m-range width (rounded up to 8, at "
                          "most M) instead of the plan's")
+    ap.add_argument("--input-mode", choices=("windowed", "halo"),
+                    default="windowed",
+                    help="the scheduled kernels' input path")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -247,7 +301,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch
     from repro_torch.configs.vgg16_spectral import CONFIG
-    from repro_torch.core.plan import build_network_plan, with_flow
+    from repro_torch.core.plan import (build_network_plan, with_flow,
+                                       with_input_mode)
+    from repro_torch.core.spectral import halo_block_geometry
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_spectral_conv as fsc
     from repro_torch.models import cnn
@@ -277,6 +333,9 @@ def main() -> int:
         plan = build_network_plan(params, CONFIG, batch=1, device=dev,
                                   **(dict(hadamard="scheduled") if sched
                                      else {}))
+        halo = sched and args.input_mode == "halo"
+        if halo:
+            plan = with_input_mode(plan, "halo")
         if flow != fsc.OS:
             plan = with_flow(plan, flow)
         calls = []
@@ -291,7 +350,15 @@ def main() -> int:
                                  else min(args.block_m,
                                           -(-layer.c_in // 8) * 8))
             ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
-            if sched:
+            if halo:
+                calls.append((layer.name, lambda x=x, lp=lp, kw=kw, ops=ops:
+                              fsc.fused_spectral_pipeline_scheduled_halo(
+                                  x, *lp.tables, *ops, geo=lp.geo,
+                                  hg=halo_block_geometry(
+                                      lp.geo, lp.tuning.block_p),
+                                  n_out=lp.layer.c_out, **kw),
+                              kw.get("block_m", 1)))
+            elif sched:
                 calls.append((layer.name, lambda xt=xt, lp=lp, kw=kw, ops=ops:
                               fsc.fused_spectral_pipeline_scheduled(
                                   xt, *lp.tables, *ops,
@@ -302,7 +369,8 @@ def main() -> int:
                               fsc.fused_spectral_pipeline(
                                   xt, lp.wr, lp.wi, *ops, **kw),
                               kw["block_m"]))
-        print(f"{name} ({source}, {flow}): block_m "
+        print(f"{name} ({source}, {flow}, "
+              f"{'halo' if halo else 'windowed'}): block_m "
               f"{[c[2] for c in calls]}")
         rows = {}
         for variant in [v for v, _ in variants_of(name, "")]:

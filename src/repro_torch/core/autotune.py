@@ -104,14 +104,16 @@ LATENCY_FIT = {
         2.417234150923295e-05, 2.3071455926639617e-06),
     ("scheduled", "output_stationary", "halo"): (
         2.804302569726495e-05, 2.5289022589124823e-06),
+    # the scheduled flows' tensor-core kernel, on the launch its rule
+    # (``fsc.sched_flow_geometry``) makes
     ("scheduled", "weight_stationary", "windowed"): (
-        2.1680187582180606e-05, 6.930320494792699e-06),
+        2.167906518364264e-05, 2.4414513672509603e-06),
     ("scheduled", "weight_stationary", "halo"): (
-        2.3143806089647277e-05, 5.481722259332906e-06),
+        3.05368631906136e-05, 1.6925894244673041e-06),
     ("scheduled", "input_stationary", "windowed"): (
-        2.163809336650928e-05, 2.08257850052939e-06),
+        2.4828405252647998e-05, 1.6634074739346286e-06),
     ("scheduled", "input_stationary", "halo"): (
-        2.507925714685258e-05, 2.0387412516397986e-06),
+        2.5698183158294748e-05, 1.7191858308973211e-06),
 }
 
 
@@ -130,11 +132,14 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     ``fsc.os_launch_geometry`` on ``H100_OS_CLUSTERS`` (the halo path
     takes its windowed twin's split over its own tile blocks); the
     scheduled one's cluster is ``fsc.sched_cluster`` on the same
-    capacity, whose waves count its clusters."""
+    capacity, whose waves count its clusters; the scheduled weight- and
+    input-stationary launches are the wrapper's own,
+    ``fsc.sched_flow_geometry`` on ``H100_SMS`` (``split``: ws chunks of
+    tile blocks, is shares of the group walk)."""
     geo = make_geometry(layer.h_in, layer.w_in, layer.ksize, fft_size,
                         layer.pad)
     sched = hadamard == "scheduled"
-    bp = fsc.sched_block_p(flow) if sched else fsc.BLOCK_P
+    bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
     if input_mode == "halo":
         pb = batch * halo_block_geometry(geo, min(bp, geo.n_tiles)).n_blocks
     else:
@@ -142,19 +147,21 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     m = layer.c_in
     g = 1 if flow == fsc.OS else -(-m // block_m)
     width = m if g == 1 else block_m
-    ranks, waves, slices = 1, None, g
+    ranks, waves, slices, split = 1, None, g, 1
     if sched:
         nb = -(-layer.c_out // fsc.SCHED_BLOCK_N)      # kernel groups
+        halves = fsc.sched_halves(min(fsc.SCHED_BLOCK_N, layer.c_out))
         if flow == fsc.OS:
-            halves = fsc.sched_halves(min(fsc.SCHED_BLOCK_N, layer.c_out))
             ranks = c = fsc.sched_cluster(pb * nb * halves, m,
                                           H100_OS_CLUSTERS)
             ctas, steps, rects = pb * nb * halves * c, -(-m // c), 1
             waves = -(-pb * nb * halves // H100_OS_CLUSTERS[c])
-        elif flow == fsc.WS:
-            ctas, steps, rects = g * nb, pb * width, pb
-        else:
-            ctas, steps, rects = pb * g, width * (1 + nb), nb
+        else:       # the wrapper's launch rule
+            fg = fsc.sched_flow_geometry(flow, pb, g, width, nb * halves,
+                                         H100_SMS)
+            ctas, waves, steps, rects = fg.ctas, fg.waves, fg.steps, \
+                fg.rects
+            split = fg.split
     else:
         nb = -(-layer.c_out // fsc.BLOCK_N)
         ranks = chunks = -(-active_bins // fsc.BIN_CHUNK)
@@ -183,7 +190,7 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
         waves = -(-ctas // H100_SMS)
     return {"ctas": ctas, "waves": waves, "steps": steps, "rects": rects,
             "p_blocks": pb, "n_blocks": nb, "ranges": g, "slices": slices,
-            "slots": pb * bp, "ranks": ranks}
+            "slots": pb * bp, "ranks": ranks, "split": split}
 
 
 def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
@@ -231,9 +238,10 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     input per n block or group; input-stationary reads the input once
     and re-reads the kernel operand per tile block.  A re-read operand
     that fits the 50 MB L2 is counted once.  With more than one slice (m
-    ranges; on the plane output-stationary launch, ranges x bin groups)
-    the split-K workspace (slices x S2 x N x slots floats) is written and
-    read once.  Operators, bias and the output are counted once.
+    ranges; on the plane output-stationary launch, ranges x bin groups),
+    and on the scheduled flows always, the split-K workspace (slices x S2
+    x N x slots floats) is written and read once.  Operators, bias and
+    the output are counted once.
 
     Time: ``predicted_s = serial_s + max(hbm_s, compute_s, latency_s)``
     with ``latency_s = waves * (rects * WAVE_S + steps * STEP_S)``
@@ -242,7 +250,9 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     clusters, else ceil(ctas / 132)), ``rects`` = output
     rectangles a CTA finishes (1 for output-stationary, every tile block
     for weight-stationary, every n block or group for
-    input-stationary), ``steps`` = channel steps a CTA runs; the plane
+    input-stationary; the scheduled flows' (tile block, group half)
+    rectangles of ``fsc.sched_flow_geometry``), ``steps`` = channel
+    steps a CTA runs; the plane
     kernel's output-stationary launch is priced as the wrapper launches
     it, ``fsc.os_latency_s`` over its cluster waves (``kernel_grid``).
     ``serial_s`` is work in separate launches before or after the kernel
@@ -310,16 +320,19 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
         x_hbm, w_hbm = reread(x_bytes, nb), w_bytes
     else:
         x_hbm, w_hbm = x_bytes, reread(w_bytes, pb)
-    ws_bytes = 4 * slices * s2 * n * grid["slots"] if slices > 1 else 0
+    # the split-K workspace: more than one slice, or a scheduled flow
+    # (whose finish pass applies the epilogue to one slice too)
+    split_k = slices > 1 or (sched and flow != fsc.OS)
+    ws_bytes = 4 * slices * s2 * n * grid["slots"] if split_k else 0
     sc_bytes = y_bytes if residual is not None else 0   # laid out like y
     hbm = x_hbm + w_hbm + ops_bytes + y_bytes + 2 * ws_bytes + sc_bytes
 
     # operations: the kernels' own arithmetic (4 real FMAs per complex
     # MAC, the tile-FFT of every computed bin, the IFFT per m range)
     fft_bins = 64 if sched else fa
-    refft = (1 if flow == fsc.IS
-             else nb * fsc.sched_halves(min(n_pe, n))
-             if sched and flow == fsc.OS else nb)
+    refft = (grid["split"] if sched and flow == fsc.IS
+             else nb * fsc.sched_halves(min(n_pe, n)) if sched
+             else 1 if flow == fsc.IS else nb)
     fft_flops = 4 * fft_bins * s * m * p * refft
     if sched:
         had_flops = 8 * n * m * nnz * p
@@ -328,7 +341,7 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     ifft_flops = 4 * s2 * fft_bins * n * p * g
     flops = fft_flops + had_flops + ifft_flops + 2 * s2 * n * p * g
 
-    hg = (halo_block_geometry(geo, min(fsc.sched_block_p(flow) if sched
+    hg = (halo_block_geometry(geo, min(fsc.SCHED_BLOCK_P if sched
                                        else fsc.BLOCK_P, geo.n_tiles))
           if halo else None)
     if residual == "vmem":          # the rule by which the wrappers refuse it
@@ -352,10 +365,10 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     relayout = 0 if halo else (raw_bytes + 2 * 4 * s * m * p
                                + 4 * s2 * n * p + out_bytes
                                + (out_bytes + sc_bytes if sc_bytes else 0))
-    finish = ws_bytes + y_bytes + sc_bytes if slices > 1 else 0
+    finish = ws_bytes + y_bytes + sc_bytes if split_k else 0
     # the shortcut read the channel loop does not hide: at the flush
     # ('hbm', one m range) or in the finish pass (counted there)
-    flush_sc = sc_bytes if residual == "hbm" and slices == 1 else 0
+    flush_sc = sc_bytes if residual == "hbm" and not split_k else 0
     hbm_s = ((hbm - ws_bytes - (sc_bytes if residual == "hbm" else 0))
              / H100_HBM_BYTES_PER_S)                  # main kernel's share
     compute_s = flops / H100_FP32_FLOPS
@@ -453,7 +466,7 @@ def _layer_candidates(layer: df.ConvLayer, fft_size: int, batch: int,
                                                input_modes):
         sched = mode == "scheduled"
         bn = fsc.SCHED_BLOCK_N if sched else fsc.BLOCK_N
-        bp = fsc.sched_block_p(flow) if sched else fsc.BLOCK_P
+        bp = fsc.SCHED_BLOCK_P if sched else fsc.BLOCK_P
         p = tiles * (1 if imode == "halo" else batch)
         for bm in _block_ms(layer, flow, mode):
             yield FusedTuning(layer=layer.name, flow=flow,

@@ -76,37 +76,55 @@
 // *_is_f32, windowed and halo; replacing the TPU bodies `_kernel_ws_sched`
 // (:642) and `_kernel_is_sched` (:659) of src/repro/kernels/
 // fused_spectral_conv.py with their psum read-modify-write) compute the
-// same function with another reuse, on the CUDA cores (`fused_sched_kernel`,
-// 4 tiles and a whole group a CTA, the psum [64 bins][64 lanes][4 tiles] in
-// shared memory, each entry applied by a read-modify-write).  A flow CTA
-// owns one m range of RM input channels (G = ceil(M / RM) ranges) and no
+// same function with another reuse, on the output-stationary kernel's
+// pieces (`fused_sched_flow_kernel`, 512 threads, 8 tiles and one 32-lane
+// half of a kernel group at a time, the psum [64 bins][32 lanes][8 tiles]
+// in registers, the tile-FFT and the valid-row IFFT in 3xTF32, the tables
+// expanded into W a channel).  A flow CTA owns one m range of RM input
+// channels (G = ceil(M / RM) ranges), summed in ascending order, and no
 // cluster:
-//  * weight-stationary (reuse kernels): CTA = (m range, kernel group).  It
-//    copies the group's table blocks of its RM channels into shared memory
-//    once and walks every 4-tile block with them, so each table entry is
-//    read from device memory once per layer; windows are re-read once per
-//    group.  The 128 KB psum leaves room for about three table blocks (~16
-//    KB each at T = 20), so RM is 1-3.
-//  * input-stationary (reuse activations): CTA = (tile block, m range).  It
-//    computes X~ of its 4 tiles for the m range once ([RM][64 bins] complex)
-//    and walks every kernel group, streaming its tables; each tile-FFT is
-//    computed once per tile block.
-// After each (tile block, group) the CTA folds its psum through the
-// valid-row IFFT as above.  With one m range that is the finished output;
-// otherwise it is range g's partial, stored to slice g of the split-K
-// workspace [G, S2, N, slots], and the finish pass of split_k.cuh sums the
-// slices in ascending g and applies bias and ReLU (no atomics).  Bound: the
-// os kernel's operations plus the IFFT per m range, and its bytes plus the
-// workspace written and read once; ws's few table channels per CTA make G
-// large (64-171 on VGG16), so the workspace, and a fold per tile block,
-// decide its time; is pays the fold once per group.
+//  * weight-stationary (reuse kernels): CTA = (chunk of tile blocks, group
+//    half, m range).  It copies the compact table rows of its 32 lanes for
+//    every channel of its range into shared memory once (idx [T][R], then
+//    sel, vr, vi [T][32]: ~9 KB a channel at T = 21, R = 10) and walks
+//    the tile blocks bx = chunk, chunk + chunks, ... of 8 tiles with them:
+//    per block one channel step per channel (tile-FFT beside the
+//    expansion of the resident rows into W, the MACs of the channel
+//    before), windows through a cp.async ring that runs ahead across
+//    channel steps and tile blocks.  The chunk count is the host's launch
+//    rule (fsc.sched_flow_geometry), which fills the card: each table
+//    entry is read from device memory once, then from L2 by the other
+//    chunks.
+//  * input-stationary (reuse activations): CTA = (tile block, m range, a
+//    share of the group walk).  It computes X~ of its 8 tiles for every
+//    channel of the range once (two channels a step, warps 0-7 and 8-15),
+//    kept in shared memory ([RM][64 bins][8 tiles] complex, 4 KB a
+//    channel), then walks its (kernel group, lane half) share: per channel
+//    step the table rows arrive through the ring (which runs ahead across
+//    the walk), all 512 threads expand them into W and run the MACs of the
+//    channel before.  The host's launch rule splits the walk over Q CTAs
+//    where tile blocks x ranges would not fill the card; each (group,
+//    half) stays within one CTA, so no sum changes order.
+// After each (tile block, group half) the psum goes through the valid-row
+// IFFT on the tensor cores in four rounds: round b stages bin 4 w + b of
+// every warp w (re and im, [32][YP], 33 KB) and runs its four k steps (A
+// = [Dvr | -Dvi] in that k order, kept in f32 in fragment order and split
+// as it is read).  is keeps the accumulators in registers across the
+// rounds; ws, whose psum, FFT and resident tables leave fewer registers,
+// sums each round into a partial in shared memory, one n-tile pass at a
+// time.  The range's partial goes to slice r of the split-K workspace [G,
+// S2, N, slots], and the finish pass of split_k.cuh sums the slices in
+// ascending r and applies bias, shortcut and ReLU (no atomics; with one m
+// range it adds them to the one slice, as the output-stationary flush
+// would).  Bound: the os kernel's operations plus the IFFT per m range,
+// and its bytes plus the workspace written and read once.
 //
 // Every entry point takes an optional residual shortcut `sc` laid out like
 // y (B6 residual, shortcut.cuh), added after the bias and before the ReLU
-// where the output is stored: B4/B5's flush, the flows' one-range store or
-// their finish pass.  B4/B5 read it from device memory at the flush or, with
-// `sc_staged`, prefetch cluster rank r's flush rows r, r + C, ... of the
-// CTA's 8 tiles x 32 lanes into shared memory before the channel loop
+// where the output is stored: B4/B5's flush or the flows' finish pass.
+// B4/B5 read it from device memory at the flush or, with `sc_staged`,
+// prefetch cluster rank r's flush rows r, r + C, ... of the CTA's 8
+// tiles x 32 lanes into shared memory before the channel loop
 // (ceil(S2 / C) rows of 32 x 8 floats after the OsLayout; the wrapper
 // checks that they fit, for the C this launch picks).
 //
@@ -123,8 +141,7 @@
 #include "shortcut.cuh"
 #include "split_k.cuh"
 
-#if !defined(SCH_BN) || !defined(SCH_THREADS) || \
-    !defined(SCH_OS_THREADS) || !defined(SCH_FIXED_STEPS)
+#if !defined(SCH_BN) || !defined(SCH_OS_THREADS) || !defined(SCH_FIXED_STEPS)
 #error "build through repro_torch.kernels._build (defines SCH_* block sizes)"
 #endif
 
@@ -134,78 +151,44 @@ namespace {
 
 using namespace repro_torch;
 
-constexpr int BN = SCH_BN;        // PE lanes (output channels) per CTA
-constexpr int NT = SCH_THREADS;   // threads per CTA
-constexpr int BP = 4;             // flows: tiles per CTA, one float4 a cell
+constexpr int BN = SCH_BN;        // most PE lanes (output channels) a group
 constexpr int FMAX = 64;          // bins per CTA (all active bins)
 constexpr int MAX_CLUSTER = 8;    // portable cluster size
-constexpr int TQ = NT / BN;       // threads per lane (cycle phases)
-constexpr int DFP = FMAX + 8;     // DFT row pitch in float2: the 4 s-phases
-                                  // of a warp read two bank halves
-static_assert(NT % BN == 0 && BN % 32 == 0, "lane-major thread map");
-static_assert(NT == FMAX * BP, "tile-FFT map: 64 bins x 4 s-phases");
-static_assert(TQ == BP, "epilogue map: cycle phase tq is tile tq");
 
-// The output-stationary kernel (B4, B5): a CTA takes OBP tiles and one
-// half (OLN lanes) of a kernel group, all FMAX bins, with ONT threads:
-// warp w (of 16) keeps the psum of bins 4 w .. 4 w + 3 for lane `lane` in
-// registers; in the tile-FFT, warp w < 8 takes bins 8 w .. 8 w + 7 (re,
-// then im: the 16 rows of an m16n8k8 A fragment).
+// Every kernel here takes OBP tiles and one half (OLN lanes) of a kernel
+// group, all FMAX bins, with ONT threads: warp w (of 16) keeps the psum of
+// bins 4 w .. 4 w + 3 for lane `lane` in registers; in the tile-FFT, warp
+// w < 8 takes bins 8 w .. 8 w + 7 (re, then im: the 16 rows of an
+// m16n8k8 A fragment).
 constexpr int OBP = 8;
 constexpr int OLN = 32;
 constexpr int ONT = SCH_OS_THREADS;
 constexpr int OWARPS = ONT / 32;
 constexpr int OBINS = FMAX / OWARPS;      // psum bins a warp keeps
 constexpr int YP = OLN * OBP + 8;         // Y~ / partial row pitch (8 mod 32)
-constexpr int OS_STAGES = 5;              // the deepest ring tried (>= 2)
+constexpr int OS_STAGES = 5;              // the deepest ring tried
+constexpr int FLOW_STAGES_MIN = 3;        // the flows' shallowest ring
 constexpr int MT2_MAX = 4;                // IFFT row tiles: S2 <= 64
 constexpr int KS2 = 2 * FMAX / 8;         // IFFT k steps (re, im bins)
+constexpr int FA_WORDS = 8 * 8 * 128;     // the tile-FFT's A fragments
+// The flows' tile-FFT unrolls this many k steps: their register budget
+// (128 a thread at 512 threads) leaves no room for all 8 without a spill
+constexpr int FLOW_FFT_UNROLL = 2;
 constexpr int SMEM_MAX = 232448;          // dynamic shared memory a CTA
 // The cluster rule's price of a CTA's set-up, IFFT and reduction, in
 // channel steps (os_cluster; fsc.SCHED_FIXED_STEPS mirrors it).
 constexpr int FIXED_STEPS = SCH_FIXED_STEPS;
 static_assert(ONT == 512 && OWARPS == 16 && OBINS == 4 && OLN == 32 &&
-                  FMAX == 8 * (OWARPS / 2),
-              "output-stationary map: 16 warps, 4 psum bins a warp, the "
-              "tile-FFT on warps 0-7");
+                  FMAX == 8 * (OWARPS / 2) && BN % OLN == 0,
+              "16 warps, 4 psum bins a warp, the tile-FFT on 8 warps");
 
 // the reuse flows
 constexpr int OS = 0;   // output-stationary: channels split over a cluster
-constexpr int WS = 1;   // weight-stationary: table blocks of an m range
+constexpr int WS = 1;   // weight-stationary: table rows of an m range
 constexpr int IS = 2;   // input-stationary: X~ of an m range resident
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
-
-// Shared-memory carve-up of the flows, in floats (every array 16-byte
-// aligned).  A ring stage holds one channel's input (windows, or a halo
-// block's raw rows); for is it holds the input while X~ is built and the
-// table rows afterwards.  The halo path also expands the raw rows into one
-// window stage.  The epilogue's inverse DFT and spatial partial alias the
-// psum.
-struct Layout {
-  int df, psum, xf, res, stage, stage_size, x_sz, idx_sz, tab_sz, tab_blk,
-      win, part, dv, total;
-  __host__ __device__ Layout(int flow, int S, int S2, int T, int R, int NP,
-                             int x_floats, int win_floats, int RM) {
-    df = 0;                                   // [S][DFP] (re, im)
-    psum = df + 2 * S * DFP;                  // re, im [FMAX][BN] float4
-    xf = psum + 2 * FMAX * BN * BP;           // re, im [FMAX] float4; is:
-                                              // one pair per channel of RM
-    x_sz = align4(x_floats);                  // windows [S][BP] or raw rows
-    idx_sz = align4(T * R);                   // idx [T][R]
-    tab_sz = align4(T * NP);                  // sel, vr, vi [T][NP]
-    tab_blk = idx_sz + 3 * tab_sz;            // one (group, channel) block
-    res = xf + 2 * FMAX * BP * (flow == IS ? RM : 1);
-    stage = res + (flow == WS ? RM * tab_blk : 0);   // ws: the m range's
-                                                     // table blocks
-    stage_size = flow == WS ? x_sz : imax(x_sz, tab_blk);
-    win = stage + 2 * stage_size;             // [S][BP] expanded windows
-    part = psum;                              // [S2][BN][BP], epilogue
-    dv = part + S2 * BN * BP;                 // [S2][FMAX] (re, im)
-    total = imax(win + win_floats, dv + 2 * S2 * FMAX);
-  }
-};
 
 // Shared-memory carve-up of the output-stationary kernel, in floats.  The
 // channel loop: the tile-FFT's split A fragments ([2][8 row tiles][8 k
@@ -225,7 +208,7 @@ struct OsLayout {
   __host__ __device__ OsLayout(int S, int S2, int T, int R, int x_floats,
                                int sc_floats) {
     fa = 0;
-    xf = fa + 2 * 8 * 8 * 128;
+    xf = fa + 2 * FA_WORDS;
     wd = xf + 2 * 2 * FMAX * OBP;
     soff = wd + 2 * 2 * FMAX * OLN;
     ring = soff + align4(S);
@@ -240,6 +223,60 @@ struct OsLayout {
       sc = imax(ring + stages * slot, epi);
       total = sc + sc_floats;
       if (stages <= 2 || 4 * total <= SMEM_MAX) break;
+    }
+  }
+};
+
+// Shared-memory carve-up of the flows, in floats (every array 16-byte
+// aligned).  Both keep the valid-row IFFT's A in f32 in fragment order
+// ([mt2][KS2][32 lanes][4], k in the four rounds' order) for the CTA's
+// life, and a ring of `stages` slots (five where they fit, at least
+// three).
+//  * ws: the tile-FFT's A in f32 ([8][8][32][4]), X~ and W of two channels
+//    (double-buffered, as the output-stationary kernel's), and in the
+//    place of all three after each tile block the IFFT's round stage
+//    [32][YP] and partial [S2][YP] (the A is written again), the window
+//    offsets, the m range's table rows (RM slots of idx [T][R] + sel, vr,
+//    vi [T][OLN]), then the ring of one channel's input a slot.
+//  * is: X~ of the range ([RM][re, im][FMAX][OBP]), one region that holds
+//    the tile-FFT's A while X~ is built, then W (two channels), and after
+//    each (group, half) the IFFT's round stage [32][YP], then its partial
+//    [S2][YP], the window offsets, then the ring: two channels' inputs a
+//    slot while X~ is built, one channel's table rows while the groups
+//    are walked.
+struct FlowLayout {
+  int va, fa, xf, wd, ys, part, soff, tab, ring, x_sz, idx_sz, tab_sz,
+      tslot, slot, stages, total;
+  __host__ __device__ FlowLayout(int flow, int S, int S2, int T, int R,
+                                 int x_floats, int RM) {
+    x_sz = align4(x_floats);
+    idx_sz = align4(T * R);
+    tab_sz = T * OLN;
+    tslot = idx_sz + 3 * tab_sz;
+    va = 0;
+    const int head = va + ((S2 + 15) / 16) * KS2 * 128;
+    if (flow == WS) {
+      fa = ys = head;
+      xf = fa + FA_WORDS;
+      wd = xf + 2 * 2 * FMAX * OBP;
+      part = ys + 32 * YP;
+      soff = fa + imax(FA_WORDS + 2 * 2 * FMAX * OBP + 2 * 2 * FMAX * OLN,
+                       (32 + S2) * YP);
+      tab = soff + align4(S);
+      ring = tab + RM * tslot;
+      slot = x_sz;
+    } else {
+      xf = head;
+      fa = wd = ys = part = xf + RM * 2 * FMAX * OBP;
+      soff = fa + imax(imax(FA_WORDS, 2 * 2 * FMAX * OLN),
+                       imax(32 * YP, S2 * YP));
+      tab = 0;
+      ring = soff + align4(S);
+      slot = imax(2 * x_sz, tslot);
+    }
+    for (stages = OS_STAGES;; --stages) {
+      total = ring + stages * slot;
+      if (stages <= FLOW_STAGES_MIN || 4 * total <= SMEM_MAX) break;
     }
   }
 };
@@ -298,24 +335,20 @@ struct WinPath {
     return s < S ? sx[s * TP + c.p] : 0.f;
   }
 };
-using WindowedPath = WinPath<BP, NT>;     // the flows
-using WindowedOs = WinPath<OBP, ONT>;     // the output-stationary kernel
-
-using HaloIn = HaloPath<NT, 1, BP>;   // halo.cuh: the flows'
-using HaloOs = HaloPath<ONT, 1, OBP>;  // and the output-stationary kernel's
+using WindowedOs = WinPath<OBP, ONT>;     // every kernel's windowed path
+using HaloOs = HaloPath<ONT, 1, OBP>;     // and its halo path (halo.cuh)
 
 // copy `count` contiguous 4-byte words, 16 bytes at a time when aligned
-// (TN threads)
-template <int TN = NT>
+// (ONT threads)
 __device__ __forceinline__ void stage_words(float* dst, const float* src,
                                             int count, int tid) {
   int done = 0;
   if (((size_t)src & 15) == 0) {
     done = count & ~3;
-    for (int i = 4 * tid; i < done; i += 4 * TN)
+    for (int i = 4 * tid; i < done; i += 4 * ONT)
       cp_async16(dst + i, src + i, 16);
   }
-  for (int i = done + tid; i < count; i += TN)
+  for (int i = done + tid; i < count; i += ONT)
     cp_async4(dst + i, src + i, true);
 }
 
@@ -337,6 +370,200 @@ __device__ __forceinline__ void stage_lanes(float* dst, const float* src,
       const int t = i / OLN, n = i - t * OLN;
       const bool ok = l0 + n < NP;
       cp_async4(dst + i, ok ? src + (size_t)t * NP + l0 + n : src, ok);
+    }
+  }
+}
+
+// One (group, channel)'s table rows into dst: idx [T][R] (idx_sz floats
+// apart from the rest), then lanes l0 .. l0 + OLN of sel, vr, vi [T][OLN]
+// (tab_sz floats apart; vec: 16-byte copies)
+__device__ __forceinline__ void stage_tables(
+    float* dst, const int* idx, const int* sel, const float* vr,
+    const float* vi, size_t gm, int T, int R, int NP, int l0, int idx_sz,
+    int tab_sz, bool vec, int tid) {
+  stage_words(dst, reinterpret_cast<const float*>(idx) + gm * T * R, T * R,
+              tid);
+  dst += idx_sz;
+  const size_t row = gm * T * NP;
+  stage_lanes(dst, reinterpret_cast<const float*>(sel) + row, T, NP, l0, vec,
+              tid);
+  stage_lanes(dst + tab_sz, vr + row, T, NP, l0, vec, tid);
+  stage_lanes(dst + 2 * tab_sz, vi + row, T, NP, l0, vec, tid);
+}
+
+// Element i of the tile-FFT's A in fragment order [8 row tiles w][8 k
+// steps kk][32 lanes][4]: row r < 8 of tile w is Re Df[8 w + r], r >= 8
+// Im Df[8 w + r - 8], column (window row) kk * 8 + the lane's column;
+// zero past Fa and S.
+__device__ __forceinline__ float fft_a(const float* dfr, const float* dfi,
+                                       int i, int Fa, int S) {
+  const int w = i / 1024, kk = (i / 128) % 8, ln = (i / 4) % 32, e = i % 4;
+  const int r = ln / 4 + (e & 1) * 8;
+  const int sw = kk * 8 + ln % 4 + (e & 2) * 2;
+  const int f = 8 * w + r % 8;
+  return f < Fa && sw < S ? (r < 8 ? dfr : dfi)[(size_t)f * S + sw] : 0.f;
+}
+
+// Element i of the valid-row IFFT's A = [Dvr | -Dvi] in fragment order
+// [mt2 row tiles][KS2 k steps][32 lanes][4], its k in the order
+// `stage_psum` stages the psum: rounds of BPR bins a warp, round b's 4 BPR
+// k steps holding Re of bin 4 w + b BPR + bb as row w BPR + bb, then the
+// Im rows; zero past S2 and Fa.  One round (BPR 4) is plain bin order.
+template <int BPR>
+__device__ __forceinline__ float ifft_a(const float* dvr, const float* dvi,
+                                        int i, int Fa, int S2) {
+  constexpr int KSR = 4 * BPR;              // k steps a round
+  const int kq = (i / 128) % KS2, m2 = i / (128 * KS2);
+  const int ln = (i / 4) % 32, e = i % 4;
+  const int s2 = m2 * 16 + ln / 4 + (e & 1) * 8;
+  const int j = (kq % KSR) * 8 + ln % 4 + (e & 2) * 2;
+  const int jr = j % (16 * BPR);
+  const int f = 4 * (jr / BPR) + (kq / KSR) * BPR + jr % BPR;
+  if (s2 >= S2 || f >= Fa) return 0.f;
+  return j < 16 * BPR ? dvr[(size_t)s2 * Fa + f] : -dvi[(size_t)s2 * Fa + f];
+}
+
+// A split fragment from four f32 values in fragment order (the flows keep
+// their operators in f32 and split them as they read them)
+__device__ __forceinline__ void split_f32x4(const float4 v, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+  split_frag(x, hi, lo);
+}
+
+// The tile-FFT of one channel on the tensor cores (3xTF32): X~ of bins
+// 8 fw .. 8 fw + 7 on the OBP tile slots (the 8 columns) of the staged
+// input `st`, into x (re [FMAX][OBP], then im).  a(fw, kk, ah, al) gives
+// A's split fragment; all 8 k steps run (A is zero past S, and fft_x
+// reads nothing there), UNROLL of them unrolled (0: all).
+template <int UNROLL, class Path, class LoadA>
+__device__ __forceinline__ void tile_fft(const Path& io, const float* st,
+                                         const int* soff,
+                                         typename Path::FftCol fcol,
+                                         const LoadA& a, float* x, int S,
+                                         int fw, int lane) {
+  const int gq = lane / 4, tq = lane % 4;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  auto step = [&](int kk) {
+    uint32_t ah[4], al[4];
+    a(fw, kk, ah, al);
+    const float b[2] = {io.fft_x(st, soff, fcol, kk * 8 + tq, S),
+                        io.fft_x(st, soff, fcol, kk * 8 + tq + 4, S)};
+    uint32_t bh[2], bl[2];
+    split_frag(b, bh, bl);
+    mma3_f32(c, ah, al, bh, bl);
+  };
+  if constexpr (UNROLL == 0) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) step(kk);
+  } else {
+#pragma unroll UNROLL
+    for (int kk = 0; kk < 8; ++kk) step(kk);
+  }
+  const int o = (8 * fw + gq) * OBP + 2 * tq;
+  *reinterpret_cast<float2*>(x + o) = make_float2(c[0], c[1]);
+  *reinterpret_cast<float2*>(x + FMAX * OBP + o) = make_float2(c[2], c[3]);
+}
+
+// One channel's table rows `tab` (as stage_tables lays them) expanded into
+// W[bin][lane] (re, im), entries e0, e0 + stride, ...: each entry decoded
+// once, bin = idx[t][sel[t][n]]; the exact cover gives every (bin, lane)
+// at most one entry a channel.
+__device__ __forceinline__ void expand_tables(float2* w, const float* tab,
+                                              int idx_sz, int tab_sz, int T,
+                                              int R, int Fa, int e0,
+                                              int stride) {
+  const int* s_idx = reinterpret_cast<const int*>(tab);
+  const int* s_sel = s_idx + idx_sz;
+  const float* s_vr = reinterpret_cast<const float*>(s_sel) + tab_sz;
+  const float* s_vi = s_vr + tab_sz;
+  for (int e = e0; e < T * OLN; e += stride) {
+    const float w_r = s_vr[e], w_i = s_vi[e];
+    const int rr = s_sel[e];
+    if ((w_r == 0.f && w_i == 0.f) || (unsigned)rr >= (unsigned)R) continue;
+    const int f = s_idx[(e / OLN) * R + rr];
+    if ((unsigned)f < (unsigned)Fa) w[f * OLN + e % OLN] = make_float2(w_r, w_i);
+  }
+}
+
+// One channel's MACs: psum[f][n][p] += W[f][n] X~[f][p] for bins 4 warp ..
+// 4 warp + 3 of lane `lane`, all OBP tiles, in registers (X~ re [FMAX][OBP]
+// at x, im after it; its row a broadcast), zeroing the W cells read for
+// the channel after next.
+__device__ __forceinline__ void mac_channel(float (&pr)[OBINS][OBP],
+                                            float (&pi)[OBINS][OBP],
+                                            const float* x, float2* w,
+                                            int warp, int lane) {
+  const float* xi = x + FMAX * OBP;
+#pragma unroll
+  for (int b = 0; b < OBINS; ++b) {
+    const int f = OBINS * warp + b;
+    const float2 wv = w[f * OLN + lane];
+    w[f * OLN + lane] = make_float2(0.f, 0.f);
+    const float4 r0 = *reinterpret_cast<const float4*>(x + f * OBP);
+    const float4 r1 = *reinterpret_cast<const float4*>(x + f * OBP + 4);
+    const float4 j0 = *reinterpret_cast<const float4*>(xi + f * OBP);
+    const float4 j1 = *reinterpret_cast<const float4*>(xi + f * OBP + 4);
+    const float xa[OBP] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+    const float xb[OBP] = {j0.x, j0.y, j0.z, j0.w, j1.x, j1.y, j1.z, j1.w};
+#pragma unroll
+    for (int p = 0; p < OBP; ++p) {
+      pr[b][p] = fmaf(wv.x, xa[p], fmaf(-wv.y, xb[p], pr[b][p]));
+      pi[b][p] = fmaf(wv.x, xb[p], fmaf(wv.y, xa[p], pi[b][p]));
+    }
+  }
+}
+
+// Round B of the psum into the IFFT's stage (rows of YP floats): bins
+// 4 warp + B BPR + bb (bb < BPR) of lane `lane`, all OBP tiles, as Re row
+// warp BPR + bb and Im row 16 BPR + warp BPR + bb (ifft_a<BPR>'s k order).
+template <int BPR, int B>
+__device__ __forceinline__ void stage_psum(const float (&pr)[OBINS][OBP],
+                                           const float (&pi)[OBINS][OBP],
+                                           float* s_y, int warp, int lane) {
+#pragma unroll
+  for (int bb = 0; bb < BPR; ++bb) {
+    const int q = B * BPR + bb;
+    float* yr = s_y + (warp * BPR + bb) * YP + lane * OBP;
+    float* yi = yr + 16 * BPR * YP;
+    *reinterpret_cast<float4*>(yr) =
+        make_float4(pr[q][0], pr[q][1], pr[q][2], pr[q][3]);
+    *reinterpret_cast<float4*>(yr + 4) =
+        make_float4(pr[q][4], pr[q][5], pr[q][6], pr[q][7]);
+    *reinterpret_cast<float4*>(yi) =
+        make_float4(pi[q][0], pi[q][1], pi[q][2], pi[q][3]);
+    *reinterpret_cast<float4*>(yi + 4) =
+        make_float4(pi[q][4], pi[q][5], pi[q][6], pi[q][7]);
+  }
+}
+
+// The valid-row IFFT's products over KS staged k steps (A's k steps kq0
+// ..): acc[m2][j] += A[row tile m2] Y~[n-tile n0 + 16 j] for m2 < mt2,
+// j < NJ, each k step in fresh accumulators added in f32 (mma3_f32);
+// a(m2, kq, ah, al) gives A's split fragment; UNROLL k steps unrolled.
+// The 32 n-tiles are the CTA's lanes, 8 tiles each.
+template <int KS, int UNROLL, int NJ, class LoadA>
+__device__ __forceinline__ void ifft_mma(float (&acc)[MT2_MAX][NJ][4],
+                                         const float* s_y, const LoadA& a,
+                                         int kq0, int mt2, int n0,
+                                         int lane) {
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll UNROLL
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* col = s_y + (kk * 8 + tq) * YP + (n0 + 16 * j) * 8 + gq;
+      const float b[2] = {col[0], col[4 * YP]};
+      split_frag(b, bh[j], bl[j]);
+    }
+#pragma unroll
+    for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+      if (m2 >= mt2) break;
+      uint32_t ah[4], al[4];
+      a(m2, kq0 + kk, ah, al);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma3_f32(acc[m2][j], ah, al, bh[j], bl[j]);
     }
   }
 }
@@ -399,21 +626,19 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
   const int n_steps = m_hi - m_lo;
   const int mt2 = (S2 + 15) / 16;
 
-  // the tile-FFT's A, split once in fragment order: row tile w, row r < 8
-  // Re Df[8 w + r], r >= 8 Im Df[8 w + r - 8], column k = window row
-  // kk * 8 + (lane's column); zero past Fa and S; and W zeroed
-  for (int i = tid; i < 8 * 8 * 128; i += ONT) {
-    const int w = i / 1024, kk = (i / 128) % 8, ln = (i / 4) % 32, e = i % 4;
-    const int r = ln / 4 + (e & 1) * 8;
-    const int sw = kk * 8 + ln % 4 + (e & 2) * 2;
-    const int f = 8 * w + r % 8;
-    float x = 0.f;
-    if (f < Fa && sw < S) x = (r < 8 ? dfr : dfi)[(size_t)f * S + sw];
-    split(x, s_fa[i], s_fa[8 * 8 * 128 + i]);
-  }
+  // the tile-FFT's A, split once in fragment order; W zeroed
+  for (int i = tid; i < FA_WORDS; i += ONT)
+    split(fft_a(dfr, dfi, i, Fa, S), s_fa[i], s_fa[FA_WORDS + i]);
   for (int i = tid; i < 2 * FMAX * OLN; i += ONT)
     s_w[i] = make_float2(0.f, 0.f);
   io.fft_offsets(s_soff, tid);
+  const uint4* fa4 = reinterpret_cast<const uint4*>(s_fa);
+  auto fft_frag = [&](int w, int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    const uint4 h = fa4[w * 256 + kk * 32 + lane];
+    const uint4 l = fa4[FA_WORDS / 4 + w * 256 + kk * 32 + lane];
+    ah[0] = h.x; ah[1] = h.y; ah[2] = h.z; ah[3] = h.w;
+    al[0] = l.x; al[1] = l.y; al[2] = l.z; al[3] = l.w;
+  };
 
   // flush map: row half fr, lane fn, tile slot fp; staged shortcut: the
   // elements this thread adds at the flush (rows rank + C (2 q + fr)),
@@ -434,19 +659,11 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
   // and its table rows (idx, then the CTA's lanes of sel, vr, vi)
   const bool vec_t = NP % 4 == 0 && (size_t)sel % 16 == 0 &&
                      (size_t)vr % 16 == 0 && (size_t)vi % 16 == 0;
-  const size_t tab_row = (size_t)T * NP;
   auto load_step = [&](int slot, int m) {
     float* st = ring + slot * L.slot;
     io.load(blk, st, S, M, m, tid);
-    const size_t gm = (size_t)g * Mp + m;
-    float* dt = st + L.x_sz;
-    stage_words<ONT>(dt, reinterpret_cast<const float*>(idx) + gm * T * R,
-                     T * R, tid);
-    dt += L.idx_sz;
-    stage_lanes(dt, reinterpret_cast<const float*>(sel) + gm * tab_row, T,
-                NP, l0, vec_t, tid);
-    stage_lanes(dt + L.tab_sz, vr + gm * tab_row, T, NP, l0, vec_t, tid);
-    stage_lanes(dt + 2 * L.tab_sz, vi + gm * tab_row, T, NP, l0, vec_t, tid);
+    stage_tables(st + L.x_sz, idx, sel, vr, vi, (size_t)g * Mp + m, T, R,
+                 NP, l0, L.idx_sz, L.tab_sz, vec_t, tid);
   };
 
   // the psum of bins 4 warp .. 4 warp + 3, lane `lane`, all tiles
@@ -456,33 +673,9 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
 #pragma unroll
     for (int p = 0; p < OBP; ++p) pr[b][p] = pi[b][p] = 0.f;
 
-  // the MACs of channel step i: X~ and W buffer i & 1; the W cells read
-  // are zeroed for the step two ahead
-  auto macs = [&](int i) {
-    const float* xr = s_x + (i & 1) * 2 * FMAX * OBP;
-    const float* xi = xr + FMAX * OBP;
-    float2* w = s_w + (i & 1) * FMAX * OLN;
-#pragma unroll
-    for (int b = 0; b < OBINS; ++b) {
-      const int f = OBINS * warp + b;
-      const float2 wv = w[f * OLN + lane];
-      w[f * OLN + lane] = make_float2(0.f, 0.f);
-      const float4 r0 = *reinterpret_cast<const float4*>(xr + f * OBP);
-      const float4 r1 = *reinterpret_cast<const float4*>(xr + f * OBP + 4);
-      const float4 j0 = *reinterpret_cast<const float4*>(xi + f * OBP);
-      const float4 j1 = *reinterpret_cast<const float4*>(xi + f * OBP + 4);
-      const float xa[OBP] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-      const float xb[OBP] = {j0.x, j0.y, j0.z, j0.w, j1.x, j1.y, j1.z, j1.w};
-#pragma unroll
-      for (int p = 0; p < OBP; ++p) {
-        pr[b][p] = fmaf(wv.x, xa[p], fmaf(-wv.y, xb[p], pr[b][p]));
-        pi[b][p] = fmaf(wv.x, xb[p], fmaf(wv.y, xa[p], pi[b][p]));
-      }
-    }
-  };
-
   // The channel loop: step i's tile-FFT (warps 0-7) and table expansion
-  // (warps 8-15) beside step i - 1's MACs (all warps); the copies run
+  // (warps 8-15) beside step i - 1's MACs (all warps; X~ and W buffer
+  // (i - 1) & 1, the W cells read zeroed for step i + 1); the copies run
   // L.stages - 1 steps ahead.
   const typename Path::FftCol fcol = io.fft_col(blk, gq, tq);
   for (int st = 0; st < L.stages - 1; ++st) {
@@ -507,47 +700,16 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
     cp_async_commit();
     if (i < n_steps) {
       const float* st = ring + (i % L.stages) * L.slot;
-      if (warp < 8) {
-        // Stage 1: X~ of bins 8 warp .. on the 8 tile slots (all 8 k
-        // steps: A is zero past S and fft_x reads nothing there)
-        const uint4* ah4 = reinterpret_cast<const uint4*>(s_fa) + warp * 256;
-        const uint4* al4 = ah4 + 8 * 8 * 32;
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint4 h = ah4[kk * 32 + lane], l = al4[kk * 32 + lane];
-          const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
-          const uint32_t al[4] = {l.x, l.y, l.z, l.w};
-          const float b[2] = {io.fft_x(st, s_soff, fcol, kk * 8 + tq, S),
-                              io.fft_x(st, s_soff, fcol, kk * 8 + tq + 4, S)};
-          uint32_t bh[2], bl[2];
-          split_frag(b, bh, bl);
-          mma3_f32(c, ah, al, bh, bl);
-        }
-        float* xr = s_x + (i & 1) * 2 * FMAX * OBP;
-        const int o = (8 * warp + gq) * OBP + 2 * tq;
-        *reinterpret_cast<float2*>(xr + o) = make_float2(c[0], c[1]);
-        *reinterpret_cast<float2*>(xr + FMAX * OBP + o) =
-            make_float2(c[2], c[3]);
-      } else {
-        // Stage 2: the channel's tables into W buffer i & 1
-        const int* s_idx = reinterpret_cast<const int*>(st + L.x_sz);
-        const int* s_sel = s_idx + L.idx_sz;
-        const float* s_vr = reinterpret_cast<const float*>(s_sel) + L.tab_sz;
-        const float* s_vi = s_vr + L.tab_sz;
-        float2* w = s_w + (i & 1) * FMAX * OLN;
-        for (int e = tid - ONT / 2; e < T * OLN; e += ONT / 2) {
-          const float w_r = s_vr[e], w_i = s_vi[e];
-          const int rr = s_sel[e];
-          if ((w_r == 0.f && w_i == 0.f) || (unsigned)rr >= (unsigned)R)
-            continue;
-          const int f = s_idx[(e / OLN) * R + rr];
-          if ((unsigned)f < (unsigned)Fa)
-            w[f * OLN + e % OLN] = make_float2(w_r, w_i);
-        }
-      }
+      if (warp < 8)     // Stage 1: X~ of bins 8 warp .. on the 8 tile slots
+        tile_fft<0>(io, st, s_soff, fcol, fft_frag,
+                    s_x + (i & 1) * 2 * FMAX * OBP, S, warp, lane);
+      else              // Stage 2: the channel's tables into W
+        expand_tables(s_w + (i & 1) * FMAX * OLN, st + L.x_sz, L.idx_sz,
+                      L.tab_sz, T, R, Fa, tid - ONT / 2, ONT / 2);
     }
-    if (i > 0) macs(i - 1);   // Stage 3
+    if (i > 0)          // Stage 3
+      mac_channel(pr, pi, s_x + ((i - 1) & 1) * 2 * FMAX * OBP,
+                  s_w + ((i - 1) & 1) * FMAX * OLN, warp, lane);
   }
 
   // Stage 4: Y~ [2 FMAX][YP] (re rows, then im) from the registers, the
@@ -555,32 +717,11 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
   // A[s2][k] Y~[k][(n, p)] on the tensor cores, warp w n-tiles w, w + 16
   __syncthreads();      // the loop's shared memory is free
   float* s_y = smem + L.ys;
-#pragma unroll
-  for (int b = 0; b < OBINS; ++b) {
-    const int f = OBINS * warp + b;
-    float* yr = s_y + f * YP + lane * OBP;
-    float* yi = yr + FMAX * YP;
-    *reinterpret_cast<float4*>(yr) =
-        make_float4(pr[b][0], pr[b][1], pr[b][2], pr[b][3]);
-    *reinterpret_cast<float4*>(yr + 4) =
-        make_float4(pr[b][4], pr[b][5], pr[b][6], pr[b][7]);
-    *reinterpret_cast<float4*>(yi) =
-        make_float4(pi[b][0], pi[b][1], pi[b][2], pi[b][3]);
-    *reinterpret_cast<float4*>(yi + 4) =
-        make_float4(pi[b][4], pi[b][5], pi[b][6], pi[b][7]);
-  }
+  stage_psum<OBINS, 0>(pr, pi, s_y, warp, lane);
   uint32_t* s_va = reinterpret_cast<uint32_t*>(smem + L.va);
-  for (int i = tid; i < mt2 * KS2 * 128; i += ONT) {
-    const int kk = (i / 128) % KS2, m2 = i / (128 * KS2);
-    const int ln = (i / 4) % 32, e = i % 4;
-    const int s2 = m2 * 16 + ln / 4 + (e & 1) * 8;
-    const int k = kk * 8 + ln % 4 + (e & 2) * 2;
-    const int f = k % FMAX;
-    float x = 0.f;
-    if (s2 < S2 && f < Fa)
-      x = k < FMAX ? dvr[(size_t)s2 * Fa + f] : -dvi[(size_t)s2 * Fa + f];
-    split(x, s_va[i], s_va[mt2 * KS2 * 128 + i]);
-  }
+  for (int i = tid; i < mt2 * KS2 * 128; i += ONT)
+    split(ifft_a<OBINS>(dvr, dvi, i, Fa, S2), s_va[i],
+          s_va[mt2 * KS2 * 128 + i]);
   __syncthreads();
   float acc[MT2_MAX][2][4];
 #pragma unroll
@@ -591,26 +732,14 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
       for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
   const uint4* vh4 = reinterpret_cast<const uint4*>(s_va);
   const uint4* vl4 = reinterpret_cast<const uint4*>(s_va + mt2 * KS2 * 128);
-#pragma unroll 2
-  for (int kk = 0; kk < KS2; ++kk) {
-    uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float* col = s_y + (kk * 8 + tq) * YP + (warp + 16 * j) * 8 + gq;
-      const float b[2] = {col[0], col[4 * YP]};
-      split_frag(b, bh[j], bl[j]);
-    }
-#pragma unroll
-    for (int m2 = 0; m2 < MT2_MAX; ++m2) {
-      if (m2 >= mt2) break;
-      const uint4 h = vh4[(m2 * KS2 + kk) * 32 + lane];
-      const uint4 l = vl4[(m2 * KS2 + kk) * 32 + lane];
-      const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
-      const uint32_t al[4] = {l.x, l.y, l.z, l.w};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma3_f32(acc[m2][j], ah, al, bh[j], bl[j]);
-    }
-  }
+  ifft_mma<KS2, 2, 2>(acc, s_y,
+                [&](int m2, int kq, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+                  const uint4 h = vh4[(m2 * KS2 + kq) * 32 + lane];
+                  const uint4 l = vl4[(m2 * KS2 + kq) * 32 + lane];
+                  ah[0] = h.x; ah[1] = h.y; ah[2] = h.z; ah[3] = h.w;
+                  al[0] = l.x; al[1] = l.y; al[2] = l.z; al[3] = l.w;
+                },
+                0, mt2, warp, lane);
   __syncthreads();      // Y~ is read: the partial [S2][YP] replaces it
   float* s_part = s_y;
 #pragma unroll
@@ -657,261 +786,314 @@ fused_sched_os_kernel(const Path io, const int* __restrict__ idx,
 }
 
 // The weight- and input-stationary flows (FLOW) on either input path
-// (Path), on the CUDA cores.  Grid: ws (m range, group); is (tile block, m
-// range).  ws (the split-K workspace) is written only when the flow has
-// more than one m range.  SC: none or a global shortcut.
-template <class Path, int FLOW, int SC>
-__global__ void __launch_bounds__(NT, 1)
-fused_sched_kernel(const Path io, const int* __restrict__ idx,
-                   const int* __restrict__ sel, const float* __restrict__ vr,
-                   const float* __restrict__ vi,
-                   const float* __restrict__ dfr,
-                   const float* __restrict__ dfi,
-                   const float* __restrict__ dvr,
-                   const float* __restrict__ dvi,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ sc, float* __restrict__ y,
-                   float* __restrict__ ws, int S, int M, int Mp, int T,
-                   int R, int NP, int Fa, int N, int S2, int relu, int RM) {
-  static_assert(FLOW != OS && SC != SC_STAGED, "output-stationary: above");
+// (Path).  Grid: ws (chunk, kernel group x lane half, m range), the chunk
+// taking tile blocks chunk, chunk + chunks, ...; is (tile block, m range,
+// share q of Q of the (group, half) walk).  Per (tile block, group half)
+// the psum is folded by the IFFT in four rounds, and the m range's partial
+// stored to its slice of the split-K workspace ws; the finish pass sums
+// the slices (one, with one m range) and applies bias, shortcut and ReLU.
+template <class Path, int FLOW>
+__global__ void __launch_bounds__(ONT, 1)
+fused_sched_flow_kernel(const Path io, const int* __restrict__ idx,
+                        const int* __restrict__ sel,
+                        const float* __restrict__ vr,
+                        const float* __restrict__ vi,
+                        const float* __restrict__ dfr,
+                        const float* __restrict__ dfi,
+                        const float* __restrict__ dvr,
+                        const float* __restrict__ dvi,
+                        float* __restrict__ ws, int S, int M, int Mp, int T,
+                        int R, int NP, int Fa, int N, int S2, int RM,
+                        int halves) {
+  static_assert(FLOW != OS, "output-stationary: above");
   extern __shared__ __align__(16) float smem[];
-  const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), 0, RM);
-  float2* s_df = reinterpret_cast<float2*>(smem + L.df);
-  float4* s_pr = reinterpret_cast<float4*>(smem + L.psum);
-  float4* s_pi = s_pr + FMAX * BN;
-  float4* s_x = reinterpret_cast<float4*>(smem + L.xf);
-  float* s_part = smem + L.part;
-  float4* s_dv = reinterpret_cast<float4*>(smem + L.dv);   // bin pairs
+  const FlowLayout L(FLOW, S, S2, T, R, io.x_floats(S), RM);
+  float* s_va = smem + L.va;
+  float* s_fa = smem + L.fa;
+  float2* s_w = reinterpret_cast<float2*>(smem + L.wd);   // [2][FMAX][OLN]
+  int* s_soff = reinterpret_cast<int*>(smem + L.soff);
+  float* ring = smem + L.ring;
 
-  const int tid = threadIdx.x;
-  const int slots = io.blocks() * BP;        // workspace tile columns
-  const int GN = (N + NP - 1) / NP;
-  // this CTA's channels: m range r of G
-  const int G = FLOW == WS ? gridDim.x : gridDim.y;
-  const int r = FLOW == WS ? blockIdx.x : blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;   // MMA fragment coordinates
+  const int mt2 = (S2 + 15) / 16;
+  const int slots = io.blocks() * OBP;      // workspace tile columns
+  // this CTA's channels: m range r
+  const int r = FLOW == WS ? blockIdx.z : blockIdx.y;
   const int m_lo = r * RM, m_hi = m_lo + RM < M ? m_lo + RM : M;
+  const int n_ch = m_hi - m_lo;
 
-  // forward DFT rows, bins Fa..63 zero
-  for (int i = tid; i < S * FMAX; i += NT) {
-    const int s = i / FMAX, f = i - s * FMAX;
-    s_df[s * DFP + f] = f < Fa ? make_float2(dfr[(size_t)f * S + s],
-                                             dfi[(size_t)f * S + s])
-                               : make_float2(0.f, 0.f);
-  }
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the operators in f32, fragment order (split where they are read): the
+  // IFFT's A in the rounds' k order, the tile-FFT's A; W zeroed (ws; the
+  // input-stationary W takes the FFT's place once X~ is built)
+  for (int i = tid; i < mt2 * KS2 * 128; i += ONT)
+    s_va[i] = ifft_a<1>(dvr, dvi, i, Fa, S2);
+  auto fill_fa = [&]() {
+#pragma unroll 1
+    for (int i = tid; i < FA_WORDS; i += ONT)
+      s_fa[i] = fft_a(dfr, dfi, i, Fa, S);
+  };
+  auto zero_w = [&]() {
+    for (int i = tid; i < 2 * FMAX * OLN; i += ONT)
+      s_w[i] = make_float2(0.f, 0.f);
+  };
+  fill_fa();
+  if constexpr (FLOW == WS) zero_w();
+  io.fft_offsets(s_soff, tid);
+  const float4* fa4 = reinterpret_cast<const float4*>(s_fa);
+  const float4* va4 = reinterpret_cast<const float4*>(s_va);
+  auto fft_frag = [&](int w, int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    split_f32x4(fa4[w * 256 + kk * 32 + lane], ah, al);
+  };
+  auto ifft_frag = [&](int m2, int kq, uint32_t (&ah)[4],
+                       uint32_t (&al)[4]) {
+    split_f32x4(va4[(m2 * KS2 + kq) * 32 + lane], ah, al);
+  };
+  auto wait_ring = [&]() {      // every step up to the one consumed next
+    if (L.stages >= 5)
+      cp_async_wait<3>();
+    else if (L.stages == 4)
+      cp_async_wait<2>();
+    else
+      cp_async_wait<1>();
+  };
+  const bool vec_t = NP % 4 == 0 && (size_t)sel % 16 == 0 &&
+                     (size_t)vr % 16 == 0 && (size_t)vi % 16 == 0;
+
+  // the psum of bins 4 warp .. 4 warp + 3, lane `lane`, all tiles, zeroed
+  // before each (tile block, group half)
+  float pr[OBINS][OBP], pi[OBINS][OBP];
   auto zero_psum = [&]() {
-    for (int i = tid; i < 2 * FMAX * BN; i += NT) s_pr[i] = zero4;
-  };
-
-  const size_t tab_row = (size_t)T * NP;     // one (g, m) table block
-  auto ring = [&](int buf) { return smem + L.stage + buf * L.stage_size; };
-  // group g's table block of channel m into dst (idx, sel, vr, vi)
-  auto stage_tables = [&](float* dst, int g, int m) {
-    const size_t gm = (size_t)g * Mp + m;
-    stage_words(dst, reinterpret_cast<const float*>(idx) + gm * T * R,
-                T * R, tid);
-    dst += L.idx_sz;
-    stage_words(dst, reinterpret_cast<const float*>(sel) + gm * tab_row,
-                T * NP, tid);
-    stage_words(dst + L.tab_sz, vr + gm * tab_row, T * NP, tid);
-    stage_words(dst + 2 * L.tab_sz, vi + gm * tab_row, T * NP, tid);
-  };
-
-  // tile-FFT map: bin ff, s-phase fh (lanes of 4 reduce by shuffles)
-  const int ff = tid / 4, fh = tid & 3;
-  // walk map: lane n, cycles t = tq, tq + TQ, ...
-  const int n = tid % BN, tq = tid / BN;
-
-  // Stage 1: tile-FFT of every bin for the 4 tiles of one channel's
-  // windows xw [S][BP] -> xr[f], xi[f]
-  auto fft_channel = [&](const float* xw, float4* xr, float4* xi) {
-    const float4* x4 = reinterpret_cast<const float4*>(xw);
-    float4 ar = zero4, ai = zero4;
-    for (int s = fh; s < S; s += 4) {
-      const float4 xv = x4[s];
-      const float2 d = s_df[s * DFP + ff];
-      ar.x = fmaf(d.x, xv.x, ar.x); ai.x = fmaf(d.y, xv.x, ai.x);
-      ar.y = fmaf(d.x, xv.y, ar.y); ai.y = fmaf(d.y, xv.y, ai.y);
-      ar.z = fmaf(d.x, xv.z, ar.z); ai.z = fmaf(d.y, xv.z, ai.z);
-      ar.w = fmaf(d.x, xv.w, ar.w); ai.w = fmaf(d.y, xv.w, ai.w);
-    }
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      ar.x += __shfl_xor_sync(0xffffffffu, ar.x, o);
-      ar.y += __shfl_xor_sync(0xffffffffu, ar.y, o);
-      ar.z += __shfl_xor_sync(0xffffffffu, ar.z, o);
-      ar.w += __shfl_xor_sync(0xffffffffu, ar.w, o);
-      ai.x += __shfl_xor_sync(0xffffffffu, ai.x, o);
-      ai.y += __shfl_xor_sync(0xffffffffu, ai.y, o);
-      ai.z += __shfl_xor_sync(0xffffffffu, ai.z, o);
-      ai.w += __shfl_xor_sync(0xffffffffu, ai.w, o);
-    }
-    if (fh == 0) xr[ff] = ar;
-    if (fh == 1) xi[ff] = ai;
+    for (int b = 0; b < OBINS; ++b)
+#pragma unroll
+      for (int p = 0; p < OBP; ++p) pr[b][p] = pi[b][p] = 0.f;
   };
 
-  // Stage 2: execute lane n's cycles t = tq, tq + TQ, ... of one table
-  // block tab (idx, sel, vr, vi) on all 4 tiles of X~ xr/xi
-  auto apply_tables = [&](const float* tab, const float4* xr,
-                          const float4* xi) {
-    const int* s_idx = reinterpret_cast<const int*>(tab);
-    const int* s_sel = s_idx + L.idx_sz;
-    const float* s_vr = reinterpret_cast<const float*>(s_sel) + L.tab_sz;
-    const float* s_vi = s_vr + L.tab_sz;
-    if (n >= NP) return;
-    for (int t = tq; t < T; t += TQ) {
-      const int i = t * NP + n;
-      const float wr = s_vr[i], wi = s_vi[i];
-      const int rr = s_sel[i];
-      if ((wr != 0.f || wi != 0.f) && (unsigned)rr < (unsigned)R) {
-        const int f = s_idx[t * R + rr];
-        if ((unsigned)f < (unsigned)Fa) {
-          const float4 x_r = xr[f], x_i = xi[f];
-          const int c = f * BN + n;
-          float4 pr = s_pr[c], pi = s_pi[c];
-          pr.x = fmaf(wr, x_r.x, fmaf(-wi, x_i.x, pr.x));
-          pr.y = fmaf(wr, x_r.y, fmaf(-wi, x_i.y, pr.y));
-          pr.z = fmaf(wr, x_r.z, fmaf(-wi, x_i.z, pr.z));
-          pr.w = fmaf(wr, x_r.w, fmaf(-wi, x_i.w, pr.w));
-          pi.x = fmaf(wr, x_i.x, fmaf(wi, x_r.x, pi.x));
-          pi.y = fmaf(wr, x_i.y, fmaf(wi, x_r.y, pi.y));
-          pi.z = fmaf(wr, x_i.z, fmaf(wi, x_r.z, pi.z));
-          pi.w = fmaf(wr, x_i.w, fmaf(wi, x_r.w, pi.w));
-          s_pr[c] = pr;
-          s_pi[c] = pi;
+  // After the MACs of a (tile block bx, group g, lanes l0 ..): the IFFT in
+  // four rounds of the psum through the stage (round b: bin 4 w + b of
+  // every warp w), summed into the partial [S2][YP]: ws in shared memory
+  // round by round, one (row tile, n-tile) accumulator at a time (beside
+  // the psum, the FFT and the resident tables' state, no more fits in
+  // registers); is in registers across the rounds, written to the partial
+  // after the last.  Then slice r of the workspace.  Leaves W zero (and
+  // ws's FFT A written again).
+  auto finish_rect = [&](int bx, int g, int l0) {
+    float* s_y = smem + L.ys;
+    float* s_part = smem + L.part;
+    if constexpr (FLOW == WS) {
+      auto round = [&](auto bc) {
+        constexpr int B = decltype(bc)::value;
+        __syncthreads();        // the last MACs / the last round are read
+        stage_psum<1, B>(pr, pi, s_y, warp, lane);
+        __syncthreads();
+        // one pass an n-tile (warp, then warp + 16)
+#pragma unroll 1
+        for (int j = 0; j < 2; ++j) {
+          const int n0 = warp + 16 * j;
+          float acc[MT2_MAX][1][4];
+#pragma unroll
+          for (int m2 = 0; m2 < MT2_MAX; ++m2)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m2][0][e] = 0.f;
+          ifft_mma<4, 1, 1>(acc, s_y, ifft_frag, 4 * B, mt2, n0, lane);
+#pragma unroll
+          for (int m2 = 0; m2 < MT2_MAX; ++m2)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int s2 = m2 * 16 + gq + 8 * h2;
+              if (m2 >= mt2 || s2 >= S2) continue;
+              float2* d = reinterpret_cast<float2*>(s_part + s2 * YP +
+                                                    n0 * 8 + 2 * tq);
+              const float2 v = make_float2(acc[m2][0][2 * h2],
+                                           acc[m2][0][2 * h2 + 1]);
+              if constexpr (B == 0) {
+                *d = v;
+              } else {
+                const float2 u = *d;
+                *d = make_float2(u.x + v.x, u.y + v.y);
+              }
+            }
         }
-      }
-    }
-  };
-
-  // Stage 3: valid-row IFFT of the psum -> spatial partial s_part.  The
-  // thread's cell (n, tile tq) comes into registers over all bins, then
-  // the partial and the inverse DFT overwrite the psum.  Call after the
-  // barrier that ends the last channel.
-  auto fold = [&]() {
-    float pr[FMAX], pi[FMAX];
-    const float* psr = reinterpret_cast<const float*>(s_pr);
-    const float* psi = reinterpret_cast<const float*>(s_pi);
+      };
+      round(std::integral_constant<int, 0>{});
+      round(std::integral_constant<int, 1>{});
+      round(std::integral_constant<int, 2>{});
+      round(std::integral_constant<int, 3>{});
+    } else {
+      float acc[MT2_MAX][2][4];
 #pragma unroll
-    for (int f = 0; f < FMAX; ++f) {
-      pr[f] = psr[(f * BN + n) * BP + tq];
-      pi[f] = psi[(f * BN + n) * BP + tq];
-    }
-    __syncthreads();
-    for (int i = tid; i < S2 * FMAX / 2; i += NT) {
-      const int s = i / (FMAX / 2), f = 2 * (i - s * (FMAX / 2));
-      const size_t at = (size_t)s * Fa + f;
-      s_dv[i] = make_float4(f < Fa ? dvr[at] : 0.f, f < Fa ? dvi[at] : 0.f,
-                            f + 1 < Fa ? dvr[at + 1] : 0.f,
-                            f + 1 < Fa ? dvi[at + 1] : 0.f);
-    }
-    __syncthreads();
-    for (int s = 0; s < S2; ++s) {
-      float v = 0.f;
+      for (int a = 0; a < MT2_MAX; ++a)
 #pragma unroll
-      for (int f = 0; f < FMAX; f += 2) {
-        const float4 d = s_dv[s * (FMAX / 2) + f / 2];
-        v = fmaf(d.x, pr[f], fmaf(-d.y, pi[f], v));
-        v = fmaf(d.z, pr[f + 1], fmaf(-d.w, pi[f + 1], v));
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
+      auto round = [&](auto bc) {
+        constexpr int B = decltype(bc)::value;
+        __syncthreads();        // the last MACs / the last round are read
+        stage_psum<1, B>(pr, pi, s_y, warp, lane);
+        __syncthreads();
+        ifft_mma<4, 1, 2>(acc, s_y, ifft_frag, 4 * B, mt2, warp, lane);
+      };
+      round(std::integral_constant<int, 0>{});
+      round(std::integral_constant<int, 1>{});
+      round(std::integral_constant<int, 2>{});
+      round(std::integral_constant<int, 3>{});
+      __syncthreads();          // the stage is read: the partial replaces it
+#pragma unroll
+      for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+        if (m2 >= mt2) break;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int s2 = m2 * 16 + gq + 8 * h2;
+            if (s2 < S2)
+              *reinterpret_cast<float2*>(s_part + s2 * YP +
+                                         (warp + 16 * j) * 8 + 2 * tq) =
+                  make_float2(acc[m2][j][2 * h2], acc[m2][j][2 * h2 + 1]);
+          }
       }
-      s_part[(s * BN + n) * BP + tq] = v;
     }
-  };
-
-  // flows: store this CTA's own partial of group g, tile block bx: the
-  // output (one m range) or workspace slice r
-  auto store = [&](const typename Path::Blk& blk, int bx, int g) {
-    const int gn = g * NP + n;
-    if (n >= NP || gn >= N) return;
-    for (int s = 0; s < S2; ++s) {
-      float v = s_part[(s * BN + n) * BP + tq];
-      if (G == 1) {
-        const long long o = io.out_at(blk, s, gn, N, tq);
-        if (o >= 0) {
-          v += bias[gn];
-          if constexpr (SC == SC_GLOBAL) v += sc[o];
-          if (relu) v = fmaxf(v, 0.f);
-          y[o] = v;
-        }
-      } else {
-        ws[(((size_t)r * S2 + s) * N + gn) * slots + bx * BP + tq] = v;
-      }
+    __syncthreads();            // the partial is complete
+    for (int i = tid; i < S2 * OLN * OBP; i += ONT) {
+      const int s2 = i / (OLN * OBP), n = i / OBP % OLN;
+      const int gn = g * NP + l0 + n;
+      if (l0 + n < NP && gn < N)
+        ws[(((size_t)r * S2 + s2) * N + gn) * slots + bx * OBP + i % OBP] =
+            s_part[s2 * YP + i % (OLN * OBP)];
     }
+    __syncthreads();            // the partial is read: W may be zeroed
+    zero_w();
+    if constexpr (FLOW == WS) fill_fa();
   };
 
   if constexpr (FLOW == WS) {
-    // every tile block of one group, the m range's table blocks resident
-    const int g = blockIdx.y;
-    float* s_tab = smem + L.res;
-    for (int m = m_lo; m < m_hi; ++m)
-      stage_tables(s_tab + (m - m_lo) * L.tab_blk, g, m);
-    cp_async_commit();                       // waited for with channel m_lo
-    float4* s_xr = s_x;
-    float4* s_xi = s_x + FMAX;
-    for (int bx = 0; bx < io.blocks(); ++bx) {
-      const typename Path::Blk blk = io.block(bx, tid);
-      io.prepare(smem + L.win, S, tid);
+    // every channel's table rows resident, then the chunk's tile blocks
+    const int chunks = gridDim.x, chunk = blockIdx.x;
+    const int g = blockIdx.y / halves;
+    const int l0 = (blockIdx.y - g * halves) * OLN;
+    const int n_blk =
+        chunk < io.blocks() ? (io.blocks() - 1 - chunk) / chunks + 1 : 0;
+    const int total = n_blk * n_ch;           // channel steps
+    float* s_tab = smem + L.tab;
+    for (int c = 0; c < n_ch; ++c)
+      stage_tables(s_tab + c * L.tslot, idx, sel, vr, vi,
+                   (size_t)g * Mp + m_lo + c, T, R, NP, l0, L.idx_sz,
+                   L.tab_sz, vec_t, tid);
+    cp_async_commit();          // waited for with the first step
+    // step s: channel m_lo + s % n_ch of the chunk's block s / n_ch
+    auto load_step = [&](int s) {
+      const int k = s / n_ch;
+      io.load(io.block(chunk + k * chunks, tid), ring + (s % L.stages) * L.slot,
+              S, M, m_lo + s - k * n_ch, tid);
+    };
+    for (int st = 0; st < L.stages - 1; ++st) {
+      if (st < total) load_step(st);
+      cp_async_commit();
+    }
+    __syncthreads();            // the operators, W and the offsets are ready
+    for (int k = 0; k < n_blk; ++k) {
+      const int bx = chunk + k * chunks;
+      const typename Path::FftCol fcol =
+          io.fft_col(io.block(bx, tid), gq, tq);
       zero_psum();
-      auto load_x = [&](int buf, int m) {
-        io.load(blk, ring(buf), S, M, m, tid);
-        cp_async_commit();
-      };
-      load_x(0, m_lo);
-      for (int m = m_lo; m < m_hi; ++m) {
-        const int buf = (m - m_lo) & 1;
-        cp_async_wait_all();
-        __syncthreads();   // channel m staged; channel m - 1 fully applied
-        if (m + 1 < m_hi) load_x(buf ^ 1, m + 1);
-        const float* xw = io.windows(blk, ring(buf), smem + L.win, tid);
-        fft_channel(xw, s_xr, s_xi);
-        __syncthreads();                     // X~ of channel m is ready
-        apply_tables(s_tab + (m - m_lo) * L.tab_blk, s_xr, s_xi);
+      // channel i's tile-FFT (warps 0-7) and expansion (warps 8-15) beside
+      // channel i - 1's MACs (all warps)
+      for (int i = 0; i <= n_ch; ++i) {
+        const int s = k * n_ch + i;
+        if (i < n_ch) wait_ring();
+        __syncthreads();        // step s landed; channel i - 1 is ready
+        if (i < n_ch) {
+          if (s + L.stages - 1 < total) load_step(s + L.stages - 1);
+          cp_async_commit();
+          const float* st = ring + (s % L.stages) * L.slot;
+          if (warp < 8)
+            tile_fft<FLOW_FFT_UNROLL>(io, st, s_soff, fcol, fft_frag,
+                                      smem + L.xf + (i & 1) * 2 * FMAX * OBP,
+                                      S, warp, lane);
+          else
+            expand_tables(s_w + (i & 1) * FMAX * OLN, s_tab + i * L.tslot,
+                          L.idx_sz, L.tab_sz, T, R, Fa, tid - ONT / 2,
+                          ONT / 2);
+        }
+        if (i > 0)
+          mac_channel(pr, pi, smem + L.xf + ((i - 1) & 1) * 2 * FMAX * OBP,
+                      s_w + ((i - 1) & 1) * FMAX * OLN, warp, lane);
       }
-      __syncthreads();                       // every channel applied
-      fold();
-      __syncthreads();                       // partial complete
-      store(blk, bx, g);
-      __syncthreads();                       // partial read: psum reusable
+      finish_rect(bx, g, l0);
     }
   } else {
-    // one tile block: X~ of the m range once, then every group
-    const typename Path::Blk blk = io.block(blockIdx.x, tid);
-    io.prepare(smem + L.win, S, tid);
-    auto xr_of = [&](int m) { return s_x + (m - m_lo) * 2 * FMAX; };
-    auto load_x = [&](int buf, int m) {
-      io.load(blk, ring(buf), S, M, m, tid);
-      cp_async_commit();
-    };
-    load_x(0, m_lo);
-    for (int m = m_lo; m < m_hi; ++m) {
-      const int buf = (m - m_lo) & 1;
-      cp_async_wait_all();
-      __syncthreads();     // channel m staged; channel m - 1 transformed
-      if (m + 1 < m_hi) load_x(buf ^ 1, m + 1);
-      const float* xw = io.windows(blk, ring(buf), smem + L.win, tid);
-      fft_channel(xw, xr_of(m), xr_of(m) + FMAX);
-    }
-    for (int g = 0; g < GN; ++g) {
-      auto load_t = [&](int buf, int m) {
-        stage_tables(ring(buf), g, m);
-        cp_async_commit();
+    {
+      // X~ of the range on the block's tiles, two channels a step (warps
+      // 0-7: channel 2 j, warps 8-15: 2 j + 1), kept in shared memory
+      const typename Path::Blk blk = io.block(blockIdx.x, tid);
+      const typename Path::FftCol fcol = io.fft_col(blk, gq, tq);
+      const int pairs = (n_ch + 1) / 2;
+      auto load_pair = [&](int j) {
+        float* st = ring + (j % L.stages) * L.slot;
+        io.load(blk, st, S, M, m_lo + 2 * j, tid);
+        if (2 * j + 1 < n_ch)
+          io.load(blk, st + L.x_sz, S, M, m_lo + 2 * j + 1, tid);
       };
-      __syncthreads();     // X~ ready / the previous group's partial read
-      zero_psum();
-      load_t(0, m_lo);
-      for (int m = m_lo; m < m_hi; ++m) {
-        const int buf = (m - m_lo) & 1;
-        cp_async_wait_all();
-        __syncthreads();   // channel m staged; channel m - 1 fully applied
-        if (m + 1 < m_hi) load_t(buf ^ 1, m + 1);
-        apply_tables(ring(buf), xr_of(m), xr_of(m) + FMAX);
+      for (int st = 0; st < L.stages - 1; ++st) {
+        if (st < pairs) load_pair(st);
+        cp_async_commit();
       }
-      __syncthreads();                       // every channel applied
-      fold();
-      __syncthreads();                       // partial complete
-      store(blk, blockIdx.x, g);
+      __syncthreads();          // the operators and the offsets are ready
+      for (int j = 0; j < pairs; ++j) {
+        wait_ring();
+        __syncthreads();        // pair j landed
+        if (j + L.stages - 1 < pairs) load_pair(j + L.stages - 1);
+        cp_async_commit();
+        const int c = 2 * j + warp / 8;
+        if (c < n_ch)
+          tile_fft<FLOW_FFT_UNROLL>(
+              io, ring + (j % L.stages) * L.slot + (warp / 8) * L.x_sz,
+              s_soff, fcol, fft_frag, smem + L.xf + c * 2 * FMAX * OBP, S,
+              warp % 8, lane);
+      }
+    }
+    __syncthreads();            // X~ is complete: W takes the FFT's place
+    zero_w();
+    // the walk: (group, half) h0 .. h1 - 1, table rows through the ring
+    const int n_h = (N + NP - 1) / NP * halves;
+    const int q = blockIdx.z, Q = gridDim.z;
+    const int h0 = q * n_h / Q, h1 = (q + 1) * n_h / Q;
+    const int total = (h1 - h0) * n_ch;
+    auto load_tab = [&](int s) {
+      const int h = h0 + s / n_ch, g = h / halves;
+      stage_tables(ring + (s % L.stages) * L.slot, idx, sel, vr, vi,
+                   (size_t)g * Mp + m_lo + s % n_ch, T, R, NP,
+                   (h - g * halves) * OLN, L.idx_sz, L.tab_sz, vec_t, tid);
+    };
+    for (int st = 0; st < L.stages - 1; ++st) {
+      if (st < total) load_tab(st);
+      cp_async_commit();
+    }
+    for (int h = h0; h < h1; ++h) {
+      const int g = h / halves, l0 = (h - g * halves) * OLN;
+      zero_psum();
+      // channel i's expansion (all warps) beside channel i - 1's MACs
+      for (int i = 0; i <= n_ch; ++i) {
+        const int s = (h - h0) * n_ch + i;
+        if (i < n_ch) wait_ring();
+        __syncthreads();        // step s landed; channel i - 1 is ready
+        if (i < n_ch) {
+          if (s + L.stages - 1 < total) load_tab(s + L.stages - 1);
+          cp_async_commit();
+          expand_tables(s_w + (i & 1) * FMAX * OLN,
+                        ring + (s % L.stages) * L.slot, L.idx_sz, L.tab_sz,
+                        T, R, Fa, tid, ONT);
+        }
+        if (i > 0)
+          mac_channel(pr, pi, smem + L.xf + (i - 1) * 2 * FMAX * OBP,
+                      s_w + ((i - 1) & 1) * FMAX * OLN, warp, lane);
+      }
+      finish_rect(blockIdx.x, g, l0);
     }
   }
+  cp_async_wait_all();          // nothing in flight at exit
 }
 
 // The most clusters of `cluster` output-stationary CTAs (one an SM) the
@@ -979,22 +1161,25 @@ int os_capacity(const int** cap) {
 // than one m range, the split-K finish pass); returns the cudaError_t of the
 // configuration and the launches (0 on success).  Output-stationary: grid
 // (tile blocks, GN x lane halves, C), a cluster of C CTAs over the input
-// channels (os_cluster).  Sizes whose shared memory exceeds the per-block
-// limit fail cudaFuncSetAttribute.
+// channels (os_cluster).  The flows: grid ws (split chunks, GN x lane
+// halves, G m ranges), is (tile blocks, G, split shares of the walk), the
+// split chosen by the host's launch rule (fsc.sched_flow_geometry).  Sizes
+// whose shared memory exceeds the per-block limit fail
+// cudaFuncSetAttribute.
 template <class Path, int FLOW, int SC>
 int launch(const Path& io, const int* idx, const int* sel, const float* vr,
            const float* vi, const float* dfr, const float* dfi,
            const float* dvr, const float* dvi, const float* bias,
            const float* sc, float* y, float* ws, int S, int M, int GN,
            int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
-           int RM, void* stream) {
-  if (Fa < 1 || Fa > FMAX || S < 1 || M < 1 || Mp < M || GN < 1 || T < 1 ||
-      R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP || S2 < 1 ||
-      RM < 1)
+           int RM, int split, void* stream) {
+  if (Fa < 1 || Fa > FMAX || S < 1 || S > 64 || M < 1 || Mp < M || GN < 1 ||
+      T < 1 || R < 1 || NP < 1 || NP > BN || N < 1 || N > GN * NP ||
+      S2 < 1 || S2 > 16 * MT2_MAX || RM < 1 || split < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(NT);
+  cfg.blockDim = dim3(ONT);
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1003,12 +1188,11 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  const int halves = (NP + OLN - 1) / OLN;
   if constexpr (FLOW == OS) {
-    if (S > 64 || S2 > 16 * MT2_MAX) return (int)cudaErrorInvalidValue;
     const int* cap = nullptr;
     const int e = os_capacity(&cap);
     if (e != 0) return e;
-    const int halves = (NP + OLN - 1) / OLN;
     const int C = os_cluster(io.blocks() * GN * halves, M, cap);
     // a staged shortcut: ceil(S2 / C) rows of the CTA's lanes x tiles
     const int sc_floats = SC == SC_STAGED ? (S2 + C - 1) / C * OLN * OBP : 0;
@@ -1019,7 +1203,6 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
                                (int)cfg.dynamicSmemBytes);
     if (err != cudaSuccess) return (int)err;
     cfg.gridDim = dim3(io.blocks(), GN * halves, C);
-    cfg.blockDim = dim3(ONT);
     attr[0].val.clusterDim.z = C;
     err = cudaLaunchKernelEx(&cfg, fused_sched_os_kernel<Path, SC>, io, idx,
                              sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, S,
@@ -1028,25 +1211,25 @@ int launch(const Path& io, const int* idx, const int* sel, const float* vr,
     return (int)cudaGetLastError();
   } else {
     const int G = (M + RM - 1) / RM;
-    if (G > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-    const Layout L(FLOW, S, S2, T, R, NP, io.x_floats(S), io.win_floats(S),
-                   RM);
+    if (ws == nullptr || G > 65535 ||
+        split > (FLOW == WS ? io.blocks() : GN * halves))
+      return (int)cudaErrorInvalidValue;
+    const FlowLayout L(FLOW, S, S2, T, R, io.x_floats(S), RM);
     cfg.dynamicSmemBytes = (size_t)L.total * sizeof(float);
-    err = cudaFuncSetAttribute(fused_sched_kernel<Path, FLOW, SC>,
+    err = cudaFuncSetAttribute(fused_sched_flow_kernel<Path, FLOW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg.dynamicSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    cfg.gridDim = FLOW == WS ? dim3(G, GN, 1) : dim3(io.blocks(), G, 1);
-    err = cudaLaunchKernelEx(&cfg, fused_sched_kernel<Path, FLOW, SC>, io,
-                             idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc,
-                             y, ws, S, M, Mp, T, R, NP, Fa, N, S2, relu, RM);
+    cfg.gridDim = FLOW == WS ? dim3(split, GN * halves, G)
+                             : dim3(io.blocks(), G, split);
+    err = cudaLaunchKernelEx(&cfg, fused_sched_flow_kernel<Path, FLOW>, io,
+                             idx, sel, vr, vi, dfr, dfi, dvr, dvi, ws, S, M,
+                             Mp, T, R, NP, Fa, N, S2, RM, halves);
     if (err != cudaSuccess) return (int)err;
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (G > 1)
-      err = launch_finish<Path, BP, SC>(io, ws, bias, sc, y, G, S2, N,
-                                        io.blocks() * BP, relu,
-                                        (cudaStream_t)stream);
-    return (int)err;
+    return (int)launch_finish<Path, OBP, SC>(io, ws, bias, sc, y, G, S2, N,
+                                             io.blocks() * OBP, relu,
+                                             (cudaStream_t)stream);
   }
 }
 
@@ -1058,22 +1241,24 @@ int dispatch(const Path& io, const int* idx, const int* sel, const float* vr,
              const float* dvr, const float* dvi, const float* bias,
              const float* sc, float* y, float* ws, int S, int M, int GN,
              int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
-             int RM, int sc_staged, void* stream) {
+             int RM, int split, int sc_staged, void* stream) {
   if (sc == nullptr) {
     if (sc_staged) return (int)cudaErrorInvalidValue;
     return launch<Path, FLOW, SC_NONE>(io, idx, sel, vr, vi, dfr, dfi, dvr,
                                        dvi, bias, sc, y, ws, S, M, GN, Mp, T,
-                                       R, NP, Fa, N, S2, relu, RM, stream);
+                                       R, NP, Fa, N, S2, relu, RM, split,
+                                       stream);
   }
   if (!sc_staged)
     return launch<Path, FLOW, SC_GLOBAL>(io, idx, sel, vr, vi, dfr, dfi,
                                          dvr, dvi, bias, sc, y, ws, S, M, GN,
                                          Mp, T, R, NP, Fa, N, S2, relu, RM,
-                                         stream);
+                                         split, stream);
   if constexpr (FLOW == OS)
     return launch<Path, OS, SC_STAGED>(io, idx, sel, vr, vi, dfr, dfi, dvr,
                                        dvi, bias, sc, y, ws, S, M, GN, Mp, T,
-                                       R, NP, Fa, N, S2, relu, RM, stream);
+                                       R, NP, Fa, N, S2, relu, RM, split,
+                                       stream);
   else
     return (int)cudaErrorInvalidValue;
 }
@@ -1084,14 +1269,13 @@ int windowed(const float* xt, const int* idx, const int* sel,
              const float* dfi, const float* dvr, const float* dvi,
              const float* bias, const float* sc, float* y, float* ws, int S,
              int M, int P, int x_pitch, int GN, int Mp, int T, int R, int NP,
-             int Fa, int N, int S2, int relu, int RM, int sc_staged,
-             void* stream) {
+             int Fa, int N, int S2, int relu, int RM, int split,
+             int sc_staged, void* stream) {
   if (P < 1 || x_pitch < P) return (int)cudaErrorInvalidValue;
-  using Path = typename std::conditional<FLOW == OS, WindowedOs,
-                                         WindowedPath>::type;
-  return dispatch<Path, FLOW>(Path{xt, P, x_pitch}, idx, sel, vr, vi, dfr,
-                              dfi, dvr, dvi, bias, sc, y, ws, S, M, GN, Mp, T,
-                              R, NP, Fa, N, S2, relu, RM, sc_staged, stream);
+  return dispatch<WindowedOs, FLOW>(WindowedOs{xt, P, x_pitch}, idx, sel, vr,
+                                    vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
+                                    S, M, GN, Mp, T, R, NP, Fa, N, S2, relu,
+                                    RM, split, sc_staged, stream);
 }
 
 template <int FLOW>
@@ -1101,18 +1285,18 @@ int halo(const float* x, const int* idx, const int* sel, const float* vr,
          const float* sc, float* y, float* ws, int B, int M, int H, int W,
          int K, int ksize, int pad, int n_th, int n_tw, int bth, int btw,
          int nbh, int nbw, int pre, int band, int Mp, int T, int R, int NP,
-         int Fa, int N, int S2, int relu, int RM, int sc_staged,
+         int Fa, int N, int S2, int relu, int RM, int split, int sc_staged,
          void* stream) {
-  typename std::conditional<FLOW == OS, HaloOs, HaloIn>::type io{x, {}};
+  HaloOs io{x, {}};
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
                      nbh, nbw, pre, band) ||
-      bth * btw > (FLOW == OS ? OBP : BP) || S2 != io.g.t * io.g.t || NP < 1)
+      bth * btw > OBP || S2 != io.g.t * io.g.t || NP < 1)
     return (int)cudaErrorInvalidValue;
   const int GN = (N + NP - 1) / NP;
-  return dispatch<decltype(io), FLOW>(io, idx, sel, vr, vi, dfr, dfi, dvr,
-                                      dvi, bias, sc, y, ws, K * K, M, GN, Mp,
-                                      T, R, NP, Fa, N, S2, relu, RM,
-                                      sc_staged, stream);
+  return dispatch<HaloOs, FLOW>(io, idx, sel, vr, vi, dfr, dfi, dvr, dvi,
+                                bias, sc, y, ws, K * K, M, GN, Mp, T, R, NP,
+                                Fa, N, S2, relu, RM, split, sc_staged,
+                                stream);
 }
 
 }  // namespace
@@ -1135,22 +1319,24 @@ int fused_spectral_pipeline_scheduled_f32(
     int N, int S2, int relu, int sc_staged, void* stream) {
   return windowed<OS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                       nullptr, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
-                      relu, 1, sc_staged, stream);
+                      relu, 1, 1, sc_staged, stream);
 }
 
 // Windowed layer, weight- / input-stationary over m ranges of RM channels;
-// with G = ceil(M / RM) > 1 ranges, ws is a workspace of
-// G * S2 * N * ceil(P / 4) * 4 floats.
+// ws is a workspace of G * S2 * N * ceil(P / 8) * 8 floats, G = ceil(M / RM)
+// (the finish pass applies bias, shortcut and ReLU, with G = 1 too).  split: ws, the chunks of tile
+// blocks (at most ceil(P / 8)); is, the shares of the (group, half) walk
+// (at most GN x ceil(NP / 32)).
 int fused_spectral_pipeline_scheduled_ws_f32(
     const float* xt, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
     const float* dvi, const float* bias, float* y, const float* sc,
     float* ws, int S, int M, int P, int x_pitch, int GN, int Mp, int T,
-    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int split,
+    int sc_staged, void* stream) {
   return windowed<WS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                       ws, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
-                      relu, RM, sc_staged, stream);
+                      relu, RM, split, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_scheduled_is_f32(
@@ -1158,16 +1344,16 @@ int fused_spectral_pipeline_scheduled_is_f32(
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
     const float* dvi, const float* bias, float* y, const float* sc,
     float* ws, int S, int M, int P, int x_pitch, int GN, int Mp, int T,
-    int R, int NP, int Fa, int N, int S2, int relu, int RM, int sc_staged,
-    void* stream) {
+    int R, int NP, int Fa, int N, int S2, int relu, int RM, int split,
+    int sc_staged, void* stream) {
   return windowed<IS>(xt, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                       ws, S, M, P, x_pitch, GN, Mp, T, R, NP, Fa, N, S2,
-                      relu, RM, sc_staged, stream);
+                      relu, RM, split, sc_staged, stream);
 }
 
 // Halo layer: x [B, M, H, W] contiguous, y and sc [B, N, H_out, W_out]; the
 // tile grid (n_th x n_tw, spectral.make_geometry) in blocks of bth x btw <=
-// 4 tiles (spectral.halo_block_geometry); tables as for the windowed layer.
+// 8 tiles (spectral.halo_block_geometry); tables as for the windowed layer.
 // Band mode (band = 1): x is a shard's extended band whose first pre = k - 1
 // rows are its top halo, and y is the uncropped band canvas
 // [B, N, n_th*t, n_tw*t] (halo.cuh); pre = band = 0 is the plain layer.
@@ -1181,12 +1367,13 @@ int fused_spectral_pipeline_scheduled_halo_f32(
     void* stream) {
   return halo<OS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y,
                   nullptr, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
-                  nbh, nbw, pre, band, Mp, T, R, NP, Fa, N, S2, relu, 1,
+                  nbh, nbw, pre, band, Mp, T, R, NP, Fa, N, S2, relu, 1, 1,
                   sc_staged, stream);
 }
 
-// Halo layer, weight- / input-stationary; ws (G > 1) holds
-// G * S2 * N * B * nbh * nbw * 4 floats.
+// Halo layer, weight- / input-stationary; ws holds
+// G * S2 * N * B * nbh * nbw * 8 floats; split as for the windowed layer
+// (ws: at most B * nbh * nbw chunks).
 int fused_spectral_pipeline_scheduled_halo_ws_f32(
     const float* x, const int* idx, const int* sel, const float* vr,
     const float* vi, const float* dfr, const float* dfi, const float* dvr,
@@ -1194,11 +1381,11 @@ int fused_spectral_pipeline_scheduled_halo_ws_f32(
     float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
     int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int pre,
     int band, int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
-    int RM, int sc_staged, void* stream) {
+    int RM, int split, int sc_staged, void* stream) {
   return halo<WS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
                   B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
-                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged,
-                  stream);
+                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, split,
+                  sc_staged, stream);
 }
 
 int fused_spectral_pipeline_scheduled_halo_is_f32(
@@ -1208,11 +1395,11 @@ int fused_spectral_pipeline_scheduled_halo_is_f32(
     float* ws, int B, int M, int H, int W, int K, int ksize, int pad,
     int n_th, int n_tw, int bth, int btw, int nbh, int nbw, int pre,
     int band, int Mp, int T, int R, int NP, int Fa, int N, int S2, int relu,
-    int RM, int sc_staged, void* stream) {
+    int RM, int split, int sc_staged, void* stream) {
   return halo<IS>(x, idx, sel, vr, vi, dfr, dfi, dvr, dvi, bias, sc, y, ws,
                   B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw,
-                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, sc_staged,
-                  stream);
+                  pre, band, Mp, T, R, NP, Fa, N, S2, relu, RM, split,
+                  sc_staged, stream);
 }
 
 // The most clusters of `cluster` output-stationary CTAs the card runs at

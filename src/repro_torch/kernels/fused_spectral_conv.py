@@ -110,17 +110,15 @@ OS_STEP_S, OS_FIXED_S, OS_HBM_BYTES_S = 3e-6, 20e-6, 3.35e12
 OS_HALO_STEP_S, OS_HALO_FIXED_S = 6.2e-6, 30e-6
 
 # Scheduled kernel: PE lanes per kernel group (the tables' N'; the plan
-# compiles them for this group size) and threads per CTA, compiled in as
-# -DSCH_*; tiles per CTA and the most active bins, fixed in the source:
-# the weight- and input-stationary flows take SCHED_BLOCK_P tiles and the
-# whole group a CTA, the output-stationary kernel SCHED_OS_BLOCK_P tiles
-# and one half of a group (SCHED_LANES lanes; ``sched_block_p``).  It
-# steps one input channel at a time, so the tables need no channel
-# padding (block_m 1).
-SCHED_BLOCK_N, SCHED_THREADS = 64, 256
-SCHED_BLOCK_P, SCHED_BLOCK_M, SCHED_MAX_BINS = 4, 1, 64
-SCHED_OS_BLOCK_P, SCHED_LANES, SCHED_OS_THREADS = 8, 32, 512
-SCHED_OS_STAGES = 5   # the deepest cp.async ring the os kernel takes
+# compiles them for this group size), compiled in as -DSCH_BN; tiles per
+# CTA, lanes a CTA takes of a group (a half) and threads per CTA, the same
+# for every flow (-DSCH_OS_THREADS), and the most active bins, fixed in
+# the source.  It steps one input channel at a time, so the tables need no
+# channel padding (block_m 1).
+SCHED_BLOCK_N, SCHED_BLOCK_M, SCHED_MAX_BINS = 64, 1, 64
+SCHED_BLOCK_P, SCHED_LANES, SCHED_OS_THREADS = 8, 32, 512
+SCHED_OS_STAGES = 5   # the deepest cp.async ring the kernels take
+SCHED_FLOW_STAGES_MIN = 3   # the flows' shallowest ring
 # The output-stationary kernel's cluster rule (``sched_cluster``) prices a
 # CTA's set-up, IFFT and reduction as this many channel steps.
 SCHED_FIXED_STEPS = 24
@@ -129,12 +127,13 @@ SCHED_FIXED_STEPS = 24
 # ranges, the m-range widths (``block_m``) the kernels take: a multiple of
 # BLOCK_M for the plane kernel (the range's planes, or its X~, stay in
 # shared memory, which caps the width: 16 for ws, 64 for is at K = 8), any
-# width for the scheduled kernel (about three table blocks fit beside its
-# psum for ws, eight channels' X~ for is).
+# width for the scheduled kernel (its ws CTA keeps the range's table rows
+# of 32 lanes, ~9 KB a channel at T = 21, so 12 fit; its is CTA X~ of 8
+# tiles, 4 KB a channel, so 32: ``sched_flow_layout``).
 OS, WS, IS = FLOWS
 FLOW_BLOCK_M = {("plane", WS): (8, 16), ("plane", IS): (8, 16, 32, 64),
-                ("scheduled", WS): (1, 2, 3),
-                ("scheduled", IS): (2, 4, 8)}
+                ("scheduled", WS): (4, 8, 12),
+                ("scheduled", IS): (8, 16, 32)}
 _FLOW_SUFFIX = {OS: "", WS: "_ws", IS: "_is"}
 
 
@@ -154,7 +153,7 @@ KERNELS = ("fused_spectral_pipeline", "fused_spectral_pipeline_scheduled",
 # The most dynamic shared memory one CTA may take on the H100 (227 KB);
 # a kernel configuration over it does not launch.
 SMEM_PER_CTA = 232_448
-_SCHED_DFP, _SCHED_FMAX = 72, 64     # scheduled kernel: DFT row pitch, bins
+_SCHED_FMAX = 64     # scheduled kernel: bins a CTA
 
 # Where an output-stationary kernel reads a residual shortcut: from device
 # memory at the flush, or staged into shared memory before its channel
@@ -170,12 +169,6 @@ def staged_rows(s2: int, ranks: int) -> int:
     """Output rows of a CTA's rectangle that a staged ('vmem') shortcut
     holds: cluster rank r of C flushes rows r, r + C, ... of S2."""
     return -(-s2 // ranks)
-
-
-def sched_block_p(flow: str) -> int:
-    """Tiles per CTA of the scheduled kernel under ``flow`` (the halo path
-    takes halo blocks of at most as many tiles)."""
-    return SCHED_OS_BLOCK_P if flow == OS else SCHED_BLOCK_P
 
 
 def sched_halves(n_pe: int) -> int:
@@ -306,15 +299,15 @@ def sched_os_layout(s: int, s2: int, t_cycles: int, r: int, x_floats: int,
     """Mirror of the scheduled source's ``OsLayout`` (the output-
     stationary kernel).  The channel loop: the tile-FFT's split A
     fragments (2 x 8 row tiles x 8 k steps x 128 words), X~ and the
-    expanded weights of two channels (2 x 2 x 64 x SCHED_OS_BLOCK_P and
+    expanded weights of two channels (2 x 2 x 64 x SCHED_BLOCK_P and
     2 x 2 x 64 x SCHED_LANES floats), the window offsets, then a ring of
     five slots (fewer, at least two, where five would pass the card's
     limit), each a channel's input (``x_floats``) and its table rows (idx
     T x r, then sel, vr, vi T x SCHED_LANES).  After the loop the same
-    bytes hold Y~ (2 x 64 rows of SCHED_LANES x SCHED_OS_BLOCK_P + 8) and
+    bytes hold Y~ (2 x 64 rows of SCHED_LANES x SCHED_BLOCK_P + 8) and
     the IFFT's split A fragments (2 x ceil(S2 / 16) x 16 k steps x 128);
     ``sc_rows`` rows of a staged shortcut follow both."""
-    fmax, bp, lanes = _SCHED_FMAX, SCHED_OS_BLOCK_P, SCHED_LANES
+    fmax, bp, lanes = _SCHED_FMAX, SCHED_BLOCK_P, SCHED_LANES
     head = (2 * 8 * 8 * 128 + 2 * 2 * fmax * bp + 2 * 2 * fmax * lanes
             + _align4(s))
     slot = (_align4(x_floats) + _align4(t_cycles * r)
@@ -329,21 +322,49 @@ def sched_os_layout(s: int, s2: int, t_cycles: int, r: int, x_floats: int,
     return OsLayout(total, stages)
 
 
+def sched_flow_layout(flow: str, s: int, s2: int, t_cycles: int, r: int,
+                      x_floats: int, block_m: int) -> OsLayout:
+    """Mirror of the scheduled source's ``FlowLayout`` (the weight- and
+    input-stationary kernel) for m ranges of ``block_m`` channels, in
+    floats: the IFFT's A in f32 (ceil(S2 / 16) x 16 k steps x 128), then
+    ws: one region for the tile-FFT's A in f32 (8192), X~ and W of two
+    channels (2048 + 8192) or, after each tile block, the IFFT's round
+    stage and partial ((32 + S2) rows of SCHED_LANES x SCHED_BLOCK_P + 8),
+    the window offsets, the range's table rows (block_m x (idx T x r +
+    sel, vr, vi T x SCHED_LANES)) and a ring of a channel's input a slot;
+    is: X~ of the range (block_m x 1024), one region for the FFT's A, W,
+    the round stage (32 rows) and the partial (S2 rows), the window
+    offsets and a ring whose slot takes two channels' inputs or a
+    channel's table rows.  Five ring slots where they fit the card's
+    limit, else fewer, at least three."""
+    fmax, bp, lanes = _SCHED_FMAX, SCHED_BLOCK_P, SCHED_LANES
+    yp = lanes * bp + 8
+    tslot = _align4(t_cycles * r) + 3 * t_cycles * lanes
+    head = -(-s2 // 16) * (2 * fmax // 8) * 128
+    if flow == WS:
+        ring = (head + max(8192 + 2 * 2 * fmax * bp + 2 * 2 * fmax * lanes,
+                           (32 + s2) * yp)
+                + _align4(s) + block_m * tslot)
+        slot = _align4(x_floats)
+    else:
+        ring = (head + block_m * 2 * fmax * bp
+                + max(8192, 2 * 2 * fmax * lanes, 32 * yp, s2 * yp)
+                + _align4(s))
+        slot = max(2 * _align4(x_floats), tslot)
+    for stages in range(SCHED_OS_STAGES, SCHED_FLOW_STAGES_MIN - 1, -1):
+        total = 4 * (ring + stages * slot)
+        if total <= SMEM_PER_CTA:
+            break
+    return OsLayout(total, stages)
+
+
 def _sched_layout_bytes(flow: str, s: int, s2: int, block_m: int,
-                        t_cycles: int, r: int, n_pe: int, x_floats: int,
-                        win: int, sc_rows: int) -> int:
+                        t_cycles: int, r: int, x_floats: int,
+                        sc_rows: int) -> int:
     if flow == OS:
         return sched_os_layout(s, s2, t_cycles, r, x_floats, sc_rows).bytes
-    bp, fmax = SCHED_BLOCK_P, _SCHED_FMAX
-    x_sz = _align4(x_floats)
-    tab_blk = _align4(t_cycles * r) + 3 * _align4(t_cycles * n_pe)
-    psum = 2 * s * _SCHED_DFP
-    stage = (psum + 2 * fmax * SCHED_BLOCK_N * bp
-             + 2 * fmax * bp * (block_m if flow == IS else 1)
-             + (block_m * tab_blk if flow == WS else 0))
-    size = x_sz if flow == WS else max(x_sz, tab_blk)
-    epi = psum + s2 * SCHED_BLOCK_N * bp + 2 * s2 * fmax
-    return 4 * max(stage + 2 * size + win, epi)
+    return sched_flow_layout(flow, s, s2, t_cycles, r, x_floats,
+                             block_m).bytes
 
 
 def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
@@ -351,16 +372,16 @@ def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
                      hg: HaloGeometry | None = None,
                      sc_rows: int = 0) -> int:
     """Dynamic shared memory of one scheduled-kernel CTA: the ``OsLayout``
-    (output-stationary) or ``Layout`` (the flows) of
+    (output-stationary) or ``FlowLayout`` (the flows) of
     ``csrc/fused_spectral_conv_scheduled.cu`` for tables of ``t_cycles``
-    cycles, ``r`` replicas and ``n_pe`` lanes, with ``sc_rows`` rows of a
-    staged shortcut (output-stationary)."""
+    cycles and ``r`` replicas (a CTA stages SCHED_LANES of the group's
+    ``n_pe`` lanes), with ``sc_rows`` rows of a staged shortcut
+    (output-stationary)."""
     s = geo.fft_size ** 2
-    bp = sched_block_p(flow)
-    x_floats, win = ((s * bp, 0) if hg is None
-                     else _halo_stage(geo, hg, 1, bp))
+    x_floats = (s * SCHED_BLOCK_P if hg is None
+                else _halo_stage(geo, hg, 1, SCHED_BLOCK_P)[0])
     return _sched_layout_bytes(flow, s, geo.tile ** 2, block_m, t_cycles, r,
-                               n_pe, x_floats, win, sc_rows)
+                               x_floats, sc_rows)
 
 
 # Kernel launches per (kernel, flow) entry point, counted where the kernel
@@ -494,8 +515,7 @@ SOURCES = {
         "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS,
         "FSC_OS_STAGES": OS_STAGES, "FSC_OS_THREADS": OS_THREADS},
     "fused_spectral_conv_scheduled": {
-        "SCH_BN": SCHED_BLOCK_N, "SCH_THREADS": SCHED_THREADS,
-        "SCH_OS_THREADS": SCHED_OS_THREADS,
+        "SCH_BN": SCHED_BLOCK_N, "SCH_OS_THREADS": SCHED_OS_THREADS,
         "SCH_FIXED_STEPS": SCHED_FIXED_STEPS}}
 
 
@@ -509,8 +529,9 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         libs["fused_spectral_conv_scheduled"]
     # a flow entry point (and every plane entry point, whose output-
     # stationary kernel also splits M and the bin chunks) takes the
-    # workspace pointer and block_m besides, and the plane kernel's
-    # output- and input-stationary ones their cluster size
+    # workspace pointer and block_m besides, the plane kernel's output-
+    # and input-stationary ones their cluster size, and the scheduled
+    # kernel's flows their split (``sched_flow_geometry``)
     for lib, kernel, n_ptr, n_int in (
             (plane, "fused_spectral_pipeline", 10, 9),
             (plane, "fused_spectral_pipeline_halo", 10, 20),
@@ -519,9 +540,9 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
             extra = flow != OS or kernel in _SPLIT_OS
-            cluster = flow != WS and kernel in _SPLIT_OS
+            split = (flow != WS if kernel in _SPLIT_OS else flow != OS)
             f.argtypes = ([ctypes.c_void_p] * (n_ptr + extra)
-                          + [ctypes.c_int] * (n_int + extra + cluster)
+                          + [ctypes.c_int] * (n_int + extra + split)
                           + [ctypes.c_void_p])
             f.restype = ctypes.c_int
     return libs
@@ -638,15 +659,15 @@ def staged_shortcut_bytes(s: int, s2: int, fa: int, *, halo=None,
     card of cluster ``capacity`` (``sched_cluster``).
     ``halo`` is the (geometry, halo block) pair of the halo input path,
     None for windows; S = K^2 window rows, S2 = t^2 output rows."""
-    bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_OS_BLOCK_P)
+    bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_BLOCK_P)
     x_floats, win = ((s * bm * bp, 0) if halo is None
                      else _halo_stage(*halo, bm, bp))
     if tables is None:
         return _plane_layout_bytes(OS, s, s2, BLOCK_M, x_floats, win,
                                    staged_rows(s2, -(-fa // BIN_CHUNK)))
-    t_cycles, r, n_pe = tables
+    t_cycles, r, _ = tables
     return _sched_layout_bytes(
-        OS, s, s2, 1, t_cycles, r, n_pe, x_floats, win,
+        OS, s, s2, 1, t_cycles, r, x_floats,
         staged_rows(s2, sched_cluster(blocks, m, capacity)))
 
 
@@ -671,7 +692,7 @@ def placement_at_batch(lp, batch: int, capacity: dict[int, int]) -> str:
         tables = (t_cycles, r, lp.tables.sel.shape[-1])
         blocks = gn * sched_halves(tables[2]) * (
             batch * halo[1].n_blocks if halo is not None
-            else -(-batch * lp.geo.n_tiles // SCHED_OS_BLOCK_P))
+            else -(-batch * lp.geo.n_tiles // SCHED_BLOCK_P))
     smem = staged_shortcut_bytes(lp.dfr.shape[1], lp.dvr.shape[0],
                                  lp.n_active_bins, halo=halo, tables=tables,
                                  blocks=blocks, m=lp.layer.c_in,
@@ -782,6 +803,66 @@ def is_launch_geometry(blocks: int, ranges: int, range_m: int, n: int,
     return best[1]
 
 
+# The price by which ``sched_flow_geometry`` sizes the scheduled weight-
+# and input-stationary launch, (RECT_S, STEP_S) per flow: seconds per
+# (tile block, group half) rectangle a CTA finishes (the four-round IFFT
+# and the store) and per channel step (ws: tile-FFT, expansion and MACs;
+# is: a build step of two channels' FFTs or a walk step of expansion and
+# MACs), in time = waves x (rects x RECT_S + steps x STEP_S).  Set by hand
+# (a rectangle about two of B4's channel steps); ``core.autotune``'s
+# ``LATENCY_FIT`` holds the fit of the kernel's measured times, by which
+# the cost model prices the launch this rule makes.
+SCHED_FLOW_LATENCY = {WS: (6e-06, 2.3e-06), IS: (6e-06, 1.5e-06)}
+# a CTA's set-up (the operators split, ws's table rows staged), priced by
+# the launch rule as this many channel steps
+SCHED_FLOW_SETUP_STEPS = 4
+
+
+class FlowGeometry(NamedTuple):
+    """One scheduled weight- / input-stationary launch: ``split`` (ws: the
+    chunks of tile blocks; is: the shares of the (group, half) walk),
+    ``ctas`` one an SM in ``waves``, and a CTA's ``rects`` (tile block,
+    group half) rectangles and ``steps`` channel steps (the largest
+    share's)."""
+    split: int
+    ctas: int
+    waves: int
+    rects: int
+    steps: int
+
+
+@functools.lru_cache(maxsize=4096)
+def sched_flow_geometry(flow: str, blocks: int, ranges: int, range_m: int,
+                        rects: int, sms: int) -> FlowGeometry:
+    """The scheduled flows' launch rule, for ``blocks`` tile blocks of
+    SCHED_BLOCK_P tiles (the halo path's blocks on its own), ``ranges`` m
+    ranges of ``range_m`` channels and ``rects`` (kernel group, lane half)
+    pairs, on a card of ``sms`` SMs (one CTA each): among the splits
+    (ws: chunks of ceil(blocks / c) tile blocks, each walking them with
+    the range's tables resident; is: shares of ceil(rects / c) group
+    halves, each building X~ of the range first), the least priced launch
+    by ``SCHED_FLOW_LATENCY`` and a set-up of SCHED_FLOW_SETUP_STEPS
+    steps a CTA, ties to more CTAs (so the grid covers a wave where that
+    costs nothing).  The split never changes a sum's order: a CTA walks
+    whole (tile block, group half) rectangles of its m range."""
+    rect_s, step_s = SCHED_FLOW_LATENCY[flow]
+    best = None
+    for c in range(1, (blocks if flow == WS else rects) + 1):
+        if flow == WS:
+            ctas, per = c * rects * ranges, -(-blocks // c)
+            steps = per * range_m
+        else:
+            ctas, per = blocks * ranges * c, -(-rects // c)
+            steps = -(-range_m // 2) + per * range_m
+        waves = -(-ctas // sms)
+        cost = waves * (per * rect_s
+                        + (steps + SCHED_FLOW_SETUP_STEPS) * step_s)
+        key = (cost, -ctas)
+        if best is None or key < best[0]:
+            best = (key, FlowGeometry(c, ctas, waves, per, steps))
+    return best[1]
+
+
 @functools.lru_cache(maxsize=4096)
 def _os_geometry(blocks: int, n: int, m: int, fa: int, s2: int,
                  capacity: tuple[tuple[int, int], ...]) -> OsGeometry:
@@ -846,6 +927,22 @@ def is_cluster_capacity(device) -> dict[int, int]:
     return dict(_os_capacity(torch.device(device).index or 0, "is"))
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sched_flow_launch(flow: str, blocks: int, m: int, block_m: int, n: int,
+                      n_pe: int, device) -> FlowGeometry:
+    """The scheduled flows' launch on ``device`` for ``blocks`` tile
+    blocks, M input channels in ranges of ``block_m``, N outputs in groups
+    of ``n_pe`` lanes (``sched_flow_geometry`` on the card's SM count)."""
+    return sched_flow_geometry(flow, blocks, -(-m // block_m),
+                               min(block_m, m),
+                               -(-n // n_pe) * sched_halves(n_pe),
+                               _sm_count(torch.device(device).index or 0))
+
+
 def _check_staged_fits(kernel: str, smem: int) -> None:
     """Refuse a 'vmem' shortcut whose CTA would need more shared memory
     than the card gives one (the launch would fail)."""
@@ -861,8 +958,10 @@ def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
             cluster: int | None = None) -> None:
     """Call a kernel's entry point for ``flow`` on the current stream
     (the flows, and the plane kernels' output-stationary launch, get a
-    split-K workspace of G * S2 * N * slots floats when G > 1 slices, and
-    ``block_m``; the latter also its ``cluster`` size), with the shortcut
+    split-K workspace of G * S2 * N * slots floats when G > 1 slices (the
+    scheduled flows always), and
+    ``block_m``; the latter, and the scheduled flows, also its ``cluster``
+    size or split), with the shortcut
     (or a null pointer) after the output and ``staged`` last; raise on a
     CUDA error, count the launch (and, with a shortcut, the residual
     launch; on a shard's ``band``, the band launch)."""
@@ -872,9 +971,10 @@ def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
     sc = 0 if shortcut is None else shortcut.data_ptr()
     if flow == OS and kernel not in _SPLIT_OS:
         err = fn(*ptrs, sc, *ints, int(staged), stream)
-    else:
+    else:       # the scheduled flows store through it with one slice too
         ws = (torch.empty(g * s2 * n * slots, dtype=torch.float32,
-                          device=device) if g > 1 else None)
+                          device=device)
+              if g > 1 or kernel not in _SPLIT_OS else None)
         extra = () if cluster is None else (int(cluster),)
         err = fn(*ptrs, sc, 0 if ws is None else ws.data_ptr(), *ints,
                  int(block_m), *extra, int(staged), stream)
@@ -1083,8 +1183,9 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
                                       shortcut_placement: str = "hbm",
                                       band: bool = False) -> torch.Tensor:
     """FFT -> SCHEDULED sparse Hadamard -> IFFT (+ bias/ReLU) in one
-    kernel launch (plus the split-K finish pass for a weight-/input-
-    stationary flow with more than one m range).
+    kernel launch (a weight-/input-stationary flow: the tensor-core flow
+    kernel, its m ranges' partials through the split-K workspace, then
+    the finish pass; its launch by ``sched_flow_geometry``).
 
     xt:  [S, M, P] f32          overlap-save windows (as for
                                 ``fused_spectral_pipeline``)
@@ -1127,21 +1228,23 @@ def fused_spectral_pipeline_scheduled(xt, idx, sel, vr, vi, dfr, dfi, dvr,
         _check_staged_fits(
             "fused_spectral_pipeline_scheduled", staged_shortcut_bytes(
                 s, s2, fa, tables=(n_cycles, r, n_pe),
-                blocks=-(-p // SCHED_OS_BLOCK_P) * gn * sched_halves(n_pe),
+                blocks=-(-p // SCHED_BLOCK_P) * gn * sched_halves(n_pe),
                 m=m, capacity=sched_cluster_capacity(xt.device)))
+    blocks = -(-p // SCHED_BLOCK_P)
+    split = (None if flow == OS else sched_flow_launch(
+        flow, blocks, m, block_m, n_out, n_pe, xt.device).split)
     with torch.cuda.device(xt.device):
         y = torch.empty((s2, n_out, p), dtype=torch.float32,
                         device=xt.device)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled",
-                flow, block_m, g,
-                -(-p // sched_block_p(flow)) * sched_block_p(flow),
-                xt.device,
+                flow, block_m, g, blocks * SCHED_BLOCK_P, xt.device,
                 (xt.data_ptr(), idx.data_ptr(), sel.data_ptr(),
                  vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (s, m, p, xt.stride(1), gn, mp, n_cycles, r, n_pe, fa,
-                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band)
+                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band,
+                split)
     return y
 
 
@@ -1369,21 +1472,21 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                                            band: bool = False
                                            ) -> torch.Tensor:
     """Halo gather -> FFT -> SCHEDULED sparse Hadamard -> IFFT (+
-    bias/ReLU) in one kernel launch (plus the split-K finish pass for a
-    weight-/input-stationary flow with more than one m range), reading
-    the RAW activation.
+    bias/ReLU) in one kernel launch (a weight-/input-stationary flow also
+    its split-K finish pass, as ``fused_spectral_pipeline_scheduled``),
+    reading the RAW activation.
 
     x: [B, M, H, W] f32 raw NCHW activation, contiguous; tables,
     operators, bias, flow and block_m as
     ``fused_spectral_pipeline_scheduled``; geo/hg, shortcut,
     shortcut_placement and band as ``fused_spectral_pipeline_halo`` (at
-    most ``sched_block_p(flow)`` tiles per block).  Returns [B, n_out, H_out,
+    most ``SCHED_BLOCK_P`` tiles per block).  Returns [B, n_out, H_out,
     W_out] f32, contiguous ([B, n_out, h_pad, w_pad] on a band).  CPU
     tensors run the plain version; CUDA tensors launch the kernel (or
     raise).
     """
     g = _flow_ranges(flow, block_m, x.shape[1], "scheduled")
-    _check_halo_input(x, geo, hg, sched_block_p(flow), band, shortcut)
+    _check_halo_input(x, geo, hg, SCHED_BLOCK_P, band, shortcut)
     _check_shortcut(shortcut, _halo_out_shape(x, geo, n_out), x.device,
                     flow, shortcut_placement)
     if x.device.type == "cpu":
@@ -1410,18 +1513,20 @@ def fused_spectral_pipeline_scheduled_halo(x, idx, sel, vr, vi, dfr, dfi,
                 tables=(n_cycles, r, n_pe),
                 blocks=x.shape[0] * hg.n_blocks * gn * sched_halves(n_pe),
                 m=x.shape[1], capacity=sched_cluster_capacity(x.device)))
+    blocks = x.shape[0] * hg.n_blocks
+    split = (None if flow == OS else sched_flow_launch(
+        flow, blocks, x.shape[1], block_m, n_out, n_pe, x.device).split)
     with torch.cuda.device(x.device):
         y = _halo_out(x, geo, n_out, band)
         _launch(library_scheduled(), "fused_spectral_pipeline_scheduled_halo",
-                flow, block_m, g,
-                x.shape[0] * hg.n_blocks * sched_block_p(flow),
-                x.device,
+                flow, block_m, g, blocks * SCHED_BLOCK_P, x.device,
                 (x.data_ptr(), idx.data_ptr(), sel.data_ptr(),
                  vr.data_ptr(), vi.data_ptr(), dfr.data_ptr(),
                  dfi.data_ptr(), dvr.data_ptr(), dvi.data_ptr(),
                  bias.data_ptr(), y.data_ptr()),
                 (*_halo_ints(x, geo, hg, band), mp, n_cycles, r, n_pe, fa,
-                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band)
+                 n_out, s2, int(relu)), s2, n_out, shortcut, staged, band,
+                split)
     return y
 
 

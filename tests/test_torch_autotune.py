@@ -58,21 +58,21 @@ MEASURED_DEVICE_MS = {
         (0.115, 0.5779, 0.392, 0.7124, 0.5672, 1.056, 1.058, 0.5551, 1.039,
         1.032, 0.4837, 0.4811, 0.4843)),
     ("scheduled", "weight_stationary", "windowed"): (
-        (1, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3),
-        (9.761, 10.39, 4.007, 4.137, 2.329, 3.312, 3.312, 1.591, 3.038, 3.042,
-        1.092, 1.101, 1.093)),
+        (4, 8, 8, 12, 8, 8, 8, 8, 12, 12, 8, 8, 8),
+        (0.1173, 0.9045, 0.4847, 0.7443, 0.5204, 1.027, 1.027, 0.6756, 1.149,
+         1.151, 0.7219, 0.7252, 0.7287)),
     ("scheduled", "weight_stationary", "halo"): (
-        (1, 1, 1, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3),
-        (10.31, 11.01, 3.938, 4.008, 2.487, 3.478, 3.471, 2.282, 4.342, 4.334,
-        1.058, 1.063, 1.057)),
+        (4, 8, 8, 12, 12, 12, 12, 8, 8, 8, 8, 8, 8),
+        (0.1496, 1.025, 0.6444, 0.9608, 0.7295, 1.423, 1.425, 0.8762, 1.724,
+         1.724, 0.7875, 0.7903, 0.7871)),
     ("scheduled", "input_stationary", "windowed"): (
-        (4, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8),
-        (0.1457, 1.22, 0.6078, 1.086, 0.6795, 1.178, 1.177, 0.7022, 1.306,
-        1.305, 0.6162, 0.6269, 0.6164)),
+        (8, 32, 16, 32, 32, 32, 32, 32, 32, 32, 32, 32, 32),
+        (0.1177, 0.5709, 0.3484, 0.5634, 0.3445, 0.6377, 0.6374, 0.3441,
+         0.6396, 0.6414, 0.3449, 0.3434, 0.3434)),
     ("scheduled", "input_stationary", "halo"): (
-        (4, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8),
-        (0.1468, 1.374, 0.6518, 1.208, 0.7759, 1.422, 1.423, 1.082, 1.759,
-        1.761, 0.6401, 0.6504, 0.6396)),
+        (8, 32, 32, 32, 16, 32, 32, 32, 32, 32, 32, 32, 32),
+        (0.1441, 0.599, 0.3603, 0.7001, 0.5811, 0.947, 0.947, 0.4955, 0.9394,
+         0.9396, 0.349, 0.3523, 0.3496)),
 }
 
 
@@ -108,15 +108,14 @@ def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
     4*GN*M*T*(10 + 3*64) with T = ceil(16 / 0.85) = 19; the split-K
     workspace of ``OS_SLICES``, ``IS_SLICES`` (the plane kernel's
     input-stationary launch) or the flows' m ranges written and read
-    once."""
+    once (by the scheduled flows with one m range too)."""
     layer = LAYERS[name]
     m, n, h = layer.c_in, layer.c_out, layer.h_in
     n_th = -(-h // 6)                       # tiles per side (h = w)
     p = batch * n_th * n_th
     sched = hadamard == "scheduled"
-    # tiles per CTA: the scheduled output-stationary kernel's 8, its flows'
-    # 4, the plane kernel's 16
-    bp = (8 if flow == "output_stationary" else 4) if sched else 16
+    # tiles per CTA: the scheduled kernels' 8, the plane kernel's 16
+    bp = 8 if sched else 16
     if input_mode == "halo":
         bt = min(bp, n_th * n_th)
         btw = min(n_th, bt)
@@ -141,7 +140,9 @@ def hand_bytes(name, flow, hadamard, input_mode, block_m, batch=1):
         total, g = x + rr(w, pb), -(-m // block_m)
         if not sched:
             g = IS_SLICES[(name, batch)]
-    ws = 4 * g * 36 * n * pb * bp if g > 1 else 0
+    # the scheduled flows store through the workspace with one slice too
+    split_k = g > 1 or (sched and flow != "output_stationary")
+    ws = 4 * g * 36 * n * pb * bp if split_k else 0
     return total + ops + y + 2 * ws
 
 
@@ -155,8 +156,8 @@ def test_cost_model_bytes_equal_hand_count(name, batch, flow, hadamard,
                                            input_mode):
     block_m = {("bin", "weight_stationary"): 16,
                ("bin", "input_stationary"): 64,
-               ("scheduled", "weight_stationary"): 3,
-               ("scheduled", "input_stationary"): 8}.get((hadamard, flow), 8)
+               ("scheduled", "weight_stationary"): 12,
+               ("scheduled", "input_stationary"): 32}.get((hadamard, flow), 8)
     c = at.hopper_fused_flow_cost(LAYERS[name], 8, 4.0, flow, hadamard,
                                   input_mode, batch=batch, active_bins=64,
                                   block_m=block_m)
@@ -296,15 +297,16 @@ def test_no_kept_candidate_over_shared_memory(name, batch, monkeypatch):
 
 def test_shared_memory_mirror_matches_the_kernels_caps():
     """The Python mirror of the CUDA layouts: ws planes fit at 16
-    channels and not 24, is X~ at 64; scheduled ws tables at 3 channels
-    of T = 21 and not 4."""
+    channels and not 24, is X~ at 64; scheduled ws table rows at 14
+    channels of T = 21 and not 15 (the tensor-core flow kernel's
+    ``FlowLayout``: its widest built width, 12, fits)."""
     geo = spec.make_geometry(224, 224, 3, 8, 1)
     assert fsc.plane_smem_bytes("weight_stationary", geo, 16) <= 232_448
     assert fsc.plane_smem_bytes("weight_stationary", geo, 24) > 232_448
     assert fsc.plane_smem_bytes("input_stationary", geo, 64) <= 232_448
-    assert fsc.sched_smem_bytes("weight_stationary", geo, 3, 21, 10,
+    assert fsc.sched_smem_bytes("weight_stationary", geo, 14, 21, 10,
                                 64) <= 232_448
-    assert fsc.sched_smem_bytes("weight_stationary", geo, 4, 21, 10,
+    assert fsc.sched_smem_bytes("weight_stationary", geo, 15, 21, 10,
                                 64) > 232_448
     assert max(w for k, w in [(k, max(v)) for k, v in
                               fsc.FLOW_BLOCK_M.items()]) == 64

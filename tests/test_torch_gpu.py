@@ -570,14 +570,16 @@ def test_shared_memory_mirror_matches_the_kernels():
                                         block_m=over)
     base = scheduled_operands(64, 6, 9, 64, 64, 36, seed=3)
     t0 = base[1].shape[2]
+    wide = max(fsc.FLOW_BLOCK_M[("scheduled", "weight_stationary")])
     t_max = max(t for t in range(t0, 64) if fsc.sched_smem_bytes(
-        "weight_stationary", geo, 3, t, 10, 64) <= cap)
+        "weight_stationary", geo, wide, t, 10, 64) <= cap)
     for t, ok in ((t_max, True), (t_max + 1, False)):
         ops = scheduled_operands(64, 6, 9, 64, 64, 36, seed=3,
                                  pad_cycles=t - t0)
         assert ops[1].shape[2] == t
         run = lambda: fsc.fused_spectral_pipeline_scheduled(
-            *ops, n_out=64, relu=True, flow="weight_stationary", block_m=3)
+            *ops, n_out=64, relu=True, flow="weight_stationary",
+            block_m=wide)
         if ok:
             run()
         else:
@@ -1566,7 +1568,7 @@ def test_scheduled_os_kernel_at_vgg16_layers_on_card(name, m, n, h):
     import repro_torch
     repro_torch.strict_fp32()
     geo = spec.make_geometry(h, h, 3, 8)
-    hg = spec.halo_block_geometry(geo, fsc.SCHED_OS_BLOCK_P)
+    hg = spec.halo_block_geometry(geo, fsc.SCHED_BLOCK_P)
     gen = torch.Generator(device="cuda").manual_seed(m * n + h)
     tabs = vgg16_layer_tables(m, n, seed=m + h)
     dft = [torch.from_numpy(a).cuda()
@@ -1591,14 +1593,58 @@ def test_scheduled_os_kernel_at_vgg16_layers_on_card(name, m, n, h):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_scheduled_flow_kernels_at_vgg16_layers_on_card(name, m, n, h):
+    """B2 ws sched and is sched (windows and halo blocks of up to 8 tiles)
+    at every VGG16 layer shape (tables of ``vgg16_layer_tables``, the
+    forward DFT operators on all 64 bins), batch 1 and 4, at every m-range
+    width of ``FLOW_BLOCK_M``: within 2e-6 of max|plain| (the plain
+    version in the flow's m-range order), bitwise on repeat, counted once
+    a call under the flow's entry point."""
+    need_card()
+    import repro_torch
+    repro_torch.strict_fp32()
+    geo = spec.make_geometry(h, h, 3, 8)
+    hg = spec.halo_block_geometry(geo, fsc.SCHED_BLOCK_P)
+    gen = torch.Generator(device="cuda").manual_seed(m * n + h + 2)
+    tabs = vgg16_layer_tables(m, n, seed=m + h + 1)
+    dft = [torch.from_numpy(a).cuda()
+           for a in fsc.overlap_save_operators(8, 3)]
+    bias = torch.randn((1, n), generator=gen, device="cuda")
+    for b in (1, 4):
+        x = torch.randn((b, m, h, h), generator=gen, device="cuda")
+        for fn, inp, extra in (
+                (fsc.fused_spectral_pipeline_scheduled,
+                 fsc._windows_layout(x, geo)[0], {}),
+                (fsc.fused_spectral_pipeline_scheduled_halo, x,
+                 dict(geo=geo, hg=hg))):
+            plain = getattr(fsc, fn.__name__ + "_reference")
+            for flow in ("weight_stationary", "input_stationary"):
+                for block_m in fsc.FLOW_BLOCK_M[("scheduled", flow)]:
+                    kw = dict(n_out=n, relu=True, flow=flow,
+                              block_m=block_m, **extra)
+                    before = dict(fsc.LAUNCHES)
+                    y = fn(inp, *tabs, *dft, bias, **kw)
+                    torch.cuda.synchronize()
+                    assert flow_delta(before) == {
+                        fsc.entry_point(fn.__name__, flow): 1}
+                    ref = plain(inp, *tabs, *dft, bias, **kw)
+                    assert _rel(y, ref) <= TC_TOL, (fn.__name__, flow,
+                                                    block_m, b,
+                                                    _rel(y, ref))
+                    assert torch.equal(y, fn(inp, *tabs, *dft, bias, **kw))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("source,function", [
     ("fused_spectral_conv", "fused_is_kernel"),
-    ("fused_spectral_conv_scheduled", "fused_sched_os_kernel")])
+    ("fused_spectral_conv_scheduled", "fused_sched_os_kernel"),
+    ("fused_spectral_conv_scheduled", "fused_sched_flow_kernel")])
 def test_redesigned_kernel_runs_on_the_tensor_cores(source, function):
-    """B2 is plane's and B4/B5's SASS (``cuobjdump -sass`` of their
-    library) holds tensor-core products (HMMA: the 3xTF32 mma.sync of the
-    tile-FFT, Hadamard or IFFT) and no local-memory store (STL: no spill)
-    in any instantiation."""
+    """B2 is plane's, B4/B5's and B2 ws / is sched's SASS (``cuobjdump
+    -sass`` of their library) holds tensor-core products (HMMA: the
+    3xTF32 mma.sync of the tile-FFT, Hadamard or IFFT) and no local-memory
+    store (STL: no spill) in any instantiation."""
     need_card()
     from repro_torch.kernels import _build
     counts = _build.sass_counts(source, function, fsc.SOURCES[source])

@@ -283,8 +283,7 @@ def test_execute_layer_plan_smoke_layers(halo_plans, index, hadamard):
     assert lp.input_mode == lp.tuning.input_mode == "halo"
     assert lp.hadamard == jlp.hadamard
     tiles = lp.geo.n_tiles
-    p_blk = (fsc.sched_block_p(lp.tuning.flow) if hadamard == "scheduled"
-             else fsc.BLOCK_P)
+    p_blk = fsc.SCHED_BLOCK_P if hadamard == "scheduled" else fsc.BLOCK_P
     assert lp.tuning.block_p == min(p_blk, tiles)      # per image
     layer = lp.layer
     x = np.random.default_rng(index).standard_normal(

@@ -35,7 +35,7 @@ def test_scheduled_cluster_rule_by_hand(name, batch):
     layer = LAYERS[name]
     blocks, c = CLUSTERS[(name, batch)]
     n_tiles = (-(-layer.h_in // 6)) ** 2
-    assert blocks == (-(-batch * n_tiles // fsc.SCHED_OS_BLOCK_P)
+    assert blocks == (-(-batch * n_tiles // fsc.SCHED_BLOCK_P)
                       * -(-layer.c_out // 64) * fsc.sched_halves(64))
     assert fsc.sched_cluster(blocks, layer.c_in, CAP) == c
     grid = at.kernel_grid(layer, 8, "output_stationary", "scheduled",

@@ -267,7 +267,7 @@ def test_staged_shortcut_falls_back_where_it_does_not_fit():
     big = dataclasses.replace(lp, layer=layer, geo=geo, tables=tabs,
                               input_mode="windowed")
     blocks = {b: 4 * fsc.sched_halves(64)
-              * -(-b * geo.n_tiles // fsc.SCHED_OS_BLOCK_P) for b in (1, 4)}
+              * -(-b * geo.n_tiles // fsc.SCHED_BLOCK_P) for b in (1, 4)}
     assert [fsc.sched_cluster(blocks[b], 256, cap) for b in (1, 4)] == [3, 1]
     need = {b: fsc.staged_shortcut_bytes(
         64, 36, big.n_active_bins, tables=(110, 10, 64), blocks=blocks[b],
