@@ -17,8 +17,9 @@ each of which fails the run on error:
       kernel takes no shortcut, its finish pass does);
       an output-stationary kernel without a shortcut that spills fails
       the run, as do a spill in a tensor-core fused kernel (the plane
-      output-stationary kernel, B1/B3; the plane input-stationary kernel,
-      B2 is plane; the scheduled output-stationary kernel, B4/B5; the
+      output-stationary kernel, B1/B3; the plane input- and weight-
+      stationary kernels, B2 is / ws plane; the scheduled output-
+      stationary kernel, B4/B5; the
       scheduled weight-/input-stationary kernel, B2 ws / is sched) or no
       HMMA in its SASS, a spill store in the staged Hadamard libraries
       (spectral_hadamard, sparse_hadamard) or a spectral Hadamard whose
@@ -74,9 +75,10 @@ each of which fails the run on error:
       (``x_device_ms``) per layer and in total, the output-stationary
       kernel's time on the same input and max|flow - os|, and whether
       every layer is within 2e-6 of max|plain|; for the scheduled flows
-      also each layer's launch (``fsc.sched_flow_launch``: CTAs, waves, m
-      ranges, split: ws chunks of tile blocks, is shares of the group
-      walk);
+      and the plane weight-stationary flow also each layer's launch
+      (``fsc.sched_flow_launch``, ``fsc.ws_launch``: CTAs, waves, m
+      ranges, split: ws chunks of tile blocks (plane: ``x_per`` blocks a
+      CTA), is shares of the group walk);
   (c6) the same for the four halo flow kernels, plus max|halo -
       windowed| of the same flow;
   (c7) the Hopper cost model against the batch-1 kernel times of
@@ -516,9 +518,18 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
                 .n_blocks if halo else -(-b * lp.geo.n_tiles // bp))
 
     def geometry(lp):
-        """The scheduled flow's batch-1 launch (``sched_flow_launch``):
-        CTAs, waves, m ranges and its split (ws chunks, is walk shares)."""
+        """The flow's batch-1 launch: CTAs, waves, m ranges and its split
+        (the plane weight-stationary launch's chunks of tile blocks,
+        ``ws_launch``, of ``x_per`` blocks a CTA on windows; the scheduled
+        flows' ``sched_flow_launch``: ws chunks, is walk shares)."""
         layer = lp.layer
+        if not sched:
+            wg = fsc.ws_launch(-(-lp.geo.n_tiles // fsc.BLOCK_P),
+                               layer.c_out, layer.c_in, lp.tuning.block_m,
+                               lp.n_active_bins, flush.device)
+            return {"x_ctas": wg.ctas, "x_waves": wg.waves,
+                    "x_ranges": -(-layer.c_in // lp.tuning.block_m),
+                    "x_split": wg.split, "x_per": wg.per}
         fg = fsc.sched_flow_launch(flow, blocks(lp, 1, fsc.SCHED_BLOCK_P),
                                    layer.c_in, lp.tuning.block_m,
                                    layer.c_out, lp.tables.sel.shape[-1],
@@ -536,7 +547,7 @@ def check_flow(label, kind, imode, flow, fplan, xgen, flush, layer_bound,
                                     flush_fn),
                 "x_os_abs": float((y - yo).abs().max()),
                 "x_flow_bound_ms": flow_bound_ms(lp, 1),
-                **(geometry(lp) if sched else {})}
+                **(geometry(lp) if sched or flow == fsc.WS else {})}
 
     def twin(lp, x_img):
         """The windowed kernel of the same flow and m ranges, assembled."""
@@ -603,9 +614,10 @@ def spill_report() -> list[tuple[str, str, str, int, int]]:
                 flow = ("os" if kind in ("fused_os_kernel",
                                          "fused_sched_os_kernel")
                         else "is" if kind == "fused_is_kernel"
+                        else "ws" if kind == "fused_ws_kernel"
                         else "finish" if kind.startswith("finish")
                         else flows[ints[-2]])
-            out.append((kind, "halo" if "HaloPath" in name else "windowed",
+            out.append((kind, "halo" if "Halo" in name else "windowed",
                         flow, placement, int(m.group(1))))
             name = None
     return out
@@ -1420,6 +1432,10 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                      f"{grid.lane_blocks} lane blocks x {grid.ranges} "
                      f"ranges of {grid.range_m}"))
     for e, tt in tot.items():
+        if e == "ifft2_tiles":      # its card tests' gate, TC_TOL
+            print(f"    ifft2_tiles: every layer, batch 1 and 4, within "
+                  f"{OS_TC_TOL:g} of max|plain|: {tt['err'] <= OS_TC_TOL}, "
+                  f"the largest {tt['err']:.3e}")
         tt["by"] = bound_of(tt["flops"], tt["bytes"])[1]
         lib = tt["library_ms"]
         print(f"    total {e}: kernel {tt['ms']:.4f} ms (call "
@@ -2309,6 +2325,7 @@ def main() -> int:
     # the tensor-core kernels: no spill, HMMA in their SASS
     tc_kernels = {"fused_os_kernel": ("fused_spectral_conv", "B1, B3"),
                   "fused_is_kernel": ("fused_spectral_conv", "B2 is plane"),
+                  "fused_ws_kernel": ("fused_spectral_conv", "B2 ws plane"),
                   "fused_sched_os_kernel": ("fused_spectral_conv_scheduled",
                                             "B4, B5"),
                   "fused_sched_flow_kernel": ("fused_spectral_conv_scheduled",
@@ -2816,7 +2833,7 @@ def main() -> int:
                          in kname
                          else "fused_os_kernel" if flow == fsc.OS
                          else "fused_is_kernel" if flow == fsc.IS
-                         else None)
+                         else "fused_ws_kernel")
             if tc_kernel:
                 row["sass"] = tc_sass[tc_kernel]
             kernels.append(row)

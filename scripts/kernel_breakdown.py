@@ -6,31 +6,33 @@
                                         [--json OUT]
 
 Needs one CUDA device and nvcc.  For each kernel it knows (the plane
-kernel's input-stationary flow, ``plane_is``; the scheduled kernel's
-output-stationary launch, ``sched_os``, and its weight- and
-input-stationary flows, ``sched_ws`` and ``sched_is``) it builds
-development variants of
-the kernel's source in which one stage is cut out by a text substitution
-(the tile-FFT, the Hadamard or table walk, the valid-row IFFT, or all
-three, leaving the copies, barriers and the store; for the scheduled
-kernel also its copies, a 1xTF32 FFT and an eight-stage ring), and of
-designs tried and not kept, each a patch of the source under
-``scripts/variants/`` (for the scheduled kernel, ``shared_fft``: the
-tile-FFT shared by the Q (group, lane half) CTAs of a tile block over
-DSMEM, with its launch rule as written, forced to Q = 1, and forced to
-the widest share with no channel split), then times each
-variant device-only at the 13 full-width VGG16 layers, batch 1, on the
-operands of a plan built from seed 0 (``--input-mode halo``: the plan
-moved to the halo path, the halo entry point on the raw activation;
-the plane kernel's variants are windowed only): an L2 flush and a spin
-kernel run
-before the start event, so the wrapper's host work is hidden (as
-``chip_smoke.py``'s ``enqueued_ms``).  A variant whose substitution finds
-nothing in the source is reported as not applicable, so the script runs
-on any tree: ``--src`` puts another checkout's ``src`` first on the path
-(its kernels, wrappers and plan), e.g. an unpacked parent commit.  The
-variants compute wrong results; only their times mean anything.  Builds
-go to ``build/kernel_breakdown/`` (git-ignored with ``build/``).
+kernel's weight- and input-stationary flows, ``plane_ws`` and
+``plane_is``; the scheduled kernel's output-stationary launch,
+``sched_os``, and its weight- and input-stationary flows, ``sched_ws``
+and ``sched_is``) it builds development variants of the kernel's source
+in which one stage is cut out by a text substitution (the tile-FFT, the
+Hadamard or table walk, the valid-row IFFT, or all three, leaving the
+copies, barriers and the store; for ``plane_ws`` and the scheduled
+kernels also their copies, for ``sched_os`` a 1xTF32 FFT and an
+eight-stage ring), and of designs tried and not kept, each a patch of
+the source under ``scripts/variants/`` (for the scheduled kernel,
+``shared_fft``: the tile-FFT shared by the Q (group, lane half) CTAs of
+a tile block over DSMEM, with its launch rule as written, forced to Q =
+1, and forced to the widest share with no channel split), then times
+each variant device-only at the 13 full-width VGG16 layers, batch 1, on
+the operands of a plan built from seed 0 (``--input-mode halo``: the
+plan moved to the halo path, the halo entry point on the raw
+activation): an L2 flush and a spin kernel run before the start event,
+so the wrapper's host work is hidden (as ``chip_smoke.py``'s
+``enqueued_ms``).  ``ifft`` times the staged path's tile IFFT (B7a,
+``fft8.ifft2_tiles``) and ``torch.fft.ifft2`` alike at the staged VGG16
+forward's 13 launches (random spectra of B N T tiles).  A variant whose
+substitution finds nothing in the source is reported as not applicable,
+so the script runs on any tree: ``--src`` puts another checkout's
+``src`` first on the path (its kernels, wrappers and plan), e.g. an
+unpacked parent commit.  The variants compute wrong results; only their
+times mean anything.  Builds go to ``build/kernel_breakdown/``
+(git-ignored with ``build/``).
 """
 
 from __future__ import annotations
@@ -62,17 +64,34 @@ VARIANTS = {
             [("fft_step(sx, s_xf + step * MP, pitch);", "")],
             [("mma3_f32(c[j], ah, al, bh, bl);", "",
               "} } #pragma unroll for (int j = 0; j < 2; ++j) { "
-              "const int o = gq * L.xfp")]]),
+              "const int o = gq * L.xfp")],
+            [("float c[2][4]; tile_fft<2>(io, st, s_soff, fcol, s_da, S, "
+              "lane, tq, c);", "float c[2][4] = {};")]]),
         ("no_hadamard", [
             [("hadamard_step(stage, stage + W_PLANE, BM, 0, "
               "s_xf + step * MP, pitch);", "")],
             [("add4(are[mt][pt], tr); add4(aim[mt][pt], ti);", "",
-              "} } } if (s < n_steps - 1) continue;")]]),
+              "} } } if (s < n_steps - 1) continue;")],
+            [("hadamard_mma(st, st + W_PLANE, hf, gq, tq, brh, brl, bih, "
+              "bil, are, aim);", "")]]),
         ("no_ifft", [
             [("fold(); reduce_store(blk, blockIdx.x, n0);",
               "reduce_store(blk, blockIdx.x, n0);")],
             [("for (int i0 = 2 * warp; i0 < n_cts; i0 += 2 * WARPS) {",
-              "for (int i0 = n_cts; i0 < n_cts; i0 += 2 * WARPS) {")]]),
+              "for (int i0 = n_cts; i0 < n_cts; i0 += 2 * WARPS) {")],
+            [("gather_ifft<2, false, 1>(",
+              "if (false) gather_ifft<2, false, 1>(")]]),
+    ]),
+    # the plane weight-stationary flow's tensor-core kernel (the parent's
+    # CUDA-core fused_flow_kernel: base only)
+    "plane_ws": ("fused_spectral_conv", "weight_stationary", [
+        ("no_fft", [[("float c[2][4]; tile_fft<WS_FFT_UNROLL[std::is_same<"
+                      "Path, HaloWsPath>::value]>( io, sx, s_soff, fcol, "
+                      "s_da, S, lane, tq, c);", "float c[2][4] = {};")]]),
+        ("no_hadamard", [[("hadamard_mma<WBN>(pw, pw + W_WPLANE, hf, gq, tq, "
+                           "brh, brl, bih, bil, are, aim);", "")]]),
+        ("no_ifft", [[("gather_ifft<1, true, WS_IFFT_UNROLL>(",
+                       "if (false) gather_ifft<1, true, WS_IFFT_UNROLL>(")]]),
     ]),
     "sched_os": ("fused_spectral_conv_scheduled", "output_stationary", [
         ("no_fft", [
@@ -128,6 +147,15 @@ VARIANTS = {
 # more cuts of one design, timed where they apply: the copies left out
 # (every step computes on whatever its ring slot holds)
 EXTRA = {
+    "plane_ws": [
+        ("no_copies", [("if (tma_x) sm90::mbar_wait(&bars[q % ST], (q / ST) "
+                        "& 1);", ""),
+                       ("__syncthreads(); // step q landed; the slot of step "
+                        "q - 1 is free if (q + ST - 1 < total) issue(q + ST "
+                        "- 1);", "__syncthreads();"),
+                       ("if (q < total) issue(q);", "",
+                        "cp_async_commit(); } const int hf = warp;")]),
+    ],
     "sched_os": [
         ("fft_1xtf32", [("mma3_f32(c, ah, al, bh, bl);",
                          "mma_tf32(c, ah, bh);")]),
@@ -282,17 +310,42 @@ def device_ms(fn, flush) -> float:
     return statistics.median(times)
 
 
+def time_ifft(dev, flush, xgen) -> dict:
+    """B7a ifft (``fft8.ifft2_tiles``, the tree's own) and
+    ``torch.fft.ifft2`` timed alike, device-only, at the staged VGG16
+    forward's 13 launches at batch 1 (B N T tiles of random spectra)."""
+    import torch
+    from repro_torch.core import dataflow as df
+    from repro_torch.core.spectral import make_geometry
+    from repro_torch.kernels import fft8
+    rows = {"kernel": [], "library": []}
+    for layer in df.VGG16_LAYERS:
+        t = make_geometry(layer.h_in, layer.w_in, layer.ksize, 8,
+                          layer.pad).n_tiles
+        yr, yi = (torch.randn((layer.c_out * t, 8, 8), generator=xgen,
+                              device=dev) for _ in range(2))
+        yc = torch.complex(yr, yi)
+        rows["kernel"].append(device_ms(lambda: fft8.ifft2_tiles(yr, yi),
+                                        flush.zero_))
+        rows["library"].append(device_ms(lambda: torch.fft.ifft2(yc),
+                                         flush.zero_))
+    for k, ms in rows.items():
+        print(f"ifft {k:8s} total {sum(ms):9.4f} ms  per layer "
+              + " ".join(f"{v:.4f}" for v in ms))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--only", default=",".join(VARIANTS))
+    ap.add_argument("--only", default=",".join([*VARIANTS, "ifft"]))
     ap.add_argument("--json", default=None)
     ap.add_argument("--block-m", type=int, default=None,
                     help="the flows' m-range width (rounded up to 8, at "
                          "most M) instead of the plan's")
     ap.add_argument("--input-mode", choices=("windowed", "halo"),
                     default="windowed",
-                    help="the scheduled kernels' input path")
+                    help="the fused kernels' input path")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -309,6 +362,8 @@ def main() -> int:
     from repro_torch.models import cnn
 
     names = [n for n in args.only.split(",") if n]
+    ifft = "ifft" in names
+    names = [n for n in names if n != "ifft"]
     repro_torch.strict_fp32()
     dev = torch.device("cuda", 0)
     print(f"kernel_breakdown: {torch.cuda.get_device_name(0)}; kernels "
@@ -321,19 +376,23 @@ def main() -> int:
     print(f"built {sum(v is not None for v in libs.values())} variants in "
           f"{time.perf_counter() - t0:.1f} s")
     _build.BUILD_DIR = ROOT / "build" / "kernel_breakdown" / "base"
-    base_libs = _build.build(fsc.SOURCES)      # the other source, as built
-    params = cnn.init(CONFIG, generator=torch.Generator().manual_seed(0),
-                      device=dev)
     xgen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     result = {}
+    if ifft:
+        result["ifft"] = time_ifft(dev, flush, xgen)
+    if names:       # the other source, as built
+        base_libs = _build.build(fsc.SOURCES)
+        params = cnn.init(CONFIG,
+                          generator=torch.Generator().manual_seed(0),
+                          device=dev)
     for name in names:
         source, flow, _ = VARIANTS[name]
         sched = source.endswith("scheduled")
         plan = build_network_plan(params, CONFIG, batch=1, device=dev,
                                   **(dict(hadamard="scheduled") if sched
                                      else {}))
-        halo = sched and args.input_mode == "halo"
+        halo = args.input_mode == "halo"
         if halo:
             plan = with_input_mode(plan, "halo")
         if flow != fsc.OS:
@@ -350,7 +409,7 @@ def main() -> int:
                                  else min(args.block_m,
                                           -(-layer.c_in // 8) * 8))
             ops = (lp.dfr, lp.dfi, lp.dvr, lp.dvi, lp.bias)
-            if halo:
+            if halo and sched:
                 calls.append((layer.name, lambda x=x, lp=lp, kw=kw, ops=ops:
                               fsc.fused_spectral_pipeline_scheduled_halo(
                                   x, *lp.tables, *ops, geo=lp.geo,
@@ -358,6 +417,13 @@ def main() -> int:
                                       lp.geo, lp.tuning.block_p),
                                   n_out=lp.layer.c_out, **kw),
                               kw.get("block_m", 1)))
+            elif halo:
+                calls.append((layer.name, lambda x=x, lp=lp, kw=kw, ops=ops:
+                              fsc.fused_spectral_pipeline_halo(
+                                  x, lp.wr, lp.wi, *ops, geo=lp.geo,
+                                  hg=halo_block_geometry(
+                                      lp.geo, lp.tuning.block_p), **kw),
+                              kw["block_m"]))
             elif sched:
                 calls.append((layer.name, lambda xt=xt, lp=lp, kw=kw, ops=ops:
                               fsc.fused_spectral_pipeline_scheduled(

@@ -92,12 +92,11 @@ MEASURE_SEED = 0
 # (``fsc.os_launch_geometry``, ``fsc.os_latency_s``), the one the wrapper
 # launches by.
 LATENCY_FIT = {
-    ("plane", "weight_stationary", "windowed"): (
-        1.0707618612287552e-05, 6.264908860239931e-06),
-    ("plane", "weight_stationary", "halo"): (
-        1.4314893300985302e-05, 5.619317225330493e-06),
-    # the input-stationary launch's own model, by which the wrapper sizes
-    # it (``fsc.is_launch_geometry``)
+    # the weight- and input-stationary launches' own models, by which the
+    # wrapper sizes them (``fsc.ws_launch_geometry``,
+    # ``fsc.is_launch_geometry``)
+    ("plane", "weight_stationary", "windowed"): fsc.WS_LATENCY["windowed"],
+    ("plane", "weight_stationary", "halo"): fsc.WS_LATENCY["halo"],
     ("plane", "input_stationary", "windowed"): fsc.IS_LATENCY["windowed"],
     ("plane", "input_stationary", "halo"): fsc.IS_LATENCY["halo"],
     ("scheduled", "output_stationary", "windowed"): (
@@ -132,7 +131,10 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
     ``fsc.os_launch_geometry`` on ``H100_OS_CLUSTERS`` (the halo path
     takes its windowed twin's split over its own tile blocks); the
     scheduled one's cluster is ``fsc.sched_cluster`` on the same
-    capacity, whose waves count its clusters; the scheduled weight- and
+    capacity, whose waves count its clusters; the plane weight-stationary
+    launch is the wrapper's own, ``fsc.ws_launch_geometry`` on the same
+    capacity (``split``: chunks of tile blocks; the halo path takes its
+    windowed twin's split over its own blocks); the scheduled weight- and
     input-stationary launches are the wrapper's own,
     ``fsc.sched_flow_geometry`` on ``H100_SMS`` (``split``: ws chunks of
     tile blocks, is shares of the group walk)."""
@@ -175,9 +177,17 @@ def kernel_grid(layer: df.ConvLayer, fft_size: int, flow: str,
             ranks, g, slices = og.cluster, og.ranges, og.slices
             ctas, steps = clusters * og.cluster, -(-og.range_m // fsc.BLOCK_M)
             rects = 1
-        elif flow == fsc.WS:
-            ctas, steps, rects = g * nb * chunks, pb * ksteps, pb
-            waves = -(-g * nb // H100_OS_CLUSTERS[chunks])
+        elif flow == fsc.WS:        # the wrapper's launch rule
+            nb = -(-layer.c_out // fsc.WS_BLOCK_N)
+            wg = fsc.ws_launch_geometry(
+                -(-batch * geo.n_tiles // fsc.BLOCK_P), nb, g, width,
+                chunks, H100_OS_CLUSTERS[chunks])
+            per = -(-pb // wg.split)
+            clusters = -(-pb // per) * nb * g
+            ctas, rects = clusters * chunks, per
+            steps = per * ksteps + fsc.WS_SETUP_STEPS
+            waves = -(-clusters // H100_OS_CLUSTERS[chunks])
+            split = wg.split
         else:
             ctas, steps, rects = pb * g * chunks, ksteps * (1 + nb), nb
             ig = fsc.is_launch_geometry(
@@ -248,10 +258,11 @@ def hopper_fused_flow_cost(layer: df.ConvLayer, fft_size: int,
     (``LATENCY_FIT``): waves = the launch's CTA waves (``kernel_grid``:
     clusters over the card's cluster capacity where the kernel runs
     clusters, else ceil(ctas / 132)), ``rects`` = output
-    rectangles a CTA finishes (1 for output-stationary, every tile block
-    for weight-stationary, every n block or group for
-    input-stationary; the scheduled flows' (tile block, group half)
-    rectangles of ``fsc.sched_flow_geometry``), ``steps`` = channel
+    rectangles a CTA finishes (1 for output-stationary, the tile blocks
+    of its chunk for weight-stationary (``fsc.ws_launch_geometry``),
+    every n block or group for input-stationary; the scheduled flows'
+    (tile block, group half) rectangles of ``fsc.sched_flow_geometry``),
+    ``steps`` = channel
     steps a CTA runs; the plane
     kernel's output-stationary launch is priced as the wrapper launches
     it, ``fsc.os_latency_s`` over its cluster waves (``kernel_grid``).

@@ -82,8 +82,7 @@
 // stores finished tiles straight into y[B, N, H_out, W_out].  The FFT,
 // Hadamard, IFFT, cluster split and rank-order reduction are the windowed
 // kernel's code (the kernel is templated on the input path); so are the
-// input-stationary kernel's.  The weight-stationary flow keeps the expand
-// pass into a [S][BM][BP] window stage.  Its bound is B1's operations on
+// weight- and input-stationary kernels'.  Its bound is B1's operations on
 // the real tiles and the raw activation read once; idle slots (blocks past
 // the tile grid, 3x3-tile blocks in 16 slots) cost time, not bytes.
 //
@@ -91,32 +90,38 @@
 // *_is_f32, windowed and halo; replacing the TPU bodies `_kernel_ws` (:571)
 // and `_kernel_is` (:591) of src/repro/kernels/fused_spectral_conv.py with
 // their psum read-modify-write `_dma_rmw_start` (:487) / `_dma_rmw_finish`
-// (:497)) compute the same function with another reuse.  A flow CTA owns
-// one m range of RM input channels (RM a multiple of FSC_BM; G = ceil(M /
-// RM) ranges) and one bin chunk of a cluster, as above:
-//  * weight-stationary (reuse kernels; on the CUDA cores, f32 FMAs, TN
-//    outputs x FC bins a thread): CTA = (m range, n block, chunk).  It
-//    copies its plane block [FC][BN][RM] into shared memory once and walks
-//    every tile block with it, so each plane element is read from device
-//    memory once per layer.  Windows are re-read once per n block.
-//  * input-stationary (reuse activations; `fused_is_kernel`, B1's
-//    tensor-core design): CTA = (tile block, m range, chunk).  It computes
-//    X~ of its windows for the whole m range once into shared memory
-//    ([FC][RM][BP], the tile-FFT in 3xTF32 MMAs, the windows by TMA through
-//    a three-stage mbarrier ring) and walks every n block, streaming its
-//    planes by TMA boxes through the same ring into B1's Hadamard, IFFT and
-//    cluster reduction; each tile-FFT is computed once per tile block.
-// After each output rectangle the cluster sums its bin chunks over
-// distributed shared memory in rank order, as B1 does.  With one m range
-// (G = 1) that is the finished output (bias, ReLU, stored as B1 stores it).
+// (:497)) compute the same function with another reuse, from B1's
+// tensor-core pieces (shared device functions: the tile-FFT, the
+// Hadamard, the Y~ gather and its IFFT).  A flow CTA owns one m range of
+// RM input channels (RM a multiple of FSC_BM; G = ceil(M / RM) ranges)
+// and one bin chunk of a cluster, as above:
+//  * weight-stationary (reuse kernels; `fused_ws_kernel`): CTA = (chunk of
+//    tile blocks, n block of 32, m range, bin chunk).  Its plane block
+//    [FC][32][RM] lands in shared memory once (TMA boxes) and stays while
+//    it walks its chunk of tile blocks, their windows streamed through a
+//    TMA ring; each plane element is read from device memory once per
+//    chunk of tile blocks (fsc.ws_launch_geometry sizes the chunks by the
+//    card's cluster capacity), the windows once per n block.
+//  * input-stationary (reuse activations; `fused_is_kernel`): CTA = (tile
+//    block, m range, chunk).  It computes X~ of its windows for the whole
+//    m range once into shared memory ([FC][RM][BP], the windows by TMA
+//    through a three-stage mbarrier ring) and walks every n block,
+//    streaming its planes by TMA boxes through the same ring; each
+//    tile-FFT is computed once per tile block.
+// After each output rectangle the cluster gathers each n-tile's Y~ over
+// its bin chunks at one rank through distributed shared memory, which
+// takes that n-tile's IFFT over every bin, summing the chunks in rank
+// order.  With one m range (G = 1) that is the finished output (bias,
+// ReLU).
 // Otherwise it is the range's partial, written to slice g of a split-K
 // workspace [G, S2, N, slots] that the wrapper allocates, and a second
 // launch (split_k.cuh) sums the slices in ascending g and applies bias and
 // ReLU: no atomics, the same bits on every launch.  Bound: B1's operations
 // plus the IFFT per m range, and bytes with the workspace written and read
 // once; the flows trade it against re-reading planes (os, is) or windows
-// (os, ws).  A CTA keeps one of the three arrays resident on top of B1's
-// spatial partial, so RM is capped by shared memory: 16 for ws, 64 for is.
+// (os, ws).  A CTA keeps one of the three arrays resident beside its ring,
+// so RM is capped by shared memory at K = 8: 32 for ws beside a three-slot
+// window ring, 48 beside two; 64 for is.
 //
 // Every entry point takes an optional residual shortcut `sc` laid out like
 // y (B6 residual, shortcut.cuh), added after the bias and before the ReLU
@@ -141,8 +146,7 @@
 #include "split_k.cuh"
 
 #if !defined(FSC_BN) || !defined(FSC_BP) || !defined(FSC_BM) || \
-    !defined(FSC_FC) || !defined(FSC_THREADS) || !defined(FSC_OS_STAGES) || \
-    !defined(FSC_OS_THREADS)
+    !defined(FSC_FC) || !defined(FSC_OS_STAGES) || !defined(FSC_OS_THREADS)
 #error "build through repro_torch.kernels._build (defines FSC_* block sizes)"
 #endif
 
@@ -154,17 +158,10 @@ constexpr int BN = FSC_BN;        // output channels per CTA
 constexpr int BP = FSC_BP;        // tiles per CTA
 constexpr int BM = FSC_BM;        // input channels per pipeline step
 constexpr int FC = FSC_FC;        // frequency bins per CTA (cluster rank)
-constexpr int NT = FSC_THREADS;   // threads per CTA
 constexpr int MAX_CLUSTER = 8;    // portable cluster size
 constexpr int MP = BM * BP;       // (m, p) pairs per step
-constexpr int TN = BN * BP / NT;  // outputs per thread, spaced NSTRIDE in n
-constexpr int NSTRIDE = NT / BP;
-constexpr int FPT = FC * MP / NT; // tile-FFT bins per thread
 constexpr int W_PLANE = FC * BN * BM;      // floats of one re or im plane
-static_assert(NT % BP == 0 && (BN * BP) % NT == 0, "Hadamard thread map");
 static_assert(BP % 4 == 0 && BM % 4 == 0, "16-byte copies and plane loads");
-static_assert(NT % MP == 0 && (FC * MP) % NT == 0 && FPT % 2 == 0,
-              "tile-FFT map (bin pairs as float4 DFT loads)");
 
 // The output-stationary kernel's MMA tiling: ONT threads, a warp per
 // channel (16 (channel, tile) columns) of the tile-FFT and per bin in the
@@ -287,27 +284,53 @@ struct IsLayout {
   }
 };
 
-// Shared-memory carve-up of the weight-stationary kernel, in floats.  A
-// ring stage holds the step's input (windows, or a halo block's raw rows);
-// the halo path also expands the raw rows into one window stage.  The
-// spatial partial of an output rectangle aliases the ring (and the window
-// stage).
-struct Layout {
-  int df, dv, xf, res, stage, x_sz, x_stage, win, total;
-  __host__ __device__ Layout(int S, int S2, int x_floats, int win_floats,
-                             int RM) {
-    df = 0;                                  // [S][FC] (re, im)
-    dv = df + 2 * S * FC;                    // [S2][FC] (re, im)
-    xf = dv + 2 * S2 * FC;                   // X~ (re, im): [FC][MP]
-    res = xf + 2 * FC * MP;
-    stage = res + 2 * FC * BN * RM;          // wr, wi [FC][BN][RM] of the
-                                             // m range
-    x_sz = align4(x_floats);
-    x_stage = x_sz;
-    win = stage + 2 * x_stage;               // [S][MP] expanded windows
-    const int loop = 2 * x_stage + win_floats;
-    const int acc = S2 * BN * BP;            // spatial partial, aliases both
-    total = stage + imax(loop, acc);
+// Shared-memory carve-up of the weight-stationary kernel, in floats, from
+// a base aligned to 1024 bytes: the FFT's A fragments (as in OsLayout), the
+// IFFT's A over every bin (Dvr, Dvi of the S2 valid rows, Dvi negated
+// where it is split: [2][S2][IS_DVP]; rows past S2 read as 0), X~ of a
+// step (as in OsLayout: [2][FC][XFP]), whose place the gather buffer
+// takes in each rectangle's epilogue (the Y~ of the n-tiles a cluster
+// rank finishes: [C sources][16 rows][ws_lc(C)], sized for the largest
+// C), the halo path's S window offsets, one mbarrier a ring slot and one
+// for the planes, then (1024-byte aligned, as the TMA swizzles want) the m
+// range's planes, resident: one [re, im][FC][WBN][BM] block a BM-channel
+// step, each landed as the output-stationary kernel's plane stage (WBN
+// rows), and a ring of `stages` slots of one step's windows (512-byte
+// aligned, as the windows' 8192 floats keep them) or raw rows (16-byte
+// aligned).  WS_STAGES stages where they fit the card's limit, else fewer,
+// at least two.
+constexpr int WS_STAGES = 4;                    // the deepest ring
+constexpr int WBN = 32;                         // output channels a CTA
+constexpr int W_WPLANE = FC * WBN * BM;         // a step's re or im plane
+// the tile-FFT's k steps unrolled (windows, raw rows) and the IFFT's: the
+// fastest measured without a spill (scripts/kernel_breakdown.py)
+constexpr int WS_FFT_UNROLL[2] = {8, 4};
+constexpr int WS_IFFT_UNROLL = 4;
+constexpr int WS_NT = WBN * BP / 8;             // n-tiles (8 columns) a CTA
+__host__ __device__ constexpr int ws_lc(int C) {   // a rank's row pitch
+  return 8 * ((WS_NT + C - 1) / C) + 8;
+}
+__host__ __device__ constexpr int ws_recv() {
+  int most = 0;
+  for (int c = 1; c <= MAX_CLUSTER; ++c) most = imax(most, c * 16 * ws_lc(c));
+  return most;
+}
+struct WsLayout {
+  int da, dv, xf, soff, bar, planes, ring, slot, stages, total;
+  __host__ __device__ WsLayout(int S, int S2, int x_floats, int RM) {
+    const int ks = (S + 7) / 8;
+    da = 0;                                  // [2][ks][32 lanes][4]
+    dv = da + 2 * ks * 128;                  // [2][S2][IS_DVP]
+    xf = dv + 2 * S2 * IS_DVP;               // X~ [2][FC][XFP]; gather
+    soff = xf + imax(2 * FC * XFP, ws_recv());
+    bar = soff + align4(S);                  // ring slots, then planes
+    planes = align_to(bar + align4(2 * (WS_STAGES + 1)), OS_ALIGN);
+    ring = planes + RM / BM * 2 * W_WPLANE;
+    slot = align4(x_floats);
+    for (stages = WS_STAGES;; --stages) {
+      total = ring + stages * slot + OS_ALIGN;
+      if (stages <= 2 || 4 * total <= SMEM_MAX) break;
+    }
   }
 };
 
@@ -320,41 +343,10 @@ struct WindowedPath {
   int P, x_pitch;
   struct Blk {
     int p0;
-    bool vec;   // 16-byte copies: every row start 16-byte aligned
   };
   __host__ __device__ int blocks() const { return (P + BP - 1) / BP; }
   __host__ __device__ int x_floats(int S) const { return S * MP; }
-  __host__ __device__ int win_floats(int) const { return 0; }
-  __device__ Blk block(int bx, int) const {
-    return {bx * BP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
-  }
-  __device__ void prepare(float*, int, int) const {}
-  // windows [S][BM][BP] of channels m0.., zero-filled outside [M) x [P)
-  __device__ void load(const Blk& k, float* sx, int S, int M, int m0,
-                       int tid) const {
-    if (k.vec) {
-      for (int i = tid; i < S * MP / 4; i += NT) {
-        const int s = i / (MP / 4), r = i - s * (MP / 4);
-        const int m = r / (BP / 4), p = 4 * (r - m * (BP / 4));
-        const int bytes = m0 + m < M ? clamp_bytes(P - k.p0 - p) : 0;
-        cp_async16(sx + s * MP + m * BP + p,
-                   bytes ? xt + ((size_t)s * M + m0 + m) * x_pitch + k.p0 + p
-                         : xt, bytes);
-      }
-    } else {
-      for (int i = tid; i < S * MP; i += NT) {
-        const int s = i / MP, r = i - s * MP, m = r / BP, p = r - m * BP;
-        const bool ok = m0 + m < M && k.p0 + p < P;
-        cp_async4(sx + i,
-                  ok ? xt + ((size_t)s * M + m0 + m) * x_pitch + k.p0 + p
-                     : xt, ok);
-      }
-    }
-  }
-  __device__ const float* windows(const Blk&, const float* sx, float*,
-                                  int) const {
-    return sx;
-  }
+  __device__ Blk block(int bx, int) const { return {bx * BP}; }
   __device__ long long out_at(const Blk& k, int s2, int n, int N,
                               int p) const {
     return k.p0 + p < P ? ((long long)s2 * N + n) * P + k.p0 + p : -1;
@@ -395,8 +387,341 @@ struct WindowedPath {
   }
 };
 
-using HaloIn = HaloPath<NT, BM, BP>;   // halo.cuh: the flows'
-using HaloOs = HaloPath<ONT, BM, BP>;  // and the output-stationary kernel's
+using HaloOs = HaloPath<ONT, BM, BP>;  // halo.cuh: every kernel's halo path
+
+// The weight-stationary kernel's halo path: HaloOs's blocks and output,
+// with a step's raw rows staged by 16-byte copies.  The flow stages a
+// block's rows once per n block, so their copies count: HaloOs's
+// per-element copies cost it a third of its time.  A raw row is staged
+// from the 16-byte aligned column a0 = c0 - sh below the block's first
+// column c0 (sh = c0 mod 4), at a pitch cp of its columns plus 3 rounded
+// up to 4 floats, plus 4 where that is a multiple of 8 ([BM][rows][cp]:
+// cp = 4 mod 8, so the FFT's B reads of tile rows 6 apart fall in
+// different banks); chunks wholly inside the image's row go
+// by one 16-byte cp.async where its rows are 16-byte strided (W % 4 ==
+// 0), the rest element by element (zero outside the image and past M).
+// The tile-FFT reads window elements by offset as HaloOs's does, shifted
+// by sh.
+struct HaloWsPath : HaloOs {
+  __host__ __device__ int cp() const {
+    const int c = align4(g.cols + 3);
+    return c % 8 ? c : c + 4;
+  }
+  __host__ __device__ int x_floats(int) const { return BM * g.rows * cp(); }
+  template <int T>
+  __device__ void load_os(const Blk& k, float* sx, int, int, int m0,
+                          int tid) const {
+    static_assert(T == ONT && ONT / 32 == BM, "a warp per channel");
+    const int lane = tid % 32, m = tid / 32, pitch = cp(), q4 = pitch / 4;
+    const int a0 = k.hb.c0 - (k.hb.c0 & 3);
+    const bool m_ok = m0 + m < g.M;
+    const bool vec = g.W % 4 == 0 && (size_t)x % 16 == 0;
+    const float* plane =
+        x + ((size_t)k.hb.b * g.M + (m_ok ? m0 + m : 0)) * g.H * g.W;
+    float* d = sx + m * g.rows * pitch;
+    // lane's chunks i = lane + 32 j as (row r, chunk c4), advanced without
+    // a division: 32 chunks are dr rows and dc chunks
+    const int dr = 32 / q4, dc = 32 - dr * q4;
+    int r = lane / q4, c4 = lane - r * q4;
+    for (; r < g.rows; r += dr, c4 += dc) {
+      if (c4 >= q4) {
+        c4 -= q4;
+        if (++r >= g.rows) break;
+      }
+      const int c = 4 * c4, gc = a0 + c, gr = k.hb.r0 + r;
+      const bool row_ok = m_ok && (unsigned)gr < (unsigned)g.H;
+      const float* src = plane + (size_t)gr * g.W + gc;
+      float* dst = d + r * pitch + c;
+      if (vec && row_ok && gc >= 0 && gc + 4 <= g.W) {
+        cp_async16(dst, src, 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row_ok && (unsigned)(gc + e) < (unsigned)g.W;
+          cp_async4(dst + e, ok ? src + e : x, ok);
+        }
+      }
+    }
+  }
+  __device__ void fft_offsets(int* soff, int tid) const {
+    for (int s = tid; s < g.K * g.K; s += ONT)
+      soff[s] = (s / g.K) * cp() + s % g.K;
+  }
+  __device__ FftCol fft_col(const Blk& k, int col, int) const {
+    const int m = col / BP, p = col - m * BP;
+    const int ii = p / g.btw, jj = p - ii * g.btw;
+    return {(m * g.rows + ii * g.t) * cp() + jj * g.t + (k.hb.c0 & 3),
+            k.hb.real(g, p)};
+  }
+  // window element s = u K + v at u cp + v, computed (K = 8: shifts)
+  // rather than read from the offsets table, one load a B element fewer
+  __device__ float fft_x(const float* raw, const int* soff, FftCol c, int s,
+                         int S) const {
+    const int o = g.K == 8 ? (s >> 3) * cp() + (s & 7) : soff[s];
+    return c.real && s < S ? raw[c.base + o] : 0.f;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Device pieces of the tensor-core kernels (output-, input- and
+// weight-stationary), each thread's part of a CTA-wide step
+// ---------------------------------------------------------------------------
+
+// The tile-FFT's A of bin chunk f0 (fc bins): row r < 8 is Re Df[f0 + r],
+// r >= 8 Im Df[f0 + r - 8], column s, split to TF32 (hi, lo) once and
+// stored in fragment order [k step][lane][a0..a3] (the lo parts ks * 128
+// words after the hi ones), zero outside the chunk and S.  The k index
+// within a step of 8 window rows is permuted (k -> fft_row(k)), here and
+// where the FFT reads the windows, so that the swizzled window stage
+// reads conflict-free.  BATCH elements a thread are loaded before any is
+// split, so their load latencies overlap.
+template <int BATCH = 1>
+__device__ __forceinline__ void split_fft_a(uint32_t* s_da,
+                                            const float* __restrict__ dfr,
+                                            const float* __restrict__ dfi,
+                                            int f0, int fc, int S, int tid) {
+  const int n = (S + 7) / 8 * 128;
+  for (int i0 = tid; i0 < n; i0 += BATCH * ONT) {
+    float x[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + k * ONT;
+      const int kk = i / 128, ln = (i / 4) % 32, e = i % 4;
+      const int r = ln / 4 + (e & 1) * 8;
+      const int s = kk * 8 + fft_row(ln % 4 + (e & 2) * 2);
+      const int f = r % 8;
+      x[k] = 0.f;
+      if (i < n && f < fc && s < S)
+        x[k] = (r < 8 ? dfr : dfi)[(size_t)(f0 + f) * S + s];
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k)
+      if (i0 + k * ONT < n)
+        split(x[k], s_da[i0 + k * ONT], s_da[n + i0 + k * ONT]);
+  }
+}
+
+// The IFFT's A over every bin, in f32: s_dv [2][rows][IS_DVP], part 0 Dvr,
+// part 1 -Dvi, row s2, column f; zero past S2 and Fa.
+__device__ __forceinline__ void load_dv(float* s_dv,
+                                        const float* __restrict__ dvr,
+                                        const float* __restrict__ dvi,
+                                        int rows, int S2, int Fa, int tid) {
+  for (int i = tid; i < 2 * rows * IS_DVP; i += ONT) {
+    const int h = i / (rows * IS_DVP), rw = i % (rows * IS_DVP);
+    const int s2 = rw / IS_DVP, f = rw % IS_DVP;
+    s_dv[i] = s2 < S2 && f < Fa
+                  ? (h ? -dvi[(size_t)s2 * Fa + f] : dvr[(size_t)s2 * Fa + f])
+                  : 0.f;
+  }
+}
+
+// Stage 1 of a channel step: the tile-FFT of the warp's channel, its
+// columns fcol (tiles 8 j + gq) against the split A; c[j] rows gq: Re X~
+// of bin gq, gq + 8: Im, at tiles 8 j + 2 tq (+1).  UNROLL of its k steps
+// unrolled (the register budget of the caller).
+template <int UNROLL, class Path>
+__device__ __forceinline__ void tile_fft(
+    const Path& io, const float* sx, const int* s_soff,
+    const typename Path::FftCol (&fcol)[2], const uint32_t* s_da, int S,
+    int lane, int tq, float (&c)[2][4]) {
+  const int ks = (S + 7) / 8;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[j][r] = 0.f;
+  const uint4* ah4 = reinterpret_cast<const uint4*>(s_da);
+  const uint4* al4 = reinterpret_cast<const uint4*>(s_da + ks * 128);
+#pragma unroll(UNROLL)
+  for (int kk = 0; kk < ks; ++kk) {
+    const uint4 h = ah4[kk * 32 + lane], l = al4[kk * 32 + lane];
+    const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
+    const uint32_t al[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float b[2] = {
+          io.fft_x(sx, s_soff, fcol[j], kk * 8 + fft_row(tq), S),
+          io.fft_x(sx, s_soff, fcol[j], kk * 8 + fft_row(tq + 4), S)};
+      uint32_t bh[2], bl[2];
+      split_frag(b, bh, bl);
+      mma3_f32(c[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// X~ of one step in the output-stationary layout ([2][FC][XFP]: a bin's
+// BM channel rows of XP floats): the warp's tile-FFT result (channel
+// `warp`) stored, and the split B fragments of bin hf read for the
+// Hadamard (k = channel tq (+4), columns tiles 8 pt + gq).
+__device__ __forceinline__ void store_xf(float* s_xr, float* s_xi,
+                                         const float (&c)[2][4], int warp,
+                                         int gq, int tq) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int o = gq * XFP + warp * XP + j * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(s_xr + o) = make_float2(c[j][0], c[j][1]);
+    *reinterpret_cast<float2*>(s_xi + o) = make_float2(c[j][2], c[j][3]);
+  }
+}
+__device__ __forceinline__ void load_xf(const float* s_xr, const float* s_xi,
+                                        int hf, int gq, int tq,
+                                        uint32_t (&brh)[2][2],
+                                        uint32_t (&brl)[2][2],
+                                        uint32_t (&bih)[2][2],
+                                        uint32_t (&bil)[2][2]) {
+#pragma unroll
+  for (int pt = 0; pt < 2; ++pt) {
+    const int o = hf * XFP + tq * XP + pt * 8 + gq;
+    const float br[2] = {s_xr[o], s_xr[o + 4 * XP]};
+    const float bi[2] = {s_xi[o], s_xi[o + 4 * XP]};
+    split_frag(br, brh[pt], brl[pt]);
+    split_frag(bi, bih[pt], bil[pt]);
+  }
+}
+
+// Stage 2 of a channel step: the complex Hadamard of bin hf over BM
+// channels, A = rows n of bin hf of a plane stage swr/swi [FC][BN][BM]
+// (a row's two 16-byte chunks swapped where n & 4, as the copies land
+// it), k = m; B = the split X~ fragments.  The four real products per
+// bin (re = Wr Xr - Wi Xi, im = Wr Xi + Wi Xr) go to the step's fresh
+// accumulators, added to are/aim[mt][pt] (n rows 16 mt + gq (+8), tiles
+// 8 pt + 2 tq (+1)) in f32, over a plane stage of PBN rows a bin (NA
+// row tiles of 16).
+template <int PBN = BN, int NA>
+__device__ __forceinline__ void hadamard_mma(
+    const float* swr, const float* swi, int hf, int gq, int tq,
+    const uint32_t (&brh)[2][2], const uint32_t (&brl)[2][2],
+    const uint32_t (&bih)[2][2], const uint32_t (&bil)[2][2],
+    float (&are)[NA][2][4], float (&aim)[NA][2][4]) {
+  static_assert(NA * 16 == PBN, "a row tile of 16 rows per accumulator");
+  const int k_lo = tq ^ (gq & 4), k_hi = (tq + 4) ^ (gq & 4);
+#pragma unroll
+  for (int mt = 0; mt < NA; ++mt) {
+    const int row = (hf * PBN + mt * 16 + gq) * BM;
+    const float ar[4] = {swr[row + k_lo], swr[row + 8 * BM + k_lo],
+                         swr[row + k_hi], swr[row + 8 * BM + k_hi]};
+    const float ai[4] = {swi[row + k_lo], swi[row + 8 * BM + k_lo],
+                         swi[row + k_hi], swi[row + 8 * BM + k_hi]};
+    uint32_t arh[4], arl[4], aih[4], ail[4], nih[4], nil[4];
+    split_frag(ar, arh, arl);
+    split_frag(ai, aih, ail);
+    neg_frag(aih, nih);
+    neg_frag(ail, nil);
+#pragma unroll
+    for (int pt = 0; pt < 2; ++pt) {    // this step's sum, then f32 adds
+      float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3_f32(tr, arh, arl, brh[pt], brl[pt]);
+      mma3_f32(tr, nih, nil, bih[pt], bil[pt]);
+      mma3_f32(ti, arh, arl, bih[pt], bil[pt]);
+      mma3_f32(ti, aih, ail, brh[pt], brl[pt]);
+      add4(are[mt][pt], tr);
+      add4(aim[mt][pt], ti);
+    }
+  }
+}
+
+// The gather of a cluster's Y~ (the input- and weight-stationary
+// epilogues): the warp pushes its bin hf's Y~ (row hf re, 8 + hf im) of
+// the n-tiles ct = 2 n + pt of accumulator row tiles MT0 .. MT0 + NMT - 1
+// (ct counted from row tile MT0) into the gather buffer s_rv of the rank
+// that finishes it, rank ct % C: row block `rank` (this CTA's chunk),
+// columns (ct / C) 8 + 2 tq (+1) at a row pitch of lc.
+template <int MT0, int NMT, int NA>
+__device__ __forceinline__ void push_ytilde(
+    cg::cluster_group& cluster, float* s_rv, int rank, int n_ranks, int lc,
+    int hf, int gq, int tq, const float (&are)[NA][2][4],
+    const float (&aim)[NA][2][4]) {
+#pragma unroll
+  for (int mt = MT0; mt < MT0 + NMT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int pt = 0; pt < 2; ++pt) {
+        const int ct = ((mt - MT0) * 16 + gq + 8 * hh) * 2 + pt;
+        float* dst = cluster.map_shared_rank(s_rv, ct % n_ranks) +
+                     rank * 16 * lc;
+        const int col = (ct / n_ranks) * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(dst + hf * lc + col) =
+            make_float2(are[mt][pt][2 * hh], are[mt][pt][2 * hh + 1]);
+        *reinterpret_cast<float2*>(dst + (8 + hf) * lc + col) =
+            make_float2(aim[mt][pt][2 * hh], aim[mt][pt][2 * hh + 1]);
+      }
+}
+
+// The valid-row IFFT of the n-tiles i = 0 .. n_cts - 1 a cluster rank
+// finishes, NJ a warp at a time: partial[s2][col] = sum over the source
+// chunks q (rank order) and their bins k of A[s2][bin0 + FC q + k] .
+// Y~_q[k][col], its B fragments read from the gathered Y~ (s_rv: [C][16
+// rows, re then im][lc]) and A from s_dv ([2][rows][IS_DVP]: Dvr, then
+// -Dvi, or +Dvi negated here where NEG_IM; rows past `rows` read as 0),
+// in 3xTF32.  The sources are summed inside each k loop in rank order, so
+// the result repeats bit for bit.  store(i, s2, col, v) takes each
+// finished element (s2 < S2, col 0..7 of n-tile i).  KQ_UNROLL of the
+// (source, re / im) steps are unrolled.
+template <int NJ, bool NEG_IM, int KQ_UNROLL, class Store>
+__device__ __forceinline__ void gather_ifft(const float* s_rv, int lc,
+                                            const float* s_dv, int rows,
+                                            int bin0, int n_ranks, int n_cts,
+                                            int S2, int warp, int gq, int tq,
+                                            Store&& store) {
+  const int mt2 = (S2 + 15) / 16;
+#pragma unroll 1
+  for (int i0 = NJ * warp; i0 < n_cts; i0 += NJ * WARPS) {
+    const bool two = NJ > 1 && i0 + 1 < n_cts;
+    float d[MT2_MAX][NJ][4];
+#pragma unroll
+    for (int a = 0; a < MT2_MAX; ++a)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[a][j][e] = 0.f;
+#pragma unroll(KQ_UNROLL)
+    for (int kq = 0; kq < 2 * n_ranks; ++kq) {   // (source, re / im)
+      const int cq = kq / 2, h = kq % 2;
+      const float* rb = s_rv + (cq * 16 + h * 8 + tq) * lc;
+      uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = (i0 + (two ? j : 0)) * 8 + gq;
+        const float b[2] = {rb[col], rb[4 * lc + col]};
+        split_frag(b, bh[j], bl[j]);
+      }
+      const float* av = s_dv + h * rows * IS_DVP + bin0 + cq * FC + tq;
+#pragma unroll
+      for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+        if (m2 >= mt2) break;
+        const int r = m2 * 16 + gq;
+        const float* ar = av + r * IS_DVP;
+        const float a[4] = {r < rows ? ar[0] : 0.f,
+                            r + 8 < rows ? ar[8 * IS_DVP] : 0.f,
+                            r < rows ? ar[4] : 0.f,
+                            r + 8 < rows ? ar[8 * IS_DVP + 4] : 0.f};
+        uint32_t ah[4], al[4];
+        split_frag(a, ah, al);
+        if (NEG_IM && h) {          // -x splits into the negated parts
+          neg_frag(ah, ah);
+          neg_frag(al, al);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma3_f32(d[m2][j], ah, al, bh[j],
+                                              bl[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j == 1 && !two) break;
+#pragma unroll
+      for (int m2 = 0; m2 < MT2_MAX; ++m2) {
+        if (m2 >= mt2) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s2 = m2 * 16 + gq + (e >> 1) * 8;
+          if (s2 < S2) store(i0 + j, s2, 2 * tq + (e & 1), d[m2][j][e]);
+        }
+      }
+    }
+  }
+}
 
 // Output-stationary (B1 on the windowed path, B3 on the halo path): a CTA
 // owns an (n block, tile block, bin chunk) and an m range of RM channels
@@ -448,24 +773,13 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
   const int fc = Fa - f0 < FC ? Fa - f0 : FC;   // bins of this chunk
   const int m_lo = g * RM, m_hi = min(M, m_lo + RM);
   const int n_steps = (m_hi - m_lo + BM - 1) / BM;
-  const int ks = (S + 7) / 8, mt2 = (S2 + 15) / 16;
+  const int mt2 = (S2 + 15) / 16;
 
-  // The tile-FFT's A: row r < 8 is Re Df[f0 + r], r >= 8 Im Df[f0 + r - 8],
-  // column s; the IFFT's A: row s2, column k < 8 Re Dv[s2][f0 + k], k >= 8
-  // -Im Dv[s2][f0 + k - 8].  Both split to TF32 (hi, lo) once, stored in
-  // fragment order [k step][lane][a0..a3], zero outside the chunk, S, S2.
-  // The FFT's k index within a step of 8 window rows is permuted (k ->
-  // fft_row(k)), in A here and in B where the FFT reads the windows, so
-  // that the swizzled window stage reads conflict-free.
-  for (int i = tid; i < ks * 128; i += ONT) {
-    const int kk = i / 128, ln = (i / 4) % 32, e = i % 4;
-    const int r = ln / 4 + (e & 1) * 8;
-    const int s = kk * 8 + fft_row(ln % 4 + (e & 2) * 2);
-    const int f = r % 8;
-    float x = 0.f;
-    if (f < fc && s < S) x = (r < 8 ? dfr : dfi)[(size_t)(f0 + f) * S + s];
-    split(x, s_da[i], s_da[ks * 128 + i]);
-  }
+  // The tile-FFT's A (split_fft_a) and the IFFT's A: row s2, column k < 8
+  // Re Dv[s2][f0 + k], k >= 8 -Im Dv[s2][f0 + k - 8], split to TF32 (hi,
+  // lo) once, stored in fragment order [k step][lane][a0..a3], zero
+  // outside the chunk and S2.
+  split_fft_a(s_da, dfr, dfi, f0, fc, S, tid);
   for (int i = tid; i < mt2 * 256; i += ONT) {
     const int mt = i / 256, kk = (i / 128) % 2, ln = (i / 4) % 32, e = i % 4;
     const int s2 = mt * 16 + ln / 4 + (e & 1) * 8;
@@ -563,7 +877,6 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
       io.fft_col(blk, warp * BP + gq, tq), io.fft_col(blk, warp * BP + 8 + gq,
                                                       tq)};
   const int hf = warp;
-  const int k_lo = tq ^ (gq & 4), k_hi = (tq + 4) ^ (gq & 4);
   float are[4][2][4], aim[4][2][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -589,73 +902,21 @@ fused_os_kernel(const Path io, const float* __restrict__ wr,
     cp_async_commit();
     const float* sx = ring + (step % L.stages) * L.slot;
 
-    // Stage 1: tile-FFT of the warp's channel; C rows gq: Re X~ of bin gq,
-    // gq + 8: Im, at tiles 8 j + 2 tq (+1)
+    // Stage 1: tile-FFT of the warp's channel into X~
     {
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const uint4* ah4 = reinterpret_cast<const uint4*>(s_da);
-      const uint4* al4 = reinterpret_cast<const uint4*>(s_da + ks * 128);
-#pragma unroll 2
-      for (int kk = 0; kk < ks; ++kk) {
-        const uint4 h = ah4[kk * 32 + lane], l = al4[kk * 32 + lane];
-        const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
-        const uint32_t al[4] = {l.x, l.y, l.z, l.w};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float b[2] = {
-              io.fft_x(sx, s_soff, fcol[j], kk * 8 + fft_row(tq), S),
-              io.fft_x(sx, s_soff, fcol[j], kk * 8 + fft_row(tq + 4), S)};
-          uint32_t bh[2], bl[2];
-          split_frag(b, bh, bl);
-          mma3_f32(c[j], ah, al, bh, bl);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int o = gq * XFP + warp * XP + j * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(s_xr + o) = make_float2(c[j][0], c[j][1]);
-        *reinterpret_cast<float2*>(s_xi + o) = make_float2(c[j][2], c[j][3]);
-      }
+      float c[2][4];
+      tile_fft<2>(io, sx, s_soff, fcol, s_da, S, lane, tq, c);
+      store_xf(s_xr, s_xi, c, warp, gq, tq);
     }
     __syncthreads();    // X~ written
 
     // Stage 2: complex Hadamard of bin hf over the step's BM channels:
     // A = W[hf] rows (n), k = m; B = X~[hf] (k = m, columns p)
     {
-      const float* swr = sx + L.x_sz;
-      const float* swi = swr + W_PLANE;
       uint32_t brh[2][2], brl[2][2], bih[2][2], bil[2][2];
-#pragma unroll
-      for (int pt = 0; pt < 2; ++pt) {
-        const int o = hf * XFP + tq * XP + pt * 8 + gq;
-        const float br[2] = {s_xr[o], s_xr[o + 4 * XP]};
-        const float bi[2] = {s_xi[o], s_xi[o + 4 * XP]};
-        split_frag(br, brh[pt], brl[pt]);
-        split_frag(bi, bih[pt], bil[pt]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = (hf * BN + mt * 16 + gq) * BM;
-        const float ar[4] = {swr[row + k_lo], swr[row + 8 * BM + k_lo],
-                             swr[row + k_hi], swr[row + 8 * BM + k_hi]};
-        const float ai[4] = {swi[row + k_lo], swi[row + 8 * BM + k_lo],
-                             swi[row + k_hi], swi[row + 8 * BM + k_hi]};
-        uint32_t arh[4], arl[4], aih[4], ail[4], nih[4], nil[4];
-        split_frag(ar, arh, arl);
-        split_frag(ai, aih, ail);
-        neg_frag(aih, nih);
-        neg_frag(ail, nil);
-#pragma unroll
-        for (int pt = 0; pt < 2; ++pt) {    // this step's sum, then f32 adds
-          float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3_f32(tr, arh, arl, brh[pt], brl[pt]);
-          mma3_f32(tr, nih, nil, bih[pt], bil[pt]);
-          mma3_f32(ti, arh, arl, bih[pt], bil[pt]);
-          mma3_f32(ti, aih, ail, brh[pt], brl[pt]);
-          add4(are[mt][pt], tr);
-          add4(aim[mt][pt], ti);
-        }
-      }
+      load_xf(s_xr, s_xi, hf, gq, tq, brh, brl, bih, bil);
+      hadamard_mma(sx + L.x_sz, sx + L.x_sz + W_PLANE, hf, gq, tq, brh, brl,
+                   bih, bil, are, aim);
     }
   }
   __syncthreads();      // the ring's last readers are done: Y~ and the
@@ -811,7 +1072,7 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
   const int m_lo = r * RM, m_hi = min(M, m_lo + RM);
   const int n_steps = (m_hi - m_lo + BM - 1) / BM;
   const int nb = (N + BN - 1) / BN;
-  const int ks = (S + 7) / 8, mt2 = (S2 + 15) / 16;
+  const int mt2 = (S2 + 15) / 16;
   const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   // the cluster's bin group (clusters of C consecutive chunks) and the
@@ -819,25 +1080,9 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
   const int H = gridDim.z / n_ranks, hg = blockIdx.z / n_ranks;
   const int slice = r * H + hg, slices = G * H;
 
-  // the FFT's A fragments, as fused_os_kernel splits them
-  for (int i = tid; i < ks * 128; i += ONT) {
-    const int kk = i / 128, ln = (i / 4) % 32, e = i % 4;
-    const int rr = ln / 4 + (e & 1) * 8;
-    const int s = kk * 8 + fft_row(ln % 4 + (e & 2) * 2);
-    const int f = rr % 8;
-    float x = 0.f;
-    if (f < fc && s < S) x = (rr < 8 ? dfr : dfi)[(size_t)(f0 + f) * S + s];
-    split(x, s_da[i], s_da[ks * 128 + i]);
-  }
-  // the IFFT's A over every bin: row s2 of part h Dvr (h = 0) or -Dvi,
-  // zero past S2 and Fa
-  for (int i = tid; i < 2 * 16 * mt2 * IS_DVP; i += ONT) {
-    const int h = i / (16 * mt2 * IS_DVP), rw = i % (16 * mt2 * IS_DVP);
-    const int s2 = rw / IS_DVP, f = rw % IS_DVP;
-    s_dv[i] = s2 < S2 && f < Fa
-                  ? (h ? -dvi[(size_t)s2 * Fa + f] : dvr[(size_t)s2 * Fa + f])
-                  : 0.f;
-  }
+  // the FFT's A fragments and the IFFT's A over every bin
+  split_fft_a(s_da, dfr, dfi, f0, fc, S, tid);
+  load_dv(s_dv, dvr, dvi, 16 * mt2, S2, Fa, tid);
   io.fft_offsets(s_soff, tid);
   if (tma && tid == 0) {
     for (int q = 0; q < ST; ++q) sm90::mbar_init(&bars[q], 1);
@@ -915,24 +1160,8 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
 #pragma unroll 1
     for (int q = 0; q < n_steps; ++q) {
       const float* st = begin(q);
-      float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const uint4* ah4 = reinterpret_cast<const uint4*>(s_da);
-      const uint4* al4 = reinterpret_cast<const uint4*>(s_da + ks * 128);
-#pragma unroll 2
-      for (int kk = 0; kk < ks; ++kk) {
-        const uint4 h = ah4[kk * 32 + lane], l = al4[kk * 32 + lane];
-        const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
-        const uint32_t al[4] = {l.x, l.y, l.z, l.w};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float b[2] = {
-              io.fft_x(st, s_soff, fcol[j], kk * 8 + fft_row(tq), S),
-              io.fft_x(st, s_soff, fcol[j], kk * 8 + fft_row(tq + 4), S)};
-          uint32_t bh[2], bl[2];
-          split_frag(b, bh, bl);
-          mma3_f32(c[j], ah, al, bh, bl);
-        }
-      }
+      float c[2][4];
+      tile_fft<2>(io, st, s_soff, fcol, s_da, S, lane, tq, c);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int o = gq * L.xfp + (q * BM + warp) * BP +
@@ -962,9 +1191,6 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
           for (int e = 0; e < 4; ++e) are[i][j][e] = aim[i][j][e] = 0.f;
     }
     {
-      const float* swr = st;
-      const float* swi = swr + W_PLANE;
-      const int k_lo = tq ^ (gq & 4), k_hi = (tq + 4) ^ (gq & 4);
       uint32_t brh[2][2], brl[2][2], bih[2][2], bil[2][2];
 #pragma unroll
       for (int pt = 0; pt < 2; ++pt) {
@@ -975,29 +1201,8 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
         split_frag(br, brh[pt], brl[pt]);
         split_frag(bi, bih[pt], bil[pt]);
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = (hf * BN + mt * 16 + gq) * BM;
-        const float ar[4] = {swr[row + k_lo], swr[row + 8 * BM + k_lo],
-                             swr[row + k_hi], swr[row + 8 * BM + k_hi]};
-        const float ai[4] = {swi[row + k_lo], swi[row + 8 * BM + k_lo],
-                             swi[row + k_hi], swi[row + 8 * BM + k_hi]};
-        uint32_t arh[4], arl[4], aih[4], ail[4], nih[4], nil[4];
-        split_frag(ar, arh, arl);
-        split_frag(ai, aih, ail);
-        neg_frag(aih, nih);
-        neg_frag(ail, nil);
-#pragma unroll
-        for (int pt = 0; pt < 2; ++pt) {    // this step's sum, f32 adds
-          float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3_f32(tr, arh, arl, brh[pt], brl[pt]);
-          mma3_f32(tr, nih, nil, bih[pt], bil[pt]);
-          mma3_f32(ti, arh, arl, bih[pt], bil[pt]);
-          mma3_f32(ti, aih, ail, brh[pt], brl[pt]);
-          add4(are[mt][pt], tr);
-          add4(aim[mt][pt], ti);
-        }
-      }
+      hadamard_mma(st, st + W_PLANE, hf, gq, tq, brh, brl, bih, bil, are,
+                   aim);
     }
     if (s < n_steps - 1) continue;
 
@@ -1007,339 +1212,269 @@ fused_is_kernel(const Path io, const float* __restrict__ wr,
     // buffer of the rank that finishes it, and the cluster meets.
     sm90::cluster_wait();
     const int lc_n = is_lc(n_ranks);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int pt = 0; pt < 2; ++pt) {
-          const int ct = (mt * 16 + gq + 8 * hh) * 2 + pt;   // its n-tile
-          float* dst = cluster.map_shared_rank(s_rv, ct % n_ranks) +
-                       rank * 16 * lc_n;
-          const int lc = (ct / n_ranks) * 8 + 2 * tq;
-          *reinterpret_cast<float2*>(dst + hf * lc_n + lc) =
-              make_float2(are[mt][pt][2 * hh], are[mt][pt][2 * hh + 1]);
-          *reinterpret_cast<float2*>(dst + (8 + hf) * lc_n + lc) =
-              make_float2(aim[mt][pt][2 * hh], aim[mt][pt][2 * hh + 1]);
-        }
+    push_ytilde<0, 4>(cluster, s_rv, rank, n_ranks, lc_n, hf, gq, tq, are,
+                      aim);
     cluster.sync();     // every chunk's Y~ of this rank's n-tiles is here
 
     // the valid-row IFFT of the rank's n-tiles ct = rank + C i (columns
-    // 8 ct .., n = ct / 2), warp w two of them at a time: partial[s2][col]
-    // = sum over the source chunks q (rank order) of Re/Im bins 8 q ..
+    // 8 ct .., n = ct / 2), two a warp at a time, stored from registers:
+    // the output or workspace slice r
     const int slots = io.blocks() * BP;
-    const int n_cts = (IS_NT - rank + n_ranks - 1) / n_ranks;
-    for (int i0 = 2 * warp; i0 < n_cts; i0 += 2 * WARPS) {
-      const bool two = i0 + 1 < n_cts;
-      float d[MT2_MAX][2][4];
-#pragma unroll
-      for (int a = 0; a < MT2_MAX; ++a)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) d[a][j][e] = 0.f;
-#pragma unroll 1
-      for (int kq = 0; kq < 2 * n_ranks; ++kq) {   // (source, re / im)
-        const int cq = kq / 2, h = kq % 2;
-        const float* rb = s_rv + (cq * 16 + h * 8 + tq) * lc_n;
-        uint32_t bh[2][2], bl[2][2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int lc = (i0 + (two ? j : 0)) * 8 + gq;
-          const float b[2] = {rb[lc], rb[4 * lc_n + lc]};
-          split_frag(b, bh[j], bl[j]);
-        }
-        const float* av =
-            s_dv + h * 16 * mt2 * IS_DVP + (hg * n_ranks + cq) * FC + tq;
-#pragma unroll
-        for (int m2 = 0; m2 < MT2_MAX; ++m2) {
-          if (m2 >= mt2) break;
-          const float* ar = av + (m2 * 16 + gq) * IS_DVP;
-          const float a[4] = {ar[0], ar[8 * IS_DVP], ar[4],
-                              ar[8 * IS_DVP + 4]};
-          uint32_t ah[4], al[4];
-          split_frag(a, ah, al);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) mma3_f32(d[m2][j], ah, al, bh[j],
-                                               bl[j]);
-        }
-      }
-      // the finished columns: output or workspace slice r
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (j == 1 && !two) break;
-        const int ct = rank + n_ranks * (i0 + j);
-        const int n = ct / 2, gn = n0 + n;
-        if (gn >= N) continue;
-#pragma unroll
-        for (int m2 = 0; m2 < MT2_MAX; ++m2) {
-          if (m2 >= mt2) break;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int s2 = m2 * 16 + gq + (e >> 1) * 8;
-            const int pp = (ct % 2) * 8 + 2 * tq + (e & 1);
-            if (s2 >= S2) continue;
-            float v = d[m2][j][e];
-            if (slices > 1) {
-              ws[(((size_t)slice * S2 + s2) * N + gn) * slots +
-                 blockIdx.x * BP + pp] = v;
-              continue;
-            }
-            const long long o = io.out_at(blk, s2, gn, N, pp);
-            if (o >= 0) {
-              v += bias[gn];
-              if constexpr (SC == SC_GLOBAL) v += sc[o];
-              if (relu) v = fmaxf(v, 0.f);
-              y[o] = v;
-            }
+    gather_ifft<2, false, 1>(
+        s_rv, lc_n, s_dv, 16 * mt2, hg * n_ranks * FC, n_ranks,
+        (IS_NT - rank + n_ranks - 1) / n_ranks, S2, warp, gq, tq,
+        [&](int i, int s2, int col, float v) {
+          const int ct = rank + n_ranks * i;
+          const int gn = n0 + ct / 2;
+          if (gn >= N) return;
+          const int pp = (ct % 2) * 8 + col;
+          if (slices > 1) {
+            ws[(((size_t)slice * S2 + s2) * N + gn) * slots +
+               blockIdx.x * BP + pp] = v;
+            return;
           }
-        }
-      }
-    }
-    sm90::cluster_arrive();   // this CTA's gather buffer is read
-  }
-  sm90::cluster_wait();     // no CTA exits while a peer may still push
-}
-
-// The weight-stationary flow (FLOW == WS) on either input path (Path), on
-// the CUDA cores.  Grid (m range, n block, chunk); a cluster spans the
-// chunks.  ws (the split-K workspace) is written only when the flow has
-// more than one m range.  SC: none or a global shortcut, added here with
-// one m range, else by the finish pass.
-template <class Path, int FLOW, int SC>
-__global__ void __launch_bounds__(NT, 1)
-fused_flow_kernel(const Path io, const float* __restrict__ wr,
-                  const float* __restrict__ wi,
-                  const float* __restrict__ dfr,
-                  const float* __restrict__ dfi,
-                  const float* __restrict__ dvr,
-                  const float* __restrict__ dvi,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ sc, float* __restrict__ y,
-                  float* __restrict__ ws, int S, int M, int Fa, int N,
-                  int S2, int relu, int RM) {
-  static_assert(FLOW == WS, "output- and input-stationary: above");
-  static_assert(SC == SC_NONE || SC == SC_GLOBAL, "staged: os only");
-  extern __shared__ __align__(16) float smem[];
-  const Layout L(S, S2, io.x_floats(S), 0, RM);
-  float* s_df = smem + L.df;
-  float* s_dv = smem + L.dv;
-  float2* s_xf = reinterpret_cast<float2*>(smem + L.xf);
-  float* s_res = smem + L.res;
-  float* s_y = smem + L.stage;
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  const int f0 = blockIdx.z * FC;           // this CTA's bin chunk
-  const int tp = tid % BP, tn = tid / BP;   // Hadamard / fold / store map
-  const int mp = tid % MP, fq = tid / MP;   // tile-FFT map
-  const int rank = (int)cluster.block_rank();
-  const int n_ranks = (int)cluster.num_blocks();
-
-  // this CTA's m range: range r of G
-  const int G = gridDim.x, r = blockIdx.x;
-  const int m_lo = r * RM;
-  const int m_hi = m_lo + RM < M ? m_lo + RM : M;
-  const int n_steps = (m_hi - m_lo + BM - 1) / BM;
-  const int slots = io.blocks() * BP;       // workspace tile columns
-
-  const int fc = Fa - f0 < FC ? Fa - f0 : FC;   // bins of this chunk
-  for (int i = tid; i < S * FC; i += NT) {
-    const int s = i / FC, f = i - s * FC;
-    const bool ok = f < fc;
-    s_df[2 * i] = ok ? dfr[(size_t)(f0 + f) * S + s] : 0.f;
-    s_df[2 * i + 1] = ok ? dfi[(size_t)(f0 + f) * S + s] : 0.f;
-  }
-  for (int i = tid; i < S2 * FC; i += NT) {
-    const int s = i / FC, f = i - s * FC;
-    const bool ok = f < fc;
-    s_dv[2 * i] = ok ? dvr[(size_t)s * Fa + f0 + f] : 0.f;
-    s_dv[2 * i + 1] = ok ? dvi[(size_t)s * Fa + f0 + f] : 0.f;
-  }
-
-  // 16-byte plane copies where every row start is 16-byte aligned
-  const bool w_vec = M % 4 == 0 && (size_t)wr % 16 == 0 &&
-                     (size_t)wi % 16 == 0;
-
-  // this chunk's planes of n block n0 and channels m0 .. m0 + width into
-  // swr [FC][BN][width] and the im half after it, zero-filled outside
-  // [M) x [N) x [Fa) (width is BM or RM, both multiples of 4)
-  auto load_w = [&](float* swr, int n0, int m0, int width) {
-    float* swi = swr + FC * BN * width;
-    const int w4 = width / 4;
-    if (w_vec) {
-      for (int i = tid; i < FC * BN * w4; i += NT) {
-        const int f = i / (BN * w4), q = i - f * (BN * w4);
-        const int n = q / w4, m = 4 * (q - n * w4);
-        const int bytes =
-            n0 + n < N && f < fc ? clamp_bytes(M - m0 - m) : 0;
-        const size_t g = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
-        cp_async16(swr + 4 * i, bytes ? wr + g : wr, bytes);
-        cp_async16(swi + 4 * i, bytes ? wi + g : wi, bytes);
-      }
-    } else {
-      for (int i = tid; i < FC * BN * width; i += NT) {
-        const int f = i / (BN * width), q = i - f * (BN * width);
-        const int n = q / width, m = q - n * width;
-        const bool ok = n0 + n < N && m0 + m < M && f < fc;
-        const size_t g = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
-        cp_async4(swr + i, ok ? wr + g : wr, ok);
-        cp_async4(swi + i, ok ? wi + g : wi, ok);
-      }
-    }
-  };
-  auto ring = [&](int buf) { return smem + L.stage + buf * L.x_stage; };
-
-  // Stage 1: tile-FFT of this chunk's bins for the step's windows sx
-  // [S][BM][BP]: X~[f, m, p] = Df[f, :] . x[:, m, p] -> xf2[f * pitch + mp]
-  auto fft_step = [&](const float* sx, float2* xf2, int pitch) {
-    float xr[FPT], xi[FPT];
-#pragma unroll
-    for (int j = 0; j < FPT; ++j) xr[j] = xi[j] = 0.f;
-    const float4* d4 = reinterpret_cast<const float4*>(s_df) + fq * (FPT / 2);
-#pragma unroll 4
-    for (int s = 0; s < S; ++s) {
-      const float xv = sx[s * MP + mp];
-#pragma unroll
-      for (int q = 0; q < FPT / 2; ++q) {
-        const float4 d = d4[s * (FC / 2) + q];   // bins 2q, 2q+1: re, im
-        xr[2 * q] = fmaf(d.x, xv, xr[2 * q]);
-        xi[2 * q] = fmaf(d.y, xv, xi[2 * q]);
-        xr[2 * q + 1] = fmaf(d.z, xv, xr[2 * q + 1]);
-        xi[2 * q + 1] = fmaf(d.w, xv, xi[2 * q + 1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < FPT; ++j)
-      xf2[(fq * FPT + j) * pitch + mp] = make_float2(xr[j], xi[j]);
-  };
-
-  float ar[FC][TN], ai[FC][TN];
-  auto zero_acc = [&]() {
-#pragma unroll
-    for (int f = 0; f < FC; ++f)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) ar[f][j] = ai[f][j] = 0.f;
-  };
-
-  // Stage 2: complex Hadamard summed over one step's BM channels: planes
-  // swr/swi [FC][BN][width] at column mo, X~ xf2[f * pitch + m * BP + p]
-  auto hadamard_step = [&](const float* swr, const float* swi, int width,
-                           int mo, const float2* xf2, int pitch) {
-#pragma unroll
-    for (int f = 0; f < FC; ++f) {
-      float w_r[TN][BM], w_i[TN][BM];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int row = (f * BN + tn + j * NSTRIDE) * width + mo;
-#pragma unroll
-        for (int m = 0; m < BM; m += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(swr + row + m);
-          const float4 b = *reinterpret_cast<const float4*>(swi + row + m);
-          w_r[j][m] = a.x; w_r[j][m + 1] = a.y;
-          w_r[j][m + 2] = a.z; w_r[j][m + 3] = a.w;
-          w_i[j][m] = b.x; w_i[j][m + 1] = b.y;
-          w_i[j][m + 2] = b.z; w_i[j][m + 3] = b.w;
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < BM; ++m) {
-        const float2 xv = xf2[f * pitch + m * BP + tp];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          ar[f][j] = fmaf(w_r[j][m], xv.x, fmaf(-w_i[j][m], xv.y, ar[f][j]));
-          ai[f][j] = fmaf(w_r[j][m], xv.y, fmaf(w_i[j][m], xv.x, ai[f][j]));
-        }
-      }
-    }
-  };
-
-  // Stage 3: this chunk's valid-row IFFT -> spatial partial s_y (aliases
-  // the ring: call after the barrier that ends the last step)
-  auto fold = [&]() {
-    const float4* dv4 = reinterpret_cast<const float4*>(s_dv);
-    for (int s = 0; s < S2; ++s) {
-      float v[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) v[j] = 0.f;
-#pragma unroll
-      for (int f = 0; f < FC; f += 2) {
-        const float4 d = dv4[(s * FC + f) / 2];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          v[j] = fmaf(d.x, ar[f][j], fmaf(-d.y, ai[f][j], v[j]));
-          v[j] = fmaf(d.z, ar[f + 1][j], fmaf(-d.w, ai[f + 1][j], v[j]));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        s_y[(s * BN + tn + j * NSTRIDE) * BP + tp] = v[j];
-    }
-  };
-
-  // Stage 4: sum the cluster's partials in rank order, one write per
-  // element; rank q finishes rows q, q + C, ...  With one m range the sum
-  // is the output (bias (+ shortcut) + ReLU, stored through the input
-  // path); otherwise it is range r's partial, stored to workspace slice r.
-  auto reduce_store = [&](const typename Path::Blk& blk, int bx, int n0) {
-    cluster.sync();                         // every chunk's partial is ready
-    const float* part[MAX_CLUSTER];
-    for (int q = 0; q < n_ranks; ++q)
-      part[q] = cluster.map_shared_rank(s_y, q);
-    for (int s = rank; s < S2; s += n_ranks) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = tn + j * NSTRIDE, gn = n0 + n;
-        const int at = (s * BN + n) * BP + tp;
-        float v = 0.f;
-        for (int q = 0; q < n_ranks; ++q) v += part[q][at];
-        if (gn >= N) continue;
-        if (G == 1) {
-          const long long o = io.out_at(blk, s, gn, N, tp);
+          const long long o = io.out_at(blk, s2, gn, N, pp);
           if (o >= 0) {
             v += bias[gn];
             if constexpr (SC == SC_GLOBAL) v += sc[o];
             if (relu) v = fmaxf(v, 0.f);
             y[o] = v;
           }
-        } else {
-          ws[(((size_t)r * S2 + s) * N + gn) * slots + bx * BP + tp] = v;
-        }
-      }
-    }
-    cluster.sync();                         // keep partials alive for readers
-  };
+        });
+    sm90::cluster_arrive();   // this CTA's gather buffer is read
+  }
+  sm90::cluster_wait();     // no CTA exits while a peer may still push
+}
 
-  {
-    // every tile block of one n block, the m range's planes resident
-    const int n0 = blockIdx.y * BN;
-    load_w(s_res, n0, m_lo, RM);
-    cp_async_commit();                      // waited for with the first step
-    for (int bx = 0; bx < io.blocks(); ++bx) {
-      const typename Path::Blk blk = io.block(bx, tid);
-      io.prepare(smem + L.win, S, tid);     // the partial overwrote it
-      auto load_x = [&](int buf, int m0) {
-        io.load(blk, ring(buf), S, M, m0, tid);
-        cp_async_commit();
-      };
-      zero_acc();
-      load_x(0, m_lo);
-      for (int step = 0; step < n_steps; ++step) {
-        if (step + 1 < n_steps)
-          load_x((step + 1) & 1, m_lo + (step + 1) * BM);
-        else
-          cp_async_commit();                // empty group keeps the count
-        cp_async_wait_prev();
-        __syncthreads();                    // step's stage ready
-        const float* sx = io.windows(blk, ring(step & 1), smem + L.win, tid);
-        fft_step(sx, s_xf, MP);
-        __syncthreads();
-        hadamard_step(s_res, s_res + FC * BN * RM, RM, step * BM, s_xf, MP);
-        __syncthreads();                    // stage and X~ free for reuse
+// Weight-stationary (B2 ws plane, both input paths) on the tensor cores,
+// from the pieces of fused_os_kernel and fused_is_kernel.  A CTA owns an
+// n block of WBN = 32 output channels (half the other flows' 64, so that
+// an m range twice as wide fits and the epilogue gathers in one round),
+// m range g of RM channels and a bin chunk, and a chunk of `per`
+// consecutive tile blocks; a cluster of C CTAs spans the bin chunks (all
+// of them).  Its m range's planes [FC][WBN][RM] (re, im) land once, by TMA
+// boxes into one block a BM-channel step (cp.async where rows are not
+// 16-byte aligned), and stay resident while it walks its tile blocks: for
+// each, the range's steps run through the ring of window steps (TMA boxes,
+// or the halo path's raw rows, whose tile-FFT reads them by offset), each
+// a tile-FFT into X~ and the Hadamard against the step's resident plane
+// block, summed in MMA accumulators.  The ring runs ahead across tile
+// blocks.  Each output rectangle (tile block, n block, m range) ends in
+// the input-stationary kernel's gather (the gather buffer takes X~'s
+// place): the warps push their bin's Y~ to the rank that finishes each
+// n-tile, and rank q computes the valid-row IFFT of its n-tiles over every
+// chunk's bins and stores them from registers: the output (bias (+
+// shortcut) + ReLU) with one m range, else range g's partial to workspace
+// slice g for split_k.cuh's finish pass.  One cluster sums each rectangle
+// of a range, whichever chunk of tile blocks it falls in, so a repeat
+// launch, or the halo path's, gives the same bits.
+template <class Path, int SC>
+__global__ void __launch_bounds__(ONT, 1)
+fused_ws_kernel(const Path io, const float* __restrict__ wr,
+                const float* __restrict__ wi, const float* __restrict__ dfr,
+                const float* __restrict__ dfi, const float* __restrict__ dvr,
+                const float* __restrict__ dvi, const float* __restrict__ bias,
+                const float* __restrict__ sc, float* __restrict__ y,
+                float* __restrict__ ws, int S, int M, int Fa, int N, int S2,
+                int relu, int RM, int per,
+                const __grid_constant__ OsMaps maps, int tma_x, int tma_w) {
+  static_assert(SC == SC_NONE || SC == SC_GLOBAL, "staged: os only");
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 4 * OS_ALIGN - 1) &
+      ~(uintptr_t)(4 * OS_ALIGN - 1));
+  const WsLayout L(S, S2, io.x_floats(S), RM);
+  const int ST = L.stages;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
+  uint64_t* w_bar = bars + WS_STAGES;       // the planes' barrier
+  uint32_t* s_da = reinterpret_cast<uint32_t*>(smem + L.da);
+  float* s_dv = smem + L.dv;                // IFFT A [2][S2][IS_DVP]
+  float* s_xr = smem + L.xf;                // X~ [FC][XFP], re then im
+  float* s_xi = s_xr + FC * XFP;
+  float* s_rv = smem + L.xf;                // the gather buffer, in X~'s
+  int* s_soff = reinterpret_cast<int*>(smem + L.soff);
+  float* planes = smem + L.planes;          // [step][re, im][W_WPLANE]
+  float* ring = smem + L.ring;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;   // MMA fragment coordinates
+  const int n_ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.z / n_ranks;       // the m range
+  const int n0 = blockIdx.y * WBN;
+  const int f0 = rank * FC;                 // this CTA's bin chunk
+  const int fc = Fa - f0 < FC ? Fa - f0 : FC;
+  const int m_lo = g * RM, m_hi = min(M, m_lo + RM);
+  const int n_steps = (m_hi - m_lo + BM - 1) / BM;
+  const int b_lo = blockIdx.x * per;
+  const int n_blk = min(io.blocks(), b_lo + per) - b_lo;
+
+  // the IFFT's A over every bin (Dvr, Dvi: negated where it is split) by
+  // cp.async in the planes' group, first needed by the first epilogue;
+  // the FFT's split A, its loads in batches
+  for (int i = tid; i < 2 * S2 * IS_DVP; i += ONT) {
+    const int h = i / (S2 * IS_DVP), rw = i - h * (S2 * IS_DVP);
+    const int s2 = rw / IS_DVP, f = rw - s2 * IS_DVP;
+    const bool ok = f < Fa;
+    cp_async4(s_dv + i, ok ? (h ? dvi : dvr) + (size_t)s2 * Fa + f : dvr, ok);
+  }
+  split_fft_a<4>(s_da, dfr, dfi, f0, fc, S, tid);
+  io.fft_offsets(s_soff, tid);
+  if (tid == 0) {
+    for (int q = 0; q < ST; ++q) sm90::mbar_init(&bars[q], 1);
+    sm90::mbar_init(w_bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the range's planes, once: step s's block [FC][WBN][BM] of channels
+  // m_lo + s BM (re, then im W_WPLANE floats later), row n's two 16-byte
+  // chunks swapped where n & 4, zero-filled outside [M) x [N) x [Fa); by
+  // TMA (32-byte swizzle) on w_bar, else by cp.async in the group of the
+  // IFFT's A (the first step's wait covers it)
+  if (tma_w) {
+    if (tid == 0) {
+      sm90::mbar_expect_tx(w_bar, n_steps * 8 * W_WPLANE);
+      for (int s = 0; s < n_steps; ++s) {
+        float* pw = planes + s * 2 * W_WPLANE;
+        sm90::tma_load_3d(pw, &maps.wr, w_bar, m_lo + s * BM, n0, f0);
+        sm90::tma_load_3d(pw + W_WPLANE, &maps.wi, w_bar, m_lo + s * BM,
+                          n0, f0);
       }
-      fold();
-      reduce_store(blk, bx, n0);
     }
+  } else {
+    for (int i = tid; i < n_steps * W_WPLANE; i += ONT) {
+      const int s = i / W_WPLANE, e = i - s * W_WPLANE;
+      const int f = e / (WBN * BM), rw = e - f * (WBN * BM);
+      const int n = rw / BM, m = rw - n * BM, m0 = m_lo + s * BM;
+      const bool ok = n0 + n < N && m0 + m < m_hi && f < fc;
+      const size_t gi = ((size_t)(f0 + f) * N + n0 + n) * M + m0 + m;
+      float* pw = planes + s * 2 * W_WPLANE;
+      const int d = (f * WBN + n) * BM + (m ^ (((n >> 2) & 1) << 2));
+      cp_async4(pw + d, ok ? wr + gi : wr, ok);
+      cp_async4(pw + W_WPLANE + d, ok ? wi + gi : wi, ok);
+    }
+  }
+  cp_async_commit();
+
+  // ring step q: tile block b_lo + q / n_steps, channels m_lo + (q %
+  // n_steps) BM: windows [BM][S][BP] by a TMA box (64-byte swizzle) on
+  // the slot's barrier, else by the path's copies (the halo path's raw
+  // rows, [BM][rows][cp])
+  const int total = n_blk * n_steps;
+  auto issue = [&](int q) {
+    const int slot = q % ST;
+    float* st = ring + slot * L.slot;
+    const int m0 = m_lo + (q % n_steps) * BM;
+    const typename Path::Blk blk = io.block(b_lo + q / n_steps, tid);
+    if constexpr (std::is_same<Path, WindowedPath>::value)
+      if (tma_x) {
+        if (tid == 0) {
+          sm90::mbar_expect_tx(&bars[slot], 4 * S * BM * BP);
+          sm90::tma_load_3d(st, &maps.x, &bars[slot], io.tma_p0(blk), 0, m0);
+        }
+        return;
+      }
+    io.template load_os<ONT>(blk, st, S, M, m0, tid);
+  };
+  auto begin = [&](int q) {
+    if (ST == 4)
+      cp_async_wait<2>();
+    else if (ST == 3)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    if (tma_x) sm90::mbar_wait(&bars[q % ST], (q / ST) & 1);
+    __syncthreads();    // step q landed; the slot of step q - 1 is free
+    if (q + ST - 1 < total) issue(q + ST - 1);
+    cp_async_commit();
+    return ring + (q % ST) * L.slot;
+  };
+  for (int q = 0; q < ST - 1; ++q) {
+    if (q < total) issue(q);
+    cp_async_commit();
+  }
+
+  const int hf = warp;                      // the warp's Hadamard bin
+  float are[WBN / 16][2][4], aim[WBN / 16][2][4];
+  // one flat loop over the CTA's steps (tile block q / n_steps, step q %
+  // n_steps of the range), as fused_is_kernel walks its n blocks: fewer
+  // values live beside the accumulators than nested loops keep
+#pragma unroll 1
+  for (int q = 0; q < total; ++q) {
+    const float* sx = begin(q);
+    const int b = q / n_steps, s = q - b * n_steps, bx = b_lo + b;
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < WBN / 16; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) are[i][j][e] = aim[i][j][e] = 0.f;
+    }
+    if (tma_w && q == 0) sm90::mbar_wait(w_bar, 0);
+    // Stage 1: tile-FFT of the warp's channel (tiles 8 j + gq) into X~
+    {
+      const typename Path::Blk blk = io.block(bx, tid);
+      const typename Path::FftCol fcol[2] = {
+          io.fft_col(blk, warp * BP + gq, tq),
+          io.fft_col(blk, warp * BP + 8 + gq, tq)};
+      float c[2][4];
+      tile_fft<WS_FFT_UNROLL[std::is_same<Path, HaloWsPath>::value]>(
+          io, sx, s_soff, fcol, s_da, S, lane, tq, c);
+      store_xf(s_xr, s_xi, c, warp, gq, tq);
+    }
+    __syncthreads();    // X~ written
+    // Stage 2: complex Hadamard of bin hf against step s's planes
+    {
+      const float* pw = planes + s * 2 * W_WPLANE;
+      uint32_t brh[2][2], brl[2][2], bih[2][2], bil[2][2];
+      load_xf(s_xr, s_xi, hf, gq, tq, brh, brl, bih, bil);
+      hadamard_mma<WBN>(pw, pw + W_WPLANE, hf, gq, tq, brh, brl, bih, bil,
+                        are, aim);
+    }
+    if (s < n_steps - 1) continue;
+
+    // Stage 3: the rectangle's epilogue: every peer is done with its X~
+    // (the gather buffer's place), the warps push their bin's Y~ to the
+    // finishing ranks, the cluster meets, and each rank takes the IFFT of
+    // its n-tiles ct = rank + C i and stores them.  The cluster rank, m
+    // range and n block are read again here rather than kept live through
+    // the steps (no spill at 255 registers).
+    sm90::cluster_arrive();
+    const int rank = sm90::fresh_cluster_rank();
+    const int n_ranks = sm90::fresh_cluster_size();
+    const int g = sm90::fresh_cta_z() / n_ranks;
+    const int n0 = sm90::fresh_cta_y() * WBN;
+    const typename Path::Blk blk = io.block(bx, tid);
+    const int lc = ws_lc(n_ranks), G = gridDim.z / n_ranks;
+    const int slots = io.blocks() * BP;
+    sm90::cluster_wait();
+    push_ytilde<0, WBN / 16>(cluster, s_rv, rank, n_ranks, lc, hf, gq, tq,
+                             are, aim);
+    cluster.sync();     // every chunk's Y~ of this rank's n-tiles is here
+    gather_ifft<1, true, WS_IFFT_UNROLL>(
+        s_rv, lc, s_dv, S2, 0, n_ranks,
+        (WS_NT - rank + n_ranks - 1) / n_ranks, S2, warp, gq, tq,
+        [&](int i, int s2, int col, float v) {
+          const int ct = rank + n_ranks * i;
+          const int gn = n0 + ct / 2;
+          if (gn >= N) return;
+          const int pp = (ct % 2) * 8 + col;
+          if (G > 1) {
+            ws[(((size_t)g * S2 + s2) * N + gn) * slots + bx * BP + pp] = v;
+            return;
+          }
+          const long long o = io.out_at(blk, s2, gn, N, pp);
+          if (o >= 0) {
+            v += bias[gn];
+            if constexpr (SC == SC_GLOBAL) v += sc[o];
+            if (relu) v = fmaxf(v, 0.f);
+            y[o] = v;
+          }
+        });
+    __syncthreads();    // the gather is read: the next block's X~ may land
   }
 }
 
@@ -1394,23 +1529,26 @@ bool window_map(CUtensorMap* map, const float* xt, int P, int S, int M,
                        CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-// A kernel plane [Fa][N][M] as boxes (BM channels, BN rows, FC bins): they
-// land as [FC][BN][BM] with the 32-byte swizzle (a row's two 16-byte
-// chunks swapped where n & 4).
-bool plane_map(CUtensorMap* map, const float* w, int M, int N, int Fa) {
+// A kernel plane [Fa][N][M] as boxes (BM channels, `rows` output
+// channels, FC bins): they land as [FC][rows][BM] with the 32-byte swizzle
+// (a row's two 16-byte chunks swapped where n & 4).
+bool plane_map(CUtensorMap* map, const float* w, int M, int N, int Fa,
+               int rows) {
   return tensor_map_3d(map, w, {(cuuint64_t)M, (cuuint64_t)N,
                                 (cuuint64_t)Fa},
                        {(cuuint64_t)M * 4, (cuuint64_t)N * M * 4},
-                       {BM, BN, FC}, CU_TENSOR_MAP_SWIZZLE_32B);
+                       {BM, (cuuint32_t)rows, FC},
+                       CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // The TMA maps of a plane launch: windows (windowed path, rows 16-byte
-// aligned) and planes (M % 4 == 0, 16-byte aligned) by TMA, the rest by
-// the copies, which write the same layouts; false where the CUDA
-// driver API refuses a map.
+// aligned) and planes (M % 4 == 0, 16-byte aligned; boxes of `rows` output
+// channels) by TMA, the rest by the copies, which write the same layouts;
+// false where the CUDA driver API refuses a map.
 template <class Path>
 bool os_maps(const Path& io, const float* wr, const float* wi, int S, int M,
-             int N, int Fa, OsMaps& maps, int& tma_x, int& tma_w) {
+             int N, int Fa, OsMaps& maps, int& tma_x, int& tma_w,
+             int rows = BN) {
   maps = {};
   tma_x = tma_w = 0;
   if constexpr (std::is_same<Path, WindowedPath>::value)
@@ -1419,8 +1557,8 @@ bool os_maps(const Path& io, const float* wr, const float* wi, int S, int M,
       tma_x = 1;
     }
   if (M % 4 == 0 && aligned16(wr) && aligned16(wi)) {
-    if (!plane_map(&maps.wr, wr, M, N, Fa) ||
-        !plane_map(&maps.wi, wi, M, N, Fa))
+    if (!plane_map(&maps.wr, wr, M, N, Fa, rows) ||
+        !plane_map(&maps.wi, wi, M, N, Fa, rows))
       return false;
     tma_w = 1;
   }
@@ -1502,52 +1640,66 @@ int is_max_clusters(int cluster, int* count) {
   return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cl.cfg);
 }
 
+// The same for the weight-stationary kernel's clusters of `cluster` CTAs.
+int ws_max_clusters(int cluster, int* count) {
+  const void* kernel = (const void*)fused_ws_kernel<WindowedPath, SC_NONE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch cl(dim3(1, 1, cluster), ONT, SMEM_MAX, cluster, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, &cl.cfg);
+}
+
 // Configure and launch one weight- / input-stationary layer on `stream`
-// (and, with more than one slice, the split-K finish pass), as above: ws
-// over G m ranges (a cluster over all bin chunks); is over G m ranges x
-// chunks / CL bin groups (clusters of CL chunks, CL dividing them).
+// (and, with more than one slice, the split-K finish pass), as above, over
+// G m ranges of RM channels (a multiple of BM): ws with a cluster over all
+// bin chunks and chunks of `split` tile blocks a CTA; is over G x chunks /
+// `split` bin groups (clusters of `split` chunks, dividing them).
 template <class Path, int FLOW, int SC>
 int launch_flow(const Path& io, const float* wr, const float* wi,
                 const float* dfr, const float* dfi, const float* dvr,
                 const float* dvi, const float* bias, const float* sc,
                 float* y, float* ws, int S, int M, int Fa, int N, int S2,
-                int relu, int RM, int CL, void* stream) {
-  if (RM < BM || RM % BM != 0) return (int)cudaErrorInvalidValue;
+                int relu, int RM, int split, void* stream) {
+  if (RM < BM || RM % BM != 0 || S2 > 16 * MT2_MAX || split < 1)
+    return (int)cudaErrorInvalidValue;
   const int G = (M + RM - 1) / RM;
   const int chunks = (Fa + FC - 1) / FC;
-  if (FLOW == WS) CL = chunks;
-  if (CL < 1 || chunks % CL != 0) return (int)cudaErrorInvalidValue;
+  const int CL = FLOW == WS ? chunks : split;
+  if (chunks % CL != 0 || (long long)G * chunks > 65535)
+    return (int)cudaErrorInvalidValue;
   const int slices = G * (chunks / CL);
   if (slices > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const int nb = (N + BN - 1) / BN;
+  const int nb = (N + WBN - 1) / WBN;      // the ws launch's n blocks
+  OsMaps maps;
+  int tma_x, tma_w;
+  if (!os_maps(io, wr, wi, S, M, N, Fa, maps, tma_x, tma_w,
+               FLOW == WS ? WBN : BN))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (FLOW == IS) {
-    if (S2 > 16 * MT2_MAX) return (int)cudaErrorInvalidValue;
     const IsLayout L(S, S2, io.x_floats(S), RM);
     const size_t smem = (size_t)L.total * sizeof(float);
     err = cudaFuncSetAttribute(fused_is_kernel<Path, SC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    OsMaps maps;
-    int tma_x, tma_w;
-    if (!os_maps(io, wr, wi, S, M, N, Fa, maps, tma_x, tma_w))
-      return (int)cudaErrorInvalidValue;
     ClusterLaunch cl(dim3(io.blocks(), G, chunks), ONT, smem, CL, stream);
     err = cudaLaunchKernelEx(&cl.cfg, fused_is_kernel<Path, SC>, io, wr, wi,
                              dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M, Fa,
                              N, S2, relu, RM, maps, tma_x, tma_w);
   } else {
-    const Layout L(S, S2, io.x_floats(S), io.win_floats(S), RM);
+    const WsLayout L(S, S2, io.x_floats(S), RM);
     const size_t smem = (size_t)L.total * sizeof(float);
-    err = cudaFuncSetAttribute(fused_flow_kernel<Path, FLOW, SC>,
+    err = cudaFuncSetAttribute(fused_ws_kernel<Path, SC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    ClusterLaunch cl(dim3(G, nb, chunks), NT, smem, chunks, stream);
-    err = cudaLaunchKernelEx(&cl.cfg, fused_flow_kernel<Path, FLOW, SC>, io,
-                             wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S,
-                             M, Fa, N, S2, relu, RM);
+    const int cx = (io.blocks() + split - 1) / split;
+    ClusterLaunch cl(dim3(cx, nb, G * chunks), ONT, smem, chunks, stream);
+    err = cudaLaunchKernelEx(&cl.cfg, fused_ws_kernel<Path, SC>, io, wr, wi,
+                             dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M, Fa,
+                             N, S2, relu, RM, split, maps, tma_x, tma_w);
   }
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1558,8 +1710,10 @@ int launch_flow(const Path& io, const float* wr, const float* wi,
   return (int)err;
 }
 
-// The instantiation for the shortcut's placement, chosen on the host: none
-// (sc null), global, or staged (output-stationary with one slice: the
+// The instantiation for the shortcut's placement, chosen on the host (and
+// `split`: the output- and input-stationary launches' cluster size, the
+// weight-stationary one's tile blocks a CTA): none (sc null), global, or
+// staged (output-stationary with one slice: the
 // wrapper asks for it only then; a split launch's finish pass reads the
 // shortcut globally, so a staged request there is refused).
 template <class Path, int FLOW>
@@ -1567,29 +1721,29 @@ int dispatch(const Path& io, const float* wr, const float* wi,
              const float* dfr, const float* dfi, const float* dvr,
              const float* dvi, const float* bias, const float* sc, float* y,
              float* ws, int S, int M, int Fa, int N, int S2, int relu,
-             int RM, int CL, int sc_staged, void* stream) {
+             int RM, int split, int sc_staged, void* stream) {
   if (sc == nullptr && sc_staged) return (int)cudaErrorInvalidValue;
   if constexpr (FLOW == OS) {
     if (sc == nullptr)
       return launch_os<Path, SC_NONE>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
                                       sc, y, ws, S, M, Fa, N, S2, relu, RM,
-                                      CL, stream);
+                                      split, stream);
     if (!sc_staged)
       return launch_os<Path, SC_GLOBAL>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
                                         sc, y, ws, S, M, Fa, N, S2, relu, RM,
-                                        CL, stream);
+                                        split, stream);
     return launch_os<Path, SC_STAGED>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
                                       sc, y, ws, S, M, Fa, N, S2, relu, RM,
-                                      CL, stream);
+                                      split, stream);
   } else {
     if (sc_staged) return (int)cudaErrorInvalidValue;
     if (sc == nullptr)
       return launch_flow<Path, FLOW, SC_NONE>(io, wr, wi, dfr, dfi, dvr, dvi,
                                               bias, sc, y, ws, S, M, Fa, N,
-                                              S2, relu, RM, CL, stream);
+                                              S2, relu, RM, split, stream);
     return launch_flow<Path, FLOW, SC_GLOBAL>(io, wr, wi, dfr, dfi, dvr, dvi,
                                               bias, sc, y, ws, S, M, Fa, N,
-                                              S2, relu, RM, CL, stream);
+                                              S2, relu, RM, split, stream);
   }
 }
 
@@ -1603,12 +1757,13 @@ int windowed(const float* xt, const float* wr, const float* wi,
              const float* dfr, const float* dfi, const float* dvr,
              const float* dvi, const float* bias, const float* sc, float* y,
              float* ws, int S, int M, int P, int x_pitch, int Fa, int N,
-             int S2, int relu, int RM, int CL, int sc_staged, void* stream) {
+             int S2, int relu, int RM, int split, int sc_staged,
+             void* stream) {
   if (!windowed_ok(S, M, P, x_pitch, Fa, N, S2))
     return (int)cudaErrorInvalidValue;
   return dispatch<WindowedPath, FLOW>(WindowedPath{xt, P, x_pitch}, wr, wi,
                                       dfr, dfi, dvr, dvi, bias, sc, y, ws, S,
-                                      M, Fa, N, S2, relu, RM, CL, sc_staged,
+                                      M, Fa, N, S2, relu, RM, split, sc_staged,
                                       stream);
 }
 
@@ -1618,11 +1773,11 @@ int halo(const float* x, const float* wr, const float* wi, const float* dfr,
          const float* bias, const float* sc, float* y, float* ws, int B,
          int M, int H, int W, int K, int ksize, int pad, int n_th, int n_tw,
          int bth, int btw, int nbh, int nbw, int pre, int band, int Fa,
-         int N, int S2, int relu, int RM, int CL, int sc_staged,
+         int N, int S2, int relu, int RM, int split, int sc_staged,
          void* stream) {
-  // the tensor-core kernels (output- and input-stationary) run their own
-  // thread count
-  typename std::conditional<FLOW == WS, HaloIn, HaloOs>::type io{x, {}};
+  // the weight-stationary kernel's own halo staging (HaloWsPath)
+  typename std::conditional<FLOW == WS, HaloWsPath, HaloOs>::type io{};
+  io.x = x;
   if (!make_halo_geo(io.g, B, M, H, W, K, ksize, pad, n_th, n_tw, bth, btw,
                      nbh, nbw, pre, band) ||
       bth * btw > BP || S2 != io.g.t * io.g.t || Fa < 1 ||
@@ -1630,7 +1785,7 @@ int halo(const float* x, const float* wr, const float* wi, const float* dfr,
     return (int)cudaErrorInvalidValue;
   return dispatch<decltype(io), FLOW>(io, wr, wi, dfr, dfi, dvr, dvi, bias,
                                       sc, y, ws, K * K, M, Fa, N, S2, relu,
-                                      RM, CL, sc_staged, stream);
+                                      RM, split, sc_staged, stream);
 }
 
 }  // namespace
@@ -1661,7 +1816,8 @@ int fused_spectral_pipeline_f32(const float* xt, const float* wr,
 }
 
 // Windowed layer, weight- / input-stationary over m ranges of RM channels
-// (a multiple of FSC_BM).  With G = ceil(M / RM) > 1 ranges, ws is a
+// (a multiple of FSC_BM).  Weight-stationary: `per` tile blocks a CTA
+// (fsc.ws_launch_geometry).  With G = ceil(M / RM) > 1 ranges, ws is a
 // workspace of G * S2 * N * ceil(P / FSC_BP) * FSC_BP floats.
 int fused_spectral_pipeline_ws_f32(const float* xt, const float* wr,
                                    const float* wi, const float* dfr,
@@ -1669,10 +1825,11 @@ int fused_spectral_pipeline_ws_f32(const float* xt, const float* wr,
                                    const float* dvi, const float* bias,
                                    float* y, const float* sc, float* ws,
                                    int S, int M, int P, int x_pitch, int Fa,
-                                   int N, int S2, int relu, int RM,
+                                   int N, int S2, int relu, int RM, int per,
                                    int sc_staged, void* stream) {
   return windowed<WS>(xt, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, S, M,
-                      P, x_pitch, Fa, N, S2, relu, RM, 0, sc_staged, stream);
+                      P, x_pitch, Fa, N, S2, relu, RM, per, sc_staged,
+                      stream);
 }
 
 // Input-stationary: the chunks in clusters of CL CTAs (CL divides them);
@@ -1711,18 +1868,18 @@ int fused_spectral_pipeline_halo_f32(
                   Fa, N, S2, relu, RM, CL, sc_staged, stream);
 }
 
-// Halo layer, weight- / input-stationary; ws (G > 1) holds
-// G * S2 * N * B * nbh * nbw * FSC_BP floats.
+// Halo layer, weight- / input-stationary (ws: `per` halo blocks a CTA);
+// ws (G > 1) holds G * S2 * N * B * nbh * nbw * FSC_BP floats.
 int fused_spectral_pipeline_halo_ws_f32(
     const float* x, const float* wr, const float* wi, const float* dfr,
     const float* dfi, const float* dvr, const float* dvi, const float* bias,
     float* y, const float* sc, float* ws, int B, int M, int H, int W, int K,
     int ksize, int pad, int n_th, int n_tw, int bth, int btw, int nbh,
     int nbw, int pre, int band, int Fa, int N, int S2, int relu, int RM,
-    int sc_staged, void* stream) {
+    int per, int sc_staged, void* stream) {
   return halo<WS>(x, wr, wi, dfr, dfi, dvr, dvi, bias, sc, y, ws, B, M, H,
                   W, K, ksize, pad, n_th, n_tw, bth, btw, nbh, nbw, pre, band,
-                  Fa, N, S2, relu, RM, 0, sc_staged, stream);
+                  Fa, N, S2, relu, RM, per, sc_staged, stream);
 }
 
 int fused_spectral_pipeline_halo_is_f32(
@@ -1746,6 +1903,11 @@ int fused_spectral_pipeline_os_max_clusters(int cluster, int* count) {
 // The same for the input-stationary kernel (is_launch_geometry reads it).
 int fused_spectral_pipeline_is_max_clusters(int cluster, int* count) {
   return is_max_clusters(cluster, count);
+}
+
+// The same for the weight-stationary kernel (ws_launch_geometry reads it).
+int fused_spectral_pipeline_ws_max_clusters(int cluster, int* count) {
+  return ws_max_clusters(cluster, count);
 }
 
 }  // extern "C"

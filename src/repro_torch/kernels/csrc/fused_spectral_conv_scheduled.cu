@@ -293,11 +293,9 @@ struct WinPath {
   };
   __host__ __device__ int blocks() const { return (P + TP - 1) / TP; }
   __host__ __device__ int x_floats(int S) const { return S * TP; }
-  __host__ __device__ int win_floats(int) const { return 0; }
   __device__ Blk block(int bx, int) const {
     return {bx * TP, x_pitch % 4 == 0 && (size_t)xt % 16 == 0};
   }
-  __device__ void prepare(float*, int, int) const {}
   // channel m's window rows [S][TP], zero-filled past P
   __device__ void load(const Blk& k, float* sx, int S, int M, int m,
                        int tid) const {
@@ -314,10 +312,6 @@ struct WinPath {
                     k.p0 + c + p < P);
       }
     }
-  }
-  __device__ const float* windows(const Blk&, const float* sx, float*,
-                                  int) const {
-    return sx;
   }
   __device__ long long out_at(const Blk& k, int s2, int n, int N,
                               int p) const {

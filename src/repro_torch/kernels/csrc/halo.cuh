@@ -18,10 +18,10 @@
 //    outside the image get a zero source size: that zero fill IS the 'same'
 //    padding and the tile-grid padding.  The TPU clamps its block starts to
 //    stay in bounds and re-aligns with one-hot selectors; reading at the
-//    unclamped start with zero fill gives the same windows.  An expand pass
-//    in shared memory then writes the kernels' existing [S][bm][BP] window
-//    stage, so the FFT, Hadamard and IFFT bodies (and their arithmetic
-//    order per tile) are those of the windowed kernels.
+//    unclamped start with zero fill gives the same windows.  The kernels'
+//    tile-FFT reads each window element from the raw stage by offset
+//    (`HaloPath::fft_x`), so the FFT, Hadamard and IFFT bodies (and their
+//    arithmetic order per tile) are those of the windowed kernels.
 //  * Canvas output store.  Output element (s2 = (u, v), n, tile slot (ii,
 //    jj)) goes to y[b, n, (ib*bth + ii)*t + u - c, (jb*btw + jj)*t + v - c]
 //    with c = k - 1 - pad, for real tiles and inside [0, H_out) x [0, W_out)
@@ -140,24 +140,6 @@ __device__ __forceinline__ void halo_load_raw(float* dst,
   }
 }
 
-// A thread's fixed place in the expand pass: with NT a multiple of the
-// BM * BP (channel, tile slot) pairs of a window row, thread tid always
-// writes pair tid % (BM * BP), so its raw offset and whether its slot
-// holds a tile are computed once per CTA.
-struct HaloLane {
-  int base;     // raw offset of window (0, 0) of the thread's (m, slot)
-  bool real;    // the slot holds a tile of the grid
-};
-
-template <int NT, int BM, int BP>
-__device__ __forceinline__ HaloLane halo_lane(const HaloGeo& g,
-                                              const HaloBlock& hb, int tid) {
-  static_assert(NT % (BM * BP) == 0, "one (channel, slot) pair per thread");
-  const int q = tid % (BM * BP), m = q / BP, p = q - m * BP;
-  const int ii = p / g.btw, jj = p - ii * g.btw;
-  return {m * g.chan + ii * g.t * g.cols + jj * g.t, hb.real(g, p)};
-}
-
 // soff[s] = raw offset of window element s = u*K + v: u*cols + v (once
 // per CTA, S entries)
 template <int NT>
@@ -166,19 +148,6 @@ __device__ __forceinline__ void halo_window_offsets(int* soff,
                                                     int tid) {
   for (int s = tid; s < g.K * g.K; s += NT)
     soff[s] = (s / g.K) * g.cols + s % g.K;
-}
-
-// Expand the staged raw rows into windows win[s][m][p] (s = u*K + v, tile
-// slot p = ii*btw + jj): window (u, v) of tile (ii, jj) is raw row
-// ii*t + u, column jj*t + v.  Slots that hold no tile of the grid read 0.
-template <int NT, int BM, int BP>
-__device__ __forceinline__ void halo_expand(float* win, const float* raw,
-                                            const int* soff,
-                                            const HaloGeo& g, HaloLane ln,
-                                            int tid) {
-  constexpr int MP = BM * BP;
-  for (int i = tid, s = tid / MP; i < g.K * g.K * MP; i += NT, s += NT / MP)
-    win[i] = ln.real ? raw[ln.base + soff[s]] : 0.f;
 }
 
 // Offset of output element (s2, n, tile slot p) of the block in
@@ -201,51 +170,30 @@ __device__ __forceinline__ long long halo_out_offset(const HaloGeo& g,
 
 // The halo input path of a kernel whose CTA takes BM channels per step
 // into BP tile slots with NT threads: the raw activation x [B, M, H, W]
-// in, one halo block per CTA, output y [B, N, H_out, W_out].  The ring
-// stage holds the block's raw rows; the window stage [S][BM][BP] is
-// followed by the S window offsets (ints).
+// in, one halo block per CTA (tile block), output y [B, N, H_out, W_out].
+// The ring stage holds the block's raw rows, which the tile-FFT reads by
+// offset (the S window offsets in shared memory).
 template <int NT, int BM, int BP>
 struct HaloPath {
   const float* x;
   HaloGeo g;
   struct Blk {
     HaloBlock hb;
-    HaloLane ln;
   };
   __host__ __device__ int blocks() const { return g.B * g.nbh * g.nbw; }
   __host__ __device__ int x_floats(int) const { return BM * g.chan; }
-  __host__ __device__ int win_floats(int S) const { return S * BM * BP + S; }
-  __device__ Blk block(int bx, int tid) const {
-    const HaloBlock hb = HaloBlock::of(g, bx);
-    return {hb, halo_lane<NT, BM, BP>(g, hb, tid)};
-  }
-  __device__ void prepare(float* win, int S, int tid) const {
-    halo_window_offsets<NT>(reinterpret_cast<int*>(win + S * BM * BP), g,
-                            tid);
-  }
+  __device__ Blk block(int bx, int) const { return {HaloBlock::of(g, bx)}; }
   __device__ void load(const Blk& k, float* sx, int, int, int m0,
                        int tid) const {
     halo_load_raw<NT, BM>(sx, x, g, k.hb, m0, tid);
-  }
-  // expand the staged raw rows into the window stage (barrier: the stage
-  // is read by every thread next)
-  __device__ const float* windows(const Blk& k, const float* sx, float* win,
-                                  int tid) const {
-    const int S = g.K * g.K;
-    halo_expand<NT, BM, BP>(win, sx,
-                            reinterpret_cast<const int*>(win + S * BM * BP),
-                            g, k.ln, tid);
-    __syncthreads();
-    return win;
   }
   __device__ long long out_at(const Blk& k, int s2, int n, int N,
                               int p) const {
     return halo_out_offset(g, k.hb, N, s2, n, p);
   }
-  // The output-stationary plane kernel's tile-FFT reads its B operand
-  // straight from the raw rows (no expand pass): window element s of
-  // (channel, slot) column `col` is raw[base + soff[s]], 0 in a slot that
-  // holds no tile.
+  // The tile-FFT reads its B operand straight from the raw rows: window
+  // element s of (channel, slot) column `col` is raw[base + soff[s]], 0 in
+  // a slot that holds no tile.
   struct FftCol {
     int base;
     bool real;

@@ -69,6 +69,31 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The CTA's rank in its cluster, the cluster's size and the CTA's grid
+// index along y and z, read anew at every call: the reads are volatile, so
+// a kernel that holds many accumulators across a loop does not keep an
+// earlier read of them live beside them.
+__device__ __forceinline__ int fresh_cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int fresh_cluster_size() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int fresh_cta_y() {
+  int r;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int fresh_cta_z() {
+  int r;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(r));
+  return r;
+}
+
 // --- TMA -----------------------------------------------------------------
 
 // Copy one box of a 3-D tensor map at element coordinates (c0 innermost,

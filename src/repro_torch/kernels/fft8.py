@@ -55,19 +55,18 @@ def library() -> ctypes.CDLL:
     lib.fft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 5
                                    + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p])
-    lib.ifft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 5
+    lib.ifft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 3
                                     + [ctypes.c_longlong, ctypes.c_void_p])
     lib.fft2_tiles_f32.restype = lib.ifft2_tiles_f32.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _dft(device, inverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The K-point DFT matrix (forward) or conj(W) / K (inverse) as two
-    f32 [K, K] tensors on ``device``, made once per device."""
+def _dft(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K-point DFT matrix as two f32 [K, K] tensors on ``device``, made
+    once per device (the forward kernel's operand; the inverse kernel's
+    radix-2 butterflies carry their own twiddles)."""
     cr, ci = dft_matrices(FFT_SIZE)
-    if inverse:
-        cr, ci = cr / FFT_SIZE, -ci / FFT_SIZE
     return tuple(torch.from_numpy(a.copy()).to(device) for a in (cr, ci))
 
 
@@ -106,7 +105,7 @@ def fft2_tiles(x: torch.Tensor, *, fft_size: int
                          f"got fft_size {fft_size}")
     b, t = x.shape[0], x.shape[1]
     _check("x", x, (b, t, t))
-    cr, ci = _dft(x.device, False)
+    cr, ci = _dft(x.device)
     with torch.cuda.device(x.device):
         yr = torch.empty((b, fft_size, fft_size), dtype=torch.float32,
                          device=x.device)
@@ -138,11 +137,10 @@ def ifft2_tiles(yr: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
     _check("yi", yi, shape)
     if yi.device != yr.device:
         raise ValueError(f"yi is on {yi.device}, yr on {yr.device}")
-    vr, vi = _dft(yr.device, True)
     with torch.cuda.device(yr.device):
         y = torch.empty(shape, dtype=torch.float32, device=yr.device)
         if b:
             _launched("ifft2_tiles", library().ifft2_tiles_f32(
-                yr.data_ptr(), yi.data_ptr(), vr.data_ptr(), vi.data_ptr(),
-                y.data_ptr(), b, torch.cuda.current_stream().cuda_stream))
+                yr.data_ptr(), yi.data_ptr(), y.data_ptr(), b,
+                torch.cuda.current_stream().cuda_stream))
     return y

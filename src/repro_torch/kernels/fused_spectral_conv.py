@@ -30,7 +30,8 @@ and the on-card smoke run hold the kernel to it.
 Every wrapper takes the paper's three reuse flows (``flow=``, as the
 reference's kernels do): 'output_stationary' sums all input channels in
 the kernel; 'weight_stationary' (a CTA keeps the kernel operand of an m
-range of ``block_m`` channels resident and walks every tile block) and
+range of ``block_m`` channels resident and walks a chunk of tile blocks,
+``ws_launch_geometry``) and
 'input_stationary' (a CTA keeps X~ of its tiles for an m range resident
 and walks every output-channel block) sum each m range's partial IFFT in
 a split-K workspace that a second launch reduces in ascending m-range
@@ -81,15 +82,15 @@ from repro_torch.kernels import _build
 
 # CUDA kernel block sizes (compiled in as -DFSC_*): output channels and
 # tiles per CTA, input channels per pipeline step, frequency bins per CTA
-# (a cluster of ceil(Fa / BIN_CHUNK) CTAs covers the active bins), threads
-# per CTA.  One CTA per SM; its shared memory (laid out in the source)
-# fits the 227 KB limit at K = 8.
-BLOCK_N, BLOCK_P, BLOCK_M, BIN_CHUNK, THREADS = 64, 16, 8, 8, 512
+# (a cluster of ceil(Fa / BIN_CHUNK) CTAs covers the active bins).  One
+# CTA per SM; its shared memory (laid out in the source) fits the 227 KB
+# limit at K = 8.
+BLOCK_N, BLOCK_P, BLOCK_M, BIN_CHUNK = 64, 16, 8, 8
 MAX_CLUSTER = 8       # portable thread-block cluster size
-# The output-stationary plane kernel (tensor cores, 3xTF32): the deepest
-# TMA / cp.async ring it takes (-DFSC_OS_STAGES; two stages where three do
-# not fit) and its threads (-DFSC_OS_THREADS: a warp per bin, 255
-# registers a thread for its accumulator fragments).
+# The plane kernels (tensor cores, 3xTF32; every flow): the deepest TMA /
+# cp.async ring they take (-DFSC_OS_STAGES; two stages where three do not
+# fit) and their threads (-DFSC_OS_THREADS: a warp per bin, 255 registers
+# a thread for its accumulator fragments).
 # ``os_launch_geometry`` splits M into ranges of at least OS_RANGE_MIN
 # channels, and the bin chunks into smaller clusters, where that fills the
 # card better; it prices a launch (``os_latency_s``, which the cost model
@@ -126,12 +127,16 @@ SCHED_FIXED_STEPS = 24
 # The reuse flows and, for the two that split the input channels into m
 # ranges, the m-range widths (``block_m``) the kernels take: a multiple of
 # BLOCK_M for the plane kernel (the range's planes, or its X~, stay in
-# shared memory, which caps the width: 16 for ws, 64 for is at K = 8), any
-# width for the scheduled kernel (its ws CTA keeps the range's table rows
-# of 32 lanes, ~9 KB a channel at T = 21, so 12 fit; its is CTA X~ of 8
-# tiles, 4 KB a channel, so 32: ``sched_flow_layout``).
+# shared memory, which caps the width at K = 8: ws, whose CTA takes
+# WS_BLOCK_N output channels, 32 beside a three-slot window ring and 48
+# beside two (``ws_layout``), is 64), any width for the scheduled kernel
+# (its ws CTA keeps the range's table rows of 32 lanes, ~9 KB a channel at
+# T = 21, so 12 fit; its is CTA X~ of 8 tiles, 4 KB a channel, so 32:
+# ``sched_flow_layout``).
 OS, WS, IS = FLOWS
-FLOW_BLOCK_M = {("plane", WS): (8, 16), ("plane", IS): (8, 16, 32, 64),
+WS_BLOCK_N, WS_STAGES = 32, 4
+FLOW_BLOCK_M = {("plane", WS): (8, 16, 32, 48),
+                ("plane", IS): (8, 16, 32, 64),
                 ("scheduled", WS): (4, 8, 12),
                 ("scheduled", IS): (8, 16, 32)}
 _FLOW_SUFFIX = {OS: "", WS: "_ws", IS: "_is"}
@@ -192,14 +197,20 @@ def sched_cluster(blocks: int, m: int, capacity: dict[int, int]) -> int:
     return best[1]
 
 
-def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int, bp: int
-                ) -> tuple[int, int]:
-    """(raw-stage floats, expand-stage floats) of the halo input path
-    (``halo.cuh::HaloPath``): bm channels of unclamped raw rows at an odd
-    channel pitch, then the [S][bm][bp] windows and S offsets."""
-    ov, s = geo.ksize - 1, geo.fft_size ** 2
-    chan = ((hg.bth * geo.tile + ov) * (hg.btw * geo.tile + ov)) | 1
-    return bm * chan, s * bm * bp + s
+def _halo_stage(geo: SpectralGeometry, hg: HaloGeometry, bm: int,
+                ws: bool = False) -> int:
+    """Floats of the halo input path's ring slot (``halo.cuh::HaloPath``):
+    bm channels of a block's unclamped raw rows at an odd channel pitch
+    (the tile-FFT reads its windows from them by offset); ``ws``: the
+    weight-stationary kernel's ``HaloWsPath``, rows staged from a 16-byte
+    aligned column at a pitch of the block's columns plus 3, rounded up to
+    4 floats, plus 4 where that is a multiple of 8."""
+    ov = geo.ksize - 1
+    rows, cols = hg.bth * geo.tile + ov, hg.btw * geo.tile + ov
+    if not ws:
+        return bm * ((rows * cols) | 1)
+    pitch = _align4(cols + 3)
+    return bm * rows * (pitch if pitch % 8 else pitch + 4)
 
 
 class OsLayout(NamedTuple):
@@ -263,18 +274,42 @@ def is_layout(s: int, s2: int, x_floats: int, block_m: int) -> OsLayout:
     return OsLayout(total, stages)
 
 
+def ws_layout(s: int, s2: int, x_floats: int, block_m: int) -> OsLayout:
+    """Mirror of the source's ``WsLayout`` (the weight-stationary plane
+    kernel) for S window rows, S2 output rows, ``x_floats`` of input a
+    ring slot and m ranges of ``block_m`` channels: the FFT's split A
+    fragments, the IFFT's A over every bin (2 x S2 rows of 68 floats), X~
+    of a step (os's padded layout) or, in its place, the gather buffer
+    (C x 16 rows of 8 ceil(WS_BLOCK_N BLOCK_P / 8 / C) + 8 floats, sized
+    for the largest C), the window offsets, one mbarrier a slot and one
+    for the planes, then (1024-byte aligned; 1 KB of slack aligns the
+    base) the range's planes (block_m / BLOCK_M blocks of 2 x BIN_CHUNK x
+    WS_BLOCK_N x BLOCK_M floats) and a ring of WS_STAGES 16-byte aligned
+    slots (fewer, at least two, where they would pass the card's
+    limit)."""
+    ks = -(-s // 8)
+    nt = WS_BLOCK_N * BLOCK_P // 8
+    recv = max(c * 16 * (8 * -(-nt // c) + 8)
+               for c in range(1, MAX_CLUSTER + 1))
+    xf = 2 * BIN_CHUNK * (BLOCK_M * (BLOCK_P + 8) + 8)
+    head = (2 * ks * 128 + 2 * s2 * (MAX_CLUSTER * BIN_CHUNK + 4)
+            + max(xf, recv) + _align4(s) + _align4(2 * (WS_STAGES + 1)))
+    ring = (-(-head // OS_ALIGN) * OS_ALIGN
+            + block_m // BLOCK_M * 2 * BIN_CHUNK * WS_BLOCK_N * BLOCK_M)
+    slot = _align4(x_floats)
+    for stages in range(WS_STAGES, 1, -1):
+        total = 4 * (ring + stages * slot + OS_ALIGN)
+        if total <= SMEM_PER_CTA:
+            break
+    return OsLayout(total, stages)
+
+
 def _plane_layout_bytes(flow: str, s: int, s2: int, block_m: int,
-                        x_floats: int, win: int, sc_rows: int) -> int:
+                        x_floats: int, sc_rows: int) -> int:
     if flow == OS:
         return os_layout(s, s2, x_floats, sc_rows).bytes
-    if flow == IS:
-        return is_layout(s, s2, x_floats, block_m).bytes
-    x_sz = _align4(x_floats)
-    head = (2 * s * BIN_CHUNK + 2 * s2 * BIN_CHUNK
-            + 2 * BIN_CHUNK * BLOCK_M * BLOCK_P
-            + 2 * BIN_CHUNK * BLOCK_N * block_m)
-    return 4 * (head + max(2 * x_sz + win, s2 * BLOCK_N * BLOCK_P)
-                + sc_rows * BLOCK_N * BLOCK_P)
+    layout = is_layout if flow == IS else ws_layout
+    return layout(s, s2, x_floats, block_m).bytes
 
 
 def plane_smem_bytes(flow: str, geo: SpectralGeometry,
@@ -282,16 +317,16 @@ def plane_smem_bytes(flow: str, geo: SpectralGeometry,
                      hg: HaloGeometry | None = None,
                      sc_rows: int = 0) -> int:
     """Dynamic shared memory of one plane-kernel CTA: the ``OsLayout``
-    (output-stationary), ``IsLayout`` (input-stationary) or ``Layout``
-    (weight-stationary) of ``csrc/fused_spectral_conv.cu`` (windowed when
-    ``hg`` is None; the halo path's input-stationary ring takes raw rows
-    and needs no expand stage), with
+    (output-stationary), ``IsLayout`` (input-stationary) or ``WsLayout``
+    (weight-stationary) of ``csrc/fused_spectral_conv.cu``, whose ring
+    takes windows (``hg`` None) or the halo block's raw rows (the
+    weight-stationary kernel's at a 16-byte aligned row pitch), with
     ``sc_rows`` rows of a staged shortcut (``staged_rows``)."""
     s = geo.fft_size ** 2
-    x_floats, win = ((s * BLOCK_M * BLOCK_P, 0) if hg is None
-                     else _halo_stage(geo, hg, BLOCK_M, BLOCK_P))
+    x_floats = (s * BLOCK_M * BLOCK_P if hg is None
+                else _halo_stage(geo, hg, BLOCK_M, flow == WS))
     return _plane_layout_bytes(flow, s, geo.tile ** 2, block_m, x_floats,
-                               win, sc_rows)
+                               sc_rows)
 
 
 def sched_os_layout(s: int, s2: int, t_cycles: int, r: int, x_floats: int,
@@ -379,7 +414,7 @@ def sched_smem_bytes(flow: str, geo: SpectralGeometry, block_m: int,
     (output-stationary)."""
     s = geo.fft_size ** 2
     x_floats = (s * SCHED_BLOCK_P if hg is None
-                else _halo_stage(geo, hg, 1, SCHED_BLOCK_P)[0])
+                else _halo_stage(geo, hg, 1))
     return _sched_layout_bytes(flow, s, geo.tile ** 2, block_m, t_cycles, r,
                                x_floats, sc_rows)
 
@@ -512,8 +547,8 @@ def fused_spectral_pipeline_reference(xt, wr, wi, dfr, dfi, dvr, dvi,
 SOURCES = {
     "fused_spectral_conv": {
         "FSC_BN": BLOCK_N, "FSC_BP": BLOCK_P, "FSC_BM": BLOCK_M,
-        "FSC_FC": BIN_CHUNK, "FSC_THREADS": THREADS,
-        "FSC_OS_STAGES": OS_STAGES, "FSC_OS_THREADS": OS_THREADS},
+        "FSC_FC": BIN_CHUNK, "FSC_OS_STAGES": OS_STAGES,
+        "FSC_OS_THREADS": OS_THREADS},
     "fused_spectral_conv_scheduled": {
         "SCH_BN": SCHED_BLOCK_N, "SCH_OS_THREADS": SCHED_OS_THREADS,
         "SCH_FIXED_STEPS": SCHED_FIXED_STEPS}}
@@ -529,9 +564,10 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         libs["fused_spectral_conv_scheduled"]
     # a flow entry point (and every plane entry point, whose output-
     # stationary kernel also splits M and the bin chunks) takes the
-    # workspace pointer and block_m besides, the plane kernel's output-
-    # and input-stationary ones their cluster size, and the scheduled
-    # kernel's flows their split (``sched_flow_geometry``)
+    # workspace pointer and block_m besides, and then its split: the plane
+    # kernel's output- and input-stationary cluster size, its weight-
+    # stationary tile blocks a CTA (``ws_launch_geometry``), the scheduled
+    # flows' ``sched_flow_geometry``
     for lib, kernel, n_ptr, n_int in (
             (plane, "fused_spectral_pipeline", 10, 9),
             (plane, "fused_spectral_pipeline_halo", 10, 20),
@@ -540,7 +576,7 @@ def _libraries() -> dict[str, ctypes.CDLL]:
         for flow in FLOWS:
             f = getattr(lib, entry_point(kernel, flow) + "_f32")
             extra = flow != OS or kernel in _SPLIT_OS
-            split = (flow != WS if kernel in _SPLIT_OS else flow != OS)
+            split = kernel in _SPLIT_OS or flow != OS
             f.argtypes = ([ctypes.c_void_p] * (n_ptr + extra)
                           + [ctypes.c_int] * (n_int + extra + split)
                           + [ctypes.c_void_p])
@@ -660,10 +696,9 @@ def staged_shortcut_bytes(s: int, s2: int, fa: int, *, halo=None,
     ``halo`` is the (geometry, halo block) pair of the halo input path,
     None for windows; S = K^2 window rows, S2 = t^2 output rows."""
     bm, bp = (BLOCK_M, BLOCK_P) if tables is None else (1, SCHED_BLOCK_P)
-    x_floats, win = ((s * bm * bp, 0) if halo is None
-                     else _halo_stage(*halo, bm, bp))
+    x_floats = s * bm * bp if halo is None else _halo_stage(*halo, bm)
     if tables is None:
-        return _plane_layout_bytes(OS, s, s2, BLOCK_M, x_floats, win,
+        return _plane_layout_bytes(OS, s, s2, BLOCK_M, x_floats,
                                    staged_rows(s2, -(-fa // BIN_CHUNK)))
     t_cycles, r, _ = tables
     return _sched_layout_bytes(
@@ -803,6 +838,68 @@ def is_launch_geometry(blocks: int, ranges: int, range_m: int, n: int,
     return best[1]
 
 
+# The weight-stationary plane launch's latency, (RECT_S, STEP_S) per input
+# path: seconds per output rectangle a CTA finishes (a tile block of its
+# chunk: the gather of Y~, the valid-row IFFT and the store) and
+# per BLOCK_M-channel step (tile-FFT and Hadamard), a CTA's set-up (its m
+# range's planes landed, the operators split) priced as WS_SETUP_STEPS
+# steps, in time = waves x (rects x RECT_S + steps x STEP_S).
+# Least-squares fit to the kernel's batch-1 device times at the 13
+# full-width VGG16 layers (``chip_smoke.py`` (c5), (c6) ``x_device_ms`` on
+# an NVIDIA H100 80GB HBM3, 700 W; the times and the fit are in
+# tests/test_torch_autotune.py).  ``ws_launch_geometry`` sizes the launch
+# by the windowed constants, and ``core.autotune`` prices it by them (its
+# ``LATENCY_FIT``).
+WS_LATENCY = {"windowed": (1.064517973524086e-05, 2.7873438843063764e-06),
+              "halo": (1.7883730560303338e-05, 2.742726870002715e-06)}
+WS_SETUP_STEPS = 2
+
+
+class WsGeometry(NamedTuple):
+    """One weight-stationary plane launch: tile blocks in ``split``
+    chunks of ``per`` (a CTA walks one chunk; the halo path takes
+    ceil(its blocks / split) a CTA), ``ctas`` in clusters over the bin
+    chunks, run in ``waves`` of the card's cluster capacity; a CTA's
+    ``rects`` output rectangles (its tile blocks) and ``steps``
+    BLOCK_M-channel steps (its set-up counted as WS_SETUP_STEPS more)."""
+    split: int
+    per: int
+    ctas: int
+    waves: int
+    rects: int
+    steps: int
+
+
+@functools.lru_cache(maxsize=4096)
+def ws_launch_geometry(blocks: int, nb: int, ranges: int, range_m: int,
+                       chunks: int, clusters: int) -> WsGeometry:
+    """The weight-stationary plane launch for ``blocks`` tile blocks of
+    BLOCK_P tiles (the windowed path's; the halo path takes its windowed
+    twin's split), ``nb`` n blocks of WS_BLOCK_N and ``ranges`` m ranges of
+    ``range_m`` channels, on a card that runs ``clusters`` clusters of
+    ``chunks`` CTAs at once (``ws_cluster_capacity``): among the splits of
+    the tile blocks into chunks of ``per`` consecutive blocks, the least
+    priced launch by ``WS_LATENCY`` (windowed), ties to more CTAs.  The
+    split never changes a sum's order: one cluster sums each (tile block,
+    n block, m range) rectangle."""
+    rect_s, step_s = WS_LATENCY["windowed"]
+    ksteps = -(-range_m // BLOCK_M)
+    best = None
+    for per in range(blocks, 0, -1):
+        split = -(-blocks // per)
+        if per > 1 and -(-blocks // (per - 1)) == split:
+            continue        # the same split with fewer blocks a CTA
+        n_clusters = split * nb * ranges
+        waves = -(-n_clusters // clusters)
+        steps = per * ksteps + WS_SETUP_STEPS
+        cost = waves * (per * rect_s + steps * step_s)
+        key = (cost, -n_clusters)
+        if best is None or key < best[0]:
+            best = (key, WsGeometry(split, per, n_clusters * chunks, waves,
+                                    per, steps))
+    return best[1]
+
+
 # The price by which ``sched_flow_geometry`` sizes the scheduled weight-
 # and input-stationary launch, (RECT_S, STEP_S) per flow: seconds per
 # (tile block, group half) rectangle a CTA finishes (the four-round IFFT
@@ -927,6 +1024,24 @@ def is_cluster_capacity(device) -> dict[int, int]:
     return dict(_os_capacity(torch.device(device).index or 0, "is"))
 
 
+def ws_cluster_capacity(device) -> dict[int, int]:
+    """The same for the plane kernel's weight-stationary flow
+    (``fused_ws_kernel``; ``ws_launch_geometry`` reads it)."""
+    return dict(_os_capacity(torch.device(device).index or 0, "ws"))
+
+
+def ws_launch(blocks: int, n: int, m: int, block_m: int, fa: int,
+              device) -> WsGeometry:
+    """The weight-stationary plane launch on ``device`` for ``blocks``
+    windowed tile blocks, N outputs, M inputs in ranges of ``block_m``
+    and ``fa`` active bins (``ws_launch_geometry`` on the card's cluster
+    capacity)."""
+    chunks = -(-fa // BIN_CHUNK)
+    return ws_launch_geometry(blocks, -(-n // WS_BLOCK_N),
+                              -(-m // block_m), min(block_m, m), chunks,
+                              ws_cluster_capacity(device)[chunks])
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -959,9 +1074,8 @@ def _launch(lib, kernel: str, flow: str, block_m, g: int, slots: int,
     """Call a kernel's entry point for ``flow`` on the current stream
     (the flows, and the plane kernels' output-stationary launch, get a
     split-K workspace of G * S2 * N * slots floats when G > 1 slices (the
-    scheduled flows always), and
-    ``block_m``; the latter, and the scheduled flows, also its ``cluster``
-    size or split), with the shortcut
+    scheduled flows always), ``block_m`` and their ``cluster`` size or
+    split), with the shortcut
     (or a null pointer) after the output and ``staged`` last; raise on a
     CUDA error, count the launch (and, with a shortcut, the residual
     launch; on a shard's ``band``, the band launch)."""
@@ -1055,6 +1169,9 @@ def fused_spectral_pipeline(xt, wr, wi, dfr, dfi, dvr, dvi, bias, *,
         ig = is_launch_geometry(-(-p // BLOCK_P), g, min(block_m, m), n,
                                 fa, s2, is_cluster_capacity(xt.device))
         g, cluster = ig.slices, ig.cluster
+    else:                   # tile blocks a CTA
+        cluster = ws_launch(-(-p // BLOCK_P), n, m, block_m, fa,
+                            xt.device).per
     if staged:
         _check_staged_fits("fused_spectral_pipeline",
                            staged_shortcut_bytes(s, s2, fa))
@@ -1445,6 +1562,10 @@ def fused_spectral_pipeline_halo(x, wr, wi, dfr, dfi, dvr, dvi, bias, *,
                                 min(block_m, x.shape[1]), n, fa, s2,
                                 is_cluster_capacity(x.device))
         g, cluster = ig.slices, ig.cluster
+    else:                   # the windowed twin's split of the tile blocks
+        wg = ws_launch(-(-x.shape[0] * geo.n_tiles // BLOCK_P), n,
+                       x.shape[1], block_m, fa, x.device)
+        cluster = -(-x.shape[0] * hg.n_blocks // wg.split)
     if staged:
         _check_staged_fits("fused_spectral_pipeline_halo",
                            staged_shortcut_bytes(geo.fft_size ** 2, s2, fa,

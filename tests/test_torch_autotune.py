@@ -34,13 +34,13 @@ L2 = 50e6
 # their least-squares fit.
 MEASURED_DEVICE_MS = {
     ("plane", "weight_stationary", "windowed"): (
-        (8, 8, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16),
-        (1.542, 1.547, 0.5156, 1.021, 0.4807, 0.8049, 0.7984, 0.4444, 0.8483,
-        0.8504, 0.4594, 0.4604, 0.4581)),
+        (8, 32, 32, 48, 48, 32, 32, 48, 48, 48, 48, 48, 48),
+        (0.192, 0.6034, 0.3505, 0.5484, 0.4032, 0.7835, 0.7754, 0.393,
+         0.7208, 0.7191, 0.4157, 0.4147, 0.4187)),
     ("plane", "weight_stationary", "halo"): (
-        (8, 8, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16, 16),
-        (2.47, 2.075, 0.9675, 1.9, 0.7422, 1.233, 1.232, 0.5067, 0.9835,
-        0.9815, 0.5202, 0.5194, 0.52)),
+        (8, 32, 32, 48, 32, 48, 48, 48, 48, 48, 48, 48, 48),
+        (0.3137, 1.024, 0.733, 1.17, 0.6482, 1.134, 1.134, 0.5019, 0.9425,
+         0.9432, 0.4638, 0.4676, 0.4682)),
     ("plane", "input_stationary", "windowed"): (
         (8, 64, 32, 64, 64, 64, 64, 32, 64, 64, 32, 32, 32),
         (0.2039, 0.4315, 0.2539, 0.3383, 0.173, 0.3285, 0.328, 0.2738, 0.355,
@@ -296,13 +296,18 @@ def test_no_kept_candidate_over_shared_memory(name, batch, monkeypatch):
 
 
 def test_shared_memory_mirror_matches_the_kernels_caps():
-    """The Python mirror of the CUDA layouts: ws planes fit at 16
-    channels and not 24, is X~ at 64; scheduled ws table rows at 14
-    channels of T = 21 and not 15 (the tensor-core flow kernel's
-    ``FlowLayout``: its widest built width, 12, fits)."""
+    """The Python mirror of the CUDA layouts: ws planes of 32 output
+    channels fit at 48 input channels (the tensor-core kernel's
+    ``WsLayout``: beside a two-slot window ring; 32 beside three, 16
+    beside four) and not
+    56, is X~ at 64; scheduled ws table rows at 14 channels of T = 21 and
+    not 15 (the tensor-core flow kernel's ``FlowLayout``: its widest built
+    width, 12, fits)."""
     geo = spec.make_geometry(224, 224, 3, 8, 1)
-    assert fsc.plane_smem_bytes("weight_stationary", geo, 16) <= 232_448
-    assert fsc.plane_smem_bytes("weight_stationary", geo, 24) > 232_448
+    assert fsc.plane_smem_bytes("weight_stationary", geo, 48) <= 232_448
+    assert fsc.plane_smem_bytes("weight_stationary", geo, 56) > 232_448
+    assert [fsc.ws_layout(64, 36, 8192, w).stages
+            for w in (8, 16, 32, 48)] == [4, 4, 3, 2]
     assert fsc.plane_smem_bytes("input_stationary", geo, 64) <= 232_448
     assert fsc.sched_smem_bytes("weight_stationary", geo, 14, 21, 10,
                                 64) <= 232_448

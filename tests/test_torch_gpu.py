@@ -356,7 +356,7 @@ def test_smoke_halo_forward_on_card_goes_through_kernel(hadamard, kernel):
 # ---------------------------------------------------------------------------
 
 FLOW_CASES = [(flow, bm) for flow, widths in (
-    ("weight_stationary", (8, 16)), ("input_stationary", (8, 64)))
+    ("weight_stationary", (8, 16, 48)), ("input_stationary", (8, 64)))
     for bm in widths]
 SCHED_FLOW_CASES = [("weight_stationary", 1), ("weight_stationary", 3),
                     ("input_stationary", 2), ("input_stationary", 8)]
@@ -559,7 +559,7 @@ def test_shared_memory_mirror_matches_the_kernels():
            .cuda() for sh in [(64, 96, 9), (64, 8, 96), (64, 8, 96),
                               (64, 64), (64, 64), (36, 64), (36, 64),
                               (1, 8)]]
-    for flow, fits, over in (("weight_stationary", 16, 24),
+    for flow, fits, over in (("weight_stationary", 48, 56),
                              ("input_stationary", 64, 72)):
         assert fsc.plane_smem_bytes(flow, geo, fits) <= cap
         assert fsc.plane_smem_bytes(flow, geo, over) > cap
@@ -1501,11 +1501,12 @@ def test_spectral_hadamard_at_every_vgg16_layer_on_card(name, m, n, h):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
 def test_plane_flow_kernel_at_vgg16_layers_on_card(name, m, n, h):
-    """B2 plane, weight- and input-stationary (the m-range widths the cost
-    model picks for the layer, and the narrowest), on windows and on the
-    halo path, at every VGG16 layer shape (the forward DFT operators on
-    all 64 bins, random planes), batch 1 and 4: within 2e-6 of max|plain|
-    (the plain version in the flow's m-range order), bitwise on repeat."""
+    """B2 plane, weight- and input-stationary (weight-stationary at every
+    built m-range width; input-stationary at the width the cost model
+    picks for the layer, and the narrowest), on windows and on the halo
+    path, at every VGG16 layer shape (the forward DFT operators on all 64
+    bins, random planes), batch 1 and 4: within 2e-6 of max|plain| (the
+    plain version in the flow's m-range order), bitwise on repeat."""
     need_card()
     import repro_torch
     from repro_torch.core import autotune as at
@@ -1520,10 +1521,12 @@ def test_plane_flow_kernel_at_vgg16_layers_on_card(name, m, n, h):
               / m ** 0.5 for _ in range(2))
     bias = torch.randn((1, n), generator=gen, device="cuda")
     for flow in ("weight_stationary", "input_stationary"):
-        widths = {fsc.FLOW_BLOCK_M[("plane", flow)][0],
-                  at.autotune_layer(layer, 8, 4.0, flows=(flow,),
-                                    hadamard_modes=("bin",),
-                                    input_modes=("windowed",)).block_m}
+        widths = ({*fsc.FLOW_BLOCK_M[("plane", flow)]}
+                  if flow == "weight_stationary" else
+                  {fsc.FLOW_BLOCK_M[("plane", flow)][0],
+                   at.autotune_layer(layer, 8, 4.0, flows=(flow,),
+                                     hadamard_modes=("bin",),
+                                     input_modes=("windowed",)).block_m})
         for block_m in sorted(widths):
             for b in (1, 4):
                 x = torch.randn((b, m, h, h), generator=gen, device="cuda")
@@ -1544,6 +1547,30 @@ def test_plane_flow_kernel_at_vgg16_layers_on_card(name, m, n, h):
                                                     fn.__name__,
                                                     _rel(y, ref))
                     assert torch.equal(y, fn(*ops, **kw, **extra))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_ifft_kernel_at_staged_vgg16_shapes_on_card(name, m, n, h):
+    """B7a ifft at the layer's staged VGG16 shapes (B N T output tiles at
+    batch 1 and 4), at a tile count that is not a multiple of the
+    kernel's 32-tile step and at one smaller than a step: within 2e-6 of
+    max|plain| (``torch.fft.ifft2``), bitwise on repeat, each call one
+    counted launch."""
+    need_card()
+    t = spec.make_geometry(h, h, 3, 8).n_tiles
+    gen = torch.Generator(device="cuda").manual_seed(n + h)
+    for tiles in (n * t, 4 * n * t, n * t + 5, 19):
+        yr, yi = (torch.randn((tiles, 8, 8), generator=gen, device="cuda")
+                  for _ in range(2))
+        before = dict(fft8.LAUNCHES)
+        y = fft8.ifft2_tiles(yr, yi)
+        again = fft8.ifft2_tiles(yr, yi)
+        torch.cuda.synchronize()
+        assert _launched(fft8.LAUNCHES, before) == {"ifft2_tiles": 2}
+        assert _rel(y, fft8.ifft2_tiles_reference(yr, yi)) <= TC_TOL, \
+            (tiles, _rel(y, fft8.ifft2_tiles_reference(yr, yi)))
+        assert torch.equal(y, again)
 
 
 def vgg16_layer_tables(m, n, seed):
