@@ -21,9 +21,10 @@ each of which fails the run on error:
       stationary kernels, B2 is / ws plane; the scheduled output-
       stationary kernel, B4/B5; the
       scheduled weight-/input-stationary kernel, B2 ws / is sched) or no
-      HMMA in its SASS, a spill store in the staged Hadamard libraries
-      (spectral_hadamard, sparse_hadamard) or a spectral Hadamard whose
-      SASS holds no HMMA (its 3xTF32 tensor-core products);
+      HMMA in its SASS, a spill store in the staged libraries
+      (fft_tiles, spectral_hadamard, sparse_hadamard) or a spectral
+      Hadamard whose SASS holds no HMMA (its 3xTF32 tensor-core
+      products);
   (c) plane kernel vs its plain version at the 13 full-width VGG16
       layer shapes, at every batch size (d) serves (1 and 4: the plan's
       own operands, windows of a random activation in the main path's
@@ -120,8 +121,10 @@ each of which fails the run on error:
   (s) the staged path's kernels at the 13 VGG16 layer shapes, batch 4
       and 1: the tile-FFT of the layer's windows, the spectral Hadamard
       of those spectra against the layer's dense K^2 planes in each flow
-      (ws/is over m ranges of 128, a repeat launch bitwise equal), the
-      tile-IFFT of its output, and at batch 1 the Alg-2 table executor
+      (ws/is over m ranges of 128), the tile-IFFT of its output (each a
+      repeat launch bitwise equal; the tile-FFT and -IFFT within 2e-6 of
+      max|plain| at every layer, their card tests' gate), and at batch 1
+      the Alg-2 table executor
       on one 64-lane group of the layer's kernels (r = 10; its plain
       version summed in the kernel's channel ranges, a repeat launch
       bitwise equal, its grid printed), each against its plain version
@@ -130,7 +133,9 @@ each of which fails the run on error:
       the plain version's (one call), one PyTorch call of the same
       function timed alike (library_ms: torch.fft.fft2 / ifft2, a complex
       matmul; for the executor a complex matmul of the group's densified
-      planes, whose pruned bins are zeros) and the bound;
+      planes, whose pruned bins are zeros) and the bound; and the harness
+      floor, the device time read the same way for a one-element
+      ``zero_()``, a launch that does almost nothing;
   (ds) the staged main path: ``forward_spectral(backend="staged")`` on
       full VGG16 (the (d5) plan's kernels; staged reads no other
       operand), five batch-1 forwards (the first discarded from the p50)
@@ -1294,8 +1299,9 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
     layer of ``plan`` (``model`` at full width), batch 4 and 1 (the
     tile-FFT of the layer's windows of a random activation, the
     Hadamard of those spectra against the layer's dense planes in each
-    flow, m ranges of 128 for ws/is, a repeat launch bitwise equal, the
-    IFFT of the Hadamard's output; gate 1e-4 relative); the table
+    flow, m ranges of 128 for ws/is, the IFFT of the Hadamard's output;
+    gate 1e-4 relative, a repeat launch of each but the os Hadamard
+    bitwise equal, the FFT and IFFT within OS_TC_TOL); the table
     executor at batch 1 on one 64-lane group of the layer's kernels
     (Alg-2 tables, r = 10; its plain version summed in the kernel's
     channel ranges, a repeat launch bitwise equal, its grid printed).
@@ -1304,7 +1310,8 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
     ``timed_ms`` counts it), the plain version's (one call), one PyTorch
     call of the same function (``torch.fft.fft2``, ``torch.fft.ifft2``, a
     complex ``torch.matmul``; for the executor a complex ``torch.matmul``
-    of the group's densified planes; timed as the kernel) and the bound.
+    of the group's densified planes; timed as the kernel) and the bound;
+    then the harness floor (``enqueued_ms`` of a one-element ``zero_``).
     Returns the totals per entry point."""
     import torch
     from repro_torch.core import spectral as spec
@@ -1319,8 +1326,8 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
     tot = {e: dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    bound_ms=0.0, flops=0.0, bytes=0.0, abs_err=0.0, err=0.0)
            for e in entries}
-    repeats = ("spectral_hadamard_ws", "spectral_hadamard_is",
-               "scheduled_sparse_hadamard")
+    repeats = ("fft2_tiles", "spectral_hadamard_ws", "spectral_hadamard_is",
+               "ifft2_tiles", "scheduled_sparse_hadamard")
     grids = {}
     flows = {e: flow for e, flow in (("spectral_hadamard", shad.OS),
                                      ("spectral_hadamard_ws", shad.WS),
@@ -1393,6 +1400,7 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                          f"rel err {err:.3e} > {KERNEL_TOL:g}")
                 if e in repeats:
                     again = kern()
+                    again = (again,) if torch.is_tensor(again) else again
                     if not all(torch.equal(a, c) for a, c in zip(y, again)):
                         fail(f"(s) {e} {layer.name} batch {b}: a repeat "
                              f"launch differs")
@@ -1432,10 +1440,14 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
                      f"{grid.lane_blocks} lane blocks x {grid.ranges} "
                      f"ranges of {grid.range_m}"))
     for e, tt in tot.items():
-        if e == "ifft2_tiles":      # its card tests' gate, TC_TOL
-            print(f"    ifft2_tiles: every layer, batch 1 and 4, within "
-                  f"{OS_TC_TOL:g} of max|plain|: {tt['err'] <= OS_TC_TOL}, "
-                  f"the largest {tt['err']:.3e}")
+        if e in ("fft2_tiles", "ifft2_tiles"):  # their card tests' gate
+            ok = tt["err"] <= OS_TC_TOL
+            print(f"    {e}: every layer, batch 1 and 4, within "
+                  f"{OS_TC_TOL:g} of max|plain|: {ok}, the largest "
+                  f"{tt['err']:.3e}")
+            if not ok:
+                fail(f"(s) {e} is {tt['err']:.3e} of max|plain| at a "
+                     f"{model} layer, over {OS_TC_TOL:g}")
         tt["by"] = bound_of(tt["flops"], tt["bytes"])[1]
         lib = tt["library_ms"]
         print(f"    total {e}: kernel {tt['ms']:.4f} ms (call "
@@ -1443,6 +1455,10 @@ def staged_check(plan, model, xgen, flush, entries=STAGED) -> dict:
               + ("none" if lib is None else f"{lib:.4f}")
               + f", bound {tt['bound_ms']:.4f} ms ({tt['by']}), max rel "
               f"err {tt['err']:.2e}")
+    one = torch.empty(1, device=flush.device)
+    print(f"    harness floor: {enqueued_ms(one.zero_, flush.zero_):.4f} ms, "
+          f"the kernel time read as above (S_REPS {S_REPS}, L2 flush, spin) "
+          f"for a one-element zero_()")
     return tot
 
 
@@ -2340,8 +2356,8 @@ def main() -> int:
         print(f"    {kname}'s SASS ({label}): {tc_sass[kname]}")
         if tc_sass[kname]["HMMA"] < 1:
             fail(f"(b) {kname} ({label})'s SASS holds no HMMA")
-    staged_spills = {src: lib_spill_stores(src)
-                     for src in ("spectral_hadamard", "sparse_hadamard")}
+    staged_spills = {src: lib_spill_stores(src) for src in (
+        "fft_tiles", "spectral_hadamard", "sparse_hadamard")}
     hadamard_sass = _build.sass_counts("spectral_hadamard",
                                        "hadamard_tf32_kernel")
     print(f"    spill stores (bytes): {staged_spills}; spectral_hadamard's "
@@ -2868,8 +2884,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "call_ms": t["call_ms"],
         }
-        if src in ("spectral_hadamard.cu", "sparse_hadamard.cu"):
-            row["spill_stores"] = staged_spills[src[:-3]]
+        row["spill_stores"] = staged_spills[src[:-3]]
         if src == "spectral_hadamard.cu":
             row["sass"] = hadamard_sass
         if entry in rstotals:       # also checked at the ResNet-18 layers

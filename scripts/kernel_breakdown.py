@@ -24,14 +24,18 @@ the operands of a plan built from seed 0 (``--input-mode halo``: the
 plan moved to the halo path, the halo entry point on the raw
 activation): an L2 flush and a spin kernel run before the start event,
 so the wrapper's host work is hidden (as ``chip_smoke.py``'s
-``enqueued_ms``).  ``ifft`` times the staged path's tile IFFT (B7a,
-``fft8.ifft2_tiles``) and ``torch.fft.ifft2`` alike at the staged VGG16
-forward's 13 launches (random spectra of B N T tiles).  A variant whose
-substitution finds nothing in the source is reported as not applicable,
-so the script runs on any tree: ``--src`` puts another checkout's
-``src`` first on the path (its kernels, wrappers and plan), e.g. an
-unpacked parent commit.  The variants compute wrong results; only their
-times mean anything.  Builds go to ``build/kernel_breakdown/``
+``enqueued_ms``).  ``fft`` times the staged path's tile FFT (B7a,
+``fft8.fft2_tiles``) at the staged VGG16 forward's 13 launches (B M T
+random real 8 x 8 windows) with its load, column pass, row pass and
+store cut in turn and all at once (``launch_only``), then
+``torch.fft.fft2`` and the harness floor (a one-element ``zero_``) timed
+alike; ``ifft`` the tile IFFT (``fft8.ifft2_tiles``) and
+``torch.fft.ifft2`` at its 13 launches (random spectra of B N T tiles).
+A variant whose substitution finds nothing in the source is reported as
+not applicable, so the script runs on any tree: ``--src`` puts another
+checkout's ``src`` first on the path (its kernels, wrappers and plan),
+e.g. an unpacked parent commit.  The variants compute wrong results;
+only their times mean anything.  Builds go to ``build/kernel_breakdown/``
 (git-ignored with ``build/``).
 """
 
@@ -143,10 +147,69 @@ VARIANTS = {
         ("no_ifft", [[("ifft_mma<4, 1, 2>(acc,",
                        "if (false) ifft_mma<4, 1, 2>(acc,")]]),
     ]),
+    # B7a fft's stages, cut from `fft2_tiles_kernel` (the forward of
+    # csrc/fft_tiles.cu): the ring's copies, the column pass (ring reads,
+    # the real DFT, the stage writes), the row pass (stage reads, the
+    # complex DFT; the store then writes constants) and the stores (kept
+    # behind a test the values never pass, so the arithmetic stays)
+    "fft": ("fft_tiles", None, [
+        ("no_load", [[("if (st < steps) load_real_step<FULL>(x, ring + k "
+                       "* FT_PLANE, st, B, t);", ""),
+                      ("if (nx < steps) load_real_step<FULL>( x, ring + "
+                       "((i + FT_STAGES - 1) % FT_STAGES) * FT_PLANE, nx, "
+                       "B, t);", "")]]),
+        ("no_column", [[("float xc[K]; #pragma unroll for (int r = 0; r < "
+                         "K; ++r) xc[r] = sx[tile_at(tile, r, j)]; float "
+                         "cr[HR], ci[HR]; rdft8(xc, cr, ci); #pragma unroll "
+                         "for (int u = 0; u < HR; ++u) s_br[half_at(tile, "
+                         "u, j)] = cr[u]; #pragma unroll for (int u = 1; u "
+                         "< HR - 1; ++u) s_bi[half_at(tile, u, j)] = "
+                         "ci[u];", "(void)sx;")]]),
+        ("no_row", [[("float br[K], bi[K]; #pragma unroll for (int h = 0; "
+                      "h < 2; ++h) {", "float br[K], bi[K]; for (int c = "
+                      "0; c < K; ++c) br[c] = bi[c] = r + c; for (int h = "
+                      "0; h < 0; ++h) {"),
+                     ("#pragma unroll for (int c = 0; c < K; ++c) bi[c] "
+                      "*= conj; idft8(br, bi);", "(void)conj;")]]),
+        ("no_store", [[("store_rows(yr + gt * TILE, yi + gt * TILE, br, "
+                        "bi, j, gt < B);", "store_rows(yr + gt * TILE, yi "
+                        "+ gt * TILE, br, bi, j, gt < B && br[0] == "
+                        "-1e30f);")]]),
+    ]),
 }
+# the every-cut variant's name where it is not "copies_only"
+EVERY_CUT = {"fft": "launch_only"}
 # more cuts of one design, timed where they apply: the copies left out
 # (every step computes on whatever its ring slot holds)
 EXTRA = {
+    # B7a fft: the designs around the kept one (ring depth, step size,
+    # grid, store path); only their times mean anything
+    "fft": [
+        ("stages2", [("constexpr int FT_STAGES = 3;",
+                      "constexpr int FT_STAGES = 2;")]),
+        ("stages4", [("constexpr int FT_STAGES = 3;",
+                      "constexpr int FT_STAGES = 4;")]),
+        ("step8", [("constexpr int FT = 128;", "constexpr int FT = 64;")]),
+        ("step32", [("constexpr int FT = 128;", "constexpr int FT = 256;")]),
+        ("step64", [("constexpr int FT = 128;", "constexpr int FT = 512;")]),
+        # one step a CTA, no persistent loop
+        ("grid_steps", [("const long long steps = (B + FT_TB - 1) / FT_TB; "
+                         "const unsigned grid = (unsigned)(steps < n ? steps "
+                         ": n);", "const long long steps = (B + FT_TB - 1) "
+                         "/ FT_TB; const unsigned grid = (unsigned)steps;")]),
+        # streaming (evict-first) stores
+        ("stores_cs", [("*reinterpret_cast<float4*>(p) = v;",
+                        "__stcs(reinterpret_cast<float4*>(p), v);")]),
+        # each lane stores its own row (half a sector an instruction)
+        ("row_stores", [("put(dr + o, odd ? r_got : r_own); put(dr + o + K, "
+                         "odd ? r_own : r_got); put(di + o, odd ? i_got : "
+                         "i_own); put(di + o + K, odd ? i_own : i_got);",
+                         "for (int h = 0; h < 2; ++h) { put(dr + j * K + 4 "
+                         "* h, make_float4(re[4 * h], re[4 * h + 1], re[4 * "
+                         "h + 2], re[4 * h + 3])); put(di + j * K + 4 * h, "
+                         "make_float4(im[4 * h], im[4 * h + 1], im[4 * h + "
+                         "2], im[4 * h + 3])); } (void)o;")]),
+    ],
     "plane_ws": [
         ("no_copies", [("if (tma_x) sm90::mbar_wait(&bars[q % ST], (q / ST) "
                         "& 1);", ""),
@@ -240,7 +303,8 @@ def variants_of(name: str, text: str) -> list[tuple[str, list | None]]:
     for v, pairs in EXTRA.get(name, []):
         if extra.get(v) is None:
             extra[v] = pairs if patched(text, pairs) is not None else None
-    return ([("base", [])] + cuts + [("copies_only", every)]
+    return ([("base", [])] + cuts
+            + [(EVERY_CUT.get(name, "copies_only"), every)]
             + list(extra.items())
             + [(v, []) for v, _, _ in PATCHES.get(name, [])])
 
@@ -262,7 +326,7 @@ def patched(text: str, pairs) -> str | None:
 def build_variants(names) -> dict[tuple[str, str], Path | None]:
     """One nvcc per (kernel, variant), all started together; the library
     path, or None where a substitution did not apply."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, fft8
     from repro_torch.kernels import fused_spectral_conv as fsc
     csrc = Path(fsc.__file__).resolve().parent / "csrc"
     out_dir = ROOT / "build" / "kernel_breakdown"
@@ -270,6 +334,7 @@ def build_variants(names) -> dict[tuple[str, str], Path | None]:
     nvcc, jobs, libs = _build._nvcc(), {}, {}
     for name in names:
         source = VARIANTS[name][0]
+        defines = {**fsc.SOURCES, **fft8.SOURCES}[source]
         text = (csrc / f"{source}.cu").read_text()
         for variant, _ in variants_of(name, text):
             body = source_of(name, variant, text)
@@ -281,7 +346,7 @@ def build_variants(names) -> dict[tuple[str, str], Path | None]:
             (d / f"{source}.cu").write_text(body)
             lib = d / f"lib{source}.so"
             flags = list(_build.NVCC_FLAGS) + [
-                f"-D{k}={v}" for k, v in sorted(fsc.SOURCES[source].items())]
+                f"-D{k}={v}" for k, v in sorted(defines.items())]
             jobs[(name, variant)] = subprocess.Popen(
                 [nvcc, *flags, "-o", str(lib), str(d / f"{source}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -294,6 +359,8 @@ def build_variants(names) -> dict[tuple[str, str], Path | None]:
 
 
 def device_ms(fn, flush) -> float:
+    """Median device time of ``fn`` over REPS launches, ``flush()`` and a
+    spin kernel before each start event."""
     import torch
     fn()
     times = []
@@ -310,25 +377,68 @@ def device_ms(fn, flush) -> float:
     return statistics.median(times)
 
 
+def staged_tiles() -> list[tuple[str, int, int]]:
+    """(layer, input windows B M T, output tiles B N T) of the staged
+    VGG16 forward's 13 convs at batch 1."""
+    from repro_torch.core import dataflow as df
+    from repro_torch.core.spectral import make_geometry
+    out = []
+    for layer in df.VGG16_LAYERS:
+        t = make_geometry(layer.h_in, layer.w_in, layer.ksize, 8,
+                          layer.pad).n_tiles
+        out.append((layer.name, layer.c_in * t, layer.c_out * t))
+    return out
+
+
+def time_fft(dev, flush, xgen, libs) -> dict:
+    """B7a fft (``fft8.fft2_tiles`` on each built variant of the tree's
+    source), ``torch.fft.fft2`` and the harness floor (a one-element
+    ``zero_``, what ``device_ms`` reads for a launch that does almost
+    nothing) timed alike, device-only, at the staged VGG16 forward's 13
+    launches at batch 1 (B M T random real windows)."""
+    import torch
+    from repro_torch.kernels import _build, fft8
+    xs = [torch.randn((m, 8, 8), generator=xgen, device=dev)
+          for _, m, _ in staged_tiles()]
+    rows = {}
+    for variant in [v for v, _ in variants_of("fft", "")]:
+        path = libs[("fft", variant)]
+        if path is None:
+            print(f"fft {variant:12s} not applicable to this source")
+            continue
+        lib = ctypes.CDLL(str(path))
+        with mock.patch.object(_build, "build",
+                               lambda s, lib=lib: {"fft_tiles": lib}):
+            loaded = fft8.library()
+        with mock.patch.object(fft8, "library", lambda l=loaded: l):
+            rows[variant] = [device_ms(
+                lambda x=x: fft8.fft2_tiles(x, fft_size=8), flush)
+                for x in xs]
+    rows["library"] = [device_ms(lambda x=x: torch.fft.fft2(x), flush)
+                       for x in xs]
+    one = torch.empty(1, device=dev)
+    rows["harness_floor"] = [device_ms(one.zero_, flush)]
+    for k, ms in rows.items():
+        print(f"fft {k:13s} total {sum(ms):9.4f} ms  per layer "
+              + " ".join(f"{v:.4f}" for v in ms))
+    return rows
+
+
 def time_ifft(dev, flush, xgen) -> dict:
     """B7a ifft (``fft8.ifft2_tiles``, the tree's own) and
     ``torch.fft.ifft2`` timed alike, device-only, at the staged VGG16
     forward's 13 launches at batch 1 (B N T tiles of random spectra)."""
     import torch
-    from repro_torch.core import dataflow as df
-    from repro_torch.core.spectral import make_geometry
     from repro_torch.kernels import fft8
     rows = {"kernel": [], "library": []}
-    for layer in df.VGG16_LAYERS:
-        t = make_geometry(layer.h_in, layer.w_in, layer.ksize, 8,
-                          layer.pad).n_tiles
-        yr, yi = (torch.randn((layer.c_out * t, 8, 8), generator=xgen,
-                              device=dev) for _ in range(2))
+    for _, _, n in staged_tiles():
+        yr, yi = (torch.randn((n, 8, 8), generator=xgen, device=dev)
+                  for _ in range(2))
         yc = torch.complex(yr, yi)
         rows["kernel"].append(device_ms(lambda: fft8.ifft2_tiles(yr, yi),
-                                        flush.zero_))
+                                        flush))
         rows["library"].append(device_ms(lambda: torch.fft.ifft2(yc),
-                                         flush.zero_))
+                                         flush))
     for k, ms in rows.items():
         print(f"ifft {k:8s} total {sum(ms):9.4f} ms  per layer "
               + " ".join(f"{v:.4f}" for v in ms))
@@ -340,6 +450,9 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--only", default=",".join([*VARIANTS, "ifft"]))
     ap.add_argument("--json", default=None)
+    ap.add_argument("--flush", choices=("write", "read"), default="write",
+                    help="how the 128 MB L2 flush runs before each timed "
+                         "launch: zero_ (as chip_smoke.py) or sum")
     ap.add_argument("--block-m", type=int, default=None,
                     help="the flows' m-range width (rounded up to 8, at "
                          "most M) instead of the plan's")
@@ -364,6 +477,7 @@ def main() -> int:
     names = [n for n in args.only.split(",") if n]
     ifft = "ifft" in names
     names = [n for n in names if n != "ifft"]
+    fft = "fft" in names
     repro_torch.strict_fp32()
     dev = torch.device("cuda", 0)
     print(f"kernel_breakdown: {torch.cuda.get_device_name(0)}; kernels "
@@ -377,10 +491,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     _build.BUILD_DIR = ROOT / "build" / "kernel_breakdown" / "base"
     xgen = torch.Generator(device=dev).manual_seed(1)
-    flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    buf = torch.empty(128 * 2 ** 20 // 4, device=dev)
+    # a write leaves the L2 full of dirty lines that the timed kernel's
+    # misses write back; a read leaves it clean
+    flush = buf.zero_ if args.flush == "write" else buf.sum
     result = {}
+    if fft:
+        result["fft"] = time_fft(dev, flush, xgen, libs)
     if ifft:
         result["ifft"] = time_ifft(dev, flush, xgen)
+    names = [n for n in names if n != "fft"]
     if names:       # the other source, as built
         base_libs = _build.build(fsc.SOURCES)
         params = cnn.init(CONFIG,
@@ -448,7 +568,7 @@ def main() -> int:
             with mock.patch.object(_build, "build", lambda s, lib=lib: lib):
                 loaded = fsc._libraries()
             with mock.patch.object(fsc, "_libraries", lambda l=loaded: l):
-                ms = [device_ms(fn, flush.zero_) for _, fn, _ in calls]
+                ms = [device_ms(fn, flush) for _, fn, _ in calls]
             rows[variant] = ms
             print(f"  {variant:12s} total {sum(ms):9.4f} ms  per layer "
                   + " ".join(f"{t:.4f}" for t in ms))

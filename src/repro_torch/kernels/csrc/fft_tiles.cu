@@ -5,37 +5,41 @@
 // and third launches of the staged spectral conv.  Per K x K tile:
 //
 //   forward  Y = W X W^T      X real [t, t] zero-padded to K x K,
-//                             W[j][k] = exp(-2 pi i jk / K) = cr + i ci
-//   inverse  y = Re(V Y V^T)  V = conj(W) / K = vr + i vi
+//                             W[j][k] = exp(-2 pi i jk / K)
+//   inverse  y = Re(V Y V^T)  V = conj(W) / K
 //
 //   fft2_tiles_f32:  x [B, t, t] (t <= K)      -> yr, yi [B, K, K]
 //   ifft2_tiles_f32: yr, yi [B, K, K]          -> y [B, K, K]
 //
-// Bound on an H100 SXM: bytes.  The forward reads 4 t^2 and writes 8 K^2
-// bytes a tile, the inverse reads 8 K^2 and writes 4 K^2, against ~3 K^3
-// (forward) and ~6 K^3 (inverse) real multiply-adds: 0.3-0.5 flop a byte,
-// two orders under the card's 20 flop/byte fp32 balance (67 TFLOP/s over
-// 3.35 TB/s).  The forward (`fft2_tiles_kernel`) keeps every tile's
-// bytes moving once, in 128-byte transactions, and does the arithmetic
-// where the data already is:
-//  * A CTA of 256 threads takes TB = 32 tiles per step (grid-stride over
-//    the batch in 64-bit indices: the staged VGG16 path hands it up to
-//    4 * 64 * 1444 = 369,664 tiles).  The step's tiles are contiguous in
-//    device memory, so consecutive threads load consecutive floats into a
-//    shared [TB][K][K+1] stage (the pad column spreads the row reads over
-//    the banks); a t < K tile is zero-padded in this load, the host makes
-//    no padded copy.
-//  * Stage 1: thread (tile, row j) holds row j of X in registers and
-//    writes row j of A = X W^T (complex) to shared memory.  Stage 2: the
-//    same thread, now as column v, reads column v of A and forms column v
-//    of W A in registers.  The DFT matrices sit in shared memory, read as
-//    broadcasts.
-//  * The result goes back through the shared stage and out in the same
-//    coalesced order.  fp32 FMA on CUDA cores, no tensor cores (the
-//    products are 8 x 8 and the kernel is bytes-bound).
-// The inverse (`ifft2_tiles_kernel`) is written for the bandwidth alone:
-// a persistent grid, a three-slot ring of 16-byte asynchronous copies, a
-// rotated layout in place of the pad, and radix-2 butterflies (below).
+// Bound on an H100 SXM: bytes.  The forward reads 4 K^2 (4 t^2) and writes
+// 8 K^2 bytes a tile, the inverse reads 8 K^2 and writes 4 K^2, against
+// 12 K^3 flops a tile as two DFT products (the radix-2 forms below do
+// about a sixth of those): 4 flops a byte at most, under the card's 20
+// fp32 flops a byte (67 TFLOP/s over 3.35 TB/s).  Both kernels are
+// written for the bandwidth alone, on the same pieces:
+//  * A persistent grid (the card's SMs times the CTAs an SM holds at the
+//    kernel's shared memory, `resident_ctas`) walks steps of consecutive
+//    tiles (16 forward, 32 inverse), contiguous in device memory.  Each
+//    step's tiles land by 16-byte `cp.async` copies, consecutive threads on
+//    consecutive chunks, in a ring of three slots, so step i + 1's and
+//    i + 2's loads run under step i's arithmetic.
+//  * A tile's rows are rotated by the tile and a row slot's 16-byte halves
+//    swapped where the slot is >= 4 (`tile_at`) instead of a pad column:
+//    the copies keep whole 16-byte chunks, and a pass's scalar reads (8
+//    threads of a tile on a row, 4 tiles a warp) and 16-byte reads (a
+//    tile's 8 rows) both hit 32 distinct banks.
+//  * The 8-point transforms run in registers by radix 2 (`rdft8`, `idft8`),
+//    a thread a column, then after a barrier a thread a row, and the
+//    output rows go out from registers as 16-byte stores: a warp writes
+//    whole runs of each plane (1 KB forward, 512 bytes inverse).
+// The forward (`fft2_tiles_kernel`) takes the real input's symmetry: the
+// column pass keeps rows 0..K/2 of W X (row K - u is the conjugate of row
+// u), so it writes 5 of 8 rows to the stage and the row pass reads row
+// min(u, K - u).  It writes twice the bytes it reads, so its lane pairs
+// swap half rows before storing, and each store instruction writes whole
+// 32-byte sectors (`store_rows`).  Its t < K instantiation pads the tiles
+// in 4-byte copies (rows of 4 t bytes are not 16-byte aligned); the
+// staged conv always hands it t = K.
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
@@ -49,140 +53,11 @@ namespace {
 using namespace repro_torch;
 
 constexpr int K = FFT_K;
-constexpr int KP = K + 1;          // padded row pitch of the shared stage
-constexpr int NT = 256;            // threads per CTA
-constexpr int TB = NT / K;         // tiles per CTA step: one thread a row
-static_assert(NT % K == 0, "a CTA step covers whole tiles");
-
-// Copy the step's tiles [base, base + nt) of a [B, t, t] array into the
-// shared [TB][K][KP] stage, zero-filling rows and columns t..K-1 and the
-// tiles past nt.
-__device__ __forceinline__ void load_tiles(const float* __restrict__ src,
-                                           float* __restrict__ stage,
-                                           long long base, int nt, int t) {
-  const int tt = t * t;
-  for (int e = threadIdx.x; e < TB * K * K; e += NT) {
-    const int i = e / (K * K), r = (e / K) % K, c = e % K;
-    float v = 0.f;
-    if (i < nt && r < t && c < t)
-      v = src[(base + i) * tt + r * t + c];
-    stage[(i * K + r) * KP + c] = v;
-  }
-}
-
-// Copy the stage's first nt tiles out to a [B, K, K] array.
-__device__ __forceinline__ void store_tiles(const float* __restrict__ stage,
-                                            float* __restrict__ dst,
-                                            long long base, int nt) {
-  for (int e = threadIdx.x; e < nt * K * K; e += NT) {
-    const int i = e / (K * K), r = (e / K) % K, c = e % K;
-    dst[(base + i) * (K * K) + r * K + c] = stage[(i * K + r) * KP + c];
-  }
-}
-
-__device__ __forceinline__ void load_matrix(const float* __restrict__ g,
-                                            float* __restrict__ s) {
-  for (int e = threadIdx.x; e < K * K; e += NT) s[e] = g[e];
-}
-
-__global__ void __launch_bounds__(NT)
-fft2_tiles_kernel(const float* __restrict__ x, const float* __restrict__ cr_g,
-                  const float* __restrict__ ci_g, float* __restrict__ yr,
-                  float* __restrict__ yi, long long B, int t) {
-  __shared__ float s_x[TB * K * KP];
-  __shared__ float s_ar[TB * K * KP];
-  __shared__ float s_ai[TB * K * KP];
-  __shared__ float cr[K * K], ci[K * K];
-  load_matrix(cr_g, cr);
-  load_matrix(ci_g, ci);
-  const int lt = threadIdx.x / K, j = threadIdx.x % K;
-  for (long long base = (long long)blockIdx.x * TB; base < B;
-       base += (long long)gridDim.x * TB) {
-    const int nt = (int)(B - base < TB ? B - base : TB);
-    load_tiles(x, s_x, base, nt, t);
-    __syncthreads();
-    // stage 1: row j of A = X W^T (X real; W symmetric)
-    float xrow[K];
-#pragma unroll
-    for (int c = 0; c < K; ++c) xrow[c] = s_x[(lt * K + j) * KP + c];
-#pragma unroll
-    for (int v = 0; v < K; ++v) {
-      float ar = 0.f, ai = 0.f;
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        ar = fmaf(xrow[c], cr[v * K + c], ar);
-        ai = fmaf(xrow[c], ci[v * K + c], ai);
-      }
-      s_ar[(lt * K + j) * KP + v] = ar;
-      s_ai[(lt * K + j) * KP + v] = ai;
-    }
-    __syncthreads();
-    // stage 2: column v = j of Y = W A (complex)
-    float acr[K], aci[K];
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      acr[r] = s_ar[(lt * K + r) * KP + j];
-      aci[r] = s_ai[(lt * K + r) * KP + j];
-    }
-    float outr[K], outi[K];
-#pragma unroll
-    for (int u = 0; u < K; ++u) {
-      float re = 0.f, im = 0.f;
-#pragma unroll
-      for (int r = 0; r < K; ++r) {
-        const float wr = cr[u * K + r], wi = ci[u * K + r];
-        re = fmaf(wr, acr[r], fmaf(-wi, aci[r], re));
-        im = fmaf(wr, aci[r], fmaf(wi, acr[r], im));
-      }
-      outr[u] = re;
-      outi[u] = im;
-    }
-    __syncthreads();               // every column of A is read
-#pragma unroll
-    for (int u = 0; u < K; ++u) {
-      s_ar[(lt * K + u) * KP + j] = outr[u];
-      s_ai[(lt * K + u) * KP + j] = outi[u];
-    }
-    __syncthreads();
-    store_tiles(s_ar, yr, base, nt);
-    store_tiles(s_ai, yi, base, nt);
-    __syncthreads();               // the stages are free for the next step
-  }
-}
-
-// ---- the inverse: a bandwidth kernel ----
-//
-// y = Re(V Y V^T) reads 512 bytes and writes 256 a tile against 6 K^3
-// flops as two DFT products, 4 a byte (the radix-2 form below does about
-// a fifth of those), under the card's 20: bound by bytes.  Design:
-//  * A persistent grid (the card's SMs times the CTAs an SM holds at this
-//    kernel's shared memory) walks steps of IT_TB = 32 consecutive tiles,
-//    which are contiguous in device memory (IT_TB * 256 bytes a plane).
-//    Each step's tiles land by 16-byte `cp.async` copies, consecutive
-//    threads on consecutive chunks, in a ring of three slots, so step
-//    i + 1's and i + 2's loads run under step i's arithmetic.
-//  * A tile's rows are rotated by the tile (row r at row slot (r + t) & 7)
-//    and a slot's two 16-byte halves swapped where the slot is >= 4
-//    (`tile_at`): the copies keep whole 16-byte chunks, the column pass's
-//    scalar reads (8 threads of a tile on a row, 4 tiles a warp) and the
-//    row pass's 16-byte reads (a tile's 8 rows) both hit 32 distinct banks.
-//    No division or modulo per element.
-//  * Thread (tile, j) takes column j of Y (re, im), its unnormalised
-//    8-point inverse DFT in registers by radix 2 (`idft8`), and writes it
-//    to a stage in the same layout; after a barrier, thread (tile, u) takes
-//    row u of that, its inverse DFT's real part, scales it by 1 / 64 (exact)
-//    and stores the 32-byte output row as two 16-byte stores.
-constexpr int IT = 256;                 // threads
-constexpr int IT_TB = IT / K;           // tiles a step: a thread a column
-constexpr int IT_STAGES = 3;            // ring slots
 constexpr int TILE = K * K;             // floats of one tile plane
-constexpr int IT_PLANE = IT_TB * TILE;  // floats of a step's plane
-// ring slots (re, im planes) and the column pass's output (re, im)
-constexpr int IT_SMEM = (IT_STAGES + 1) * 2 * IT_PLANE * (int)sizeof(float);
-static_assert(K == 8, "idft8 is the 8-point transform");
+static_assert(K == 8, "rdft8 and idft8 are the 8-point transforms");
 
-// The place of element (r, c) of the step's tile t in a [IT_TB][TILE]
-// plane: row slot q = (r + t) & 7, its 16-byte halves swapped where q >= 4.
+// The place of element (r, c) of a step's tile t in a [tiles][TILE] plane:
+// row slot q = (r + t) & 7, its 16-byte halves swapped where q >= 4.
 __device__ __forceinline__ int tile_at(int t, int r, int c) {
   const int q = (r + t) & 7;
   return t * TILE + q * K + (c ^ (q & 4));
@@ -223,6 +98,224 @@ __device__ __forceinline__ void idft8(float (&xr)[8], float (&xi)[8]) {
   xr[3] = e3r + t3r; xi[3] = e3i + t3i;
   xr[7] = e3r - t3r; xi[7] = e3i - t3i;
 }
+
+// X[k] = sum_n x[n] e^{-2 pi i n k / 8} of real x for k = 0..4 (X[8 - k]
+// is conj X[k]; X[0] and X[4] are real), by radix 2 as `idft8` with the
+// conjugate twiddles.
+__device__ __forceinline__ void rdft8(const float (&x)[8], float (&re)[5],
+                                      float (&im)[5]) {
+  constexpr float H = 0.70710678118654752f;
+  const float a0 = x[0] + x[4], a1 = x[0] - x[4];
+  const float a2 = x[2] + x[6], a3 = x[2] - x[6];
+  const float a4 = x[1] + x[5], a5 = x[1] - x[5];
+  const float a6 = x[3] + x[7], a7 = x[3] - x[7];
+  const float p = H * (a5 - a7), m = H * (a5 + a7);
+  re[0] = (a0 + a2) + (a4 + a6); im[0] = 0.f;
+  re[4] = (a0 + a2) - (a4 + a6); im[4] = 0.f;
+  re[1] = a1 + p; im[1] = -a3 - m;
+  re[2] = a0 - a2; im[2] = a6 - a4;
+  re[3] = a1 - p; im[3] = a3 - m;
+}
+
+// The CTAs of `kernel` the card holds at once (its SMs times the CTAs an
+// SM holds at `threads` threads and `smem` bytes of dynamic shared
+// memory), queried once a device into `cache`.
+cudaError_t resident_ctas(const void* kernel, int threads, int smem,
+                          int (&cache)[64], int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads, smem)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  *ctas = cache[dev];
+  return cudaSuccess;
+}
+
+// ---- the forward ----
+//
+// Thread (tile, j) takes column j of X from the ring slot (real), its
+// DFT's rows 0..4 by `rdft8`, and writes them to the half stage
+// (`half_at`); after a barrier, thread (tile, u) reads row min(u, 8 - u)
+// of W X as 16-byte reads, conjugated where u > 4, takes its DFT as
+// conj(idft8(conj .)), and row u of Y goes out by `store_rows`.  A step
+// is 16 tiles (128 threads): steps of 8 timed 1-2 % faster, of 32 and 64
+// slower (the step* variants of scripts/kernel_breakdown.py --only fft).
+constexpr int FT = 128;                  // threads
+constexpr int FT_TB = FT / K;            // tiles a step: a thread a column
+constexpr int FT_STAGES = 3;             // ring slots
+constexpr int HR = K / 2 + 1;            // rows of W X kept
+constexpr int HT = HR * K;               // floats of a tile's half stage
+constexpr int FT_PLANE = FT_TB * TILE;   // floats of a step's input
+// ring slots and the half stage (re, im)
+constexpr int FT_SMEM =
+    (FT_STAGES * FT_PLANE + 2 * FT_TB * HT) * (int)sizeof(float);
+
+// The place of element (u, c), u <= 4, of tile t's rows of W X: row u at
+// u * K, row 4's halves swapped, so the row pass's 16-byte reads of rows
+// 0..4 (8 threads of a tile) hit distinct banks.
+__device__ __forceinline__ int half_at(int t, int u, int c) {
+  return t * HT + u * K + (c ^ (u & 4));
+}
+
+// Start the copies of step `step`'s tiles [step * FT_TB, + FT_TB) of x into
+// ring slot `slot` as K x K tiles, zero-filled past B and past row and
+// column t.  FULL (t == K): a step is FT_TB * 256 contiguous bytes, one
+// 16-byte copy a chunk; else one 4-byte copy an element.
+template <bool FULL>
+__device__ __forceinline__ void load_real_step(const float* __restrict__ x,
+                                               float* slot, long long step,
+                                               long long B, int t) {
+  const long long base = step * FT_TB;
+  if (FULL) {
+#pragma unroll
+    for (int k = 0; k < FT_PLANE / 4 / FT; ++k) {
+      const int j = (int)threadIdx.x + k * FT;
+      const int i = j / (TILE / 4), q = j % (TILE / 4);  // tile, chunk
+      const bool ok = base + i < B;
+      cp_async16(slot + tile_at(i, q / 2, 4 * (q % 2)),
+                 x + (ok ? (base + i) * TILE + 4 * q : 0), ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < FT_PLANE / FT; ++k) {
+      const int e = (int)threadIdx.x + k * FT;
+      const int i = e / TILE, r = (e / K) % K, c = e % K;
+      const bool ok = base + i < B && r < t && c < t;
+      cp_async4(slot + tile_at(i, r, c),
+                x + (ok ? ((base + i) * t + r) * t + c : 0), ok);
+    }
+  }
+}
+
+// A 16-byte store of `v` at `p` (16-byte aligned).
+__device__ __forceinline__ void put(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// Store row j of a tile's output planes `dr`, `di` from lane (tile, j),
+// which holds it in `re`, `im` (every lane calls it: lanes 2k and 2k + 1
+// swap a half row, so that each 16-byte store instruction writes whole
+// 32-byte sectors: the even lane stores the first halves of rows 2k and
+// 2k + 1, the odd lane their second halves).  Nothing is stored where !ok.
+__device__ __forceinline__ void store_rows(float* __restrict__ dr,
+                                           float* __restrict__ di,
+                                           const float (&re)[K],
+                                           const float (&im)[K], int j,
+                                           bool ok) {
+  const bool odd = j & 1;
+  float pr[4], pi[4];           // the half rows the partner stores
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pr[c] = __shfl_xor_sync(~0u, odd ? re[c] : re[4 + c], 1);
+    pi[c] = __shfl_xor_sync(~0u, odd ? im[c] : im[4 + c], 1);
+  }
+  if (!ok) return;
+  const int o = (j & ~1) * K + 4 * odd;         // row 2k, this lane's half
+  const float4 r_own = odd ? make_float4(re[4], re[5], re[6], re[7])
+                           : make_float4(re[0], re[1], re[2], re[3]);
+  const float4 i_own = odd ? make_float4(im[4], im[5], im[6], im[7])
+                           : make_float4(im[0], im[1], im[2], im[3]);
+  const float4 r_got = make_float4(pr[0], pr[1], pr[2], pr[3]);
+  const float4 i_got = make_float4(pi[0], pi[1], pi[2], pi[3]);
+  put(dr + o, odd ? r_got : r_own);
+  put(dr + o + K, odd ? r_own : r_got);
+  put(di + o, odd ? i_got : i_own);
+  put(di + o + K, odd ? i_own : i_got);
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(FT)
+fft2_tiles_kernel(const float* __restrict__ x, float* __restrict__ yr,
+                  float* __restrict__ yi, long long B, int t) {
+  extern __shared__ __align__(16) float s_ft[];
+  float* ring = s_ft;                              // [FT_STAGES][FT_PLANE]
+  float* s_br = s_ft + FT_STAGES * FT_PLANE;       // rows 0..4 of W X
+  float* s_bi = s_br + FT_TB * HT;
+  const int tile = threadIdx.x / K, j = threadIdx.x % K;
+  const long long steps = (B + FT_TB - 1) / FT_TB;
+  const long long first = blockIdx.x, stride = gridDim.x;
+  for (int k = 0; k < FT_STAGES - 1; ++k) {
+    const long long st = first + k * stride;
+    if (st < steps)
+      load_real_step<FULL>(x, ring + k * FT_PLANE, st, B, t);
+    cp_async_commit();
+  }
+  // rows 0 and 4 of W X are real: their imaginary parts stay 0
+  for (int e = threadIdx.x; e < FT_TB * HT; e += FT) s_bi[e] = 0.f;
+  int i = 0;
+  for (long long st = first; st < steps; st += stride, ++i) {
+    cp_async_wait<FT_STAGES - 2>();
+    __syncthreads();            // step i landed; slot i - 1 and the stage
+                                // are free
+    const long long nx = st + (FT_STAGES - 1) * stride;
+    if (nx < steps)
+      load_real_step<FULL>(
+          x, ring + ((i + FT_STAGES - 1) % FT_STAGES) * FT_PLANE, nx, B, t);
+    cp_async_commit();
+    const float* sx = ring + (i % FT_STAGES) * FT_PLANE;
+    // column j of X -> rows 0..4 of column j of W X
+    float xc[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) xc[r] = sx[tile_at(tile, r, j)];
+    float cr[HR], ci[HR];
+    rdft8(xc, cr, ci);
+#pragma unroll
+    for (int u = 0; u < HR; ++u) s_br[half_at(tile, u, j)] = cr[u];
+#pragma unroll
+    for (int u = 1; u < HR - 1; ++u) s_bi[half_at(tile, u, j)] = ci[u];
+    __syncthreads();            // W X written
+    // row u = j of Y = the DFT of row u of W X, which is row 8 - u
+    // conjugated for u > 4: DFT(z) = conj(idft8(conj z))
+    const int r = j <= K / 2 ? j : K - j;
+    float br[K], bi[K];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = half_at(tile, r, 4 * h);
+      const float4 a = *reinterpret_cast<const float4*>(s_br + o);
+      const float4 b = *reinterpret_cast<const float4*>(s_bi + o);
+      br[4 * h] = a.x; br[4 * h + 1] = a.y;
+      br[4 * h + 2] = a.z; br[4 * h + 3] = a.w;
+      bi[4 * h] = b.x; bi[4 * h + 1] = b.y;
+      bi[4 * h + 2] = b.z; bi[4 * h + 3] = b.w;
+    }
+    const float conj = j <= K / 2 ? -1.f : 1.f;
+#pragma unroll
+    for (int c = 0; c < K; ++c) bi[c] *= conj;
+    idft8(br, bi);
+#pragma unroll
+    for (int c = 0; c < K; ++c) bi[c] = -bi[c];
+    const long long gt = st * FT_TB + tile;
+    store_rows(yr + gt * TILE, yi + gt * TILE, br, bi, j, gt < B);
+  }
+  cp_async_wait_all();          // no copy outlives the CTA
+}
+
+// ---- the inverse ----
+//
+// Both planes of a step land in the ring in `tile_at`'s layout.  Thread
+// (tile, j) takes column j of Y (re, im), its unnormalised 8-point inverse
+// DFT by `idft8`, and writes it to a stage in the same layout; after a
+// barrier, thread (tile, u) takes row u of that, its inverse DFT's real
+// part, scales it by 1 / 64 (exact) and stores the 32-byte output row as
+// two 16-byte stores.
+constexpr int IT = 256;                 // threads
+constexpr int IT_TB = IT / K;           // tiles a step: a thread a column
+constexpr int IT_STAGES = 3;            // ring slots
+constexpr int IT_PLANE = IT_TB * TILE;  // floats of a step's plane
+// ring slots (re, im planes) and the column pass's output (re, im)
+constexpr int IT_SMEM = (IT_STAGES + 1) * 2 * IT_PLANE * (int)sizeof(float);
 
 // Issue step `step`'s tiles [step * IT_TB, + IT_TB) of both planes into
 // ring slot `slot` (zero-filled past B), one 16-byte copy a chunk.
@@ -311,52 +404,43 @@ ifft2_tiles_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   cp_async_wait_all();          // no copy outlives the CTA
 }
 
-// CTAs for B tiles: enough steps for every tile, at most 8 CTAs an SM of
-// the card's 132 (the rest is the grid-stride loop).
-unsigned grid_for(long long B) {
-  long long blocks = (B + TB - 1) / TB;
-  return (unsigned)(blocks < 132 * 8 ? blocks : 132 * 8);
-}
-
 }  // namespace
 
 extern "C" {
 
-// x [B, t, t] f32 (t <= FFT_K), cr/ci the [K, K] DFT matrix, yr/yi
-// [B, K, K] f32.  The caller checks shapes, devices and layouts.
-int fft2_tiles_f32(const float* x, const float* cr, const float* ci,
-                   float* yr, float* yi, long long B, int t, void* stream) {
+// x [B, t, t] f32 (t <= FFT_K) -> yr/yi [B, K, K] f32, the 2-D DFT of the
+// zero-padded tiles.  The caller checks shapes, devices and layouts.
+int fft2_tiles_f32(const float* x, float* yr, float* yi, long long B, int t,
+                   void* stream) {
+  static int ctas[2][64] = {};
   if (t < 1 || t > K) return (int)cudaErrorInvalidValue;
-  fft2_tiles_kernel<<<grid_for(B), NT, 0, (cudaStream_t)stream>>>(
-      x, cr, ci, yr, yi, B, t);
+  const bool full = t == K;
+  const void* kernel = full ? (const void*)fft2_tiles_kernel<true>
+                            : (const void*)fft2_tiles_kernel<false>;
+  int n = 0;
+  cudaError_t err = resident_ctas(kernel, FT, FT_SMEM, ctas[full], &n);
+  if (err != cudaSuccess) return (int)err;
+  const long long steps = (B + FT_TB - 1) / FT_TB;
+  const unsigned grid = (unsigned)(steps < n ? steps : n);
+  if (full)
+    fft2_tiles_kernel<true><<<grid, FT, FT_SMEM, (cudaStream_t)stream>>>(
+        x, yr, yi, B, t);
+  else
+    fft2_tiles_kernel<false><<<grid, FT, FT_SMEM, (cudaStream_t)stream>>>(
+        x, yr, yi, B, t);
   return (int)cudaGetLastError();
 }
 
 // xr/xi [B, K, K] f32 -> y [B, K, K] f32, Re of the 2-D inverse DFT.
-// A persistent grid: the card's SMs times the CTAs one holds at the
-// kernel's shared memory (queried once a device).
 int ifft2_tiles_f32(const float* xr, const float* xi, float* y, long long B,
                     void* stream) {
   static int ctas[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int n = 0;
+  cudaError_t err = resident_ctas((const void*)ifft2_tiles_kernel, IT,
+                                  IT_SMEM, ctas, &n);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (ctas[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             ifft2_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             IT_SMEM)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, ifft2_tiles_kernel, IT, IT_SMEM)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    ctas[dev] = sms * per_sm;
-  }
   const long long steps = (B + IT_TB - 1) / IT_TB;
-  const unsigned grid = (unsigned)(steps < ctas[dev] ? steps : ctas[dev]);
+  const unsigned grid = (unsigned)(steps < n ? steps : n);
   ifft2_tiles_kernel<<<grid, IT, IT_SMEM, (cudaStream_t)stream>>>(xr, xi, y,
                                                                    B);
   return (int)cudaGetLastError();

@@ -10,21 +10,20 @@ which for K = 8 are two 8 x 8 products against the DFT matrix
 real tiles to (re, im) planes; the inverse returns the real part only
 (the spectral conv consumes Re(IFFT)).
 
-Each transform is one hand-written CUDA kernel (``csrc/fft_tiles.cu``)
-with its plain PyTorch version (``torch.fft``) beside it: the wrapper
-runs the plain version for CPU tensors, and the tests and the on-card
-smoke run hold the kernel to it.
+Each transform is one hand-written CUDA kernel (``csrc/fft_tiles.cu``:
+radix-2 butterflies in registers, no DFT-matrix operand) with its plain
+PyTorch version (``torch.fft``) beside it: the wrapper runs the plain
+version for CPU tensors, and the tests and the on-card smoke run hold the
+kernel to it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_spectral_conv import dft_matrices
 
 # The tile size the CUDA kernels are compiled for.
 FFT_SIZE = 8
@@ -52,22 +51,13 @@ def ifft2_tiles_reference(yr: torch.Tensor, yi: torch.Tensor
 def library() -> ctypes.CDLL:
     """The tile-FFT kernels' library (built at first use)."""
     lib = _build.build(SOURCES)["fft_tiles"]
-    lib.fft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 5
+    lib.fft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 3
                                    + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p])
     lib.ifft2_tiles_f32.argtypes = ([ctypes.c_void_p] * 3
                                     + [ctypes.c_longlong, ctypes.c_void_p])
     lib.fft2_tiles_f32.restype = lib.ifft2_tiles_f32.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _dft(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The K-point DFT matrix as two f32 [K, K] tensors on ``device``, made
-    once per device (the forward kernel's operand; the inverse kernel's
-    radix-2 butterflies carry their own twiddles)."""
-    cr, ci = dft_matrices(FFT_SIZE)
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in (cr, ci))
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -105,15 +95,13 @@ def fft2_tiles(x: torch.Tensor, *, fft_size: int
                          f"got fft_size {fft_size}")
     b, t = x.shape[0], x.shape[1]
     _check("x", x, (b, t, t))
-    cr, ci = _dft(x.device)
     with torch.cuda.device(x.device):
         yr = torch.empty((b, fft_size, fft_size), dtype=torch.float32,
                          device=x.device)
         yi = torch.empty_like(yr)
         if b:
             _launched("fft2_tiles", library().fft2_tiles_f32(
-                x.data_ptr(), cr.data_ptr(), ci.data_ptr(), yr.data_ptr(),
-                yi.data_ptr(), b, t,
+                x.data_ptr(), yr.data_ptr(), yi.data_ptr(), b, t,
                 torch.cuda.current_stream().cuda_stream))
     return yr, yi
 

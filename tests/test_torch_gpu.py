@@ -837,8 +837,8 @@ def _launched(counters, before):
 @pytest.mark.parametrize("t,b", [(8, 1), (8, 1000), (6, 300)])
 def test_fft_kernels_match_plain_on_card(t, b):
     """Tile FFT and IFFT against torch.fft: a batch that is not a multiple
-    of the 32 tiles a CTA step takes, t < K padded in the kernel's load;
-    the round trip gives the padded tiles back."""
+    of a CTA step (16 tiles forward, 32 inverse), t < K padded in the
+    kernel's load; the round trip gives the padded tiles back."""
     need_card()
     x = torch.randn(b, t, t, device="cuda")
     before = dict(fft8.LAUNCHES)
@@ -1571,6 +1571,51 @@ def test_ifft_kernel_at_staged_vgg16_shapes_on_card(name, m, n, h):
         assert _rel(y, fft8.ifft2_tiles_reference(yr, yi)) <= TC_TOL, \
             (tiles, _rel(y, fft8.ifft2_tiles_reference(yr, yi)))
         assert torch.equal(y, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,n,h", VGG16_LAYERS)
+def test_fft_kernel_at_staged_vgg16_shapes_on_card(name, m, n, h):
+    """B7a fft at the layer's staged VGG16 shapes (B M T input windows at
+    batch 1 and 4), at a window count that is not a multiple of the
+    kernel's 32-tile step and at one smaller than a step: within 2e-6 of
+    max|plain| (``torch.fft.fft2``) in each plane, bitwise on repeat,
+    each call one counted launch."""
+    need_card()
+    t = spec.make_geometry(h, h, 3, 8).n_tiles
+    gen = torch.Generator(device="cuda").manual_seed(m + h)
+    for tiles in (m * t, 4 * m * t, m * t + 5, 19):
+        x = torch.randn((tiles, 8, 8), generator=gen, device="cuda")
+        before = dict(fft8.LAUNCHES)
+        y = fft8.fft2_tiles(x, fft_size=8)
+        again = fft8.fft2_tiles(x, fft_size=8)
+        torch.cuda.synchronize()
+        assert _launched(fft8.LAUNCHES, before) == {"fft2_tiles": 2}
+        for got, ref, rep in zip(y, fft8.fft2_tiles_reference(x, 8), again):
+            assert _rel(got, ref) <= TC_TOL, (tiles, _rel(got, ref))
+            assert torch.equal(got, rep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", range(1, 8))
+def test_fft_kernel_pads_small_tiles_on_card(t):
+    """B7a fft's t < K instantiation (4-byte copies, zero fill) at a
+    ragged batch and at one smaller than a step: within 2e-6 of the
+    largest |plain| of both planes (at t = 1 the imaginary plane is 0),
+    bitwise on repeat, one counted launch a call."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    for tiles in (1000, 19):
+        x = torch.randn((tiles, t, t), generator=gen, device="cuda")
+        before = dict(fft8.LAUNCHES)
+        y = fft8.fft2_tiles(x, fft_size=8)
+        again = fft8.fft2_tiles(x, fft_size=8)
+        torch.cuda.synchronize()
+        assert _launched(fft8.LAUNCHES, before) == {"fft2_tiles": 2}
+        ref = torch.stack(fft8.fft2_tiles_reference(x, 8))
+        assert _rel(torch.stack(y), ref) <= TC_TOL, (
+            tiles, _rel(torch.stack(y), ref))
+        assert all(torch.equal(a, b) for a, b in zip(y, again))
 
 
 def vgg16_layer_tables(m, n, seed):

@@ -71,6 +71,20 @@ def test_fft2_tiles_matches_reference(t):
     assert_rel(yi, ji)
 
 
+@pytest.mark.parametrize("b", [1, 33, 300])
+@pytest.mark.parametrize("t", [1, 3, 6, 8])
+def test_fft2_tiles_matches_reference_at_every_size(t, b):
+    """The plain tile-FFT against the reference kernel at a tile size
+    padded to K (t < 8) or not, and at a batch of one tile, of a CTA step
+    and one, and of several steps with a ragged last one."""
+    x = _rand(np.random.default_rng(10 * t + b), (b, t, t))
+    jr, ji = jfft8.fft2_tiles(jnp.asarray(x), fft_size=8)
+    yr, yi = fft8.fft2_tiles(torch.from_numpy(x), fft_size=8)
+    assert yr.shape == yi.shape == (b, 8, 8)
+    assert_rel(yr, jr)
+    assert_rel(yi, ji)
+
+
 def test_ifft2_tiles_matches_reference():
     rng = np.random.default_rng(1)
     xr, xi = _rand(rng, (300, 8, 8)), _rand(rng, (300, 8, 8))
