@@ -229,6 +229,33 @@ each of which fails the run on error:
       the documented command ``python -m repro_torch.launch.serve --arch
       qwen3-8b --config-set full`` as its own process (8 requests over 4
       slots, every one completed, exit 0);
+  (h) the resilience layer (``core.resilience``, ``testing.faults``) at
+      full width, its launch counts taken apart from the main path's (the
+      counters reset around it): the (d), (d4) and (dr) plans validate
+      with no error (``smem-budget`` warnings and the validation seconds
+      printed) and ``harden_network_plan`` gives each back unchanged,
+      healthy, its probes one launch a layer on the layer's entry point;
+      each rung driven by ``faults.inject`` on the same weights ((d4):
+      'lowering' on halo -> every layer windowed scheduled, on
+      scheduled -> the plane kernel; (dr): on residual-fused -> the 8
+      residual nodes on the add rung, no residual launch; (d): on fused
+      -> staged, B7a fft / B7b / B7a ifft 13 each, and a fault on every
+      rung -> einsum, no launch), H_FORWARDS batch-1 forwards a rung with
+      the launches counted, logits within 1e-4 of einsum on the undemoted
+      plan and top-1 equal, the provenance and the p50 (the first
+      forward discarded); an 'oob_index' scheduled plan refused by
+      ``validate_plan`` and hardened to the plane kernel for that layer
+      (never launched on the scheduled entry point); the guards on (d):
+      a clean forward under NaN scan and parity records no event, a NaN
+      injected in one layer trips once ('demote', logits within gate)
+      and raises ``NumericGuardError`` naming it ('raise'), a
+      'corrupt_value' scheduled plan passes validation and the parity
+      guard catches it; the p50 with the NaN scan and with both guards
+      beside the unguarded p50 (H_ROUNDS rounds, the three in turn); the
+      (d7) channel-sharded plan hardens to itself, and a 'shard_tables'
+      fault on shard 1 of one layer demotes that layer only, logits
+      within 1e-4 of the unsharded forward.
+      Every time carries the card's name and power limit;
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve fused: four kernels x
       three flows; six staged; the band entry points; flash attention),
@@ -237,11 +264,12 @@ each of which fails the run on error:
       (la) shape under "shapes"), then the device JSON as the last line.
 
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c8) and
-(d7), its (c5), (c6) and (d6); the plane plans are freed; (c2), (d2),
-(c4), (d4), the scheduled kernel's (c8), (d7), (c5), (c6) and (d6); every
-plan is freed; (c7), (d5), (s), (ds), (dh); VGG16's weights and plans are
-freed; (r), (dr), ResNet-18's (c8) and (d7), (ds), (dr4); (la), (dl),
-(sl), (e).  So each
+(d7), its (c5), (c6) and (d6), (h) on the plane plans; the plane plans
+are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8), (d7), (h)
+on the scheduled plans, (c5), (c6) and (d6); every plan is freed; (c7),
+(d5), (s), (ds), (dh); VGG16's weights and plans are freed; (r), (dr),
+ResNet-18's (c8) and (d7), (ds), (h) on (dr), (dr4); (la), (dl), (sl),
+(e).  So each
 serve's peak device memory holds the weights and the plans of its own
 kind only (the resident bytes at its start are
 printed beside it).  REPS (15 since the ResNet-18 phases came; 25
@@ -277,6 +305,10 @@ SLEEP_CYCLES = 1_000_000   # (s): the spin before a timed launch (~0.5 ms)
 SEED = 0
 BATCHES = (1, 1, 1, 1, 4)   # the main path's requests, images each
 BAND_D = 4             # (c8), (d7): shards of a sharded plan, on one card
+H_FORWARDS = 6         # (h): batch-1 forwards a rung, the first discarded
+H_ROUNDS = 11          # (h): rounds of unguarded / NaN scan / both, the first
+                       # discarded
+CARD = ""              # the card's name and power limit (nvidia-smi), (a)
 # the reference's band wrapper each band entry point replaces (its
 # fused_spectral_conv.py; execute_band_plan at :1618 dispatches to them)
 BAND_REF = {"fused_spectral_pipeline": 1541,
@@ -1034,6 +1066,290 @@ def serve(params, plan, cfg, images, label, per_forward, kernel_sum_ms,
     return launches, residual, p50, host_ms
 
 
+# ---------------------------------------------------------------------------
+# (h) the resilience layer at full width
+# ---------------------------------------------------------------------------
+
+def h_forwards(params, plan, x, guards=None, backend="fused"):
+    """H_FORWARDS batch-1 forwards of ``plan``: (their p50 in ms without
+    the first, host clock ending in ``torch.cuda.synchronize()``; the
+    last logits)."""
+    import torch
+    from repro_torch.models import cnn
+    ts = []
+    for _ in range(H_FORWARDS):
+        t0 = time.perf_counter()
+        out = cnn.forward_spectral(params, plan, x, backend=backend,
+                                   guards=guards)
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts[1:]), out
+
+
+def h_gate(label, out, ref) -> float:
+    """Logits finite, within LOGITS_TOL of ``ref`` (einsum on the
+    undemoted plan), top-1 equal; returns the relative error."""
+    import torch
+    err = rel_err(out, ref)
+    if (not torch.isfinite(out).all() or err > LOGITS_TOL
+            or not bool((out.argmax(-1) == ref.argmax(-1)).all())):
+        fail(f"{label}: logits rel err {err:.3e} vs einsum, or top-1 differs")
+    return err
+
+
+def h_launched() -> dict[str, int]:
+    return {k: v for k, v in all_launches().items() if v}
+
+
+def h_healthy(label, plan) -> dict:
+    """``validate_plan`` (no error; the ``smem-budget`` warnings and its
+    seconds printed) and ``harden_network_plan`` on a healthy plan: the
+    same plan back, healthy, its probes one launch a layer on the entry
+    point that layer's forward uses."""
+    import torch
+    from repro_torch.core import resilience as res
+    t0 = time.perf_counter()
+    diags = res.validate_plan(plan)
+    val_s = time.perf_counter() - t0
+    warns = [str(d) for d in diags if d.severity == "warn"]
+    reset_launches()
+    t0 = time.perf_counter()
+    hard = res.harden_network_plan(plan)
+    torch.cuda.synchronize()
+    harden_s = time.perf_counter() - t0
+    probes = h_launched()
+    if (hard is not plan or any(lp.provenance for lp in hard.layers)
+            or not hard.health_report()["healthy"]):
+        fail(f"{label}: harden changed a healthy plan: "
+             f"{hard.health_report()['demotions_by_node']}")
+    if probes != per_forward_of(plan)[0]:
+        fail(f"{label}: the probes launched {probes}, expected one a layer "
+             f"{per_forward_of(plan)[0]}")
+    print(f"(h) {label}: validate_plan {val_s:.4f} s, {len(warns)} "
+          f"smem-budget warning(s) {warns}; harden_network_plan "
+          f"{harden_s:.4f} s, probes {probes}; unchanged and healthy "
+          f"[{CARD}]")
+    return {"validate_s": val_s, "harden_s": harden_s}
+
+
+def h_rung(label, params, plan, x, ref, match, want, layer_ok,
+           residual_want=None, site="lowering"):
+    """One rung: ``harden_network_plan`` under ``faults.inject(site,
+    **match)``, every layer held to ``layer_ok``, then H_FORWARDS batch-1
+    forwards of the hardened plan with the launches counted (``want``
+    per forward, ``residual_want`` of them fusing a shortcut), the logits
+    gated.  Returns (p50 ms, the hardened plan)."""
+    from repro_torch.core import resilience as res
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.testing import faults
+    t0 = time.perf_counter()
+    with faults.inject(site, **match) as fault:
+        hard = res.harden_network_plan(plan)
+    harden_s = time.perf_counter() - t0
+    bad = [lp.layer.name for lp in hard.layers if not layer_ok(lp)]
+    if fault.fires < 1 or bad:
+        fail(f"{label}: the fault fired {fault.fires} times; layers off the "
+             f"expected rung: {bad}")
+    reset_launches()
+    p50, out = h_forwards(params, hard, x)
+    got = h_launched()
+    residual = {k: v for k, v in fsc.RESIDUAL_LAUNCHES.items() if v}
+    for what, g, w in (("launched", got, want),
+                       ("fused a shortcut in", residual, residual_want or {})):
+        w = {k: v * H_FORWARDS for k, v in w.items() if v}
+        if g != w:
+            fail(f"{label}: {what} {g}, expected {w}")
+    err = h_gate(label, out, ref)
+    print(f"(h) {label}: {fault.fires} fault(s), harden {harden_s:.4f} s; "
+          f"{hard.layers[0].layer.name} provenance "
+          f"{list(hard.layers[0].provenance)}; launches per forward "
+          f"{ {k: v // H_FORWARDS for k, v in got.items()} }; logits rel "
+          f"err {err:.3e}, top-1 equal; batch-1 p50 {p50:.2f} ms [{CARD}]")
+    return p50, hard
+
+
+def harden_plane(params, plan, x, splan, mesh) -> dict:
+    """(h) on the (d) plan: healthy harden, the fused -> staged and the
+    all-rung (einsum) faults, the guards and their cost, then the (d7)
+    channel-sharded plan ``splan`` on ``mesh``."""
+    import torch
+    from repro_torch.core import resilience as res
+    from repro_torch.distributed.executor import forward_spectral_sharded
+    from repro_torch.models import cnn
+    from repro_torch.testing import faults
+    n = len(plan.layers)
+    rec = h_healthy("(d) plan, VGG16 bin windowed", plan)
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    rec["fused_p50_ms"], out = h_forwards(params, plan, x)
+    h_gate("(h) (d) fused", out, ref)
+    rec["staged_p50_ms"], _ = h_rung(
+        "(d) lowering backend=fused", params, plan, x, ref,
+        dict(backend="fused"), dict.fromkeys(STAGED_PATH, n),
+        lambda lp: lp.backend == "staged")
+    rec["einsum_p50_ms"], _ = h_rung(
+        "(d) lowering on every rung", params, plan, x, ref, {}, {},
+        lambda lp: lp.backend == "einsum")
+
+    # the guards' cost: one forward of each in turn, so that the host's
+    # drift between calls falls on all three alike
+    clean = res.NumericGuards(nan_scan=True, parity=True)
+    ways = {"unguarded_p50_ms": None,
+            "nan_p50_ms": res.NumericGuards(nan_scan=True),
+            "nan_parity_p50_ms": clean}
+    ts = {k: [] for k in ways}
+    for _ in range(H_ROUNDS):
+        for k, g in ways.items():
+            t0 = time.perf_counter()
+            out = cnn.forward_spectral(params, plan, x, backend="fused",
+                                       guards=g)
+            torch.cuda.synchronize()
+            ts[k].append(1e3 * (time.perf_counter() - t0))
+            h_gate(f"(h) (d) {k}", out, ref)
+    rec.update({k: statistics.median(v[1:]) for k, v in ts.items()})
+    if clean.events:
+        fail(f"(h) guards tripped on a clean forward: {clean.events}")
+    name = plan.layers[n // 2].layer.name
+    g = res.NumericGuards(policy="demote")
+    with faults.inject("nan_activations", layer=name):
+        out = cnn.forward_spectral(params, plan, x, backend="fused", guards=g)
+    if [(e["layer"], e["check"]) for e in g.events] != [(name, "nan_scan")]:
+        fail(f"(h) a NaN in {name} under 'demote': events {g.events}")
+    err = h_gate("(h) NaN demoted", out, ref)
+    try:
+        with faults.inject("nan_activations", layer=name):
+            cnn.forward_spectral(params, plan, x, backend="fused",
+                                 guards=res.NumericGuards(policy="raise"))
+        fail(f"(h) a NaN in {name} under 'raise' raised nothing")
+    except res.NumericGuardError as e:
+        if (e.layer, e.site) != (name, "nan_scan"):
+            fail(f"(h) NumericGuardError names {e.layer} / {e.site}")
+    print(f"(h) guards on (d): clean forward 0 events; a NaN in {name}: "
+          f"'demote' one event, logits rel err {err:.3e}; 'raise' "
+          f"NumericGuardError({name}, nan_scan); batch-1 p50 over "
+          f"{H_ROUNDS - 1} interleaved rounds: unguarded "
+          f"{rec['unguarded_p50_ms']:.2f} ms, NaN scan "
+          f"{rec['nan_p50_ms']:.2f} ms, NaN scan + parity "
+          f"{rec['nan_parity_p50_ms']:.2f} ms; rung p50s: fused "
+          f"{rec['fused_p50_ms']:.2f} ms, staged "
+          f"{rec['staged_p50_ms']:.2f} ms, einsum {rec['einsum_p50_ms']:.2f} "
+          f"ms [{CARD}]")
+
+    t0 = time.perf_counter()
+    hs = res.harden_sharded_plan(splan)
+    torch.cuda.synchronize()
+    rec["harden_sharded_s"] = time.perf_counter() - t0
+    if hs is not splan:
+        fail("(h) harden_sharded_plan changed the healthy (d7) plan")
+    name = next(slp.base.layer.name for slp in splan.layers
+                if slp.strategy == "channel")
+    with faults.inject("shard_tables", layer=name, shard=1) as fault:
+        hs = res.harden_sharded_plan(splan)
+    moved = [i for i, (a, b) in enumerate(zip(hs.layers, splan.layers))
+             if a is not b]
+    slp = hs.layers[moved[0]] if moved else None
+    if (fault.fires != 1 or len(moved) != 1 or slp.base.layer.name != name
+            or not slp.provenance[0].startswith("shard ladder")):
+        fail(f"(h) shard_tables on {name} shard 1 moved {moved}, fired "
+             f"{fault.fires}")
+    out = forward_spectral_sharded(params, hs, x, mesh=mesh)
+    fused = cnn.forward_spectral(params, plan, x, backend="fused")
+    err = rel_err(out, fused)
+    if err > LOGITS_TOL or not bool((out.argmax(-1) == fused.argmax(-1))
+                                    .all()):
+        fail(f"(h) sharded logits after the shard ladder: rel err {err:.3e}")
+    print(f"(h) (d7) channel plan: harden_sharded_plan "
+          f"{rec['harden_sharded_s']:.4f} s, unchanged; shard_tables on "
+          f"{name} shard 1: that layer only -> {slp.strategy} "
+          f"{slp.base.backend}, provenance {list(slp.provenance)}; logits "
+          f"rel err {err:.3e} vs the unsharded fused forward [{CARD}]")
+    return rec
+
+
+def harden_scheduled(params, splan, shplan, x) -> dict:
+    """(h) on the scheduled plans: (d4)'s healthy harden (the table
+    validation timed) and its halo and scheduled rungs; an 'oob_index'
+    copy of (d2)'s plan refused by validation and hardened to the plane
+    kernel for that layer; a 'corrupt_value' copy caught by the parity
+    guard."""
+    from repro_torch.core import resilience as res
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    from repro_torch.models import cnn
+    from repro_torch.testing import faults
+    n = len(shplan.layers)
+    sched = "fused_spectral_pipeline_scheduled"
+    rec = h_healthy("(d4) plan, VGG16 scheduled halo", shplan)
+    ref = cnn.forward_spectral(params, shplan, x, backend="einsum")
+    rec["halo_rung_p50_ms"], _ = h_rung(
+        "(d4) lowering input_mode=halo", params, shplan, x, ref,
+        dict(input_mode="halo"), {sched: n},
+        lambda lp: (lp.input_mode, lp.hadamard) == ("windowed", "scheduled"))
+    rec["plane_rung_p50_ms"], _ = h_rung(
+        "(d4) lowering hadamard=scheduled", params, shplan, x, ref,
+        dict(hadamard="scheduled"), {"fused_spectral_pipeline": n},
+        lambda lp: lp.hadamard in ("bin", "dense"))
+
+    bad = faults.corrupt_plan_tables(splan, kind="oob_index")
+    name = bad.layers[0].layer.name
+    try:
+        res.validate_plan(bad)
+        fail("(h) validate_plan passed an oob_index plan")
+    except res.PlanValidationError as e:
+        if ("tables/idx-bounds", name) not in {
+                (d.check, d.layer) for d in e.diagnostics}:
+            fail(f"(h) oob_index refused for {e.diagnostics}")
+    reset_launches()
+    hard = res.harden_network_plan(bad)
+    lp0 = hard.layers[0]
+    if (lp0.hadamard == "scheduled" or "tables/idx-bounds"
+            not in lp0.provenance[0] or any(
+                a is not b for a, b in zip(hard.layers[1:], bad.layers[1:]))):
+        fail(f"(h) oob_index: {name} -> {lp0.hadamard}, provenance "
+             f"{lp0.provenance}")
+    p50, out = h_forwards(params, hard, x)
+    got = h_launched()
+    want = {fsc.entry_point(sched, fsc.OS): (n - 1) * (1 + H_FORWARDS),
+            "fused_spectral_pipeline": 1 + H_FORWARDS}
+    if got != want:
+        fail(f"(h) oob_index plan launched {got}, expected {want}")
+    err = h_gate("(h) oob_index plan hardened", out, ref)
+    print(f"(h) oob_index on {name}: refused by validate_plan; hardened to "
+          f"{lp0.hadamard}, provenance {list(lp0.provenance)}; probes and "
+          f"{H_FORWARDS} forwards launched {got} (the scheduled entry point "
+          f"never for {name}); logits rel err {err:.3e}; batch-1 p50 "
+          f"{p50:.2f} ms [{CARD}]")
+
+    bad = faults.corrupt_plan_tables(splan, kind="corrupt_value")
+    res.validate_plan(bad)
+    g = res.NumericGuards(nan_scan=False, parity=True, policy="demote")
+    out = cnn.forward_spectral(params, bad, x, backend="fused", guards=g)
+    if [(e["layer"], e["check"]) for e in g.events] != [(name, "parity")]:
+        fail(f"(h) corrupt_value: parity events {g.events}")
+    err = h_gate("(h) corrupt_value caught", out, ref)
+    print(f"(h) corrupt_value on {name}: validate_plan passes it; the parity "
+          f"guard trips once ({g.events[0]['message']}); demoted logits rel "
+          f"err {err:.3e}")
+    return rec
+
+
+def harden_residual(params, plan, x) -> dict:
+    """(h) on the (dr) ResNet-18 plan: healthy harden, then a 'lowering'
+    fault on the residual-fused variants: the 8 residual nodes on the add
+    rung, the same 20 launches a forward, none fusing a shortcut."""
+    from repro_torch.models import cnn
+    rec = h_healthy("(dr) plan, ResNet-18 bin windowed", plan)
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    fused = {lp.layer.name for lp in plan.layers
+             if lp.epilogue.residual == "fused"}
+    if len(fused) != 8:
+        fail(f"(h) (dr) has {len(fused)} residual-fused nodes, not 8")
+    rec["add_rung_p50_ms"], _ = h_rung(
+        "(dr) lowering residual=fused", params, plan, x, ref,
+        dict(residual="fused"), per_forward_of(plan)[0],
+        lambda lp: (lp.epilogue.residual == "add") == (lp.layer.name in fused)
+        and (lp.layer.name in fused) == bool(lp.provenance))
+    return rec
+
+
 def band_entry(lp) -> str:
     """The kernels-line name of the band entry point a band plan runs."""
     from repro_torch.kernels import fused_spectral_conv as fsc
@@ -1537,8 +1853,9 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
     (s) holds the staged backend's three
     launches to their plain versions at the 20 layers, (ds) serves the
     forced plan through that backend, and (dr4) the scheduled plans
-    (built at batch 1) at batch 4.  Returns (r)'s totals per entry point,
-    (s)'s and (c8)'s."""
+    (built at batch 1) at batch 4.  (h) runs on the forced plan before
+    (dr4).  Returns (r)'s totals per entry point, (s)'s and (c8)'s, and
+    (h)'s numbers."""
     import torch
     from repro_torch.configs.resnet18_spectral import CONFIG as RCFG
     from repro_torch.core.plan import (build_network_plan, with_flow,
@@ -1628,6 +1945,7 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
           dict.fromkeys(STAGED_PATH, len(RCFG.layers)),
           sum(stotals[e]["ms"] for e in STAGED_PATH), None, params, RCFG,
           backend="staged", discard_first=True)
+    h_rec = harden_residual(params, plan, images[0])
 
     # (dr4) the scheduled plans, built at batch 1, forwarded at batch 4:
     # a staged ('vmem') shortcut whose rows do not fit at that batch is
@@ -1678,7 +1996,7 @@ def resnet18(dev, xgen, drive, drive_sharded) -> dict:
     drive(aplan, images, "(dr) autotuned", per_forward,
           1e3 * sum(lp.tuning.measured_s for lp in aplan.layers), residual,
           params, RCFG)
-    return totals, stotals, btotals
+    return totals, stotals, btotals, h_rec
 
 
 def fallback_block(dev, cap) -> None:
@@ -2318,6 +2636,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
 
     # (b) build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2596,6 +2916,9 @@ def main() -> int:
     # peaks hold no plane operands
     flows_of("plane", {"windowed": plan, "halo": hplan}, plane_bound,
              plane_ops_bytes)
+    h_rec = {"plane": harden_plane(params, plan, images[0],
+                                   shard(plan, ("channel",),
+                                         input_mode="windowed"), mesh)}
     del plan, hplan
 
     # (c2) scheduled plan and kernel vs plain at every layer shape --------
@@ -2717,6 +3040,7 @@ def main() -> int:
     for m, sp_ in sspatial.items():
         drive_sharded(sp_, images[:1] * 3, f"(d7) scheduled {m} spatial")
     del sspatial
+    h_rec["scheduled"] = harden_scheduled(params, splan, shplan, images[0])
 
     # (c5), (c6), (d6) the scheduled kernel's flows; then every plan so
     # far is freed, so that (d5)'s peak holds the autotuned plan alone
@@ -2775,7 +3099,9 @@ def main() -> int:
     del aplan, params, images, flush
 
     # ResNet-18: (r) and (dr) ---------------------------------------------
-    rtotals, rstotals, rbtotals = resnet18(dev, xgen, drive, drive_sharded)
+    rtotals, rstotals, rbtotals, h_rec["resnet18"] = resnet18(
+        dev, xgen, drive, drive_sharded)
+    print(f"(h) {CARD}: " + json.dumps({"resilience": h_rec}))
     print("    p50 batch 1: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 

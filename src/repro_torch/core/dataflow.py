@@ -110,6 +110,12 @@ INPUT_MODES = ("windowed", "halo")
 # the active bins, or the Alg-2 INDEX/VALUE tables.
 HADAMARD_MODES = ("dense", "bin", "scheduled")
 
+# Per-layer execution paths of a plan (``LayerPlan.backend``): the fused
+# kernel, the staged kernels (tile-FFT, Hadamard, tile-IFFT), or the
+# torch.fft + einsum oracle; the degradation ladder of
+# ``core.resilience`` moves a layer down them.
+EXEC_BACKENDS = ("fused", "staged", "einsum")
+
 
 # How one conv layer is partitioned over a D-device mesh (the two-level
 # Alg 1, ``autotune.autotune_layer_sharded``):

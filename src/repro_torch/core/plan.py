@@ -48,6 +48,7 @@ import torch
 import repro_torch
 from repro_torch.core import autotune as at
 from repro_torch.core import dataflow as df
+from repro_torch.core import resilience as res
 from repro_torch.core import scheduler as sch
 from repro_torch.core import sparse as sp
 from repro_torch.core import spectral as spec
@@ -138,13 +139,14 @@ def _linear_node_specs(layers, pool_after) -> tuple:
 
 def _topo_order_specs(specs) -> list:
     """Kahn topo-order of NodeSpecs (shortcut edges included).  Raises
-    ValueError on duplicate or reserved ids, unknown references, or a
-    cycle."""
+    ``PlanValidationError`` (site 'graph') on duplicate or reserved ids,
+    unknown references, or a cycle."""
     by_id: dict[str, object] = {}
     for s in specs:
         if s.id == "input" or s.id in by_id:
-            raise ValueError(
-                f"graph node id {s.id!r} is duplicated or reserved")
+            raise res.PlanValidationError(
+                f"graph node id {s.id!r} is duplicated or reserved",
+                layer=s.id, site="graph")
         by_id[s.id] = s
     deps: dict[str, set] = {}
     for s in specs:
@@ -154,8 +156,9 @@ def _topo_order_specs(specs) -> list:
         edges.discard("input")
         unknown = edges - by_id.keys()
         if unknown:
-            raise ValueError(f"graph node {s.id!r} references unknown "
-                             f"node(s) {sorted(unknown)}")
+            raise res.PlanValidationError(
+                f"graph node {s.id!r} references unknown node(s) "
+                f"{sorted(unknown)}", layer=s.id, site="graph")
         deps[s.id] = edges
     order, ready = [], [s for s in specs if not deps[s.id]]
     done: set[str] = set()
@@ -168,7 +171,9 @@ def _topo_order_specs(specs) -> list:
                 ready.append(t)
     if len(order) != len(list(specs)):
         stuck = sorted(set(by_id) - done)
-        raise ValueError(f"graph has a cycle through node(s) {stuck}")
+        raise res.PlanValidationError(
+            f"graph has a cycle through node(s) {stuck}", layer=stuck[0],
+            site="graph")
     return order
 
 
@@ -188,9 +193,10 @@ def node_output_shapes(layers, specs) -> dict[str, tuple[int, int, int]]:
     """Every node's output shape ``{id: (C, H, W)}`` (batch elided) for
     a topo-ordered NodeSpec or PlanNode sequence.  Conv nodes produce
     their layer's post-stride 'same' extent, pool nodes halve H and W
-    (floor).  Raises ValueError when a conv node's declared input
-    disagrees with its producer, or a shortcut edge's shape differs
-    from the node's output."""
+    (floor).  Raises ``PlanValidationError`` when a conv node's declared
+    input disagrees with its producer (site 'graph/input-shape') or a
+    shortcut edge's shape differs from the node's output (site
+    'graph/residual-shape')."""
     by_name = {l.name: l for l in layers}
     first = next((by_name[s.id] for s in specs
                   if s.kind == "conv" and s.id in by_name), None)
@@ -201,27 +207,31 @@ def node_output_shapes(layers, specs) -> dict[str, tuple[int, int, int]]:
         src = shapes.get(s.inputs[0])
         if s.kind == "pool":
             if src is None:
-                raise ValueError(
-                    f"pool node {s.id!r} has no resolvable input shape")
+                raise res.PlanValidationError(
+                    f"pool node {s.id!r} has no resolvable input shape",
+                    layer=s.id, site="graph/input-shape")
             c, h, w = src
             out = (c, h // 2, w // 2)
         else:
             layer = by_name.get(s.id)
             if layer is None:
-                raise ValueError(
-                    f"conv node {s.id!r} has no matching ConvLayer")
+                raise res.PlanValidationError(
+                    f"conv node {s.id!r} has no matching ConvLayer",
+                    layer=s.id, site="graph/input-shape")
             want = (layer.c_in, layer.h_in, layer.w_in)
             if src is not None and src != want:
-                raise ValueError(
+                raise res.PlanValidationError(
                     f"conv node {s.id!r} declares input {want} but its "
-                    f"producer {s.inputs[0]!r} emits {src}")
+                    f"producer {s.inputs[0]!r} emits {src}",
+                    layer=s.id, site="graph/input-shape")
             out = (layer.c_out, *layer.out_hw)
         if s.residual_from is not None:
             sc = shapes.get(s.residual_from)
             if sc != out:
-                raise ValueError(
+                raise res.PlanValidationError(
                     f"residual edge {s.residual_from!r} -> {s.id!r} adds "
-                    f"shape {sc} to output shape {out}")
+                    f"shape {sc} to output shape {out}",
+                    layer=s.id, site="graph/residual-shape")
         shapes[s.id] = out
     return shapes
 
@@ -247,6 +257,15 @@ class LayerPlan:
       schedule_cycles / pe_utilization   Alg-2 stats: exact totals when
           the full tables were compiled (scheduled mode), otherwise
           sampled (None when scheduling was skipped).
+      backend     'fused' | 'staged' | 'einsum' (``df.EXEC_BACKENDS``):
+          the path that runs this layer under ``forward_spectral(backend=
+          "fused")``; 'fused' as built, moved down only by the
+          degradation ladder of ``core.resilience``.
+      provenance  the demotions that ladder applied (empty as built).
+
+    Frozen with identity equality: ``dataclasses.replace`` (every ladder
+    rung) makes a new plan, which caches keyed on the plan object (the
+    sharded executor's placed copies) see as a new entry.
     """
 
     layer: df.ConvLayer
@@ -268,11 +287,38 @@ class LayerPlan:
     schedule_cycles: int | None = None
     pe_utilization: float | None = None
     tables: PlanTables | None = None
+    backend: str = "fused"
+    provenance: tuple[str, ...] = ()
 
     @property
     def n_active_bins(self) -> int:
         k2 = self.geo.fft_size ** 2
         return k2 if self.active is None else len(self.active)
+
+    def stats(self) -> dict:
+        """One summary row of the layer (the reference's keys; the
+        CTA's shared memory where the reference has VMEM bytes)."""
+        return {
+            "layer": self.layer.name,
+            "alpha": self.alpha,
+            "nnz": self.kernels.nnz,
+            "active_bins": self.n_active_bins,
+            "flow": self.tuning.flow,
+            "hadamard": self.hadamard,
+            "input_mode": self.input_mode,
+            "backend": self.backend,
+            "demotions": len(self.provenance),
+            "block_n": self.tuning.block_n,
+            "block_m": self.tuning.block_m,
+            "block_p": self.tuning.block_p,
+            "hbm_bytes": self.tuning.hbm_bytes,
+            "smem_bytes": self.tuning.smem_bytes,
+            "table_bytes": (self.tables.nbytes
+                            if self.tables is not None else 0),
+            "schedule_cycles": self.schedule_cycles,
+            "pe_utilization": self.pe_utilization,
+            "pool": self.epilogue.pool,
+        }
 
     @property
     def kernel_name(self) -> str:
@@ -296,6 +342,54 @@ class NetworkPlan:
     layers: tuple[LayerPlan, ...]
     graph: tuple[PlanNode, ...]
     schedule_seconds: float = 0.0
+
+    def node_plan(self, node: PlanNode) -> LayerPlan:
+        """The LayerPlan a 'conv' node runs."""
+        if node.kind != "conv":
+            raise ValueError(f"node {node.id!r} is {node.kind!r}, not "
+                             f"'conv'")
+        return self.layers[node.layer_index]
+
+    def summary(self) -> list[dict]:
+        return [lp.stats() for lp in self.layers]
+
+    def health_report(self) -> dict:
+        """The plan's validation diagnostics and demotions
+        (``core.resilience``): ``healthy`` (no error-severity diagnostic
+        and no demoted layer), ``demoted_layers``, ``demotions_by_node``,
+        ``issues`` (counts by severity) and one row per graph node, keyed
+        by its stable id, with the layer's modes, provenance and
+        diagnostics."""
+        diags = res.validate_plan(self, raise_on_error=False)
+        rows = []
+        for node in self.graph:
+            if node.kind != "conv":
+                rows.append({"node": node.id, "kind": node.kind,
+                             "pool": node.pool, "demotions": [],
+                             "issues": []})
+                continue
+            lp = self.layers[node.layer_index]
+            rows.append({
+                "node": node.id, "kind": "conv", "layer": node.id,
+                "backend": lp.backend, "flow": lp.tuning.flow,
+                "hadamard": lp.hadamard, "input_mode": lp.input_mode,
+                "residual": lp.epilogue.residual,
+                "demotions": list(lp.provenance),
+                "issues": [str(d) for d in diags if d.layer == node.id],
+            })
+        n_err = sum(d.severity == "error" for d in diags)
+        n_warn = sum(d.severity == "warn" for d in diags)
+        demoted = {lp.layer.name: list(lp.provenance)
+                   for lp in self.layers if lp.provenance}
+        return {
+            "name": self.name,
+            "batch": self.batch,
+            "healthy": n_err == 0 and not demoted,
+            "demoted_layers": list(demoted),
+            "demotions_by_node": demoted,
+            "issues": {"error": n_err, "warn": n_warn},
+            "layers": rows,
+        }
 
 
 # Compile a plan's tables in a process pool of at most SCHEDULE_WORKERS
@@ -483,7 +577,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                        schedule_r: int = 10,
                        schedule_n_par: int = 64,
                        schedule_channel_sample: int = 2,
-                       device=None) -> NetworkPlan:
+                       device=None, validate: bool = True) -> NetworkPlan:
     """Compile the whole conv stack once.
 
     Args:
@@ -518,6 +612,11 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         (scheduled layers group by the scheduled kernel's block_n).
       device: where the plan's operands live; None means the CUDA
         device (raises when there is none).
+      validate: run ``resilience.validate_plan`` on the finished plan
+        (default), so a corrupted table, inconsistent operators or halo
+        starts off the image are refused at build, not at launch; a
+        layout over the shared-memory budget is a warning here
+        (``resilience.harden_network_plan`` demotes it).
     """
     if hadamard not in df.HADAMARD_MODES + ("auto",):
         raise ValueError(f"hadamard must be 'auto' or one of "
@@ -538,10 +637,10 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     conv_specs = {s.id: s for s in order if s.kind == "conv"}
     names = [l.name for l in layers]
     if sorted(conv_specs) != sorted(names):
-        raise ValueError(
+        raise res.PlanValidationError(
             f"graph conv nodes {sorted(conv_specs)} do not match "
             f"cfg.layers {sorted(names)} (each conv layer must appear "
-            f"in exactly one node)")
+            f"in exactly one node)", site="graph")
     node_output_shapes(layers, order)   # DAG shape checks (raises)
 
     # (group, channel) schedules the tables may need, to size the pool
@@ -566,7 +665,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                     sk, k2, r=schedule_r, n_par=schedule_n_par,
                     channel_sample=schedule_channel_sample)
                 if not np.isin(sampled_bins, sk.active_bins).all():
-                    raise sch.PlanValidationError(
+                    raise res.PlanValidationError(
                         f"Alg-2 schedule for {layer.name} touched a "
                         f"frequency bin outside the pruned kernel support",
                         layer=layer.name, site="schedule-stats")
@@ -652,11 +751,14 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                                         tn.input_mode)
                 lp = dataclasses.replace(lp, tuning=tn)
             plans.append(lp)
-    return NetworkPlan(name=getattr(cfg, "name", "spectral-cnn"),
-                       fft_size=cfg.fft_size, batch=batch,
-                       layers=tuple(plans),
-                       graph=_graph_nodes(order, tuple(plans)),
-                       schedule_seconds=schedule_seconds)
+    net = NetworkPlan(name=getattr(cfg, "name", "spectral-cnn"),
+                      fft_size=cfg.fft_size, batch=batch,
+                      layers=tuple(plans),
+                      graph=_graph_nodes(order, tuple(plans)),
+                      schedule_seconds=schedule_seconds)
+    if validate:
+        res.validate_plan(net)
+    return net
 
 
 # ---------------------------------------------------------------------------
@@ -697,7 +799,9 @@ class ShardedLayerPlan:
           axis, bias and ReLU deferred (the outputs are partial sums; the
           executor applies ``base.epilogue`` after the sum).
 
-    ``tuning`` is the two-level Alg-1 choice (``autotune.ShardTuning``).
+    ``tuning`` is the two-level Alg-1 choice (``autotune.ShardTuning``);
+    ``provenance`` the shard-level demotions of
+    ``resilience.harden_sharded_plan``.
     """
 
     base: LayerPlan
@@ -706,6 +810,12 @@ class ShardedLayerPlan:
     tuning: at.ShardTuning
     shards: tuple[LayerPlan, ...]
     provenance: tuple[str, ...] = ()
+
+    def stats(self) -> dict:
+        row = self.base.stats()
+        row.update({"strategy": self.strategy, "n_shards": self.n_shards,
+                    "shard_demotions": len(self.provenance)})
+        return row
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -735,6 +845,9 @@ class ShardedNetworkPlan:
     @property
     def strategies(self) -> dict[str, str]:
         return {slp.base.layer.name: slp.strategy for slp in self.layers}
+
+    def summary(self) -> list[dict]:
+        return [slp.stats() for slp in self.layers]
 
 
 def _compile_tables(lp: LayerPlan, sk: sp.SparseSpectralKernels,
@@ -768,7 +881,8 @@ def make_sharded_layer_plan(lp: LayerPlan, st: at.ShardTuning,
                             schedule_r: int = 10) -> ShardedLayerPlan:
     """The shard-local plans of one layer (see ``ShardedLayerPlan``).  A
     strategy that is infeasible at ``n_shards`` (or any strategy on one
-    shard) replicates.
+    shard), and a base plan off the fused backend (a rung of the
+    degradation ladder), replicates.
 
     A channel shard of a scheduled layer takes the base plan's tables
     sliced on the channel axis where the base has them: Alg 2 schedules
@@ -779,7 +893,7 @@ def make_sharded_layer_plan(lp: LayerPlan, st: at.ShardTuning,
     """
     replicate = ShardedLayerPlan(base=lp, strategy="replicate",
                                  n_shards=n_shards, tuning=st, shards=())
-    if n_shards <= 1 or st.strategy == "replicate":
+    if n_shards <= 1 or st.strategy == "replicate" or lp.backend != "fused":
         return replicate
     local = df.shard_local_layer(lp.layer, lp.geo.fft_size, n_shards,
                                  st.strategy)
@@ -848,100 +962,20 @@ def resharded_layer_plan(slp: ShardedLayerPlan, new_base: LayerPlan, *,
 
 
 def validate_layer_partition(slp: ShardedLayerPlan) -> None:
-    """The partition invariants of one ``ShardedLayerPlan``, the shapes
-    the executor's split, halo exchange and sum assume; raises ValueError
-    naming every one that fails.
-
-      spatial   one band plan; pre_halo_h == k-1 (the rows the exchange
-          ships); tile rows == ``shard_band_rows`` (so the D bands cover
-          the tile grid); h_in == k-1 + tr*t and h_pad == tr*t; the W axis
-          and the channels are the base's;
-      channel   D plans; D | c_in; every shard the same local channels,
-          output channels and geometry as the base; bias and ReLU
-          deferred; the shards' tables of one T;
-      replicate no shard plans.
-    """
-    name = slp.base.layer.name
-    errors: list[str] = []
-    if slp.strategy not in df.SHARD_STRATEGIES:
-        errors.append(f"unknown strategy {slp.strategy!r}; must be one of "
-                      f"{df.SHARD_STRATEGIES}")
-    elif slp.strategy == "replicate":
-        if slp.shards:
-            errors.append(f"replicate carries {len(slp.shards)} shard "
-                          f"plans; expected none")
-    elif slp.strategy == "spatial":
-        errors += _spatial_partition_errors(slp)
-    else:
-        errors += _channel_partition_errors(slp)
+    """Raise ``PlanValidationError`` naming every partition invariant of
+    ``slp`` that fails (``resilience.validate_layer_partition``, which
+    returns them as diagnostics)."""
+    errors = res.validate_layer_partition(slp)
     if errors:
-        raise ValueError(f"layer {name}: " + "; ".join(errors))
-
-
-def _spatial_partition_errors(slp: ShardedLayerPlan) -> list[str]:
-    geo, d = slp.base.geo, slp.n_shards
-    if len(slp.shards) != 1:
-        return [f"spatial wants one band plan, got {len(slp.shards)}"]
-    band = slp.shards[0]
-    bg, ov = band.geo, geo.ksize - 1
-    tr = spec.shard_band_rows(geo, d)
-    errors = []
-    if bg.pre_halo_h != ov:
-        errors.append(f"band pre_halo_h={bg.pre_halo_h} != k-1={ov}, the "
-                      f"rows the halo exchange ships")
-    if bg.n_tiles_h != tr:
-        errors.append(f"band has {bg.n_tiles_h} tile rows, shard_band_rows "
-                      f"says {tr}")
-    if bg.h_in != ov + tr * geo.tile or bg.h_pad != tr * geo.tile:
-        errors.append(f"band h_in={bg.h_in}/h_pad={bg.h_pad} do not match "
-                      f"{tr} tile rows of {geo.tile} plus {ov} halo rows")
-    if (bg.w_in, bg.w_pad, bg.n_tiles_w) != (geo.w_in, geo.w_pad,
-                                             geo.n_tiles_w):
-        errors.append(f"band W axis {(bg.w_in, bg.w_pad, bg.n_tiles_w)} != "
-                      f"base {(geo.w_in, geo.w_pad, geo.n_tiles_w)}")
-    if band.layer.c_in != slp.base.layer.c_in:
-        errors.append(f"band c_in={band.layer.c_in} != "
-                      f"{slp.base.layer.c_in}: bands keep every channel")
-    return errors
-
-
-def _channel_partition_errors(slp: ShardedLayerPlan) -> list[str]:
-    base, d = slp.base, slp.n_shards
-    if len(slp.shards) != d:
-        return [f"channel wants {d} shard plans, got {len(slp.shards)}"]
-    m = base.layer.c_in
-    if m % d:
-        return [f"c_in={m} is not divisible by D={d}"]
-    errors, t_lens = [], set()
-    for i, sh in enumerate(slp.shards):
-        if sh.layer.c_in != m // d:
-            errors.append(f"shard {i} c_in={sh.layer.c_in} != c_in/D="
-                          f"{m // d}")
-        if sh.layer.c_out != base.layer.c_out or sh.geo != base.geo:
-            errors.append(f"shard {i} output (c_out={sh.layer.c_out}, "
-                          f"geometry {'equal' if sh.geo == base.geo else 'differs'}) "
-                          f"is not the base's; the partial sums must agree "
-                          f"elementwise")
-        if sh.epilogue.bias or sh.epilogue.relu:
-            errors.append(f"shard {i} applies bias/ReLU to a partial sum; "
-                          f"channel shards defer the epilogue")
-        if sh.tables is not None:
-            t_lens.add(int(sh.tables.idx.shape[2]))
-    if len(t_lens) > 1:
-        errors.append(f"shard tables disagree on the cycle count T "
-                      f"{sorted(t_lens)}; pad them to one T")
-    return errors
+        raise res.PlanValidationError(
+            f"layer {slp.base.layer.name}: partition invariants fail",
+            layer=slp.base.layer.name, site="validate_layer_partition",
+            diagnostics=errors)
 
 
 def validate_sharded_plan(splan: ShardedNetworkPlan) -> None:
-    """``validate_layer_partition`` of every layer, and the layers aligned
-    with the base plan's."""
-    if len(splan.layers) != len(splan.base.layers) or any(
-            slp.base is not lp
-            for slp, lp in zip(splan.layers, splan.base.layers)):
-        raise ValueError("sharded layers do not align with the base plan's")
-    for slp in splan.layers:
-        validate_layer_partition(slp)
+    """``resilience.validate_sharded_plan``: raises on an error."""
+    res.validate_sharded_plan(splan)
 
 
 def _shard_network_plan(base: NetworkPlan, *, n_shards: int,
@@ -978,7 +1012,7 @@ def _shard_network_plan(base: NetworkPlan, *, n_shards: int,
                     if mesh_shape is not None else (n_shards,)),
         layers=tuple(layers))
     if validate:
-        validate_sharded_plan(splan)
+        res.validate_sharded_plan(splan)
     return splan
 
 
@@ -996,10 +1030,12 @@ def build_sharded_network_plan(params: dict, cfg, *, n_shards: int,
     the modes and flows that the build's ``hadamard`` and ``input_mode``
     admit), and the shard-local plans are built.  ``strategies``
     restricts the partitionings (e.g. ``("channel",)``); ``mesh_shape``
-    defaults to ``(n_shards,)``; ``validate`` checks every layer's
-    partition invariants (``validate_layer_partition``).
+    defaults to ``(n_shards,)``; ``validate`` checks the base plan, every
+    shard plan and every layer's partition invariants
+    (``resilience.validate_sharded_plan``).
     """
-    base = build_network_plan(params, cfg, batch=batch, **build_kwargs)
+    base = build_network_plan(params, cfg, batch=batch, validate=validate,
+                              **build_kwargs)
     return _shard_network_plan(
         base, n_shards=n_shards, mesh_shape=mesh_shape,
         strategies=strategies,

@@ -1,5 +1,6 @@
 """Alg 2 — exact-cover based memory-access scheduling (paper §5.3);
-counterpart of ``repro.core.scheduler``, pure numpy.
+counterpart of ``repro.core.scheduler``, in numpy (its errors and
+fault sites are ``core.resilience``'s).
 
 Problem: N' sparse kernels (rows of an index matrix, K^2/alpha non-zero
 frequency indices each) read the same input tile held in BRAMs with r
@@ -40,18 +41,8 @@ from concurrent.futures import Executor
 
 import numpy as np
 
-
-class PlanValidationError(ValueError):
-    """A schedule or plan invariant is violated (C1, C2, exact cover).
-
-    ``site`` names the check that found it and ``layer`` the conv layer,
-    when known."""
-
-    def __init__(self, message: str, *, layer: str | None = None,
-                 site: str | None = None):
-        self.layer = layer
-        self.site = site
-        super().__init__(message)
+from repro_torch.core import resilience as res
+from repro_torch.core.resilience import PlanValidationError
 
 
 @dataclasses.dataclass
@@ -517,6 +508,12 @@ def compile_layer_tables(indices: np.ndarray, values: np.ndarray,
             vr[g, m, :t, :ng] = v.real
             vi[g, m, :t, :ng] = v.imag
     mu = total_ops / max(1, total_slots)
+    # the fault-injection corruption sites (no-ops unless a matching fault
+    # is installed); here in the caller's process, on the stacked tables,
+    # once per call: a fault installed in the parent is invisible to the
+    # pool's workers
+    idx = res.fault_corrupt("oob_index", idx)
+    vr = res.fault_corrupt("corrupt_value", vr)
     return LayerTables(idx, sel, vr, vi, total_cycles, mu)
 
 

@@ -20,7 +20,12 @@ when two shards share a device.
       padding) and runs the band kernel
       (``kernels.fused_spectral_conv.execute_band_plan``); the uncropped
       band canvases are joined on H on the first device and cropped once.
-  replicate the base plan runs as on one device.
+  replicate the base plan runs as on one device, on its own backend
+      (``resilience.execute_planned_layer``: a layer the sharded ladder
+      demoted runs staged or einsum).
+
+Before a sharded layer runs, its shards' tables pass the shard-scoped
+fault site ('shard_tables', ``_stage_shard_tables``), on the host.
 
 On a mesh that repeats one card the shards run one after another: the
 result is the sharded computation, the time is not a scaling result.
@@ -34,6 +39,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import resilience as res
 from repro_torch.core import spectral as spec
 from repro_torch.core.plan import graph_sink
 from repro_torch.kernels.fused_spectral_conv import (execute_band_plan,
@@ -59,13 +65,24 @@ def _defer_epilogue(lp):
                                          residual=None))
 
 
-def _spatial_epilogue(y: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
-    """bias -> (+ shortcut) -> ReLU, the fused kernels' order."""
-    if lp.epilogue.bias:
-        y = y + lp.bias[0][None, :, None, None]
-    if shortcut is not None:
-        y = y + shortcut
-    return torch.relu(y) if lp.epilogue.relu else y
+def _stage_shard_tables(slp) -> tuple:
+    """The layer's shard plans as they run: each shard passes the
+    shard-scoped fault site on the host (a raise, or a corruption of its
+    tables), the one place a single shard's tables can fail or rot before
+    the shards launch.  A shard the site leaves alone is the plan's own
+    object (so ``_on_device``'s cache keeps it)."""
+    name = slp.base.layer.name
+    staged = []
+    for d, sh in enumerate(slp.shards):
+        res.fault_check("shard_tables", layer=name, shard=d,
+                        strategy=slp.strategy)
+        if sh.tables is not None:
+            tb = res.fault_corrupt("shard_tables", sh.tables, layer=name,
+                                   shard=d, strategy=slp.strategy)
+            if tb is not sh.tables:
+                sh = dataclasses.replace(sh, tables=tb)
+        staged.append(sh)
+    return tuple(staged)
 
 
 # layer plan -> {device: the plan with its operands on that device}; an
@@ -96,7 +113,8 @@ def _execute_spatial(x: torch.Tensor, slp, mesh: SpectralMesh,
     geo = slp.base.geo
     ov = geo.ksize - 1
     n_shards = slp.n_shards
-    hb = slp.shards[0].geo.n_tiles_h * geo.tile     # raw rows per shard
+    shards = _stage_shard_tables(slp)
+    hb = shards[0].geo.n_tiles_h * geo.tile         # raw rows per shard
     xp = F.pad(x, (0, 0, 0, n_shards * hb - x.shape[2]))
     first = mesh.devices[0]
     parts = [xp[:, :, d * hb:(d + 1) * hb].to(dev)
@@ -108,7 +126,7 @@ def _execute_spatial(x: torch.Tensor, slp, mesh: SpectralMesh,
         halo = (parts[d].new_zeros(parts[d].shape[:2] + (ov, xp.shape[3]))
                 if d == 0 else parts[d - 1][:, :, hb - ov:].to(dev))
         x_ext = torch.cat([halo, parts[d]], dim=2)
-        band = _on_device(slp.shards[0], dev)
+        band = _on_device(shards[0], dev)
         if defer_relu:
             band = _defer_epilogue(band)
         canvases.append(execute_band_plan(x_ext, band).to(first))
@@ -120,12 +138,13 @@ def _execute_channel(x: torch.Tensor, slp, mesh: SpectralMesh,
     mloc = slp.shards[0].layer.c_in
     first = mesh.devices[0]
     y = None
-    for d, (sh, dev) in enumerate(zip(slp.shards, mesh.devices)):
+    for d, (sh, dev) in enumerate(zip(_stage_shard_tables(slp),
+                                      mesh.devices)):
         part = execute_layer_plan(x[:, d * mloc:(d + 1) * mloc].to(dev),
                                   _on_device(sh, dev)).to(first)
         y = part if y is None else y + part      # summed in shard order
     base = _defer_epilogue(slp.base) if defer_relu else slp.base
-    return _spatial_epilogue(y, base)
+    return res._spatial_epilogue(y, base)
 
 
 def execute_sharded_layer(x: torch.Tensor, slp, mesh: SpectralMesh, *,
@@ -138,7 +157,7 @@ def execute_sharded_layer(x: torch.Tensor, slp, mesh: SpectralMesh, *,
     sum) and returns the bias-only activation."""
     if slp.strategy == "replicate" or not slp.shards:
         base = _defer_epilogue(slp.base) if defer_relu else slp.base
-        return execute_layer_plan(x, base)
+        return res.execute_planned_layer(x, base)
     _check_mesh(slp, mesh)
     if slp.strategy == "spatial":
         return _execute_spatial(x, slp, mesh, defer_relu)
@@ -154,7 +173,8 @@ def forward_spectral_sharded(params: dict, splan, x: torch.Tensor, *,
     "fused")``: walks the base plan's DAG, running conv nodes through
     ``execute_sharded_layer`` and pools, strides, residual adds and the
     FC head on the mesh's first device.  A replicated residual-fused node
-    adds its shortcut in the kernel; any other residual node adds it
+    on the fused backend adds its shortcut in the kernel; any other
+    residual node adds it
     after the collective, then the ReLU.  ``mesh`` defaults to
     ``launch.mesh.make_spectral_mesh(splan.n_shards)`` (that many
     distinct CUDA devices).  x: [B, C, H, W] f32 on the mesh's first
@@ -183,8 +203,9 @@ def forward_spectral_sharded(params: dict, splan, x: torch.Tensor, *,
             if sc is None:
                 y = execute_sharded_layer(src, slp, mesh)
                 y = y[:, :, ::stride, ::stride]
-            elif replicated and base.epilogue.residual == "fused":
-                y = execute_layer_plan(src, base, shortcut=sc)
+            elif (replicated and base.backend == "fused"
+                  and base.epilogue.residual == "fused"):
+                y = res.execute_planned_layer(src, base, shortcut=sc)
             else:
                 y = execute_sharded_layer(src, slp, mesh, defer_relu=True)
                 y = y[:, :, ::stride, ::stride] + sc

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 import repro_torch
+from repro_torch.core import resilience as res
 from repro_torch.core.dataflow import FLOWS
 from repro_torch.core.spectral import (HaloGeometry, SpectralGeometry,
                                        assemble_tile_canvas,
@@ -712,13 +713,22 @@ def placement_at_batch(lp, batch: int, capacity: dict[int, int]) -> str:
     (``sched_cluster_capacity``): the plan's placement
     ('hbm' when it chose none), except that a planned 'vmem' whose staged
     rows do not fit one CTA's shared memory at this batch
-    (``staged_shortcut_bytes``) becomes 'hbm'.  The scheduled kernel's
+    (``staged_bytes_at_batch``) becomes 'hbm'.  The scheduled kernel's
     cluster, and with it the staged rows, follows the batch, so a plan
     built at one batch may not fit at another; both placements give the
     same bits."""
     want = lp.tuning.residual or "hbm"
     if want != "vmem":
         return want
+    return (want if staged_bytes_at_batch(lp, batch, capacity)
+            <= SMEM_PER_CTA else "hbm")
+
+
+def staged_bytes_at_batch(lp, batch: int, capacity: dict[int, int]) -> int:
+    """Shared memory of ``lp``'s output-stationary CTA that stages its
+    shortcut ('vmem') at ``batch`` images on a card of cluster
+    ``capacity`` (``staged_shortcut_bytes`` of the layer's kernel, input
+    path and, for the scheduled kernel, tables and cluster)."""
     halo = ((lp.geo, halo_block_geometry(lp.geo, lp.tuning.block_p))
             if lp.input_mode == "halo" else None)
     tables, blocks = None, 1
@@ -728,11 +738,10 @@ def placement_at_batch(lp, batch: int, capacity: dict[int, int]) -> str:
         blocks = gn * sched_halves(tables[2]) * (
             batch * halo[1].n_blocks if halo is not None
             else -(-batch * lp.geo.n_tiles // SCHED_BLOCK_P))
-    smem = staged_shortcut_bytes(lp.dfr.shape[1], lp.dvr.shape[0],
+    return staged_shortcut_bytes(lp.dfr.shape[1], lp.dvr.shape[0],
                                  lp.n_active_bins, halo=halo, tables=tables,
                                  blocks=blocks, m=lp.layer.c_in,
                                  capacity=capacity)
-    return want if smem <= SMEM_PER_CTA else "hbm"
 
 
 # The output-stationary entry points that split M over CTAs
@@ -1783,7 +1792,24 @@ def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:
     'fused'``, stride 1): the kernel adds it after the bias and before
     the ReLU, placed where the plan's tuning says ('hbm' | 'vmem'), or
     in 'hbm' where a planned 'vmem' does not fit at this batch
-    (``placement_at_batch``)."""
+    (``placement_at_batch``).
+
+    The fault sites of ``core.resilience`` run here, in Python before
+    the launch ('lowering', 'vmem_overflow': where a build failure or a
+    launch refused for its shared memory would surface) and on the
+    result ('nan_activations'), outside anything a CUDA graph could
+    capture; each is one truthiness check when no fault is installed."""
+    flow = lp.tuning.flow
+    ctx = dict(layer=lp.layer.name, backend="fused", flow=flow,
+               hadamard=lp.hadamard, input_mode=lp.input_mode,
+               residual=lp.epilogue.residual)
+    res.fault_check("lowering", **ctx)
+    res.fault_check("vmem_overflow", **ctx)
+    y = _execute_layer(x, lp, shortcut)
+    return res.fault_corrupt("nan_activations", y, **ctx)
+
+
+def _execute_layer(x: torch.Tensor, lp, shortcut) -> torch.Tensor:
     flow = lp.tuning.flow
     kw = dict(flow=flow, relu=lp.epilogue.relu)
     if flow != OS:
@@ -1858,8 +1884,18 @@ def execute_band_plan(x_ext: torch.Tensor, lp) -> torch.Tensor:
     ``execute_layer_plan`` does, on the Hadamard mode, the input path (the
     windowed kernels on the band's windows, or the halo kernels in band
     mode) and the tuning's flow; every launch is also counted in
-    ``BAND_LAUNCHES``.
+    ``BAND_LAUNCHES``.  The fault sites are ``execute_layer_plan``'s.
     """
+    flow = lp.tuning.flow
+    ctx = dict(layer=lp.layer.name, backend="fused", flow=flow,
+               hadamard=lp.hadamard, input_mode=lp.input_mode)
+    res.fault_check("lowering", **ctx)
+    res.fault_check("vmem_overflow", **ctx)
+    y = _execute_band(x_ext, lp)
+    return res.fault_corrupt("nan_activations", y, **ctx)
+
+
+def _execute_band(x_ext: torch.Tensor, lp) -> torch.Tensor:
     flow = lp.tuning.flow
     kw = dict(flow=flow, relu=lp.epilogue.relu)
     if flow != OS:

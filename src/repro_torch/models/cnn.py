@@ -16,9 +16,9 @@ import torch
 import repro_torch
 from repro_torch.core import dataflow as df
 from repro_torch.core import plan as pl
+from repro_torch.core import resilience as res
 from repro_torch.core import sparse as sp
 from repro_torch.core import spectral as spec
-from repro_torch.kernels.fused_spectral_conv import execute_layer_plan
 from repro_torch.kernels.ops import spectral_conv2d_staged
 from repro_torch.models import layers as L
 
@@ -97,6 +97,12 @@ def transform_kernels(params: dict, cfg: SpectralCNNConfig
             for conv, alpha in zip(params["convs"], alphas)]
 
 
+def build_plan(params: dict, cfg: SpectralCNNConfig, **kwargs
+               ) -> pl.NetworkPlan:
+    """``core.plan.build_network_plan`` (the reference's re-export)."""
+    return pl.build_network_plan(params, cfg, **kwargs)
+
+
 def _pool(x: torch.Tensor, kind: str = "max") -> torch.Tensor:
     """2x2 stride-2 max/avg pool; odd edge rows/cols are dropped."""
     b, c, h, w = x.shape
@@ -121,7 +127,9 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
-                     *, backend: str = "einsum") -> torch.Tensor:
+                     *, backend: str = "einsum",
+                     guards: res.NumericGuards | None = None
+                     ) -> torch.Tensor:
     """Inference by executing a precompiled ``core.plan.NetworkPlan``.
 
     Args:
@@ -137,7 +145,15 @@ def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
         fused-kernel launch per conv layer with bias + ReLU, and a
         residual-fused node's shortcut add, inside the kernel; the
         reference's 'pallas_fused').  'staged' reads only the plan's
-        ``kernels`` and ``geo``, so it runs any plan.
+        ``kernels`` and ``geo``, so it runs any plan.  Under 'fused' each
+        layer runs on its own ``LayerPlan.backend`` (a hardened plan's
+        demoted layers on 'staged' or 'einsum'); a layer that fails
+        raises ``resilience.KernelLoweringError`` naming it: nothing is
+        demoted here (``resilience.harden_network_plan`` does that, when
+        the caller asks).
+      guards: opt-in ``resilience.NumericGuards`` run on every layer's
+        output under 'staged' and 'fused' (a host synchronization per
+        layer and guard on the card).
 
     Returns [B, n_classes] logits.
     """
@@ -166,7 +182,7 @@ def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
                     f"{tuple(src.shape)}")
             sc = (acts[node.residual_from]
                   if node.residual_from is not None else None)
-            y = _conv_node(src, lp, node, sc, backend)
+            y = _conv_node(src, lp, node, sc, backend, guards)
         acts[node.id] = y
         for s in (node.inputs[0], node.residual_from):
             if s is not None:
@@ -177,16 +193,18 @@ def forward_spectral(params: dict, plan: pl.NetworkPlan, x: torch.Tensor,
 
 
 def _conv_node(x: torch.Tensor, lp: pl.LayerPlan, node: pl.PlanNode,
-               sc: torch.Tensor | None, backend: str) -> torch.Tensor:
+               sc: torch.Tensor | None, backend: str,
+               guards: res.NumericGuards | None = None) -> torch.Tensor:
     """One conv node; epilogue order bias -> stride subsample ->
-    (+shortcut) -> ReLU.  The fused backend applies bias, and ReLU when
-    no shortcut follows, in the kernel (both are elementwise, so
-    subsampling after them is the same).  A residual-fused node
-    (``lp.epilogue.residual == 'fused'``, stride 1) hands the shortcut
-    to the kernel, which adds it before its ReLU; any other shortcut
-    (the 'add' rung of strided nodes) is added on the host after the
-    subsample, with the ReLU after it.  The einsum and staged backends
-    run the whole epilogue on the host."""
+    (+shortcut) -> ReLU on every path.  Under the fused backend the
+    layer runs on ``lp.backend`` (``resilience.execute_planned_layer``):
+    a residual-fused node on the fused kernel hands it the shortcut,
+    which it adds before its ReLU; any other shortcut (the 'add' rung,
+    strided nodes, the staged and einsum paths) is added on the host
+    after the subsample, with the ReLU after it.  The einsum and staged
+    backends run the whole epilogue on the host.  Guards see the layer's
+    output before the subsample (on the staged backend, and wherever a
+    shortcut follows, before the ReLU too)."""
     stride = lp.layer.stride
     if backend in ("einsum", "staged"):
         y = (spec.spectral_conv2d_pretransformed(x, lp.kernels, lp.geo)
@@ -194,18 +212,46 @@ def _conv_node(x: torch.Tensor, lp: pl.LayerPlan, node: pl.PlanNode,
              spectral_conv2d_staged(x, lp.kernels.values, lp.geo))
         if lp.epilogue.bias:
             y = y + lp.bias[0][None, :, None, None]
+        if backend == "staged" and guards is not None:
+            y = res.apply_guards(x, y, _with_relu(lp, False), guards)
         y = y[:, :, ::stride, ::stride]
         if sc is not None:
             y = y + sc
         return torch.relu(y) if node.relu else y
+    fuse_in_kernel = (sc is not None and lp.epilogue.residual == "fused"
+                      and lp.backend == "fused")
+    if sc is not None and not fuse_in_kernel:
+        lp = _with_relu(lp, False)
+    try:
+        y = res.execute_planned_layer(x, lp,
+                                      shortcut=sc if fuse_in_kernel else None)
+    except res.ResilienceError:
+        raise
+    except Exception as e:
+        raise res.KernelLoweringError(
+            f"layer {lp.layer.name} failed under backend={lp.backend!r} "
+            f"(flow={lp.tuning.flow}, hadamard={lp.hadamard}, "
+            f"input_mode={lp.input_mode}): {e}",
+            layer=lp.layer.name, site="forward") from e
+    if guards is not None:
+        y = res.apply_guards(x, y, lp, guards,
+                             shortcut=sc if fuse_in_kernel else None)
+    if fuse_in_kernel:
+        return y
+    y = y[:, :, ::stride, ::stride]
     if sc is None:
-        return execute_layer_plan(x, lp)[:, :, ::stride, ::stride]
-    if lp.epilogue.residual == "fused":
-        return execute_layer_plan(x, lp, shortcut=sc)
-    lp = dataclasses.replace(
-        lp, epilogue=dataclasses.replace(lp.epilogue, relu=False))
-    y = execute_layer_plan(x, lp)[:, :, ::stride, ::stride] + sc
+        return y
+    y = y + sc
     return torch.relu(y) if node.relu else y
+
+
+def _with_relu(lp: pl.LayerPlan, relu: bool) -> pl.LayerPlan:
+    """``lp`` with its epilogue's ReLU set to ``relu`` (itself when it
+    already is)."""
+    if lp.epilogue.relu == relu:
+        return lp
+    return dataclasses.replace(
+        lp, epilogue=dataclasses.replace(lp.epilogue, relu=relu))
 
 
 def forward_spatial(params: dict, cfg: SpectralCNNConfig,

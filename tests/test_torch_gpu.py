@@ -1721,3 +1721,81 @@ def test_redesigned_kernel_runs_on_the_tensor_cores(source, function):
     from repro_torch.kernels import _build
     counts = _build.sass_counts(source, function, fsc.SOURCES[source])
     assert counts["HMMA"] > 0 and counts["STL"] == 0, counts
+
+
+# ---------------------------------------------------------------------------
+# The resilience layer on the card (core.resilience, testing.faults)
+# ---------------------------------------------------------------------------
+
+def _launched_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in fsc.LAUNCHES.items()
+            if v != before[k]}
+
+
+@pytest.fixture(scope="module")
+def vgg16_full_plan():
+    """Full-width VGG16 weights (seed 0) and its forced bin / windowed
+    plan on the card."""
+    need_card()
+    from repro_torch.configs.vgg16_spectral import CONFIG
+    params = cnn.init(CONFIG, generator=torch.Generator().manual_seed(0))
+    return params, pl.build_network_plan(params, CONFIG, batch=1)
+
+
+@pytest.mark.gpu
+def test_harden_healthy_full_width_vgg16_on_card(vgg16_full_plan):
+    """Validation passes, and harden's probes launch each layer's kernel
+    exactly once (synchronized) and demote nothing."""
+    from repro_torch.core import resilience as res
+    _, plan = vgg16_full_plan
+    assert not [d for d in res.validate_plan(plan) if d.severity == "error"]
+    before = dict(fsc.LAUNCHES)
+    hard = res.harden_network_plan(plan)
+    assert hard is plan and hard.health_report()["healthy"]
+    assert _launched_delta(before) == {"fused_spectral_pipeline": 13}
+
+
+@pytest.mark.gpu
+def test_oob_index_plan_demoted_at_validation_on_card():
+    """An out-of-range INDEX table never reaches the card: harden refuses
+    it at validation and moves that layer to the plane kernel, so the
+    scheduled entry point launches for the other layers only."""
+    need_card()
+    from repro_torch.core import resilience as res
+    from repro_torch.testing import faults
+    params = cnn.init(SMOKE, generator=torch.Generator().manual_seed(0))
+    plan = pl.build_network_plan(params, SMOKE, batch=2,
+                                 hadamard="scheduled")
+    bad = faults.corrupt_plan_tables(plan, kind="oob_index")
+    with pytest.raises(res.PlanValidationError):
+        res.validate_plan(bad)
+    before = dict(fsc.LAUNCHES)
+    hard = res.harden_network_plan(bad)
+    assert _launched_delta(before) == {
+        "fused_spectral_pipeline_scheduled": len(plan.layers) - 1,
+        "fused_spectral_pipeline": 1}
+    assert hard.layers[0].hadamard != "scheduled"
+    assert "tables/idx-bounds" in hard.layers[0].provenance[0]
+    x = torch.randn(2, 3, 32, 32, device="cuda")
+    out = cnn.forward_spectral(params, hard, x, backend="fused")
+    ref = cnn.forward_spectral(params, plan, x, backend="einsum")
+    assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+def test_unhardened_lowering_fault_raises_on_card(vgg16_full_plan):
+    """Without harden the fused forward never demotes: a 'lowering' fault
+    on the fused backend raises KernelLoweringError at the first layer,
+    before any launch."""
+    from repro_torch.configs.vgg16_spectral import CONFIG
+    from repro_torch.core import resilience as res
+    from repro_torch.testing import faults
+    params, plan = vgg16_full_plan
+    x = torch.randn(1, 3, CONFIG.image_size, CONFIG.image_size,
+                    device="cuda")
+    before = dict(fsc.LAUNCHES)
+    with faults.inject("lowering", backend="fused"):
+        with pytest.raises(res.KernelLoweringError) as ei:
+            cnn.forward_spectral(params, plan, x, backend="fused")
+    assert (ei.value.layer, ei.value.site) == ("conv1_1", "forward")
+    assert _launched_delta(before) == {}
