@@ -256,6 +256,40 @@ each of which fails the run on error:
       fault on shard 1 of one layer demotes that layer only, logits
       within 1e-4 of the unsharded forward.
       Every time carries the card's name and power limit;
+  (ss) the serving front end (``launch/spectral_serve.py``), right after
+      (h) on the scheduled plans, its launch counts taken apart from the
+      main path's (the counters reset around it).  (ss1) full-width
+      VGG16 served from the (d) weights: ``SpectralServer`` on the
+      port's default bin / windowed plans, buckets 1, 2, 4, 8, queue 16,
+      a real clock, every bucket's plan built and forwarded once at
+      start (the warm seconds and the plan cache's counters printed);
+      two steady waves of 8 requests and a burst of 64 from
+      ``synthetic_requests``, each drained: throughput, latency p50 /
+      p95 / p99, the counters, requests by rung, the ladder's
+      transitions, staged uploads and hits, each rung's batch times,
+      p50 and EMA, then each rung's forward per bucket (the median of 5
+      interleaved rounds after an untimed one) beside (d)'s p50.  Gates:
+      every request terminal, no loop death, the burst shed, no plan
+      built after the warm-up, no fault injected and none seen (no
+      kernel fault, failed request, corrupt plan or breaker move: every
+      request not shed is 'ok' on its load rung), every batch
+      launching what its rung runs (13 launches of the plan's entry
+      point on the fused rung, B7a fft / B7b / B7a ifft 13 each on the
+      staged rung, none on einsum), every 'ok' row within 1e-4 of
+      max|logits| of the einsum forward on its own padded bucket, top-1
+      equal.  (ss2) the serving fault sites at full width on (c2)'s
+      scheduled plan (bucket 1, a ``PlanCache`` whose builder returns it,
+      a virtual clock): 'serve_kernel' on fused -> staged in the same
+      tick and the breaker open -> half_open -> closed after the
+      cooldown, logits within the (d) gate; 'serve_plan_cache' caught on
+      fetch and served on einsum, bit for bit the pristine plan's
+      einsum, then fused again; 'serve_slow' counted and on the clock;
+      every rung failing -> a structured 'failed' response, the loop
+      alive.  (ss3) ``faults.chaos_soak`` on SMOKE on the card, every
+      gate holding with its oracle tolerance 1e-4 x max|einsum logits|
+      of its own oracle pass (``oracle_rel_tol``; SMOKE's logits are
+      ~7e-4).  One ``{"spectral_serve": ...}`` line is printed before the
+      kernels line;
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve fused: four kernels x
       three flows; six staged; the band entry points; flash attention),
@@ -266,7 +300,7 @@ each of which fails the run on error:
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c8) and
 (d7), its (c5), (c6) and (d6), (h) on the plane plans; the plane plans
 are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8), (d7), (h)
-on the scheduled plans, (c5), (c6) and (d6); every plan is freed; (c7),
+on the scheduled plans, (ss), (c5), (c6) and (d6); every plan is freed; (c7),
 (d5), (s), (ds), (dh); VGG16's weights and plans are freed; (r), (dr),
 ResNet-18's (c8) and (d7), (ds), (h) on (dr), (dr4); (la), (dl), (sl),
 (e).  So each
@@ -1347,6 +1381,360 @@ def harden_residual(params, plan, x) -> dict:
         dict(residual="fused"), per_forward_of(plan)[0],
         lambda lp: (lp.epilogue.residual == "add") == (lp.layer.name in fused)
         and (lp.layer.name in fused) == bool(lp.provenance))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# (ss) the spectral serving front end at full width
+# ---------------------------------------------------------------------------
+
+SS_BUCKETS = (1, 2, 4, 8)   # (ss1): the server's batch buckets
+SS_QUEUE = 16          # (ss1): its queue limit; the burst is 4x it
+SS_STEADY = 8          # (ss1): requests of each of the two steady waves
+SS_SOAK_QUEUE = 8      # (ss3): the chaos soak's queue limit (SMOKE)
+SS_ROUNDS = 5          # (ss1): timed rounds of each rung's forward a bucket
+
+
+def ss_log(srv) -> list[dict]:
+    """Log every batch ``srv`` runs: its rung (None: failed), bucket,
+    request ids, wall ms (upload to logits on the host, which ends in a
+    synchronizing copy) and the launches it made per entry point."""
+    log: list[dict] = []
+    run = srv._execute
+
+    def execute(batch, bucket):
+        before = all_launches()
+        t0 = time.perf_counter()
+        rung = run(batch, bucket)
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = all_launches()
+        log.append({"rung": rung, "bucket": bucket,
+                    "rids": [r.rid for r in batch], "ms": ms,
+                    "launches": {k: v - before[k] for k, v in after.items()
+                                 if v != before[k]}})
+        return rung
+
+    srv._execute = execute
+    return log
+
+
+def ss_launch_gate(label, srv, log) -> None:
+    """Every batch launched what its rung runs: the fused rung its plan's
+    entry points once a layer (13 on VGG16), the staged rung B7a fft /
+    B7b / B7a ifft once a layer each, the einsum rung and a failed batch
+    nothing."""
+    for b in log:
+        plan = srv.plans.get(srv.params, srv.cfg, b["bucket"],
+                             mesh_shape=srv.mesh_shape, **srv.plan_kwargs)
+        n = len(plan.layers)
+        want = {"fused": per_forward_of(plan)[0],
+                "staged": dict.fromkeys(STAGED_PATH, n)}.get(b["rung"], {})
+        if b["launches"] != want:
+            fail(f"{label}: a bucket-{b['bucket']} batch on "
+                 f"{b['rung']} launched {b['launches']}, expected {want}")
+
+
+def ss_rows(label, srv, log, reqs) -> float:
+    """Every logged batch served (none failed) and every row within
+    LOGITS_TOL of max|logits| of the einsum forward on its own padded
+    bucket, top-1 equal; returns the worst relative error."""
+    import numpy as np
+    import torch
+    from repro_torch.models import cnn
+    by_rid = {r.rid: r for r in reqs}
+    worst = 0.0
+    for b in log:
+        if b["rung"] is None:
+            fail(f"{label}: a bucket-{b['bucket']} batch failed on every "
+                 f"rung: {by_rid[b['rids'][0]].error}")
+        x = np.zeros((b["bucket"],) + srv.image_shape, np.float32)
+        for i, rid in enumerate(b["rids"]):
+            x[i] = by_rid[rid].image
+        plan = srv.plans.get(srv.params, srv.cfg, b["bucket"],
+                             **srv.plan_kwargs)
+        ref = cnn.forward_spectral(
+            srv.params, plan, torch.from_numpy(x).to(srv.device),
+            backend="einsum").cpu().numpy()[:len(b["rids"])]
+        scale = float(np.abs(ref).max())
+        for i, rid in enumerate(b["rids"]):
+            got = by_rid[rid].logits
+            err = float(np.abs(got - ref[i]).max()) / scale
+            worst = max(worst, err)
+            if (not np.isfinite(got).all() or err > LOGITS_TOL
+                    or int(got.argmax()) != int(ref[i].argmax())):
+                fail(f"{label}: request {rid} on {b['rung']} (bucket "
+                     f"{b['bucket']}): rel err {err:.3e} vs einsum, or "
+                     f"top-1 differs")
+    return worst
+
+
+def ss_load(params, cfg, dev, d_p50_ms) -> dict:
+    """(ss1): full-width VGG16 served from the (d) weights on the port's
+    default bin / windowed plans, buckets SS_BUCKETS, a real clock; two
+    steady waves of SS_STEADY and a 4 x SS_QUEUE burst, each drained.
+    No fault is injected, so every request not shed is served 'ok' on its
+    load rung: a kernel fault, a corrupt plan or a breaker that moved
+    fails the phase, as does a batch that no rung served."""
+    import torch
+    from repro_torch.core import resilience as res
+    from repro_torch.launch import spectral_serve as ss
+    from repro_torch.models import cnn
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = ss.SpectralServer(cfg, buckets=SS_BUCKETS, queue_limit=SS_QUEUE,
+                            params=params, warm=True, warm_forward=True,
+                            device=dev)
+    warm_s = time.perf_counter() - t0
+    cache = srv.plans.stats()
+    print(f"(ss1) server on {srv.device}: {len(srv.buckets)} bucket plans "
+          f"{srv.buckets} built and one zero batch each forwarded in "
+          f"{warm_s:.2f} s; plan cache {cache} [{CARD}]")
+    log = ss_log(srv)
+    reqs: list = []
+
+    def burst(n: int) -> None:
+        wave = ss.synthetic_requests(n, cfg, seed=len(reqs),
+                                     rid0=len(reqs))
+        for r in wave:
+            srv.submit(r)
+        reqs.extend(wave)
+
+    t0 = time.perf_counter()
+    for _ in range(2):
+        burst(SS_STEADY)
+        srv.run_until_drained()
+    burst(4 * SS_QUEUE)
+    srv.run_until_drained()
+    load_s = time.perf_counter() - t0
+    stats, health = srv.stats(), srv.health_report()
+    peak = torch.cuda.max_memory_allocated()
+    c = stats["counters"]
+    if not all(r.terminal for r in reqs) or stats["loop_deaths"]:
+        fail(f"(ss1) {sum(not r.terminal for r in reqs)} requests not "
+             f"terminal, {stats['loop_deaths']} loop deaths")
+    if c["overloaded"] < 1:
+        fail("(ss1) the burst shed nothing")
+    if srv.plans.builds != cache["builds"]:
+        fail(f"(ss1) {srv.plans.builds - cache['builds']} plans built on "
+             f"the request path")
+    moved = {n: b["transitions"] for n, b in health["breakers"].items()
+             if b["transitions"]}
+    if c["kernel_faults"] or c["failed"] or c["plan_cache_corruptions"] \
+            or moved:
+        fail(f"(ss1) with no fault injected: {c['kernel_faults']} kernel "
+             f"faults, {c['failed']} failed, "
+             f"{c['plan_cache_corruptions']} corrupt plans, breakers moved "
+             f"{moved}")
+    stray = [(r.rid, r.code, r.rung) for r in reqs
+             if r.code != "overloaded"
+             and (r.code != "ok" or r.rung not in ss.SERVE_RUNGS)]
+    if stray:
+        fail(f"(ss1) requests neither shed nor served ok: {stray[:4]}")
+    ss_launch_gate("(ss1)", srv, log)
+    worst = ss_rows("(ss1)", srv, log, reqs)
+    by_rung: dict[str, list[float]] = {}
+    for b in log:
+        if b["rung"] is not None:
+            by_rung.setdefault(b["rung"], []).append(b["ms"])
+    service = {r: {"batches": len(ts), "p50_ms": statistics.median(ts),
+                   "ema_ms": stats["service_ema_ms"][r], "ms": ts}
+               for r, ts in by_rung.items()}
+    lat = stats.get("latency_ms", {})
+    print(f"(ss1) {len(reqs)} requests in {load_s:.2f} s: {c['ok']} ok, "
+          f"{c['overloaded']} shed, {c['failed']} failed, "
+          f"{stats['loop_deaths']} loop deaths; throughput "
+          f"{stats.get('throughput_img_s', 0.0):.2f} img/s; latency ms "
+          f"p50 {lat.get('p50', 0.0):.2f} p95 {lat.get('p95', 0.0):.2f} "
+          f"p99 {lat.get('p99', 0.0):.2f} [{CARD}]")
+    print(f"(ss1) served by rung {stats['served_by_rung']}; "
+          f"{stats['demotions']} demotions, {stats['promotions']} "
+          f"promotions {[(t['tick'], t['from'], t['to']) for t in health['transitions']]}; "
+          f"final rung {health['rung']}; staged uploads "
+          f"{c['staged_uploads']}, hits {c['staged_hits']}; counters {c}")
+    print("(ss1) batch service by rung (upload to logits on the host; "
+          "each batch's ms in order): "
+          + "; ".join(f"{r}: {v['batches']} batches {[round(t, 2) for t in v['ms']]}"
+                      f", p50 {v['p50_ms']:.2f} ms, EMA {v['ema_ms']:.2f} ms"
+                      for r, v in service.items())
+          + f"; every ok row within {LOGITS_TOL:g} of einsum (worst "
+          f"{worst:.3e}), top-1 equal; launches per batch as its rung's; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB, "
+          f"{resident / 2 ** 30:.3f} resident at the start [{CARD}]")
+
+    # each rung's forward per bucket, on the plan variant the server runs
+    # there: one untimed forward a rung (cuFFT plans, first launches),
+    # then SS_ROUNDS rounds that time the rungs in turn; the median
+    xgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    per_bucket = {}
+    for b in srv.buckets:
+        plan = srv.plans.get(params, cfg, b, **srv.plan_kwargs)
+        x = torch.randn((b,) + srv.image_shape, generator=xgen, device=dev)
+        variants = {r: res.plan_at_backend_rung(plan, r)
+                    for r in ss.SERVE_RUNGS}
+        times: dict[str, list[float]] = {r: [] for r in ss.SERVE_RUNGS}
+        for i in range(SS_ROUNDS + 1):
+            for r, vplan in variants.items():
+                t0 = time.perf_counter()
+                cnn.forward_spectral(params, vplan, x, backend="fused")
+                torch.cuda.synchronize()
+                if i:
+                    times[r].append(1e3 * (time.perf_counter() - t0))
+        per_bucket[b] = {r: statistics.median(t) for r, t in times.items()}
+        per_bucket[b]["spread"] = {r: (min(t), max(t))
+                                   for r, t in times.items()}
+    print(f"(ss1) forward per bucket and rung, median of {SS_ROUNDS} "
+          f"interleaved rounds after an untimed one, ms (host clock ending "
+          f"in a synchronize; min-max): " + "; ".join(
+              f"{b}: " + ", ".join(
+                  f"{r} {t[r]:.2f} ({t['spread'][r][0]:.2f}-"
+                  f"{t['spread'][r][1]:.2f})" for r in ss.SERVE_RUNGS)
+              for b, t in per_bucket.items())
+          + f"; (d)'s batch-1 p50 {d_p50_ms:.2f} [{CARD}]")
+    return {"warm_s": warm_s, "plan_cache": cache, "load_s": load_s,
+            "stats": stats, "service": service, "rel_err": worst,
+            "final_rung": health["rung"],
+            "transitions": [(t["tick"], t["from"], t["to"])
+                            for t in health["transitions"]],
+            "peak_gib": peak / 2 ** 30, "per_bucket_ms": per_bucket,
+            "d_p50_ms": d_p50_ms}
+
+
+def ss_faults(params, cfg, splan, dev) -> dict:
+    """(ss2): the serving fault sites at full width on (c2)'s scheduled
+    plan (bucket 1, a ``PlanCache`` whose builder hands it out, a
+    virtual clock)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import PlanCache
+    from repro_torch.launch import spectral_serve as ss
+    from repro_torch.models import cnn
+    from repro_torch.testing import faults
+    clock = ss.ManualClock()
+    srv = ss.SpectralServer(
+        cfg, buckets=(1,), queue_limit=4, params=params, clock=clock,
+        plan_cache=PlanCache(builder=lambda p, c, *, batch, **kw: splan),
+        plan_kwargs={"hadamard": "scheduled"}, breaker_failures=1,
+        breaker_cooldown_s=1.0, device=dev)
+    log = ss_log(srv)
+    reqs = ss.synthetic_requests(7, cfg, seed=100)
+    brk = srv.breakers["fused"]
+
+    def one(r):
+        srv.submit(r)
+        srv.run_until_drained(cooldown_ticks=0)
+        return r
+
+    def einsum_of(r):
+        x = torch.from_numpy(r.image[None]).to(dev)
+        return cnn.forward_spectral(params, splan, x,
+                                    backend="einsum").cpu().numpy()[0]
+
+    def gate(label, r, rung):
+        if r.code != "ok" or r.rung != rung:
+            fail(f"(ss2) {label}: {r.code} on {r.rung}, expected ok on "
+                 f"{rung} ({r.error})")
+        ref = einsum_of(r)
+        err = float(np.abs(r.logits - ref).max() / np.abs(ref).max())
+        if err > LOGITS_TOL or int(r.logits.argmax()) != int(ref.argmax()):
+            fail(f"(ss2) {label}: rel err {err:.3e} vs einsum")
+        return err
+
+    rec = {}
+    with faults.inject("serve_kernel", backend="fused") as f:
+        r = one(reqs[0])
+    rec["kernel_fault_err"] = gate("serve_kernel on fused", r, "staged")
+    if f.fires != 1 or brk.state != "open":
+        fail(f"(ss2) serve_kernel fired {f.fires}, breaker {brk.state}")
+    r = one(reqs[1])                  # inside the cooldown: fused skipped
+    gate("inside the cooldown", r, "staged")
+    clock.advance(2.0)
+    r = one(reqs[2])
+    gate("after the cooldown", r, "fused")
+    if [t["to"] for t in brk.transitions] != ["open", "half_open",
+                                              "closed"]:
+        fail(f"(ss2) fused breaker went {brk.transitions}")
+    with faults.inject("serve_plan_cache") as f:
+        r = one(reqs[3])
+    if (f.fires < 1 or r.rung != "einsum"
+            or not np.array_equal(r.logits, einsum_of(r))
+            or srv.counters["plan_cache_corruptions"] != 1):
+        fail(f"(ss2) serve_plan_cache: fired {f.fires}, served on "
+             f"{r.rung}, corruptions {srv.counters['plan_cache_corruptions']}"
+             f", or not bit for bit the einsum of the pristine plan")
+    r = one(reqs[4])
+    gate("after the corruption", r, "fused")
+    if srv.health_report()["plan_cache"]["corrupt_buckets"]:
+        fail("(ss2) the bucket stayed marked corrupt")
+    t0 = clock()
+    with faults.inject("serve_slow"):
+        r = one(reqs[5])
+    gate("serve_slow", r, "fused")
+    if (srv.counters["slow_injections"] != 1
+            or abs(clock() - t0 - faults.SLOW_EXTRA_S) > 1e-9):
+        fail(f"(ss2) serve_slow: {srv.counters['slow_injections']} "
+             f"injections, the clock moved {clock() - t0}")
+    with faults.inject("serve_kernel"):
+        r = one(reqs[6])
+    if r.code != "failed" or "einsum" not in r.error or srv.loop_deaths:
+        fail(f"(ss2) every rung failing: {r.code}, {r.error}, "
+             f"{srv.loop_deaths} loop deaths")
+    # both breakers opened on that failure (threshold 1): past their
+    # cooldown the half-open fused rung serves again
+    clock.advance(2.0)
+    r = one(ss.synthetic_requests(1, cfg, seed=107, rid0=7)[0])
+    gate("after every rung failed", r, "fused")
+    ss_launch_gate("(ss2)", srv, log)
+    rec.update(counters=dict(srv.counters),
+               rungs=[b["rung"] for b in log],
+               breaker=[t["to"] for t in brk.transitions])
+    print(f"(ss2) fault sites on the (c2) plan, bucket 1: serve_kernel on "
+          f"fused -> staged (rel err {rec['kernel_fault_err']:.3e}), "
+          f"breaker {rec['breaker']}; serve_plan_cache -> einsum, bit for "
+          f"bit the pristine plan's, then fused; serve_slow +"
+          f"{faults.SLOW_EXTRA_S} s on the clock; every rung failing -> "
+          f"'failed', loop alive; batches on {rec['rungs']}; counters "
+          f"{rec['counters']} [{CARD}]")
+    return rec
+
+
+def ss_soak(dev) -> dict:
+    """(ss3): ``faults.chaos_soak`` on SMOKE on the card.  Its oracle gate
+    holds every 'ok' row within LOGITS_TOL x max|einsum logits| of its
+    own oracle pass: the (d) gate, made absolute by the soak."""
+    from repro_torch.testing import faults
+    t0 = time.perf_counter()
+    rep = faults.chaos_soak(queue_limit=SS_SOAK_QUEUE, seed=0, device=dev,
+                            oracle_rel_tol=LOGITS_TOL)
+    soak_s = time.perf_counter() - t0
+    scale = rep["oracle_tol"] / LOGITS_TOL
+    if rep["failed_gates"]:
+        fail(f"(ss3) chaos soak failed gates {rep['failed_gates']}")
+    c = rep["stats"]["counters"]
+    print(f"(ss3) chaos soak on SMOKE ({rep['requests']} requests, queue "
+          f"{SS_SOAK_QUEUE}) in {soak_s:.2f} s: all {len(rep['gates'])} "
+          f"gates hold; {c['ok']} ok / {c['overloaded']} shed / "
+          f"{c['deadline_exceeded']} deadline / {c['failed']} failed; "
+          f"served by {rep['stats']['served_by_rung']}; max|err| "
+          f"{rep['oracle_max_abs_err']:.3e} (tol {rep['oracle_tol']:.3e} = "
+          f"{LOGITS_TOL:g} x max|einsum| {scale:.3e}) [{CARD}]")
+    return {"seconds": soak_s, "gates": rep["gates"],
+            "oracle_max_abs_err": rep["oracle_max_abs_err"],
+            "oracle_tol": rep["oracle_tol"], "counters": c,
+            "served_by_rung": rep["stats"]["served_by_rung"]}
+
+
+def serving(params, cfg, splan, dev, d_p50_ms) -> dict:
+    """(ss): the serving front end, its launch counts taken apart from
+    the main path's (the counters reset around it)."""
+    t0 = time.perf_counter()
+    reset_launches()
+    rec = {"load": ss_load(params, cfg, dev, d_p50_ms),
+           "faults": ss_faults(params, cfg, splan, dev),
+           "soak": ss_soak(dev)}
+    reset_launches()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"(ss) serving phases in {rec['seconds']:.1f} s [{CARD}]")
     return rec
 
 
@@ -3041,6 +3429,9 @@ def main() -> int:
         drive_sharded(sp_, images[:1] * 3, f"(d7) scheduled {m} spatial")
     del sspatial
     h_rec["scheduled"] = harden_scheduled(params, splan, shplan, images[0])
+    # (ss) the serving front end: VGG16 on the (d) weights, its fault
+    # sites on the (c2) plan, the chaos soak on SMOKE
+    ss_rec = serving(params, CONFIG, splan, dev, p50s["(d)"])
 
     # (c5), (c6), (d6) the scheduled kernel's flows; then every plan so
     # far is freed, so that (d5)'s peak holds the autotuned plan alone
@@ -3278,6 +3669,7 @@ def main() -> int:
         "prefill": {k: v for k, v in lm_totals.items()
                     if k not in ("launches", "per_forward")},
     })
+    print(json.dumps({"spectral_serve": ss_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": count}}))

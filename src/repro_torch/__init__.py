@@ -17,8 +17,8 @@ find:
                spatial oracle; the dense LM (config, layers, attention,
                transformer, api);
 - ``distributed``, ``launch``: sharded inference (the executor of a
-               sharded plan and the device mesh it runs on) and the LM
-               server;
+               sharded plan and the device mesh it runs on), the
+               spectral-CNN serving front end and the LM server;
 - ``configs``: model presets and the LM architecture registry.
 
 Entry points run on the CUDA device unless the caller passes

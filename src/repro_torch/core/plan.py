@@ -28,6 +28,9 @@ where the kernel reads the shortcut ('hbm' at the flush, or 'vmem',
 staged in shared memory by the output-stationary kernel) is the
 autotuner's per-layer choice, recorded as ``PlanNode.shortcut_on_chip``;
 a strided node adds it on the host after the subsample ('add').
+
+``PlanCache`` keeps built plans by ``plan_cache_key`` (the reference's
+key tuple) for the serving front end, which warms one per batch bucket.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import os
 import time
 from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import resource_tracker
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -759,6 +762,116 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
     if validate:
         res.validate_plan(net)
     return net
+
+
+# ---------------------------------------------------------------------------
+# Keyed plan cache (the serving front end, ``launch.spectral_serve``)
+# ---------------------------------------------------------------------------
+
+def plan_cache_key(cfg, batch: int, *,
+                   mesh_shape: Sequence[int] | None = None,
+                   **build_kwargs) -> tuple:
+    """Cache key of one compiled ``NetworkPlan``, the reference's tuple:
+    (config name, fft_size, per-layer alphas, batch bucket, ("mesh",
+    mesh shape), ("graph", DAG signature), the sorted ``repr`` of the
+    build kwargs).
+
+    Alphas are normalized, so a scalar and the same per-layer sequence
+    key alike.  ``mesh_shape`` is the topology the plan targets: a plan
+    built for one mesh is never served to another (None, unsharded, keys
+    apart from every mesh, ``(1,)`` too).  The graph signature (node id,
+    kind, inputs, pool, shortcut source, relu) keeps configs that share a
+    name but are wired differently apart; None (a linear config) keys
+    apart from an explicit chain.  The device a plan lives on enters as
+    the ``device=`` build kwarg (``build_network_plan``'s own): pass a
+    ``torch.device`` with its index, since ``device('cuda')`` and
+    ``device('cuda', 0)`` have different reprs."""
+    alphas = sp.per_layer_alphas(cfg.alpha, len(list(cfg.layers)))
+    mesh = (tuple(int(d) for d in mesh_shape)
+            if mesh_shape is not None else None)
+    graph = getattr(cfg, "graph", None)
+    gsig = (None if graph is None else tuple(
+        (n.id, n.kind, tuple(n.inputs), n.pool, n.residual_from,
+         bool(getattr(n, "relu", True)))
+        for n in graph))
+    return (getattr(cfg, "name", "spectral-cnn"), int(cfg.fft_size),
+            tuple(float(a) for a in alphas), int(batch),
+            ("mesh", mesh), ("graph", gsig),
+            tuple(sorted((k, repr(v)) for k, v in build_kwargs.items())))
+
+
+@dataclasses.dataclass
+class PlanCache:
+    """Keyed, warmable cache of compile-once ``NetworkPlan``s.
+
+    A plan build (prune, operators, Alg-2 tables, Alg 1) is set-up work a
+    request must never pay: a server warms one plan per batch bucket at
+    start (``warm``) and fetches them by ``plan_cache_key`` (``get``).
+    ``invalidate(key)`` drops one entry, so the next ``get`` rebuilds it.
+    The hit, miss, build and invalidation counts and the seconds spent
+    building are in ``stats()``.  ``builder`` (default
+    ``build_network_plan``) is called as ``builder(params, cfg,
+    batch=..., **build_kwargs)``; ``mesh_shape`` enters the key only."""
+
+    builder: Callable | None = None
+    _plans: dict = dataclasses.field(default_factory=dict)
+    hits: int = 0
+    misses: int = 0
+    builds: int = 0
+    invalidations: int = 0
+    build_s: float = 0.0
+
+    def warm(self, params: dict, cfg, batches: Sequence[int],
+             mesh_shape: Sequence[int] | None = None,
+             **build_kwargs) -> dict:
+        """Build (or confirm) one plan per batch bucket; returns
+        {bucket: key}."""
+        return {int(b): self.key_of(params, cfg, int(b),
+                                    mesh_shape=mesh_shape, **build_kwargs)
+                for b in batches}
+
+    def key_of(self, params: dict, cfg, batch: int,
+               mesh_shape: Sequence[int] | None = None,
+               **build_kwargs) -> tuple:
+        """``get``, returning the key instead of the plan."""
+        self.get(params, cfg, batch, mesh_shape=mesh_shape, **build_kwargs)
+        return plan_cache_key(cfg, batch, mesh_shape=mesh_shape,
+                              **build_kwargs)
+
+    def get(self, params: dict, cfg, batch: int,
+            mesh_shape: Sequence[int] | None = None,
+            **build_kwargs) -> NetworkPlan:
+        key = plan_cache_key(cfg, batch, mesh_shape=mesh_shape,
+                             **build_kwargs)
+        plan = self._plans.get(key)
+        if plan is not None:
+            self.hits += 1
+            return plan
+        self.misses += 1
+        t0 = time.perf_counter()
+        builder = self.builder or build_network_plan
+        plan = builder(params, cfg, batch=batch, **build_kwargs)
+        self.build_s += time.perf_counter() - t0
+        self.builds += 1
+        self._plans[key] = plan
+        return plan
+
+    def invalidate(self, key: tuple) -> bool:
+        """Drop one entry; the next ``get`` of its key rebuilds it."""
+        if key in self._plans:
+            del self._plans[key]
+            self.invalidations += 1
+            return True
+        return False
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+    def stats(self) -> dict:
+        return {"entries": len(self._plans), "hits": self.hits,
+                "misses": self.misses, "builds": self.builds,
+                "invalidations": self.invalidations,
+                "build_s": self.build_s}
 
 
 # ---------------------------------------------------------------------------

@@ -149,8 +149,8 @@ class Diagnostic:
 # Named sites production code consults (``testing.faults`` documents
 # each).  ``shard_tables`` is shard-scoped (its context carries the shard
 # index), consulted on the host where a sharded layer's tables are staged
-# and probed.  The ``serve_*`` sites belong to a serving front end, which
-# the port does not have yet: nothing consults them.
+# and probed.  The ``serve_*`` sites are consulted by the serving front
+# end (``launch.spectral_serve``).
 FAULT_SITES = ("lowering", "vmem_overflow", "oob_index", "corrupt_value",
                "nan_activations", "shard_tables", "serve_kernel",
                "serve_plan_cache", "serve_slow")

@@ -1,2 +1,3 @@
 """Launch helpers: the device mesh of sharded spectral inference
-(``mesh``) and the LM's continuous-batching server (``serve``)."""
+(``mesh``), the spectral-CNN serving front end (``spectral_serve``) and
+the LM's continuous-batching server (``serve``)."""

@@ -34,9 +34,21 @@ Sites (``FAULT_SITES``):
                     executor stages shard tables and where
                     ``resilience.harden_sharded_plan`` probes.
 
-The serving sites ('serve_kernel', 'serve_plan_cache', 'serve_slow')
-are registered, with their defaults, for the serving front end, which
-the port does not have yet; nothing consults them.
+Serving sites (consulted by ``launch.spectral_serve``):
+
+  'serve_kernel'     raise at batch dispatch in the serving loop (match on
+                     ``backend='fused'|'staged'|'einsum'``, the rung being
+                     tried, and/or ``bucket=``): drives the rung's breaker
+                     and the retry a rung down.
+  'serve_plan_cache' corrupt the plan fetched from the serving cache (one
+                     scheduled layer's INDEX table pushed out of range by
+                     ``corrupt_plan_tables``: the plan must have a
+                     scheduled layer).  ``validate_plan`` catches it on
+                     fetch and the batch runs on the einsum rung.
+  'serve_slow'       add ``SLOW_EXTRA_S`` seconds to a batch's service time
+                     (advancing the server's clock where it can be).
+
+``chaos_soak`` drives a 4x-capacity burst through all three.
 
 Usage::
 
@@ -182,6 +194,156 @@ def corrupt_plan_tables(plan, *, layer: str | None = None,
     if not done:
         raise ValueError(f"no scheduled layer matching {layer!r} in plan")
     return dataclasses.replace(plan, layers=tuple(new_layers))
+
+
+def chaos_soak(*, cfg=None, queue_limit: int = 16, seed: int = 0,
+               oracle_tol: float = 1e-5, oracle_rel_tol: float | None = None,
+               log=None, device=None) -> dict:
+    """Deterministic fault-injected soak of ``launch.spectral_serve`` on
+    ``device`` (the CUDA device unless ``device="cpu"``).
+
+    Submits >= 4x ``queue_limit`` requests in bursts while walking the
+    server through every serving fault site on a virtual clock:
+
+      wave 1  a 2x-capacity burst (the excess must be shed) with
+              'serve_kernel' faults on the staged rung: the ladder demotes
+              under queue pressure, the staged breaker opens, batches
+              retry a rung down;
+      wave 2  a 1x burst through a 'serve_plan_cache' corruption window:
+              corrupt plans caught on fetch, served by the einsum rung;
+      wave 3  tight-deadline requests behind a 'serve_slow' window: they
+              must retire ``deadline_exceeded``, never run late;
+      wave 4  a clean burst after the cooldown: the ladder promotes back
+              to fused and serves on it.
+
+    Gates (``failed_gates`` must be empty): all_terminal,
+    zero_loop_deaths, shed_nonzero, deadline_exceeded_nonzero,
+    demotion_and_promotion, kernel_faults_exercised,
+    plan_cache_corruption_exercised, slow_injection_exercised,
+    recovered_to_fused, and no_silent_wrong_answers: every 'ok' logits
+    row within ``oracle_tol`` (absolute) of the einsum forward of the
+    pristine plan on the soak's device.  With ``oracle_rel_tol`` the
+    tolerance is instead ``oracle_rel_tol`` x max|einsum logits| of that
+    oracle pass (the report's ``oracle_tol`` is then that product).
+
+    Returns the report (gates, stats, health_report).
+    """
+    from repro_torch.launch import spectral_serve as ss
+    from repro_torch.models import cnn
+
+    if cfg is None:
+        from repro_torch.configs import vgg16_spectral
+        cfg = vgg16_spectral.SMOKE
+    say = log or (lambda *_: None)
+    clock = ss.ManualClock()
+    srv = ss.SpectralServer(
+        cfg, queue_limit=queue_limit, clock=clock, seed=seed,
+        plan_kwargs={"hadamard": "scheduled"},
+        demote_pressure=0.75, promote_pressure=0.25,
+        demote_patience=1, promote_patience=2,
+        breaker_failures=2, breaker_cooldown_s=0.5, device=device)
+
+    reqs: list = []
+
+    def burst(n: int, deadline_s: float | None = None) -> None:
+        wave = ss.synthetic_requests(n, cfg, seed=seed + len(reqs),
+                                     deadline_s=deadline_s,
+                                     rid0=len(reqs))
+        for r in wave:
+            srv.submit(r)
+        reqs.extend(wave)
+
+    def drive(n: int, dt: float = 0.05) -> None:
+        for _ in range(n):
+            try:
+                srv.tick()
+            except Exception as e:        # noqa: BLE001 — soak must live
+                srv.loop_deaths += 1
+                say(f"loop death: {type(e).__name__}: {e}")
+            clock.advance(dt)
+
+    say(f"wave 1: 2x burst ({2 * queue_limit}) + staged kernel faults")
+    burst(2 * queue_limit)
+    with inject("serve_kernel", backend="staged"):
+        drive(2)
+    drive(4)  # faults cleared; idle ticks let the ladder promote
+
+    say(f"wave 2: 1x burst ({queue_limit}) + plan-cache corruption")
+    burst(queue_limit)
+    with inject("serve_plan_cache"):
+        drive(1)
+
+    say("wave 3: tight deadlines behind a slow-service window")
+    burst(queue_limit // 2, deadline_s=0.01)
+    burst(queue_limit // 2)        # clean requests behind the tight ones
+    clock.advance(0.05)            # tight deadlines expire while queued
+    with inject("serve_slow"):
+        drive(1)
+
+    clock.advance(1.0)  # past the breaker cooldown
+    srv.run_until_drained(max_ticks=20 * queue_limit)
+    for _ in range(8 * srv.promote_patience):
+        if srv._load_rung == 0 and not srv.queue:
+            break
+        drive(1, dt=0.1)
+
+    say(f"wave 4: clean recovery burst ({queue_limit // 2}) on "
+        f"rung {ss.SERVE_RUNGS[srv._load_rung]}")
+    burst(queue_limit // 2)
+    srv.run_until_drained(max_ticks=4 * queue_limit)
+
+    stats = srv.stats()
+    health = srv.health_report()
+
+    # every completed answer against the einsum forward of the pristine
+    # plan, on the soak's device
+    ok_reqs = [r for r in reqs if r.ok]
+    bucket = srv.buckets[-1]
+    plan = srv.plans.get(srv.params, cfg, bucket, **srv.plan_kwargs)
+    worst = scale = 0.0
+    for i in range(0, len(ok_reqs), bucket):
+        chunk = ok_reqs[i:i + bucket]
+        x = np.zeros((bucket,) + srv.image_shape, np.float32)
+        for j, r in enumerate(chunk):
+            x[j] = r.image
+        ref = cnn.forward_spectral(
+            srv.params, plan, torch.from_numpy(x).to(srv.device),
+            backend="einsum").cpu().numpy()
+        scale = max(scale, float(np.abs(ref[:len(chunk)]).max()))
+        for j, r in enumerate(chunk):
+            worst = max(worst, float(np.max(np.abs(ref[j] - r.logits))))
+    if oracle_rel_tol is not None:
+        oracle_tol = oracle_rel_tol * scale
+
+    c = stats["counters"]
+    gates = {
+        "all_terminal": all(r.terminal for r in reqs),
+        "zero_loop_deaths": stats["loop_deaths"] == 0,
+        "shed_nonzero": c["overloaded"] > 0,
+        "deadline_exceeded_nonzero": c["deadline_exceeded"] > 0,
+        "demotion_and_promotion": (stats["demotions"] >= 1
+                                   and stats["promotions"] >= 1),
+        "kernel_faults_exercised": c["kernel_faults"] > 0,
+        "plan_cache_corruption_exercised":
+            c["plan_cache_corruptions"] > 0,
+        "slow_injection_exercised": c["slow_injections"] > 0,
+        "recovered_to_fused": health["rung"] == "fused",
+        "no_silent_wrong_answers": worst <= oracle_tol,
+    }
+    failed = sorted(k for k, v in gates.items() if not v)
+    say(f"{len(reqs)} requests: {c['ok']} ok / {c['overloaded']} shed "
+        f"/ {c['deadline_exceeded']} deadline / {c['failed']} failed; "
+        f"max |err| {worst:.2e}; failed gates: {failed or 'none'}")
+    return {
+        "requests": len(reqs),
+        "queue_limit": queue_limit,
+        "gates": gates,
+        "failed_gates": failed,
+        "oracle_max_abs_err": worst,
+        "oracle_tol": oracle_tol,
+        "stats": stats,
+        "health": health,
+    }
 
 
 def corrupt_shard_tables(splan, *, layer: str | None = None,

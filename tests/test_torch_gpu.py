@@ -1799,3 +1799,104 @@ def test_unhardened_lowering_fault_raises_on_card(vgg16_full_plan):
             cnn.forward_spectral(params, plan, x, backend="fused")
     assert (ei.value.layer, ei.value.site) == ("conv1_1", "forward")
     assert _launched_delta(before) == {}
+
+
+# ---------------------------------------------------------------------------
+# The serving front end on the card (launch.spectral_serve)
+# ---------------------------------------------------------------------------
+
+def _card_server(**kw):
+    """A SMOKE server on the card (its default device), seed-0 weights,
+    bin / windowed plans, a virtual clock."""
+    need_card()
+    from repro_torch.launch import spectral_serve as ss
+    kw.setdefault("queue_limit", 16)
+    return ss.SpectralServer(SMOKE, clock=ss.ManualClock(), **kw)
+
+
+def _sync_upload_logits(srv, images, rung="fused"):
+    """The logits of one padded batch uploaded synchronously (no pinned
+    buffer, no side stream), on the server's plan of that bucket."""
+    from repro_torch.core import resilience as res
+    bucket = srv._bucket_for(len(images))
+    x = np.zeros((bucket,) + srv.image_shape, np.float32)
+    for i, img in enumerate(images):
+        x[i] = img
+    plan = srv.plans.get(srv.params, SMOKE, bucket, **srv.plan_kwargs)
+    plan = res.plan_at_backend_rung(plan, rung)
+    out = cnn.forward_spectral(srv.params, plan,
+                               torch.from_numpy(x).to(srv.device),
+                               backend="fused")
+    return out.cpu().numpy()[:len(images)]
+
+
+@pytest.mark.gpu
+def test_pinned_side_stream_upload_equals_sync_upload_on_card():
+    """Batches uploaded from pinned buffers on the side stream (a staged
+    one among them) give the logits of a synchronous upload of the same
+    padded batch, bit for bit."""
+    from repro_torch.launch import spectral_serve as ss
+    srv = _card_server(buckets=(1, 2, 4))
+    assert srv.device == torch.device("cuda", torch.cuda.current_device())
+    reqs = ss.synthetic_requests(5, SMOKE, seed=40)
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    assert [r.rung for r in reqs] == ["fused"] * 5
+    assert srv.counters["staged_hits"] == 1
+    for chunk in (reqs[:4], reqs[4:]):
+        want = _sync_upload_logits(srv, [r.image for r in chunk])
+        for r, w in zip(chunk, want):
+            assert np.array_equal(r.logits, w)
+
+
+@pytest.mark.gpu
+def test_burst_staged_uploads_keep_every_row_on_card():
+    """A burst of distinct images: uploads staged under running kernels
+    are used (staged_hits > 0), and every answered row equals the einsum
+    forward of its own image within the gate, so no pinned buffer or
+    device tensor was overwritten in flight."""
+    from repro_torch.launch import spectral_serve as ss
+    srv = _card_server(queue_limit=12, warm_forward=True)
+    reqs = ss.synthetic_requests(12, SMOKE, seed=41)
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    assert all(r.ok for r in reqs)
+    assert srv.counters["staged_uploads"] > 0
+    assert srv.counters["staged_hits"] > 0
+    plan = srv.plans.get(srv.params, SMOKE, 1, **srv.plan_kwargs)
+    for r in reqs:
+        x = torch.from_numpy(r.image[None]).to(srv.device)
+        ref = cnn.forward_spectral(srv.params, plan, x,
+                                   backend="einsum").cpu().numpy()[0]
+        assert float(np.abs(r.logits - ref).max()) <= \
+            TOL * float(np.abs(ref).max()), (r.rid, r.rung)
+        assert int(r.logits.argmax()) == int(ref.argmax())
+
+
+@pytest.mark.gpu
+def test_serve_kernel_fault_retries_onto_staged_on_card():
+    """A 'serve_kernel' fault on the fused rung: the batch runs on the
+    staged kernels (B7a fft / B7b / B7a ifft, 13 each) in the same tick,
+    within the gate of einsum."""
+    from repro_torch.launch import spectral_serve as ss
+    from repro_torch.testing import faults
+    srv = _card_server(buckets=(1,), breaker_failures=1)
+    req = ss.synthetic_requests(1, SMOKE, seed=42)[0]
+    before = (dict(fsc.LAUNCHES), dict(fft8.LAUNCHES), dict(shad.LAUNCHES))
+    with faults.inject("serve_kernel", backend="fused") as fault:
+        srv.submit(req)
+        srv.run_until_drained(cooldown_ticks=0)
+    assert fault.fires == 1 and req.rung == "staged"
+    assert srv.breakers["fused"].state == "open"
+    n = len(SMOKE.layers)
+    assert {k: v - before[0][k] for k, v in fsc.LAUNCHES.items()
+            if v != before[0][k]} == {}
+    assert {k: v - before[1][k] for k, v in fft8.LAUNCHES.items()
+            if v != before[1][k]} == {"fft2_tiles": n, "ifft2_tiles": n}
+    assert {k: v - before[2][k] for k, v in shad.LAUNCHES.items()
+            if v != before[2][k]} == {"spectral_hadamard": n}
+    want = _sync_upload_logits(srv, [req.image], rung="einsum")[0]
+    assert float(np.abs(req.logits - want).max()) <= \
+        TOL * float(np.abs(want).max())
