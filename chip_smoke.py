@@ -290,6 +290,34 @@ each of which fails the run on error:
       of its own oracle pass (``oracle_rel_tol``; SMOKE's logits are
       ~7e-4).  One ``{"spectral_serve": ...}`` line is printed before the
       kernels line;
+  (w) the one-call layers ``fsc.fused_spectral_conv2d`` (the dense
+      spectral kernel and the (d) plan's pruned kernels) and
+      ``fsc.fused_spectral_conv2d_scheduled``, output-stationary, windowed
+      and halo (B1, B3, B4, B5), at the 13 VGG16 layers, batch 1: each call
+      against its plain version on the wrapper's own operands (gate 1e-4)
+      and against ``execute_layer_plan`` on the same layer of the (d) /
+      (d3) / (d2) / (d4) plans (max|wrapper - plan|, 0 expected on the
+      pruned kernels); the set-up call's seconds (the scheduled one
+      compiles its own Alg-2 tables, serially, at W_COMPILE's layers, and
+      takes the plan's elsewhere), the wrapper's and the plan path's ms;
+      each of the four entry points launched at least once a layer by the
+      wrappers, nothing else;
+  (rp) Fig 10 at full width: ``build_network_plan(prune="random")``, bin
+      and scheduled, on the (d) weights: build and table-compile seconds,
+      validation warnings, then (d)'s forwards on ``backend="fused"`` (13
+      launches a forward of B1 / B4, logits within 1e-4 of einsum on the
+      same plan, top-1 equal, p50) and one batch-1 forward on
+      ``"staged"``; per layer the random tables' T, Alg-2 cycles, Eq-14
+      utilization, table bytes and the CTA's shared memory beside the
+      magnitude plan's (c2);
+  (oa) ``spectral.spectral_conv2d`` vs ``spatial_conv2d`` on the card at
+      the quickstart's shape and at conv3_1's width, and the paper
+      pipeline of ``tests/test_system.py`` at conv3_1's width through B8
+      (``ops.scheduled_sparse_conv_group``, four groups of 64 kernels)
+      against the masked-dense oracle (gate 1e-4 relative);
+  (ex) ``examples/torch_quickstart.py`` and
+      ``examples/torch_spectral_cnn_inference.py --full --backend fused
+      --calls 3`` as their own processes on the card (exit 0 required);
   (e) a check that no process this run started is still running, one
       status line per kernel entry point (twelve fused: four kernels x
       three flows; six staged; the band entry points; flash attention),
@@ -298,10 +326,11 @@ each of which fails the run on error:
       (la) shape under "shapes"), then the device JSON as the last line.
 
 The run goes (a), (b), (c), (d), (c3), (d3), the plane kernel's (c8) and
-(d7), its (c5), (c6) and (d6), (h) on the plane plans; the plane plans
-are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8), (d7), (h)
-on the scheduled plans, (ss), (c5), (c6) and (d6); every plan is freed; (c7),
-(d5), (s), (ds), (dh); VGG16's weights and plans are freed; (r), (dr),
+(d7), its (c5), (c6) and (d6), (w) plane, (h) on the plane plans; the
+plane plans are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8),
+(d7), (h) on the scheduled plans, (ss), (c5), (c6), (d6), (w) scheduled;
+every plan is freed; (c7), (d5), (s), (ds), (dh), (rp), (oa), (ex);
+VGG16's weights and plans are freed; (r), (dr),
 ResNet-18's (c8) and (d7), (ds), (h) on (dr), (dr4); (la), (dl), (sl),
 (e).  So each
 serve's peak device memory holds the weights and the plans of its own
@@ -2989,6 +3018,345 @@ def lm(dev, flash_rows) -> dict:
             "cli_mean_tick_ms": cli["mean_tick_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# (w) the one-call layers, (rp) Fig 10's random pruning, (oa) the
+# overlap-add path and the paper pipeline, (ex) the port's examples
+# ---------------------------------------------------------------------------
+
+W_REPS = 5             # (w): timed calls per wrapper and layer
+# (w): the layers whose scheduled set-up call compiles its own Alg-2
+# tables (serially, ~700 schedules); the others are given the plan's
+W_COMPILE = ("conv1_1", "conv1_2", "conv2_1", "conv3_1")
+OA_R = 6               # (oa): BRAM replicas of the paper pipeline's tables
+OA_GROUP = 64          # (oa): kernels of one table-executor group (N')
+
+
+def one_call_plain(kind, imode, x, ops, lp):
+    """The plain version of a one-call layer on the wrapper's own operands
+    ``ops`` (planes or tables, operators, bias), assembled to NCHW."""
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    relu = lp.epilogue.relu
+    n = lp.layer.c_out
+    if imode == "halo":
+        hg = spec.halo_block_geometry(lp.geo, lp.tuning.block_p)
+        if kind == "scheduled":
+            return fsc.fused_spectral_pipeline_scheduled_halo_reference(
+                x, *ops[0], *ops[1:], geo=lp.geo, hg=hg, n_out=n, relu=relu)
+        return fsc.fused_spectral_pipeline_halo_reference(
+            x, *ops, geo=lp.geo, hg=hg, relu=relu)
+    xt, t_cnt = fsc._windows_layout(x, lp.geo)
+    if kind == "scheduled":
+        y = fsc.fused_spectral_pipeline_scheduled_reference(
+            xt, *ops[0], *ops[1:], n_out=n, relu=relu)
+    else:
+        y = fsc.fused_spectral_pipeline_reference(xt, *ops, relu=relu)
+    return fsc._assemble_output(y, lp.geo, x.shape[0], n, t_cnt, x.dtype)
+
+
+def one_call_check(kind, plans, params, xgen, flush) -> tuple[dict, dict]:
+    """(w): the one-call layers ``fused_spectral_conv2d`` (``kind`` 'plane':
+    the dense spectral kernel and the plan's pruned kernels) and
+    ``fused_spectral_conv2d_scheduled`` ('scheduled'), output-stationary,
+    windowed and halo, at the 13 VGG16 layers, batch 1, on the layer's
+    bias and epilogue.  Each call is held to its plain version on its own
+    operands (gate 1e-4 relative, as (c)/(c2)), and to
+    ``execute_layer_plan`` on the same layer of ``plans`` (the (d)/(d3)
+    or (d2)/(d4) plan: max|wrapper - plan|, 0 expected for the pruned
+    kernels).  Printed per call: the set-up call's seconds (operands,
+    and at ``W_COMPILE`` the scheduled tables, made in the call; then the
+    launch, synchronized), the wrapper's time over ``W_REPS`` calls and
+    the plan path's, CUDA events, L2 flushed.  Launches are counted for
+    the wrapper calls alone; the run fails unless each of the two
+    entry points got at least one a layer and nothing else launched.
+    Returns the rows and the launches."""
+    import torch
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    sched = kind == "scheduled"
+    base = ("fused_spectral_pipeline_scheduled" if sched
+            else "fused_spectral_pipeline")
+    entries = {m: fsc.entry_point(base + ("_halo" if m == "halo" else ""),
+                                  fsc.OS) for m in ("windowed", "halo")}
+    reset_launches()
+    launched = dict.fromkeys(all_launches(), 0)
+    rows = []
+    t_phase = time.perf_counter()
+    print(f"(w) one-call {kind} layers [{CARD}]: layer, input, kernels, "
+          f"set-up s, wrapper ms, plan-path ms, rel err vs plain, "
+          f"max|wrapper - plan|")
+
+    def counted(fn):
+        """``fn()``, its launches added to the wrapper's count."""
+        before = all_launches()
+        out = fn()
+        for k, v in all_launches().items():
+            launched[k] += v - before[k]
+        return out
+
+    for i, (lp, hlp) in enumerate(zip(plans["windowed"].layers,
+                                      plans["halo"].layers)):
+        layer = lp.layer
+        x = torch.randn((1, layer.c_in, layer.h_in, layer.w_in),
+                        generator=xgen, device=flush.device)
+        weights = [("pruned", lp.kernels)]
+        if not sched:
+            weights.insert(0, ("dense", spec.spectral_kernel(
+                params["convs"][i]["w"], lp.geo.fft_size)))
+        for imode, plp in (("windowed", lp), ("halo", hlp)):
+            for wname, w in weights:
+                kw = dict(bias=lp.bias, relu=lp.epilogue.relu,
+                          input_mode=imode)
+                if sched:
+                    own = imode == "windowed" and layer.name in W_COMPILE
+                    call = (lambda w=w, kw=kw: fsc.
+                            fused_spectral_conv2d_scheduled(
+                                x, w, lp.geo, tables=lp.tables, **kw))
+                    first = (lambda w=w, kw=kw, own=own: fsc.
+                             fused_spectral_conv2d_scheduled(
+                                 x, w, lp.geo,
+                                 tables=None if own else lp.tables, **kw))
+                    ops = fsc.one_call_scheduled_operands(
+                        w, lp.geo, tables=lp.tables, bias=lp.bias,
+                        device=x.device)
+                else:
+                    own = False
+                    call = first = (lambda w=w, kw=kw: fsc.
+                                    fused_spectral_conv2d(x, w, lp.geo,
+                                                          **kw))
+                    ops = fsc.one_call_plane_operands(w, lp.geo, lp.bias,
+                                                      x.device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = counted(first)
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+                ms = timed_ms(lambda: counted(call), flush.zero_, W_REPS)
+                plain = one_call_plain(kind, imode, x, ops, plp)
+                err = rel_err(y, plain)
+                if not torch.isfinite(y).all() or err > KERNEL_TOL:
+                    fail(f"(w) {kind} {layer.name} {imode} {wname}: vs "
+                         f"plain rel err {err:.3e} > {KERNEL_TOL:g}")
+                ref = fsc.execute_layer_plan(x, plp)
+                plan_ms = timed_ms(lambda: fsc.execute_layer_plan(x, plp),
+                                   flush.zero_, W_REPS)
+                diff = float((y - ref).abs().max())
+                if wname == "pruned" and rel_err(y, ref) > KERNEL_TOL:
+                    fail(f"(w) {kind} {layer.name} {imode}: the wrapper "
+                         f"and the plan path disagree (max|diff| "
+                         f"{diff:.3e})")
+                rows.append(dict(layer=layer.name, input_mode=imode,
+                                 kernels=wname, setup_s=setup_s,
+                                 compiled_tables=own, ms=ms,
+                                 plan_ms=plan_ms, rel_err=err,
+                                 plan_abs=diff,
+                                 abs_err=float((y - plain).abs().max())))
+                print(f"    {layer.name:8s} {imode:8s} {wname:6s} "
+                      f"{setup_s:8.4f}{' (tables)' if own else '         '}"
+                      f" {ms:9.4f} {plan_ms:9.4f} {err:9.2e} {diff:9.2e}")
+        del x
+    want = set(entries.values())
+    got = {k for k, v in launched.items() if v}
+    per_entry = {e: launched[e] for e in sorted(want)}
+    n = len(plans["windowed"].layers)
+    if got != want or any(v < n for v in per_entry.values()):
+        fail(f"(w) {kind}: the wrappers launched "
+             f"{({k: v for k, v in launched.items() if v})}, expected at "
+             f"least {n} of each of {sorted(want)} and nothing else")
+    pruned = [r for r in rows if r["kernels"] == "pruned"]
+    tot = {m: {k: sum(r[k] for r in pruned if r["input_mode"] == m)
+               for k in ("setup_s", "ms", "plan_ms")}
+           for m in ("windowed", "halo")}
+    print(f"    (w) {kind}: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{per_entry}; pruned, summed over the layers, set-up s / "
+          f"wrapper ms / plan-path ms: "
+          + ", ".join(f"{m} {t['setup_s']:.3f} / {t['ms']:.4f} / "
+                      f"{t['plan_ms']:.4f}" for m, t in tot.items())
+          + f"; wrapper == plan bit for bit on the pruned kernels: "
+          f"{all(r['plan_abs'] == 0.0 for r in pruned)}; max rel err vs "
+          f"plain {max(r['rel_err'] for r in rows):.3e} [{CARD}]")
+    return {"rows": rows, "totals": tot}, launched
+
+
+def random_pruning(params, cfg, images, dev, xgen, flush, drive, mag_sched,
+                   staged_sum_ms) -> dict:
+    """(rp): Fig 10 at full width.  ``build_network_plan(prune="random")``
+    with ``hadamard="bin"`` and ``"scheduled"`` (seed 0 every layer, as
+    the reference), each validated (its ``smem-budget`` warnings printed)
+    and driven through the main path as (d) is (four batch-1 and one
+    batch-4 forward on ``backend="fused"``: one launch a layer, logits
+    within (d)'s gate of the einsum forward of the same plan); the bin
+    plan once more on ``backend="staged"``.  Printed per layer: the
+    random scheduled plan's table cycles T, total Alg-2 cycles and Eq-14
+    utilization beside the magnitude plan's (``mag_sched``, from (c2)),
+    table bytes, and the scheduled CTA's shared memory at each T against
+    ``fsc.SMEM_PER_CTA``."""
+    import torch
+    from repro_torch.core import resilience as res
+    from repro_torch.core.plan import build_network_plan
+    from repro_torch.kernels import fused_spectral_conv as fsc
+    out = {}
+    n_layers = len(cfg.layers)
+    for hadamard in ("bin", "scheduled"):
+        t0 = time.perf_counter()
+        rplan = build_network_plan(params, cfg, batch=1, prune="random",
+                                   hadamard=hadamard, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        warns = [str(d) for d in res.validate_plan(rplan)
+                 if d.severity == "warn"]
+        print(f"(rp) random-pruned {hadamard} plan: built in {build_s:.1f} s"
+              f" (Alg-2 table compile {rplan.schedule_seconds:.1f} s), "
+              f"active bins {[lp.n_active_bins for lp in rplan.layers]}, "
+              f"{len(warns)} smem-budget warning(s) {warns} [{CARD}]")
+        per_forward = per_forward_of(rplan)[0]
+        ksum = plan_kernel_ms(rplan, xgen, flush)
+        label = f"(rp) random {hadamard}"
+        drive(rplan, images, label, per_forward, ksum)
+        rec = {"build_s": build_s, "schedule_s": rplan.schedule_seconds,
+               "kernel_sum_ms": ksum, "per_forward": per_forward,
+               "smem_warnings": warns}
+        if hadamard == "scheduled":
+            print("     layer     T rand/mag   cycles rand / mag       "
+                  "mu rand / mag    table MB rand / mag   smem B rand / mag"
+                  f" (cap {fsc.SMEM_PER_CTA})")
+            layers = []
+            for lp in rplan.layers:
+                tb = lp.tables
+                t_r = tb.idx.shape[2]
+                t_m, cyc_m, mu_m, mb_m = mag_sched[lp.layer.name]
+                n_pe = tb.sel.shape[3]
+                smem = [fsc.sched_smem_bytes(fsc.OS, lp.geo,
+                                             lp.tuning.block_m, t,
+                                             tb.idx.shape[3], n_pe)
+                        for t in (t_r, t_m)]
+                layers.append(dict(layer=lp.layer.name, t=t_r, t_mag=t_m,
+                                   cycles=lp.schedule_cycles,
+                                   cycles_mag=cyc_m, mu=lp.pe_utilization,
+                                   mu_mag=mu_m, table_mb=tb.nbytes / 1e6,
+                                   table_mb_mag=mb_m, smem=smem[0],
+                                   smem_mag=smem[1]))
+                print(f"     {lp.layer.name:8s} {t_r:3d} / {t_m:3d} "
+                      f"{lp.schedule_cycles:9d} / {cyc_m:9d} "
+                      f"{lp.pe_utilization:7.4f} / {mu_m:7.4f} "
+                      f"{tb.nbytes / 1e6:9.3f} / {mb_m:9.3f} "
+                      f"{smem[0]:8d} / {smem[1]:8d}")
+                if smem[0] > fsc.SMEM_PER_CTA:
+                    print(f"     {lp.layer.name}: the random tables' CTA "
+                          f"needs {smem[0]} B, over the card's "
+                          f"{fsc.SMEM_PER_CTA}")
+            rec["layers"] = layers
+        else:
+            drive(rplan, images[:1], "(rp) random staged",
+                  dict.fromkeys(STAGED_PATH, n_layers), staged_sum_ms,
+                  backend="staged")
+        out[hadamard] = rec
+        del rplan
+    return out
+
+
+def overlap_add_paths(dev) -> dict:
+    """(oa): ``spectral.spectral_conv2d`` (``torch.fft`` on the card)
+    against ``spatial_conv2d`` at the quickstart's shape (1, 8, 56, 56) x
+    (16, 8, 3, 3) and at VGG16 conv3_1's (1, 128, 56, 56) x (256, 128, 3,
+    3), He-scaled weights, gate 1e-4 relative; then the paper pipeline of
+    ``tests/test_system.py`` at conv3_1's width: overlap-save windows ->
+    ``torch.fft.fft2`` -> ``ops.scheduled_sparse_conv_group`` (B8) on
+    each group of OA_GROUP kernels (alpha 4, magnitude-pruned, r = OA_R)
+    -> ``torch.fft.ifft2`` -> valid-tile assembly, against the
+    masked-dense einsum oracle (gate 1e-4 relative), every group's
+    utilization above 0.5, with every launch count set to 0 just before
+    and read just after.  Returns its numbers and the launches."""
+    import torch
+    from repro_torch.core import sparse as sp
+    from repro_torch.core import spectral as spec
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = {}
+    t_phase = time.perf_counter()
+    for label, xs, ws in (("quickstart", (1, 8, 56, 56), (16, 8, 3, 3)),
+                          ("conv3_1", (1, 128, 56, 56), (256, 128, 3, 3))):
+        x = torch.randn(xs, generator=gen, device=dev)
+        w = torch.randn(ws, generator=gen, device=dev) * (
+            2.0 / (ws[1] * 9)) ** 0.5
+        y = spec.spectral_conv2d(x, w, fft_size=8)
+        ref = spec.spatial_conv2d(x, w)
+        err, abs_err = rel_err(y, ref), float((y - ref).abs().max())
+        print(f"(oa) spectral_conv2d vs spatial_conv2d at {label} "
+              f"{xs} x {ws}: max|err| {abs_err:.3e}, rel {err:.3e}")
+        if not torch.isfinite(y).all() or err > KERNEL_TOL:
+            fail(f"(oa) spectral_conv2d at {label}: rel err {err:.3e}")
+        out[label] = {"abs_err": abs_err, "rel_err": err}
+    geo = spec.make_geometry(56, 56, 3, 8)
+    sk = sp.prune_magnitude(spec.spectral_kernel(w, 8), 4.0)
+    y_ref = spec.spectral_conv2d_pretransformed(x, sk.values, geo)
+    xf = torch.fft.fft2(spec.extract_tiles_overlapping(x, geo))
+    reset_launches()
+    t0 = time.perf_counter()
+    parts, stats = [], []
+    for g0 in range(0, sk.n_out, OA_GROUP):
+        y_g, st = kops.scheduled_sparse_conv_group(
+            sk.values[g0:g0 + OA_GROUP], sk.indices[g0:g0 + OA_GROUP], xf,
+            r=OA_R)
+        parts.append(y_g)
+        stats.append(st)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    y_tiles = torch.fft.ifft2(torch.cat(parts)[None]).real
+    ov = geo.ksize - 1
+    y = spec.assemble_valid_tiles(y_tiles[..., ov:, ov:].to(torch.float32),
+                                  geo)
+    err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+    groups = len(parts)
+    want = {k: (groups if k == "scheduled_sparse_hadamard" else 0)
+            for k in launches}
+    mus = [s["utilization"] for s in stats]
+    print(f"(oa) paper pipeline at conv3_1 width: {groups} groups of "
+          f"{OA_GROUP} kernels through B8 (r {OA_R}), cycles "
+          f"{[s['cycles'] for s in stats]}, utilization "
+          f"{[round(m, 4) for m in mus]}; vs the masked-dense oracle "
+          f"max|err| {abs_err:.3e}, rel {err:.3e}; {seconds:.2f} s with "
+          f"the tables' host compile; launches "
+          f"{({k: v for k, v in launches.items() if v})} [{CARD}]")
+    if launches != want:
+        fail(f"(oa) launched {launches}, expected {want}")
+    if not torch.isfinite(y).all() or err > KERNEL_TOL or min(mus) <= 0.5:
+        fail(f"(oa) paper pipeline: rel err {err:.3e}, utilization {mus}")
+    out["pipeline"] = {"abs_err": abs_err, "rel_err": err,
+                       "utilization": mus, "seconds": seconds,
+                       "launches": launches["scheduled_sparse_hadamard"]}
+    print(f"    (oa) {time.perf_counter() - t_phase:.1f} s")
+    return out, launches
+
+
+def run_examples() -> dict:
+    """(ex): the port's two examples as their own processes on the card,
+    as a user runs them: ``examples/torch_quickstart.py`` and
+    ``examples/torch_spectral_cnn_inference.py --full --backend fused
+    --calls 3``.  A non-zero exit fails the run; the tail of each output
+    is printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for argv in (["examples/torch_quickstart.py"],
+                 ["examples/torch_spectral_cnn_inference.py", "--full",
+                  "--backend", "fused", "--calls", "3"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        name = Path(argv[0]).name
+        print(f"(ex) {' '.join(argv)}: exit {proc.returncode} in "
+              f"{seconds:.1f} s [{CARD}]")
+        for line in proc.stdout.strip().splitlines()[-8:]:
+            print(f"     | {line}")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"(ex) {name} exited {proc.returncode}")
+        out[name] = {"seconds": seconds, "returncode": proc.returncode}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3304,6 +3672,12 @@ def main() -> int:
     # peaks hold no plane operands
     flows_of("plane", {"windowed": plan, "halo": hplan}, plane_bound,
              plane_ops_bytes)
+    # (w) the one-call plane layers on the (d) / (d3) plans' layers
+    w_rec = {}
+    w_rec["plane"], w_launches = one_call_check(
+        "plane", {"windowed": plan, "halo": hplan}, params, xgen, flush)
+    for k, v in w_launches.items():
+        main_launches[k] += v
     h_rec = {"plane": harden_plane(params, plan, images[0],
                                    shard(plan, ("channel",),
                                          input_mode="windowed"), mesh)}
@@ -3326,6 +3700,11 @@ def main() -> int:
         print(f"     {lp.layer.name:8s} {tb.idx.shape[2]:3d} "
               f"{lp.pe_utilization:9.4f} {lp.schedule_cycles:8d} "
               f"{tb.nbytes / 1e6:10.3f} {2 * lp.wr.nbytes / 1e6:10.3f}")
+    # the magnitude plan's Alg-2 numbers, beside which (rp) prints the
+    # random plan's: T, total cycles, Eq-14 utilization, table MB
+    mag_sched = {lp.layer.name: (lp.tables.idx.shape[2], lp.schedule_cycles,
+                                 lp.pe_utilization, lp.tables.nbytes / 1e6)
+                 for lp in splan.layers}
     print(f"     total: tables "
           f"{sum(lp.tables.nbytes for lp in splan.layers) / 1e9:.3f} GB, "
           f"planes {sum(2 * lp.wr.nbytes for lp in splan.layers) / 1e9:.3f}"
@@ -3437,6 +3816,12 @@ def main() -> int:
     # far is freed, so that (d5)'s peak holds the autotuned plan alone
     flows_of("scheduled", {"windowed": splan, "halo": shplan}, sched_bound,
              sched_ops_bytes)
+    # (w) the one-call scheduled layers on the (d2) / (d4) plans' layers
+    w_rec["scheduled"], w_launches = one_call_check(
+        "scheduled", {"windowed": splan, "halo": shplan}, params, xgen,
+        flush)
+    for k, v in w_launches.items():
+        main_launches[k] += v
     del splan, shplan, flush
     model_check(measured)
 
@@ -3487,7 +3872,26 @@ def main() -> int:
           discard_first=True)
     for k, v in drive_ops(aplan, xgen).items():
         main_launches[k] += v
-    del aplan, params, images, flush
+    del aplan
+
+    # (rp) Fig 10 at full width: randomly pruned plans on the same weights
+    t0 = time.perf_counter()
+    rp_rec = random_pruning(
+        params, CONFIG, images, dev, xgen, flush, drive, mag_sched,
+        sum(stotals[e]["ms"] for e in STAGED_PATH))
+    print(f"    (rp) {time.perf_counter() - t0:.1f} s; p50 batch 1: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in p50s.items()
+                      if k.startswith("(rp") or k == "(d)")
+          + f" [{CARD}]")
+    # (oa) the overlap-add path and the paper pipeline; (ex) the examples
+    oa_rec, oa_launches = overlap_add_paths(dev)
+    for k, v in oa_launches.items():
+        main_launches[k] += v
+    ex_rec = run_examples()
+    print(json.dumps({"paper_api": {"one_call": {
+        k: v["totals"] for k, v in w_rec.items()}, "random_pruning": rp_rec,
+        "overlap_add": oa_rec, "examples": ex_rec, "card": CARD}}))
+    del params, images, flush
 
     # ResNet-18: (r) and (dr) ---------------------------------------------
     rtotals, rstotals, rbtotals, h_rec["resnet18"] = resnet18(

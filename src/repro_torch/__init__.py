@@ -7,7 +7,8 @@ subpackages mirror ``repro``'s layout so each counterpart is easy to
 find:
 
 - ``core``:    tile geometry, spectral transform and pruning, the
-               compile-once network plan;
+               compile-once network plan, the Hopper cost model, and
+               the paper's FPGA model with its Alg 1 (``optimizer``);
 - ``kernels``: the fused spectral-conv kernels, the staged path's
                tile-FFT, spectral Hadamard and tile-IFFT kernels, the
                Alg-2 table executor and the LM's flash attention (CUDA

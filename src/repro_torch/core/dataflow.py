@@ -1,17 +1,36 @@
 """Layer and graph descriptions shared by the plan, the kernels and the
-models (counterpart of ``repro.core.dataflow``).
+models, and the paper's FPGA complexity model (counterpart of
+``repro.core.dataflow``).
 
-The static descriptions, and the shard-local sub-problem and collective
-bytes of a sharded layer.  The Hopper counterpart of the reference's TPU
-cost model is in ``core.autotune``; its FPGA model is not part of this
-package yet.
+The static descriptions, the shard-local sub-problem and collective
+bytes of a sharded layer, and the paper's on-chip storage and off-chip
+transfer model of its three pure dataflows and the flexible flow (§4,
+Eqs 6-13), which Alg 1 (``core.optimizer``) searches:
+
+  Flow #1  reuse kernels + partial sums, stream input tiles;
+  Flow #2  reuse input tiles + partial sums, stream kernels;
+  Flow #3  reuse inputs + kernels, stream partial sums;
+  flexible Ns kernels and Ps input tiles resident (Eqs 12-13).
+
+The model's constants describe the paper's FPGA (a Xilinx U200): 16-bit
+words, BRAMs 1024 entries deep; ``optimize`` caps it at 2160 BRAMs and a
+20 ms frame.  They are not measurements of any chip, and nothing here
+prices the H100: the Hopper cost model is in ``core.autotune``.  Words
+are 16-bit: spatial activations real (1 word a value), spectral kernels
+complex (``complex_words``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Iterable
 
 from repro_torch.core.spectral import make_geometry, shard_band_rows
+
+# The paper's FPGA: a BRAM holds 1024 entries of one 16-bit word.
+BRAM_DEPTH = 1024
+WORD_BYTES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +64,19 @@ class ConvLayer:
         return make_geometry(self.h_in, self.w_in, self.ksize, fft_size,
                              self.pad).n_tiles
 
+    def tile_size(self, fft_size: int) -> int:
+        return fft_size - self.ksize + 1
+
+    def spectral_macs(self, fft_size: int, alpha: float = 1.0) -> int:
+        """Complex MACs of the (sparse) Hadamard stage, which apportion
+        the latency budget (Table 2 footnote)."""
+        nnz = int(round(fft_size * fft_size / alpha))
+        return self.tiles(fft_size) * nnz * self.c_in * self.c_out
+
+    def spatial_macs(self) -> int:
+        return (self.c_in * self.c_out * self.h_in * self.w_in
+                * self.ksize * self.ksize)
+
 
 # VGG16 conv stack (stride-1, pad-1, 3x3).
 VGG16_LAYERS: tuple[ConvLayer, ...] = (
@@ -62,6 +94,10 @@ VGG16_LAYERS: tuple[ConvLayer, ...] = (
     ConvLayer("conv5_2", 512, 512, 14, 14),
     ConvLayer("conv5_3", 512, 512, 14, 14),
 )
+
+# The layers Alg 1 plans: conv1_1 is left out, as in the paper
+# ("negligible computations").
+VGG16_OPT_LAYERS = VGG16_LAYERS[1:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,3 +213,143 @@ def shard_ici_bytes(layer: ConvLayer, n_shards: int, strategy: str,
                      * layer.c_in * batch * bytes_per_el) + sc
     raise ValueError(f"strategy must be one of {SHARD_STRATEGIES}, "
                      f"got {strategy!r}")
+
+
+# ---------------------------------------------------------------------------
+# The paper's FPGA model: on-chip storage (Eqs 6-8, 12), in BRAMs
+# ---------------------------------------------------------------------------
+
+def _ceil(a: float, b: float) -> int:
+    return int(math.ceil(a / b))
+
+
+def bram_flow1(layer: ConvLayer, fft_size: int, alpha: float,
+               p_par: int, n_par: int, r: int, m_par: int = 1) -> int:
+    """Flow #1 (Eq 6): kernels and psums resident, input tiles stream.
+
+    Banks x depth multiplier: inputs r*M'*P' streaming buffers (one tile
+    deep); kernels M'*N' banks holding all N kernels, x ceil(N *
+    K^2/alpha / (N' * 1024)); psums N'*P' banks holding every tile of
+    the image, x ceil(T * K^2 / (P' * 1024))."""
+    k2 = fft_size * fft_size
+    t = layer.tiles(fft_size)
+    inp = r * m_par * p_par
+    ker = m_par * n_par * max(1, _ceil(layer.c_out * k2 / alpha,
+                                       n_par * BRAM_DEPTH))
+    psum = n_par * p_par * max(1, _ceil(t * k2, p_par * BRAM_DEPTH))
+    return inp + ker + psum
+
+
+def bram_flow2(layer: ConvLayer, fft_size: int, alpha: float,
+               p_par: int, n_par: int, r: int, m_par: int = 1) -> int:
+    """Flow #2 (Eq 7): input tiles and psums resident, kernels stream.
+
+    Inputs r*M'*P' banks holding all T tiles, x ceil(T * K^2 / (P' *
+    1024)); kernels M'*N' streaming buffers; psums N'*P' banks holding
+    the N outputs of a P'-tile group, x ceil(N * K^2 / (N' * 1024))."""
+    k2 = fft_size * fft_size
+    t = layer.tiles(fft_size)
+    inp = r * m_par * p_par * max(1, _ceil(t * k2, p_par * BRAM_DEPTH))
+    ker = m_par * n_par
+    psum = n_par * p_par * max(1, _ceil(layer.c_out * k2, n_par * BRAM_DEPTH))
+    return inp + ker + psum
+
+
+def bram_flow3(layer: ConvLayer, fft_size: int, alpha: float,
+               p_par: int, n_par: int, r: int, m_par: int = 1) -> int:
+    """Flow #3 (Eq 8): inputs and kernels resident, psums stream; the
+    smaller of (a) all T input tiles resident + a kernel buffer and (b)
+    an input buffer + all N kernels resident, beside N'*P' psum
+    buffers."""
+    k2 = fft_size * fft_size
+    t = layer.tiles(fft_size)
+    psum = n_par * p_par
+    var_a = (r * m_par * p_par * max(1, _ceil(t * k2, p_par * BRAM_DEPTH))
+             + m_par * n_par + psum)
+    var_b = (r * m_par * p_par
+             + m_par * n_par * max(1, _ceil(layer.c_out * k2 / alpha,
+                                            n_par * BRAM_DEPTH))
+             + psum)
+    return min(var_a, var_b)
+
+
+def bram_flexible(layer: ConvLayer, fft_size: int, alpha: float,
+                  p_par: int, n_par: int, r: int,
+                  ns: int, ps: int) -> int:
+    """Eq 12: the flexible flow with streaming parameters (Ns, Ps), plus
+    the input tiles' depth multiplier (Ps tiles over r replicas of P'
+    banks) that the printed equation folds into the bank count."""
+    k2 = fft_size * fft_size
+    inp = r * p_par * max(1, _ceil(ps * k2, p_par * BRAM_DEPTH))
+    ker = n_par * max(1, _ceil(ns * k2 / alpha, n_par * BRAM_DEPTH))
+    psum = n_par * p_par * max(1, _ceil(ns * ps * k2,
+                                        n_par * p_par * BRAM_DEPTH))
+    return inp + ker + psum
+
+
+# ---------------------------------------------------------------------------
+# The paper's FPGA model: off-chip transfers (Eqs 9-11, 13), 16-bit words
+# ---------------------------------------------------------------------------
+
+def transfers_flow1(layer: ConvLayer, fft_size: int, alpha: float,
+                    n_par: int, m_par: int = 1,
+                    complex_words: int = 2) -> int:
+    """Eq 9's numerator: inputs re-loaded once per N'-kernel group."""
+    k2 = fft_size * fft_size
+    reload_in = layer.c_out / n_par
+    inp = layer.c_in * layer.h_in * layer.w_in * reload_in
+    ker = layer.c_out * layer.c_in * k2 / alpha * complex_words
+    out = layer.c_out * layer.h_in * layer.w_in
+    return int(round(inp + ker + out))
+
+
+def transfers_flow2(layer: ConvLayer, fft_size: int, alpha: float,
+                    p_par: int, m_par: int = 1,
+                    complex_words: int = 2) -> int:
+    """Eq 10's numerator: kernels re-loaded once per P'-tile group."""
+    k2 = fft_size * fft_size
+    tile = layer.tile_size(fft_size)
+    reload_k = (layer.h_in * layer.w_in) / (p_par * tile * tile)
+    inp = layer.c_in * layer.h_in * layer.w_in
+    ker = layer.c_out * layer.c_in * k2 / alpha * complex_words * reload_k
+    out = layer.c_out * layer.h_in * layer.w_in
+    return int(round(inp + ker + out))
+
+
+def transfers_flow3(layer: ConvLayer, fft_size: int, alpha: float,
+                    m_par: int = 1, complex_words: int = 2) -> int:
+    """Eq 11's numerator: psums written and re-read once per input
+    channel."""
+    k2 = fft_size * fft_size
+    inp = layer.c_in * layer.h_in * layer.w_in
+    ker = layer.c_out * layer.c_in * k2 / alpha * complex_words
+    out = (layer.c_out * layer.h_in * layer.w_in
+           * 2 * (layer.c_in / m_par))
+    return int(round(inp + ker + out))
+
+
+def transfers_flexible(layer: ConvLayer, fft_size: int, alpha: float,
+                       ns: int, ps: int, complex_words: int = 2) -> int:
+    """Eq 13's numerator."""
+    k2 = fft_size * fft_size
+    tile = layer.tile_size(fft_size)
+    inp = layer.c_in * layer.h_in * layer.w_in * (layer.c_out / ns)
+    ker = (layer.c_out * layer.c_in * k2 / alpha * complex_words
+           * (layer.h_in * layer.w_in) / (ps * tile * tile))
+    out = layer.c_out * layer.h_in * layer.w_in
+    return int(round(inp + ker + out))
+
+
+def bandwidth_gbps(transfers_words: int, tau_s: float) -> float:
+    """bw = #transfers / tau (§4.2), in GB/s of the FPGA's 16-bit
+    words."""
+    return transfers_words * WORD_BYTES / tau_s / 1e9
+
+
+def layer_latency_budget(layers: Iterable[ConvLayer], fft_size: int,
+                         alpha: float, total_tau_s: float) -> dict[str, float]:
+    """tau_i = tau * CMP_i / CMP_total (Table 2 footnote)."""
+    layers = list(layers)
+    cmps = {l.name: l.spectral_macs(fft_size, alpha) for l in layers}
+    total = sum(cmps.values())
+    return {n: total_tau_s * c / total for n, c in cmps.items()}

@@ -572,7 +572,13 @@ def _schedule_pool(workers: int):
             tracker._stop()
 
 
+# The pruning of ``build_network_plan(prune=)``: the paper's magnitude
+# pruning, or Fig 10's uniformly random positions (seed 0 every layer).
+PRUNERS = {"magnitude": sp.prune_magnitude, "random": sp.prune_random}
+
+
 def build_network_plan(params: dict, cfg, *, batch: int = 1,
+                       prune: str = "magnitude",
                        hadamard: str = "bin",
                        input_mode: str = "windowed",
                        measure: bool = False,
@@ -590,6 +596,9 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
       cfg: ``models.cnn.SpectralCNNConfig`` (duck-typed on ``layers``,
         ``fft_size``, ``alpha``, ``pool_after``, ``graph``, ``name``).
       batch: images per forward call the plan is built for (recorded).
+      prune: 'magnitude' (the K^2/alpha largest bins of each kernel) or
+        'random' (Fig 10: ``sparse.prune_random`` with its default seed
+        0 for every layer, as the reference draws them).
       hadamard: 'bin' (compact the kernel planes to the active bins;
         the same as 'dense' when no bin is empty), 'dense', 'scheduled'
         (Alg-2 INDEX/VALUE tables; falls back to the plane datapath
@@ -621,6 +630,10 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
         layout over the shared-memory budget is a warning here
         (``resilience.harden_network_plan`` demotes it).
     """
+    if prune not in PRUNERS:
+        raise ValueError(f"prune must be one of {tuple(PRUNERS)}, "
+                         f"got {prune!r}")
+    prune_fn = PRUNERS[prune]
     if hadamard not in df.HADAMARD_MODES + ("auto",):
         raise ValueError(f"hadamard must be 'auto' or one of "
                          f"{df.HADAMARD_MODES}, got {hadamard!r}")
@@ -660,8 +673,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
             geo = spec.make_geometry(layer.h_in, layer.w_in, layer.ksize,
                                      cfg.fft_size, layer.pad)
             w = conv["w"].detach().to("cpu", torch.float32)
-            sk = sp.prune_magnitude(spec.spectral_kernel(w, cfg.fft_size),
-                                    alpha)
+            sk = prune_fn(spec.spectral_kernel(w, cfg.fft_size), alpha)
             cycles = mu = None
             if schedule and alpha > 1.0:
                 cycles, mu, sampled_bins = _sampled_schedule_stats(
@@ -674,11 +686,7 @@ def build_network_plan(params: dict, cfg, *, batch: int = 1,
                         layer=layer.name, site="schedule-stats")
             active = sp.compacted_active_bins(sk, pad_to=fsc.BIN_CHUNK)
             wr, wi = sp.compact_planes(sk, active)
-            key = (tuple(int(a) for a in active) if active is not None
-                   else None)
-            dfr, dfi, dvr, dvi = (
-                torch.from_numpy(a).to(device) for a in
-                fsc.overlap_save_operators(cfg.fft_size, layer.ksize, key))
+            dfr, dfi, dvr, dvi = fsc.device_operators(geo, active, device)
             modes = _resolve_hadamard_modes(hadamard, alpha, schedule,
                                             active)
             compiled: list = []

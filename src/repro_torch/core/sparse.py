@@ -1,10 +1,14 @@
-"""Sparse spectral kernels: uniform per-kernel magnitude pruning and the
+"""Sparse spectral kernels: uniform per-kernel pruning and the
 compacted operands the fused kernel consumes (counterpart of
 ``repro.core.sparse``).
 
-Pruning is the paper's offline step: it runs on the CPU, with the same
-numpy stable-argsort ranking as the reference, so both packages keep
-exactly the same bins.
+Every K x K spectral kernel keeps exactly K^2 / alpha non-zeros, chosen
+by magnitude (``prune_magnitude``, the shape an ADMM run converges to)
+or at random (``prune_random``, the robustness study of Fig 10).
+Pruning is the paper's offline step: it runs on the CPU with the
+reference's numpy ranking (a stable argsort of the magnitudes, or an
+argsort of scores drawn from ``np.random.default_rng(seed)``), so both
+packages keep exactly the same bins.
 """
 
 from __future__ import annotations
@@ -99,6 +103,21 @@ def prune_magnitude(w_f: torch.Tensor, alpha: float
     return _finalize(w_f, mask.reshape(n, m, K, K), K * K / nnz)
 
 
+def prune_random(w_f: torch.Tensor, alpha: float, seed: int = 0
+                 ) -> SparseSpectralKernels:
+    """Keep K^2/alpha uniformly random positions of each (n, m) kernel
+    (Fig 10): the lowest scores of ``np.random.default_rng(seed)``'s
+    draw, so the masks are the reference's bit for bit."""
+    n, m, K, _ = w_f.shape
+    nnz = max(1, int(round(K * K / alpha)))
+    rng = np.random.default_rng(seed)
+    scores = rng.random((n, m, K * K))
+    order = np.argsort(scores, axis=-1)
+    mask = np.zeros((n, m, K * K), bool)
+    np.put_along_axis(mask, order[..., :nnz], True, axis=-1)
+    return _finalize(w_f, mask.reshape(n, m, K, K), K * K / nnz)
+
+
 def compacted_active_bins(sk: SparseSpectralKernels, *,
                           pad_to: int = 8,
                           dense_threshold: float = 1.0
@@ -139,3 +158,18 @@ def compact_planes(sk: SparseSpectralKernels, active: np.ndarray | None
     wr = flat.real.permute(2, 0, 1).to(torch.float32).contiguous()
     wi = flat.imag.permute(2, 0, 1).to(torch.float32).contiguous()
     return wr, wi
+
+
+def sparse_hadamard_reference(x_f: torch.Tensor, sk: SparseSpectralKernels
+                              ) -> torch.Tensor:
+    """Oracle of the sparse Hadamard stage (Eq 3), a masked dense einsum
+    on x_f's device: X~ [B, M, T, K, K] -> Y~ [B, N, T, K, K]."""
+    return torch.einsum("bmtuv,nmuv->bntuv", x_f,
+                        sk.values.to(x_f.device))
+
+
+def kernel_index_matrix(sk: SparseSpectralKernels, m: int,
+                        group: slice) -> np.ndarray:
+    """The scheduler's input (§5.3): the [N', nnz] matrix whose row n
+    holds the sorted non-zero bins of kernel (n, m) of the group."""
+    return sk.indices[group, m, :].cpu().numpy()

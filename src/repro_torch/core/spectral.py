@@ -8,6 +8,14 @@ keep each window's t x t wraparound-free outputs.  Those outputs are
 complete full-conv results, so assembly is a pure relayout and a bias +
 ReLU epilogue can follow directly.
 
+The paper's own decomposition, overlap-and-add (§3, Eqs 3-4), is here
+too (``extract_tiles``, ``fft_tiles``, ``overlap_add``): disjoint t x t
+tiles zero-padded to K x K, whose K x K full-conv outputs overlap by k-1
+pixels and are summed.  For kernels that are not pruned both equal
+``spatial_conv2d``.  These helpers, ``spectral_conv2d`` and the band
+oracle run ``torch.fft`` on the tensor's device: none of them is a
+kernel of the port.
+
 Conventions: activations are NCHW ``x[b, c, h, w]``, kernels
 ``w[n, m, k, k]``; CNN convolution is cross-correlation, so the spatial
 kernel is flipped before its FFT.
@@ -74,6 +82,16 @@ def spectral_kernel(w: torch.Tensor, fft_size: int) -> torch.Tensor:
     w = torch.flip(w.to(torch.float32), dims=(-2, -1))
     w = F.pad(w, (0, fft_size - k, 0, fft_size - k))
     return torch.fft.fft2(w)
+
+
+def extract_tiles(x: torch.Tensor, geo: SpectralGeometry) -> torch.Tensor:
+    """[B, M, H, W] -> [B, M, T, t, t] disjoint tiles (row-major T) of
+    the input zero-padded at the bottom/right to the tiled canvas."""
+    b, m = x.shape[:2]
+    x = F.pad(x, (0, geo.w_pad - geo.w_in, 0, geo.h_pad - geo.h_in))
+    x = x.reshape(b, m, geo.n_tiles_h, geo.tile, geo.n_tiles_w, geo.tile)
+    return (x.permute(0, 1, 2, 4, 3, 5)
+            .reshape(b, m, geo.n_tiles, geo.tile, geo.tile))
 
 
 def extract_tiles_overlapping(x: torch.Tensor, geo: SpectralGeometry
@@ -317,10 +335,88 @@ def halo_exchange_reference(x: torch.Tensor, geo: SpectralGeometry,
             for d in range(n_shards)]
 
 
+def spectral_band_conv2d_pretransformed(x_ext: torch.Tensor, w_f,
+                                        geo: SpectralGeometry
+                                        ) -> torch.Tensor:
+    """The band einsum oracle: one shard's extended band -> its UNCROPPED
+    band canvas [B, N, tile_rows*t, w_pad].
+
+    ``geo`` is a ``make_band_geometry`` result and ``x_ext`` the
+    extended band (top halo included).  The band canvases joined along H
+    are ``assemble_tile_canvas`` of the unsharded image, to the
+    accumulation order of the Hadamard contraction; ``crop_canvas_same``
+    with the global geometry then gives the 'same' output."""
+    if x_ext.is_cuda:
+        repro_torch.strict_fp32()
+    windows = extract_tiles_overlapping(x_ext, geo)     # [B,M,T,K,K]
+    x_f = torch.fft.fft2(windows.to(torch.float32))
+    y_f = _hadamard_maybe_sparse(x_f, w_f, geo)
+    y_sp = torch.fft.ifft2(y_f).real
+    ov = geo.ksize - 1
+    y_valid = y_sp[..., ov:, ov:]
+    return assemble_tile_canvas(y_valid.to(x_ext.dtype), geo)
+
+
+def fft_tiles(tiles: torch.Tensor, geo: SpectralGeometry) -> torch.Tensor:
+    """[..., t, t] -> [..., K, K] complex spectral tiles (zero-padded at
+    the bottom/right to K x K)."""
+    pad = geo.fft_size - geo.tile
+    return torch.fft.fft2(F.pad(tiles.to(torch.float32), (0, pad, 0, pad)))
+
+
+def _shift(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """a'[..., i, ...] = a[..., i-1, ...] along ``dim``, a'[..., 0, ...] =
+    0."""
+    return torch.cat([torch.zeros_like(a.narrow(dim, 0, 1)),
+                      a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
+
+
+def overlap_add(y_tiles: torch.Tensor, geo: SpectralGeometry
+                ) -> torch.Tensor:
+    """The overlap-and-add merge (Eq 4): [B, N, T, K, K] spatial-domain
+    full-conv output tiles -> the 'same' output [B, N, H_out, W_out].
+
+    Tile (i, j)'s K x K output sits at canvas offset (i*t, j*t) and
+    overlaps its neighbours by ov = k-1 pixels (ov <= t, checked by
+    ``make_geometry``), so canvas block (i, j) sums four parts, in this
+    order: its own tile's [:t, :t], the left tile's [:t, t:] on its
+    first ov columns, the upper tile's [t:, :t] on its first ov rows and
+    the upper-left tile's [t:, t:] on its ov x ov corner.  The canvas
+    spill past h_pad / w_pad is dropped: ``make_geometry`` padded the
+    canvas past every row the 'same' crop reads."""
+    b, n, t_cnt, kk, _ = y_tiles.shape
+    if t_cnt != geo.n_tiles or kk != geo.fft_size:
+        raise ValueError(f"tiles {tuple(y_tiles.shape)} do not match "
+                         f"geometry {geo}")
+    ov = geo.ksize - 1
+    tl = geo.tile
+    yt = y_tiles.reshape(b, n, geo.n_tiles_h, geo.n_tiles_w, kk, kk)
+    spill = tl - ov         # the part of a block no neighbour reaches
+    blk = yt[..., :tl, :tl]
+    blk = blk + F.pad(_shift(yt[..., :tl, tl:], 3), (0, spill))
+    blk = blk + F.pad(_shift(yt[..., tl:, :tl], 2), (0, 0, 0, spill))
+    blk = blk + F.pad(_shift(_shift(yt[..., tl:, tl:], 2), 3),
+                      (0, spill, 0, spill))
+    out = (blk.permute(0, 1, 2, 4, 3, 5)
+           .reshape(b, n, geo.h_pad, geo.w_pad))
+    return crop_canvas_same(out, geo)
+
+
 def hadamard_accumulate(x_f: torch.Tensor, w_f: torch.Tensor
                         ) -> torch.Tensor:
     """Y~[b,n,t,u,v] = sum_m X~[b,m,t,u,v] * W~[n,m,u,v]."""
     return torch.einsum("bmtuv,nmuv->bntuv", x_f, w_f)
+
+
+def spectral_conv2d(x: torch.Tensor, w: torch.Tensor, *,
+                    fft_size: int = 8, pad: int | None = None
+                    ) -> torch.Tensor:
+    """Spectral convolution of NCHW ``x`` with the spatial kernel ``w``
+    [N, M, k, k] on x's device: 'same' cross-correlation to fp error,
+    through the kernel's FFT and ``spectral_conv2d_pretransformed``."""
+    geo = make_geometry(x.shape[2], x.shape[3], w.shape[-1], fft_size, pad)
+    w_f = spectral_kernel(w.to(x.device), fft_size)
+    return spectral_conv2d_pretransformed(x, w_f, geo)
 
 
 def spectral_conv2d_pretransformed(x: torch.Tensor, w_f,

@@ -52,6 +52,12 @@ the s-leading ``[S, M, B*T]`` layout, valid-tile assembly of the
 ``[t^2, N, B*T]`` output and, for a shortcut, its relayout into that
 tile layout (``_shortcut_tiles``).  The halo kernels need none of them.
 
+``fused_spectral_conv2d`` and ``fused_spectral_conv2d_scheduled`` are the
+one-call layers (the reference's entries of the same names): they make a
+layer's operands per call (compacted planes, operators and, for the
+scheduled kernel, the Alg-2 tables) and run the same kernels, whereas the
+compile-once path is ``core.plan`` + ``execute_layer_plan``.
+
 ``execute_band_plan`` runs one shard's band of a spatially sharded layer
 (B6 band): the same four kernels on an extended band whose top k-1 rows
 are its halo (``spectral.make_band_geometry``), returning the uncropped
@@ -72,7 +78,9 @@ import torch
 
 import repro_torch
 from repro_torch.core import resilience as res
-from repro_torch.core.dataflow import FLOWS
+from repro_torch.core import scheduler as sch
+from repro_torch.core import sparse as sp
+from repro_torch.core.dataflow import FLOWS, INPUT_MODES
 from repro_torch.core.spectral import (HaloGeometry, SpectralGeometry,
                                        assemble_tile_canvas,
                                        assemble_valid_tiles,
@@ -1772,6 +1780,202 @@ def _fused_conv_scheduled_halo(x: torch.Tensor, tables, dfr, dfi, dvr,
         x, tables.idx, tables.sel, tables.vr, tables.vi, dfr, dfi, dvr,
         dvi, bias, geo=geo, hg=halo_block_geometry(geo, block_p),
         n_out=n_out, relu=relu, shortcut=shortcut, **flow)
+
+
+# ---------------------------------------------------------------------------
+# One-call layers: operands made per call, then the plan path's kernels
+# ---------------------------------------------------------------------------
+
+def _bias_row(bias, n: int, device) -> torch.Tensor:
+    """[1, N] f32 bias on ``device`` (zeros for None)."""
+    if bias is None:
+        return torch.zeros((1, n), dtype=torch.float32, device=device)
+    return torch.as_tensor(bias, dtype=torch.float32,
+                           device=device).reshape(1, n)
+
+
+def device_operators(geo: SpectralGeometry, active, device) -> tuple:
+    """The overlap-save operators (dfr, dfi, dvr, dvi) of ``geo`` on the
+    ``active`` bins (None: all K^2), on ``device``."""
+    key = tuple(int(a) for a in active) if active is not None else None
+    return tuple(torch.from_numpy(a).to(device) for a in
+                 overlap_save_operators(geo.fft_size, geo.ksize, key))
+
+
+def one_call_flow_block_m(kind: str, flow: str, block_m: int
+                          ) -> int | None:
+    """The m-range width a one-call layer runs ``flow`` with: None for
+    output-stationary (the kernel steps its channels itself); for the
+    weight-/input-stationary flows the widest of the widths the ``kind``
+    ('plane' | 'scheduled') kernel is built for (``FLOW_BLOCK_M``) that
+    is at most ``block_m``, else the narrowest.  The same on every
+    device, so a CPU tensor's plain version sums the kernel's ranges."""
+    if flow not in FLOWS:
+        raise ValueError(f"flow must be one of {FLOWS}, got {flow!r}")
+    if flow == OS:
+        return None
+    widths = FLOW_BLOCK_M[(kind, flow)]
+    fit = [w for w in widths if w <= block_m]
+    return max(fit) if fit else widths[0]
+
+
+def one_call_plane_operands(w_f, geo: SpectralGeometry, bias=None,
+                            device=None) -> tuple[torch.Tensor, ...]:
+    """The plane kernel's operands of ``fused_spectral_conv2d``, made on
+    ``device``: (wr, wi, dfr, dfi, dvr, dvi, bias).  A dense complex
+    ``w_f`` [N, M, K, K] takes all K^2 bins; a
+    ``sparse.SparseSpectralKernels`` its active bins in whole chunks
+    (``compacted_active_bins(pad_to=BIN_CHUNK)``, all K^2 where nothing
+    is prunable), as ``core.plan`` compacts them."""
+    k = geo.fft_size
+    if isinstance(w_f, torch.Tensor):
+        if w_f.shape[-1] != k:
+            raise ValueError(f"w_f has K = {w_f.shape[-1]}, geometry "
+                             f"{k}")
+        n, m = w_f.shape[:2]
+        active = None
+        flat = w_f.reshape(n, m, k * k)
+        wr, wi = (a.permute(2, 0, 1).to(torch.float32).contiguous()
+                  for a in (flat.real, flat.imag))
+    else:
+        if w_f.fft_size != k:
+            raise ValueError(f"kernels have K = {w_f.fft_size}, geometry "
+                             f"{k}")
+        n = w_f.n_out
+        active = sp.compacted_active_bins(w_f, pad_to=BIN_CHUNK)
+        wr, wi = sp.compact_planes(w_f, active)
+    return (wr.to(device), wi.to(device),
+            *device_operators(geo, active, device),
+            _bias_row(bias, n, device))
+
+
+def one_call_scheduled_operands(sk, geo: SpectralGeometry, *, r: int = 10,
+                                n_par: int = SCHED_BLOCK_N,
+                                method: str = "exact_cover", tables=None,
+                                bias=None, device=None) -> tuple:
+    """The scheduled kernel's operands of
+    ``fused_spectral_conv2d_scheduled``, made on ``device``: (tables,
+    dfr, dfi, dvr, dvi, bias), the tables a ``core.plan.PlanTables``.
+
+    Without ``tables`` Alg 2 runs here, serially: one exact-cover
+    schedule (``method``, ``r`` replicas) per (group of
+    ``min(n_par, N)`` kernels, input channel), in the coordinates of the
+    active bins (``compacted_active_bins(pad_to=BIN_CHUNK)``), as
+    ``core.plan`` compiles them.  ``tables``: a precompiled
+    ``scheduler.LayerTables`` (or ``PlanTables``) of those bins, any
+    channel padding.  On a CUDA device the group must be the kernel's
+    ``min(SCHED_BLOCK_N, N)`` lanes (``ValueError`` otherwise); the plain
+    version takes any group size."""
+    from repro_torch.core.plan import PlanTables
+
+    k = geo.fft_size
+    if sk.fft_size != k:
+        raise ValueError(f"kernels have K = {sk.fft_size}, geometry {k}")
+    n, m = sk.n_out, sk.n_in
+    device = torch.device(device)
+    active = sp.compacted_active_bins(sk, pad_to=BIN_CHUNK)
+    if tables is None:
+        n_pe = min(n_par, n)
+    else:
+        n_pe = tables.sel.shape[3]
+    if device.type == "cuda" and n_pe != min(SCHED_BLOCK_N, n):
+        raise ValueError(f"the scheduled kernel runs groups of "
+                         f"min({SCHED_BLOCK_N}, N) = {min(SCHED_BLOCK_N, n)}"
+                         f" lanes, got {n_pe}: pass n_par={SCHED_BLOCK_N}")
+    if tables is None:
+        k2 = k * k
+        tables = sch.compile_layer_tables(
+            sk.indices.cpu().numpy(),
+            sk.values.reshape(n, m, k2).cpu().numpy(), k2, r, n_pe,
+            method=method, active=active, m_pad_to=SCHED_BLOCK_M)
+    tabs = PlanTables(*(torch.as_tensor(a, device=device)
+                        for a in (tables.idx, tables.sel, tables.vr,
+                                  tables.vi)))
+    return (tabs, *device_operators(geo, active, device),
+            _bias_row(bias, n, device))
+
+
+def _check_input_mode(input_mode: str) -> None:
+    if input_mode not in INPUT_MODES:
+        raise ValueError(f"input_mode must be one of {INPUT_MODES}, "
+                         f"got {input_mode!r}")
+
+
+def fused_spectral_conv2d(x: torch.Tensor, w_f, geo: SpectralGeometry, *,
+                          flow: str = OS, block_n: int = 64,
+                          block_m: int = 64, block_p: int = 128,
+                          bias=None, relu: bool = False,
+                          input_mode: str = "windowed") -> torch.Tensor:
+    """A whole spectral conv layer in one call of the plane kernel.
+
+    x: [B, M, H, W] real NCHW; w_f: complex [N, M, K, K] dense, or a
+    ``sparse.SparseSpectralKernels`` whose active bins compact the
+    Hadamard (``one_call_plane_operands``).  ``bias`` / ``relu``: the
+    fused epilogue.  ``input_mode``: 'windowed' (host overlap-save
+    windows, B1 and the flows' windowed entry points) or 'halo' (the raw
+    activation, B3 and the halo flows).  ``flow``: the reuse flow; the
+    weight-/input-stationary ones sum m ranges of a built width
+    (``one_call_flow_block_m``).  ``block_p``: tiles per halo block, at
+    most the kernel's ``BLOCK_P`` slots; the windowed kernels tile P
+    themselves.  ``block_n`` is accepted and has no effect: the kernel
+    tiles N itself.  Returns [B, N, H_out, W_out].
+
+    On a CUDA tensor the kernel launches (or raises); on a CPU tensor its
+    plain version runs.  The operands are made on every call: the
+    compile-once path is ``core.plan.build_network_plan`` +
+    ``execute_layer_plan``."""
+    del block_n
+    _check_input_mode(input_mode)
+    ops = one_call_plane_operands(w_f, geo, bias, x.device)
+    kw = dict(flow=flow, relu=relu)
+    bm = one_call_flow_block_m("plane", flow, block_m)
+    if bm is not None:
+        kw["block_m"] = bm
+    if input_mode == "halo":
+        return _fused_conv_halo(x.to(torch.float32).contiguous(), *ops,
+                                geo=geo, block_p=min(block_p, BLOCK_P), **kw)
+    return _fused_conv(x, *ops, geo=geo, **kw)
+
+
+def fused_spectral_conv2d_scheduled(x: torch.Tensor, sk,
+                                    geo: SpectralGeometry, *, r: int = 10,
+                                    n_par: int = SCHED_BLOCK_N,
+                                    flow: str = OS, block_m: int = 64,
+                                    block_p: int = 128, bias=None,
+                                    relu: bool = False,
+                                    method: str = "exact_cover",
+                                    tables=None,
+                                    input_mode: str = "windowed"
+                                    ) -> torch.Tensor:
+    """A whole spectral conv layer in one call of the SCHEDULED kernel.
+
+    x: [B, M, H, W] real NCHW; sk: ``sparse.SparseSpectralKernels``
+    whose Alg-2 tables (groups of ``n_par`` kernels, ``r`` replicas,
+    ``method``) are compiled here, or taken from ``tables``
+    (``one_call_scheduled_operands``: on a CUDA tensor the group is the
+    kernel's min(64, N) lanes, any other ``n_par`` raises).  ``flow``,
+    ``block_m``, ``block_p`` (at most ``SCHED_BLOCK_P`` tiles a halo
+    block), ``bias``, ``relu`` and ``input_mode`` as for
+    ``fused_spectral_conv2d`` (B4 / B5 and the scheduled flows).
+    Returns [B, N, H_out, W_out].
+
+    Without ``tables`` every call runs the scheduler (one schedule per
+    kernel group and channel); the compile-once path is
+    ``core.plan.build_network_plan(hadamard='scheduled')`` +
+    ``execute_layer_plan``."""
+    _check_input_mode(input_mode)
+    tabs, *ops = one_call_scheduled_operands(
+        sk, geo, r=r, n_par=n_par, method=method, tables=tables, bias=bias,
+        device=x.device)
+    kw = dict(flow=flow, relu=relu, n_out=sk.n_out)
+    bm = one_call_flow_block_m("scheduled", flow, block_m)
+    if bm is not None:
+        kw["block_m"] = bm
+    if input_mode == "halo":
+        return _fused_conv_scheduled_halo(
+            x.to(torch.float32).contiguous(), tabs, *ops, geo=geo,
+            block_p=min(block_p, SCHED_BLOCK_P), **kw)
+    return _fused_conv_scheduled(x, tabs, *ops, geo=geo, **kw)
 
 
 def execute_layer_plan(x: torch.Tensor, lp, shortcut=None) -> torch.Tensor:

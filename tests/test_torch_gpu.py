@@ -1900,3 +1900,70 @@ def test_serve_kernel_fault_retries_onto_staged_on_card():
     want = _sync_upload_logits(srv, [req.image], rung="einsum")[0]
     assert float(np.abs(req.logits - want).max()) <= \
         TOL * float(np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# The one-call layers (``fused_spectral_conv2d``,
+# ``fused_spectral_conv2d_scheduled``) on the card
+# ---------------------------------------------------------------------------
+
+def _one_call_case(cin, cout, h, alpha=4.0, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, cin, h, h)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3)).astype(
+        np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(cout)).astype(
+        np.float32))
+    w_f = spec.spectral_kernel(w, 8)
+    return x, w_f, sp.prune_magnitude(w_f, alpha), b, spec.make_geometry(
+        h, h, 3, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("input_mode", ["windowed", "halo"])
+@pytest.mark.parametrize("flow", fsc.FLOWS)
+def test_one_call_wrappers_match_plain_on_card(flow, input_mode):
+    """Each wrapper on CUDA tensors launches its entry point once and
+    agrees with the same call on CPU tensors (the plain versions)."""
+    need_card()
+    x, w_f, sk, b, geo = _one_call_case(24, 70, 20)
+    calls = [("fused_spectral_pipeline", lambda t, dev: fsc
+              .fused_spectral_conv2d(t, w_f.to(dev), geo, flow=flow, bias=b,
+                                     relu=True, input_mode=input_mode)),
+             ("fused_spectral_pipeline", lambda t, dev: fsc
+              .fused_spectral_conv2d(t, sk.to(dev), geo, flow=flow, bias=b,
+                                     relu=True, input_mode=input_mode)),
+             ("fused_spectral_pipeline_scheduled", lambda t, dev: fsc
+              .fused_spectral_conv2d_scheduled(t, sk, geo, flow=flow,
+                                               bias=b, relu=True,
+                                               input_mode=input_mode))]
+    for kernel, call in calls:
+        name = fsc.entry_point(
+            kernel + ("_halo" if input_mode == "halo" else ""), flow)
+        before = fsc.LAUNCHES[name]
+        y = call(x.cuda(), "cuda")
+        torch.cuda.synchronize()
+        assert fsc.LAUNCHES[name] == before + 1, name
+        ref = call(x, "cpu")
+        err = float((y.cpu() - ref).abs().max() / ref.abs().max())
+        assert err <= TOL, (name, err)
+
+
+@pytest.mark.gpu
+def test_one_call_scheduled_group_size_raises_on_card():
+    """The scheduled kernel's group is fixed at min(64, N) lanes: on a
+    CUDA tensor any other n_par raises naming 64 (and launches nothing);
+    n_par = 64 runs."""
+    need_card()
+    x, _, sk, b, geo = _one_call_case(4, 70, 12)
+    before = dict(fsc.LAUNCHES)
+    for n_par in (16, 70):
+        with pytest.raises(ValueError, match="64"):
+            fsc.fused_spectral_conv2d_scheduled(x.cuda(), sk, geo,
+                                                n_par=n_par)
+    assert fsc.LAUNCHES == before
+    y = fsc.fused_spectral_conv2d_scheduled(x.cuda(), sk, geo, n_par=64,
+                                            bias=b)
+    ref = fsc.fused_spectral_conv2d_scheduled(x, sk, geo, n_par=64, bias=b)
+    assert float((y.cpu() - ref).abs().max() / ref.abs().max()) <= TOL

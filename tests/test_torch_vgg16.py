@@ -253,7 +253,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.sparse_hadamard",
             "repro_torch.distributed.executor",
             "repro_torch.launch.mesh", "repro_torch.launch.spectral_serve",
-            "repro_torch.core.resilience", "repro_torch.testing",
+            "repro_torch.core.resilience", "repro_torch.core.optimizer",
+            "repro_torch.kernels.ref", "repro_torch.testing",
             "repro_torch.testing.faults",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_6b",
             "repro_torch.configs.smollm_135m",
