@@ -189,7 +189,9 @@ each of which fails the run on error:
       full-width LM shapes, causal, in bf16 and f32: qwen3-8b (Hq 32,
       Hkv 8, D 128) at S = 4096, batch 1 and 4; h2o-danube-1.8b (D 80,
       window 4096) at S = 8192; smollm-135m (9 query heads over 3, D 64)
-      at S = 4096; then qwen3-8b at the prefill_32k length (S = 32768,
+      at S = 4096; moonshot-v1-16b-a3b (Hq 16, Hkv 16, D 128) at S = 4096,
+      batch 1 and 4; kimi-k2-1t-a32b (Hq 64, Hkv 8, D 112) at S = 4096,
+      batch 1; then qwen3-8b at the prefill_32k length (S = 32768,
       batch 1 of the shape's 32, bf16) against the plain
       ``_chunked_sdpa`` (the S^2 oracle would not fit).  Gate max|Δ| <=
       1e-5 of max|plain| in f32 (and 2e-6, the 3xTF32 kernels' line),
@@ -229,6 +231,47 @@ each of which fails the run on error:
       the documented command ``python -m repro_torch.launch.serve --arch
       qwen3-8b --config-set full`` as its own process (8 requests over 4
       slots, every one completed, exit 0);
+  (kq) the int8 KV cache (``kv_quant``) on (dl)'s bf16 qwen3-8b: a
+      teacher-forced 10-step decode chain at batch 2, float cache against
+      int8, within the reference's own bounds (max |softmax difference|
+      < 0.02, argmax agreement > 0.9), int8 cache bytes < 0.7 of the
+      float cache's; decode tick (p50 over KQ_TICKS, the first
+      discarded) and peak memory at batch 4, max_len 32768, for both
+      caches (information: the int8 cache is dequantized whole every
+      step, as in the reference);
+  (mo1) moonshot-v1-16b-a3b (the MoE family: 64 experts, top-6) at
+      published widths in f32, depth cut to 16 of 48 layers (MO1_LAYERS:
+      ~39 GB; 48 would be 112 GB): a 4096-token ``api.prefill`` (16 B9
+      launches) against the materialised route (``CHUNKED_THRESHOLD``
+      patched above S) with the routing pinned: every layer's
+      ``moe.route`` outputs recorded in the materialised run and replayed
+      in the B9 run (gate 1e-4 relative, top-1 equal); beside it the
+      unpinned B9 run's difference, the (token, k) slots whose expert the
+      B9 route would have picked otherwise, and each layer's
+      ``dropped_frac`` (information: routing is discontinuous, so an
+      ulp-level attention difference may move a near-tie slot);
+  (sm) f32: the ``launch/serve.py::Server`` (slots 4, max_len 256, 4
+      requests of 8-token prompts, 16 new tokens) on (mo1)'s weights (the
+      server built on SMOKE, its config, weights and cache swapped here):
+      every request equals a sequential greedy decode, token for token;
+  (mo2) moonshot in bf16 at full depth (48 layers, 28.06 B parameters,
+      built at the config's dtypes: router f32, the rest bf16): p50 over
+      5 batch-1 4096-token prefills (the first discarded), p50 minus 48 x
+      (la)'s moonshot B9 time, one batch-4 prefill, peak memory beside
+      the resident bytes, 48 B9 launches a prefill and 0 at 4095 tokens;
+      one prefill under ``torch.profiler`` split into B9, the MoE's
+      route / dispatch / experts / combine and the rest (information);
+  (sm) bf16: the same server run on (mo2)'s weights timed (tick mean and
+      p95), 0 B9 launches; then with the ``kv_quant`` cache (every request
+      completes); then ``python -m repro_torch.launch.serve --arch
+      moonshot-v1-16b-a3b --config-set full`` as its own process (every
+      request completed, exit 0);
+  (mo3) kimi-k2-1t-a32b's layer: published widths (384 experts, top-8,
+      GQA 64/8, D 112) in bf16, 1 of 61 layers (MO3_LAYERS; its embedding
+      and head whole, ~38.7 GB): a 4096-token prefill with 1 B9 launch at
+      D 112, against the materialised route with the routing pinned
+      (max|Δ| <= 1e-2 of max|plain|, the (la) bf16 line; top-1 equal); p50
+      over MO3_REPS prefills and peak memory;
   (h) the resilience layer (``core.resilience``, ``testing.faults``) at
       full width, its launch counts taken apart from the main path's (the
       counters reset around it): the (d), (d4) and (dr) plans validate
@@ -332,7 +375,8 @@ plane plans are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8),
 every plan is freed; (c7), (d5), (s), (ds), (dh), (rp), (oa), (ex);
 VGG16's weights and plans are freed; (r), (dr),
 ResNet-18's (c8) and (d7), (ds), (h) on (dr), (dr4); (la), (dl), (sl),
-(e).  So each
+(kq); qwen3-8b is freed; (mo1), (sm) f32; (mo2), (sm) bf16; moonshot is
+freed; the moonshot serve command; (mo3); (e).  So each
 serve's peak device memory holds the weights and the plans of its own
 kind only (the resident bytes at its start are
 printed beside it).  REPS (15 since the ResNet-18 phases came; 25
@@ -345,6 +389,7 @@ cores, 989 TFLOP/s dense bf16 on the tensor cores (bf16 inputs of
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -2484,7 +2529,9 @@ def fallback_block(dev, cap) -> None:
 # (la): the flash-attention kernel's full-width shapes, causal: (arch,
 # S, batch); heads, head_dim and window are the arch's published ones
 LA_SHAPES = (("qwen3-8b", 4096, 1), ("qwen3-8b", 4096, 4),
-             ("h2o-danube-1.8b", 8192, 1), ("smollm-135m", 4096, 1))
+             ("h2o-danube-1.8b", 8192, 1), ("smollm-135m", 4096, 1),
+             ("moonshot-v1-16b-a3b", 4096, 1),
+             ("moonshot-v1-16b-a3b", 4096, 4), ("kimi-k2-1t-a32b", 4096, 1))
 LA_REPS = 5            # (la): timed launches per kernel and shape
 FA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max
 # bf16, normalised row by row: max over query rows of max|kernel - plain|
@@ -2497,7 +2544,16 @@ LM_ARCH = "qwen3-8b"   # (dl), (sl): the LM served at full width
 LM_S = 4096            # (dl): prompt tokens, the chunked route's threshold
 LM_REQUESTS = 5        # (dl): batch-1 prefills (the first discarded)
 LM_OFFSET = 7          # (dl): the offset of non-default positions
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 16   # (sl)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 16   # (sl), (sm)
+KQ_STEPS = 10          # (kq): teacher-forced decode steps, batch 2
+KQ_LEN = 32768         # (kq): max_len of the timed batch-4 decode
+KQ_TICKS = 5           # (kq): timed decode steps a cache, the first discarded
+MOE_ARCH = "moonshot-v1-16b-a3b"   # (mo1), (mo2), (sm)
+KIMI_ARCH = "kimi-k2-1t-a32b"      # (mo3)
+MO1_LAYERS = 16        # (mo1), (sm) f32: moonshot's depth cut (of 48)
+MO3_LAYERS = 1         # (mo3): kimi's depth cut (of 61)
+MO3_REPS = 3           # (mo3): timed prefills
+MOE_PARTS = ("route", "_dispatch", "_experts", "_combine")   # (mo2) trace
 
 
 def causal_pairs(s: int, window: int | None) -> int:
@@ -2618,8 +2674,8 @@ def flash_check(dev, flush) -> dict:
              for dt in (torch.bfloat16, torch.float32)]
     cases.append((LM_ARCH, s32k, 1, torch.bfloat16))
     rows = {}
-    print("(la) flash attention (B9) vs plain, causal; CUDA events, L2 "
-          "flushed, median of", LA_REPS)
+    print(f"(la) {CARD}: flash attention (B9) vs plain, causal; CUDA "
+          f"events, L2 flushed, median of {LA_REPS}")
     for arch, s, b, dtype in cases:
         cfg = configs.get_config(arch)
         hq, hkv, d, window = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
@@ -2744,7 +2800,7 @@ def serve_lm(srv, prompts, label) -> tuple[dict, list]:
     stats = srv.run_until_drained()
     wall = time.perf_counter() - t0
     stats["flash_launches"] = fa.LAUNCHES["flash_attention"]
-    print(f"{label}: {stats['completed']} of {len(reqs)} completed, "
+    print(f"{label} {CARD}: {stats['completed']} of {len(reqs)} completed, "
           f"{stats['failed']} failed, {stats['ticks']} ticks in {wall:.2f} s; "
           f"tick mean {stats['mean_tick_ms']:.2f} ms, p95 "
           f"{stats['p95_tick_ms']:.2f} ms; B9 launches "
@@ -2808,30 +2864,30 @@ def tick_trace(srv, prompts, tick_mean_ms) -> dict:
     return out
 
 
-def serve_cli() -> dict:
+def serve_cli(arch: str = LM_ARCH, label: str = "(sl)") -> dict:
     """The documented command, ``python -m repro_torch.launch.serve --arch
-    qwen3-8b --config-set full``, as its own process (its own bf16
-    weights made on the card, 8 requests over 4 slots); fails unless it
-    exits 0 with every request completed."""
+    ARCH --config-set full``, as its own process (its own bf16 weights
+    made on the card, 8 requests over 4 slots); fails unless it exits 0
+    with every request completed."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           LM_ARCH, "--config-set", "full", "--json", "-"]
+           arch, "--config-set", "full", "--json", "-"]
     t0 = time.perf_counter()
     run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     wall = time.perf_counter() - t0
     if run.returncode:
-        fail(f"(sl) {' '.join(cmd[1:])} exited {run.returncode}: "
+        fail(f"{label} {' '.join(cmd[1:])} exited {run.returncode}: "
              f"{run.stderr[-2000:]}")
     head, _, payload = run.stdout.partition("\n")
     stats = json.loads(payload)
-    print(f"(sl) python -m repro_torch.launch.serve --arch {LM_ARCH} "
+    print(f"{label} {CARD}: python -m repro_torch.launch.serve --arch {arch} "
           f"--config-set full: {head.strip()!r}; {stats['completed']} of "
           f"{stats['requests']} completed, {stats['failed']} failed; the "
           f"process took {wall:.1f} s")
     if stats["completed"] != stats["requests"] or stats["failed"]:
-        fail(f"(sl) the serve command: {stats}")
+        fail(f"{label} the serve command: {stats}")
     return stats
 
 
@@ -3005,8 +3061,11 @@ def lm(dev, flash_rows) -> dict:
     with torch.no_grad():
         stats, _ = serve_lm(srv, prompts, "(sl) bf16")
         trace = tick_trace(srv, prompts, stats["mean_tick_ms"])
-    del srv, params, out32, first16, out4
-    torch.cuda.empty_cache()
+    del srv, out32, first16, out4
+    free_device()
+    kq = kv_quant_check(dev, params, cfg16)
+    del params
+    free_device()
     cli = serve_cli()
     return {"launches": launches, "per_forward": per_forward,
             "prefill_p50_ms": p50, "prefill_b4_ms": b4_ms,
@@ -3015,7 +3074,437 @@ def lm(dev, flash_rows) -> dict:
             "tick_kernels": trace["kernels"],
             "tick_device_ms": trace["device_ms"],
             "tick_idle_share": trace["idle_share"],
-            "cli_mean_tick_ms": cli["mean_tick_ms"]}
+            "cli_mean_tick_ms": cli["mean_tick_ms"], "kv_quant": kq}
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for layer in cache
+               for t in layer)
+
+
+def kv_quant_check(dev, params, cfg16) -> dict:
+    """(kq): the int8 KV cache on full-width bf16 qwen3-8b (``params``).
+    A teacher-forced KQ_STEPS-step decode chain at batch 2, the float
+    cache against ``kv_quant``, held to the reference's own bounds
+    (``tests/test_kv_quant.py``: max |softmax difference| < 0.02, argmax
+    agreement > 0.9) and int8 bytes < 0.7 of float; then the decode step
+    (p50 of KQ_TICKS, the first discarded; host clock ending in
+    ``torch.cuda.synchronize()``) and peak memory at batch 4, max_len
+    KQ_LEN, for each cache (information)."""
+    import torch
+    from repro_torch.models import api
+    cfgq = cfg16.replace(kv_quant=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg16.vocab, (2, KQ_STEPS), generator=gen,
+                         device=dev)
+    chains, nbytes = [], []
+    with torch.no_grad():
+        for cfg in (cfg16, cfgq):
+            cache, outs = api.init_cache(cfg, 2, 16, device=dev), []
+            for t in range(KQ_STEPS):
+                lg, cache = api.decode(params, cfg, toks[:, t:t + 1], cache,
+                                       t)
+                outs.append(lg.float())
+            chains.append(torch.cat(outs, 1))
+            nbytes.append(cache_bytes(cache))
+        p_fp, p_q = (torch.softmax(c, -1) for c in chains)
+        sdiff = float((p_fp - p_q).abs().max())
+        agree = float((chains[0].argmax(-1) == chains[1].argmax(-1))
+                      .double().mean())
+        print(f"(kq) {CARD}: {LM_ARCH} bf16, {KQ_STEPS}-step teacher-forced "
+              f"decode at batch 2, float vs int8 cache: max|softmax diff| "
+              f"{sdiff:.3e} (gate < 0.02), argmax agreement {agree:.3f} "
+              f"(gate > 0.9); cache bytes {nbytes[1]:,} int8 vs {nbytes[0]:,} "
+              f"float ({nbytes[1] / nbytes[0]:.3f}, gate < 0.7)")
+        if not (sdiff < 0.02 and agree > 0.9
+                and nbytes[1] < 0.7 * nbytes[0]):
+            fail("(kq) the int8 cache is outside the reference's bounds")
+        out = {"softmax_diff": sdiff, "argmax_agreement": agree,
+               "cache_bytes": nbytes[1], "fp_cache_bytes": nbytes[0]}
+        del chains, p_fp, p_q, cache
+        tok = torch.randint(0, cfg16.vocab, (4, 1), generator=gen,
+                            device=dev)
+        for name, cfg in (("fp", cfg16), ("int8", cfgq)):
+            torch.cuda.empty_cache()
+            cache = api.init_cache(cfg, 4, KQ_LEN, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            times = []
+            for i in range(KQ_TICKS + 1):
+                pos = KQ_LEN - KQ_TICKS - 1 + i
+                t0 = time.perf_counter()
+                lg, cache = api.decode(params, cfg, tok, cache, pos)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            if not torch.isfinite(lg).all():
+                fail(f"(kq) {name} decode at max_len {KQ_LEN}: not finite")
+            peak = torch.cuda.max_memory_allocated()
+            p50 = statistics.median(times[1:])
+            out[name] = {"tick_p50_ms": p50, "peak_bytes": peak,
+                         "resident_bytes": resident,
+                         "cache_bytes": cache_bytes(cache)}
+            print(f"(kq) {CARD}: {name} cache, batch 4, max_len {KQ_LEN}: "
+                  f"decode step p50 {p50:.2f} ms over {KQ_TICKS} "
+                  f"{[round(t, 2) for t in times]} (the first discarded); "
+                  f"cache {cache_bytes(cache) / 2 ** 30:.3f} GiB, peak "
+                  f"{peak / 2 ** 30:.3f} GiB, {resident / 2 ** 30:.3f} GiB "
+                  f"resident at the start")
+            del cache, lg
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (mo1), (mo2), (mo3), (sm): the MoE family on the card
+# ---------------------------------------------------------------------------
+
+def recording(store: list, fn):
+    """``fn`` that appends each call's result to ``store``."""
+    def call(*args):
+        out = fn(*args)
+        store.append(out)
+        return out
+    return call
+
+
+def pinned_route(recorded: list, flips: list):
+    """A ``moe.route`` that returns ``recorded``'s outputs in call order
+    (the plain run's routing) and appends to ``flips`` the (token, k)
+    slots whose expert the real route would have picked otherwise."""
+    from repro_torch.models import moe
+    real, calls = moe.route, iter(recorded)
+
+    def route(params, cfg, x):
+        want = next(calls)
+        flips.append(int((real(params, cfg, x)[2] != want[2]).sum()))
+        return want
+    return route
+
+
+def moe_prefill_gate(label, params, cfg, tokens, per_forward, tol) -> dict:
+    """A prefill through B9 against the materialised route with the
+    routing pinned (gate ``tol`` of max|plain|, top-1 equal,
+    ``per_forward`` B9 launches); the unpinned B9 prefill beside it.
+    Returns the numbers and the B9 launches of both B9 runs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    routes, auxes, flips = [], [], []
+    with torch.no_grad():
+        reset_launches()
+        with mock.patch.object(attn, "CHUNKED_THRESHOLD", LM_S + 1), \
+                mock.patch.object(moe, "route",
+                                  recording(routes, moe.route)), \
+                mock.patch.object(moe, "forward",
+                                  recording(auxes, moe.forward)):
+            ref = api.prefill(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"]:
+            fail(f"{label} the materialised route launched the kernel")
+        drops = [round(float(a["dropped_frac"]), 4) for _, a in auxes]
+        del auxes
+        with mock.patch.object(moe, "route", pinned_route(routes, flips)):
+            out = api.prefill(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        n = fa.LAUNCHES["flash_attention"]
+        free = api.prefill(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+    del routes
+    err = rel_err(out.float(), ref.float())
+    top1 = bool(torch.equal(out.argmax(-1), ref.argmax(-1)))
+    err_free = rel_err(free.float(), ref.float())
+    top1_free = bool(torch.equal(free.argmax(-1), ref.argmax(-1)))
+    slots = tokens.numel() * cfg.top_k
+    print(f"{label} {CARD}: prefill S={tokens.shape[1]} b={tokens.shape[0]}, "
+          f"routing pinned: max|B9 - materialised| {err:.3e} of max|plain| "
+          f"{float(ref.float().abs().max()):.3e} (gate {tol:g}), top-1 equal "
+          f"{top1}; B9 launches {n} ({per_forward} expected); unpinned: "
+          f"{err_free:.3e}, top-1 equal {top1_free} (information); (token, k) "
+          f"slots the B9 route would move, per layer of {slots:,}: {flips}; "
+          f"dropped_frac per layer {drops}")
+    if out.shape != (tokens.shape[0], 1, cfg.vocab) \
+            or not torch.isfinite(out).all():
+        fail(f"{label} logits {tuple(out.shape)} or not finite")
+    if err > tol or not top1 or n != per_forward:
+        fail(f"{label} the pinned B9 prefill disagrees with the "
+             f"materialised route or missed the kernel")
+    return {"rel_err": err, "top1": top1, "unpinned_rel_err": err_free,
+            "unpinned_top1": top1_free, "flipped_slots": flips,
+            "dropped_frac": drops, "launches": launches}
+
+
+def traced_moe(label, run, wall_ms=None) -> dict:
+    """``run()`` under ``torch.profiler``, each MoE part (``moe.route``,
+    ``_dispatch``, ``_experts``, ``_combine``) in a ``record_function``
+    range: the device time of B9's kernels, of each part's kernels and of
+    the rest, and (given the untraced ``wall_ms``) the device's idle
+    share.  Information only; "not measured" where the profiler saw no
+    kernel."""
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+
+    def ranged(name, fn):
+        def call(*args):
+            with record_function(f"moe.{name}"):
+                return fn(*args)
+        return call
+    with contextlib.ExitStack() as stack:
+        for n in MOE_PARTS:
+            stack.enter_context(mock.patch.object(
+                moe, n, ranged(n, getattr(moe, n))))
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    # kernels, not the ranges' device-side twins
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("moe.")]
+    if not kern:
+        print(f"{label} traced: not measured (the profiler saw no kernel)")
+        return {}
+    total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    b9 = sum(e.time_range.elapsed_us() for e in kern
+             if "flash_attention" in e.name) / 1e3
+    # a range's device time: its CPU ops' kernels, children included
+    parts = {n.strip("_"): sum(getattr(e, "device_time_total", 0)
+                               for e in events
+                               if e.device_type == DeviceType.CPU
+                               and e.name == f"moe.{n}") / 1e3
+             for n in MOE_PARTS}
+    rest = total - b9 - sum(parts.values())
+    out = {"kernels": len(kern), "device_ms": total, "b9_ms": b9,
+           **{f"{n}_ms": v for n, v in parts.items()}, "rest_ms": rest}
+    idle = ""
+    if wall_ms:
+        out["idle_share"] = 1 - total / wall_ms
+        idle = (f"; device idle {out['idle_share']:.1%} of the untraced "
+                f"{wall_ms:.2f} ms")
+    print(f"{label} {CARD}: traced (torch.profiler): {len(kern)} kernels, "
+          f"device time {total:.2f} ms: B9 {b9:.2f}, "
+          + ", ".join(f"{n} {v:.2f}" for n, v in parts.items())
+          + f", the rest {rest:.2f} ms{idle} (information)")
+    return out
+
+
+def free_device() -> None:
+    """Return freed tensors' memory to the card: a ``Server`` holds its
+    weights in a reference cycle (its decode closure), which only the
+    collector breaks."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serve(dev, params, cfg, prompts, label, trace=False) -> dict:
+    """The ``Server`` (built on SMOKE: its config, weights and cache then
+    swapped for ``cfg`` / ``params``) serving ``prompts``; 0 B9 launches.
+    With ``trace``, one more tick with every slot busy under the profiler
+    (``traced_moe``)."""
+    import torch
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import api
+    srv = Server(MOE_ARCH, slots=SERVE_REQUESTS, max_len=256, device=dev)
+    srv.cfg, srv.params = cfg, params
+    srv.cache = api.init_cache(cfg, srv.slots, srv.max_len, device=dev)
+    out = {}
+    with torch.no_grad():
+        out["stats"], out["reqs"] = serve_lm(srv, prompts, label)
+        if trace:
+            for i, p in enumerate(prompts):
+                srv.submit(Request(len(prompts) + i, p, SERVE_NEW))
+            srv.tick()              # admits every request
+            srv.tick()
+            out["trace"] = traced_moe(f"{label} one tick, 4 slots busy",
+                                      srv.tick,
+                                      out["stats"]["mean_tick_ms"])
+            if srv.run_until_drained()["failed"]:
+                fail(f"{label} the traced run failed a request")
+    return out
+
+
+def moe_lm(dev, flash_rows) -> dict:
+    """(mo1), (sm), (mo2), (mo3): moonshot-v1-16b-a3b (48 layers, d_model
+    2048, 16/16 heads, 64 experts of d_ff 1408, top-6, vocab 163840) and
+    one layer of kimi-k2-1t-a32b (d_model 7168, 64/8 heads of 112, 384
+    experts of d_ff 2048, top-8), random weights from the port's ``init``
+    on the card.  Returns the B9 launches of each phase and numbers for
+    the kernels line."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    repro_torch.strict_fp32()
+    free_device()
+    rec = {"launches": {}}
+    cfg16 = configs.get_config(MOE_ARCH)
+    cfg32 = cfg16.replace(n_layers=MO1_LAYERS, param_dtype="float32",
+                          compute_dtype="float32")
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg16.vocab, (LM_REQUESTS + 4, LM_S),
+                           generator=tgen, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg16.vocab, size=SERVE_PROMPT)
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+
+    # (mo1) f32 at a depth cut, routing pinned
+    t0 = time.perf_counter()
+    params = api.init(cfg32, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"(mo1) {CARD}: {MOE_ARCH} f32, depth cut to {MO1_LAYERS} of "
+          f"{cfg16.n_layers} layers (f32 at full depth would be "
+          f"{4 * cfg16.param_count() / 1e9:.1f} GB): "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mo1 = moe_prefill_gate("(mo1)", params, cfg32, tokens[:1], MO1_LAYERS,
+                           LOGITS_TOL)
+    rec["launches"]["mo1"] = mo1.pop("launches")
+    rec["mo1"] = mo1
+
+    # (sm) f32: the server against sequential greedy on the same weights
+    sm = moe_serve(dev, params, cfg32, prompts, "(sm) f32")
+    with torch.no_grad():
+        for r, p in zip(sm["reqs"], prompts):
+            want = sequential_greedy(params, cfg32, p, SERVE_NEW, 256, dev)
+            if r.out != want:
+                fail(f"(sm) request {r.rid}: server {r.out} != sequential "
+                     f"greedy {want}")
+    print(f"(sm) f32: all {len(prompts)} requests equal a sequential "
+          f"greedy decode, token for token")
+    del params, sm
+    free_device()
+
+    # (mo2) bf16 at full depth, built at the config's dtypes
+    t0 = time.perf_counter()
+    params = api.init(cfg16, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    dtypes = sorted({str(p.dtype).removeprefix("torch.")
+                     for p in params.parameters()})
+    print(f"(mo2) {CARD}: {MOE_ARCH} bf16 at full depth: {n_params:,} "
+          f"parameters ({cfg16.param_count():,} by the config; dtypes "
+          f"{dtypes}), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_params != cfg16.param_count() + cfg16.n_layers * (
+            2 * cfg16.d_model) + cfg16.d_model:
+        fail("(mo2) the model's parameters differ from the config's count "
+             "plus its norm scales")
+    per_forward = cfg16.n_layers
+    kernel_ms = flash_rows[f"{MOE_ARCH} S={LM_S} b=1 bfloat16"]["ms"]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        times = []
+        for i in range(LM_REQUESTS):
+            t0 = time.perf_counter()
+            o = api.prefill(params, cfg16, {"tokens": tokens[i:i + 1]})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if o.shape != (1, 1, cfg16.vocab) or not torch.isfinite(o).all():
+                fail(f"(mo2) batch-1 logits {tuple(o.shape)} or not finite")
+        t0 = time.perf_counter()
+        o4 = api.prefill(params, cfg16, {"tokens": tokens[-4:]})
+        torch.cuda.synchronize()
+        b4_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        n = fa.LAUNCHES["flash_attention"]
+        rec["launches"]["mo2"] = n
+        if n != per_forward * (LM_REQUESTS + 1):
+            fail(f"(mo2) {n} B9 launches, expected "
+                 f"{per_forward * (LM_REQUESTS + 1)}")
+        if o4.shape != (4, 1, cfg16.vocab) or not torch.isfinite(o4).all():
+            fail(f"(mo2) batch-4 logits {tuple(o4.shape)} or not finite")
+        p50 = statistics.median(times[1:])
+        print(f"(mo2) {CARD}: bf16 prefill S={LM_S}: batch-1 p50 {p50:.2f} "
+              f"ms over {len(times) - 1} requests "
+              f"{[round(t, 2) for t in times]} (the first discarded); minus "
+              f"{per_forward} x B9 {kernel_ms:.4f} ms: "
+              f"{p50 - per_forward * kernel_ms:.2f} ms; batch 4 {b4_ms:.2f} "
+              f"ms; peak device memory {peak / 2 ** 30:.3f} GiB, of which "
+              f"{resident / 2 ** 30:.3f} GiB resident at the start; B9 "
+              f"launches {n}")
+        reset_launches()
+        api.prefill(params, cfg16, {"tokens": tokens[:1, :LM_S - 1]})
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"]:
+            fail(f"(mo2) a {LM_S - 1}-token prompt launched the kernel")
+        print(f"(mo2) a {LM_S - 1}-token prompt: 0 B9 launches (_sdpa)")
+        reset_launches()
+        trace = traced_moe("(mo2) one bf16 prefill", lambda: api.prefill(
+            params, cfg16, {"tokens": tokens[1:2]}), p50)
+        rec["launches"]["mo2_traced"] = fa.LAUNCHES["flash_attention"]
+    rec["mo2"] = {"prefill_p50_ms": p50, "prefill_b4_ms": b4_ms,
+                  "p50_minus_b9_ms": p50 - per_forward * kernel_ms,
+                  "peak_bytes": peak, "resident_bytes": resident,
+                  "per_forward": per_forward, "trace": trace}
+    del o, o4
+
+    # (sm) bf16: the same server run timed, then with the int8 cache
+    sm = moe_serve(dev, params, cfg16, prompts, "(sm) bf16", trace=True)
+    rec["sm"] = {k: sm["stats"][k] for k in ("mean_tick_ms", "p95_tick_ms",
+                                             "ticks", "completed")}
+    rec["sm"]["trace"] = sm["trace"]
+    smq = moe_serve(dev, params, cfg16.replace(kv_quant=True), prompts,
+                    "(sm) bf16, kv_quant")
+    rec["sm"]["kv_quant"] = {k: smq["stats"][k] for k in (
+        "mean_tick_ms", "p95_tick_ms", "completed")}
+    del params, sm, smq
+    free_device()
+    rec["sm"]["cli"] = serve_cli(MOE_ARCH, "(sm)")
+
+    # (mo3) kimi-k2's layer at published widths
+    kcfg = configs.get_config(KIMI_ARCH).replace(n_layers=MO3_LAYERS)
+    t0 = time.perf_counter()
+    params = api.init(kcfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"(mo3) {CARD}: {KIMI_ARCH} bf16, {MO3_LAYERS} of "
+          f"{configs.get_config(KIMI_ARCH).n_layers} layers at published "
+          f"widths: {sum(p.numel() for p in params.parameters()):,} "
+          f"parameters, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    mo3 = moe_prefill_gate("(mo3)", params, kcfg, tokens[:1], MO3_LAYERS,
+                           FA_TOL["bfloat16"])
+    rec["launches"]["mo3"] = mo3.pop("launches")
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        times = []
+        for i in range(MO3_REPS):
+            t0 = time.perf_counter()
+            api.prefill(params, kcfg, {"tokens": tokens[i + 1:i + 2]})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec["launches"]["mo3_timed"] = fa.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+    mo3.update(prefill_p50_ms=statistics.median(times), peak_bytes=peak,
+               resident_bytes=resident)
+    rec["mo3"] = mo3
+    print(f"(mo3) {CARD}: bf16 prefill S={LM_S}: p50 "
+          f"{mo3['prefill_p50_ms']:.2f} ms over {MO3_REPS} "
+          f"{[round(t, 2) for t in times]}; peak {peak / 2 ** 30:.3f} GiB, "
+          f"{resident / 2 ** 30:.3f} GiB resident at the start; B9 launches "
+          f"{rec['launches']['mo3_timed']}")
+    del params
+    free_device()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3903,6 +4392,9 @@ def main() -> int:
     # LM serving: (la) B9 at the full-width shapes, (dl) prefill, (sl)
     flash_rows = flash_check(dev, torch.empty(128 * 2 ** 20 // 4, device=dev))
     lm_totals = lm(dev, flash_rows)
+    # the MoE family: (mo1), (sm), (mo2), (mo3)
+    moe_rec = moe_lm(dev, flash_rows)
+    print(f"(mo) {CARD}: " + json.dumps({"moe": moe_rec}))
 
     # every process this run started (nvcc, nvidia-smi, the table pool and
     # its resource tracker) has ended
@@ -4045,18 +4537,23 @@ def main() -> int:
             row["resnet18"]["bound_by"] = rt["by"]
         kernels.append(row)
     main_row = flash_rows[f"{LM_ARCH} S={LM_S} b=1 bfloat16"]
-    if lm_totals["launches"] < 1:
+    moe_launches = sum(moe_rec["launches"].values())
+    if lm_totals["launches"] < 1 or moe_launches < 1:
         fail("flash_attention was not launched by the prefill")
-    print(f"(e) flash_attention: ok, launches={lm_totals['launches']} "
-          f"({lm_totals['per_forward']} per prefill forward)")
+    print(f"(e) flash_attention: ok, launches="
+          f"{lm_totals['launches'] + moe_launches} "
+          f"({lm_totals['per_forward']} per qwen3-8b prefill forward, "
+          f"{moe_rec['mo2']['per_forward']} per moonshot forward; the MoE "
+          f"phases {moe_rec['launches']})")
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": csrc + "flash_attention_bf16.cu",
         "f32_source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": lm_totals["launches"],
+        "launches": lm_totals["launches"] + moe_launches,
         "per_forward": lm_totals["per_forward"],
+        "moe_launches": moe_rec["launches"],
         "max_abs_err": max(r["abs_err"] for r in flash_rows.values()),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -52,8 +52,9 @@ def lm_params_from_numpy(tree: dict, cfg, device) -> ParamTree:
     """The reference's LM parameters (``{"embed", "blocks": {...},
     "final_norm", "unembed"?}`` with every block leaf stacked on a
     leading ``n_layers`` axis, as numpy) as this package's model on
-    ``device``: the blocks sliced per layer, each leaf's dtype kept."""
-    if cfg.family != "dense":
+    ``device``: the blocks sliced per layer, each leaf's dtype kept (an
+    MoE block's router stays f32 beside bf16 experts)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} has no port yet")
     for a in _leaves(tree["blocks"]):
         if np.shape(a)[:1] != (cfg.n_layers,):

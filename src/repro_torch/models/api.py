@@ -2,9 +2,10 @@
 (counterpart of ``repro.models.api``).
 
 Families: ``dense`` (decoder-only transformer: qwen3, yi, smollm,
-h2o-danube, the chameleon backbone) runs here.  ``moe``, ``hybrid``,
-``xlstm`` and ``encdec`` are later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+h2o-danube, the chameleon backbone) and ``moe`` (the same stack with an
+MoE feed-forward: moonshot, kimi-k2) run here.  ``hybrid``, ``xlstm`` and
+``encdec`` are later slices and raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -17,8 +18,6 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 _LATER = {
-    "moe": "the MoE family (moe.py, forward_ep) is a later slice "
-           "(ROADMAP A13)",
     "hybrid": "the hybrid Mamba2 family (hybrid.py, ssm.py) is a later "
               "slice (ROADMAP A13)",
     "xlstm": "the xLSTM family (xlstm.py, xlstm_model.py) is a later slice "
@@ -31,7 +30,7 @@ _LATER = {
 def module(cfg: ModelConfig):
     if cfg.family in _LATER:
         raise NotImplementedError(_LATER[cfg.family])
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown model family {cfg.family!r}")
     return transformer
 

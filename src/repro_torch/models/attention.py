@@ -11,9 +11,12 @@
     materialised ``_sdpa`` in torch ops.
 Decode attends over the cache with ``_sdpa``.
 
-``init_cache`` / ``decode_step`` keep a ring-buffered cache per layer;
-``decode_step`` writes the new key and value into it in place (the
-reference returns an updated copy) and returns it.
+``init_cache`` / ``decode_step`` keep a ring-buffered cache per layer,
+in the compute dtype (``KVCache``) or int8 with a f32 scale per (token,
+head) row (``QuantKVCache``, ``quant=True``); ``decode_step`` writes the
+new key and value into it in place (the reference returns an updated
+copy) and returns it.  The int8 cache is dequantized whole in the
+compute dtype on every step, as the reference does.
 """
 
 from __future__ import annotations
@@ -208,30 +211,66 @@ class KVCache(NamedTuple):
     v: torch.Tensor     # [B, G, L, D]
 
 
+class QuantKVCache(NamedTuple):
+    """Int8 ring-buffered KV cache with symmetric per-(token, head)
+    scales: half the bytes of a bf16 cache (plus 4 bytes a row)."""
+
+    k_q: torch.Tensor   # int8 [B, G, L, D]
+    v_q: torch.Tensor   # int8 [B, G, L, D]
+    k_s: torch.Tensor   # f32  [B, G, L, 1]
+    v_s: torch.Tensor   # f32  [B, G, L, 1]
+
+
+def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [..., D] -> (int8 values, f32 scale over the last dim).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.to(torch.float32)
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                dtype=torch.float32, quant: bool = False, *,
-               device) -> KVCache:
-    if quant:
-        raise NotImplementedError(
-            "the int8 KV cache (kv_quant) is a later slice (ROADMAP A13)")
+               device) -> KVCache | QuantKVCache:
     length = min(max_len, cfg.window) if cfg.window else max_len
     shape = (batch, cfg.n_kv_heads, length, cfg.head_dim)
+    if quant:
+        sshape = shape[:-1] + (1,)
+        return QuantKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device),
+            torch.ones(sshape, dtype=torch.float32, device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def decode_step(params, cfg: AttnConfig, x: torch.Tensor, cache: KVCache,
-                pos) -> tuple[torch.Tensor, KVCache]:
+def decode_step(params, cfg: AttnConfig, x: torch.Tensor,
+                cache: KVCache | QuantKVCache, pos
+                ) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
     """One-token attention.  x: [B, 1, d], pos: [] or [B] current index.
-    Writes the new key/value into ``cache`` in place and returns it."""
+    Writes the new key/value (int8 rows and their scales in a
+    ``QuantKVCache``) into ``cache`` in place and returns it."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
     q, k_new, v_new = _project_qkv(params, cfg, x, pos[:, None])
-    length = cache.k.shape[2]
+    quant = isinstance(cache, QuantKVCache)
+    length = (cache.k_q if quant else cache.k).shape[2]
     slot = (pos % length).long()
     bidx = torch.arange(b, device=x.device)
-    cache.k[bidx, :, slot] = k_new[:, :, 0].to(cache.k.dtype)
-    cache.v[bidx, :, slot] = v_new[:, :, 0].to(cache.v.dtype)
+    if quant:
+        for rows, vals, scales in ((k_new, cache.k_q, cache.k_s),
+                                   (v_new, cache.v_q, cache.v_s)):
+            qv, sc = _quantize_rows(rows[:, :, 0])
+            vals[bidx, :, slot] = qv
+            scales[bidx, :, slot] = sc
+        k = cache.k_q.to(x.dtype) * cache.k_s.to(x.dtype)
+        v = cache.v_q.to(x.dtype) * cache.v_s.to(x.dtype)
+    else:
+        cache.k[bidx, :, slot] = k_new[:, :, 0].to(cache.k.dtype)
+        cache.v[bidx, :, slot] = v_new[:, :, 0].to(cache.v.dtype)
+        k, v = cache.k, cache.v
 
     # absolute positions of cache slots (ring arithmetic)
     slots = torch.arange(length, device=x.device)[None, :]       # [1, L]
@@ -239,7 +278,6 @@ def decode_step(params, cfg: AttnConfig, x: torch.Tensor, cache: KVCache,
     k_pos = slots - wrap + (pos[:, None].long() // length) * length
     k_valid = (k_pos >= 0) & (k_pos <= pos[:, None])
 
-    out = _sdpa(q, cache.k, cache.v, cfg, pos[:, None], k_pos,
-                kv_valid=k_valid)
+    out = _sdpa(q, k, v, cfg, pos[:, None], k_pos, kv_valid=k_valid)
     out = out.transpose(1, 2).reshape(b, 1, -1)
     return out @ params["wo"].to(x.dtype), cache

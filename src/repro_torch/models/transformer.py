@@ -1,10 +1,12 @@
-"""Decoder-only transformer stack, dense family (counterpart of
+"""Decoder-only transformer stack, dense and MoE families (counterpart of
 ``repro.models.transformer``).
 
 The parameters are a ``layers.ParamTree`` whose ``blocks`` is an
 ``nn.ModuleList`` of per-layer trees (the reference stacks them on a
 leading axis and scans); the stack is a Python loop over it.  ``remat``
-is a training knob and is not read here.
+is a training knob and is not read here.  An MoE block runs
+``moe.forward``; the reference's dispatch to ``moe.forward_ep`` under a
+``ShardCtx`` waits for the port's ``distributed/ctx.py``.
 """
 
 from __future__ import annotations
@@ -14,17 +16,8 @@ import torch
 import repro_torch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "the MoE family (moe.py, forward_ep) is a later slice "
-            "(ROADMAP A13)")
-    if cfg.family != "dense":
-        raise ValueError(f"transformer runs the dense family, got "
-                         f"{cfg.family!r}")
 
 
 def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -33,6 +26,11 @@ def attn_config(cfg: ModelConfig) -> attn.AttnConfig:
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         window=cfg.window, use_rope=True)
+
+
+def moe_config(cfg: ModelConfig) -> moe_lib.MoEConfig:
+    return moe_lib.MoEConfig(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                             cfg.top_k, cfg.capacity_factor)
 
 
 def _norm_init(cfg: ModelConfig, device) -> dict:
@@ -50,18 +48,26 @@ def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def init_block(cfg: ModelConfig, *, generator: torch.Generator,
                device) -> dict:
-    _dense_only(cfg)
     kw = dict(generator=generator, device=device)
-    mlp_init = L.gelu_mlp_init if cfg.mlp == "gelu" else L.swiglu_mlp_init
-    return {
+    p = {
         "attn_norm": _norm_init(cfg, device),
         "attn": attn.init(attn_config(cfg), cfg.pdt, **kw),
         "mlp_norm": _norm_init(cfg, device),
-        "mlp": mlp_init(cfg.d_model, cfg.d_ff, cfg.pdt, **kw),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init(moe_config(cfg), cfg.pdt, **kw)
+    elif cfg.mlp == "gelu":
+        p["mlp"] = L.gelu_mlp_init(cfg.d_model, cfg.d_ff, cfg.pdt, **kw)
+    else:
+        p["mlp"] = L.swiglu_mlp_init(cfg.d_model, cfg.d_ff, cfg.pdt, **kw)
+    return p
 
 
 def _mlp(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward: the MoE layer (its aux dropped) or the
+    dense MLP."""
+    if cfg.family == "moe":
+        return moe_lib.forward(p["moe"], moe_config(cfg), h)[0]
     if cfg.mlp == "gelu":
         return L.gelu_mlp(p["mlp"], h)
     return L.swiglu_mlp(p["mlp"], h)
@@ -76,8 +82,8 @@ def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
-                 cache: attn.KVCache, pos
-                 ) -> tuple[torch.Tensor, attn.KVCache]:
+                 cache: attn.KVCache | attn.QuantKVCache, pos
+                 ) -> tuple[torch.Tensor, attn.KVCache | attn.QuantKVCache]:
     h = apply_norm(cfg, p["attn_norm"], x)
     y, cache = attn.decode_step(p["attn"], attn_config(cfg), h, cache, pos)
     x = x + y
@@ -93,8 +99,7 @@ def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
          device=None) -> L.ParamTree:
     """Random weights on ``device`` (default: the card), drawn by
     ``generator`` (default: seed 0 on ``device``), each made in the
-    config's parameter dtype."""
-    _dense_only(cfg)
+    config's parameter dtype (an MoE router in f32)."""
     device = repro_torch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -132,7 +137,6 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens: [B, S] int (or [B, S, d] frames for stub frontends).
     ``last_only`` heads only the final position (prefill serving).
     ``positions`` default to ``arange(S)`` in every row."""
-    _dense_only(cfg)
     if tokens.dim() == 2:
         x = embed_tokens(params, cfg, tokens)
     else:
@@ -145,20 +149,19 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device=None) -> list[attn.KVCache]:
-    """One ring-buffered KV cache per layer, in the compute dtype."""
+               device=None) -> list[attn.KVCache | attn.QuantKVCache]:
+    """One ring-buffered KV cache per layer: in the compute dtype, or
+    int8 with f32 row scales when ``cfg.kv_quant``."""
     device = repro_torch.resolve_device(device)
     return [attn.init_cache(attn_config(cfg), batch, max_len, cfg.cdt,
                             quant=cfg.kv_quant, device=device)
             for _ in range(cfg.n_layers)]
 
 
-def decode(params, cfg: ModelConfig, token: torch.Tensor,
-           cache: list[attn.KVCache], pos
-           ) -> tuple[torch.Tensor, list[attn.KVCache]]:
+def decode(params, cfg: ModelConfig, token: torch.Tensor, cache: list, pos
+           ) -> tuple[torch.Tensor, list]:
     """token: [B, 1] int; pos: scalar or [B] absolute position.  The
     caches are updated in place and returned."""
-    _dense_only(cfg)
     x = embed_tokens(params, cfg, token)
     # one copy of a host position to the device, not one per layer
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)

@@ -1443,7 +1443,9 @@ def test_plane_os_kernel_runs_on_the_tensor_cores():
 @pytest.mark.parametrize("arch,s,b", [("qwen3-8b", 4096, 1),
                                       ("qwen3-8b", 4096, 4),
                                       ("h2o-danube-1.8b", 8192, 1),
-                                      ("smollm-135m", 4096, 1)])
+                                      ("smollm-135m", 4096, 1),
+                                      ("moonshot-v1-16b-a3b", 4096, 1),
+                                      ("kimi-k2-1t-a32b", 4096, 1)])
 def test_flash_attention_f32_at_prefill_shapes_on_card(arch, s, b):
     """B9 f32 at the full-width (la) shapes (each config's heads, head
     dim and window; causal): within 2e-6 of max|plain|, bitwise on
@@ -1967,3 +1969,91 @@ def test_one_call_scheduled_group_size_raises_on_card():
                                             bias=b)
     ref = fsc.fused_spectral_conv2d_scheduled(x, sk, geo, n_par=64, bias=b)
     assert float((y.cpu() - ref).abs().max() / ref.abs().max()) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# The MoE layer and the int8 KV cache on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_moe_forward_f32_on_card_matches_cpu():
+    """moonshot's MoE layer at published widths (64 experts of d_ff 1408
+    over d_model 2048, top-6), two routing groups of 128 tokens, f32 on
+    the same weights: the card routes every (token, k) slot to the CPU's
+    expert, drops the same slots, and its output is within 1e-5 of
+    max|cpu|."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    repro_torch.strict_fp32()
+    cfg = tf.moe_config(configs.get_config("moonshot-v1-16b-a3b"))
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init(cfg, generator=gen, device="cpu")
+    x = torch.randn((2, 128, cfg.d_model), generator=gen)
+    cparams = {k: v.cuda() for k, v in params.items()}
+    y, aux = moe.forward(params, cfg, x)
+    yc, auxc = moe.forward(cparams, cfg, x.cuda())
+    assert torch.equal(moe.route(cparams, cfg, x.cuda())[2].cpu(),
+                       moe.route(params, cfg, x)[2])
+    # the same slots dropped (the two means may round apart by an ulp)
+    assert float(auxc["dropped_frac"]) == pytest.approx(
+        float(aux["dropped_frac"]), abs=1e-6)
+    assert _rel(yc.cpu(), y) <= 1e-5, _rel(yc.cpu(), y)
+
+
+@pytest.mark.gpu
+def test_quantize_rows_on_card_matches_cpu():
+    """The int8 row quantizer on the same inputs, the card against the
+    CPU: codes equal (x / scale divides in IEEE f32 on both, rounding
+    half to even), scales within 1e-6 relative (the card divides the row
+    max by 127 as a product with 1/127, one ulp apart)."""
+    need_card()
+    from repro_torch.models import attention as attn
+    x = torch.randn((4, 8, 64, 128), generator=torch.Generator()
+                    .manual_seed(0)) * 5
+    x[0, 0, 0, :4] = torch.tensor([254.0, 1.0, 3.0, -5.0])   # halves
+    q, s = attn._quantize_rows(x)
+    qc, sc = attn._quantize_rows(x.cuda())
+    assert torch.equal(qc.cpu(), q)
+    assert _rel(sc.cpu(), s) <= 1e-6
+    assert q[0, 0, 0, :4].tolist() == [127, 0, 2, -2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-8b", "h2o-danube-1.8b"])
+def test_kv_quant_decode_on_card_matches_cpu(arch):
+    """SMOKE with the int8 cache (danube's 16-slot ring wraps), 20
+    teacher-forced decode steps at batch 2 on the card and on the CPU
+    from the same weights.  Once a key or value an ulp from a rounding
+    half takes the next code on one side (1/127 of its row's max), the
+    two chains drift apart: the logits of every step stay within 1e-2 of
+    max|cpu|, codes within one step, scales within 1e-2."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.models import api
+    repro_torch.strict_fp32()
+    cfg = configs.get_smoke_config(arch).replace(kv_quant=True)
+    params = api.init(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    cparams = api.init(cfg, generator=torch.Generator(device="cuda")
+                       .manual_seed(0))
+    cparams.load_state_dict(params.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    cache = api.init_cache(cfg, 2, 32, device="cpu")
+    ccache = api.init_cache(cfg, 2, 32, device="cuda")
+    with torch.no_grad():
+        for t in range(20):
+            lg, cache = api.decode(params, cfg, toks[:, t:t + 1], cache, t)
+            clg, ccache = api.decode(cparams, cfg, toks[:, t:t + 1].cuda(),
+                                     ccache, t)
+            assert _rel(clg.cpu(), lg) <= 1e-2, (t, _rel(clg.cpu(), lg))
+    for c, cc in zip(cache, ccache):
+        assert cc.k_q.dtype == torch.int8 and cc.k_s.dtype == torch.float32
+        for q, cq in ((c.k_q, cc.k_q), (c.v_q, cc.v_q)):
+            assert int((cq.cpu().int() - q.int()).abs().max()) <= 1
+        for sc, csc in ((c.k_s, cc.k_s), (c.v_s, cc.v_s)):
+            assert _rel(csc.cpu(), sc) <= 1e-2

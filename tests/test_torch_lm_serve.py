@@ -160,8 +160,12 @@ def test_server_defaults_to_cuda_and_refuses_recurrent_families():
             serve.Server("smollm-135m")
     with pytest.raises(ValueError, match="KV-cache families"):
         serve.Server("xlstm-350m", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        serve.Server("moonshot-v1-16b-a3b", device="cpu")
+    # the MoE family is a KV-cache family: a moonshot SMOKE server serves
+    srv = serve.Server("moonshot-v1-16b-a3b", slots=2, max_len=32,
+                       device="cpu")
+    srv.submit(serve.Request(0, np.asarray([3, 1, 4], np.int32), 5))
+    stats = srv.run_until_drained()
+    assert stats["completed"] == 1 and stats["failed"] == 0
 
 
 def test_main_cli_on_cpu(capsys):

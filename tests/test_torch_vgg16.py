@@ -267,6 +267,7 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.whisper_medium",
             "repro_torch.models.config", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.models.api",
+            "repro_torch.models.moe",
             "repro_torch.kernels.ref", "repro_torch.kernels.flash_attention",
             "repro_torch.launch.serve"} <= imported
 
