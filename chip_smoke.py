@@ -239,6 +239,40 @@ each of which fails the run on error:
       discarded) and peak memory at batch 4, max_len 32768, for both
       caches (information: the int8 cache is dequantized whole every
       step, as in the reference);
+  (tr1) training's attention route: smollm-135m CONFIG in f32, batch 1,
+      S 4096, on weights drawn on the card: ``api.loss_fn`` and every
+      gradient leaf through ``impl="auto"`` (under autograd
+      ``_chunked_sdpa``, 0 B9 launches) against the materialised
+      ``_sdpa`` (``CHUNKED_THRESHOLD`` patched above S; gates: the loss
+      within 1e-5 relative, each leaf within 1e-4 of its max|g|); a
+      direct ``flash_attention`` call on an input that requires grad
+      must raise; a ``torch.no_grad()`` prefill at S launches B9 30 times;
+  (tr2) ``launch/train.py::train`` at full smollm-135m width (f32
+      parameters, bf16 compute, remat), batch 16 x 1024, lr 1e-3, 30
+      steps into a temporary directory: every loss finite (whether the
+      last 5 are below the first 5 is printed, not gated: at this
+      learning rate the loss rises for ~30 steps and is back below its
+      start only after ~60; (tr4) gates the fall); median step, tokens/s,
+      the model-FLOP share (6 N tokens a step over the step time, of the
+      989 TFLOP/s bf16 peak), peak memory beside the parameters and AdamW
+      moments, stragglers; then 5 steps each of the same training, with
+      remat off, ``remat_policy="dots"`` and Adafactor (finite; peak
+      memory and median step, and one more step traced by
+      ``torch.profiler``: kernels, device time, idle share; information); one
+      step's gradients through ``compress`` / ``decompress`` within the
+      reference's round-trip bound, and the wire bytes;
+  (tr3) kill and resume: ``python -m repro_torch.launch.train --arch
+      smollm-135m --config-set full --steps 10 --batch 4 --seq-len 256
+      --ckpt-every 4 --simulate-failure 5`` as its own process exits 42,
+      the same command without ``--simulate-failure`` exits 0 with
+      ``resumed from step 4`` and ``done: step 10``, and its final loss
+      equals a straight 10-step run's within rtol 1e-5 (whether bitwise
+      is printed, and if not, the gradient leaves two identical passes do
+      not reproduce); no B9 launch while (tr2) and (tr3) train here;
+  (tr4) ``examples/torch_train_lm.py --full`` (200 steps of (tr2)'s
+      training) as its own process: exit 0 with its loss line (it
+      asserts the last 10 losses below the first 10), its losses at steps
+      10-30 equal to (tr2)'s as printed;
   (mo1) moonshot-v1-16b-a3b (the MoE family: 64 experts, top-6) at
       published widths in f32, depth cut to 16 of 48 layers (MO1_LAYERS:
       ~39 GB; 48 would be 112 GB): a 4096-token ``api.prefill`` (16 B9
@@ -375,8 +409,8 @@ plane plans are freed; (c2), (d2), (c4), (d4), the scheduled kernel's (c8),
 every plan is freed; (c7), (d5), (s), (ds), (dh), (rp), (oa), (ex);
 VGG16's weights and plans are freed; (r), (dr),
 ResNet-18's (c8) and (d7), (ds), (h) on (dr), (dr4); (la), (dl), (sl),
-(kq); qwen3-8b is freed; (mo1), (sm) f32; (mo2), (sm) bf16; moonshot is
-freed; the moonshot serve command; (mo3); (e).  So each
+(kq); qwen3-8b is freed; (tr1)-(tr4); (mo1), (sm) f32; (mo2), (sm)
+bf16; moonshot is freed; the moonshot serve command; (mo3); (e).  So each
 serve's peak device memory holds the weights and the plans of its own
 kind only (the resident bytes at its start are
 printed beside it).  REPS (15 since the ResNet-18 phases came; 25
@@ -391,6 +425,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2554,6 +2589,14 @@ MO1_LAYERS = 16        # (mo1), (sm) f32: moonshot's depth cut (of 48)
 MO3_LAYERS = 1         # (mo3): kimi's depth cut (of 61)
 MO3_REPS = 3           # (mo3): timed prefills
 MOE_PARTS = ("route", "_dispatch", "_experts", "_combine")   # (mo2) trace
+TR_ARCH = "smollm-135m"   # (tr1)-(tr4): the trainer's default arch
+TR_S = 4096            # (tr1): tokens, the chunked route's threshold
+TR_LOSS_TOL = 1e-5     # (tr1): loss, relative, auto vs materialised
+TR_GRAD_TOL = 1e-4     # (tr1): each gradient leaf, of its max|g|
+TR_STEPS = 30          # (tr2): train steps at full width
+TR_BATCH, TR_SEQ = 16, 1024   # (tr2): the example's --full shape
+TR_VARIANT_STEPS = 5   # (tr2): steps of each variant before its traced one
+TR3_BATCH, TR3_SEQ = 4, 256   # (tr3): the kill-and-resume commands' shape
 
 
 def causal_pairs(s: int, window: int | None) -> int:
@@ -3152,6 +3195,408 @@ def kv_quant_check(dev, params, cfg16) -> dict:
                   f"resident at the start")
             del cache, lg
     return out
+
+
+# ---------------------------------------------------------------------------
+# (tr1)-(tr4): training at full smollm-135m width
+# ---------------------------------------------------------------------------
+
+def grads_of(params, cfg, batch) -> tuple:
+    """(loss, {path: gradient}) of ``api.loss_fn`` by ``torch.autograd``."""
+    from repro_torch.models import api
+    from repro_torch.optim import tree as T
+    import torch
+    flat = T.flatten(params.tree())
+    loss = api.loss_fn(params, cfg, batch)
+    return loss.detach(), dict(zip(flat, torch.autograd.grad(
+        loss, list(flat.values()))))
+
+
+def tr_batch(cfg, seq_len, batch, step, dev) -> dict:
+    """The data pipeline's batch ``step`` on the card."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    b = batch_at(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                            global_batch=batch, seed=SEED), step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def train_route(dev) -> dict:
+    """(tr1): the attention route under autograd.  smollm-135m CONFIG in
+    f32 (remat on, as published), batch 1, S TR_S: ``loss_fn`` and every
+    gradient leaf through ``impl="auto"`` (the chunked route, which under
+    autograd is ``_chunked_sdpa``: 0 B9 launches) against the same pass
+    with ``CHUNKED_THRESHOLD`` patched above S (the materialised
+    ``_sdpa``); a direct ``flash_attention`` call on inputs that require
+    grad must raise; a ``torch.no_grad()`` prefill at the same S launches
+    B9 once a layer."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    cfg = configs.get_config(TR_ARCH).replace(compute_dtype="float32")
+    params = api.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev, trainable=True)
+    batch = tr_batch(cfg, TR_S, 1, 0, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = grads_of(params, cfg, batch)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    launched = fa.LAUNCHES["flash_attention"]
+    with mock.patch.object(attn, "CHUNKED_THRESHOLD", TR_S + 1):
+        t0 = time.perf_counter()
+        loss_ref, grads_ref = grads_of(params, cfg, batch)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    errs = {"/".join(map(str, p)): rel_err(g, grads_ref[p])
+            for p, g in grads.items()}
+    worst = max(errs, key=errs.get)
+    print(f"(tr1) {CARD}: {TR_ARCH} f32, batch 1, S={TR_S}, grad mode: "
+          f"loss {float(loss):.6f} through auto vs {float(loss_ref):.6f} "
+          f"materialised, rel err {loss_err:.3e} (gate {TR_LOSS_TOL:g}); "
+          f"{len(errs)} gradient leaves, worst {worst} at {errs[worst]:.3e} "
+          f"of its max|g| (gate {TR_GRAD_TOL:g}); B9 launches {launched}; "
+          f"forward + backward {auto_s:.2f} s chunked, {ref_s:.2f} s "
+          f"materialised")
+    finite = all(torch.isfinite(g).all() for g in grads.values())
+    if launched or loss_err > TR_LOSS_TOL or errs[worst] > TR_GRAD_TOL \
+            or not finite:
+        fail(f"(tr1) the training route: {launched} B9 launches, loss rel "
+             f"err {loss_err:.3e}, worst leaf {worst} {errs[worst]:.3e}, "
+             f"finite {finite}")
+    del grads, grads_ref
+    q = torch.randn(1, cfg.n_heads, 256, cfg.hd, device=dev,
+                    requires_grad=True)
+    k, v = (torch.randn(1, cfg.n_kv_heads, 256, cfg.hd, device=dev)
+            for _ in range(2))
+    try:
+        fa.flash_attention(q, k, v)
+    except RuntimeError as e:
+        print(f"(tr1) flash_attention on an input that requires grad "
+              f"raised: {str(e)[:90]}...")
+    else:
+        fail("(tr1) flash_attention returned an output with no grad_fn")
+    if fa.LAUNCHES["flash_attention"]:
+        fail("(tr1) the refused flash_attention call launched the kernel")
+    with torch.no_grad():
+        reset_launches()
+        out = api.prefill(params, cfg, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        n = fa.LAUNCHES["flash_attention"]
+    print(f"(tr1) a torch.no_grad() prefill at S={TR_S}: B9 launches {n} "
+          f"(per forward: {cfg.n_layers} expected)")
+    if n != cfg.n_layers or not torch.isfinite(out).all():
+        fail(f"(tr1) the no-grad prefill: {n} B9 launches or not finite")
+    del params, out
+    free_device()
+    return {"launches": n, "loss_rel_err": loss_err,
+            "worst_leaf_err": errs[worst], "auto_s": auto_s,
+            "materialised_s": ref_s}
+
+
+def traced_step(label, run, med_s) -> dict:
+    """One training step ``run()`` under ``torch.profiler``: its kernels,
+    their device time and the device's idle share of the untraced median
+    step ``med_s``, the kernels and host ops that take the most time.
+    Information only; "not measured" where the profiler saw no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"(tr2) {label} traced: not measured (the profiler saw no "
+              f"kernel)")
+        return {}
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name: dict[str, list] = {}
+    for e in kern:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    out = {"kernels": len(kern), "device_ms": busy_ms,
+           "idle_share": 1 - busy_ms / (1e3 * med_s)}
+    print(f"(tr2) {label}, one step traced (torch.profiler): {len(kern)} "
+          f"kernels, device time {busy_ms:.2f} ms; device idle "
+          f"{out['idle_share']:.1%} of the untraced median step "
+          f"{1e3 * med_s:.1f} ms (information)")
+    print("    kernels by device time: " + "; ".join(
+        f"{name[:50]} x{n} {ms:.2f} ms" for name, (ms, n) in top[:5]))
+    print("    host ops by self CPU time: " + "; ".join(
+        f"{e.key} x{e.count} {e.self_cpu_time_total / 1e3:.2f} ms"
+        for e in host[:5]))
+    return out
+
+
+def tr_variant(dev, cfg, opt_cfg, label) -> dict:
+    """TR_VARIANT_STEPS steps of ``steps.make_train_step`` at (tr2)'s
+    shape on fresh weights: every loss finite; peak memory and the median
+    step (the first discarded), then one more step traced, for
+    information."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw as optim
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev, trainable=True)
+    state = optim.init(opt_cfg, params.tree())
+    step = steps.make_train_step(cfg, opt_cfg)
+    losses, times = [], []
+    for s in range(TR_VARIANT_STEPS):
+        batch = tr_batch(cfg, TR_SEQ, TR_BATCH, s, dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    print(f"(tr2) {label}: losses {[round(x, 4) for x in losses]}, median "
+          f"step {1e3 * med:.1f} ms, peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB (information) [{CARD}]")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"(tr2) {label}: a loss is not finite")
+    batch = tr_batch(cfg, TR_SEQ, TR_BATCH, TR_VARIANT_STEPS, dev)
+    trace = traced_step(label, lambda: step(params, state, batch), med)
+    del params, state
+    return {"losses": losses, "median_step_ms": 1e3 * med,
+            "peak_bytes": peak, "trace": trace}
+
+
+def train_full(dev) -> dict:
+    """(tr2): ``launch/train.py::train`` on smollm-135m CONFIG (f32
+    parameters, bf16 compute, remat) at batch TR_BATCH x TR_SEQ, lr 1e-3,
+    TR_STEPS steps into a temporary directory (checkpoints at 20 and 30):
+    every loss finite; step time, tokens/s, the model-FLOP share (6 N
+    tokens a step over the step time, against the 989 TFLOP/s bf16 peak),
+    peak memory beside the resident parameter and optimizer bytes,
+    stragglers.  Whether the last 5 losses are below the first 5 is
+    printed, not gated: at this learning rate the loss rises for ~30
+    steps and is back below its start only after ~60 (the reference's
+    rises too at this width and rate), and (tr4) runs the same training
+    to 200 steps and gates the fall.  Then the same training, remat off,
+    ``remat_policy="dots"`` and Adafactor, TR_VARIANT_STEPS steps each
+    and one traced;
+    then one step's gradients through ``compress`` / ``decompress``: the
+    reference's round-trip bound (max|Δ| <= scale / 2 + 1e-6 a leaf) and
+    the wire bytes."""
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    from repro_torch.models import api
+    from repro_torch.optim import adamw as optim
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim import tree as T
+    cfg = configs.get_config(TR_ARCH)
+    n_params = sum(p.numel() for p in api.init_abstract(cfg).parameters())
+    resident = n_params * 4 * 3         # f32 parameters, mu and nu
+    tokens = TR_BATCH * TR_SEQ
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out = train(TR_ARCH, config_set="full", steps=TR_STEPS,
+                    batch=TR_BATCH, seq_len=TR_SEQ, lr=1e-3, ckpt_dir=d,
+                    device=dev)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    med = out["median_step_s"]
+    flops = 6 * cfg.param_count() * tokens
+    share = flops / med / PEAK_BF16_FLOPS
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"(tr2) {CARD}: train({TR_ARCH!r}, config_set='full', batch="
+          f"{TR_BATCH}, seq_len={TR_SEQ}, lr=1e-3), {TR_STEPS} steps in "
+          f"{wall:.1f} s: loss {first:.4f} (first 5) -> {last:.4f} (last "
+          f"5); median step {1e3 * med:.1f} ms, {tokens / med:,.0f} "
+          f"tokens/s, model FLOP share {100 * share:.2f} % (6 x "
+          f"{cfg.param_count():,} x {tokens} per step over the step time, "
+          f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16); peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB, parameters + AdamW moments "
+          f"{resident / 2 ** 30:.3f} GiB ({n_params:,} parameters); "
+          f"stragglers {out['stragglers']}")
+    print(f"      losses {[round(x, 4) for x in losses]}; the last 5 "
+          f"below the first 5: {last < first} (information: at this rate "
+          f"the loss rises for ~30 steps; (tr4) gates the fall)")
+    if not all(math.isfinite(x) for x in losses) \
+            or out["final_step"] != TR_STEPS:
+        fail(f"(tr2) a loss is not finite: {losses}")
+    rec = {"losses": losses,
+           "median_step_ms": 1e3 * med, "tokens_per_s": tokens / med,
+           "model_flop_share": share, "peak_bytes": peak,
+           "resident_bytes": resident, "stragglers": out["stragglers"],
+           "first5": first, "last5": last}
+    adamw = optim.OptimizerConfig(lr=1e-3)
+    rec["variants"] = {
+        label: tr_variant(dev, c, o, label) for label, c, o in (
+            ("AdamW, remat (as above)", cfg, adamw),
+            ("remat off", cfg.replace(remat=False), adamw),
+            ("remat_policy='dots'", cfg.replace(remat_policy="dots"), adamw),
+            ("Adafactor", cfg, optim.OptimizerConfig(name="adafactor",
+                                                     lr=1e-3)))}
+    free_device()
+    params = api.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev, trainable=True)
+    _, flat = grads_of(params, cfg, tr_batch(cfg, TR_SEQ, TR_BATCH, 0, dev))
+    grads = T.from_flat(params.tree(), flat)
+    c, _ = comp.compress(grads, comp.init_residual(grads))
+    back = comp.decompress(c)
+    worst = 0.0
+    for path, g in flat.items():
+        err = float((T.get(back, path) - g.float()).abs().max())
+        scale = float(T.get(c, path).scale)
+        worst = max(worst, err / scale)
+        if err > scale / 2 + 1e-6:
+            fail(f"(tr2) compress round trip of {path}: {err:.3e} > "
+                 f"scale / 2 = {scale / 2:.3e}")
+    full, small = comp.wire_bytes(grads)
+    print(f"(tr2) compress / decompress of one step's gradients: max|Δ| "
+          f"<= {worst:.4f} x scale a leaf (bound 0.5 + 1e-6 / scale); wire "
+          f"bytes {small:,} int8 vs {full:,} f32 ({full / small:.3f}x)")
+    rec["compression"] = {"worst_over_scale": worst, "wire_bytes": small,
+                          "f32_bytes": full}
+    del params, flat, grads, c, back
+    free_device()
+    return rec
+
+
+def run_train_cmd(argv, label) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *argv], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    print(f"{label} {' '.join(argv)}: exit {run.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    for line in run.stdout.strip().splitlines()[-4:]:
+        print(f"     | {line[:200]}")
+    return run
+
+
+def grad_repeat_diffs(dev, cfg) -> list[str]:
+    """The gradient leaves that differ between two identical passes
+    (same weights, same batch): the ops that are not deterministic on
+    the card."""
+    import torch
+    from repro_torch.models import api
+    params = api.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev, trainable=True)
+    batch = tr_batch(cfg, TR3_SEQ, TR3_BATCH, 0, dev)
+    _, a = grads_of(params, cfg, batch)
+    _, b = grads_of(params, cfg, batch)
+    return ["/".join(map(str, p)) for p in a if not torch.equal(a[p], b[p])]
+
+
+def train_resume(dev) -> dict:
+    """(tr3): kill and resume on the card.  ``python -m
+    repro_torch.launch.train --arch smollm-135m --config-set full --steps
+    10 --batch 4 --seq-len 256 --ckpt-every 4 --simulate-failure 5`` as its
+    own process must exit 42; the same command without
+    ``--simulate-failure`` must exit 0 and print ``resumed from step 4``
+    and ``done: step 10``; a straight 10-step ``train`` (in this process)
+    must end at the resumed run's final loss within rtol 1e-5.  Whether
+    they are bitwise equal is printed, and if not, the gradient leaves
+    that two identical passes do not reproduce."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    with tempfile.TemporaryDirectory() as d:
+        cmd = ["-m", "repro_torch.launch.train", "--arch", TR_ARCH,
+               "--config-set", "full", "--steps", "10", "--batch",
+               str(TR3_BATCH), "--seq-len", str(TR3_SEQ), "--ckpt-every",
+               "4", "--ckpt-dir", str(Path(d) / "killed")]
+        r1 = run_train_cmd(cmd + ["--simulate-failure", "5"], "(tr3)")
+        if r1.returncode != 42:
+            print(r1.stderr[-3000:], file=sys.stderr)
+            fail(f"(tr3) the killed run exited {r1.returncode}, not 42")
+        out_json = Path(d) / "resumed.json"
+        r2 = run_train_cmd(cmd + ["--json", str(out_json)], "(tr3)")
+        if r2.returncode != 0 or "resumed from step 4" not in r2.stdout \
+                or "done: step 10" not in r2.stdout:
+            print(r2.stderr[-3000:], file=sys.stderr)
+            fail(f"(tr3) the resumed run: exit {r2.returncode}, output "
+                 f"{r2.stdout[-500:]!r}")
+        resumed = json.loads(out_json.read_text())
+        straight = train(TR_ARCH, config_set="full", steps=10,
+                         batch=TR3_BATCH, seq_len=TR3_SEQ, ckpt_every=4,
+                         ckpt_dir=str(Path(d) / "straight"), device=dev)
+    a, b = straight["losses"][-1], resumed["losses"][-1]
+    bitwise = straight["losses"][4:] == resumed["losses"]
+    rel = abs(a - b) / abs(a)
+    print(f"(tr3) final loss: straight {a!r}, killed and resumed {b!r}, "
+          f"rel diff {rel:.3e} (gate 1e-5); steps 5-10 bitwise equal: "
+          f"{bitwise}")
+    rec = {"straight": a, "resumed": b, "rel_diff": rel, "bitwise": bitwise}
+    if not bitwise:
+        cfg = configs.get_config(TR_ARCH)
+        rec["nondeterministic_grads"] = grad_repeat_diffs(dev, cfg)
+        print(f"(tr3) gradient leaves that differ between two identical "
+              f"passes: {rec['nondeterministic_grads'] or 'none'}")
+        free_device()
+    if rel > 1e-5:
+        fail(f"(tr3) the resumed run ends at {b}, the straight one at {a}")
+    return rec
+
+
+def train_example(tr2_losses) -> dict:
+    """(tr4): ``examples/torch_train_lm.py --full`` (200 steps, batch 16 x
+    1024, lr 1e-3: (tr2)'s run, longer) as its own process into a
+    temporary directory: exit 0 with its loss line (the example asserts
+    that the mean of its last 10 losses is below its first 10's), and its
+    logged losses at steps 10, 20 and 30 equal to (tr2)'s to the 4
+    decimals it prints."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        run = run_train_cmd(["examples/torch_train_lm.py", "--full",
+                             "--ckpt-dir", d], "(tr4)")
+    line = [x for x in run.stdout.splitlines() if x.startswith("[example]")]
+    if run.returncode != 0 or not line:
+        print(run.stderr[-4000:], file=sys.stderr)
+        fail(f"(tr4) the example exited {run.returncode}")
+    logged = {}
+    for x in run.stdout.splitlines():
+        if x.startswith("[train] step "):
+            f = x.split()
+            logged[int(f[2])] = float(f[4])
+    print(f"(tr4) the example's loss every 10 steps: "
+          f"{[logged[k] for k in sorted(logged)]}")
+    head = {k: round(tr2_losses[k - 1], 4) for k in (10, 20, 30)}
+    if any(logged.get(k) != v for k, v in head.items()):
+        fail(f"(tr4) the example's losses at steps 10-30 "
+             f"{[logged.get(k) for k in head]} differ from (tr2)'s "
+             f"{list(head.values())}")
+    return {"returncode": run.returncode, "line": line[-1],
+            "every_10": [logged[k] for k in sorted(logged)]}
+
+
+def training(dev) -> dict:
+    """(tr1)-(tr4).  (tr1) counts its own B9 launches (the no-grad
+    prefill's); (tr2) and (tr3)'s straight run, which train in this
+    process, must launch none."""
+    from repro_torch.kernels import flash_attention as fa
+    rec = {"tr1": train_route(dev)}
+    reset_launches()
+    rec["tr2"] = train_full(dev)
+    rec["tr3"] = train_resume(dev)
+    if fa.LAUNCHES["flash_attention"]:
+        fail(f"(tr2)/(tr3) training launched B9 "
+             f"{fa.LAUNCHES['flash_attention']} times")
+    rec["tr4"] = train_example(rec["tr2"]["losses"])
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4392,6 +4837,9 @@ def main() -> int:
     # LM serving: (la) B9 at the full-width shapes, (dl) prefill, (sl)
     flash_rows = flash_check(dev, torch.empty(128 * 2 ** 20 // 4, device=dev))
     lm_totals = lm(dev, flash_rows)
+    # training: (tr1)-(tr4)
+    tr_rec = training(dev)
+    print(f"(tr) {CARD}: " + json.dumps({"training": tr_rec}))
     # the MoE family: (mo1), (sm), (mo2), (mo3)
     moe_rec = moe_lm(dev, flash_rows)
     print(f"(mo) {CARD}: " + json.dumps({"moe": moe_rec}))
@@ -4538,22 +4986,26 @@ def main() -> int:
         kernels.append(row)
     main_row = flash_rows[f"{LM_ARCH} S={LM_S} b=1 bfloat16"]
     moe_launches = sum(moe_rec["launches"].values())
-    if lm_totals["launches"] < 1 or moe_launches < 1:
+    tr_launches = tr_rec["tr1"]["launches"]
+    if lm_totals["launches"] < 1 or moe_launches < 1 or tr_launches < 1:
         fail("flash_attention was not launched by the prefill")
     print(f"(e) flash_attention: ok, launches="
-          f"{lm_totals['launches'] + moe_launches} "
+          f"{lm_totals['launches'] + moe_launches + tr_launches} "
           f"({lm_totals['per_forward']} per qwen3-8b prefill forward, "
           f"{moe_rec['mo2']['per_forward']} per moonshot forward; the MoE "
-          f"phases {moe_rec['launches']})")
+          f"phases {moe_rec['launches']}; (tr1)'s no-grad prefill "
+          f"{tr_launches}, 0 per training step)")
     kernels.append({
         "name": "flash_attention",
         "route": "cuda",
         "source": csrc + "flash_attention_bf16.cu",
         "f32_source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": lm_totals["launches"] + moe_launches,
+        "launches": lm_totals["launches"] + moe_launches + tr_launches,
         "per_forward": lm_totals["per_forward"],
         "moe_launches": moe_rec["launches"],
+        "training_launches": {"tr1_no_grad_prefill": tr_launches,
+                              "per_training_step": 0},
         "max_abs_err": max(r["abs_err"] for r in flash_rows.values()),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -162,7 +162,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that is not a multiple of the block raises, as in the reference).
     CPU tensors run the plain version; CUDA tensors launch the kernel of
     their dtype (bf16: 128 x 128 tiles on the tensor cores; f32: 128 x 64
-    tiles on the tensor cores in 3xTF32), or raise.  (A window is clamped to [-S, S] for
+    tiles on the tensor cores in 3xTF32), or raise; the kernel has no
+    backward, so CUDA inputs that require grad under grad mode raise.  (A window is clamped to [-S, S] for
     the kernel: beyond that it masks all keys or none.)"""
     _check(q, k, v)
     b, hq, s, d = q.shape
@@ -174,6 +175,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          block_k=block_k)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # the kernel fills a fresh tensor through ctypes: its output has
+        # no grad_fn, so a backward pass would drop q/k/v's gradient
+        raise RuntimeError(
+            "flash_attention has no backward (neither has the reference's "
+            "kernel): it takes no input that requires grad under grad "
+            "mode; train through attention.forward, which routes such "
+            "inputs to _sdpa / _chunked_sdpa")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}, got "

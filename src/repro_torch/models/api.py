@@ -8,12 +8,15 @@ MoE feed-forward: moonshot, kimi-k2) run here.  ``hybrid``, ``xlstm`` and
 their ROADMAP item.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
+Training differentiates ``loss_fn`` with ``torch.autograd`` on a
+``trainable`` parameter tree (``launch/steps.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
@@ -36,10 +39,19 @@ def module(cfg: ModelConfig):
 
 
 def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
-         device=None):
+         device=None, trainable: bool = False):
     """Random weights on ``device`` (default: the card), drawn by
-    ``generator`` (default: seed 0 on that device)."""
-    return module(cfg).init(cfg, generator=generator, device=device)
+    ``generator`` (default: seed 0 on that device); parameters that take
+    a gradient when ``trainable``."""
+    return module(cfg).init(cfg, generator=generator, device=device,
+                            trainable=trainable)
+
+
+def init_abstract(cfg: ModelConfig):
+    """The parameter tree on the ``meta`` device: every shape and dtype,
+    nothing drawn and nothing allocated (kimi-k2's 1 T parameters
+    included)."""
+    return init(cfg, device="meta")
 
 
 def forward(params, cfg: ModelConfig, batch: dict,
@@ -54,6 +66,12 @@ def forward(params, cfg: ModelConfig, batch: dict,
 def prefill(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Prefill serving step: logits for the final position only."""
     return forward(params, cfg, batch, last_only=True)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch['labels']`` in f32."""
+    logits = forward(params, cfg, batch)
+    return L.cross_entropy_loss(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):

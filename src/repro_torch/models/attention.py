@@ -6,7 +6,10 @@
     on a CUDA tensor, its plain version on a CPU tensor);
   * ``'chunked'`` (and ``'auto'`` at ``s >= CHUNKED_THRESHOLD``) — the
     online-softmax attention: on a CUDA tensor with the default positions
-    the same kernel, otherwise the plain ``_chunked_sdpa``;
+    the same kernel, otherwise the plain ``_chunked_sdpa``; under
+    autograd (grad mode on and q, k or v requiring grad) always
+    ``_chunked_sdpa``, the reference's training route, since the kernel
+    has no backward;
   * otherwise (``'reference'``, ``'auto'`` below the threshold) — the
     materialised ``_sdpa`` in torch ops.
 Decode attends over the cache with ``_sdpa``.
@@ -177,16 +180,20 @@ def forward(params, cfg: AttnConfig, x: torch.Tensor,
     (what ``transformer.forward`` passes unless its caller gives
     positions); given other positions it is the plain ``_chunked_sdpa``,
     the reference's route there, which masks by the positions
-    themselves."""
+    themselves.  Under autograd that route is always ``_chunked_sdpa``
+    (the kernel has no backward)."""
     b, s, d = x.shape
     given = positions
     if positions is None:
         positions = _default_positions(b, s, x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if impl == "flash":
         out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
     elif impl == "chunked" or (impl == "auto" and s >= CHUNKED_THRESHOLD):
-        if x.device.type == "cpu" or (given is not None and not torch.equal(
+        if grad or x.device.type == "cpu" or (
+                given is not None and not torch.equal(
                 given.to(torch.int64).expand(b, s),
                 _default_positions(b, s, x.device).to(torch.int64))):
             out = _chunked_sdpa(q, k, v, cfg, positions, positions)

@@ -1,11 +1,13 @@
 """Shared layers (counterpart of ``repro.models.layers``): initializers,
-norms, rotary embeddings and MLPs as plain functions on tensors, and
-``ParamTree``, the module that holds a model's parameters.
+norms, rotary embeddings, MLPs and the cross-entropy loss as plain
+functions on tensors, and ``ParamTree``, the module that holds a model's
+parameters.
 
 Each initializer draws float32 normals from ``generator`` on the
 generator's own device and casts them to ``dtype`` on ``device`` as it
 makes them, so a full-width model drawn by a generator on the card never
-holds a float32 copy beside its bf16 weights.
+holds a float32 copy beside its bf16 weights.  On the ``meta`` device an
+initializer draws nothing and allocates nothing (``api.init_abstract``).
 """
 
 from __future__ import annotations
@@ -18,27 +20,40 @@ class ParamTree(nn.Module):
     """A model's parameters as a module, indexed like the reference's
     parameter dicts: ``tree["blocks"][3]["attn"]["wq"]``.
 
-    Built from a nested dict: a tensor becomes a parameter (inference
-    only: no gradient), a dict a sub-tree, a list an ``nn.ModuleList`` of
-    sub-trees.  ``.to(dtype)`` casts every weight in place of the old."""
+    Built from a nested dict: a tensor becomes a parameter, a dict a
+    sub-tree, a list an ``nn.ModuleList`` of sub-trees.  A parameter
+    takes a gradient only in a ``trainable`` tree (inference trees take
+    none).  ``.to(dtype)`` casts every weight in place of the old."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for key, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(key, ParamTree(value))
+                self.add_module(key, ParamTree(value, trainable))
             elif isinstance(value, list):
-                self.add_module(key, nn.ModuleList(map(ParamTree, value)))
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v, trainable) for v in value))
             else:
                 self.register_parameter(
-                    key, nn.Parameter(value, requires_grad=False))
+                    key, nn.Parameter(value, requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def tree(self) -> dict:
+        """The parameters as a nested dict (a layer list as a list), the
+        shape the optimizer and the checkpointer take."""
+        out: dict = dict(self._parameters)
+        for key, mod in self._modules.items():
+            out[key] = ([m.tree() for m in mod]
+                        if isinstance(mod, nn.ModuleList) else mod.tree())
+        return out
+
 
 def _normal(shape: tuple, scale: float, *, generator: torch.Generator,
             device, dtype) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device).mul_(scale)
     return w.to(device=device, dtype=dtype)
@@ -137,3 +152,17 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
                                  approximate="tanh")
     return h @ params["w_down"].to(x.dtype) \
         + params["b_down"].to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Mean token NLL in f32 (logsumexp minus the gold logit); labels
+    equal to ``ignore_index`` are masked, the mean taken over
+    ``max(count, 1)`` tokens."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore_index).to(torch.float32)
+    return torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)

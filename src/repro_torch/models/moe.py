@@ -51,6 +51,8 @@ def _expert_stack(e: int, rows: int, cols: int, *, generator, device,
     """[e, rows, cols] normal weights scaled by ``rows ** -0.5``, drawn a
     chunk of experts at a time and cast to ``dtype`` as drawn."""
     out = torch.empty((e, rows, cols), dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     step = max(1, _DRAW_ELEMENTS // (rows * cols))
     for lo in range(0, e, step):
         hi = min(lo + step, e)

@@ -3,15 +3,24 @@
 
 The parameters are a ``layers.ParamTree`` whose ``blocks`` is an
 ``nn.ModuleList`` of per-layer trees (the reference stacks them on a
-leading axis and scans); the stack is a Python loop over it.  ``remat``
-is a training knob and is not read here.  An MoE block runs
+leading axis and scans); the stack is a Python loop over it.  When a
+gradient is needed, ``cfg.remat`` recomputes each block in the backward
+pass (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+its block in ``jax.checkpoint``: ``remat_policy="dots"`` keeps the weight
+GEMMs' outputs (``aten.mm``, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+attention's batched products included.  An MoE block runs
 ``moe.forward``; the reference's dispatch to ``moe.forward_ep`` under a
 ``ShardCtx`` waits for the port's ``distributed/ctx.py``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 import repro_torch
 from repro_torch.models import attention as attn
@@ -81,6 +90,30 @@ def block_forward(p, cfg: ModelConfig, x: torch.Tensor,
     return x + _mlp(cfg, p, h)
 
 
+def _save_weight_gemms(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: a matmul without batch dimensions (a
+    weight GEMM) is saved, everything else recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block(blk, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor | None) -> torch.Tensor:
+    """One block, recomputed in the backward pass when ``cfg.remat`` and
+    a gradient is needed (grad mode on, and ``x`` or a weight requires
+    grad); inference runs it as it is."""
+    if not (cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad
+                                   for p in blk.parameters()))):
+        return block_forward(blk, cfg, x, positions)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_gemms)
+    return checkpoint(block_forward, blk, cfg, x, positions,
+                      use_reentrant=False, **kw)
+
+
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
                  cache: attn.KVCache | attn.QuantKVCache, pos
                  ) -> tuple[torch.Tensor, attn.KVCache | attn.QuantKVCache]:
@@ -96,12 +129,14 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
-         device=None) -> L.ParamTree:
+         device=None, trainable: bool = False) -> L.ParamTree:
     """Random weights on ``device`` (default: the card), drawn by
     ``generator`` (default: seed 0 on ``device``), each made in the
-    config's parameter dtype (an MoE router in f32)."""
+    config's parameter dtype (an MoE router in f32); parameters that
+    take a gradient when ``trainable``.  On the ``meta`` device nothing
+    is drawn or allocated."""
     device = repro_torch.resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     kw = dict(generator=generator, device=device)
     tree = {
@@ -112,7 +147,7 @@ def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         tree["unembed"] = L.dense_init(cfg.d_model, cfg.vocab, dtype=cfg.pdt,
                                        **kw)
-    return L.ParamTree(tree)
+    return L.ParamTree(tree, trainable=trainable)
 
 
 def logits_head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -142,7 +177,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         x = tokens.to(cfg.cdt)
     for blk in params["blocks"]:
-        x = block_forward(blk, cfg, x, positions)
+        x = _block(blk, cfg, x, positions)
     if last_only:
         x = x[:, -1:]
     return logits_head(params, cfg, x)

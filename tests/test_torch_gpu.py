@@ -2057,3 +2057,114 @@ def test_kv_quant_decode_on_card_matches_cpu(arch):
             assert int((cq.cpu().int() - q.int()).abs().max()) <= 1
         for sc, csc in ((c.k_s, cc.k_s), (c.v_s, cc.v_s)):
             assert _rel(csc.cpu(), sc) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# training (A13.2)
+# ---------------------------------------------------------------------------
+
+def _train_grads(params, cfg, batch):
+    from repro_torch.models import api
+    from repro_torch.optim import tree as T
+    flat = T.flatten(params.tree())
+    loss = api.loss_fn(params, cfg, batch)
+    return loss, dict(zip(flat, torch.autograd.grad(loss,
+                                                    list(flat.values()))))
+
+
+@pytest.mark.gpu
+def test_training_route_gradients_on_card():
+    """chip_smoke (tr1) at a depth cut: smollm-135m CONFIG in f32 (2 of
+    30 layers), batch 1, S 4096 under autograd: ``impl="auto"`` takes
+    ``_chunked_sdpa`` (no B9 launch) and matches the materialised
+    ``_sdpa``: loss within 1e-5 relative, each gradient leaf within 1e-4
+    of its max|g|."""
+    need_card()
+    from unittest import mock
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    repro_torch.strict_fp32()
+    cfg = configs.get_config("smollm-135m").replace(
+        n_layers=2, compute_dtype="float32")
+    params = api.init(cfg, device="cuda", trainable=True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(
+        DataConfig(vocab=cfg.vocab, seq_len=4096, global_batch=1), 0).items()}
+    before = fa.LAUNCHES["flash_attention"]
+    loss, grads = _train_grads(params, cfg, batch)
+    assert fa.LAUNCHES["flash_attention"] == before
+    with mock.patch.object(attn, "CHUNKED_THRESHOLD", 4097):
+        loss_ref, grads_ref = _train_grads(params, cfg, batch)
+    assert abs(float(loss) - float(loss_ref)) <= 1e-5 * abs(float(loss_ref))
+    for path, g in grads.items():
+        want = grads_ref[path]
+        assert float((g - want).abs().max()) <= 1e-4 * float(
+            want.abs().max()), path
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_inputs_that_require_grad_on_card():
+    """The kernel has no backward: a CUDA input that requires grad under
+    grad mode raises (never a detached output); under ``no_grad`` it
+    runs."""
+    need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 4, 256, 64, device="cuda", requires_grad=True)
+    k, v = (torch.randn(1, 2, 256, 64, device="cuda") for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v)
+    with torch.no_grad():
+        out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is None and torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_smollm_full_width_train_step_on_card():
+    """One ``steps.make_train_step`` step of smollm-135m CONFIG (f32
+    parameters, bf16 compute, remat) at batch 2 x 256: a finite loss and
+    gradient norm, every parameter still f32, the AdamW count at 1."""
+    need_card()
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim import adamw as optim
+    cfg = configs.get_config("smollm-135m")
+    params = api.init(cfg, device="cuda", trainable=True)
+    ocfg = optim.OptimizerConfig(lr=1e-3)
+    state = optim.init(ocfg, params.tree())
+    before = params["embed"].detach().clone()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_at(
+        DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=2), 0).items()}
+    params, state, m = steps.make_train_step(cfg, ocfg)(params, state, batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert 10.0 < float(m["loss"]) < 12.0          # ~log(49152) at init
+    assert int(state["count"]) == 1
+    assert all(p.dtype == torch.float32 for p in params.parameters())
+    assert not torch.equal(before, params["embed"])
+
+
+@pytest.mark.gpu
+def test_checkpoint_roundtrip_of_card_tensors(tmp_path):
+    """Card tensors (f32, bf16, int32) through the checkpointer: restored
+    bit for bit on the card."""
+    need_card()
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    tree = {"w": torch.randn(64, 32, device="cuda"),
+            "h": torch.randn(17, device="cuda").to(torch.bfloat16),
+            "blocks": [{"a": torch.randn(5, device="cuda")}],
+            "count": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    ck = Checkpointer(tmp_path)
+    ck.save(7, tree)
+    ck.wait()
+    step, got = ck.restore(None, tree)
+    assert step == 7
+    for a, b in ((tree["w"], got["w"]), (tree["h"], got["h"]),
+                 (tree["blocks"][0]["a"], got["blocks"][0]["a"]),
+                 (tree["count"], got["count"])):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert torch.equal(a, b)

@@ -269,5 +269,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.transformer", "repro_torch.models.api",
             "repro_torch.models.moe",
             "repro_torch.kernels.ref", "repro_torch.kernels.flash_attention",
-            "repro_torch.launch.serve"} <= imported
+            "repro_torch.launch.serve",
+            "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedule", "repro_torch.optim.compression",
+            "repro_torch.optim.tree", "repro_torch.checkpoint.checkpointer",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= imported
 
