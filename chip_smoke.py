@@ -452,6 +452,7 @@ H_FORWARDS = 6         # (h): batch-1 forwards a rung, the first discarded
 H_ROUNDS = 11          # (h): rounds of unguarded / NaN scan / both, the first
                        # discarded
 CARD = ""              # the card's name and power limit (nvidia-smi), (a)
+T0 = time.perf_counter()   # the run's start, for ``stamp``
 # the reference's band wrapper each band entry point replaces (its
 # fused_spectral_conv.py; execute_band_plan at :1618 dispatches to them)
 BAND_REF = {"fused_spectral_pipeline": 1541,
@@ -462,6 +463,11 @@ BAND_REF = {"fused_spectral_pipeline": 1541,
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def stamp(section: str) -> None:
+    """Seconds since the run started, printed as a section begins."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {section}", flush=True)
 
 
 def child_processes() -> list[str]:
@@ -2567,6 +2573,12 @@ LA_SHAPES = (("qwen3-8b", 4096, 1), ("qwen3-8b", 4096, 4),
              ("h2o-danube-1.8b", 8192, 1), ("smollm-135m", 4096, 1),
              ("moonshot-v1-16b-a3b", 4096, 1),
              ("moonshot-v1-16b-a3b", 4096, 4), ("kimi-k2-1t-a32b", 4096, 1))
+# (la): the flash-attention shapes of the hybrid and encoder-decoder
+# families: (arch, S, batch, causal); zamba2-7b's shared block (32 / 32
+# heads of 112) and whisper-medium's 4096-frame encoder (16 heads of 64,
+# non-causal)
+LA_FAMILY_SHAPES = (("zamba2-7b", 4096, 1, True),
+                    ("whisper-medium", 4096, 1, False))
 LA_REPS = 5            # (la): timed launches per kernel and shape
 FA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # max|kernel - plain| / max
 # bf16, normalised row by row: max over query rows of max|kernel - plain|
@@ -2605,7 +2617,7 @@ def causal_pairs(s: int, window: int | None) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def sdpa_library(q, k, v, window):
+def sdpa_library(q, k, v, window, causal=True):
     """One ``torch.nn.functional.scaled_dot_product_attention`` call on
     the same inputs, causal (an explicit mask for a window), through the
     first fused backend that takes them (the math backend would hold
@@ -2617,7 +2629,7 @@ def sdpa_library(q, k, v, window):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     s = q.shape[2]
-    kw = {"is_causal": window is None, "enable_gqa": True}
+    kw = {"is_causal": causal and window is None, "enable_gqa": True}
     if window is not None:
         i = torch.arange(s, device=q.device)
         kw["attn_mask"] = ((i[None, :] <= i[:, None])
@@ -2659,13 +2671,14 @@ def row_err(a, b) -> float:
                   / b.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def dropped_tile_control(q, k, v, window, ref) -> tuple[float, float]:
+def dropped_tile_control(q, k, v, window, ref,
+                         causal=True) -> tuple[float, float]:
     """The last ``LA_TILE`` query rows recomputed in f32 torch ops from the
-    same inputs, causal: once with every key the mask allows, and once
-    with the first ``LA_TILE``-key tile those rows see left out (a kernel
-    whose tile range starts one tile late).  Returns both ``row_err``
-    readings against ``ref``'s rows: the first must pass the row gate, the
-    second must not."""
+    same inputs (causal, or not): once with every key the mask allows, and
+    once with the first ``LA_TILE``-key tile those rows see left out (a
+    kernel whose tile range starts one tile late).  Returns both
+    ``row_err`` readings against ``ref``'s rows: the first must pass the
+    row gate, the second must not."""
     import torch
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -2675,7 +2688,7 @@ def dropped_tile_control(q, k, v, window, ref) -> tuple[float, float]:
     sc = (qf @ kf.transpose(-1, -2)) * d ** -0.5
     qi = torch.arange(r0, s, device=q.device)[:, None]
     ki = torch.arange(s, device=q.device)[None, :]
-    mask = ki <= qi
+    mask = ki <= qi if causal else torch.ones_like(ki <= qi)
     if window is not None:
         mask &= ki > qi - window
     first = (0 if window is None else max(r0 - window + 1, 0)) // LA_TILE
@@ -2690,8 +2703,10 @@ def dropped_tile_control(q, k, v, window, ref) -> tuple[float, float]:
 def flash_check(dev, flush) -> dict:
     """(la): B9 against its plain version at the full-width shapes, each
     in bf16 and f32, then at the prefill_32k length in bf16 against the
-    plain ``_chunked_sdpa``; kernel / plain / library times and the
-    bound.  Returns one row per shape, keyed by its label."""
+    plain ``_chunked_sdpa``, then at the hybrid and encoder-decoder
+    families' shapes (zamba2-7b's shared block; whisper-medium's encoder,
+    non-causal); kernel / plain / library times and the bound.  Returns
+    one row per shape, keyed by its label."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import _build
@@ -2713,21 +2728,24 @@ def flash_check(dev, flush) -> dict:
     if sass32["HMMA"] < 1 or spill32 != 0:
         fail("(la) the f32 flash-attention kernel has no HMMA or spills")
     s32k = configs.SHAPES["prefill_32k"].seq_len
-    cases = [(a, s, b, dt) for a, s, b in LA_SHAPES
+    cases = [(a, s, b, dt, True) for a, s, b in LA_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
-    cases.append((LM_ARCH, s32k, 1, torch.bfloat16))
+    cases.append((LM_ARCH, s32k, 1, torch.bfloat16, True))
+    cases += [(a, s, b, dt, causal) for a, s, b, causal in LA_FAMILY_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
     rows = {}
-    print(f"(la) {CARD}: flash attention (B9) vs plain, causal; CUDA "
-          f"events, L2 flushed, median of {LA_REPS}")
-    for arch, s, b, dtype in cases:
+    print(f"(la) {CARD}: flash attention (B9) vs plain, causal unless "
+          f"marked; CUDA events, L2 flushed, median of {LA_REPS}")
+    for arch, s, b, dtype, causal in cases:
         cfg = configs.get_config(arch)
         hq, hkv, d, window = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                    for shape in ((b, hq, s, d), (b, hkv, s, d),
                                  (b, hkv, s, d)))
         dt = str(dtype).removeprefix("torch.")
-        label = f"{arch} S={s} b={b} {dt}"
-        out = fa.flash_attention(q, k, v, window=window)
+        label = f"{arch} S={s} b={b} {dt}" + ("" if causal
+                                               else " non-causal")
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
         if s == s32k:       # the S^2 oracle would not fit: the plain route
             pos = torch.arange(s, device=dev)[None].expand(b, s)
             acfg = attn.AttnConfig(cfg.d_model, hq, hkv, d, window=window)
@@ -2737,7 +2755,8 @@ def flash_check(dev, flush) -> dict:
             plain_name = "_chunked_sdpa"
         else:
             def plain():
-                return fa.flash_attention_reference(q, k, v, window=window)
+                return fa.flash_attention_reference(q, k, v, causal=causal,
+                                                    window=window)
             plain_name = "flash_attention_reference"
         ref = plain()
         torch.cuda.synchronize()
@@ -2747,7 +2766,8 @@ def flash_check(dev, flush) -> dict:
                  f"or not finite")
         err = rel_err(out.float(), ref.float())
         abs_err = float((out.float() - ref.float()).abs().max())
-        again = torch.equal(out, fa.flash_attention(q, k, v, window=window))
+        again = torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
+                                                    window=window))
         if err > FA_TOL[dt] or not again:
             fail(f"(la) {label}: kernel vs {plain_name} rel err {err:.3e} "
                  f"(gate {FA_TOL[dt]}), repeat bitwise equal {again}")
@@ -2756,7 +2776,8 @@ def flash_check(dev, flush) -> dict:
                  f"{OS_TC_TOL:g}")
         row = {}
         if dtype == torch.bfloat16:
-            full_ctl, drop_ctl = dropped_tile_control(q, k, v, window, ref)
+            full_ctl, drop_ctl = dropped_tile_control(q, k, v, window, ref,
+                                                      causal)
             row = {"row_err": row_err(out, ref),
                    "control_row_err": full_ctl,
                    "dropped_tile_row_err": drop_ctl}
@@ -2766,12 +2787,13 @@ def flash_check(dev, flush) -> dict:
                      f"{row['row_err']:.3e}, f32 control {full_ctl:.3e} (both "
                      f"must be <= {FA_ROW_TOL}), control with one KV tile "
                      f"dropped {drop_ctl:.3e} (must be > {FA_ROW_TOL})")
-        k_ms = timed_ms(lambda: fa.flash_attention(q, k, v, window=window),
+        k_ms = timed_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                   window=window),
                         flush.zero_, LA_REPS)
         p_ms = once_ms(plain)
-        lib, backend = sdpa_library(q, k, v, window)
+        lib, backend = sdpa_library(q, k, v, window, causal)
         l_ms = None if lib is None else timed_ms(lib, flush.zero_, LA_REPS)
-        pairs = causal_pairs(s, window)
+        pairs = causal_pairs(s, window) if causal else s * s
         flops = 4 * b * hq * d * pairs
         nbytes = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
         # bf16 products are exact in f32: the tensor cores' bf16 rate is
@@ -2790,7 +2812,8 @@ def flash_check(dev, flush) -> dict:
                        "over_library": None if l_ms is None
                        else k_ms / l_ms, **row}
         rows[label]["sass"] = sass if dtype == torch.bfloat16 else sass32
-        print(f"    {label:38s} Hq {hq} Hkv {hkv} D {d} window {window}: "
+        print(f"    {label:38s} Hq {hq} Hkv {hkv} D {d} window {window}"
+              f"{'' if causal else ', non-causal'}: "
               f"rel err {err:.3e} (max abs {abs_err:.3e}) vs {plain_name}, "
               + (f"by row {row['row_err']:.3e} (f32 control "
                  f"{row['control_row_err']:.3e}, one KV tile dropped "
@@ -3681,63 +3704,12 @@ def moe_prefill_gate(label, params, cfg, tokens, per_forward, tol) -> dict:
             "dropped_frac": drops, "launches": launches}
 
 
-def traced_moe(label, run, wall_ms=None) -> dict:
-    """``run()`` under ``torch.profiler``, each MoE part (``moe.route``,
-    ``_dispatch``, ``_experts``, ``_combine``) in a ``record_function``
-    range: the device time of B9's kernels, of each part's kernels and of
-    the rest, and (given the untraced ``wall_ms``) the device's idle
-    share.  Information only; "not measured" where the profiler saw no
-    kernel."""
-    import contextlib
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+def traced_moe(label, run, wall_ms) -> dict:
+    """``traced_split`` with each MoE part (``moe.route``, ``_dispatch``,
+    ``_experts``, ``_combine``) in its own range."""
     from repro_torch.models import moe
-
-    def ranged(name, fn):
-        def call(*args):
-            with record_function(f"moe.{name}"):
-                return fn(*args)
-        return call
-    with contextlib.ExitStack() as stack:
-        for n in MOE_PARTS:
-            stack.enter_context(mock.patch.object(
-                moe, n, ranged(n, getattr(moe, n))))
-        with torch.no_grad(), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-    events = prof.events()
-    # kernels, not the ranges' device-side twins
-    kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("moe.")]
-    if not kern:
-        print(f"{label} traced: not measured (the profiler saw no kernel)")
-        return {}
-    total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    b9 = sum(e.time_range.elapsed_us() for e in kern
-             if "flash_attention" in e.name) / 1e3
-    # a range's device time: its CPU ops' kernels, children included
-    parts = {n.strip("_"): sum(getattr(e, "device_time_total", 0)
-                               for e in events
-                               if e.device_type == DeviceType.CPU
-                               and e.name == f"moe.{n}") / 1e3
-             for n in MOE_PARTS}
-    rest = total - b9 - sum(parts.values())
-    out = {"kernels": len(kern), "device_ms": total, "b9_ms": b9,
-           **{f"{n}_ms": v for n, v in parts.items()}, "rest_ms": rest}
-    idle = ""
-    if wall_ms:
-        out["idle_share"] = 1 - total / wall_ms
-        idle = (f"; device idle {out['idle_share']:.1%} of the untraced "
-                f"{wall_ms:.2f} ms")
-    print(f"{label} {CARD}: traced (torch.profiler): {len(kern)} kernels, "
-          f"device time {total:.2f} ms: B9 {b9:.2f}, "
-          + ", ".join(f"{n} {v:.2f}" for n, v in parts.items())
-          + f", the rest {rest:.2f} ms{idle} (information)")
-    return out
+    return traced_split(label, run, {n.strip("_"): (moe, n)
+                                     for n in MOE_PARTS}, wall_ms)
 
 
 def free_device() -> None:
@@ -3949,6 +3921,523 @@ def moe_lm(dev, flash_rows) -> dict:
           f"{rec['launches']['mo3_timed']}")
     del params
     free_device()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# (ed1), (ed2), (hy1), (hy2), (xl), (tr5): the encoder-decoder, hybrid and
+# xLSTM families on the card
+# ---------------------------------------------------------------------------
+
+ED_ARCH = "whisper-medium"   # (ed1), (ed2), (tr5)
+HY_ARCH = "zamba2-7b"        # (hy1), (hy2)
+XL_ARCH = "xlstm-350m"       # (xl)
+ED_FRAMES = 1500       # (ed1), (ed2): Whisper's 30-s window of frames
+ED_PROMPT = 32         # (ed1): decoder tokens of the decode-chain gate
+ED_RAGGED = 4000       # (ed1): an encode whose length the kernel refuses
+CHAIN_TOL = 2e-3       # decode chain vs forward: atol = rtol, the
+                       # reference's own check (tests/test_models.py)
+FAMILY_REQUESTS = 5    # (ed2), (hy2): batch-1 prefills (the first discarded)
+CHAIN_STEPS = 16       # (hy1), (xl): teacher-forced decode steps
+HY_RAGGED = 3968       # (hy2): a prompt under the threshold (31 SSD chunks)
+XL_S = 1024            # (xl): prompt tokens
+XL_REQUESTS = 3        # (xl): batch-1 prefills (the first discarded)
+XL_TRACE = (32, 64)    # (xl): traced prompt lengths (kernels per token)
+TICKS = 6              # decode steps timed at batch 4 (the first discarded)
+TR5_STEPS = 5          # (tr5): whisper-medium train steps at batch 4
+
+
+def chain_gap(steps, full) -> tuple[float, bool]:
+    """max|chain - forward| and whether every element is within
+    ``CHAIN_TOL`` + ``CHAIN_TOL`` |forward| (``np.allclose``'s rule)."""
+    import torch
+    a, b = torch.cat(steps, 1).float(), full.float()
+    diff = (a - b).abs()
+    return float(diff.max()), bool((diff <= CHAIN_TOL
+                                    + CHAIN_TOL * b.abs()).all())
+
+
+def decode_chain(params, cfg, tokens, cache) -> list:
+    """Teacher-forced decode of ``tokens`` [B, T] from ``cache``: each
+    step's logits."""
+    from repro_torch.models import api
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, cache = api.decode(params, cfg, tokens[:, t:t + 1], cache, t)
+        out.append(logits)
+    return out
+
+
+def timed_calls(fn, n) -> list[float]:
+    """Host-clock ms of ``n`` calls of ``fn``, each ending in a
+    synchronise."""
+    import torch
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def decode_ticks(params, cfg, cache, batch, dev) -> float:
+    """p50 of ``TICKS`` decode steps of ``batch`` rows (the first
+    discarded), random tokens, from position 0."""
+    import torch
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    state = {"cache": cache}
+
+    def step(i):
+        tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                            device=dev)
+        _, state["cache"] = api.decode(params, cfg, tok, state["cache"], i)
+    return statistics.median(timed_calls(step, TICKS)[1:])
+
+
+def traced_split(label, run, ranges, wall_ms) -> dict:
+    """``run()`` under ``torch.profiler`` with each of ``ranges`` ({name:
+    (module, function)}) in a ``record_function`` range: the device time
+    of B9's kernels, of each range's kernels, of the GEMMs outside them
+    (kernels named gemm / xmma / cutlass / nvjet) and of the rest, and the
+    device's idle share against the untraced ``wall_ms``.  Information
+    only; "not measured" where the profiler saw no kernel."""
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, fn):
+        def call(*args, **kw):
+            with record_function(f"range.{name}"):
+                return fn(*args, **kw)
+        return call
+    with contextlib.ExitStack() as stack:
+        for name, (mod, fn) in ranges.items():
+            stack.enter_context(mock.patch.object(
+                mod, fn, ranged(name, getattr(mod, fn))))
+        with torch.no_grad(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("range.")]
+    if not kern:
+        print(f"{label} traced: not measured (the profiler saw no kernel)")
+        return {}
+
+    def is_gemm(name):
+        low = name.lower()
+        return any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet"))
+    total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    b9 = sum(e.time_range.elapsed_us() for e in kern
+             if "flash_attention" in e.name) / 1e3
+    gemm = sum(e.time_range.elapsed_us() for e in kern
+               if is_gemm(e.name)) / 1e3
+    out = {"kernels": len(kern), "device_ms": total, "b9_ms": b9}
+
+    def inner_gemm_us(e):
+        own = sum(k.duration for k in getattr(e, "kernels", [])
+                  if is_gemm(k.name))
+        return own + sum(inner_gemm_us(c) for c in e.cpu_children)
+    inner = 0.0
+    for name in ranges:
+        tops = [e for e in events if e.device_type == DeviceType.CPU
+                and e.name == f"range.{name}"]
+        out[f"{name}_ms"] = sum(getattr(e, "device_time_total", 0)
+                                for e in tops) / 1e3
+        inner += sum(inner_gemm_us(e) for e in tops) / 1e3
+    out["gemm_ms"] = gemm - inner
+    out["rest_ms"] = (total - b9 - out["gemm_ms"]
+                      - sum(out[f"{n}_ms"] for n in ranges))
+    out["idle_share"] = 1 - total / wall_ms
+    print(f"{label} {CARD}: traced (torch.profiler): {len(kern)} kernels, "
+          f"device time {total:.2f} ms: B9 {b9:.2f}, "
+          + ", ".join(f"{n} {out[f'{n}_ms']:.2f}" for n in ranges)
+          + f", GEMMs outside them {out['gemm_ms']:.2f}, the rest "
+          f"{out['rest_ms']:.2f} ms; device idle {out['idle_share']:.1%} of "
+          f"the untraced {wall_ms:.2f} ms (information)")
+    return out
+
+
+def encdec_lm(dev, flash_rows) -> dict:
+    """(ed1), (ed2): whisper-medium at published widths (24 encoder + 24
+    decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab 51865;
+    frames from the stub frontend), random weights from the port's
+    ``init`` on the card.  (ed1) f32: the teacher-forced decode chain
+    after ``precompute_cross`` against ``api.forward`` (the reference's
+    2e-3), a 4096-frame encode through B9 (one non-causal launch a layer)
+    and a 4000-frame one through ``_chunked_sdpa`` (none), each against
+    the materialised route within 1e-4.  (ed2) the weights cast to bf16:
+    prefill p50, batch 4, peak memory, the batch-4 decode step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, encdec
+    from repro_torch.models import attention as attn
+    free_device()
+    cfg16 = configs.get_config(ED_ARCH)
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    rec = {"launches": {}}
+    t0 = time.perf_counter()
+    params = api.init(cfg32, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"(ed1) {CARD}: {ED_ARCH} f32 weights from init on the card: "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters "
+          f"({cfg16.param_count():,} by the config), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    frames = torch.randn((FAMILY_REQUESTS + 4, ED_FRAMES, cfg16.d_model),
+                         generator=gen, device=dev)
+    tokens = torch.randint(0, cfg16.vocab, (FAMILY_REQUESTS + 4,
+                                            cfg16.dec_train_len),
+                           generator=gen, device=dev)
+    long_frames = torch.randn((1, attn.CHUNKED_THRESHOLD, cfg16.d_model),
+                              generator=gen, device=dev)
+    with torch.no_grad():
+        # gate 1: the decode chain against the forward, 1500 frames
+        reset_launches()
+        batch = {"frames": frames[:1], "tokens": tokens[:1, :ED_PROMPT]}
+        full = api.forward(params, cfg32, batch)
+        cache = api.init_cache(cfg32, 1, ED_PROMPT, enc_len=ED_FRAMES,
+                               device=dev)
+        cache = encdec.precompute_cross(params, cfg32, frames[:1], cache)
+        steps = decode_chain(params, cfg32, batch["tokens"], cache)
+        torch.cuda.synchronize()
+        gap, ok = chain_gap(steps, full)
+        n = fa.LAUNCHES["flash_attention"]
+        print(f"(ed1) f32 {ED_FRAMES} frames, {ED_PROMPT} tokens: the "
+              f"decode chain after precompute_cross vs api.forward: "
+              f"max|diff| {gap:.3e} (max|logit| "
+              f"{float(full.abs().max()):.3e}; gate atol = rtol = "
+              f"{CHAIN_TOL}); B9 launches {n}")
+        if not ok or n or not torch.isfinite(full).all():
+            fail(f"(ed1) decode chain vs forward {gap:.3e} over the gate, "
+                 f"or {n} B9 launches")
+        del full, cache, steps
+        # gates 2 and 3: the encoder at S >= 4096, whole blocks and ragged
+        enc_rec = {}
+        for s, want in ((attn.CHUNKED_THRESHOLD, cfg16.n_enc_layers),
+                        (ED_RAGGED, 0)):
+            reset_launches()
+            got = encdec.encode(params, cfg32, long_frames[:, :s])
+            torch.cuda.synchronize()
+            n = fa.LAUNCHES["flash_attention"]
+            with mock.patch.object(attn, "CHUNKED_THRESHOLD", s + 1):
+                ref = encdec.encode(params, cfg32, long_frames[:, :s])
+            err = rel_err(got, ref)
+            route = "B9 (non-causal)" if want else "_chunked_sdpa"
+            print(f"(ed1) f32 encode of {s} frames ({route}) vs the "
+                  f"materialised route: rel err {err:.3e}; B9 launches {n} "
+                  f"({want} expected)")
+            if n != want or err > LOGITS_TOL \
+                    or not torch.isfinite(got).all():
+                fail(f"(ed1) encode of {s} frames: {n} B9 launches "
+                     f"(expected {want}) or rel err {err:.3e} > "
+                     f"{LOGITS_TOL:g}")
+            enc_rec[s] = {"rel_err": err, "launches": n}
+            del got, ref
+        rec["launches"]["ed1"] = enc_rec[attn.CHUNKED_THRESHOLD]["launches"]
+        rec["ed1"] = {"chain_max_diff": gap, "encode": enc_rec}
+
+    # (ed2) bf16: the weights cast in place, the published dtypes
+    params.to(torch.bfloat16)
+    free_device()
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        times = timed_calls(lambda i: api.prefill(params, cfg16, {
+            "frames": frames[i:i + 1], "tokens": tokens[i:i + 1]}),
+            FAMILY_REQUESTS)
+        t0 = time.perf_counter()
+        out4 = api.prefill(params, cfg16, {"frames": frames[-4:],
+                                           "tokens": tokens[-4:]})
+        torch.cuda.synchronize()
+        b4_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if out4.shape != (4, 1, cfg16.vocab) \
+                or not torch.isfinite(out4).all():
+            fail("(ed2) batch-4 logits: wrong shape or not finite")
+        cache = api.init_cache(cfg16, 4, TICKS + 1, enc_len=ED_FRAMES,
+                               device=dev)
+        cache = encdec.precompute_cross(params, cfg16, frames[-4:], cache)
+        tick = decode_ticks(params, cfg16, cache, 4, dev)
+        n = fa.LAUNCHES["flash_attention"]
+        if n:
+            fail(f"(ed2) {n} B9 launches (1500-frame encodes and decode "
+                 f"take _sdpa)")
+    p50 = statistics.median(times[1:])
+    rec["ed2"] = {"prefill_p50_ms": p50, "prefill_times_ms": times,
+                  "prefill_b4_ms": b4_ms, "peak_bytes": peak,
+                  "resident_bytes": resident, "decode_b4_p50_ms": tick}
+    print(f"(ed2) {CARD}: bf16 prefill of {ED_FRAMES} frames + "
+          f"{cfg16.dec_train_len} tokens: batch-1 p50 {p50:.2f} ms over "
+          f"{len(times) - 1} {[round(t, 2) for t in times]} (the first "
+          f"discarded); batch 4 {b4_ms:.2f} ms; peak {peak / 2 ** 30:.3f} "
+          f"GiB, {resident / 2 ** 30:.3f} GiB resident at the start; decode "
+          f"step at batch 4 after precompute_cross: p50 {tick:.2f} ms; B9 "
+          f"launches 0")
+    del params, cache, out4
+    free_device()
+    return rec
+
+
+def hybrid_lm(dev, flash_rows) -> dict:
+    """(hy1), (hy2): zamba2-7b at published widths (81 Mamba2 blocks in 13
+    groups of 6 + 3, d_model 3584, 56 SSM heads, state 64; one shared
+    attention block of 32 / 32 heads of 112 applied 14 times), random
+    weights from the port's ``init`` on the card.  (hy1) f32: a 4096-token
+    ``api.prefill`` (14 B9 launches) against the materialised route
+    (1e-4, top-1 equal), a 16-token decode chain against the forward
+    (2e-3).  (hy2) bf16 at the config's dtypes (the SSM's decay, step bias
+    and skip f32): prefill p50 minus 14 x B9, batch 4, peak memory, 0
+    launches at 3968 tokens, the batch-4 decode tick, one traced
+    prefill."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, hybrid, ssm
+    from repro_torch.models import attention as attn
+    free_device()
+    cfg16 = configs.get_config(HY_ARCH)
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    n_groups, remainder = hybrid._group_sizes(cfg16)
+    per_forward = n_groups + (1 if remainder else 0)
+    rec = {"launches": {}, "per_forward": per_forward}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg16.vocab, (FAMILY_REQUESTS + 4, LM_S),
+                           generator=gen, device=dev)
+    t0 = time.perf_counter()
+    params = api.init(cfg32, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    print(f"(hy1) {CARD}: {HY_ARCH} f32 weights from init on the card: "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters "
+          f"({cfg16.param_count():,} by the config), "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        reset_launches()
+        out32 = api.prefill(params, cfg32, {"tokens": tokens[:1]})
+        torch.cuda.synchronize()
+        n = fa.LAUNCHES["flash_attention"]
+        with mock.patch.object(attn, "CHUNKED_THRESHOLD", LM_S + 1):
+            ref = api.prefill(params, cfg32, {"tokens": tokens[:1]})
+        err = rel_err(out32, ref)
+        top1 = bool(torch.equal(out32.argmax(-1), ref.argmax(-1)))
+        print(f"(hy1) f32 prefill S={LM_S}: logits {tuple(out32.shape)} vs "
+              f"the materialised route rel err {err:.3e}, max|logit| "
+              f"{float(ref.abs().max()):.3e}, top-1 equal {top1}; B9 "
+              f"launches {n} ({per_forward} expected)")
+        if err > LOGITS_TOL or not top1 or n != per_forward \
+                or not torch.isfinite(out32).all():
+            fail("(hy1) f32 prefill disagrees with the materialised route "
+                 "or missed the kernel")
+        rec["launches"]["hy1"] = n
+        del ref
+        toks = tokens[:1, :CHAIN_STEPS]
+        full = api.forward(params, cfg32, {"tokens": toks})
+        cache = api.init_cache(cfg32, 1, CHAIN_STEPS, device=dev)
+        gap, ok = chain_gap(decode_chain(params, cfg32, toks, cache), full)
+        print(f"(hy1) f32 {CHAIN_STEPS}-token decode chain vs the forward: "
+              f"max|diff| {gap:.3e} (max|logit| "
+              f"{float(full.abs().max()):.3e}; gate atol = rtol = "
+              f"{CHAIN_TOL})")
+        if not ok:
+            fail(f"(hy1) decode chain vs forward {gap:.3e} over the gate")
+        rec["hy1"] = {"rel_err": err, "chain_max_diff": gap}
+    del params, cache, full
+    free_device()
+
+    # (hy2) bf16, made at the config's dtypes
+    params = api.init(cfg16, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    kernel_ms = flash_rows[f"{HY_ARCH} S={LM_S} b=1 bfloat16"]["ms"]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launches()
+        first = {}
+
+        def prefill(i):
+            out = api.prefill(params, cfg16, {"tokens": tokens[i:i + 1]})
+            first.setdefault("out", out)
+        times = timed_calls(prefill, FAMILY_REQUESTS)
+        t0 = time.perf_counter()
+        out4 = api.prefill(params, cfg16, {"tokens": tokens[-4:]})
+        torch.cuda.synchronize()
+        b4_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        n = fa.LAUNCHES["flash_attention"]
+        if n != per_forward * (FAMILY_REQUESTS + 1):
+            fail(f"(hy2) {n} B9 launches, expected "
+                 f"{per_forward * (FAMILY_REQUESTS + 1)}")
+        rec["launches"]["hy2"] = n
+        for o, b in ((first["out"], 1), (out4, 4)):
+            if o.shape != (b, 1, cfg16.vocab) or not torch.isfinite(o).all():
+                fail(f"(hy2) batch-{b} logits: shape {tuple(o.shape)} or "
+                     f"not finite")
+        drift = rel_err(first["out"].float(), out32)
+        reset_launches()
+        api.prefill(params, cfg16, {"tokens": tokens[:1, :HY_RAGGED]})
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_attention"]:
+            fail(f"(hy2) a {HY_RAGGED}-token prompt launched the kernel")
+        cache = api.init_cache(cfg16, 4, TICKS + 1, device=dev)
+        tick = decode_ticks(params, cfg16, cache, 4, dev)
+        if fa.LAUNCHES["flash_attention"]:
+            fail("(hy2) decode launched the kernel")
+    p50 = statistics.median(times[1:])
+    print(f"(hy2) {CARD}: bf16 prefill S={LM_S}: batch-1 p50 {p50:.2f} ms "
+          f"over {len(times) - 1} {[round(t, 2) for t in times]} (the first "
+          f"discarded); minus {per_forward} x B9 {kernel_ms:.4f} ms: "
+          f"{p50 - per_forward * kernel_ms:.2f} ms; batch 4 {b4_ms:.2f} ms; "
+          f"peak {peak / 2 ** 30:.3f} GiB, {resident / 2 ** 30:.3f} GiB "
+          f"resident at the start; B9 launches {n}; max|bf16 - f32| of the "
+          f"logits {drift:.3e} of max|f32| (information); a {HY_RAGGED}-"
+          f"token prompt: 0 B9 launches; decode tick at batch 4: p50 "
+          f"{tick:.2f} ms, 0 B9 launches")
+    trace = traced_split(
+        "(hy2) one bf16 prefill S=4096",
+        lambda: api.prefill(params, cfg16, {"tokens": tokens[:1]}),
+        {"ssd": (ssm, "_ssd_chunked")}, p50)
+    rec["hy2"] = {"prefill_p50_ms": p50, "prefill_times_ms": times,
+                  "minus_b9_ms": p50 - per_forward * kernel_ms,
+                  "prefill_b4_ms": b4_ms, "peak_bytes": peak,
+                  "resident_bytes": resident, "decode_b4_p50_ms": tick,
+                  "bf16_drift": drift, "trace": trace}
+    del params, cache, out4, out32, first
+    free_device()
+    return rec
+
+
+def count_kernels(run) -> int:
+    """CUDA kernels that ``run()`` launches (``torch.profiler``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def xlstm_lm(dev) -> dict:
+    """(xl): xlstm-350m at published widths (24 blocks: 3 groups of 7
+    mLSTM + 1 sLSTM, d_model 1024, 4 heads, vocab 50304), f32 weights from
+    the port's ``init`` on the card.  In f32 the 16-token decode chain
+    against the forward (2e-3); at the config's dtypes (f32 weights, bf16
+    compute) prefill p50 at 1024 tokens, batch 4, peak memory, kernels a
+    prefill (the recurrence is a loop over tokens: from two traced
+    lengths), the batch-4 decode tick.  No attention: 0 B9 launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    free_device()
+    cfg = configs.get_config(XL_ARCH)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tokens = torch.randint(0, cfg.vocab, (XL_REQUESTS + 4, XL_S),
+                           generator=gen, device=dev)
+    params = api.init(cfg, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev)
+    print(f"(xl) {CARD}: {XL_ARCH} weights from init on the card: "
+          f"{sum(p.numel() for p in params.parameters()):,} parameters in "
+          f"f32 ({cfg.param_count():,} by the config's approximate count)")
+    reset_launches()
+    with torch.no_grad():
+        toks = tokens[:1, :CHAIN_STEPS]
+        full = api.forward(params, cfg32, {"tokens": toks})
+        state = api.init_cache(cfg32, 1, CHAIN_STEPS, device=dev)
+        gap, ok = chain_gap(decode_chain(params, cfg32, toks, state), full)
+        print(f"(xl) f32 {CHAIN_STEPS}-token decode chain vs the forward: "
+              f"max|diff| {gap:.3e} (max|logit| "
+              f"{float(full.abs().max()):.3e}; gate atol = rtol = "
+              f"{CHAIN_TOL})")
+        if not ok or not torch.isfinite(full).all():
+            fail(f"(xl) decode chain vs forward {gap:.3e} over the gate")
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        times = timed_calls(lambda i: api.prefill(
+            params, cfg, {"tokens": tokens[i:i + 1]}), XL_REQUESTS)
+        t0 = time.perf_counter()
+        out4 = api.prefill(params, cfg, {"tokens": tokens[-4:]})
+        torch.cuda.synchronize()
+        b4_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if out4.shape != (4, 1, cfg.vocab) or not torch.isfinite(out4).all():
+            fail("(xl) batch-4 logits: wrong shape or not finite")
+        state = api.init_cache(cfg, 4, TICKS, device=dev)
+        tick = decode_ticks(params, cfg, state, 4, dev)
+        if fa.LAUNCHES["flash_attention"]:
+            fail("(xl) an attention-free model launched B9")
+    lo, hi = (count_kernels(lambda s=s: api.prefill(
+        params, cfg, {"tokens": tokens[:1, :s]})) for s in XL_TRACE)
+    per_token = (hi - lo) / (XL_TRACE[1] - XL_TRACE[0])
+    kernels = round(hi + per_token * (XL_S - XL_TRACE[1]))
+    p50 = statistics.median(times[1:])
+    print(f"(xl) {CARD}: bf16-compute prefill S={XL_S}: batch-1 p50 "
+          f"{p50:.2f} ms over {len(times) - 1} {[round(t, 2) for t in times]}"
+          f" (the first discarded); batch 4 {b4_ms:.2f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB, {resident / 2 ** 30:.3f} GiB resident "
+          f"at the start; kernels a prefill {kernels:,} ({lo} at "
+          f"{XL_TRACE[0]} tokens, {hi} at {XL_TRACE[1]}: {per_token:.1f} a "
+          f"token, the recurrence's loop); decode tick at batch 4: p50 "
+          f"{tick:.2f} ms; 0 B9 launches")
+    rec = {"chain_max_diff": gap, "prefill_p50_ms": p50,
+           "prefill_times_ms": times, "prefill_b4_ms": b4_ms,
+           "peak_bytes": peak, "resident_bytes": resident,
+           "kernels_per_prefill": kernels, "kernels_per_token": per_token,
+           "decode_b4_p50_ms": tick}
+    del params, state, out4, full
+    free_device()
+    return rec
+
+
+def train_whisper() -> dict:
+    """(tr5): ``python -m repro_torch.launch.train --arch whisper-medium
+    --config-set full --steps 5 --batch 4 --seq-len 1500`` as its own
+    process (checkpoints and its JSON into a temporary directory): exit 0,
+    every loss finite; its median step."""
+    import math
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        out_json = Path(d) / "out.json"
+        run = run_train_cmd(
+            ["-m", "repro_torch.launch.train", "--arch", ED_ARCH,
+             "--config-set", "full", "--steps", str(TR5_STEPS), "--batch",
+             "4", "--seq-len", str(ED_FRAMES), "--ckpt-dir",
+             str(Path(d) / "ck"), "--json", str(out_json)], "(tr5)")
+        out = json.loads(out_json.read_text()) if out_json.exists() else {}
+    losses = out.get("losses", [])
+    if run.returncode or len(losses) != TR5_STEPS \
+            or not all(math.isfinite(x) for x in losses):
+        print(run.stderr[-4000:], file=sys.stderr)
+        fail(f"(tr5) the whisper train command exited {run.returncode} with "
+             f"losses {losses}")
+    print(f"(tr5) {CARD}: {ED_ARCH} {TR5_STEPS} steps at batch 4 x {ED_FRAMES} frames "
+          f"(64 tokens): losses {[round(x, 4) for x in losses]}, median "
+          f"step {1e3 * out['median_step_s']:.1f} ms")
+    return {"losses": losses, "median_step_ms": 1e3 * out["median_step_s"]}
+
+
+def family_lms(dev, flash_rows) -> dict:
+    """(ed1), (ed2), (hy1), (hy2), (xl), (tr5), each phase's B9 launches
+    under ``launches``."""
+    rec = {"encdec": encdec_lm(dev, flash_rows),
+           "hybrid": hybrid_lm(dev, flash_rows),
+           "xlstm": xlstm_lm(dev), "tr5": train_whisper()}
+    rec["launches"] = {**rec["encdec"]["launches"],
+                       **rec["hybrid"]["launches"]}
     return rec
 
 
@@ -4418,6 +4907,7 @@ def main() -> int:
                                     x_img.dtype)
 
     # (c) plane kernel vs plain at every layer shape ----------------------
+    stamp("plane: (c)")
     capacity = fsc.os_cluster_capacity(dev)
     print(f"(c) clusters of 1 to 8 output-stationary CTAs the card runs at "
           f"once, by size: {capacity} (the cost model's "
@@ -4618,6 +5108,7 @@ def main() -> int:
     del plan, hplan
 
     # (c2) scheduled plan and kernel vs plain at every layer shape --------
+    stamp("scheduled: (c2)")
     t0 = time.perf_counter()
     splan = build_network_plan(params, CONFIG, batch=1, hadamard="scheduled",
                                device=dev)
@@ -4760,6 +5251,7 @@ def main() -> int:
     model_check(measured)
 
     # (d5) the autotuned plan ----------------------------------------------
+    stamp("autotuned: (d5)")
     t0 = time.perf_counter()
     aplan = build_network_plan(params, CONFIG, batch=1, hadamard="auto",
                                input_mode="auto", measure=True, device=dev)
@@ -4797,6 +5289,7 @@ def main() -> int:
         f"{k} {v:.2f} ms" for k, v in p50s.items()))
 
     # (s), (ds), (dh) the staged backend on the same weights (it reads
+    stamp("staged: (s), (ds), (dh)")
     # only the plan's spectral kernels and geometry: any plan serves)
     flush = torch.empty(128 * 2 ** 20 // 4, device=dev)
     stotals = staged_check(aplan, "VGG16", xgen, flush)
@@ -4809,6 +5302,7 @@ def main() -> int:
     del aplan
 
     # (rp) Fig 10 at full width: randomly pruned plans on the same weights
+    stamp("(rp)")
     t0 = time.perf_counter()
     rp_rec = random_pruning(
         params, CONFIG, images, dev, xgen, flush, drive, mag_sched,
@@ -4828,6 +5322,7 @@ def main() -> int:
     del params, images, flush
 
     # ResNet-18: (r) and (dr) ---------------------------------------------
+    stamp("ResNet-18: (r), (dr)")
     rtotals, rstotals, rbtotals, h_rec["resnet18"] = resnet18(
         dev, xgen, drive, drive_sharded)
     print(f"(h) {CARD}: " + json.dumps({"resilience": h_rec}))
@@ -4835,14 +5330,21 @@ def main() -> int:
         f"{k} {v:.2f} ms" for k, v in p50s.items() if k.startswith("(dr")))
 
     # LM serving: (la) B9 at the full-width shapes, (dl) prefill, (sl)
+    stamp("LM: (la), (dl), (sl), (kq)")
     flash_rows = flash_check(dev, torch.empty(128 * 2 ** 20 // 4, device=dev))
     lm_totals = lm(dev, flash_rows)
     # training: (tr1)-(tr4)
+    stamp("training: (tr1)-(tr4)")
     tr_rec = training(dev)
     print(f"(tr) {CARD}: " + json.dumps({"training": tr_rec}))
     # the MoE family: (mo1), (sm), (mo2), (mo3)
+    stamp("MoE: (mo1), (sm), (mo2), (mo3)")
     moe_rec = moe_lm(dev, flash_rows)
     print(f"(mo) {CARD}: " + json.dumps({"moe": moe_rec}))
+    # the encoder-decoder, hybrid and xLSTM families: (ed1)-(tr5)
+    stamp("families: (ed1), (ed2), (hy1), (hy2), (xl), (tr5)")
+    fam_rec = family_lms(dev, flash_rows)
+    print(f"(fam) {CARD}: " + json.dumps({"families": fam_rec}))
 
     # every process this run started (nvcc, nvidia-smi, the table pool and
     # its resource tracker) has ended
@@ -4851,6 +5353,7 @@ def main() -> int:
         fail(f"processes still running at the end: {left}")
 
     # (e) kernels ---------------------------------------------------------
+    stamp("(e) kernels")
     csrc = "src/repro_torch/kernels/csrc/"
     ref_file = "src/repro/kernels/fused_spectral_conv.py"
     # the TPU body (flows) or wrapper (output-stationary) each replaces
@@ -4987,13 +5490,18 @@ def main() -> int:
     main_row = flash_rows[f"{LM_ARCH} S={LM_S} b=1 bfloat16"]
     moe_launches = sum(moe_rec["launches"].values())
     tr_launches = tr_rec["tr1"]["launches"]
-    if lm_totals["launches"] < 1 or moe_launches < 1 or tr_launches < 1:
+    fam_launches = sum(fam_rec["launches"].values())
+    if lm_totals["launches"] < 1 or moe_launches < 1 or tr_launches < 1 \
+            or fam_launches < 1:
         fail("flash_attention was not launched by the prefill")
-    print(f"(e) flash_attention: ok, launches="
-          f"{lm_totals['launches'] + moe_launches + tr_launches} "
+    b9_launches = (lm_totals["launches"] + moe_launches + tr_launches
+                   + fam_launches)
+    print(f"(e) flash_attention: ok, launches={b9_launches} "
           f"({lm_totals['per_forward']} per qwen3-8b prefill forward, "
-          f"{moe_rec['mo2']['per_forward']} per moonshot forward; the MoE "
-          f"phases {moe_rec['launches']}; (tr1)'s no-grad prefill "
+          f"{moe_rec['mo2']['per_forward']} per moonshot forward, "
+          f"{fam_rec['hybrid']['per_forward']} per zamba2-7b forward; the "
+          f"MoE phases {moe_rec['launches']}; the families' phases "
+          f"{fam_rec['launches']}; (tr1)'s no-grad prefill "
           f"{tr_launches}, 0 per training step)")
     kernels.append({
         "name": "flash_attention",
@@ -5001,9 +5509,10 @@ def main() -> int:
         "source": csrc + "flash_attention_bf16.cu",
         "f32_source": csrc + "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": lm_totals["launches"] + moe_launches + tr_launches,
+        "launches": b9_launches,
         "per_forward": lm_totals["per_forward"],
         "moe_launches": moe_rec["launches"],
+        "family_launches": fam_rec["launches"],
         "training_launches": {"tr1_no_grad_prefill": tr_launches,
                               "per_training_step": 0},
         "max_abs_err": max(r["abs_err"] for r in flash_rows.values()),

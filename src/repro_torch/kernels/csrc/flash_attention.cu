@@ -23,9 +23,15 @@
 // (mma_tf32.cuh: each operand split into TF32 hi + lo, lo*hi + hi*lo +
 // hi*hi, lo left to the tensor cores' truncation, f32-level error) at up
 // to 495 / 3 TFLOP/s, with the softmax in f32
-// registers.  A KV tile's P V goes to fresh accumulators that are added
-// to the running output in f32: a 4096-key sum left in the tensor cores'
-// accumulator, which truncates, loses several times f32's error:
+// registers.  Each k step of Q K^T puts hi*hi and the two corrections in
+// fresh accumulators that are added to the scores in f32 (mma3_f32): a
+// correction added to the running score in the tensor cores' accumulator
+// is truncated there, and those logit errors were the kernel's largest
+// term (2.07e-6 of max|plain| on a non-causal 4096-key encoder head, 1.20e-6
+// with fresh accumulators; scripts/flash_f32_accuracy.py).  A KV tile's P V
+// goes to fresh accumulators that are added to the running output in f32:
+// a 4096-key sum left in the tensor cores' accumulator, which truncates,
+// loses several times f32's error:
 //  * One CTA of 8 warps per (batch x query head, 128-row query tile), a
 //    warp owning 16 query rows; the heaviest causal tiles launch first.
 //    The Q tile stays in shared memory; K and V tiles of 64 rows stream
@@ -178,7 +184,7 @@ flash_attention_kernel(const float* __restrict__ q,
         const float b[2] = {kv2.x, kv2.y};
         uint32_t bh_[2], bl[2];
         split_frag_raw_lo(b, bh_, bl);
-        mma3(sc[j], ah, al, bh_, bl);
+        mma3_f32(sc[j], ah, al, bh_, bl);
       }
     }
 

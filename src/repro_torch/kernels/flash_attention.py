@@ -67,6 +67,14 @@ def _padded_len(s: int, block_q: int, block_k: int) -> int:
     return -(-s // blk) * blk
 
 
+def takes_length(s: int, causal: bool, block_q: int = 128,
+                 block_k: int = 128) -> bool:
+    """Whether ``flash_attention`` takes a sequence of ``s`` positions:
+    any causal one, and a non-causal one only when ``s`` is a whole
+    number of blocks (the reference's rule)."""
+    return causal or _padded_len(s, block_q, block_k) == s
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int | None = None,
@@ -167,7 +175,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the kernel: beyond that it masks all keys or none.)"""
     _check(q, k, v)
     b, hq, s, d = q.shape
-    if not causal and _padded_len(s, block_q, block_k) != s:
+    if not takes_length(s, causal, block_q, block_k):
         raise NotImplementedError("non-causal requires s % block == 0")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,

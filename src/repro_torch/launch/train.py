@@ -10,7 +10,9 @@
   * straggler accounting: a step slower than ``straggler_factor`` x the
     running median of the step times is counted and logged.
 
-The learning rate is constant, as in the reference.  Weights are drawn
+The learning rate is constant, as in the reference.  An encoder-decoder
+model trains on ``seq_len`` frames and the first 64 tokens of each
+row.  Weights are drawn
 from a generator seeded with ``seed`` on the run's device, which is the
 card unless ``device`` says otherwise:
 
@@ -50,7 +52,7 @@ def train(arch: str = "smollm-135m", *, steps: int = 50,
         repro_torch.strict_fp32()
     cfg = (configs.get_smoke_config(arch) if config_set == "smoke"
            else configs.get_config(arch))
-    api.module(cfg)             # an unported family raises here
+    api.module(cfg)             # an unknown family raises here
     opt_cfg = optim.OptimizerConfig(lr=lr)
     ckpt = Checkpointer(ckpt_dir, keep=3)
 
@@ -69,7 +71,9 @@ def train(arch: str = "smollm-135m", *, steps: int = 50,
         print(f"[train] resumed from step {start_step}", flush=True)
 
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch,
-                      seed=seed)
+                      seed=seed,
+                      frames_dim=cfg.d_model if cfg.family == "encdec"
+                      else 0)
     data = Prefetcher(dcfg, start_step=start_step)
     train_step = steps_lib.make_train_step(cfg, opt_cfg)
 
@@ -82,6 +86,10 @@ def train(arch: str = "smollm-135m", *, steps: int = 50,
             assert step == start_step, "pipeline out of sync"
             batch_dev = {k: torch.from_numpy(v).to(device)
                          for k, v in host_batch.items()}
+            if cfg.family == "encdec":
+                # the reference's decoder cut: seq_len frames, 64 tokens
+                batch_dev["tokens"] = batch_dev["tokens"][:, :64]
+                batch_dev["labels"] = batch_dev["labels"][:, :64]
             t0 = time.time()
             params, opt_state, metrics = train_step(params, opt_state,
                                                     batch_dev)

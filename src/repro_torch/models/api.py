@@ -2,10 +2,10 @@
 (counterpart of ``repro.models.api``).
 
 Families: ``dense`` (decoder-only transformer: qwen3, yi, smollm,
-h2o-danube, the chameleon backbone) and ``moe`` (the same stack with an
-MoE feed-forward: moonshot, kimi-k2) run here.  ``hybrid``, ``xlstm`` and
-``encdec`` are later slices and raise ``NotImplementedError`` naming
-their ROADMAP item.
+h2o-danube, the chameleon backbone), ``moe`` (the same stack with an MoE
+feed-forward: moonshot, kimi-k2), ``hybrid`` (Mamba2 backbone + shared
+attention: zamba2), ``xlstm`` (mLSTM/sLSTM stack: xlstm-350m) and
+``encdec`` (the whisper backbone, stub frame frontend).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Training differentiates ``loss_fn`` with ``torch.autograd`` on a
@@ -16,26 +16,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-_LATER = {
-    "hybrid": "the hybrid Mamba2 family (hybrid.py, ssm.py) is a later "
-              "slice (ROADMAP A13)",
-    "xlstm": "the xLSTM family (xlstm.py, xlstm_model.py) is a later slice "
-             "(ROADMAP A13)",
-    "encdec": "the encoder-decoder family (encdec.py, cross-attention) is a "
-              "later slice (ROADMAP A13)",
+_FAMILIES = {
+    "dense": transformer,
+    "moe": transformer,
+    "hybrid": hybrid,
+    "xlstm": xlstm_model,
+    "encdec": encdec,
 }
 
 
 def module(cfg: ModelConfig):
-    if cfg.family in _LATER:
-        raise NotImplementedError(_LATER[cfg.family])
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r}")
-    return transformer
+    return _FAMILIES[cfg.family]
 
 
 def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
@@ -50,17 +47,19 @@ def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
 def init_abstract(cfg: ModelConfig):
     """The parameter tree on the ``meta`` device: every shape and dtype,
     nothing drawn and nothing allocated (kimi-k2's 1 T parameters
-    included)."""
+    included), for every family."""
     return init(cfg, device="meta")
 
 
 def forward(params, cfg: ModelConfig, batch: dict,
             last_only: bool = False) -> torch.Tensor:
     """batch: {'tokens': [B, S]} (or {'frames': [B, S, d]} for a frames
-    frontend)."""
-    mod = module(cfg)
+    frontend); encdec takes {'frames': [B, S_enc, d], 'tokens': [B,
+    S_dec]}."""
+    if cfg.family == "encdec":
+        return encdec.forward(params, cfg, batch, last_only=last_only)
     inputs = batch["frames"] if cfg.frontend == "frames" else batch["tokens"]
-    return mod.forward(params, cfg, inputs, last_only=last_only)
+    return module(cfg).forward(params, cfg, inputs, last_only=last_only)
 
 
 def prefill(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -74,7 +73,16 @@ def loss_fn(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return L.cross_entropy_loss(logits, batch["labels"])
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               enc_len: int = 0, *, device=None):
+    """The family's decode state: per-layer KV caches (dense, moe), the
+    self caches and cross K/V of ``enc_len`` frames (encdec), the shared
+    block's caches and the SSM states (hybrid), the recurrent states
+    (xlstm)."""
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, enc_len, device=device)
+    if cfg.family == "xlstm":
+        return xlstm_model.init_state(cfg, batch, device=device)
     return module(cfg).init_cache(cfg, batch, max_len, device=device)
 
 

@@ -6,13 +6,16 @@
     on a CUDA tensor, its plain version on a CPU tensor);
   * ``'chunked'`` (and ``'auto'`` at ``s >= CHUNKED_THRESHOLD``) — the
     online-softmax attention: on a CUDA tensor with the default positions
-    the same kernel, otherwise the plain ``_chunked_sdpa``; under
-    autograd (grad mode on and q, k or v requiring grad) always
-    ``_chunked_sdpa``, the reference's training route, since the kernel
-    has no backward;
+    the same kernel where it takes the shape (causal, or non-causal with
+    ``s`` a whole number of the kernel's blocks), otherwise the plain
+    ``_chunked_sdpa``; under autograd (grad mode on and q, k or v
+    requiring grad) always ``_chunked_sdpa``, the reference's training
+    route, since the kernel has no backward;
   * otherwise (``'reference'``, ``'auto'`` below the threshold) — the
     materialised ``_sdpa`` in torch ops.
-Decode attends over the cache with ``_sdpa``.
+Decode attends over the cache with ``_sdpa``; cross-attention
+(``cross_forward``, over K/V that ``encode_kv`` projects once) with the
+non-causal ``_sdpa`` at every length, as the reference does.
 
 ``init_cache`` / ``decode_step`` keep a ring-buffered cache per layer,
 in the compute dtype (``KVCache``) or int8 with a f32 scale per (token,
@@ -28,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -170,6 +174,21 @@ def _default_positions(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
+def kernel_route(cfg: AttnConfig, b: int, s: int, device: torch.device,
+                 grad: bool, positions: torch.Tensor | None) -> bool:
+    """Whether ``forward``'s online-softmax route launches the
+    flash-attention kernel: not under autograd, not on a CPU tensor, at
+    a length the kernel takes (``flash_attention.takes_length``), and at
+    the default positions (none given, or ``arange(s)`` in every row);
+    else the route is ``_chunked_sdpa``.  Decided from the shapes, never
+    by catching the kernel's raise."""
+    if grad or device.type == "cpu" or not fa.takes_length(s, cfg.causal):
+        return False
+    return positions is None or torch.equal(
+        positions.to(torch.int64).expand(b, s),
+        _default_positions(b, s, positions.device).to(torch.int64))
+
+
 def forward(params, cfg: AttnConfig, x: torch.Tensor,
             positions: torch.Tensor | None = None,
             impl: str = "auto") -> torch.Tensor:
@@ -180,8 +199,10 @@ def forward(params, cfg: AttnConfig, x: torch.Tensor,
     (what ``transformer.forward`` passes unless its caller gives
     positions); given other positions it is the plain ``_chunked_sdpa``,
     the reference's route there, which masks by the positions
-    themselves.  Under autograd that route is always ``_chunked_sdpa``
-    (the kernel has no backward)."""
+    themselves.  A non-causal ``s`` that is not a whole number of the
+    kernel's blocks takes ``_chunked_sdpa`` too (decided from the shape;
+    the kernel is not launched).  Under autograd that route is always
+    ``_chunked_sdpa`` (the kernel has no backward)."""
     b, s, d = x.shape
     given = positions
     if positions is None:
@@ -192,18 +213,42 @@ def forward(params, cfg: AttnConfig, x: torch.Tensor,
     if impl == "flash":
         out = ops.attention(q, k, v, causal=cfg.causal, window=cfg.window)
     elif impl == "chunked" or (impl == "auto" and s >= CHUNKED_THRESHOLD):
-        if grad or x.device.type == "cpu" or (
-                given is not None and not torch.equal(
-                given.to(torch.int64).expand(b, s),
-                _default_positions(b, s, x.device).to(torch.int64))):
-            out = _chunked_sdpa(q, k, v, cfg, positions, positions)
-        else:
+        if kernel_route(cfg, b, s, x.device, grad, given):
             out = ops.attention(q, k, v, causal=cfg.causal,
                                 window=cfg.window)
+        else:
+            out = _chunked_sdpa(q, k, v, cfg, positions, positions)
     else:
         out = _sdpa(q, k, v, cfg, positions, positions)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ params["wo"].to(x.dtype)
+
+
+def cross_forward(params, cfg: AttnConfig, x: torch.Tensor,
+                  kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V [B, G, Senc, D]:
+    the non-causal ``_sdpa`` with every position 0 (no rope, no mask)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
+    k, v = kv
+    senc = k.shape[2]
+    pos_q = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    pos_k = torch.zeros((b, senc), dtype=torch.int32, device=x.device)
+    nc_cfg = cfg._replace(causal=False, window=None)
+    out = _sdpa(q, k, v, nc_cfg, pos_q, pos_k)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ params["wo"].to(x.dtype)
+
+
+def encode_kv(params, cfg: AttnConfig, enc: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Project encoder states once into cross-attention K/V [B, G, S, D]."""
+    b, s, _ = enc.shape
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (enc @ params["wk"].to(enc.dtype)).reshape(b, s, g, hd)
+    v = (enc @ params["wv"].to(enc.dtype)).reshape(b, s, g, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

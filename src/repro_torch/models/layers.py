@@ -21,18 +21,16 @@ class ParamTree(nn.Module):
     parameter dicts: ``tree["blocks"][3]["attn"]["wq"]``.
 
     Built from a nested dict: a tensor becomes a parameter, a dict a
-    sub-tree, a list an ``nn.ModuleList`` of sub-trees.  A parameter
+    sub-tree, a list an ``nn.ModuleList`` of sub-trees (or of such lists:
+    a stack of layer groups, ``tree["groups"][g][i]``).  A parameter
     takes a gradient only in a ``trainable`` tree (inference trees take
     none).  ``.to(dtype)`` casts every weight in place of the old."""
 
     def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for key, value in tree.items():
-            if isinstance(value, dict):
-                self.add_module(key, ParamTree(value, trainable))
-            elif isinstance(value, list):
-                self.add_module(key, nn.ModuleList(
-                    ParamTree(v, trainable) for v in value))
+            if isinstance(value, (dict, list)):
+                self.add_module(key, _module(value, trainable))
             else:
                 self.register_parameter(
                     key, nn.Parameter(value, requires_grad=trainable))
@@ -45,9 +43,20 @@ class ParamTree(nn.Module):
         shape the optimizer and the checkpointer take."""
         out: dict = dict(self._parameters)
         for key, mod in self._modules.items():
-            out[key] = ([m.tree() for m in mod]
-                        if isinstance(mod, nn.ModuleList) else mod.tree())
+            out[key] = _tree(mod)
         return out
+
+
+def _module(value, trainable: bool) -> nn.Module:
+    if isinstance(value, dict):
+        return ParamTree(value, trainable)
+    return nn.ModuleList(_module(v, trainable) for v in value)
+
+
+def _tree(mod: nn.Module):
+    if isinstance(mod, nn.ModuleList):
+        return [_tree(m) for m in mod]
+    return mod.tree()
 
 
 def _normal(shape: tuple, scale: float, *, generator: torch.Generator,
@@ -166,3 +175,21 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = logz - gold
     mask = (labels != ignore_index).to(torch.float32)
     return torch.sum(nll * mask) / torch.sum(mask).clamp_min(1.0)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over time.  x: [B, S, C], w: [K, C].
+
+    Returns (y, new_state) where state is the trailing K-1 inputs
+    [B, K-1, C] for streaming decode (zeros when none is given)."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
+            for i in range(k))
+    new_state = xp[:, -(k - 1):, :] if k > 1 else state
+    return y, new_state

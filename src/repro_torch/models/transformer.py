@@ -97,21 +97,28 @@ def _save_weight_gemms(ctx, op, *args, **kwargs) -> CheckpointPolicy:
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _block(blk, cfg: ModelConfig, x: torch.Tensor,
-           positions: torch.Tensor | None) -> torch.Tensor:
-    """One block, recomputed in the backward pass when ``cfg.remat`` and
-    a gradient is needed (grad mode on, and ``x`` or a weight requires
-    grad); inference runs it as it is."""
+def remat(cfg: ModelConfig, fn, blk, x: torch.Tensor, *args, **kw):
+    """``fn(blk, cfg, x, *args)``, recomputed in the backward pass when
+    ``cfg.remat`` and a gradient is needed (grad mode on, and ``x`` or a
+    weight of ``blk`` requires grad; ``kw`` goes to
+    ``torch.utils.checkpoint``); inference runs it as it is."""
     if not (cfg.remat and torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad
                                    for p in blk.parameters()))):
-        return block_forward(blk, cfg, x, positions)
+        return fn(blk, cfg, x, *args)
+    return checkpoint(fn, blk, cfg, x, *args, use_reentrant=False, **kw)
+
+
+def _block(blk, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor | None) -> torch.Tensor:
+    """One block under ``remat``; ``remat_policy="dots"`` keeps the
+    weight GEMMs' outputs.  (The other families' remat, like the
+    reference's, takes no policy.)"""
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_weight_gemms)
-    return checkpoint(block_forward, blk, cfg, x, positions,
-                      use_reentrant=False, **kw)
+    return remat(cfg, block_forward, blk, x, positions, **kw)
 
 
 def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
@@ -128,6 +135,16 @@ def block_decode(p, cfg: ModelConfig, x: torch.Tensor,
 # Stack
 # ---------------------------------------------------------------------------
 
+def init_kwargs(generator: torch.Generator | None, device) -> dict:
+    """The ``generator`` / ``device`` keywords of a family's ``init``:
+    the device resolved (default: the card), the generator seed 0 on it
+    when none is given (none on the ``meta`` device)."""
+    device = repro_torch.resolve_device(device)
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device=device).manual_seed(0)
+    return dict(generator=generator, device=device)
+
+
 def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
          device=None, trainable: bool = False) -> L.ParamTree:
     """Random weights on ``device`` (default: the card), drawn by
@@ -135,10 +152,8 @@ def init(cfg: ModelConfig, *, generator: torch.Generator | None = None,
     config's parameter dtype (an MoE router in f32); parameters that
     take a gradient when ``trainable``.  On the ``meta`` device nothing
     is drawn or allocated."""
-    device = repro_torch.resolve_device(device)
-    if generator is None and device.type != "meta":
-        generator = torch.Generator(device=device).manual_seed(0)
-    kw = dict(generator=generator, device=device)
+    kw = init_kwargs(generator, device)
+    device = kw["device"]
     tree = {
         "embed": L.embed_init(cfg.vocab, cfg.d_model, dtype=cfg.pdt, **kw),
         "blocks": [init_block(cfg, **kw) for _ in range(cfg.n_layers)],

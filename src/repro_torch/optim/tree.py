@@ -4,8 +4,9 @@ counterpart of the pytrees the reference maps with ``jax.tree``.
 
 A leaf's path is its keys and list indices from the root; ``key`` joins
 them with "/", as the reference's checkpointer names its arrays.  The
-reference stacks a model's layers on a leading axis, so what is one leaf
-there is a list of per-layer leaves here: ``groups`` gives those lists,
+reference stacks a model's layers on a leading axis (or two: a hybrid
+model's ``groups``), so what is one leaf there is a list of per-layer
+leaves here (or a list of such lists): ``groups`` gives those leaves,
 for the updates whose result depends on the whole stacked leaf
 (Adafactor's RMS clip, the compression scale).
 """
@@ -53,19 +54,36 @@ def map_tree(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def _stack_members(tree) -> list[tuple] | None:
+    """The members of a layer stack as (index path, layer tree): a list
+    of dicts (one stacked axis), or a list of lists of dicts (the
+    reference's leaf stacked on two axes, ``groups[g][i]``); None for
+    any other node."""
+    if not (isinstance(tree, list) and tree):
+        return None
+    if all(isinstance(v, dict) for v in tree):
+        return [((i,), v) for i, v in enumerate(tree)]
+    if all(isinstance(v, list) and v and all(isinstance(u, dict) for u in v)
+           for v in tree):
+        return [((i, j), u) for i, v in enumerate(tree)
+                for j, u in enumerate(v)]
+    return None
+
+
 def groups(tree: Tree, prefix: tuple = ()) -> list[list[tuple]]:
-    """The leaves' paths, grouped as the reference's leaves: a list of
-    dicts is a layer stack, whose members' leaves at the same path inside
-    the layer form one group (the reference's layer-stacked leaf, layer
-    by layer); any other leaf is a group of its own."""
+    """The leaves' paths, grouped as the reference's leaves: a layer
+    stack (a list of dicts, or a list of lists of dicts) is one stacked
+    leaf per path inside the layer, and its members' leaves at that path
+    form one group, layer by layer; any other leaf is a group of its
+    own."""
     if isinstance(tree, dict):
         return [g for k, v in tree.items()
                 for g in groups(v, prefix + (k,))]
+    members = _stack_members(tree)
+    if members is not None:
+        inner = list(flatten(members[0][1]))
+        return [[prefix + idx + p for idx, _ in members] for p in inner]
     if _is_node(tree):
-        if tree and all(isinstance(v, dict) for v in tree):
-            inner = list(flatten(tree[0]))
-            return [[prefix + (i,) + p for i in range(len(tree))]
-                    for p in inner]
         return [g for i, v in enumerate(tree)
                 for g in groups(v, prefix + (i,))]
     return [[prefix]]

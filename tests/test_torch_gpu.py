@@ -1445,24 +1445,27 @@ def test_plane_os_kernel_runs_on_the_tensor_cores():
                                       ("h2o-danube-1.8b", 8192, 1),
                                       ("smollm-135m", 4096, 1),
                                       ("moonshot-v1-16b-a3b", 4096, 1),
-                                      ("kimi-k2-1t-a32b", 4096, 1)])
+                                      ("kimi-k2-1t-a32b", 4096, 1),
+                                      ("zamba2-7b", 4096, 1),
+                                      ("whisper-medium", 4096, 1)])
 def test_flash_attention_f32_at_prefill_shapes_on_card(arch, s, b):
     """B9 f32 at the full-width (la) shapes (each config's heads, head
-    dim and window; causal): within 2e-6 of max|plain|, bitwise on
-    repeat."""
+    dim and window; causal, and non-causal for the encoder-decoder
+    family's encoder): within 2e-6 of max|plain|, bitwise on repeat."""
     need_card()
     import repro_torch
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     repro_torch.strict_fp32()
     cfg = configs.get_config(arch)
+    kw = {"causal": cfg.family != "encdec", "window": cfg.window}
     q, k, v = attention_inputs(b, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd,
                                torch.float32)
-    out = fa.flash_attention(q, k, v, window=cfg.window)
+    out = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    ref = fa.flash_attention_reference(q, k, v, window=cfg.window)
+    ref = fa.flash_attention_reference(q, k, v, **kw)
     assert _rel(out, ref) <= TC_TOL, _rel(out, ref)
-    assert torch.equal(out, fa.flash_attention(q, k, v, window=cfg.window))
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
 
 
 @pytest.mark.gpu
@@ -2168,3 +2171,126 @@ def test_checkpoint_roundtrip_of_card_tensors(tmp_path):
                  (tree["count"], got["count"])):
         assert b.device.type == "cuda" and b.dtype == a.dtype
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and hybrid families (B9's non-causal and D 112 paths)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,launches", [(4000, 0), (4096, 1)])
+def test_non_causal_auto_route_on_card(s, launches):
+    """whisper-medium's encoder attention (16 heads of 64, non-causal) in
+    f32 through ``attention.forward``'s ``auto`` route: at S 4000 the
+    kernel does not take the length and the route is ``_chunked_sdpa``
+    (no launch, no raise; within 1e-5 of ``_chunked_sdpa`` called
+    directly), at S 4096 one B9 launch; both within 1e-4 of the
+    materialised ``_sdpa``."""
+    need_card()
+    from unittest import mock
+
+    import repro_torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    repro_torch.strict_fp32()
+    cfg = attn.AttnConfig(1024, 16, 16, 64, causal=False, use_rope=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = attn.init(cfg, generator=gen, device="cuda")
+    x = torch.randn((1, s, 1024), generator=gen, device="cuda")
+    with torch.no_grad():
+        before = fa.LAUNCHES["flash_attention"]
+        out = attn.forward(params, cfg, x)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == before + launches
+        with mock.patch.object(attn, "CHUNKED_THRESHOLD", s + 1):
+            ref = attn.forward(params, cfg, x)
+        if not launches:
+            q, k, v = attn._project_qkv(
+                params, cfg, x, attn._default_positions(1, s, "cuda"))
+            pos = attn._default_positions(1, s, "cuda")
+            chunked = attn._chunked_sdpa(q, k, v, cfg, pos, pos)
+            chunked = chunked.transpose(1, 2).reshape(1, s, -1) \
+                @ params["wo"]
+            # the same ops on the same inputs; two card runs read up to
+            # 1.6e-6 relative between them (cuBLAS's GEMMs are not bitwise
+            # reproducible here), so the gate is f32 flash attention's 1e-5
+            assert float((out - chunked).abs().max()
+                         / chunked.abs().max()) <= 1e-5
+    assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+def test_hybrid_stack_at_s4096_launches_b9_on_card():
+    """zamba2-7b's SMOKE stack at S 4096 (7 layers: the shared block 3
+    times) widened to the full model's head dim 112 (8 heads, d_model
+    896), f32: 3 B9 launches a prefill, within 1e-4 of the materialised
+    route; 0 under autograd."""
+    need_card()
+    from unittest import mock
+
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    repro_torch.strict_fp32()
+    cfg = configs.get_smoke_config("zamba2-7b").replace(
+        d_model=896, n_heads=8, n_kv_heads=8, ssm_chunk=128)
+    assert cfg.hd == 112
+    params = api.init(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, 4096), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        before = fa.LAUNCHES["flash_attention"]
+        out = api.prefill(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == before + 3
+        with mock.patch.object(attn, "CHUNKED_THRESHOLD", 4097):
+            ref = api.prefill(params, cfg, {"tokens": tokens})
+    assert float((out - ref).abs().max() / ref.abs().max()) <= TOL
+    trainable = api.init(cfg, device="cuda", trainable=True)
+    before = fa.LAUNCHES["flash_attention"]
+    loss = api.loss_fn(trainable, cfg, {"tokens": tokens,
+                                        "labels": tokens})
+    loss.backward()
+    assert fa.LAUNCHES["flash_attention"] == before
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.gpu
+def test_whisper_decode_chain_on_card():
+    """whisper-medium at full width cut to 2 + 2 layers, f32, on the
+    card: ``precompute_cross`` then a teacher-forced 12-step decode chain
+    equal to ``api.forward`` within the reference's 2e-3 (atol = rtol);
+    no B9 launch (1500 frames take ``_sdpa``)."""
+    need_card()
+    import repro_torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, encdec
+    repro_torch.strict_fp32()
+    cfg = configs.get_config("whisper-medium").replace(
+        n_layers=2, n_enc_layers=2, param_dtype="float32",
+        compute_dtype="float32")
+    params = api.init(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randn((2, 1500, cfg.d_model), generator=gen,
+                         device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen,
+                           device="cuda")
+    before = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        full = api.forward(params, cfg, {"frames": frames,
+                                         "tokens": tokens})
+        cache = api.init_cache(cfg, 2, 12, enc_len=1500, device="cuda")
+        cache = encdec.precompute_cross(params, cfg, frames, cache)
+        steps = []
+        for t in range(12):
+            logits, cache = api.decode(params, cfg, tokens[:, t:t + 1],
+                                       cache, t)
+            steps.append(logits)
+    chain = torch.cat(steps, 1)
+    assert fa.LAUNCHES["flash_attention"] == before
+    assert torch.allclose(chain, full, atol=2e-3, rtol=2e-3), \
+        float((chain - full).abs().max())

@@ -216,16 +216,6 @@ def test_smoke_init_shapes_match_reference():
         assert all(p.dtype == cfg.pdt for p in params.parameters())
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-350m",
-                                  "whisper-medium"])
-def test_later_families_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        api.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        api.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_entry_points_default_to_cuda():
     cfg = configs.get_smoke_config("smollm-135m")
     if torch.cuda.is_available():

@@ -334,11 +334,6 @@ def test_restart_is_bit_exact(tmp_path):
         np.testing.assert_array_equal(npz[0][k], npz[1][k])
 
 
-def test_unported_family_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        train("zamba2-7b", steps=1, ckpt_dir=str(tmp_path), device="cpu")
-
-
 def _run(argv, tmp_path):
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "OMP_NUM_THREADS": "1", "HOME": str(tmp_path),

@@ -268,6 +268,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.config", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.models.api",
             "repro_torch.models.moe",
+            "repro_torch.models.encdec", "repro_torch.models.ssm",
+            "repro_torch.models.hybrid", "repro_torch.models.xlstm",
+            "repro_torch.models.xlstm_model",
             "repro_torch.kernels.ref", "repro_torch.kernels.flash_attention",
             "repro_torch.launch.serve",
             "repro_torch.data.pipeline", "repro_torch.optim.adamw",
